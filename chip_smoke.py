@@ -6,27 +6,44 @@ Phases (each prints its own lines; any failed check raises and the script
 exits non-zero without the final ok line):
 
 1. device: the card's name and power limit, the nvcc build of every CUDA
-   kernel from ``freqfusion_tpu_torch/csrc`` (seconds, ptxas report),
-   TF32 off for matmuls and convolutions;
+   kernel from ``freqfusion_tpu_torch/csrc`` (one nvcc per source, in
+   parallel; seconds, ptxas report), TF32 off for matmuls and
+   convolutions;
 2. kernels: each kernel against its plain PyTorch version on the card at
-   the main path's shapes (336x512 LR bucket), max-abs error against the
-   stated tolerance, and both times (CUDA events, median of 5 after
-   warm-up);
-3. serving: seeded full-width random checkpoints under the reference file
-   names, three LR PNGs (128x128, 100x140, 336x512) through
-   ``freqfusion_tpu_torch.interface.io.main(..., device="cuda")``, output
-   checks, the kernels' launch counts and the seconds per request;
+   the shapes its path gives it (336x512 LR bucket, NAFNet's levels at
+   the 1344x2048 HR size), max-abs error against the stated tolerance,
+   the kernel's and the plain version's times and, where one PyTorch call
+   computes the same function, that call's (CUDA events, median of 5
+   after warm-up), beside the bound the card's peaks set for the work;
+3. serving, default path: seeded full-width random checkpoints under the
+   reference file names, three LR PNGs (128x128, 100x140, 336x512)
+   through ``freqfusion_tpu_torch.interface.io.main(..., device="cuda")``,
+   output checks, the kernels' launch counts and the seconds per request;
+3b. serving, byte-floor configuration: the same with FREQFUSION_MLP,
+   _CAB, _NAFBLOCK and _DWCONV set to "1", its launch counts, and its
+   336x512 output against phase 3's (PSNR >= 60 dB);
+3c. the pipeline alone on the 336x512 image, default and byte-floor in
+   turns (off, on, on, off, after a warm-up of each): seconds per request
+   to the synchronised result, without the host's PNG work;
 4. card against CPU: the same weights on one 32x48 LR image through the
-   kernels on the card and the plain versions on the CPU; PSNR >= 60 dB.
+   kernels on the card and the plain versions on the CPU, for both
+   configurations; PSNR >= 60 dB.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --fused-only
+
+runs phase 1 and phase 2's four byte-floor kernels only (to compare two
+versions of them in one call) and prints their summary instead of the ok
+line.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -40,13 +57,24 @@ import torch
 ROOT = Path(__file__).resolve().parent
 ATTN_TOL = 1e-4        # fp32 attention, max-abs
 SCAN_REL_TOL = 1e-3    # scan, max-abs relative to max |y_ref|
+# fused FFN, CAB, NAFBlock, dwconv: fp32 sums of up to 9 x 976 terms in
+# another order, max-abs relative to max(1, max |out_ref|)
+FUSED_REL_TOL = 1e-4
 PSNR_MIN = 60.0
+PEAK_FLOPS = 67e12     # H100 SXM fp32 outside the tensor cores
+PEAK_BYTES = 3.35e12   # H100 SXM HBM3
 LR_SIZES = {"a_128x128": (128, 128), "b_100x140": (100, 140),
             "c_336x512": (336, 512)}
+GATES = ("FREQFUSION_MLP", "FREQFUSION_CAB", "FREQFUSION_NAFBLOCK",
+         "FREQFUSION_DWCONV")
 # launches per image: DRCT 12 RDGs x 5 blocks, GRL sum of depths, MambaIR
 # 36 layers x 4 directions
 PER_IMAGE = {"window_attention_nhwc": 60, "grl_mixed_attention_nhwc": 40,
              "selective_scan": 144}
+# with the four gates: 60 DRCT + 40 GRL FFNs, 40 GRL + 36 MambaIR CABs,
+# 36 NAFBlocks, 36 SS2D depthwise convs (NAFBLOCK takes NAFNet's)
+PER_IMAGE_GATED = {**PER_IMAGE, "fused_mlp_block": 100, "cab_fused": 76,
+                   "nafblock_fused": 36, "dwconv3x3": 36}
 SOURCES = {
     "window_attention_nhwc": ("freqfusion_tpu_torch/csrc/window_attention.cu",
                               "freqfusion_tpu/ops/pallas_attention.py:238"),
@@ -54,6 +82,14 @@ SOURCES = {
                                  "freqfusion_tpu/ops/pallas_attention.py:548"),
     "selective_scan": ("freqfusion_tpu_torch/csrc/selective_scan.cu",
                        "freqfusion_tpu/ops/selective_scan.py:1310"),
+    "fused_mlp_block": ("freqfusion_tpu_torch/csrc/fused_mlp.cu",
+                        "freqfusion_tpu/ops/pallas_mlp.py:85"),
+    "cab_fused": ("freqfusion_tpu_torch/csrc/cab.cu",
+                  "freqfusion_tpu/ops/pallas_cab.py:174"),
+    "nafblock_fused": ("freqfusion_tpu_torch/csrc/nafblock.cu",
+                       "freqfusion_tpu/ops/pallas_nafblock.py:231"),
+    "dwconv3x3": ("freqfusion_tpu_torch/csrc/dwconv.cu",
+                  "freqfusion_tpu/ops/pallas_dwconv.py:56"),
 }
 
 
@@ -73,41 +109,78 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 2) -> float:
 
 
 class KernelCheck:
-    """Error and times of one kernel against its plain version, summed
-    over the shapes it is checked at."""
+    """Error, times and bound of one kernel against its plain version (and
+    the one PyTorch call that computes the same function, where there is
+    one), summed over the shapes it is checked at."""
 
     def __init__(self, name: str):
         self.name, self.err, self.ms, self.plain_ms = name, 0.0, 0.0, 0.0
+        self.library_ms = None
+        self.flop_ms = self.byte_ms = self.bound_ms = 0.0
         self.shapes = []
 
-    def run(self, label: str, kernel, plain, tol_of) -> None:
+    def run(self, label: str, kernel, plain, tol_of, flops: float,
+            nbytes: float, library=None) -> None:
+        """`flops` and `nbytes` count the operations the function does on
+        these inputs and the bytes it must move (each input read once,
+        each output written once)."""
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         outs = got if isinstance(got, tuple) else (got,)
         refs = want if isinstance(want, tuple) else (want,)
         err = max((g - w).abs().max().item() for g, w in zip(outs, refs))
         tol = tol_of(refs)
+        del got, want, outs, refs
         plain_ms, ms = cuda_ms(plain), cuda_ms(kernel)
+        lib_ms = None
+        if library is not None:
+            lib_ms = (cuda_ms(library) + cuda_ms(library)) / 2
         ms2, plain_ms2 = cuda_ms(kernel), cuda_ms(plain)
         ms, plain_ms = (ms + ms2) / 2, (plain_ms + plain_ms2) / 2
+        flop_ms, byte_ms = 1e3 * flops / PEAK_FLOPS, 1e3 * nbytes / PEAK_BYTES
+        lib = "" if lib_ms is None else f"  library {lib_ms:.3f} ms"
         print(f"  {self.name} {label}: max_abs_err {err:.3e} (tol {tol:.3e})"
-              f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
+              f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms{lib}"
+              f"  bound {max(flop_ms, byte_ms):.3f} ms "
+              f"({'operations' if flop_ms >= byte_ms else 'bytes'})")
         if not err <= tol:
             raise AssertionError(f"{self.name} {label}: error {err} > {tol}")
         self.err = max(self.err, err)
         self.ms += ms
         self.plain_ms += plain_ms
+        if lib_ms is not None:
+            self.library_ms = (self.library_ms or 0.0) + lib_ms
+        self.flop_ms += flop_ms
+        self.byte_ms += byte_ms
+        self.bound_ms += max(flop_ms, byte_ms)
         self.shapes.append(label)
+
+    def entry(self, launches: int) -> dict:
+        return {"name": self.name, "route": "cuda",
+                "source": SOURCES[self.name][0],
+                "replaces": SOURCES[self.name][1], "launches": launches,
+                "max_abs_err": self.err, "ms": self.ms,
+                "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
+                "bound_by": ("operations" if self.flop_ms >= self.byte_ms
+                             else "bytes"),
+                "library_ms": self.library_ms, "ms_covers": self.shapes}
+
+
+def fused_tol(refs) -> float:
+    return FUSED_REL_TOL * max(1.0, refs[0].abs().max().item())
 
 
 def phase_kernels(dev):
+    import torch.nn.functional as F
+
     from freqfusion_tpu_torch.ops.attention import (
         grl_mixed_attention_nhwc, grl_mixed_attention_nhwc_reference,
         window_attention_nhwc, window_attention_nhwc_reference)
     from freqfusion_tpu_torch.ops.selective_scan import (
-        selective_scan_chain_proj, selective_scan_chain_proj_reference)
+        selective_scan_chain, selective_scan_chain_proj,
+        selective_scan_chain_proj_reference, selective_scan_chain_reference)
     from freqfusion_tpu_torch.ops.window_attention import (
-        device_table, shifted_window_mask)
+        device_table, shifted_window_mask, window_partition)
 
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -117,19 +190,36 @@ def phase_kernels(dev):
     def attn_tol(_):
         return ATTN_TOL
 
+    def scan_tol(refs):
+        return SCAN_REL_TOL * refs[0].abs().max().item()
+
     h, w = LR_SIZES["c_336x512"]
+    p = h * w
     checks = {}
     wa = checks["window_attention_nhwc"] = KernelCheck("window_attention_nhwc")
     for c, heads in ((180, 6), (212, 4), (244, 2), (276, 6), (308, 4)):
         q, k, v = (randn(1, h, w, c) for _ in range(3))
         bias = randn(heads, 256, 256, scale=0.5)
+        hd = c // heads
+        # the library yardstick: SDPA on pre-partitioned windows with the
+        # additive bias (+ mask) materialised per window
+        qh, kh, vh = (window_partition(t, 16).view(-1, 256, heads, hd)
+                      .transpose(1, 2).contiguous() for t in (q, k, v))
         for shift in (0, 8):
             mask = device_table(shifted_window_mask, h, w, 16, shift,
                                 device=dev)
+            add = bias[None] if mask is None else bias[None] + mask[:, None]
             args = (q, k, v, bias, mask, heads, 16)
-            wa.run(f"C{c}/hd{c // heads}/{'mask' if shift else 'nomask'}",
+            nbytes = 4 * (4 * p * c + bias.numel()
+                          + (0 if mask is None else mask.numel()))
+            wa.run(f"C{c}/hd{hd}/{'mask' if shift else 'nomask'}",
                    lambda: window_attention_nhwc(*args),
-                   lambda: window_attention_nhwc_reference(*args), attn_tol)
+                   lambda: window_attention_nhwc_reference(*args), attn_tol,
+                   4.0 * p * 256 * c, nbytes,
+                   lambda: F.scaled_dot_product_attention(
+                       qh, kh, vh, attn_mask=add, scale=hd ** -0.5))
+            del add
+        del qh, kh, vh
 
     ga = checks["grl_mixed_attention_nhwc"] = KernelCheck(
         "grl_mixed_attention_nhwc")
@@ -141,11 +231,16 @@ def phase_kernels(dev):
     for shift in (0, 4):
         mask = device_table(shifted_window_mask, h, w, 8, shift, device=dev)
         args = (*halves, anchor, *scales, *biases, mask, 3, 3, 8)
+        # window half 4 N C2 per pixel (N 64), stripe half 8 Na C2 (Na 16)
+        nbytes = 4 * (8 * p * 90 + anchor.numel()
+                      + sum(b.numel() for b in biases)
+                      + (0 if mask is None else mask.numel()))
         ga.run("shift" if shift else "noshift",
                lambda: grl_mixed_attention_nhwc(*args),
-               lambda: grl_mixed_attention_nhwc_reference(*args), attn_tol)
+               lambda: grl_mixed_attention_nhwc_reference(*args), attn_tol,
+               p * 90 * (4.0 * 64 + 8 * 16), nbytes)
+    del halves, anchor
 
-    sc = checks["selective_scan"] = KernelCheck("selective_scan")
     d, n, dtr = 360, 16, 12
     xc = randn(1, h, w, d)
     xpw = (torch.rand(44, d, generator=g, device=dev) * 2 - 1) / math.sqrt(d)
@@ -155,15 +250,123 @@ def phase_kernels(dev):
     bias = dt + torch.log(-torch.expm1(-dt))
     A = -torch.arange(1, n + 1, device=dev, dtype=torch.float32).repeat(d, 1)
     D = torch.ones(d, device=dev)
-    for label, lay in (("rows", xc.transpose(1, 2).contiguous()),
-                       ("cols", xc)):
+    # operations per (position, channel): 8 per state (exp, the decay and
+    # input products, the state update, C h), 8 for softplus/silu/D u;
+    # chain_proj adds the 44-wide projection and the rank-12 dt expansion
+    scan_ops = p * d * (8.0 * n + 8)
+    sc = checks["selective_scan"] = KernelCheck("selective_scan")
+    rows = xc.transpose(1, 2).contiguous()
+    for label, lay in (("rows", rows), ("cols", xc)):
         for rev in (False, True):
             args = (lay, xpw, dtw, A, D, bias, rev)
             sc.run(f"{label}/{'rev' if rev else 'fwd'}/T{lay.shape[1]}",
                    lambda: selective_scan_chain_proj(*args),
                    lambda: selective_scan_chain_proj_reference(*args),
-                   lambda refs: SCAN_REL_TOL * refs[0].abs().max().item())
+                   scan_tol, scan_ops + p * d * 2.0 * (44 + dtr),
+                   4 * (2 * p * d + d * (44 + dtr + n + 2)))
+    # selective_scan_chain (explicit u, delta, B, C: the TPU chain kernel
+    # :771) runs the same scan kernels without the projection, under the
+    # same launch counter, so it is checked in the same entry
+    for label, lay, rev in (("rows", rows, False), ("cols", xc, True)):
+        u = F.silu(lay)
+        delta = randn(*lay.shape, scale=0.3)
+        Bm, Cm = randn(*lay.shape[:3], n), randn(*lay.shape[:3], n)
+        args = (u, delta, A, Bm, Cm, D, bias, rev)
+        sc.run(f"chain/{label}/{'rev' if rev else 'fwd'}/T{lay.shape[1]}",
+               lambda: selective_scan_chain(*args),
+               lambda: selective_scan_chain_reference(*args), scan_tol,
+               scan_ops, 4 * (3 * p * d + 2 * p * n + d * (n + 2)))
+        del u, delta, Bm, Cm
+    del xc, rows
+    torch.cuda.empty_cache()
+    phase_fused_kernels(dev, randn, checks)
     return checks
+
+
+def _conv_tree(randn, k, cin, cout, groups=1):
+    """Flax-layout conv params [k, k, cin/groups, cout], fan-in scaled."""
+    fan = k * k * cin // groups
+    return {"kernel": randn(k, k, cin // groups, cout, scale=fan ** -0.5),
+            "bias": randn(cout, scale=0.1)}
+
+
+def _norm_tree(randn, c):
+    return {"scale": 1 + randn(c, scale=0.1), "bias": randn(c, scale=0.1)}
+
+
+def phase_fused_kernels(dev, randn, checks) -> None:
+    """The byte-floor configuration's four kernels at their path's shapes."""
+    import torch.nn.functional as F
+
+    from freqfusion_tpu_torch.ops.cab import cab_fused, cab_fused_reference
+    from freqfusion_tpu_torch.ops.dwconv import dwconv3x3, dwconv3x3_reference
+    from freqfusion_tpu_torch.ops.mlp import (fused_mlp_block,
+                                              fused_mlp_block_reference)
+    from freqfusion_tpu_torch.ops.nafblock import (nafblock_fused,
+                                                   nafblock_fused_reference)
+
+    # operations: the products (plus, for NAFBlock, its depthwise conv
+    # and elementwise work); bytes: x in, out out, the weights once
+    h, w = LR_SIZES["c_336x512"]
+    p = h * w
+    fm = checks["fused_mlp_block"] = KernelCheck("fused_mlp_block")
+    # DRCT-L's five widths (pre-norm), GRL-B's (post-norm, res_scale 1)
+    for c, ch, pre in ((180, 720, True), (212, 848, True), (244, 976, True),
+                       (276, 276, True), (308, 308, True),
+                       (180, 360, False)):
+        x = randn(1, h, w, c)
+        args = (x, randn(c, ch, scale=c ** -0.5), randn(ch, scale=0.1),
+                randn(ch, c, scale=ch ** -0.5), randn(c, scale=0.1),
+                1 + randn(c, scale=0.1), randn(c, scale=0.1), pre)
+        fm.run(f"C{c}/Ch{ch}/{'pre' if pre else 'post'}",
+               lambda: fused_mlp_block(*args),
+               lambda: fused_mlp_block_reference(*args), fused_tol,
+               4.0 * p * c * ch, 4 * (2 * p * c + 2 * c * ch + ch + 4 * c))
+        del x, args
+
+    cb = checks["cab_fused"] = KernelCheck("cab_fused")
+    x = randn(1, h, w, 180, scale=0.5)
+    for form, cr, sq in (("grl", 45, 18), ("mambair", 60, 30)):
+        wt = {"cab_0": _conv_tree(randn, 3, 180, cr),
+              "cab_2": _conv_tree(randn, 3, cr, 180),
+              "ca_1": _conv_tree(randn, 1, 180, 180 // sq),
+              "ca_3": _conv_tree(randn, 1, 180 // sq, 180)}
+        ln = skip = None
+        if form == "mambair":
+            ln, skip = _norm_tree(randn, 180), 1 + randn(180, scale=0.2)
+        args = (x, wt, ln, skip)
+        cb.run(f"{form}/C180/Cr{cr}", lambda: cab_fused(*args),
+               lambda: cab_fused_reference(*args), fused_tol,
+               36.0 * p * 180 * cr, 4 * (2 * p * 180 + 18 * 180 * cr))
+
+    nb = checks["nafblock_fused"] = KernelCheck("nafblock_fused")
+    for c, (hh, ww) in ((64, (4 * h, 4 * w)), (1024, (h // 4, w // 4))):
+        wt = {"norm1": _norm_tree(randn, c), "norm2": _norm_tree(randn, c),
+              "conv1": _conv_tree(randn, 1, c, 2 * c),
+              "conv2": _conv_tree(randn, 3, 2 * c, 2 * c, groups=2 * c),
+              "sca": _conv_tree(randn, 1, c, c),
+              "conv3": _conv_tree(randn, 1, c, c),
+              "conv4": _conv_tree(randn, 1, c, 2 * c),
+              "conv5": _conv_tree(randn, 1, c, c),
+              "beta": randn(c, scale=0.5), "gamma": randn(c, scale=0.5)}
+        x = torch.rand(1, hh, ww, c, device=dev)
+        npx = hh * ww
+        nb.run(f"C{c}/{hh}x{ww}", lambda: nafblock_fused(x, wt),
+               lambda: nafblock_fused_reference(x, wt), fused_tol,
+               npx * (12.0 * c * c + 60.0 * c),
+               4 * (2 * npx * c + 7 * c * c + 40 * c))
+        del x, wt
+        torch.cuda.empty_cache()
+
+    dw = checks["dwconv3x3"] = KernelCheck("dwconv3x3")
+    x = randn(1, h, w, 360)
+    k, b = randn(3, 3, 1, 360, scale=1 / 3), randn(360, scale=0.1)
+    k_torch = k.permute(3, 2, 0, 1).contiguous()
+    dw.run("SS2D/D360", lambda: dwconv3x3(x, k, b),
+           lambda: dwconv3x3_reference(x, k, b), fused_tol,
+           18.0 * p * 360, 4 * (2 * p * 360 + 10 * 360),
+           lambda: F.conv2d(x.permute(0, 3, 1, 2), k_torch, b, padding=1,
+                            groups=360))
 
 
 def write_checkpoints(model_dir: Path, seed: int = 0) -> None:
@@ -194,23 +397,34 @@ def write_inputs(in_dir: Path, seed: int = 0) -> None:
         write_image(str(in_dir / f"{name}.png"), img)
 
 
-def phase_serving(work: Path):
+def set_gates(on: bool) -> None:
+    for name in GATES:
+        if on:
+            os.environ[name] = "1"
+        else:
+            os.environ.pop(name, None)
+
+
+def psnr(a, b) -> float:
+    mse = float(((a - b) ** 2).mean())
+    return float("inf") if mse == 0 else 10 * math.log10(1.0 / mse)
+
+
+def phase_serving(model_dir: Path, in_dir: Path, out_dir: Path,
+                  per_image: dict):
+    """Serve the three LR PNGs once; check the outputs and that each
+    kernel of `per_image` launched that many times per image and no other
+    kernel launched. Returns the launch counts."""
     from freqfusion_tpu_torch.interface.io import main
     from freqfusion_tpu_torch.ops import cuda
     from freqfusion_tpu_torch.utils.image_io import read_image
-
-    model_dir, in_dir, out_dir = (work / d for d in ("models", "in", "out"))
-    model_dir.mkdir()
-    in_dir.mkdir()
-    write_checkpoints(model_dir)
-    write_inputs(in_dir)
 
     cuda.reset_launch_counts()
     seconds = main(str(model_dir), str(in_dir), str(out_dir), device="cuda")
     counts = dict(cuda.launch_counts)
     print(f"  launch counts: {json.dumps(counts, sort_keys=True)}")
-    for name, per in PER_IMAGE.items():
-        want = per * len(LR_SIZES)
+    for name in set(per_image) | set(counts):
+        want = per_image.get(name, 0) * len(LR_SIZES)
         if counts.get(name, 0) != want:
             raise AssertionError(f"{name}: {counts.get(name, 0)} launches, "
                                  f"expected {want}")
@@ -224,7 +438,38 @@ def phase_serving(work: Path):
         print(f"  {name}: {h}x{w} -> {4 * h}x{4 * w}, "
               f"{seconds[name + '.png']:.3f} s/request, "
               f"{4 * h * 4 * w / seconds[name + '.png'] / 1e6:.3f} MP/s")
-    return model_dir, counts
+    return counts
+
+
+def phase_pipeline_ab(model_dir: Path, image: Path) -> None:
+    from freqfusion_tpu_torch.interface.io import load_pipeline
+    from freqfusion_tpu_torch.utils.image_io import read_image
+
+    pipe = load_pipeline(str(model_dir), "cuda", verbose=False)
+    lr = torch.from_numpy(read_image(str(image))).permute(2, 0, 1)[None]
+    lr = lr.cuda()
+
+    def run(on: bool) -> float:
+        set_gates(on)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            pipe(lr)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run(False), run(True)
+    times = {False: [], True: []}
+    for on in (False, True, True, False):
+        times[on].append(run(on))
+    set_gates(False)
+    for on in (False, True):
+        t = times[on]
+        print(f"  {'byte-floor' if on else 'default'}: "
+              f"{' '.join(f'{v:.3f}' for v in t)} s, mean {sum(t) / 2:.3f} s "
+              f"({4 * lr.shape[2] * 4 * lr.shape[3] / (sum(t) / 2) / 1e6:.3f}"
+              " MP/s)")
+    del pipe
 
 
 def phase_card_vs_cpu(model_dir: Path) -> None:
@@ -241,15 +486,14 @@ def phase_card_vs_cpu(model_dir: Path) -> None:
         print(f"  {dev}: {time.perf_counter() - t0:.2f} s")
         del pipe
     diff = (outs["cuda"] - outs["cpu"]).abs()
-    mse = float((diff ** 2).mean())
-    psnr = float("inf") if mse == 0 else 10 * math.log10(1.0 / mse)
+    db = psnr(outs["cuda"], outs["cpu"])
     print(f"  card vs CPU on 32x48: max_abs {diff.max().item():.3e}, "
-          f"PSNR {psnr:.2f} dB (min {PSNR_MIN})")
-    if not psnr >= PSNR_MIN:
-        raise AssertionError(f"card vs CPU PSNR {psnr:.2f} < {PSNR_MIN}")
+          f"PSNR {db:.2f} dB (min {PSNR_MIN})")
+    if not db >= PSNR_MIN:
+        raise AssertionError(f"card vs CPU PSNR {db:.2f} < {PSNR_MIN}")
 
 
-def main() -> int:
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -280,22 +524,61 @@ def main() -> int:
     cuda.library()
     dev = torch.device("cuda")
 
+    if "--fused-only" in argv:
+        print("[2] the byte-floor kernels against their plain versions")
+        checks = {}
+        g = torch.Generator(device=dev).manual_seed(0)
+        phase_fused_kernels(dev, lambda *shape, scale=1.0: torch.randn(
+            *shape, generator=g, device=dev) * scale, checks)
+        print(json.dumps({"fused_kernels": [c.entry(0) for c in
+                                            checks.values()]}))
+        print(f"card: {smi}")
+        return 0
+
     print("[2] kernels against their plain versions (336x512 bucket)")
     checks = phase_kernels(dev)
     torch.cuda.empty_cache()
 
-    print("[3] serving through freqfusion_tpu_torch.interface.io.main")
-    with tempfile.TemporaryDirectory() as tmp:
-        model_dir, counts = phase_serving(Path(tmp))
-        torch.cuda.empty_cache()
-        print("[4] card against CPU")
-        phase_card_vs_cpu(model_dir)
+    from freqfusion_tpu_torch.utils.image_io import read_image
 
-    print(json.dumps({"kernels": [{
-        "name": c.name, "route": "cuda", "source": SOURCES[c.name][0],
-        "replaces": SOURCES[c.name][1], "launches": counts[c.name],
-        "max_abs_err": c.err, "ms": c.ms, "plain_ms": c.plain_ms,
-        "ms_covers": c.shapes} for c in checks.values()]}))
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        model_dir, in_dir = work / "models", work / "in"
+        model_dir.mkdir()
+        in_dir.mkdir()
+        write_checkpoints(model_dir)
+        write_inputs(in_dir)
+        set_gates(False)
+        print("[3] serving through freqfusion_tpu_torch.interface.io.main, "
+              "default path")
+        counts = phase_serving(model_dir, in_dir, work / "out", PER_IMAGE)
+        torch.cuda.empty_cache()
+        print("[3b] serving, byte-floor configuration (" + ", ".join(
+            f"{g}=1" for g in GATES) + ")")
+        set_gates(True)
+        counts_gated = phase_serving(model_dir, in_dir, work / "out_gated",
+                                     PER_IMAGE_GATED)
+        name = "c_336x512.png"
+        db = psnr(read_image(str(work / "out_gated" / name)),
+                  read_image(str(work / "out" / name)))
+        print(f"  {name}: gates on vs off PSNR {db:.2f} dB (min {PSNR_MIN})")
+        if not db >= PSNR_MIN:
+            raise AssertionError(f"gates on vs off PSNR {db:.2f} < {PSNR_MIN}")
+        torch.cuda.empty_cache()
+        print("[3c] pipeline alone, 336x512, default and byte-floor in turns")
+        phase_pipeline_ab(model_dir, in_dir / name)
+        torch.cuda.empty_cache()
+        for on in (False, True):
+            set_gates(on)
+            print(f"[4] card against CPU, {'byte-floor' if on else 'default'}"
+                  " configuration")
+            phase_card_vs_cpu(model_dir)
+        set_gates(False)
+
+    # launches: each kernel's count from the run of its path
+    print(json.dumps({"kernels": [
+        c.entry((counts if c.name in PER_IMAGE else counts_gated)[c.name])
+        for c in checks.values()]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -304,4 +587,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,19 +1,28 @@
-"""Small shared pieces of the port's models: layout helpers and seeded init."""
+"""Small shared pieces of the port's models: layout helpers, the kernel
+gates and seeded init."""
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ["RGB_MEAN", "to_nhwc", "to_nchw", "conv1x1_nhwc", "conv_nhwc",
-           "LayerNorm2d", "Mlp", "PatchEmbed", "pixel_shuffle_upsampler",
-           "init_weights"]
+__all__ = ["RGB_MEAN", "gate", "to_nhwc", "to_nchw", "conv1x1_nhwc",
+           "conv_nhwc", "hwio", "LayerNorm2d", "Mlp", "PatchEmbed",
+           "pixel_shuffle_upsampler", "init_weights"]
 
 RGB_MEAN = (0.4488, 0.4371, 0.4040)
+
+
+def gate(name: str) -> bool:
+    """A fused-kernel gate of the JAX package (FREQFUSION_MLP, _CAB,
+    _NAFBLOCK, _DWCONV): on only when the variable is "1", read at forward
+    time, as at the JAX call sites."""
+    return os.environ.get(name) == "1"
 
 
 def to_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -32,6 +41,13 @@ def conv1x1_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
 def conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """Any NCHW module applied to an NHWC tensor."""
     return to_nhwc(conv(to_nchw(x)))
+
+
+def hwio(conv: nn.Conv2d) -> dict:
+    """A Conv2d's parameters as the flax tree's {kernel [kh, kw, Cin/g,
+    Cout], bias}, the layout the fused kernels take."""
+    return {"kernel": conv.weight.permute(2, 3, 1, 0).contiguous(),
+            "bias": conv.bias}
 
 
 class LayerNorm2d(nn.Module):

@@ -6,7 +6,9 @@ blocks with dense channel concat (dim + k * gc, gc 32), 1x1 adjusts and a
 6 heads; pixel-shuffle x4. Returns (sr, conv_after_body feature). The
 dense concat gives the five blocks of an RDG widths 180..308 with 6, 4,
 2, 6 and 4 heads, so head dims 30, 53, 122, 46, 77 reach the window
-attention kernel (``ops/attention.py:window_attention_nhwc``). Module
+attention kernel (``ops/attention.py:window_attention_nhwc``); with
+FREQFUSION_MLP=1 each block's FFN half runs in ``ops/mlp.py``'s fused
+kernel, as ``freqfusion_tpu/models/drct.py:182`` gates it. Module
 names follow the reference state dict (conv_first, patch_embed.norm,
 layers.i.swin1..5 / adjust1..5, norm, conv_after_body,
 conv_before_upsample.0, upsample.{0,2}, conv_last).
@@ -21,10 +23,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import window_attention_nhwc
+from ..ops.mlp import fused_mlp_block
 from ..ops.window_attention import (device_table, relative_position_index,
                                     shifted_window_mask)
-from .common import (RGB_MEAN, Mlp, PatchEmbed, conv1x1_nhwc, init_weights,
-                     pixel_shuffle_upsampler, to_nchw, to_nhwc)
+from .common import (RGB_MEAN, Mlp, PatchEmbed, conv1x1_nhwc, gate,
+                     init_weights, pixel_shuffle_upsampler, to_nchw, to_nhwc)
 
 __all__ = ["WindowAttention", "SwinTransformerBlock", "RDG", "DRCT"]
 
@@ -81,6 +84,13 @@ class SwinTransformerBlock(nn.Module):
         if ss:
             x = torch.roll(x, shifts=(ss, ss), dims=(1, 2))
         x = shortcut + x
+        if gate("FREQFUSION_MLP"):
+            # FFN half in one kernel: LN2, fc1, GELU, fc2, residual
+            fc1, fc2 = self.mlp.fc1, self.mlp.fc2
+            return fused_mlp_block(
+                x, fc1.weight.t().contiguous(), fc1.bias,
+                fc2.weight.t().contiguous(), fc2.bias, self.norm2.weight,
+                self.norm2.bias, prenorm=True, eps=self.norm2.eps)
         return x + self.mlp(self.norm2(x))
 
 

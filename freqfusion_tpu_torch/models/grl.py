@@ -4,8 +4,11 @@ Counterpart of ``freqfusion_tpu/models/grl.py``: 7 stages (depths
 4, 4, 8, 8, 8, 4, 4; embed 180), each block mixing half-channel 8x8 window
 cosine attention (shifted on even blocks) with half-channel anchored
 stripe attention (2x average-pooled, linearly projected anchors), a CAB
-conv branch, and a post-norm MLP. Both attention halves of every block run
-in one call of ``ops/attention.py:grl_mixed_attention_nhwc``; GRL-B pins
+conv branch, and a post-norm MLP. FREQFUSION_CAB=1 and FREQFUSION_MLP=1
+route the CAB and the MLP half through ``ops/cab.py`` and ``ops/mlp.py``,
+as ``freqfusion_tpu/models/grl.py:340,479`` gate them. Both attention
+halves of every block run in one call of
+``ops/attention.py:grl_mixed_attention_nhwc``; GRL-B pins
 stripe size == window size (8 x 8) and 4 x 4 anchors, which that call
 requires. The 13 reference buffers (tables, indices, masks) are
 recomputed from ``ops/grl_tables.py`` and are not in the state dict.
@@ -22,11 +25,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import grl_mixed_attention_nhwc
+from ..ops.cab import cab_fused
 from ..ops.grl_tables import (relative_coords_table_all,
                               relative_position_index_simple,
                               window_shift_mask)
+from ..ops.mlp import fused_mlp_block
 from ..ops.window_attention import device_table
-from .common import (RGB_MEAN, Mlp, conv_nhwc, init_weights,
+from .common import (RGB_MEAN, Mlp, conv_nhwc, gate, hwio, init_weights,
                      pixel_shuffle_upsampler, to_nchw, to_nhwc)
 
 __all__ = ["GRL"]
@@ -166,6 +171,27 @@ class CAB(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.cab(x)
 
+    def fused_weights(self) -> dict:
+        """The flax CAB tree (cab_0, cab_2, ca_1, ca_3) that
+        ``ops/cab.py:cab_fused`` takes."""
+        ca = self.cab[3].attention
+        return {"cab_0": hwio(self.cab[0]), "cab_2": hwio(self.cab[2]),
+                "ca_1": hwio(ca[1]), "ca_3": hwio(ca[3])}
+
+    def forward_nhwc(self, x: torch.Tensor, ln: Optional[nn.LayerNorm] = None,
+                     skip_scale: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+        """The branch on an NHWC tensor: through the fused CAB kernel when
+        FREQFUSION_CAB=1, with an optional pre-LN and skip-scale residual
+        folded in (x * skip_scale + CAB(ln(x))); else through the modules."""
+        if gate("FREQFUSION_CAB"):
+            lnw = None if ln is None else {"scale": ln.weight,
+                                           "bias": ln.bias}
+            return cab_fused(x, self.fused_weights(), lnw, skip_scale,
+                             eps=1e-5 if ln is None else ln.eps)
+        out = conv_nhwc(self, x if ln is None else ln(x))
+        return out if skip_scale is None else x * skip_scale + out
+
 
 class EfficientMixAttnTransformerBlock(nn.Module):
     def __init__(self, dim: int, num_heads_w: int, num_heads_s: int,
@@ -185,7 +211,15 @@ class EfficientMixAttnTransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = (x + self.res_scale * self.norm1(self.attn(x))
-             + conv_nhwc(self.conv, x))
+             + self.conv.forward_nhwc(x))
+        if gate("FREQFUSION_MLP"):
+            # post-norm FFN half in one kernel: fc1, GELU, fc2, LN2, residual
+            fc1, fc2 = self.mlp.fc1, self.mlp.fc2
+            return fused_mlp_block(
+                x, fc1.weight.t().contiguous(), fc1.bias,
+                fc2.weight.t().contiguous(), fc2.bias, self.norm2.weight,
+                self.norm2.bias, prenorm=False, res_scale=self.res_scale,
+                eps=self.norm2.eps)
         return x + self.res_scale * self.norm2(self.mlp(x))
 
 

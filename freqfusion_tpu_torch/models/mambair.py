@@ -3,7 +3,10 @@
 Counterpart of ``freqfusion_tpu/models/mambair.py``: 6 RSSGs x 6 VSS
 blocks (embed 180, d_state 16, d_inner 360, dt_rank 12). Each block is
 LN -> SS2D (2-D selective scan over rows and columns, each forward and
-reverse) with a skip scale, then LN -> CAB with a skip scale. SS2D's four
+reverse) with a skip scale, then LN -> CAB with a skip scale.
+FREQFUSION_DWCONV=1 runs SS2D's depthwise conv through ``ops/dwconv.py``
+and FREQFUSION_CAB=1 the LN -> CAB -> skip half through ``ops/cab.py``, as
+``freqfusion_tpu/models/mambair.py:88,423`` gate them. SS2D's four
 directions run through ``ops/selective_scan.py:selective_scan_chain_proj``
 (silu and the dt/B/C projections inside, exact cross-chain state): the
 row directions read the [B, W, H, D] transpose (sequence h * W + w), the
@@ -22,9 +25,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.dwconv import dwconv3x3
 from ..ops.selective_scan import selective_scan_chain_proj
-from .common import (RGB_MEAN, PatchEmbed, conv_nhwc, init_weights,
-                     pixel_shuffle_upsampler, to_nchw, to_nhwc)
+from .common import (RGB_MEAN, PatchEmbed, conv_nhwc, gate, hwio,
+                     init_weights, pixel_shuffle_upsampler, to_nchw, to_nhwc)
 from .grl import CAB
 
 __all__ = ["SS2D", "VSSBlock", "MambaIR"]
@@ -71,7 +75,10 @@ class SS2D(nn.Module):
         d = self.d_inner
         xc = F.linear(x, self.in_proj.weight[:d])
         z = F.linear(x, self.in_proj.weight[d:])
-        xc = conv_nhwc(self.conv2d, xc)                  # pre-silu
+        if gate("FREQFUSION_DWCONV"):                     # pre-silu
+            xc = dwconv3x3(xc, **hwio(self.conv2d))
+        else:
+            xc = conv_nhwc(self.conv2d, xc)
         A = -torch.exp(self.A_logs.float()).view(4, d, self.d_state)
         Ds = self.Ds.view(4, d)
         y = None
@@ -100,7 +107,7 @@ class VSSBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x * self.skip_scale + self.self_attention(self.ln_1(x))
-        return x * self.skip_scale2 + conv_nhwc(self.conv_blk, self.ln_2(x))
+        return self.conv_blk.forward_nhwc(x, self.ln_2, self.skip_scale2)
 
 
 class _Blocks(nn.Module):

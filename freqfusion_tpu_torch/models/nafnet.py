@@ -6,7 +6,15 @@ blocks, decoders (2, 2, 2, 2)), clamped to [0, 1]. Returns (sr, feat) with
 the feature (the input of the ``ending`` conv) at HR resolution. Module
 names follow the reference state dict (intro, encoders.i.j, downs.i,
 middle_blks.j, ups.i.0, decoders.i.j, ending; per block conv1..conv5,
-sca.1, norm1/2, beta, gamma). Calls no kernel on the main path.
+sca.1, norm1/2, beta, gamma). Calls no kernel on the default path.
+
+The JAX package's two gates are carried over (``freqfusion_tpu/models/
+nafnet.py:108,136``): FREQFUSION_NAFBLOCK=1 runs each whole block through
+``ops/nafblock.py:nafblock_fused``; otherwise FREQFUSION_DWCONV=1 runs each
+block's depthwise conv through ``ops/dwconv.py:dwconv3x3``. Both kernels
+take NHWC, so with either gate on the network keeps its activations
+channels-last from the intro conv on: an NCHW tensor in channels-last
+memory is an NHWC tensor, and the kernels get it without a permute copy.
 """
 
 from __future__ import annotations
@@ -17,8 +25,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.dwconv import dwconv3x3
+from ..ops.nafblock import nafblock_fused
 from ..ops.resize import upscale_bicubic
-from .common import LayerNorm2d, init_weights
+from .common import LayerNorm2d, gate, hwio, init_weights
 
 __all__ = ["simple_gate", "NAFBlock", "NAFNet", "NAFNetSR"]
 
@@ -44,8 +54,31 @@ class NAFBlock(nn.Module):
         self.beta = nn.Parameter(torch.zeros(1, c, 1, 1))
         self.gamma = nn.Parameter(torch.zeros(1, c, 1, 1))
 
+    def fused_weights(self) -> dict:
+        """The flax NAFBlock tree that ``ops/nafblock.py:nafblock_fused``
+        takes."""
+        def norm(n):
+            return {"scale": n.weight, "bias": n.bias}
+        return {"norm1": norm(self.norm1), "conv1": hwio(self.conv1),
+                "conv2": hwio(self.conv2), "sca": hwio(self.sca[1]),
+                "conv3": hwio(self.conv3), "beta": self.beta.reshape(-1),
+                "norm2": norm(self.norm2), "conv4": hwio(self.conv4),
+                "conv5": hwio(self.conv5), "gamma": self.gamma.reshape(-1)}
+
+    def _dw(self, x: torch.Tensor) -> torch.Tensor:
+        if gate("FREQFUSION_DWCONV"):
+            nhwc = x.permute(0, 2, 3, 1).contiguous()
+            return dwconv3x3(nhwc, **hwio(self.conv2)).permute(0, 3, 1, 2)
+        return self.conv2(x)
+
     def forward(self, inp: torch.Tensor) -> torch.Tensor:
-        x = simple_gate(self.conv2(self.conv1(self.norm1(inp))))
+        if (gate("FREQFUSION_NAFBLOCK") and self.conv1.out_channels == 2 *
+                self.conv1.in_channels == self.conv4.out_channels):
+            # the whole block in the fused kernels, on the NHWC view
+            nhwc = inp.permute(0, 2, 3, 1).contiguous()
+            out = nafblock_fused(nhwc, self.fused_weights())
+            return out.permute(0, 3, 1, 2)
+        x = simple_gate(self._dw(self.conv1(self.norm1(inp))))
         x = self.conv3(x * self.sca(x))
         y = inp + x * self.beta
         x = self.conv5(simple_gate(self.conv4(self.norm2(y))))
@@ -87,6 +120,8 @@ class NAFNet(nn.Module):
         pw = (self.padder_size - w % self.padder_size) % self.padder_size
         x_in = F.pad(inp, (0, pw, 0, ph)) if (ph or pw) else inp
         x = self.intro(x_in)
+        if gate("FREQFUSION_NAFBLOCK") or gate("FREQFUSION_DWCONV"):
+            x = x.contiguous(memory_format=torch.channels_last)
         skips = []
         for enc, down in zip(self.encoders, self.downs):
             x = enc(x)

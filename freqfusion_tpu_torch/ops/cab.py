@@ -1,0 +1,103 @@
+"""Fused CAB (conv-attention block): the CUDA kernels and the plain version.
+
+Counterpart of ``freqfusion_tpu/ops/pallas_cab.py:cab_fused``, with its
+argument layout: x [B, H, W, C] and ``w`` the flax CAB tree, here as
+tensors: ``cab_0`` / ``cab_2`` kernels [3, 3, Cin, Cout] (HWIO) and biases,
+``ca_1`` / ``ca_3`` kernels [1, 1, Cin, Cout] and biases.
+
+    y   = conv3x3(gelu(conv3x3(LN(x) or x)))        C -> C/cr -> C
+    out = y * sigmoid(ca_3(relu(ca_1(mean_hw(y)))))  (+ x * skip_scale)
+
+GELU is exact (erf); the convolutions zero-pad. A CPU tensor goes to the
+plain version; a CUDA tensor goes to ``csrc/cab.cu`` (pass A: both convs,
+writing y and per-tile channel sums; the [B, C] squeeze MLP in PyTorch;
+pass B: the scale and the skip) or the call raises. Unlike the JAX
+wrapper, the kernel takes every H and W itself: there is no XLA fallback
+for small or indivisible shapes.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from . import cuda
+
+__all__ = ["cab_fused", "cab_fused_reference"]
+
+MAX_CHANNELS = 256  # the conv kernels' output channels live in registers
+
+
+def _conv3x3(t: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """NHWC 3x3 convolution, zero padding, HWIO kernel."""
+    y = F.conv2d(t.permute(0, 3, 1, 2), p["kernel"].permute(3, 2, 0, 1),
+                 p["bias"], padding=1)
+    return y.permute(0, 2, 3, 1)
+
+
+def _squeeze(mean: torch.Tensor, w) -> torch.Tensor:
+    """[B, C] channel mean -> [B, C] sigmoid scale (the CA squeeze MLP)."""
+    a = torch.relu(mean @ w["ca_1"]["kernel"][0, 0] + w["ca_1"]["bias"])
+    return torch.sigmoid(a @ w["ca_3"]["kernel"][0, 0] + w["ca_3"]["bias"])
+
+
+def cab_fused_reference(x, w, ln=None, skip_scale=None, eps: float = 1e-5):
+    """Plain PyTorch version of :func:`cab_fused`."""
+    c = x.shape[-1]
+    t = x if ln is None else F.layer_norm(x, (c,), ln["scale"], ln["bias"],
+                                          eps)
+    y = _conv3x3(F.gelu(_conv3x3(t, w["cab_0"])), w["cab_2"])
+    out = y * _squeeze(y.mean((1, 2)), w)[:, None, None, :]
+    if skip_scale is not None:
+        out = out + x * skip_scale
+    return out
+
+
+def cab_fused(x: torch.Tensor, w: Dict[str, Dict[str, torch.Tensor]],
+              ln: Optional[Dict[str, torch.Tensor]] = None,
+              skip_scale: Optional[torch.Tensor] = None,
+              eps: float = 1e-5) -> torch.Tensor:
+    """x [B, H, W, C]; w the CAB tree above; ln optional pre-LN {scale,
+    bias} [C] (MambaIR's ln_2); skip_scale optional [C]: returns
+    x * skip_scale + CAB(...) when given, else the CAB branch."""
+    if x.device.type == "cpu":
+        return cab_fused_reference(x, w, ln, skip_scale, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"cab_fused: unsupported device {x.device}")
+    b, h, w_, c = x.shape
+    cr = w["cab_0"]["kernel"].shape[-1]
+    if max(c, cr) > MAX_CHANNELS:
+        raise ValueError(f"cab_fused: C={c}, C/cr={cr} > {MAX_CHANNELS}")
+    dev = x.device
+    cuda.require(x, "x", (b, h, w_, c), dev)
+    cuda.require(w["cab_0"]["kernel"], "cab_0", (3, 3, c, cr), dev)
+    cuda.require(w["cab_0"]["bias"], "cab_0 bias", (cr,), dev)
+    cuda.require(w["cab_2"]["kernel"], "cab_2", (3, 3, cr, c), dev)
+    cuda.require(w["cab_2"]["bias"], "cab_2 bias", (c,), dev)
+    if ln is not None:
+        cuda.require(ln["scale"], "ln scale", (c,), dev)
+        cuda.require(ln["bias"], "ln bias", (c,), dev)
+    if skip_scale is not None:
+        cuda.require(skip_scale, "skip_scale", (c,), dev)
+    lib = cuda.library()
+    tiles = lib.ff_cab_tiles(h, w_, c)
+    u = torch.empty(b, h, w_, cr, device=dev, dtype=torch.float32)
+    y = torch.empty_like(x)
+    partials = torch.empty(b, tiles, c, device=dev, dtype=torch.float32)
+    lnp = (None, None) if ln is None else (ln["scale"], ln["bias"])
+    err = lib.ff_cab_pool(
+        *(cuda.ptr(t) for t in (x, w["cab_0"]["kernel"], w["cab_0"]["bias"],
+                                *lnp, u, w["cab_2"]["kernel"],
+                                w["cab_2"]["bias"], y, partials)),
+        b, h, w_, c, cr, float(eps), cuda.stream(x))
+    cuda.check(err, "cab_fused (pool)")
+    a = _squeeze(partials.sum(1) / (h * w_), w).contiguous()
+    out = torch.empty_like(x)
+    err = lib.ff_cab_apply(
+        *(cuda.ptr(t) for t in (y, a, x, skip_scale, out)),
+        b, h, w_, c, cuda.stream(x))
+    cuda.check(err, "cab_fused (apply)")
+    cuda.launch_counts["cab_fused"] += 1
+    return out

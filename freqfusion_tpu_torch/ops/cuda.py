@@ -1,9 +1,10 @@
 """Build, load and call the port's hand-written CUDA kernels.
 
 All sources under ``freqfusion_tpu_torch/csrc/*.cu`` are compiled with
-``nvcc`` for ``sm_90a`` into one shared library with a plain C interface,
-loaded through ctypes (no PyTorch headers, so a build takes seconds). The
-library is built at first use into ``build/freqfusion_tpu_torch/<hash>/``
+``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started together, and
+linked into one shared library with a plain C interface, loaded through
+ctypes (no PyTorch headers, so a build takes seconds). The library is
+built at first use into ``build/freqfusion_tpu_torch/<hash>/``
 beside the package (``FREQFUSION_TORCH_BUILD_DIR`` overrides the root),
 keyed by a hash of the sources and flags, so a checkout builds everything
 it needs by itself. A missing ``nvcc`` or a failed build raises with the
@@ -34,17 +35,26 @@ __all__ = ["library", "build", "check", "ptr", "stream", "require",
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 launch_counts: "collections.Counter[str]" = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
-    "ff_window_attention_nhwc": [_P] * 6 + [_I] * 6 + [ctypes.c_float, _P],
+    "ff_window_attention_nhwc": [_P] * 6 + [_I] * 6 + [_F, _P],
     "ff_grl_mixed_attention_nhwc": [_P] * 16 + [_I] * 8 + [_P],
     "ff_selective_scan_proj": [_P] * 10 + [_I] * 8 + [_P],
     "ff_selective_scan": [_P] * 10 + [_I] * 7 + [_P],
+    "ff_fused_mlp": [_P] * 8 + [_I] * 4 + [_F, _F, _P],
+    "ff_cab_tiles": [_I] * 3,
+    "ff_cab_pool": [_P] * 10 + [_I] * 5 + [_F, _P],
+    "ff_cab_apply": [_P] * 5 + [_I] * 4 + [_P],
+    "ff_nafblock_tiles": [_I] * 2,
+    "ff_nafblock_gate": [_P] * 10 + [_I] * 4 + [_F, _P],
+    "ff_nafblock_apply": [_P] * 16 + [_I] * 4 + [_F, _P],
+    "ff_dwconv3x3": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()
@@ -93,16 +103,37 @@ def build(ptxas_verbose: bool = False) -> Path:
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"tmp-{os.getpid()}.so"
-    cmd = [_nvcc(), *flags, "-o", str(tmp), *map(str, _sources())]
+    nvcc, tag = _nvcc(), f"tmp-{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in _sources():
+        obj = out_dir / f"{src.stem}-{tag}.o"
+        cmd = [nvcc, *flags, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for cmd, _, proc in jobs:
+        logs.append(proc.communicate()[0])
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{logs[-1]}")
+    tmp = out_dir / f"{tag}.so"
+    if not failed:
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{logs[-1]}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    build_log = "".join(logs)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{build_log}")
+        raise RuntimeError("\n".join(failed))
     os.replace(tmp, lib_path)
     return lib_path
 

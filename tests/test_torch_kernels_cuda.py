@@ -11,6 +11,12 @@ import pytest
 import torch
 
 from freqfusion_tpu_torch.ops import cuda
+from freqfusion_tpu_torch.ops.cab import cab_fused, cab_fused_reference
+from freqfusion_tpu_torch.ops.dwconv import dwconv3x3, dwconv3x3_reference
+from freqfusion_tpu_torch.ops.mlp import (fused_mlp_block,
+                                          fused_mlp_block_reference)
+from freqfusion_tpu_torch.ops.nafblock import (nafblock_fused,
+                                               nafblock_fused_reference)
 from freqfusion_tpu_torch.ops.attention import (
     grl_mixed_attention_nhwc, grl_mixed_attention_nhwc_reference,
     window_attention_nhwc, window_attention_nhwc_reference)
@@ -25,6 +31,9 @@ from test_torch_harness import cuda_or_skip
 ATTN_TOL = 1e-4
 # scan: long fp32 recurrences, relative to max |y|
 SCAN_REL_TOL = 1e-3
+# fused FFN, CAB, NAFBlock, dwconv: fp32 sums of up to 9 x 976 terms in
+# another order, relative to max(1, max |out|)
+FUSED_REL_TOL = 1e-4
 
 
 def _t(a, dev):
@@ -104,3 +113,126 @@ def test_scan_kernels(reverse):
                                                reverse)
     torch.cuda.synchronize()
     assert (got - want).abs().max() <= SCAN_REL_TOL * want.abs().max()
+
+
+def _fused_close(got, want):
+    torch.cuda.synchronize()
+    tol = FUSED_REL_TOL * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.fixture
+def fp32_plain():
+    """The plain versions' convolutions in full fp32 (cuDNN defaults to
+    TF32)."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    old = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    yield
+    cudnn.allow_tf32, matmul.allow_tf32 = old
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,ch,prenorm", [(180, 720, True), (212, 848, True),
+                                          (244, 976, True), (276, 276, True),
+                                          (308, 308, True), (180, 360, False),
+                                          (20, 76, False)])
+@pytest.mark.parametrize("hw", [(13, 18), (112, 144)])
+def test_fused_mlp_kernel(c, ch, prenorm, hw, fp32_plain):
+    """DRCT-L's five FFN widths (pre-norm) and GRL-B's (post-norm) at
+    ragged row counts (13 x 18 = 234 and 112 x 144 rows, not multiples of
+    the 64-row tile)."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c + ch)
+    x = _t(rng.normal(size=(1, *hw, c)), dev)
+    w1, w2 = (_t(0.05 * rng.normal(size=s), dev) for s in ((c, ch), (ch, c)))
+    b1, b2, lb = (_t(0.1 * rng.normal(size=n), dev) for n in (ch, c, c))
+    ls = _t(1 + 0.1 * rng.normal(size=c), dev)
+    args = (x, w1, b1, w2, b2, ls, lb, prenorm, 0.75)
+    cuda.reset_launch_counts()
+    got = fused_mlp_block(*args)
+    assert cuda.launch_counts["fused_mlp_block"] == 1
+    _fused_close(got, fused_mlp_block_reference(*args))
+
+
+def _cab_tree(rng, c, cr, sq, dev):
+    def conv(shape):
+        return {"kernel": _t(rng.normal(size=shape) / np.sqrt(np.prod(
+                    shape[:-1])), dev),
+                "bias": _t(0.1 * rng.normal(size=shape[-1]), dev)}
+    return {"cab_0": conv((3, 3, c, cr)), "cab_2": conv((3, 3, cr, c)),
+            "ca_1": conv((1, 1, c, c // sq)), "ca_3": conv((1, 1, c // sq, c))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["grl", "mambair"])
+@pytest.mark.parametrize("hw", [(13, 18), (112, 144), (5, 3)])
+def test_cab_kernel(form, hw, fp32_plain):
+    """GRL's CAB (C 180 -> 45, squeeze 18) and MambaIR's ln_2 + CAB +
+    skip_scale2 half-block (C 180 -> 60, squeeze 30), at ragged sizes and
+    one smaller than the 8 x 16 tile."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(len(form) + hw[0])
+    cr, sq = (45, 18) if form == "grl" else (60, 30)
+    w = _cab_tree(rng, 180, cr, sq, dev)
+    x = _t(rng.normal(size=(2, *hw, 180)), dev)
+    ln = skip = None
+    if form == "mambair":
+        ln = {"scale": _t(1 + 0.1 * rng.normal(size=180), dev),
+              "bias": _t(0.1 * rng.normal(size=180), dev)}
+        skip = _t(1 + 0.2 * rng.normal(size=180), dev)
+    cuda.reset_launch_counts()
+    got = cab_fused(x, w, ln, skip)
+    assert cuda.launch_counts["cab_fused"] == 1
+    _fused_close(got, cab_fused_reference(x, w, ln, skip))
+
+
+def _naf_tree(rng, c, dev):
+    def conv(cin, cout):
+        return {"kernel": _t(rng.normal(size=(1, 1, cin, cout)) / np.sqrt(cin),
+                             dev),
+                "bias": _t(0.1 * rng.normal(size=cout), dev)}
+
+    def norm():
+        return {"scale": _t(1 + 0.1 * rng.normal(size=c), dev),
+                "bias": _t(0.1 * rng.normal(size=c), dev)}
+    return {"norm1": norm(), "conv1": conv(c, 2 * c),
+            "conv2": {"kernel": _t(0.3 * rng.normal(size=(3, 3, 1, 2 * c)),
+                                   dev),
+                      "bias": _t(0.1 * rng.normal(size=2 * c), dev)},
+            "sca": conv(c, c), "conv3": conv(c, c),
+            "beta": _t(0.5 * rng.normal(size=c), dev), "norm2": norm(),
+            "conv4": conv(c, 2 * c), "conv5": conv(c, c),
+            "gamma": _t(0.5 * rng.normal(size=c), dev)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [64, 128, 256, 512, 1024])
+@pytest.mark.parametrize("hw", [(13, 18), (112, 144)])
+def test_nafblock_kernel(c, hw, fp32_plain):
+    """NAFNet-SIDD-64's five widths at ragged sizes."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c)
+    w = _naf_tree(rng, c, dev)
+    x = _t(rng.uniform(size=(2, *hw, c)), dev)
+    cuda.reset_launch_counts()
+    got = nafblock_fused(x, w)
+    assert cuda.launch_counts["nafblock_fused"] == 1
+    _fused_close(got, nafblock_fused_reference(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [360, 128, 6])
+@pytest.mark.parametrize("hw", [(13, 18), (112, 144), (1, 2)])
+def test_dwconv_kernel(c, hw, fp32_plain):
+    """SS2D's D 360 and NAFNet's first 2C 128 (float4 route), and C 6
+    (scalar route), at ragged sizes and a 1 x 2 image."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c)
+    x = _t(rng.normal(size=(2, *hw, c)), dev)
+    k = _t(rng.normal(size=(3, 3, 1, c)), dev)
+    b = _t(rng.normal(size=c), dev)
+    cuda.reset_launch_counts()
+    got = dwconv3x3(x, k, b)
+    assert cuda.launch_counts["dwconv3x3"] == 1
+    _fused_close(got, dwconv3x3_reference(x, k, b))
