@@ -14,7 +14,13 @@ exits non-zero without the final ok line):
    the 1344x2048 HR size), max-abs error against the stated tolerance,
    the kernel's and the plain version's times and, where one PyTorch call
    computes the same function, that call's (CUDA events, median of 5
-   after warm-up), beside the bound the card's peaks set for the work;
+   after warm-up), beside the bound the card's peaks set for the work.
+   For the in-kernel projection kernels (DRCT's qkv window attention at
+   the five widths, shifted and not; GRL's 6-way qkv mixed attention,
+   shifted and not; the token attention at both fusion-net geometries,
+   P = 172032, with nn.MultiheadAttention as the library call) it also
+   prints, beside DRCT's and GRL's, the time of the route the gate
+   replaces (F.linear projections around kernels #1 and #2);
 3. serving, default path: seeded full-width random checkpoints under the
    reference file names, three LR PNGs (128x128, 100x140, 336x512)
    through ``freqfusion_tpu_torch.interface.io.main(..., device="cuda")``,
@@ -22,21 +28,28 @@ exits non-zero without the final ok line):
 3b. serving, byte-floor configuration: the same with FREQFUSION_MLP,
    _CAB, _NAFBLOCK and _DWCONV set to "1", its launch counts, and its
    336x512 output against phase 3's (PSNR >= 60 dB);
-3c. the pipeline alone on the 336x512 image, default and byte-floor in
-   turns (off, on, on, off, after a warm-up of each): seconds per request
-   to the synchronised result, without the host's PNG work;
+3d. serving, in-kernel projection configuration: the same with
+   FREQFUSION_ATTN_QKV, _GRL_QKV and _TOKEN_ATTN set to "1", its launch
+   counts (the qkv kernels replace #1 and #2, which launch 0 times), and
+   its 336x512 output against phase 3's (PSNR >= 60 dB);
+3c. the pipeline alone on the 336x512 image in the three configurations
+   in turns (default, byte-floor, projection, then back, after a warm-up
+   of each): seconds per request to the synchronised result, without the
+   host's PNG work;
 4. card against CPU: the same weights on one 32x48 LR image through the
-   kernels on the card and the plain versions on the CPU, for both
-   configurations; PSNR >= 60 dB.
+   kernels on the card and the plain versions on the CPU, for each
+   configuration; PSNR >= 60 dB.
 
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.
+The last three lines are {"kernels": [...]} (each kernel with its launch
+count from the run of its own configuration), the card's name and power
+limit (card: ...), and {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --fused-only
+    python3 chip_smoke.py --qkv-only
 
-runs phase 1 and phase 2's four byte-floor kernels only (to compare two
-versions of them in one call) and prints their summary instead of the ok
-line.
+run phase 1 and phase 2's four byte-floor kernels, or its three
+in-kernel projection kernels, only (to compare two versions of them in
+one call), and print their summary instead of the ok line.
 """
 
 from __future__ import annotations
@@ -57,16 +70,21 @@ import torch
 ROOT = Path(__file__).resolve().parent
 ATTN_TOL = 1e-4        # fp32 attention, max-abs
 SCAN_REL_TOL = 1e-3    # scan, max-abs relative to max |y_ref|
-# fused FFN, CAB, NAFBlock, dwconv: fp32 sums of up to 9 x 976 terms in
-# another order, max-abs relative to max(1, max |out_ref|)
+# fused FFN, CAB, NAFBlock, dwconv and the three in-kernel projection
+# kernels: fp32 sums of up to 9 x 976 terms in another order, max-abs
+# relative to max(1, max |out_ref|)
 FUSED_REL_TOL = 1e-4
 PSNR_MIN = 60.0
 PEAK_FLOPS = 67e12     # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3
 LR_SIZES = {"a_128x128": (128, 128), "b_100x140": (100, 140),
             "c_336x512": (336, 512)}
-GATES = ("FREQFUSION_MLP", "FREQFUSION_CAB", "FREQFUSION_NAFBLOCK",
-         "FREQFUSION_DWCONV")
+# the gates of each configuration (all off: the default path)
+CONFIGS = {"default": (),
+           "byte-floor": ("FREQFUSION_MLP", "FREQFUSION_CAB",
+                          "FREQFUSION_NAFBLOCK", "FREQFUSION_DWCONV"),
+           "projection": ("FREQFUSION_ATTN_QKV", "FREQFUSION_GRL_QKV",
+                          "FREQFUSION_TOKEN_ATTN")}
 # launches per image: DRCT 12 RDGs x 5 blocks, GRL sum of depths, MambaIR
 # 36 layers x 4 directions
 PER_IMAGE = {"window_attention_nhwc": 60, "grl_mixed_attention_nhwc": 40,
@@ -75,6 +93,11 @@ PER_IMAGE = {"window_attention_nhwc": 60, "grl_mixed_attention_nhwc": 40,
 # 36 NAFBlocks, 36 SS2D depthwise convs (NAFBLOCK takes NAFNet's)
 PER_IMAGE_GATED = {**PER_IMAGE, "fused_mlp_block": 100, "cab_fused": 76,
                    "nafblock_fused": 36, "dwconv3x3": 36}
+# with the three projection gates: the qkv kernels take #1's and #2's
+# calls; the fusion net's phases 3 and 4 each run one token attention
+PER_IMAGE_QKV = {"window_attention_qkv_nhwc": 60,
+                 "grl_mixed_attention_qkv_nhwc": 40, "token_attention": 2,
+                 "selective_scan": 144}
 SOURCES = {
     "window_attention_nhwc": ("freqfusion_tpu_torch/csrc/window_attention.cu",
                               "freqfusion_tpu/ops/pallas_attention.py:238"),
@@ -90,6 +113,14 @@ SOURCES = {
                        "freqfusion_tpu/ops/pallas_nafblock.py:231"),
     "dwconv3x3": ("freqfusion_tpu_torch/csrc/dwconv.cu",
                   "freqfusion_tpu/ops/pallas_dwconv.py:56"),
+    "window_attention_qkv_nhwc": (
+        "freqfusion_tpu_torch/csrc/window_attention_qkv.cu",
+        "freqfusion_tpu/ops/pallas_attention.py:709"),
+    "grl_mixed_attention_qkv_nhwc": (
+        "freqfusion_tpu_torch/csrc/grl_attention_qkv.cu",
+        "freqfusion_tpu/ops/pallas_attention.py:795"),
+    "token_attention": ("freqfusion_tpu_torch/csrc/token_attention.cu",
+                        "freqfusion_tpu/ops/pallas_token_attention.py:78"),
 }
 
 
@@ -115,7 +146,7 @@ class KernelCheck:
 
     def __init__(self, name: str):
         self.name, self.err, self.ms, self.plain_ms = name, 0.0, 0.0, 0.0
-        self.library_ms = None
+        self.library_ms = self.route_off_ms = None
         self.flop_ms = self.byte_ms = self.bound_ms = 0.0
         self.shapes = []
 
@@ -155,6 +186,16 @@ class KernelCheck:
         self.bound_ms += max(flop_ms, byte_ms)
         self.shapes.append(label)
 
+    def route(self, label: str, on, off, what_off: str) -> None:
+        """Time the gated route (`on`, the kernel and what the module does
+        around it) against the route the gate replaces (`off`), in turns."""
+        on_ms, off_ms = cuda_ms(on), cuda_ms(off)
+        off_ms = (off_ms + cuda_ms(off)) / 2
+        on_ms = (on_ms + cuda_ms(on)) / 2
+        print(f"  {self.name} {label}: gate on {on_ms:.3f} ms, gate off "
+              f"({what_off}) {off_ms:.3f} ms")
+        self.route_off_ms = (self.route_off_ms or 0.0) + off_ms
+
     def entry(self, launches: int) -> dict:
         return {"name": self.name, "route": "cuda",
                 "source": SOURCES[self.name][0],
@@ -163,7 +204,8 @@ class KernelCheck:
                 "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
                 "bound_by": ("operations" if self.flop_ms >= self.byte_ms
                              else "bytes"),
-                "library_ms": self.library_ms, "ms_covers": self.shapes}
+                "library_ms": self.library_ms, "ms_covers": self.shapes,
+                "gate_off_route_ms": self.route_off_ms}
 
 
 def fused_tol(refs) -> float:
@@ -280,6 +322,8 @@ def phase_kernels(dev):
     del xc, rows
     torch.cuda.empty_cache()
     phase_fused_kernels(dev, randn, checks)
+    torch.cuda.empty_cache()
+    phase_qkv_kernels(dev, randn, checks)
     return checks
 
 
@@ -369,6 +413,119 @@ def phase_fused_kernels(dev, randn, checks) -> None:
                             groups=360))
 
 
+def phase_qkv_kernels(dev, randn, checks) -> None:
+    """The in-kernel projection configuration's three kernels at their
+    path's shapes, and DRCT's and GRL's gate-off routes beside them."""
+    import torch.nn.functional as F
+
+    from freqfusion_tpu_torch.ops.attention import (
+        grl_mixed_attention_nhwc, grl_mixed_attention_qkv_nhwc,
+        grl_mixed_attention_qkv_nhwc_reference, window_attention_nhwc,
+        window_attention_qkv_nhwc, window_attention_qkv_nhwc_reference)
+    from freqfusion_tpu_torch.ops.token_attention import (
+        token_attention, token_attention_reference)
+    from freqfusion_tpu_torch.ops.window_attention import (
+        device_table, shifted_window_mask)
+
+    h, w = LR_SIZES["c_336x512"]
+    p = h * w
+    wq = checks["window_attention_qkv_nhwc"] = KernelCheck(
+        "window_attention_qkv_nhwc")
+    for c, heads in ((180, 6), (212, 4), (244, 2), (276, 6), (308, 4)):
+        x = randn(1, h, w, c)
+        wqkv, wproj = randn(c, 3 * c, scale=c ** -0.5), randn(
+            c, c, scale=c ** -0.5)
+        bqkv, bproj = randn(3 * c, scale=0.1), randn(c, scale=0.1)
+        bias = randn(heads, 256, 256, scale=0.5)
+        # the module's torch-layout weights, for the gate-off route
+        w_t, wp_t = wqkv.t().contiguous(), wproj.t().contiguous()
+        for shift in (0, 8):
+            mask = device_table(shifted_window_mask, h, w, 16, shift,
+                                device=dev)
+            args = (x, wqkv, bqkv, wproj, bproj, bias, mask, heads, 16)
+            label = f"C{c}/hd{c // heads}/{'mask' if shift else 'nomask'}"
+            # projections 8 p C^2, attention 4 p N C (N 256)
+            wq.run(label, lambda: window_attention_qkv_nhwc(*args),
+                   lambda: window_attention_qkv_nhwc_reference(*args),
+                   fused_tol, 8.0 * p * c * c + 4.0 * p * 256 * c,
+                   4 * (2 * p * c + 4 * c * c + 4 * c + bias.numel()
+                        + (0 if mask is None else mask.numel())))
+
+            def gate_off():
+                q, k, v = (F.linear(x, w_t[i * c:(i + 1) * c],
+                                    bqkv[i * c:(i + 1) * c])
+                           for i in range(3))
+                return F.linear(window_attention_nhwc(q, k, v, bias, mask,
+                                                      heads, 16),
+                                wp_t, bproj)
+            wq.route(label, lambda: window_attention_qkv_nhwc(*args),
+                     gate_off, "3 F.linear + kernel #1 + F.linear")
+        del x, args
+    torch.cuda.empty_cache()
+
+    gq = checks["grl_mixed_attention_qkv_nhwc"] = KernelCheck(
+        "grl_mixed_attention_qkv_nhwc")
+    x = randn(1, h, w, 180)
+    anchor = randn(1, h // 2, w // 2, 90)
+    wqkv, bqkv = randn(180, 540, scale=180 ** -0.5), randn(540, scale=0.1)
+    w_t = wqkv.t().contiguous()
+    scales = [10.0 + randn(3, 1, 1).abs() for _ in range(3)]
+    biases = [16 * torch.sigmoid(randn(*s)) for s in ((3, 64, 64),
+                                                     (3, 16, 64), (3, 64, 16))]
+    for shift in (0, 4):
+        mask = device_table(shifted_window_mask, h, w, 8, shift, device=dev)
+        x_rolled = (torch.roll(x, (-shift, -shift), (1, 2)) if shift
+                    else None)
+        args = (x, x_rolled, anchor, wqkv, bqkv, *scales, *biases, mask, 3,
+                3, 8)
+        label = "shift" if shift else "noshift"
+        # projection 2 p 180 540; attention as grl_mixed_attention_nhwc
+        gq.run(label, lambda: grl_mixed_attention_qkv_nhwc(*args),
+               lambda: grl_mixed_attention_qkv_nhwc_reference(*args),
+               fused_tol, 2.0 * p * 180 * 540 + p * 90 * (4.0 * 64 + 8 * 16),
+               4 * ((2 if shift else 1) * p * 180 + anchor.numel()
+                    + 2 * p * 90 + 181 * 540
+                    + sum(b.numel() for b in biases)
+                    + (0 if mask is None else mask.numel())))
+
+        def gate_on():
+            xr = torch.roll(x, (-shift, -shift), (1, 2)) if shift else None
+            return grl_mixed_attention_qkv_nhwc(
+                x, xr, anchor, wqkv, bqkv, *scales, *biases, mask, 3, 3, 8)
+
+        def gate_off():
+            qkv6 = [F.linear(x, w_t[i * 90:(i + 1) * 90],
+                             bqkv[i * 90:(i + 1) * 90]) for i in range(6)]
+            if shift:
+                qkv6[:3] = [torch.roll(t, (-shift, -shift), (1, 2))
+                            for t in qkv6[:3]]
+            return grl_mixed_attention_nhwc(*qkv6, anchor, *scales, *biases,
+                                            mask, 3, 3, 8)
+        gq.route(label, gate_on, gate_off,
+                 "6 F.linear + rolls + kernel #2; on: roll + kernel")
+    del x, x_rolled, args, anchor
+    torch.cuda.empty_cache()
+
+    ta = checks["token_attention"] = KernelCheck("token_attention")
+    for t, e, nh in ((9, 64, 4), (4, 128, 8)):
+        x = randn(p, t, e)
+        args = (x, randn(e, 3 * e, scale=e ** -0.5), randn(3 * e, scale=0.1),
+                randn(e, e, scale=e ** -0.5), randn(e, scale=0.1), nh)
+        mha = torch.nn.MultiheadAttention(e, nh, batch_first=True).to(
+            dev).eval().requires_grad_(False)
+        mha.in_proj_weight.copy_(args[1].t())
+        mha.in_proj_bias.copy_(args[2])
+        mha.out_proj.weight.copy_(args[3].t())
+        mha.out_proj.bias.copy_(args[4])
+        ta.run(f"T{t}/E{e}/h{nh}/P{p}", lambda: token_attention(*args),
+               lambda: token_attention_reference(*args), fused_tol,
+               p * (2.0 * t * e * 3 * e + 2.0 * t * e * e + 4.0 * t * t * e),
+               4 * (2 * p * t * e + 4 * e * e + 4 * e),
+               lambda: mha(x, x, x, need_weights=False)[0])
+        del x, args, mha
+        torch.cuda.empty_cache()
+
+
 def write_checkpoints(model_dir: Path, seed: int = 0) -> None:
     from freqfusion_tpu_torch.interface.io import _TORCH_FILES
     from freqfusion_tpu_torch.models.fusion.fusion_v2 import (
@@ -397,12 +554,12 @@ def write_inputs(in_dir: Path, seed: int = 0) -> None:
         write_image(str(in_dir / f"{name}.png"), img)
 
 
-def set_gates(on: bool) -> None:
-    for name in GATES:
-        if on:
-            os.environ[name] = "1"
-        else:
-            os.environ.pop(name, None)
+def set_gates(config: str) -> None:
+    """Set the gates of `config` to "1" and clear every other one."""
+    for name in {g for gates in CONFIGS.values() for g in gates}:
+        os.environ.pop(name, None)
+    for name in CONFIGS[config]:
+        os.environ[name] = "1"
 
 
 def psnr(a, b) -> float:
@@ -449,8 +606,8 @@ def phase_pipeline_ab(model_dir: Path, image: Path) -> None:
     lr = torch.from_numpy(read_image(str(image))).permute(2, 0, 1)[None]
     lr = lr.cuda()
 
-    def run(on: bool) -> float:
-        set_gates(on)
+    def run(config: str) -> float:
+        set_gates(config)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.inference_mode():
@@ -458,16 +615,17 @@ def phase_pipeline_ab(model_dir: Path, image: Path) -> None:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    run(False), run(True)
-    times = {False: [], True: []}
-    for on in (False, True, True, False):
-        times[on].append(run(on))
-    set_gates(False)
-    for on in (False, True):
-        t = times[on]
-        print(f"  {'byte-floor' if on else 'default'}: "
-              f"{' '.join(f'{v:.3f}' for v in t)} s, mean {sum(t) / 2:.3f} s "
-              f"({4 * lr.shape[2] * 4 * lr.shape[3] / (sum(t) / 2) / 1e6:.3f}"
+    order = list(CONFIGS)
+    for config in order:
+        run(config)
+    times = {config: [] for config in order}
+    for config in order + order[::-1]:
+        times[config].append(run(config))
+    set_gates("default")
+    for config, t in times.items():
+        print(f"  {config}: {' '.join(f'{v:.3f}' for v in t)} s, mean "
+              f"{sum(t) / 2:.3f} s ("
+              f"{4 * lr.shape[2] * 4 * lr.shape[3] / (sum(t) / 2) / 1e6:.3f}"
               " MP/s)")
     del pipe
 
@@ -524,16 +682,20 @@ def main(argv) -> int:
     cuda.library()
     dev = torch.device("cuda")
 
-    if "--fused-only" in argv:
-        print("[2] the byte-floor kernels against their plain versions")
-        checks = {}
-        g = torch.Generator(device=dev).manual_seed(0)
-        phase_fused_kernels(dev, lambda *shape, scale=1.0: torch.randn(
-            *shape, generator=g, device=dev) * scale, checks)
-        print(json.dumps({"fused_kernels": [c.entry(0) for c in
-                                            checks.values()]}))
-        print(f"card: {smi}")
-        return 0
+    for flag, what, phase in (("--fused-only", "byte-floor",
+                               phase_fused_kernels),
+                              ("--qkv-only", "in-kernel projection",
+                               phase_qkv_kernels)):
+        if flag in argv:
+            print(f"[2] the {what} kernels against their plain versions")
+            checks = {}
+            g = torch.Generator(device=dev).manual_seed(0)
+            phase(dev, lambda *shape, scale=1.0: torch.randn(
+                *shape, generator=g, device=dev) * scale, checks)
+            print(json.dumps({flag[2:-5] + "_kernels": [
+                c.entry(0) for c in checks.values()]}))
+            print(f"card: {smi}")
+            return 0
 
     print("[2] kernels against their plain versions (336x512 bucket)")
     checks = phase_kernels(dev)
@@ -548,36 +710,45 @@ def main(argv) -> int:
         in_dir.mkdir()
         write_checkpoints(model_dir)
         write_inputs(in_dir)
-        set_gates(False)
+        set_gates("default")
         print("[3] serving through freqfusion_tpu_torch.interface.io.main, "
               "default path")
-        counts = phase_serving(model_dir, in_dir, work / "out", PER_IMAGE)
+        counts = {"default": phase_serving(model_dir, in_dir, work / "out",
+                                           PER_IMAGE)}
         torch.cuda.empty_cache()
-        print("[3b] serving, byte-floor configuration (" + ", ".join(
-            f"{g}=1" for g in GATES) + ")")
-        set_gates(True)
-        counts_gated = phase_serving(model_dir, in_dir, work / "out_gated",
-                                     PER_IMAGE_GATED)
         name = "c_336x512.png"
-        db = psnr(read_image(str(work / "out_gated" / name)),
-                  read_image(str(work / "out" / name)))
-        print(f"  {name}: gates on vs off PSNR {db:.2f} dB (min {PSNR_MIN})")
-        if not db >= PSNR_MIN:
-            raise AssertionError(f"gates on vs off PSNR {db:.2f} < {PSNR_MIN}")
-        torch.cuda.empty_cache()
-        print("[3c] pipeline alone, 336x512, default and byte-floor in turns")
+        for phase, config, per_image in (("3b", "byte-floor", PER_IMAGE_GATED),
+                                         ("3d", "projection", PER_IMAGE_QKV)):
+            print(f"[{phase}] serving, {config} configuration (" + ", ".join(
+                f"{g}=1" for g in CONFIGS[config]) + ")")
+            set_gates(config)
+            out = work / f"out_{config}"
+            counts[config] = phase_serving(model_dir, in_dir, out, per_image)
+            db = psnr(read_image(str(out / name)),
+                      read_image(str(work / "out" / name)))
+            print(f"  {name}: gates on vs off PSNR {db:.2f} dB "
+                  f"(min {PSNR_MIN})")
+            if not db >= PSNR_MIN:
+                raise AssertionError(f"{config} gates on vs off PSNR "
+                                     f"{db:.2f} < {PSNR_MIN}")
+            set_gates("default")
+            torch.cuda.empty_cache()
+        print("[3c] pipeline alone, 336x512, the three configurations in "
+              "turns")
         phase_pipeline_ab(model_dir, in_dir / name)
         torch.cuda.empty_cache()
-        for on in (False, True):
-            set_gates(on)
-            print(f"[4] card against CPU, {'byte-floor' if on else 'default'}"
-                  " configuration")
+        for config in CONFIGS:
+            set_gates(config)
+            print(f"[4] card against CPU, {config} configuration")
             phase_card_vs_cpu(model_dir)
-        set_gates(False)
+        set_gates("default")
 
-    # launches: each kernel's count from the run of its path
+    # launches: each kernel's count from the run of its own configuration
+    path_of = {k: config for config, per_image in (
+        ("byte-floor", PER_IMAGE_GATED), ("projection", PER_IMAGE_QKV),
+        ("default", PER_IMAGE)) for k in per_image}
     print(json.dumps({"kernels": [
-        c.entry((counts if c.name in PER_IMAGE else counts_gated)[c.name])
+        c.entry(counts[path_of[c.name]].get(c.name, 0))
         for c in checks.values()]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

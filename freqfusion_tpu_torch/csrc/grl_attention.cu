@@ -3,12 +3,8 @@
 //
 // Replaces the Pallas kernel freqfusion_tpu/ops/pallas_attention.py:
 // fused_grl_mixed_attention_nhwc (:548), which every GRL-B block calls
-// (freqfusion_tpu/models/grl.py:426-441). Per tile and head:
-//   window half   softmax(nrm(q) nrm(k)^T * scale_w[h] + bias_w[h] + mask) v
-//   stripe half   x1  = softmax(nrm(a) nrm(k)^T * s1[h] + bias_s1[h]) v
-//                 out = softmax(nrm(q) nrm(a)^T * s2[h] + bias_s2[h]) x1
-// where nrm is the per-head L2 normalisation of torch's F.normalize
-// (x / max(||x||, 1e-12)) and a is the tile's (ws/df)^2 anchors.
+// (freqfusion_tpu/models/grl.py:426-441). The per-head body is in
+// grl_attention.cuh, which grl_attention_qkv.cu shares.
 //
 // What bounds it on the H100: GRL-B's tiles are small (N = 64 tokens,
 // Na = 16 anchors, head dim 30), so each (tile, head) is ~0.5 MFLOP over
@@ -18,93 +14,12 @@
 //
 // Design: one block per (batch * tile, head). A block runs window head h
 // (if h < heads_w) and then stripe head h (if h < heads_s), each entirely
-// in shared memory: the 64 x hd operand tiles (row stride hd + 1, so
-// column walks hit distinct banks), the 64 x 64 logits, and for the
-// stripe half the 16-anchor summary x1, which never leaves the block.
-// Offsets come from blockIdx; no partition or head-transpose copies.
+// in shared memory. Offsets come from blockIdx; no partition or
+// head-transpose copies.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "grl_attention.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-
-// Rows i < rows of one head slice of an NHWC tensor into dst[i * ld + d];
-// tile token i sits at (y0 + i / tw, x0 + i % tw).
-__device__ void load_tile(float* dst, int ld, const float* __restrict__ src,
-                          int b, int Hs, int Ws, int C, int y0, int x0,
-                          int tw, int rows, int ch0, int hd) {
-  for (int e = threadIdx.x; e < rows * hd; e += blockDim.x) {
-    const int i = e / hd, d = e - i * hd;
-    const int y = y0 + i / tw, x = x0 + i % tw;
-    dst[i * ld + d] = src[(((long long)b * Hs + y) * Ws + x) * C + ch0 + d];
-  }
-}
-
-__device__ void l2_normalize_rows(float* x, int ld, int rows, int hd) {
-  for (int i = threadIdx.x; i < rows; i += blockDim.x) {
-    float* r = x + i * ld;
-    float ss = 0.f;
-    for (int d = 0; d < hd; ++d) ss = fmaf(r[d], r[d], ss);
-    const float nrm = fmaxf(sqrtf(ss), 1e-12f);
-    for (int d = 0; d < hd; ++d) r[d] = r[d] / nrm;
-  }
-}
-
-// S[i][j] = (A_i . B_j) * scale + bias[i][j] (+ mask[i][j]), then a
-// row softmax over j < nb.
-__device__ void attention_probs(float* S, int lds, const float* A,
-                                const float* Bm, int ld, int na, int nb,
-                                int hd, float scale,
-                                const float* __restrict__ bias,
-                                const float* __restrict__ mask) {
-  for (int e = threadIdx.x; e < na * nb; e += blockDim.x) {
-    const int i = e / nb, j = e - i * nb;
-    float acc = 0.f;
-    for (int d = 0; d < hd; ++d) acc = fmaf(A[i * ld + d], Bm[j * ld + d], acc);
-    float s = acc * scale + bias[e];
-    if (mask) s += mask[e];
-    S[i * lds + j] = s;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < na; i += blockDim.x) {
-    float* r = S + i * lds;
-    float m = -INFINITY;
-    for (int j = 0; j < nb; ++j) m = fmaxf(m, r[j]);
-    float sum = 0.f;
-    for (int j = 0; j < nb; ++j) {
-      const float p = expf(r[j] - m);
-      r[j] = p;
-      sum += p;
-    }
-    const float inv = 1.f / sum;
-    for (int j = 0; j < nb; ++j) r[j] *= inv;
-  }
-  __syncthreads();
-}
-
-// out[i][d] = sum_j P[i][j] V[j][d] for i < rows, into shared memory
-// (dst_ld > 0) or into the NHWC tile of `dst_g` (token i at
-// (y0 + i / tw, x0 + i % tw)).
-__device__ void probs_times_values(const float* P, int ldp, const float* V,
-                                   int ldv, int rows, int cols, int hd,
-                                   float* dst_s, int dst_ld,
-                                   float* __restrict__ dst_g, int b, int H,
-                                   int W, int C, int y0, int x0, int tw,
-                                   int ch0) {
-  for (int e = threadIdx.x; e < rows * hd; e += blockDim.x) {
-    const int i = e / hd, d = e - i * hd;
-    float acc = 0.f;
-    for (int j = 0; j < cols; ++j) acc = fmaf(P[i * ldp + j], V[j * ldv + d], acc);
-    if (dst_s) {
-      dst_s[i * dst_ld + d] = acc;
-    } else {
-      const int y = y0 + i / tw, x = x0 + i % tw;
-      dst_g[(((long long)b * H + y) * W + x) * C + ch0 + d] = acc;
-    }
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 grl_mixed_attention_kernel(
@@ -133,19 +48,14 @@ grl_mixed_attention_kernel(
     float* Q = smem;
     float* K = Q + n * ld;
     float* V = K + n * ld;
-    float* S = V + n * ld;  // [n][n + 1]
     load_tile(Q, ld, qw, b, H, W, C2, y0, x0, ws, n, ch0, hd);
     load_tile(K, ld, kw, b, H, W, C2, y0, x0, ws, n, ch0, hd);
     load_tile(V, ld, vw, b, H, W, C2, y0, x0, ws, n, ch0, hd);
     __syncthreads();
-    l2_normalize_rows(Q, ld, n, hd);
-    l2_normalize_rows(K, ld, n, hd);
-    __syncthreads();
-    attention_probs(S, n + 1, Q, K, ld, n, n, hd, scale_w[head],
-                    bias_w + (long long)head * n * n,
-                    mask ? mask + (long long)t * n * n : nullptr);
-    probs_times_values(S, n + 1, V, ld, n, n, hd, nullptr, 0, out_w, b, H, W,
-                       C2, y0, x0, ws, ch0);
+    window_head(Q, K, V, V + n * ld, n, hd, scale_w[head],
+                bias_w + (long long)head * n * n,
+                mask ? mask + (long long)t * n * n : nullptr, out_w,
+                TileOut{b, H, W, C2, y0, x0, ws, ch0});
     __syncthreads();
   }
 
@@ -154,38 +64,21 @@ grl_mixed_attention_kernel(
     float* Q = smem;
     float* K = Q + n * ld;
     float* V = K + n * ld;
-    float* A = V + n * ld;        // [na][ld]
-    float* S1 = A + na * ld;      // [na][n + 1]
+    float* A = V + n * ld;          // [na][ld]
+    float* S1 = A + na * ld;        // [na][n + 1]
     float* X1 = S1 + na * (n + 1);  // [na][ld]
-    float* S2 = X1 + na * ld;     // [n][na + 1]
+    float* S2 = X1 + na * ld;       // [n][na + 1]
     load_tile(Q, ld, qs, b, H, W, C2, y0, x0, ws, n, ch0, hd);
     load_tile(K, ld, ks, b, H, W, C2, y0, x0, ws, n, ch0, hd);
     load_tile(V, ld, vs, b, H, W, C2, y0, x0, ws, n, ch0, hd);
     load_tile(A, ld, anchor, b, H / df, W / df, C2, ty * aws, tx * aws, aws,
               na, ch0, hd);
     __syncthreads();
-    l2_normalize_rows(Q, ld, n, hd);
-    l2_normalize_rows(K, ld, n, hd);
-    l2_normalize_rows(A, ld, na, hd);
-    __syncthreads();
-    // stage 1: the anchors attend to the tile's keys and values
-    attention_probs(S1, n + 1, A, K, ld, na, n, hd, scale_s1[head],
-                    bias_s1 + (long long)head * na * n, nullptr);
-    probs_times_values(S1, n + 1, V, ld, na, n, hd, X1, ld, nullptr, 0, 0, 0,
-                       0, 0, 0, 0, 0);
-    // stage 2: the tile's queries attend to the anchor summary
-    attention_probs(S2, na + 1, Q, A, ld, n, na, hd, scale_s2[head],
-                    bias_s2 + (long long)head * n * na, nullptr);
-    probs_times_values(S2, na + 1, X1, ld, n, na, hd, nullptr, 0, out_s, b, H,
-                       W, C2, y0, x0, ws, ch0);
+    stripe_head(Q, K, V, A, S1, X1, S2, n, na, hd, scale_s1[head],
+                scale_s2[head], bias_s1 + (long long)head * na * n,
+                bias_s2 + (long long)head * n * na, out_s,
+                TileOut{b, H, W, C2, y0, x0, ws, ch0});
   }
-}
-
-size_t window_floats(int n, int hd) { return size_t(3) * n * (hd + 1) + size_t(n) * (n + 1); }
-
-size_t stripe_floats(int n, int na, int hd) {
-  return size_t(3) * n * (hd + 1) + size_t(2) * na * (hd + 1) +
-         size_t(na) * (n + 1) + size_t(n) * (na + 1);
 }
 
 }  // namespace
@@ -202,8 +95,9 @@ extern "C" int ff_grl_mixed_attention_nhwc(
     const float* mask, float* out_w, float* out_s, int B, int H, int W,
     int C2, int heads_w, int heads_s, int ws, int df, void* stream) {
   const int n = ws * ws, na = (ws / df) * (ws / df);
-  size_t floats = window_floats(n, C2 / heads_w);
-  const size_t sf = stripe_floats(n, na, C2 / heads_s);
+  const int hdw = C2 / heads_w, hds = C2 / heads_s;
+  size_t floats = size_t(3) * n * (hdw + 1) + window_extra_floats(n);
+  const size_t sf = size_t(3) * n * (hds + 1) + stripe_extra_floats(n, na, hds);
   if (sf > floats) floats = sf;
   const size_t smem = floats * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(

@@ -7,8 +7,10 @@ blocks with dense channel concat (dim + k * gc, gc 32), 1x1 adjusts and a
 dense concat gives the five blocks of an RDG widths 180..308 with 6, 4,
 2, 6 and 4 heads, so head dims 30, 53, 122, 46, 77 reach the window
 attention kernel (``ops/attention.py:window_attention_nhwc``); with
-FREQFUSION_MLP=1 each block's FFN half runs in ``ops/mlp.py``'s fused
-kernel, as ``freqfusion_tpu/models/drct.py:182`` gates it. Module
+FREQFUSION_ATTN_QKV=1 the qkv and output projections move into that
+kernel's entry (``window_attention_qkv_nhwc``), and with FREQFUSION_MLP=1
+each block's FFN half runs in ``ops/mlp.py``'s fused kernel, as
+``freqfusion_tpu/models/drct.py:116,182`` gate them. Module
 names follow the reference state dict (conv_first, patch_embed.norm,
 layers.i.swin1..5 / adjust1..5, norm, conv_after_body,
 conv_before_upsample.0, upsample.{0,2}, conv_last).
@@ -22,7 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.attention import window_attention_nhwc
+from ..ops.attention import window_attention_nhwc, window_attention_qkv_nhwc
 from ..ops.mlp import fused_mlp_block
 from ..ops.window_attention import (device_table, relative_position_index,
                                     shifted_window_mask)
@@ -50,11 +52,16 @@ class WindowAttention(nn.Module):
         """x [B, H, W, C] -> [B, H, W, C]."""
         c, ws, nh = self.dim, self.window_size, self.num_heads
         w, b = self.qkv.weight, self.qkv.bias
-        q, k, v = (F.linear(x, w[i * c:(i + 1) * c], b[i * c:(i + 1) * c])
-                   for i in range(3))
         idx = device_table(relative_position_index, ws, ws, device=x.device)
         bias = self.relative_position_bias_table[idx.reshape(-1)]
         bias = bias.view(ws * ws, ws * ws, nh).permute(2, 0, 1).contiguous()
+        if gate("FREQFUSION_ATTN_QKV"):
+            # qkv + output projection inside the kernel's entry
+            return window_attention_qkv_nhwc(
+                x, w.t().contiguous(), b, self.proj.weight.t().contiguous(),
+                self.proj.bias, bias, mask, nh, ws)
+        q, k, v = (F.linear(x, w[i * c:(i + 1) * c], b[i * c:(i + 1) * c])
+                   for i in range(3))
         return self.proj(window_attention_nhwc(q, k, v, bias, mask, nh, ws))
 
 

@@ -4,7 +4,10 @@ Counterpart of ``freqfusion_tpu/models/fusion/lka.py``: the decomposed
 21x21 LKA gate (5x5 DW -> 1x21 DW -> 21x1 DW -> 1x1 -> BN -> sigmoid),
 LKABlock, per-pixel attention over the 9 bands (phase 3) and the 4 experts
 (phase 4). BatchNorm runs with eval semantics (running statistics).
-``TokenMultiheadAttention`` keeps nn.MultiheadAttention's parameter names.
+``TokenMultiheadAttention`` keeps nn.MultiheadAttention's parameter names;
+with FREQFUSION_TOKEN_ATTN=1 (``freqfusion_tpu/models/fusion/lka.py:157``)
+it runs in ``ops/token_attention.py``'s kernel. The port runs eval only,
+so the JAX condition that dropout is inactive always holds.
 The token LayerNorms use eps 1e-6, as the JAX model (flax's default) does.
 """
 
@@ -17,7 +20,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.resize import resize_bilinear
-from ..common import to_nchw, to_nhwc
+from ...ops.token_attention import token_attention
+from ..common import gate, to_nchw, to_nhwc
 
 __all__ = ["LargeKernelAttention", "LKABlock", "TokenMultiheadAttention",
            "EnhancedCrossBandWithLKA", "EnhancedCollaborativeWithLKA"]
@@ -83,6 +87,15 @@ class TokenMultiheadAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         e = x.shape[-1]
+        if gate("FREQFUSION_TOKEN_ATTN"):
+            # the whole per-pixel MHA in one kernel, over P = the leading
+            # dims flattened; the kernel takes [in, out] weights
+            flat = x.reshape(-1, *x.shape[-2:]).contiguous()
+            out = token_attention(
+                flat, self.in_proj_weight.t().contiguous(), self.in_proj_bias,
+                self.out_proj.weight.t().contiguous(), self.out_proj.bias,
+                self.num_heads)
+            return out.reshape(x.shape)
         hd = e // self.num_heads
         q, k, v = F.linear(x, self.in_proj_weight,
                            self.in_proj_bias).chunk(3, dim=-1)

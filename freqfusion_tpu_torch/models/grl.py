@@ -8,7 +8,10 @@ conv branch, and a post-norm MLP. FREQFUSION_CAB=1 and FREQFUSION_MLP=1
 route the CAB and the MLP half through ``ops/cab.py`` and ``ops/mlp.py``,
 as ``freqfusion_tpu/models/grl.py:340,479`` gate them. Both attention
 halves of every block run in one call of
-``ops/attention.py:grl_mixed_attention_nhwc``; GRL-B pins
+``ops/attention.py:grl_mixed_attention_nhwc``, or, with
+FREQFUSION_GRL_QKV=1 (``freqfusion_tpu/models/grl.py:403``), of
+``grl_mixed_attention_qkv_nhwc``, which also does the 6-way qkv
+projection; GRL-B pins
 stripe size == window size (8 x 8) and 4 x 4 anchors, which that call
 requires. The 13 reference buffers (tables, indices, masks) are
 recomputed from ``ops/grl_tables.py`` and are not in the state dict.
@@ -24,7 +27,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.attention import grl_mixed_attention_nhwc
+from ..ops.attention import (grl_mixed_attention_nhwc,
+                             grl_mixed_attention_qkv_nhwc)
 from ..ops.cab import cab_fused
 from ..ops.grl_tables import (relative_coords_table_all,
                               relative_position_index_simple,
@@ -113,14 +117,8 @@ class MixedAttention(nn.Module):
         _, h, w, c = x.shape
         c2, ws, df, ss, dev = c // 2, self.ws, self.df, self.shift, x.device
         wq, bq = self.qkv.body.weight, self.qkv.body.bias
-        qw, kw, vw, qs, ks, vs = (
-            F.linear(x, wq[i * c2:(i + 1) * c2], bq[i * c2:(i + 1) * c2])
-            for i in range(6))
         pooled = to_nhwc(F.avg_pool2d(to_nchw(x), 2, 2))
         anchor = self.anchor.body[0].reduction(pooled)
-        if ss:
-            qw, kw, vw = (torch.roll(t, shifts=(-ss, -ss), dims=(1, 2))
-                          for t in (qw, kw, vw))
         n, na = ws * ws, (ws // df) ** 2
         mask = device_table(window_shift_mask, h, w, ws, ss, device=dev)
         tw = self.window_attn.attn_transform
@@ -138,10 +136,24 @@ class MixedAttention(nn.Module):
         bias_s2 = t2.bias(table_s, device_table(
             relative_position_index_simple, (ws, ws), df, True, device=dev),
             n, na)
-        x_window, x_stripe = grl_mixed_attention_nhwc(
-            qw, kw, vw, qs, ks, vs, anchor, tw.scale(), t1.scale(),
-            t2.scale(), bias_w, bias_s1, bias_s2, mask, self.nhw, self.nhs,
-            ws, df)
+        tables = (tw.scale(), t1.scale(), t2.scale(), bias_w, bias_s1,
+                  bias_s2, mask, self.nhw, self.nhs, ws, df)
+        if gate("FREQFUSION_GRL_QKV"):
+            # 6-way qkv projection inside the kernel: the window half
+            # projects from the rolled x, the stripe half from x
+            x_rolled = (torch.roll(x, shifts=(-ss, -ss), dims=(1, 2))
+                        if ss else None)
+            x_window, x_stripe = grl_mixed_attention_qkv_nhwc(
+                x, x_rolled, anchor, wq.t().contiguous(), bq, *tables)
+        else:
+            qw, kw, vw, qs, ks, vs = (
+                F.linear(x, wq[i * c2:(i + 1) * c2], bq[i * c2:(i + 1) * c2])
+                for i in range(6))
+            if ss:
+                qw, kw, vw = (torch.roll(t, shifts=(-ss, -ss), dims=(1, 2))
+                              for t in (qw, kw, vw))
+            x_window, x_stripe = grl_mixed_attention_nhwc(
+                qw, kw, vw, qs, ks, vs, anchor, *tables)
         if ss:
             x_window = torch.roll(x_window, shifts=(ss, ss), dims=(1, 2))
         return self.proj(torch.cat([x_window, x_stripe], -1))

@@ -4,6 +4,11 @@ Counterpart of ``freqfusion_tpu/ops/pallas_attention.py``. Each public
 function takes the Pallas wrapper's NHWC layout and argument order. A CPU
 tensor goes to the plain PyTorch version (``*_reference``); a CUDA tensor
 goes to the hand-written kernel in ``csrc/`` or the call raises.
+
+The ``*_qkv_nhwc`` entries take x and the packed projection weights in
+the JAX layout ([in, out]) and project inside their kernels
+(FREQFUSION_ATTN_QKV and FREQFUSION_GRL_QKV); their plain versions are
+``F.linear`` projections around the plain attention.
 """
 
 from __future__ import annotations
@@ -18,7 +23,11 @@ from .window_attention import (multi_head_window_attention, window_partition,
                                window_reverse)
 
 __all__ = ["window_attention_nhwc", "window_attention_nhwc_reference",
-           "grl_mixed_attention_nhwc", "grl_mixed_attention_nhwc_reference"]
+           "grl_mixed_attention_nhwc", "grl_mixed_attention_nhwc_reference",
+           "window_attention_qkv_nhwc",
+           "window_attention_qkv_nhwc_reference",
+           "grl_mixed_attention_qkv_nhwc",
+           "grl_mixed_attention_qkv_nhwc_reference"]
 
 
 def window_attention_nhwc_reference(q, k, v, bias, mask, num_heads: int,
@@ -170,4 +179,155 @@ def grl_mixed_attention_nhwc(
         b, h, w, c2, num_heads_w, num_heads_s, ws, df, cuda.stream(qw))
     cuda.check(err, "grl_mixed_attention_nhwc")
     cuda.launch_counts["grl_mixed_attention_nhwc"] += 1
+    return out_w, out_s
+
+
+def _project(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, i: int,
+             width: int) -> torch.Tensor:
+    """Column segment i (`width` wide) of x @ w + b, w [in, out]."""
+    cols = slice(i * width, (i + 1) * width)
+    return F.linear(x, w[:, cols].t(), b[cols])
+
+
+def window_attention_qkv_nhwc_reference(x, wqkv, bqkv, wproj, bproj, bias,
+                                        mask, num_heads: int,
+                                        window_size: int,
+                                        scale: Optional[float] = None):
+    """Plain PyTorch: q | k | v projections, window attention, output
+    projection."""
+    c = wqkv.shape[1] // 3
+    q, k, v = (_project(x, wqkv, bqkv, i, c) for i in range(3))
+    out = window_attention_nhwc_reference(q, k, v, bias, mask, num_heads,
+                                          window_size, scale)
+    return F.linear(out, wproj.t(), bproj)
+
+
+def window_attention_qkv_nhwc(x: torch.Tensor, wqkv: torch.Tensor,
+                              bqkv: torch.Tensor, wproj: torch.Tensor,
+                              bproj: torch.Tensor, bias: torch.Tensor,
+                              mask: Optional[torch.Tensor], num_heads: int,
+                              window_size: int,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """x [B, H, W, Cin]; wqkv [Cin, 3C] (q | k | v columns), bqkv [3C];
+    wproj [C, C] ([in, out]), bproj [C]; bias [nH, N, N]; mask [nW, N, N]
+    or None. Returns proj(window_attention(qkv(x))), [B, H, W, C]."""
+    b, h, w, cin = x.shape
+    c = wqkv.shape[1] // 3
+    ws = window_size
+    scale = float((c // num_heads) ** -0.5) if scale is None else float(scale)
+    if x.device.type == "cpu":
+        return window_attention_qkv_nhwc_reference(
+            x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads, ws, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"window_attention_qkv_nhwc: unsupported device "
+                         f"{x.device}")
+    if h % ws or w % ws or c % num_heads or c // num_heads > 256:
+        raise ValueError(f"window_attention_qkv_nhwc: H={h}, W={w} must be "
+                         f"multiples of ws={ws} and C={c} of heads="
+                         f"{num_heads} (head dim <= 256)")
+    n, dev = ws * ws, x.device
+    cuda.require(x, "x", (b, h, w, cin), dev)
+    cuda.require(wqkv, "wqkv", (cin, 3 * c), dev)
+    cuda.require(bqkv, "bqkv", (3 * c,), dev)
+    cuda.require(wproj, "wproj", (c, c), dev)
+    cuda.require(bproj, "bproj", (c,), dev)
+    cuda.require(bias, "bias", (num_heads, n, n), dev)
+    if mask is not None:
+        cuda.require(mask, "mask", ((h // ws) * (w // ws), n, n), dev)
+    qkv = x.new_empty(b, h, w, 3 * c)
+    attn = x.new_empty(b, h, w, c)
+    out = x.new_empty(b, h, w, c)
+    err = cuda.library().ff_window_attention_qkv_nhwc(
+        *(cuda.ptr(t) for t in (x, wqkv, bqkv, wproj, bproj, bias, mask,
+                                qkv, attn, out)),
+        b, h, w, cin, c, num_heads, ws, scale, cuda.stream(x))
+    cuda.check(err, "window_attention_qkv_nhwc")
+    cuda.launch_counts["window_attention_qkv_nhwc"] += 1
+    return out
+
+
+def _check_shifted(x_rolled, mask) -> None:
+    if (x_rolled is None) != (mask is None):
+        raise ValueError("x_rolled and mask must both be set (shifted) or "
+                         "both be None")
+
+
+def grl_mixed_attention_qkv_nhwc_reference(
+        x, x_rolled, anchor, wqkv, bqkv, scale_w, scale_s1, scale_s2,
+        bias_w, bias_s1, bias_s2, mask, num_heads_w: int, num_heads_s: int,
+        window_size: int, down_factor: int = 2):
+    """Plain PyTorch: the six q/k/v projections (window half from
+    x_rolled, stripe half from x), then the plain mixed attention."""
+    _check_shifted(x_rolled, mask)
+    c2 = wqkv.shape[1] // 6
+    xr = x if x_rolled is None else x_rolled
+    qw, kw, vw = (_project(xr, wqkv, bqkv, i, c2) for i in range(3))
+    qs, ks, vs = (_project(x, wqkv, bqkv, i, c2) for i in range(3, 6))
+    return grl_mixed_attention_nhwc_reference(
+        qw, kw, vw, qs, ks, vs, anchor, scale_w, scale_s1, scale_s2, bias_w,
+        bias_s1, bias_s2, mask, num_heads_w, num_heads_s, window_size,
+        down_factor)
+
+
+def grl_mixed_attention_qkv_nhwc(
+        x: torch.Tensor, x_rolled: Optional[torch.Tensor],
+        anchor: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor,
+        scale_w: torch.Tensor, scale_s1: torch.Tensor,
+        scale_s2: torch.Tensor, bias_w: torch.Tensor, bias_s1: torch.Tensor,
+        bias_s2: torch.Tensor, mask: Optional[torch.Tensor],
+        num_heads_w: int, num_heads_s: int, window_size: int,
+        down_factor: int = 2) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GRL mixed attention with the 6-way qkv projection in the kernel.
+
+    x [B, H, W, C]; x_rolled its (-s, -s) roll for shifted blocks, or None
+    (then mask is None too): the window half projects from x_rolled, the
+    stripe half from x. wqkv [C, 3C] / bqkv [3C] in _SplitQKV6's order
+    (qw | kw | vw | qs | ks | vs, each C/2). anchor, scales, biases and
+    mask as in grl_mixed_attention_nhwc. Returns (x_window, x_stripe),
+    each [B, H, W, C/2]."""
+    _check_shifted(x_rolled, mask)
+    b, h, w, cin = x.shape
+    c2 = wqkv.shape[1] // 6
+    ws, df = window_size, down_factor
+    if x.device.type == "cpu":
+        return grl_mixed_attention_qkv_nhwc_reference(
+            x, x_rolled, anchor, wqkv, bqkv, scale_w, scale_s1, scale_s2,
+            bias_w, bias_s1, bias_s2, mask, num_heads_w, num_heads_s, ws, df)
+    if x.device.type != "cuda":
+        raise ValueError(f"grl_mixed_attention_qkv_nhwc: unsupported device "
+                         f"{x.device}")
+    if (h % ws or w % ws or ws % df or ws * ws > 64 or c2 % num_heads_w
+            or c2 % num_heads_s
+            or max(c2 // num_heads_w, c2 // num_heads_s) > 64):
+        raise ValueError(f"grl_mixed_attention_qkv_nhwc: bad geometry H={h} "
+                         f"W={w} ws={ws} df={df} C/2={c2} (ws * ws <= 64, "
+                         "head dims <= 64)")
+    n, na = ws * ws, (ws // df) ** 2
+    dev = x.device
+    cuda.require(x, "x", (b, h, w, cin), dev)
+    if x_rolled is not None:
+        cuda.require(x_rolled, "x_rolled", (b, h, w, cin), dev)
+    cuda.require(anchor, "anchor", (b, h // df, w // df, c2), dev)
+    cuda.require(wqkv, "wqkv", (cin, 6 * c2), dev)
+    cuda.require(bqkv, "bqkv", (6 * c2,), dev)
+    cuda.require(scale_w, "scale_w", (num_heads_w, 1, 1), dev)
+    cuda.require(scale_s1, "scale_s1", (num_heads_s, 1, 1), dev)
+    cuda.require(scale_s2, "scale_s2", (num_heads_s, 1, 1), dev)
+    cuda.require(bias_w, "bias_w", (num_heads_w, n, n), dev)
+    cuda.require(bias_s1, "bias_s1", (num_heads_s, na, n), dev)
+    cuda.require(bias_s2, "bias_s2", (num_heads_s, n, na), dev)
+    if mask is not None:
+        cuda.require(mask, "mask", ((h // ws) * (w // ws), n, n), dev)
+    lib = cuda.library()
+    out_w = x.new_empty(b, h, w, c2)
+    out_s = x.new_empty(b, h, w, c2)
+    wpack = x.new_empty(lib.ff_grl_qkv_scratch_floats(
+        cin, c2, num_heads_w, num_heads_s))
+    err = lib.ff_grl_mixed_attention_qkv_nhwc(
+        *(cuda.ptr(t) for t in (x, x_rolled, anchor, wqkv, bqkv, scale_w,
+                                scale_s1, scale_s2, bias_w, bias_s1,
+                                bias_s2, mask, out_w, out_s, wpack)),
+        b, h, w, cin, c2, num_heads_w, num_heads_s, ws, df, cuda.stream(x))
+    cuda.check(err, "grl_mixed_attention_qkv_nhwc")
+    cuda.launch_counts["grl_mixed_attention_qkv_nhwc"] += 1
     return out_w, out_s

@@ -1,14 +1,15 @@
 """Build, load and call the port's hand-written CUDA kernels.
 
 All sources under ``freqfusion_tpu_torch/csrc/*.cu`` are compiled with
-``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started together, and
-linked into one shared library with a plain C interface, loaded through
-ctypes (no PyTorch headers, so a build takes seconds). The library is
+``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started together,
+and linked into one shared library with a plain C interface, loaded
+through ctypes (no PyTorch headers, so a build takes seconds); the
+``*.cuh`` headers hold device code that two sources share. The library is
 built at first use into ``build/freqfusion_tpu_torch/<hash>/``
 beside the package (``FREQFUSION_TORCH_BUILD_DIR`` overrides the root),
-keyed by a hash of the sources and flags, so a checkout builds everything
-it needs by itself. A missing ``nvcc`` or a failed build raises with the
-compiler's output.
+keyed by a hash of the sources, headers and flags, so a checkout builds
+everything it needs by itself. A missing ``nvcc`` or a failed build
+raises with the compiler's output.
 
 ``launch_counts`` counts, per kernel wrapper, the calls that launched the
 kernel, so a run can show that the main path went through it.
@@ -55,6 +56,10 @@ _SIGNATURES = {
     "ff_nafblock_gate": [_P] * 10 + [_I] * 4 + [_F, _P],
     "ff_nafblock_apply": [_P] * 16 + [_I] * 4 + [_F, _P],
     "ff_dwconv3x3": [_P] * 4 + [_I] * 4 + [_P],
+    "ff_window_attention_qkv_nhwc": [_P] * 10 + [_I] * 7 + [_F, _P],
+    "ff_grl_qkv_scratch_floats": [_I] * 4,
+    "ff_grl_mixed_attention_qkv_nhwc": [_P] * 15 + [_I] * 9 + [_P],
+    "ff_token_attention": [_P] * 6 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()
@@ -69,6 +74,10 @@ def reset_launch_counts() -> None:
 
 def _sources():
     return sorted(CSRC.glob("*.cu"))
+
+
+def _headers():
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def _build_root() -> Path:
@@ -95,7 +104,7 @@ def build(ptxas_verbose: bool = False) -> Path:
     global build_seconds, build_log
     flags = NVCC_FLAGS + (["-Xptxas", "-v"] if ptxas_verbose else [])
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())  # -v changes no code
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out_dir = _build_root() / h.hexdigest()[:16]

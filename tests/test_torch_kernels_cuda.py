@@ -19,10 +19,14 @@ from freqfusion_tpu_torch.ops.nafblock import (nafblock_fused,
                                                nafblock_fused_reference)
 from freqfusion_tpu_torch.ops.attention import (
     grl_mixed_attention_nhwc, grl_mixed_attention_nhwc_reference,
-    window_attention_nhwc, window_attention_nhwc_reference)
+    grl_mixed_attention_qkv_nhwc, grl_mixed_attention_qkv_nhwc_reference,
+    window_attention_nhwc, window_attention_nhwc_reference,
+    window_attention_qkv_nhwc, window_attention_qkv_nhwc_reference)
 from freqfusion_tpu_torch.ops.selective_scan import (
     selective_scan_chain, selective_scan_chain_proj,
     selective_scan_chain_proj_reference, selective_scan_chain_reference)
+from freqfusion_tpu_torch.ops.token_attention import (
+    token_attention, token_attention_reference)
 from freqfusion_tpu_torch.ops.window_attention import shifted_window_mask
 
 from test_torch_harness import cuda_or_skip
@@ -31,8 +35,9 @@ from test_torch_harness import cuda_or_skip
 ATTN_TOL = 1e-4
 # scan: long fp32 recurrences, relative to max |y|
 SCAN_REL_TOL = 1e-3
-# fused FFN, CAB, NAFBlock, dwconv: fp32 sums of up to 9 x 976 terms in
-# another order, relative to max(1, max |out|)
+# fused FFN, CAB, NAFBlock, dwconv, and the three in-kernel projection
+# kernels: fp32 sums of up to 9 x 976 terms in another order, relative to
+# max(1, max |out|)
 FUSED_REL_TOL = 1e-4
 
 
@@ -236,3 +241,74 @@ def test_dwconv_kernel(c, hw, fp32_plain):
     got = dwconv3x3(x, k, b)
     assert cuda.launch_counts["dwconv3x3"] == 1
     _fused_close(got, dwconv3x3_reference(x, k, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,ws", [(180, 6, 16), (212, 4, 16),
+                                        (244, 2, 16), (276, 6, 16),
+                                        (308, 4, 16), (106, 2, 8),
+                                        (60, 6, 8)])
+def test_window_attention_qkv_kernel(c, heads, ws, fp32_plain):
+    """DRCT-L's five widths at window 16 and two small ones (head dims 53
+    and 10) at window 8, with and without the shift mask: 1 x 2 x 3
+    windows, so the GEMMs' 128-row tiles end ragged."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c + ws)
+    h, w, n = 2 * ws, 3 * ws, ws * ws
+    x = _t(rng.normal(size=(1, h, w, c)), dev)
+    wqkv = _t(rng.normal(size=(c, 3 * c)) / np.sqrt(c), dev)
+    wproj = _t(rng.normal(size=(c, c)) / np.sqrt(c), dev)
+    bqkv, bproj = (_t(0.1 * rng.normal(size=k), dev) for k in (3 * c, c))
+    bias = _t(0.5 * rng.normal(size=(heads, n, n)), dev)
+    for shift in (0, ws // 2):
+        mask = shifted_window_mask(h, w, ws, shift)
+        args = (x, wqkv, bqkv, wproj, bproj, bias,
+                None if mask is None else _t(mask, dev), heads, ws)
+        cuda.reset_launch_counts()
+        got = window_attention_qkv_nhwc(*args)
+        assert dict(cuda.launch_counts) == {"window_attention_qkv_nhwc": 1}
+        _fused_close(got, window_attention_qkv_nhwc_reference(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, 4])
+def test_grl_mixed_attention_qkv_kernel(shift, fp32_plain):
+    """GRL-B's geometry (C 180, 3 + 3 heads of 30, window 8, 4 x 4
+    anchors), batch 2; shifted blocks with x rolled by (-4, -4)."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(20 + shift)
+    x = _t(rng.normal(size=(2, 32, 48, 180)), dev)
+    x_rolled = (torch.roll(x, (-shift, -shift), (1, 2)).contiguous()
+                if shift else None)
+    mask = shifted_window_mask(32, 48, 8, shift)
+    args = (x, x_rolled, _t(rng.normal(size=(2, 16, 24, 90)), dev),
+            _t(rng.normal(size=(180, 540)) / np.sqrt(180), dev),
+            _t(0.1 * rng.normal(size=540), dev),
+            *(_t(rng.uniform(1, 30, (3, 1, 1)), dev) for _ in range(3)),
+            *(_t(rng.uniform(0, 16, s), dev)
+              for s in ((3, 64, 64), (3, 16, 64), (3, 64, 16))),
+            None if mask is None else _t(mask, dev), 3, 3, 8)
+    cuda.reset_launch_counts()
+    got = grl_mixed_attention_qkv_nhwc(*args)
+    assert dict(cuda.launch_counts) == {"grl_mixed_attention_qkv_nhwc": 1}
+    for g, w in zip(got, grl_mixed_attention_qkv_nhwc_reference(*args)):
+        _fused_close(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,e,nh", [(9, 64, 4), (4, 128, 8)])
+@pytest.mark.parametrize("p", [14000, 5])
+def test_token_attention_kernel(t, e, nh, p, fp32_plain):
+    """Both fusion-net geometries at P = 100 x 140 (not a multiple of the
+    7 or 16 pixels a block holds) and at P = 5 (one partial block)."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(t + p)
+    args = (_t(rng.normal(size=(p, t, e)), dev),
+            _t(rng.normal(size=(e, 3 * e)) / np.sqrt(e), dev),
+            _t(0.1 * rng.normal(size=3 * e), dev),
+            _t(rng.normal(size=(e, e)) / np.sqrt(e), dev),
+            _t(0.1 * rng.normal(size=e), dev), nh)
+    cuda.reset_launch_counts()
+    got = token_attention(*args)
+    assert dict(cuda.launch_counts) == {"token_attention": 1}
+    _fused_close(got, token_attention_reference(*args))
