@@ -20,7 +20,12 @@ exits non-zero without the final ok line):
    shifted and not; the token attention at both fusion-net geometries,
    P = 172032, with nn.MultiheadAttention as the library call) it also
    prints, beside DRCT's and GRL's, the time of the route the gate
-   replaces (F.linear projections around kernels #1 and #2);
+   replaces (F.linear projections around kernels #1 and #2). For the
+   fusion-eval kernels (the LKABlock at C 64 and C 128 on the 336x512
+   bucket; hierarchical stage 3, the edge fuse and the three edge refine
+   levels at the 1344x2048 HR size and below, in the NCHW views the
+   modules hand them) it prints the gate-off route (the PyTorch module on
+   cuDNN) beside each;
 3. serving, default path: seeded full-width random checkpoints under the
    reference file names, three LR PNGs (128x128, 100x140, 336x512)
    through ``freqfusion_tpu_torch.interface.io.main(..., device="cuda")``,
@@ -32,10 +37,15 @@ exits non-zero without the final ok line):
    FREQFUSION_ATTN_QKV, _GRL_QKV and _TOKEN_ATTN set to "1", its launch
    counts (the qkv kernels replace #1 and #2, which launch 0 times), and
    its 336x512 output against phase 3's (PSNR >= 60 dB);
-3c. the pipeline alone on the 336x512 image in the three configurations
-   in turns (default, byte-floor, projection, then back, after a warm-up
-   of each): seconds per request to the synchronised result, without the
-   host's PNG work;
+3e. serving, fusion-eval configuration: the same with FREQFUSION_LKA,
+   _HIER and _EDGE set to "1", its launch counts (13 LKABlocks, one
+   stage 3, three edge refine levels and one edge fuse per image, and the
+   default path's kernels), and its 336x512 output against phase 3's
+   (PSNR >= 60 dB);
+3c. the pipeline alone on the 336x512 image in the four configurations
+   in turns (default, byte-floor, projection, fusion-eval, then back,
+   after a warm-up of each): seconds per request to the synchronised
+   result, without the host's PNG work;
 4. card against CPU: the same weights on one 32x48 LR image through the
    kernels on the card and the plain versions on the CPU, for each
    configuration; PSNR >= 60 dB.
@@ -46,10 +56,12 @@ limit (card: ...), and {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --fused-only
     python3 chip_smoke.py --qkv-only
+    python3 chip_smoke.py --fusion-only
 
-run phase 1 and phase 2's four byte-floor kernels, or its three
-in-kernel projection kernels, only (to compare two versions of them in
-one call), and print their summary instead of the ok line.
+run phase 1 and phase 2's four byte-floor kernels, its three in-kernel
+projection kernels, or its four fusion-eval kernels, only (to compare two
+versions of them in one call), and print their summary instead of the ok
+line.
 """
 
 from __future__ import annotations
@@ -70,9 +82,9 @@ import torch
 ROOT = Path(__file__).resolve().parent
 ATTN_TOL = 1e-4        # fp32 attention, max-abs
 SCAN_REL_TOL = 1e-3    # scan, max-abs relative to max |y_ref|
-# fused FFN, CAB, NAFBlock, dwconv and the three in-kernel projection
-# kernels: fp32 sums of up to 9 x 976 terms in another order, max-abs
-# relative to max(1, max |out_ref|)
+# fused FFN, CAB, NAFBlock, dwconv, the three in-kernel projection kernels
+# and the four fusion-eval kernels: fp32 sums of up to 9 x 976 terms in
+# another order, max-abs relative to max(1, max |out_ref|)
 FUSED_REL_TOL = 1e-4
 PSNR_MIN = 60.0
 PEAK_FLOPS = 67e12     # H100 SXM fp32 outside the tensor cores
@@ -84,7 +96,9 @@ CONFIGS = {"default": (),
            "byte-floor": ("FREQFUSION_MLP", "FREQFUSION_CAB",
                           "FREQFUSION_NAFBLOCK", "FREQFUSION_DWCONV"),
            "projection": ("FREQFUSION_ATTN_QKV", "FREQFUSION_GRL_QKV",
-                          "FREQFUSION_TOKEN_ATTN")}
+                          "FREQFUSION_TOKEN_ATTN"),
+           "fusion-eval": ("FREQFUSION_LKA", "FREQFUSION_HIER",
+                           "FREQFUSION_EDGE")}
 # launches per image: DRCT 12 RDGs x 5 blocks, GRL sum of depths, MambaIR
 # 36 layers x 4 directions
 PER_IMAGE = {"window_attention_nhwc": 60, "grl_mixed_attention_nhwc": 40,
@@ -98,6 +112,11 @@ PER_IMAGE_GATED = {**PER_IMAGE, "fused_mlp_block": 100, "cab_fused": 76,
 PER_IMAGE_QKV = {"window_attention_qkv_nhwc": 60,
                  "grl_mixed_attention_qkv_nhwc": 40, "token_attention": 2,
                  "selective_scan": 144}
+# with the three fusion-eval gates: 9 phase-3 + 4 phase-4 LKABlocks, one
+# HR stage 3, three pyramid levels, one fuse
+PER_IMAGE_FUSION = {**PER_IMAGE, "lka_block_fused": 13,
+                    "hier_stage3_fused": 1, "edge_refine_fused": 3,
+                    "edge_fuse_fused": 1}
 SOURCES = {
     "window_attention_nhwc": ("freqfusion_tpu_torch/csrc/window_attention.cu",
                               "freqfusion_tpu/ops/pallas_attention.py:238"),
@@ -121,6 +140,14 @@ SOURCES = {
         "freqfusion_tpu/ops/pallas_attention.py:795"),
     "token_attention": ("freqfusion_tpu_torch/csrc/token_attention.cu",
                         "freqfusion_tpu/ops/pallas_token_attention.py:78"),
+    "lka_block_fused": ("freqfusion_tpu_torch/csrc/lka.cu",
+                        "freqfusion_tpu/ops/pallas_lka.py:153"),
+    "hier_stage3_fused": ("freqfusion_tpu_torch/csrc/hier.cu",
+                          "freqfusion_tpu/ops/pallas_hier.py:147"),
+    "edge_refine_fused": ("freqfusion_tpu_torch/csrc/edge.cu",
+                          "freqfusion_tpu/ops/pallas_edge.py:143"),
+    "edge_fuse_fused": ("freqfusion_tpu_torch/csrc/edge.cu",
+                        "freqfusion_tpu/ops/pallas_edge.py:255"),
 }
 
 
@@ -324,6 +351,8 @@ def phase_kernels(dev):
     phase_fused_kernels(dev, randn, checks)
     torch.cuda.empty_cache()
     phase_qkv_kernels(dev, randn, checks)
+    torch.cuda.empty_cache()
+    phase_fusion_kernels(dev, randn, checks)
     return checks
 
 
@@ -526,6 +555,127 @@ def phase_qkv_kernels(dev, randn, checks) -> None:
         torch.cuda.empty_cache()
 
 
+def _numel(tree) -> int:
+    """Elements of the tensors in a nested dict (a kernel's weights)."""
+    if isinstance(tree, dict):
+        return sum(_numel(v) for v in tree.values() if v is not None)
+    return tree.numel()
+
+
+def phase_fusion_kernels(dev, randn, checks) -> None:
+    """The fusion-eval configuration's four kernels at their path's shapes,
+    in the layouts the gated modules hand them (NHWC slices for the
+    LKABlock, NCHW views for the rest), and the gate-off routes (the
+    modules on cuDNN) beside them."""
+    from freqfusion_tpu_torch.models.common import init_weights
+    from freqfusion_tpu_torch.models.fusion.edge import (
+        EdgeRefineBlock, LaplacianPyramidRefinement)
+    from freqfusion_tpu_torch.models.fusion.hierarchical import (
+        HierarchicalMultiResolutionFusion)
+    from freqfusion_tpu_torch.models.fusion.lka import LKABlock
+    from freqfusion_tpu_torch.ops.edge import (
+        edge_fuse_fused, edge_fuse_fused_reference, edge_refine_fused,
+        edge_refine_fused_reference)
+    from freqfusion_tpu_torch.ops.hier import (hier_stage3_fused,
+                                               hier_stage3_fused_reference)
+    from freqfusion_tpu_torch.ops.lka import (lka_block_fused,
+                                              lka_block_fused_reference)
+
+    set_gates("default")  # the modules below are the gate-off routes
+
+    def module(m):
+        """Seeded init, every parameter moved by 0.05 N(0, 1), BN running
+        statistics away from 0 and 1; on the card, eval."""
+        init_weights(m, torch.Generator().manual_seed(0))
+        m = m.to(dev).eval().requires_grad_(False)
+        for name, t in m.named_buffers():
+            if name.endswith("running_mean"):
+                t.copy_(randn(*t.shape, scale=0.1))
+            elif name.endswith("running_var"):
+                t.copy_(1 + 0.5 * torch.tanh(randn(*t.shape)))
+        for t in m.parameters():
+            t.add_(randn(t.numel(), scale=0.05).view(t.shape))
+        return m
+
+    h, w = LR_SIZES["c_336x512"]
+    p = h * w
+    lk = checks["lka_block_fused"] = KernelCheck("lka_block_fused")
+    for c in (64, 128):
+        mod = module(LKABlock(c))
+        tree = mod.fused_params()
+        x = randn(1, h, w, c)
+        x_nchw = x.permute(0, 3, 1, 2).contiguous()
+        # 67 depthwise taps, the pw product and the FFN (hidden 2C)
+        lk.run(f"C{c}/{h}x{w}", lambda: lka_block_fused(x, tree),
+               lambda: lka_block_fused_reference(x, tree), fused_tol,
+               p * (134.0 * c + 10.0 * c * c), 4 * (2 * p * c + _numel(tree)))
+        lk.route(f"C{c}", lambda: lka_block_fused(x, mod.fused_params()),
+                 lambda: mod(x_nchw), "LKABlock on cuDNN, NCHW")
+        del x, x_nchw
+    torch.cuda.empty_cache()
+
+    hh, ww = 4 * h, 4 * w
+    ph = hh * ww
+    hi = checks["hier_stage3_fused"] = KernelCheck("hier_stage3_fused")
+    hm = module(HierarchicalMultiResolutionFusion(4, 64))
+    tree = hm.stage3_params()
+    s3 = randn(1, 76, hh, ww, scale=0.5)
+    s3v = s3.permute(0, 2, 3, 1)
+
+    def hier_off():
+        f3 = hm.stage3_res(hm.stage3_gate(hm.stage3_conv(s3)))
+        return hm.to_rgb(f3 + hm.residual_weight_2_3 * s3[:, :hm.half])
+    # six 3x3 convs: 9 x 2 x (76 x 64 + 64 x 32 + 2 x 32 x 32 + 32 x 16
+    # + 16 x 3) per pixel
+    hi.run(f"{hh}x{ww}/C76", lambda: hier_stage3_fused(s3v, tree),
+           lambda: hier_stage3_fused_reference(s3v, tree), fused_tol,
+           ph * 18.0 * 9520, 4 * (ph * 79 + _numel(tree)))
+    hi.route(f"{hh}x{ww}", lambda: hier_stage3_fused(s3v, hm.stage3_params()),
+             hier_off, "stage-3 + to_rgb modules on cuDNN")
+    del s3, s3v
+    torch.cuda.empty_cache()
+
+    er = checks["edge_refine_fused"] = KernelCheck("edge_refine_fused")
+    rm = module(EdgeRefineBlock(3, 32))
+    tree = rm.fused_params()
+    for s in (1, 2, 4):
+        lap = randn(1, 3, hh // s, ww // s, scale=0.1)
+        lapv = lap.permute(0, 2, 3, 1)
+        npx = lap.numel() // 3
+        # 9 x 2 x (3 x 32 + 2 x 32 x 32 + 8) + 2 x (3 + 8) x 32 per pixel
+        er.run(f"{hh // s}x{ww // s}", lambda: edge_refine_fused(lapv, tree),
+               lambda: edge_refine_fused_reference(lapv, tree), fused_tol,
+               npx * 39440.0, 4 * (npx * 35 + _numel(tree)))
+        er.route(f"{hh // s}x{ww // s}",
+                 lambda: edge_refine_fused(lapv, rm.fused_params()),
+                 lambda: rm(lap), "EdgeRefineBlock on cuDNN")
+        del lap, lapv
+    torch.cuda.empty_cache()
+
+    ef = checks["edge_fuse_fused"] = KernelCheck("edge_fuse_fused")
+    em = module(LaplacianPyramidRefinement(3, 32, 0.15))
+    tree = em.fuse_params()
+    sr = (0.5 + 0.2 * randn(1, 3, hh, ww)).clamp(0.0, 1.0)
+    feats = [randn(1, 32, hh, ww, scale=0.3) for _ in range(3)]
+    views = [t.permute(0, 2, 3, 1) for t in (sr, *feats)]
+    lw = torch.softmax(em.level_weights, 0)
+    args = (*views, lw, em.edge_strength, tree)
+
+    def fuse_off():
+        edge = em.fusion(torch.cat([f * lw[i] for i, f in enumerate(feats)],
+                                   1))
+        gate = em.edge_gate(torch.cat([sr, edge], 1))
+        return (sr + gate * em.edge_strength * edge).clamp(0.0, 1.0)
+    # 9 x 2 x (96 x 32 + 32 x 3 + 6 x 16 + 16) per pixel
+    ef.run(f"{hh}x{ww}", lambda: edge_fuse_fused(*args),
+           lambda: edge_fuse_fused_reference(*args), fused_tol, ph * 59040.0,
+           4 * (ph * 102 + _numel(tree) + 4))
+    ef.route(f"{hh}x{ww}", lambda: edge_fuse_fused(*args), fuse_off,
+             "fusion + edge-gate modules on cuDNN")
+    del sr, feats, views, args
+    torch.cuda.empty_cache()
+
+
 def write_checkpoints(model_dir: Path, seed: int = 0) -> None:
     from freqfusion_tpu_torch.interface.io import _TORCH_FILES
     from freqfusion_tpu_torch.models.fusion.fusion_v2 import (
@@ -685,7 +835,9 @@ def main(argv) -> int:
     for flag, what, phase in (("--fused-only", "byte-floor",
                                phase_fused_kernels),
                               ("--qkv-only", "in-kernel projection",
-                               phase_qkv_kernels)):
+                               phase_qkv_kernels),
+                              ("--fusion-only", "fusion-eval",
+                               phase_fusion_kernels)):
         if flag in argv:
             print(f"[2] the {what} kernels against their plain versions")
             checks = {}
@@ -718,7 +870,9 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         name = "c_336x512.png"
         for phase, config, per_image in (("3b", "byte-floor", PER_IMAGE_GATED),
-                                         ("3d", "projection", PER_IMAGE_QKV)):
+                                         ("3d", "projection", PER_IMAGE_QKV),
+                                         ("3e", "fusion-eval",
+                                          PER_IMAGE_FUSION)):
             print(f"[{phase}] serving, {config} configuration (" + ", ".join(
                 f"{g}=1" for g in CONFIGS[config]) + ")")
             set_gates(config)
@@ -733,7 +887,7 @@ def main(argv) -> int:
                                      f"{db:.2f} < {PSNR_MIN}")
             set_gates("default")
             torch.cuda.empty_cache()
-        print("[3c] pipeline alone, 336x512, the three configurations in "
+        print("[3c] pipeline alone, 336x512, the four configurations in "
               "turns")
         phase_pipeline_ab(model_dir, in_dir / name)
         torch.cuda.empty_cache()
@@ -746,7 +900,8 @@ def main(argv) -> int:
     # launches: each kernel's count from the run of its own configuration
     path_of = {k: config for config, per_image in (
         ("byte-floor", PER_IMAGE_GATED), ("projection", PER_IMAGE_QKV),
-        ("default", PER_IMAGE)) for k in per_image}
+        ("fusion-eval", PER_IMAGE_FUSION), ("default", PER_IMAGE))
+        for k in per_image}
     print(json.dumps({"kernels": [
         c.entry(counts[path_of[c.name]].get(c.name, 0))
         for c in checks.values()]}))

@@ -20,8 +20,9 @@ RGB_MEAN = (0.4488, 0.4371, 0.4040)
 
 def gate(name: str) -> bool:
     """A fused-kernel gate of the JAX package (FREQFUSION_MLP, _CAB,
-    _NAFBLOCK, _DWCONV, _ATTN_QKV, _GRL_QKV, _TOKEN_ATTN): on only when the
-    variable is "1", read at forward time, as at the JAX call sites."""
+    _NAFBLOCK, _DWCONV, _ATTN_QKV, _GRL_QKV, _TOKEN_ATTN, _LKA, _HIER,
+    _EDGE): on only when the variable is "1", read at forward time, as at
+    the JAX call sites."""
     return os.environ.get(name) == "1"
 
 

@@ -4,7 +4,11 @@ Counterpart of ``freqfusion_tpu/models/fusion/edge.py`` (NCHW): a 3-level
 pyramid (5x5 Gaussian, sigma 1.5, zero padded; 2x2 average pool), one
 residual refiner with spatial attention per level, softmax level weights,
 a fusion conv to an edge map and a per-pixel gate scaled by a learnable
-edge strength (0.15). Output clamped to [0, 1].
+edge strength (0.15). Output clamped to [0, 1]. With FREQFUSION_EDGE=1
+and 3 levels (``freqfusion_tpu/models/fusion/edge.py:109``) each level's
+refiner runs in ``ops/edge.py``'s refine kernel and the weighted concat,
+fusion, gate and clip in its fuse kernel, reading the NCHW tensors through
+their strides; the pyramid and the resizes to HR stay in PyTorch.
 """
 
 from __future__ import annotations
@@ -16,8 +20,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...ops.edge import edge_fuse_fused, edge_refine_fused
 from ...ops.resize import resize_bilinear
 from ...ops.window_attention import device_table
+from .. import common
+from ..common import hwio
 
 __all__ = ["EdgeRefineBlock", "LaplacianPyramidRefinement",
            "gaussian_blur_5x5"]
@@ -61,6 +68,13 @@ class EdgeRefineBlock(nn.Module):
         h = F.gelu(self.conv2(F.gelu(self.conv1(x))))
         return self.attn(self.conv3(h) + self.proj(x))
 
+    def fused_params(self) -> dict:
+        """The block as the flax tree ``ops/edge.py`` takes."""
+        return {"proj": hwio(self.proj), "conv1": hwio(self.conv1),
+                "conv2": hwio(self.conv2), "conv3": hwio(self.conv3),
+                "attn_0": hwio(self.attn.conv[0]),
+                "attn_2": hwio(self.attn.conv[2])}
+
 
 def build_laplacian_pyramid(img: torch.Tensor, num_levels: int
                             ) -> List[torch.Tensor]:
@@ -96,6 +110,8 @@ class LaplacianPyramidRefinement(nn.Module):
     def forward(self, sr: torch.Tensor) -> torch.Tensor:
         h, w = sr.shape[-2:]
         lw = torch.softmax(self.level_weights, 0)
+        if common.gate("FREQFUSION_EDGE") and self.num_levels == 3:
+            return self._fused(sr.contiguous(), lw)
         feats = [resize_bilinear(refine(lap), h, w) * lw[i]
                  for i, (refine, lap) in enumerate(zip(
                      self.edge_refiners,
@@ -103,3 +119,25 @@ class LaplacianPyramidRefinement(nn.Module):
         edge_map = self.fusion(torch.cat(feats, 1))
         gate = self.edge_gate(torch.cat([sr, edge_map], 1))
         return (sr + gate * self.edge_strength * edge_map).clamp(0.0, 1.0)
+
+    def _fused(self, sr: torch.Tensor, lw: torch.Tensor) -> torch.Tensor:
+        """The gated route: NCHW tensors handed to the kernels as NHWC
+        views (no copies)."""
+        h, w = sr.shape[-2:]
+        feats = []
+        for refine, lap in zip(self.edge_refiners,
+                               build_laplacian_pyramid(sr, 3)):
+            f = edge_refine_fused(lap.contiguous().permute(0, 2, 3, 1),
+                                  refine.fused_params()).permute(0, 3, 1, 2)
+            feats.append(resize_bilinear(f, h, w).permute(0, 2, 3, 1))
+        out = edge_fuse_fused(sr.permute(0, 2, 3, 1), *feats, lw,
+                              self.edge_strength, self.fuse_params())
+        return out.permute(0, 3, 1, 2)
+
+    def fuse_params(self) -> dict:
+        """The fusion and edge gate as the flax tree ``ops/edge.py``'s fuse
+        takes."""
+        return {"fusion_0": hwio(self.fusion[0]),
+                "fusion_2": hwio(self.fusion[2]),
+                "edge_gate_0": hwio(self.edge_gate[0]),
+                "edge_gate_2": hwio(self.edge_gate[2])}

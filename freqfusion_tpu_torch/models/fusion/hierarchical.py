@@ -3,6 +3,10 @@
 Counterpart of ``freqfusion_tpu/models/fusion/hierarchical.py`` (NCHW):
 each stage is conv-GELU-conv-GELU -> spatial gate -> residual block over
 the concatenated expert RGBs, with learnable cross-stage weights (0.2).
+With FREQFUSION_HIER=1
+(``freqfusion_tpu/models/fusion/hierarchical.py:97``) stage 3 and to_rgb
+run in ``ops/hier.py``'s kernel, which reads the NCHW stage input through
+its strides; stages 1 and 2 stay in PyTorch.
 """
 
 from __future__ import annotations
@@ -12,7 +16,9 @@ from typing import Dict
 import torch
 import torch.nn as nn
 
+from ...ops.hier import hier_stage3_fused
 from ...ops.resize import resize_bilinear
+from ..common import gate, hwio
 
 __all__ = ["SpatialGate", "FusionResBlock", "HierarchicalMultiResolutionFusion"]
 
@@ -75,7 +81,25 @@ class HierarchicalMultiResolutionFusion(nn.Module):
             torch.cat([f1_up, resize_bilinear(stack, h2, w2)], 1))))
         f2 = f2 + self.residual_weight_1_2 * f1_up
         f2_up = resize_bilinear(f2, h, w)
-        f3 = self.stage3_res(self.stage3_gate(self.stage3_conv(
-            torch.cat([f2_up, stack], 1))))
+        s3_in = torch.cat([f2_up, stack], 1)
+        if gate("FREQFUSION_HIER"):
+            out = hier_stage3_fused(s3_in.permute(0, 2, 3, 1),
+                                    self.stage3_params())
+            return out.permute(0, 3, 1, 2)
+        f3 = self.stage3_res(self.stage3_gate(self.stage3_conv(s3_in)))
         f3 = f3 + self.residual_weight_2_3 * f2_up[:, :self.half]
         return self.to_rgb(f3)
+
+    def stage3_params(self) -> dict:
+        """Stage 3 and to_rgb as the flax tree ``ops/hier.py`` takes."""
+        gate_, res = self.stage3_gate.gate, self.stage3_res
+        return {"stage3_conv_0": hwio(self.stage3_conv[0]),
+                "stage3_conv_2": hwio(self.stage3_conv[2]),
+                "stage3_gate": {"gate_0": hwio(gate_[0]),
+                                "gate_2": hwio(gate_[2])},
+                "stage3_res": {"block_0": hwio(res.block[0]),
+                               "block_2": hwio(res.block[2]),
+                               "scale": res.scale},
+                "rw23": self.residual_weight_2_3,
+                "to_rgb_0": hwio(self.to_rgb[0]),
+                "to_rgb_2": hwio(self.to_rgb[2])}

@@ -4,10 +4,13 @@ Counterpart of ``freqfusion_tpu/models/fusion/lka.py``: the decomposed
 21x21 LKA gate (5x5 DW -> 1x21 DW -> 21x1 DW -> 1x1 -> BN -> sigmoid),
 LKABlock, per-pixel attention over the 9 bands (phase 3) and the 4 experts
 (phase 4). BatchNorm runs with eval semantics (running statistics).
-``TokenMultiheadAttention`` keeps nn.MultiheadAttention's parameter names;
-with FREQFUSION_TOKEN_ATTN=1 (``freqfusion_tpu/models/fusion/lka.py:157``)
-it runs in ``ops/token_attention.py``'s kernel. The port runs eval only,
-so the JAX condition that dropout is inactive always holds.
+With FREQFUSION_LKA=1 (``freqfusion_tpu/models/fusion/lka.py:80``) each
+LKABlock runs in ``ops/lka.py``'s kernel, NHWC: the callers hand it their
+NHWC slices as NCHW views, without a copy. ``TokenMultiheadAttention``
+keeps nn.MultiheadAttention's parameter names; with FREQFUSION_TOKEN_ATTN=1
+(``freqfusion_tpu/models/fusion/lka.py:157``) it runs in
+``ops/token_attention.py``'s kernel. The port runs eval only, so the JAX
+conditions that dropout and training are off always hold.
 The token LayerNorms use eps 1e-6, as the JAX model (flax's default) does.
 """
 
@@ -19,9 +22,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...ops.lka import lka_block_fused
 from ...ops.resize import resize_bilinear
 from ...ops.token_attention import token_attention
-from ..common import gate, to_nchw, to_nhwc
+from ..common import gate, hwio, to_nchw, to_nhwc
 
 __all__ = ["LargeKernelAttention", "LKABlock", "TokenMultiheadAttention",
            "EnhancedCrossBandWithLKA", "EnhancedCollaborativeWithLKA"]
@@ -64,8 +68,42 @@ class LKABlock(nn.Module):
         self.scale2 = nn.Parameter(torch.tensor(0.1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if gate("FREQFUSION_LKA"):
+            # NHWC through the kernel; no copy when x is an NCHW view of
+            # NHWC memory (see _lka_input)
+            y = lka_block_fused(x.permute(0, 2, 3, 1).contiguous(),
+                                self.fused_params())
+            return y.permute(0, 3, 1, 2)
         x = x + self.scale1 * self.lka(self.norm1(x))
         return x + self.scale2 * self.ffn(self.norm2(x))
+
+    def fused_params(self) -> dict:
+        """The block as the flax tree ``ops/lka.py`` takes."""
+        def bn(m: nn.BatchNorm2d) -> dict:
+            return {"scale": m.weight, "bias": m.bias,
+                    "mean": m.running_mean, "var": m.running_var}
+
+        def kernel(conv: nn.Conv2d) -> dict:
+            return {"kernel": conv.weight.permute(2, 3, 1, 0)}
+
+        lka = self.lka
+        return {"norm1": bn(self.norm1),
+                "lka": {"local_conv": kernel(lka.local_conv),
+                        "h_conv": kernel(lka.h_conv),
+                        "v_conv": kernel(lka.v_conv),
+                        "pw_conv": kernel(lka.pw_conv), "bn": bn(lka.bn)},
+                "scale1": self.scale1, "norm2": bn(self.norm2),
+                "ffn_0": hwio(self.ffn[0]), "ffn_2": hwio(self.ffn[2]),
+                "scale2": self.scale2}
+
+
+def _lka_input(x: torch.Tensor) -> torch.Tensor:
+    """An NHWC slice as LKABlock's NCHW input: a copy to NCHW memory, or,
+    with FREQFUSION_LKA=1, an NCHW view of NHWC memory (the kernel's
+    layout)."""
+    if gate("FREQFUSION_LKA"):
+        return x.contiguous().permute(0, 3, 1, 2)
+    return to_nchw(x)
 
 
 class TokenMultiheadAttention(nn.Module):
@@ -123,8 +161,8 @@ class EnhancedCrossBandWithLKA(nn.Module):
         projected = torch.stack([F.linear(to_nhwc(b), w, self.band_proj.bias)
                                  for b in bands], dim=-2)   # [B,H,W,T,dim]
         attn = self.band_attention(self.norm(projected)) + projected
-        return [self.out_proj(self.lka_block(to_nchw(attn[..., i, :]))) + b
-                for i, b in enumerate(bands)]
+        return [self.out_proj(self.lka_block(_lka_input(attn[..., i, :])))
+                + b for i, b in enumerate(bands)]
 
 
 FEATURE_CHANNELS = {"drct": 180, "grl": 180, "nafnet": 64, "mamba": 180}
@@ -165,7 +203,7 @@ class EnhancedCollaborativeWithLKA(nn.Module):
         h_sr, w_sr = outputs[0].shape[-2:]
         enhanced = []
         for i, out in enumerate(outputs):
-            feat = self.lka_global(to_nchw(stacked[..., i, :]))
+            feat = self.lka_global(_lka_input(stacked[..., i, :]))
             mod = self.modulation[i](resize_bilinear(feat, h_sr, w_sr))
             enhanced.append((out * (1.0 + 0.2 * (mod - 0.5))).clamp(0.0, 1.0))
         return enhanced

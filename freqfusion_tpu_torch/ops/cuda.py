@@ -31,7 +31,8 @@ from typing import Optional
 import torch
 
 __all__ = ["library", "build", "check", "ptr", "stream", "require",
-           "launch_counts", "reset_launch_counts"]
+           "nhwc_layout", "require_layout", "empty_nhwc", "launch_counts",
+           "reset_launch_counts"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -60,6 +61,10 @@ _SIGNATURES = {
     "ff_grl_qkv_scratch_floats": [_I] * 4,
     "ff_grl_mixed_attention_qkv_nhwc": [_P] * 15 + [_I] * 9 + [_P],
     "ff_token_attention": [_P] * 6 + [_I] * 4 + [_P],
+    "ff_lka_block": [_P] * 19 + [_I] * 5 + [_P],
+    "ff_hier_stage3": [_P, _I] + [_P] * 19 + [_I] * 5 + [_P],
+    "ff_edge_refine": [_P, _I] + [_P] * 13 + [_I] * 5 + [_P],
+    "ff_edge_fuse": [_P] * 4 + [_I] + [_P] * 13 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()
@@ -187,3 +192,33 @@ def require(t: torch.Tensor, name: str, shape, device) -> None:
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def nhwc_layout(t: torch.Tensor) -> int:
+    """The layout of a [B, H, W, C] tensor for the kernels that take two:
+    0 when it is contiguous (NHWC), 1 when it is an NCHW-contiguous tensor
+    viewed as NHWC (``u.permute(0, 2, 3, 1)``); any other layout raises."""
+    if t.is_contiguous():
+        return 0
+    if t.permute(0, 3, 1, 2).is_contiguous():
+        return 1
+    raise ValueError(f"tensor of shape {tuple(t.shape)} and strides "
+                     f"{t.stride()} is neither NHWC- nor NCHW-contiguous")
+
+
+def require_layout(t: torch.Tensor, name: str, shape, device,
+                   nchw: int) -> None:
+    """:func:`require` for a [B, H, W, C] tensor in the layout `nchw`
+    names (see :func:`nhwc_layout`)."""
+    require(t.permute(0, 3, 1, 2) if nchw else t, name,
+            (shape[0], shape[3], shape[1], shape[2]) if nchw else shape,
+            device)
+
+
+def empty_nhwc(b: int, h: int, w: int, c: int, nchw: int,
+               device) -> torch.Tensor:
+    """An uninitialised fp32 [B, H, W, C] tensor in the layout `nchw`
+    names."""
+    if nchw:
+        return torch.empty(b, c, h, w, device=device).permute(0, 2, 3, 1)
+    return torch.empty(b, h, w, c, device=device)

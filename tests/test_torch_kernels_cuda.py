@@ -12,6 +12,13 @@ import torch
 
 from freqfusion_tpu_torch.ops import cuda
 from freqfusion_tpu_torch.ops.cab import cab_fused, cab_fused_reference
+from freqfusion_tpu_torch.ops.edge import (
+    edge_fuse_fused, edge_fuse_fused_reference, edge_refine_fused,
+    edge_refine_fused_reference)
+from freqfusion_tpu_torch.ops.hier import (hier_stage3_fused,
+                                           hier_stage3_fused_reference)
+from freqfusion_tpu_torch.ops.lka import (lka_block_fused,
+                                          lka_block_fused_reference)
 from freqfusion_tpu_torch.ops.dwconv import dwconv3x3, dwconv3x3_reference
 from freqfusion_tpu_torch.ops.mlp import (fused_mlp_block,
                                           fused_mlp_block_reference)
@@ -35,9 +42,9 @@ from test_torch_harness import cuda_or_skip
 ATTN_TOL = 1e-4
 # scan: long fp32 recurrences, relative to max |y|
 SCAN_REL_TOL = 1e-3
-# fused FFN, CAB, NAFBlock, dwconv, and the three in-kernel projection
-# kernels: fp32 sums of up to 9 x 976 terms in another order, relative to
-# max(1, max |out|)
+# fused FFN, CAB, NAFBlock, dwconv, the three in-kernel projection kernels
+# and the four fusion-eval kernels: fp32 sums of up to 9 x 976 terms in
+# another order, relative to max(1, max |out|)
 FUSED_REL_TOL = 1e-4
 
 
@@ -312,3 +319,128 @@ def test_token_attention_kernel(t, e, nh, p, fp32_plain):
     got = token_attention(*args)
     assert dict(cuda.launch_counts) == {"token_attention": 1}
     _fused_close(got, token_attention_reference(*args))
+
+
+def _tree(rng, spec, dev):
+    """Weights on the card from {name: shape | subtree}: kernels
+    [kh, kw, cin, cout] fan-in scaled, BN variances positive, BN scales
+    near 1, the rest 0.1-scaled normal draws."""
+    out = {}
+    for k, v in spec.items():
+        if isinstance(v, dict):
+            out[k] = _tree(rng, v, dev)
+        elif k == "var":
+            out[k] = _t(rng.uniform(0.5, 1.5, v), dev)
+        elif k == "kernel":
+            out[k] = _t(rng.normal(size=v) / np.sqrt(np.prod(v[:-1])), dev)
+        elif k == "scale" and v:
+            out[k] = _t(1 + 0.1 * rng.normal(size=v), dev)
+        else:
+            out[k] = _t(0.1 * rng.normal(size=v) if v else rng.uniform(0.1, 1),
+                        dev)
+    return out
+
+
+def _conv(k, cin, cout, bias=True):
+    return ({"kernel": (k, k, cin, cout), "bias": (cout,)} if bias
+            else {"kernel": (k, k, cin, cout)})
+
+
+def _image(rng, b, hw, c, nchw, dev, uniform=False):
+    """[B, H, W, C] on the card, NHWC-contiguous or an NCHW view."""
+    shape = (b, c, *hw) if nchw else (b, *hw, c)
+    a = rng.uniform(size=shape) if uniform else rng.normal(size=shape)
+    t = _t(a, dev)
+    return t.permute(0, 2, 3, 1) if nchw else t
+
+
+# H and W not multiples of the tiles (32 x 32 for the LKA's depthwise pass,
+# 16 x 16/32 for the convs), one image smaller than a tile, and 112 x 144,
+# the HR/4 level of a 100 x 140 request after padding
+BORDER_SHAPES = [(13, 18), (45, 70), (112, 144)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [64, 128])
+@pytest.mark.parametrize("hw", BORDER_SHAPES)
+def test_lka_kernel(c, hw, fp32_plain):
+    """The fusion net's LKABlock at phase 3's C 64 and phase 4's C 128,
+    batch 2."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c + hw[0])
+    bn = {"scale": (c,), "bias": (c,), "mean": (c,), "var": (c,)}
+    p = _tree(rng, {"norm1": bn, "norm2": bn,
+                    "lka": {"local_conv": {"kernel": (5, 5, 1, c)},
+                            "h_conv": {"kernel": (1, 21, 1, c)},
+                            "v_conv": {"kernel": (21, 1, 1, c)},
+                            "pw_conv": {"kernel": (1, 1, c, c)}, "bn": bn},
+                    "ffn_0": _conv(1, c, 2 * c), "ffn_2": _conv(1, 2 * c, c),
+                    "scale1": (), "scale2": ()}, dev)
+    x = _image(rng, 2, hw, c, False, dev)
+    cuda.reset_launch_counts()
+    got = lka_block_fused(x, p)
+    assert dict(cuda.launch_counts) == {"lka_block_fused": 1}
+    _fused_close(got, lka_block_fused_reference(x, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nchw", [False, True])
+@pytest.mark.parametrize("hw", BORDER_SHAPES)
+def test_hier_kernel(nchw, hw, fp32_plain):
+    """Stage 3 + to_rgb (76 in, base_channels 64), batch 2, s3_in NHWC and
+    as an NCHW view."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(hw[0] + nchw)
+    p = _tree(rng, {"stage3_conv_0": _conv(3, 76, 64),
+                    "stage3_conv_2": _conv(3, 64, 32),
+                    "stage3_gate": {"gate_0": _conv(1, 32, 8),
+                                    "gate_2": _conv(1, 8, 1)},
+                    "stage3_res": {"block_0": _conv(3, 32, 32, False),
+                                   "block_2": _conv(3, 32, 32, False),
+                                   "scale": ()},
+                    "rw23": (), "to_rgb_0": _conv(3, 32, 16),
+                    "to_rgb_2": _conv(3, 16, 3)}, dev)
+    x = _image(rng, 2, hw, 76, nchw, dev, uniform=True)
+    cuda.reset_launch_counts()
+    got = hier_stage3_fused(x, p)
+    assert dict(cuda.launch_counts) == {"hier_stage3_fused": 1}
+    assert (got.permute(0, 3, 1, 2) if nchw else got).is_contiguous()
+    _fused_close(got, hier_stage3_fused_reference(x, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nchw", [False, True])
+@pytest.mark.parametrize("hw", BORDER_SHAPES)
+def test_edge_refine_kernel(nchw, hw, fp32_plain):
+    """One EdgeRefineBlock (3 -> 32), batch 2, NHWC and NCHW views."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(hw[0] + nchw + 7)
+    p = _tree(rng, {"proj": _conv(1, 3, 32), "conv1": _conv(3, 3, 32),
+                    "conv2": _conv(3, 32, 32), "conv3": _conv(3, 32, 32),
+                    "attn_0": _conv(1, 32, 8), "attn_2": _conv(3, 8, 1)}, dev)
+    lap = _image(rng, 2, hw, 3, nchw, dev)
+    cuda.reset_launch_counts()
+    got = edge_refine_fused(lap, p)
+    assert dict(cuda.launch_counts) == {"edge_refine_fused": 1}
+    _fused_close(got, edge_refine_fused_reference(lap, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nchw", [False, True])
+@pytest.mark.parametrize("hw", BORDER_SHAPES)
+def test_edge_fuse_kernel(nchw, hw, fp32_plain):
+    """Weighted concat (3 x 32), fusion, gate and clip, batch 2, NHWC and
+    NCHW views."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(hw[0] + nchw + 11)
+    p = _tree(rng, {"fusion_0": _conv(3, 96, 32), "fusion_2": _conv(3, 32, 3),
+                    "edge_gate_0": _conv(3, 6, 16),
+                    "edge_gate_2": _conv(3, 16, 1)}, dev)
+    sr = _image(rng, 2, hw, 3, nchw, dev, uniform=True)
+    feats = [_image(rng, 2, hw, 32, nchw, dev) for _ in range(3)]
+    lw = torch.softmax(_t(rng.normal(size=3), dev), 0)
+    strength = _t(rng.uniform(0.5, 2), dev)
+    cuda.reset_launch_counts()
+    got = edge_fuse_fused(sr, *feats, lw, strength, p)
+    assert dict(cuda.launch_counts) == {"edge_fuse_fused": 1}
+    _fused_close(got, edge_fuse_fused_reference(sr, *feats, lw, strength, p))
