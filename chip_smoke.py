@@ -15,17 +15,22 @@ exits non-zero without the final ok line):
    the kernel's and the plain version's times and, where one PyTorch call
    computes the same function, that call's (CUDA events, median of 5
    after warm-up), beside the bound the card's peaks set for the work.
-   For the in-kernel projection kernels (DRCT's qkv window attention at
-   the five widths, shifted and not; GRL's 6-way qkv mixed attention,
-   shifted and not; the token attention at both fusion-net geometries,
-   P = 172032, with nn.MultiheadAttention as the library call) it also
-   prints, beside DRCT's and GRL's, the time of the route the gate
-   replaces (F.linear projections around kernels #1 and #2). For the
-   fusion-eval kernels (the LKABlock at C 64 and C 128 on the 336x512
-   bucket; hierarchical stage 3, the edge fuse and the three edge refine
-   levels at the 1344x2048 HR size and below, in the NCHW views the
-   modules hand them) it prints the gate-off route (the PyTorch module on
-   cuDNN) beside each;
+   The scan's seven contracts (TPU kernels #3-#9) run at L = 172,032,
+   D 360, N 16: chain_proj and chain on both chain layouts and spatial on
+   the NHWC tensor and its transpose, each direction; flat; four
+   directions; bidir as SS2D calls it. No PyTorch call computes a scan,
+   and the scan's plain versions (~1 s a direction) are timed over one
+   run after one warm-up. For the in-kernel projection kernels (DRCT's
+   qkv window attention at the five widths, shifted and not; GRL's 6-way
+   qkv mixed attention, shifted and not; the token attention at both
+   fusion-net geometries, P = 172032, with nn.MultiheadAttention as the
+   library call) it also prints, beside DRCT's and GRL's, the time of the
+   route the gate replaces (F.linear projections around kernels #1 and
+   #2). For the fusion-eval kernels (the LKABlock at C 64 and C 128 on the
+   336x512 bucket; hierarchical stage 3, the edge fuse and the three edge
+   refine levels at the 1344x2048 HR size and below, in the NCHW views
+   the modules hand them) it prints the gate-off route (the PyTorch module
+   on cuDNN) beside each;
 3. serving, default path: seeded full-width random checkpoints under the
    reference file names, three LR PNGs (128x128, 100x140, 336x512)
    through ``freqfusion_tpu_torch.interface.io.main(..., device="cuda")``,
@@ -42,26 +47,43 @@ exits non-zero without the final ok line):
    stage 3, three edge refine levels and one edge fuse per image, and the
    default path's kernels), and its 336x512 output against phase 3's
    (PSNR >= 60 dB);
-3c. the pipeline alone on the 336x512 image in the four configurations
-   in turns (default, byte-floor, projection, fusion-eval, then back,
-   after a warm-up of each): seconds per request to the synchronised
-   result, without the host's PNG work;
+3f, 3g. serving, SS2D's chainv5 and spatial routes: the same with
+   FREQFUSION_SCAN=chainv5 (144 launches of #5 per image) and
+   FREQFUSION_SCAN=spatial (144 of #9), #3 launching 0 times, each
+   336x512 output against phase 3's (PSNR >= 60 dB);
+3h. the bidir route: the full-width MambaIR alone on the 100x140 LR image,
+   not padded (neither side a multiple of 8): 36 launches of #8 and no
+   other kernel, then the card against the CPU's plain route on the same
+   weights at 20x28 (PSNR >= 60 dB);
+3c. the pipeline alone on the 336x512 image in the six configurations
+   in turns (default, byte-floor, projection, fusion-eval, chainv5,
+   spatial, then back, after a warm-up of each): seconds per request to
+   the synchronised result, without the host's PNG work;
 4. card against CPU: the same weights on one 32x48 LR image through the
    kernels on the card and the plain versions on the CPU, for each
    configuration; PSNR >= 60 dB.
 
 The last three lines are {"kernels": [...]} (each kernel with its launch
-count from the run of its own configuration), the card's name and power
-limit (card: ...), and {"ok": true, "device": {...}}.
+count from the run of its own configuration; #6 and #7 lie on no path),
+the card's name and power limit (card: ...), and
+{"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --fused-only
     python3 chip_smoke.py --qkv-only
     python3 chip_smoke.py --fusion-only
+    python3 chip_smoke.py --scan-only
 
 run phase 1 and phase 2's four byte-floor kernels, its three in-kernel
-projection kernels, or its four fusion-eval kernels, only (to compare two
-versions of them in one call), and print their summary instead of the ok
-line.
+projection kernels, its four fusion-eval kernels, or the scan's seven
+contracts, only (to compare two versions of them in one call), and print
+their summary instead of the ok line.
+
+    python3 chip_smoke.py --pipeline-only
+
+runs phase 1 and phase 3c's default path alone (six runs after a
+warm-up), needing nothing of the port but the pipeline and its loader: a
+copy of this script beside an older checkout of the package times that
+checkout's pipeline the same way.
 """
 
 from __future__ import annotations
@@ -91,14 +113,19 @@ PEAK_FLOPS = 67e12     # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3
 LR_SIZES = {"a_128x128": (128, 128), "b_100x140": (100, 140),
             "c_336x512": (336, 512)}
-# the gates of each configuration (all off: the default path)
-CONFIGS = {"default": (),
-           "byte-floor": ("FREQFUSION_MLP", "FREQFUSION_CAB",
-                          "FREQFUSION_NAFBLOCK", "FREQFUSION_DWCONV"),
-           "projection": ("FREQFUSION_ATTN_QKV", "FREQFUSION_GRL_QKV",
-                          "FREQFUSION_TOKEN_ATTN"),
-           "fusion-eval": ("FREQFUSION_LKA", "FREQFUSION_HIER",
-                           "FREQFUSION_EDGE")}
+# the variables each configuration sets (none: the default path); every
+# other configuration's are cleared
+CONFIGS = {"default": {},
+           "byte-floor": dict.fromkeys(("FREQFUSION_MLP", "FREQFUSION_CAB",
+                                        "FREQFUSION_NAFBLOCK",
+                                        "FREQFUSION_DWCONV"), "1"),
+           "projection": dict.fromkeys(("FREQFUSION_ATTN_QKV",
+                                        "FREQFUSION_GRL_QKV",
+                                        "FREQFUSION_TOKEN_ATTN"), "1"),
+           "fusion-eval": dict.fromkeys(("FREQFUSION_LKA", "FREQFUSION_HIER",
+                                         "FREQFUSION_EDGE"), "1"),
+           "chainv5": {"FREQFUSION_SCAN": "chainv5"},
+           "spatial": {"FREQFUSION_SCAN": "spatial"}}
 # launches per image: DRCT 12 RDGs x 5 blocks, GRL sum of depths, MambaIR
 # 36 layers x 4 directions
 PER_IMAGE = {"window_attention_nhwc": 60, "grl_mixed_attention_nhwc": 40,
@@ -117,6 +144,16 @@ PER_IMAGE_QKV = {"window_attention_qkv_nhwc": 60,
 PER_IMAGE_FUSION = {**PER_IMAGE, "lka_block_fused": 13,
                     "hier_stage3_fused": 1, "edge_refine_fused": 3,
                     "edge_fuse_fused": 1}
+# SS2D's other routes: four #5 or four #9 scans a layer in place of #3's;
+# MambaIR alone on an image whose sides are not multiples of 8 takes the
+# bidir route, one #8 launch a layer
+PER_IMAGE_CHAINV5 = {"window_attention_nhwc": 60,
+                     "grl_mixed_attention_nhwc": 40,
+                     "selective_scan_chain": 144}
+PER_IMAGE_SPATIAL = {"window_attention_nhwc": 60,
+                     "grl_mixed_attention_nhwc": 40,
+                     "selective_scan_spatial": 144}
+PER_IMAGE_BIDIR = {"selective_scan_bidir": 36}
 SOURCES = {
     "window_attention_nhwc": ("freqfusion_tpu_torch/csrc/window_attention.cu",
                               "freqfusion_tpu/ops/pallas_attention.py:238"),
@@ -124,6 +161,16 @@ SOURCES = {
                                  "freqfusion_tpu/ops/pallas_attention.py:548"),
     "selective_scan": ("freqfusion_tpu_torch/csrc/selective_scan.cu",
                        "freqfusion_tpu/ops/selective_scan.py:1310"),
+    "selective_scan_chain": ("freqfusion_tpu_torch/csrc/selective_scan.cu",
+                             "freqfusion_tpu/ops/selective_scan.py:771"),
+    "selective_scan_flat": ("freqfusion_tpu_torch/csrc/selective_scan.cu",
+                            "freqfusion_tpu/ops/selective_scan.py:202"),
+    "selective_scan_dirs": ("freqfusion_tpu_torch/csrc/selective_scan.cu",
+                            "freqfusion_tpu/ops/selective_scan.py:346"),
+    "selective_scan_bidir": ("freqfusion_tpu_torch/csrc/selective_scan.cu",
+                             "freqfusion_tpu/ops/selective_scan.py:439"),
+    "selective_scan_spatial": ("freqfusion_tpu_torch/csrc/selective_scan.cu",
+                               "freqfusion_tpu/ops/selective_scan.py:550"),
     "fused_mlp_block": ("freqfusion_tpu_torch/csrc/fused_mlp.cu",
                         "freqfusion_tpu/ops/pallas_mlp.py:85"),
     "cab_fused": ("freqfusion_tpu_torch/csrc/cab.cu",
@@ -178,10 +225,11 @@ class KernelCheck:
         self.shapes = []
 
     def run(self, label: str, kernel, plain, tol_of, flops: float,
-            nbytes: float, library=None) -> None:
+            nbytes: float, library=None, plain_reps: int = 5) -> None:
         """`flops` and `nbytes` count the operations the function does on
         these inputs and the bytes it must move (each input read once,
-        each output written once)."""
+        each output written once). The plain version is timed over
+        `plain_reps` runs after min(2, plain_reps) warm-ups, twice."""
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         outs = got if isinstance(got, tuple) else (got,)
@@ -189,16 +237,18 @@ class KernelCheck:
         err = max((g - w).abs().max().item() for g, w in zip(outs, refs))
         tol = tol_of(refs)
         del got, want, outs, refs
-        plain_ms, ms = cuda_ms(plain), cuda_ms(kernel)
+        warm = min(2, plain_reps)
+        plain_ms, ms = cuda_ms(plain, plain_reps, warm), cuda_ms(kernel)
         lib_ms = None
         if library is not None:
             lib_ms = (cuda_ms(library) + cuda_ms(library)) / 2
-        ms2, plain_ms2 = cuda_ms(kernel), cuda_ms(plain)
+        ms2, plain_ms2 = cuda_ms(kernel), cuda_ms(plain, plain_reps, warm)
         ms, plain_ms = (ms + ms2) / 2, (plain_ms + plain_ms2) / 2
         flop_ms, byte_ms = 1e3 * flops / PEAK_FLOPS, 1e3 * nbytes / PEAK_BYTES
         lib = "" if lib_ms is None else f"  library {lib_ms:.3f} ms"
+        reps = "" if plain_reps == 5 else f" (median of {plain_reps})"
         print(f"  {self.name} {label}: max_abs_err {err:.3e} (tol {tol:.3e})"
-              f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms{lib}"
+              f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms{reps}{lib}"
               f"  bound {max(flop_ms, byte_ms):.3f} ms "
               f"({'operations' if flop_ms >= byte_ms else 'bytes'})")
         if not err <= tol:
@@ -245,9 +295,6 @@ def phase_kernels(dev):
     from freqfusion_tpu_torch.ops.attention import (
         grl_mixed_attention_nhwc, grl_mixed_attention_nhwc_reference,
         window_attention_nhwc, window_attention_nhwc_reference)
-    from freqfusion_tpu_torch.ops.selective_scan import (
-        selective_scan_chain, selective_scan_chain_proj,
-        selective_scan_chain_proj_reference, selective_scan_chain_reference)
     from freqfusion_tpu_torch.ops.window_attention import (
         device_table, shifted_window_mask, window_partition)
 
@@ -258,9 +305,6 @@ def phase_kernels(dev):
 
     def attn_tol(_):
         return ATTN_TOL
-
-    def scan_tol(refs):
-        return SCAN_REL_TOL * refs[0].abs().max().item()
 
     h, w = LR_SIZES["c_336x512"]
     p = h * w
@@ -309,20 +353,62 @@ def phase_kernels(dev):
                lambda: grl_mixed_attention_nhwc_reference(*args), attn_tol,
                p * 90 * (4.0 * 64 + 8 * 16), nbytes)
     del halves, anchor
+    torch.cuda.empty_cache()
+    phase_scan_kernels(dev, randn, checks)
+    torch.cuda.empty_cache()
+    phase_fused_kernels(dev, randn, checks)
+    torch.cuda.empty_cache()
+    phase_qkv_kernels(dev, randn, checks)
+    torch.cuda.empty_cache()
+    phase_fusion_kernels(dev, randn, checks)
+    return checks
 
+
+def scan_tol(refs) -> float:
+    return SCAN_REL_TOL * max(r.abs().max().item() for r in refs)
+
+
+def phase_scan_kernels(dev, randn, checks) -> None:
+    """The scan's seven contracts (TPU kernels #3-#9) at the 336x512
+    bucket's shapes: L = 172,032, D 360, N 16, dt_rank 12, the random
+    S6 init's dt bias and A = -(1..16). #3/#4 and #5 on SS2D's two chain
+    layouts, rows ([1, 512, 336, D]) and columns ([1, 336, 512, D]), each
+    direction; #6 over [1, L, D]; #7 over four directions; #8 as SS2D's
+    bidir route calls it; #9 on the NHWC tensor and its transpose, each
+    direction. The plain versions take ~1 s per direction here, so they
+    are timed over one run after one warm-up (twice)."""
+    import torch.nn.functional as F
+
+    from freqfusion_tpu_torch.ops.selective_scan import (
+        selective_scan_bidir, selective_scan_bidir_reference,
+        selective_scan_chain, selective_scan_chain_proj,
+        selective_scan_chain_proj_reference, selective_scan_chain_reference,
+        selective_scan_dirs, selective_scan_dirs_reference,
+        selective_scan_flat, selective_scan_flat_reference,
+        selective_scan_spatial, selective_scan_spatial_reference)
+
+    h, w = LR_SIZES["c_336x512"]
+    p = h * w
     d, n, dtr = 360, 16, 12
+    g = torch.Generator(device=dev).manual_seed(1)
     xc = randn(1, h, w, d)
     xpw = (torch.rand(44, d, generator=g, device=dev) * 2 - 1) / math.sqrt(d)
     dtw = (torch.rand(d, dtr, generator=g, device=dev) * 2 - 1) / math.sqrt(dtr)
-    dt = torch.exp(torch.rand(d, generator=g, device=dev)
-                   * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
-    bias = dt + torch.log(-torch.expm1(-dt))
+
+    def s6_bias(*lead):
+        dt = torch.exp(torch.rand(*lead, d, generator=g, device=dev)
+                       * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+        return dt + torch.log(-torch.expm1(-dt))
+    bias = s6_bias()
     A = -torch.arange(1, n + 1, device=dev, dtype=torch.float32).repeat(d, 1)
     D = torch.ones(d, device=dev)
-    # operations per (position, channel): 8 per state (exp, the decay and
-    # input products, the state update, C h), 8 for softplus/silu/D u;
-    # chain_proj adds the 44-wide projection and the rank-12 dt expansion
+    # operations per (position, channel) and direction: 8 per state (exp,
+    # the decay and input products, the state update, C h), 8 for
+    # softplus/silu/D u; chain_proj adds the 44-wide projection and the
+    # rank-12 dt expansion. Bytes per direction of the explicit contracts:
+    # u, dt and y [L, D], B and C [L, N], A, D and the bias
     scan_ops = p * d * (8.0 * n + 8)
+    dir_bytes = 4 * (3 * p * d + 2 * p * n + d * (n + 2))
     sc = checks["selective_scan"] = KernelCheck("selective_scan")
     rows = xc.transpose(1, 2).contiguous()
     for label, lay in (("rows", rows), ("cols", xc)):
@@ -332,28 +418,61 @@ def phase_kernels(dev):
                    lambda: selective_scan_chain_proj(*args),
                    lambda: selective_scan_chain_proj_reference(*args),
                    scan_tol, scan_ops + p * d * 2.0 * (44 + dtr),
-                   4 * (2 * p * d + d * (44 + dtr + n + 2)))
-    # selective_scan_chain (explicit u, delta, B, C: the TPU chain kernel
-    # :771) runs the same scan kernels without the projection, under the
-    # same launch counter, so it is checked in the same entry
-    for label, lay, rev in (("rows", rows, False), ("cols", xc, True)):
-        u = F.silu(lay)
-        delta = randn(*lay.shape, scale=0.3)
-        Bm, Cm = randn(*lay.shape[:3], n), randn(*lay.shape[:3], n)
-        args = (u, delta, A, Bm, Cm, D, bias, rev)
-        sc.run(f"chain/{label}/{'rev' if rev else 'fwd'}/T{lay.shape[1]}",
-               lambda: selective_scan_chain(*args),
-               lambda: selective_scan_chain_reference(*args), scan_tol,
-               scan_ops, 4 * (3 * p * d + 2 * p * n + d * (n + 2)))
-        del u, delta, Bm, Cm
-    del xc, rows
+                   4 * (2 * p * d + d * (44 + dtr + n + 2)), plain_reps=1)
+    del rows
     torch.cuda.empty_cache()
-    phase_fused_kernels(dev, randn, checks)
+
+    def operands(lead):
+        """u, dt, B, C as SS2D's routes make them: silu of the conv output,
+        dt around 0, B and C of unit scale."""
+        return (F.silu(randn(*lead, d)), randn(*lead, d, scale=0.3),
+                randn(*lead, n), randn(*lead, n))
+
+    ch = checks["selective_scan_chain"] = KernelCheck("selective_scan_chain")
+    sp = checks["selective_scan_spatial"] = KernelCheck(
+        "selective_scan_spatial")
+    for a, b in ((w, h), (h, w)):
+        u, dt, Bm, Cm = operands((1, a, b))
+        for rev in (False, True):
+            args = (u, dt, A, Bm, Cm, D, bias, rev)
+            # [1, a, b, D] is the rows' layout of the chain contract
+            # (T = a = W) and the columns' of the spatial one (R = a = W),
+            # and the other way round
+            tag = f"{a}x{b}/{'rev' if rev else 'fwd'}"
+            ch.run(tag, lambda: selective_scan_chain(*args),
+                   lambda: selective_scan_chain_reference(*args), scan_tol,
+                   scan_ops, dir_bytes, plain_reps=1)
+            sp.run(tag, lambda: selective_scan_spatial(*args),
+                   lambda: selective_scan_spatial_reference(*args), scan_tol,
+                   scan_ops, dir_bytes, plain_reps=1)
+        del u, dt, Bm, Cm
     torch.cuda.empty_cache()
-    phase_qkv_kernels(dev, randn, checks)
+
+    fl = checks["selective_scan_flat"] = KernelCheck("selective_scan_flat")
+    u, dt, Bm, Cm = operands((1, p))
+    args = (u, dt, A, Bm, Cm, D, bias)
+    fl.run(f"L{p}", lambda: selective_scan_flat(*args),
+           lambda: selective_scan_flat_reference(*args), scan_tol, scan_ops,
+           dir_bytes, plain_reps=1)
+    del u, dt, Bm, Cm, args
     torch.cuda.empty_cache()
-    phase_fusion_kernels(dev, randn, checks)
-    return checks
+
+    # four directions with the S6 init's per-direction dt biases
+    A4, D4, bias4 = A.repeat(4, 1, 1), D.repeat(4, 1), s6_bias(4)
+    di = checks["selective_scan_dirs"] = KernelCheck("selective_scan_dirs")
+    u, dt, Bm, Cm = operands((4, 1, p))
+    args = (u, dt, A4, Bm, Cm, D4, bias4)
+    di.run(f"K4/L{p}", lambda: selective_scan_dirs(*args),
+           lambda: selective_scan_dirs_reference(*args), scan_tol,
+           4 * scan_ops, 4 * dir_bytes, plain_reps=1)
+    # bidir: u [2, 1, L, D] (the row-major and column-major sequences)
+    # read by four directions, the last two backward
+    bi = checks["selective_scan_bidir"] = KernelCheck("selective_scan_bidir")
+    args = (u[:2].contiguous(), dt, A4, Bm, Cm, D4, bias4)
+    bi.run(f"4 dirs/L{p}", lambda: selective_scan_bidir(*args),
+           lambda: selective_scan_bidir_reference(*args), scan_tol,
+           4 * scan_ops, 4 * dir_bytes - 4 * 2 * p * d, plain_reps=1)
+    del u, dt, Bm, Cm, args, xc
 
 
 def _conv_tree(randn, k, cin, cout, groups=1):
@@ -705,11 +824,11 @@ def write_inputs(in_dir: Path, seed: int = 0) -> None:
 
 
 def set_gates(config: str) -> None:
-    """Set the gates of `config` to "1" and clear every other one."""
+    """Set the variables of `config` and clear every other configuration's
+    (FREQFUSION_SCAN included)."""
     for name in {g for gates in CONFIGS.values() for g in gates}:
         os.environ.pop(name, None)
-    for name in CONFIGS[config]:
-        os.environ[name] = "1"
+    os.environ.update(CONFIGS[config])
 
 
 def psnr(a, b) -> float:
@@ -748,7 +867,11 @@ def phase_serving(model_dir: Path, in_dir: Path, out_dir: Path,
     return counts
 
 
-def phase_pipeline_ab(model_dir: Path, image: Path) -> None:
+def phase_pipeline_ab(model_dir: Path, image: Path, configs=tuple(CONFIGS),
+                      rounds: int = 1) -> None:
+    """Seconds per request of the pipeline alone on `image` in each of
+    `configs`: a warm-up of each, then `rounds` times all in order and
+    back."""
     from freqfusion_tpu_torch.interface.io import load_pipeline
     from freqfusion_tpu_torch.utils.image_io import read_image
 
@@ -765,19 +888,77 @@ def phase_pipeline_ab(model_dir: Path, image: Path) -> None:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    order = list(CONFIGS)
+    order = list(configs)
     for config in order:
         run(config)
     times = {config: [] for config in order}
-    for config in order + order[::-1]:
+    for config in (order + order[::-1]) * rounds:
         times[config].append(run(config))
     set_gates("default")
     for config, t in times.items():
+        mean = sum(t) / len(t)
         print(f"  {config}: {' '.join(f'{v:.3f}' for v in t)} s, mean "
-              f"{sum(t) / 2:.3f} s ("
-              f"{4 * lr.shape[2] * 4 * lr.shape[3] / (sum(t) / 2) / 1e6:.3f}"
-              " MP/s)")
+              f"{mean:.3f} s ("
+              f"{4 * lr.shape[2] * 4 * lr.shape[3] / mean / 1e6:.3f} MP/s)")
     del pipe
+
+
+def load_mambair(model_dir: Path, device):
+    """The full-width MambaIR expert alone, from its checkpoint."""
+    from freqfusion_tpu_torch.interface.io import (_TORCH_FILES,
+                                                   load_state_dict_file)
+    from freqfusion_tpu_torch.models.pipeline import build_expert_models
+
+    model = build_expert_models(4, generator=torch.Generator().manual_seed(0),
+                                names=("mamba",))["mamba"]
+    model.load_state_dict(load_state_dict_file(
+        model_dir / _TORCH_FILES["mamba"]))
+    return model.to(device).eval()
+
+
+def phase_bidir(model_dir: Path, image: Path) -> dict:
+    """MambaIR alone on `image` (100x140: neither side a multiple of 8,
+    so SS2D takes the bidir route), not padded: launch counts, output
+    checks and seconds; then the card against the CPU's plain route on the
+    same weights at 20x28. Returns the launch counts."""
+    from freqfusion_tpu_torch.ops import cuda
+    from freqfusion_tpu_torch.utils.image_io import read_image
+
+    model = load_mambair(model_dir, "cuda")
+    lr = torch.from_numpy(read_image(str(image))).permute(2, 0, 1)[None]
+    lr = lr.cuda()
+    h, w = lr.shape[2:]
+    cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        sr, feat = model(lr)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(cuda.launch_counts)
+    print(f"  launch counts: {json.dumps(counts, sort_keys=True)}")
+    if counts != PER_IMAGE_BIDIR:
+        raise AssertionError(f"MambaIR at {h}x{w}: launches {counts}, "
+                             f"expected {PER_IMAGE_BIDIR}")
+    if (sr.shape != (1, 3, 4 * h, 4 * w) or feat.shape != (1, 180, h, w)
+            or not bool(torch.isfinite(sr).all())
+            or not bool(torch.isfinite(feat).all())):
+        raise AssertionError(f"MambaIR at {h}x{w}: bad output {sr.shape} "
+                             f"{feat.shape}")
+    print(f"  MambaIR {h}x{w} -> {4 * h}x{4 * w}: {seconds:.3f} s (first "
+          "call)")
+    x = torch.from_numpy(np.random.default_rng(2).uniform(
+        0, 1, (1, 3, 20, 28)).astype(np.float32))
+    with torch.inference_mode():
+        on_card = model(x.cuda())[0].cpu()
+        on_cpu = load_mambair(model_dir, "cpu")(x)[0]
+    db = psnr(on_card, on_cpu)
+    print(f"  card vs CPU, MambaIR on 20x28 (bidir): max_abs "
+          f"{(on_card - on_cpu).abs().max().item():.3e}, PSNR {db:.2f} dB "
+          f"(min {PSNR_MIN})")
+    if not db >= PSNR_MIN:
+        raise AssertionError(f"bidir card vs CPU PSNR {db:.2f} < {PSNR_MIN}")
+    return counts
 
 
 def phase_card_vs_cpu(model_dir: Path) -> None:
@@ -837,7 +1018,8 @@ def main(argv) -> int:
                               ("--qkv-only", "in-kernel projection",
                                phase_qkv_kernels),
                               ("--fusion-only", "fusion-eval",
-                               phase_fusion_kernels)):
+                               phase_fusion_kernels),
+                              ("--scan-only", "scan", phase_scan_kernels)):
         if flag in argv:
             print(f"[2] the {what} kernels against their plain versions")
             checks = {}
@@ -848,6 +1030,20 @@ def main(argv) -> int:
                 c.entry(0) for c in checks.values()]}))
             print(f"card: {smi}")
             return 0
+
+    if "--pipeline-only" in argv:
+        with tempfile.TemporaryDirectory() as tmp:
+            work = Path(tmp)
+            model_dir, in_dir = work / "models", work / "in"
+            model_dir.mkdir()
+            in_dir.mkdir()
+            write_checkpoints(model_dir)
+            write_inputs(in_dir)
+            print("[3c] pipeline alone, 336x512, default path, 6 runs")
+            phase_pipeline_ab(model_dir, in_dir / "c_336x512.png",
+                              ("default",), rounds=3)
+        print(f"card: {smi}")
+        return 0
 
     print("[2] kernels against their plain versions (336x512 bucket)")
     checks = phase_kernels(dev)
@@ -872,23 +1068,28 @@ def main(argv) -> int:
         for phase, config, per_image in (("3b", "byte-floor", PER_IMAGE_GATED),
                                          ("3d", "projection", PER_IMAGE_QKV),
                                          ("3e", "fusion-eval",
-                                          PER_IMAGE_FUSION)):
+                                          PER_IMAGE_FUSION),
+                                         ("3f", "chainv5", PER_IMAGE_CHAINV5),
+                                         ("3g", "spatial", PER_IMAGE_SPATIAL)):
             print(f"[{phase}] serving, {config} configuration (" + ", ".join(
-                f"{g}=1" for g in CONFIGS[config]) + ")")
+                f"{k}={v}" for k, v in CONFIGS[config].items()) + ")")
             set_gates(config)
             out = work / f"out_{config}"
             counts[config] = phase_serving(model_dir, in_dir, out, per_image)
             db = psnr(read_image(str(out / name)),
                       read_image(str(work / "out" / name)))
-            print(f"  {name}: gates on vs off PSNR {db:.2f} dB "
+            print(f"  {name}: against the default path PSNR {db:.2f} dB "
                   f"(min {PSNR_MIN})")
             if not db >= PSNR_MIN:
-                raise AssertionError(f"{config} gates on vs off PSNR "
-                                     f"{db:.2f} < {PSNR_MIN}")
+                raise AssertionError(f"{config} against the default path "
+                                     f"PSNR {db:.2f} < {PSNR_MIN}")
             set_gates("default")
             torch.cuda.empty_cache()
-        print("[3c] pipeline alone, 336x512, the four configurations in "
-              "turns")
+        print("[3h] MambaIR alone, bidir route, 100x140 not padded")
+        counts["bidir"] = phase_bidir(model_dir, in_dir / "b_100x140.png")
+        torch.cuda.empty_cache()
+        print(f"[3c] pipeline alone, 336x512, the {len(CONFIGS)} "
+              "configurations in turns")
         phase_pipeline_ab(model_dir, in_dir / name)
         torch.cuda.empty_cache()
         for config in CONFIGS:
@@ -898,13 +1099,14 @@ def main(argv) -> int:
         set_gates("default")
 
     # launches: each kernel's count from the run of its own configuration
-    path_of = {k: config for config, per_image in (
+    # (#6 and #7 lie on no path: 0)
+    launches = {k: counts[config].get(k, 0) for config, per_image in (
         ("byte-floor", PER_IMAGE_GATED), ("projection", PER_IMAGE_QKV),
-        ("fusion-eval", PER_IMAGE_FUSION), ("default", PER_IMAGE))
-        for k in per_image}
-    print(json.dumps({"kernels": [
-        c.entry(counts[path_of[c.name]].get(c.name, 0))
-        for c in checks.values()]}))
+        ("fusion-eval", PER_IMAGE_FUSION), ("chainv5", PER_IMAGE_CHAINV5),
+        ("spatial", PER_IMAGE_SPATIAL), ("bidir", PER_IMAGE_BIDIR),
+        ("default", PER_IMAGE)) for k in per_image}
+    print(json.dumps({"kernels": [c.entry(launches.get(c.name, 0))
+                                  for c in checks.values()]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,20 +1,34 @@
-// Exact S6 selective scan over the chain layout, fp32 state.
+// Exact S6 selective scan, fp32 state, over any of the JAX scan kernels'
+// layouts.
 //
 // Replaces the Pallas kernels of freqfusion_tpu/ops/selective_scan.py:
 // selective_scan_pallas_chain_fused (:1310), selective_scan_pallas_chain_proj
 // (:1031) and selective_scan_pallas_chain (:771), which MambaIR's SS2D
-// calls four times per layer (freqfusion_tpu/models/mambair.py:229-243).
-// Tensors are [B, T, R, D]; the scanned sequence is chain 0, then chain 1,
-// ... (position p = r * T + t, L = R * T), forward or reverse:
+// calls four times per layer on its default and chainv5 routes
+// (freqfusion_tpu/models/mambair.py:229-269); selective_scan_pallas_spatial
+// (:550, the spatial route, :271-316); selective_scan_pallas_bidir (:439,
+// the route for sides that are not multiples of 8, :317-343);
+// selective_scan_pallas (:202) and selective_scan_pallas_dirs (:346).
+// Per direction the recurrence is
 //     delta = softplus(dt + bias)
 //     h_p   = exp(delta * A) h_{p-1} + delta * B_p * u_p      (fp32)
 //     y_p   = sum_n C_p[n] h_p[n] + D * u_p
-// reverse=True scans from the last position down and writes y in natural
-// order, with no flipped copy.
+// over positions p = r * T + t, L = R * T, each at row t * st + r * sr of
+// its sequence: the chain layout [B, T, R, D] has st = R, sr = 1; the
+// spatial layout [B, R, T, D] and the flat one [B, L, D] (R = 1) have
+// st = 1, sr = T. A reverse direction scans from the last position down
+// and writes y in natural order, with no flipped copy.
+//
+// One launch scans G parameter groups of Bt sequences each (grid z =
+// g * Bt + b): group g has its own A [D, N], D and bias, its own direction
+// (bit g of rev_mask) and reads u group g % Gu, so SS2D's bidir route scans
+// its four directions from two u tensors in one launch (Gu = 2, groups 2
+// and 3 reversed) and the K-direction contract has Gu = G = K.
 //
 // Two entry points share the scan: (a) the chain_fused / chain_proj
 // contract, u = silu(xc) with dt/B/C projected from u in a hand-written
-// kernel here, and (b) the chain contract with u, dt, B, C given.
+// kernel here, and (b) the explicit contract with u, dt, B, C given, in
+// any of the layouts above.
 //
 // What bounds it on the H100: a serial walk over L = 336 * 512 = 172,032
 // positions per (b, d) would use 360 threads of the card. The work is
@@ -26,9 +40,12 @@
 // one thread per (chunk, channel d) holding all N <= 16 states in
 // registers. Pass 1 walks each chunk from a zero state and keeps its decay
 // product P and end state H; a short pass composes the chunk carries
-// serially per (b, d, n); pass 2 re-walks each chunk from its true initial
-// state and writes y. Per-position rows shared by all channels (dt_low,
-// B, C) are staged in shared memory once per chunk.
+// serially per (sequence, d, n); pass 2 re-walks each chunk from its true
+// initial state and writes y. Per-position rows shared by all channels
+// (dt_low, B, C) are staged in shared memory once per chunk. The Pallas
+// kernels' tiling knobs (chunk, inner, the padding of L and of D to lane
+// multiples, the approximate per-chain init) do not carry over: the scan
+// is exact for any D and L.
 //
 // Projections: the TPU kernel composes the two dt projections into one
 // [D, D] weight (x_proj_w[:r]^T dt_proj_w^T) because the MXU favours one
@@ -59,42 +76,50 @@ __device__ __forceinline__ float softplus(float x) {
 }
 
 struct ScanArgs {
-  const float* x;       // u, or xc (pre-silu) when silu != 0; [B, T, R, D]
-  const float* delta;   // dt [B, T, R, D], or null: dt = dt_low . dt_w[d]
+  const float* x;       // u, or xc (pre-silu) when silu != 0
+  const float* delta;   // dt, or null: dt = dt_low . dt_w[d]
   const float* dt_low;  // rows of ld_dbl floats, first dt_rank used
   const float* dt_w;    // [D, dt_rank]
   const float* Bm;      // rows of ld_bc floats, first N used
   const float* Cm;
-  const float* A;       // [D, N], already negative
-  const float* Dskip;   // [D]
-  const float* bias;    // [D]
-  float* y;             // [B, T, R, D]
-  float* P;             // [B, nchunk, D, N] chunk decay products
-  float* Hc;            // [B, nchunk, D, N] chunk end states, then inits
-  int T, R, L, D, N, dt_rank, ld_dbl, ld_bc, chunk, nchunk, reverse, silu;
+  const float* A;       // [G, D, N], already negative
+  const float* Dskip;   // [G, D]
+  const float* bias;    // [G, D]
+  float* y;             // [G, Bt, L, D] in the layout of x
+  float* P;             // [G * Bt, nchunk, D, N] chunk decay products
+  float* Hc;            // [G * Bt, nchunk, D, N] chunk end states, then inits
+  int Bt, Gu;           // sequences per group; x holds Gu groups of Bt
+  int T, R, L, st, sr;  // position r * T + t lies at row t * st + r * sr
+  int D, N, dt_rank, ld_dbl, ld_bc, chunk, nchunk, rev_mask, silu;
 };
 
-// Row of scan step s of batch b in the [B, T, R] flattening.
-__device__ __forceinline__ long long row_of(const ScanArgs& a, int b, int s) {
-  const int p = a.reverse ? a.L - 1 - s : s;
+// Row, within its sequence, of scan step s.
+__device__ __forceinline__ int row_of(const ScanArgs& a, int s, bool reverse) {
+  const int p = reverse ? a.L - 1 - s : s;
   const int r = p / a.T, t = p - r * a.T;
-  return (long long)b * a.L + (long long)t * a.R + r;
+  return t * a.st + r * a.sr;
 }
 
 template <bool kFinal>
 __global__ void __launch_bounds__(kScanThreads)
 scan_chunk_kernel(ScanArgs a) {
   extern __shared__ float staged[];
-  const int c = blockIdx.x, b = blockIdx.z;
+  const int c = blockIdx.x, z = blockIdx.z;  // z = g * Bt + b
+  const int g = z / a.Bt;
+  const bool reverse = (a.rev_mask >> g) & 1;
   const int d = blockIdx.y * blockDim.x + threadIdx.x;
   const int s0 = c * a.chunk;
   const int len = min(a.chunk, a.L - s0);
   const int nr = a.delta ? 0 : a.dt_rank;
   const int width = nr + 2 * a.N;
+  // first row of this sequence in delta / dt_low / B / C / y, and in x
+  const long long brow = (long long)z * a.L;
+  const long long xrow =
+      ((long long)(g % a.Gu) * a.Bt + (z - g * a.Bt)) * a.L;
 
   for (int e = threadIdx.x; e < len * width; e += blockDim.x) {
     const int i = e / width, f = e - i * width;
-    const long long row = row_of(a, b, s0 + i);
+    const long long row = brow + row_of(a, s0 + i, reverse);
     float val;
     if (f < nr) val = a.dt_low[row * a.ld_dbl + f];
     else if (f < nr + a.N) val = a.Bm[row * a.ld_bc + (f - nr)];
@@ -106,24 +131,24 @@ scan_chunk_kernel(ScanArgs a) {
 
   // exp(delta A) = exp2(delta A log2(e)): one ex2 per state and step
   float A2[kMaxState], h[kMaxState], P[kMaxState], wdt[kMaxRank];
-  const long long so = (((long long)b * a.nchunk + c) * a.D + d) * a.N;
+  const long long so = (((long long)z * a.nchunk + c) * a.D + d) * a.N;
+  const int gd = g * a.D + d;
 #pragma unroll
   for (int n = 0; n < kMaxState; ++n) {
-    A2[n] = n < a.N ? a.A[d * a.N + n] * 1.4426950408889634f : 0.f;
+    A2[n] = n < a.N ? a.A[gd * a.N + n] * 1.4426950408889634f : 0.f;
     h[n] = (kFinal && n < a.N) ? a.Hc[so + n] : 0.f;
     P[n] = 1.f;
   }
 #pragma unroll
   for (int k = 0; k < kMaxRank; ++k) wdt[k] = k < nr ? a.dt_w[d * nr + k] : 0.f;
-  const float bias = a.bias[d], dskip = a.Dskip[d];
+  const float bias = a.bias[gd], dskip = a.Dskip[gd];
 
   // (t, r) of the chunk's first position, then stepped without division
-  const int p0 = a.reverse ? a.L - 1 - s0 : s0;
+  const int p0 = reverse ? a.L - 1 - s0 : s0;
   int r = p0 / a.T, t = p0 - r * a.T;
-  const long long brow = (long long)b * a.L;
   for (int i = 0; i < len; ++i) {
-    const long long row = brow + (long long)t * a.R + r;
-    if (a.reverse) {
+    const int rel = t * a.st + r * a.sr;
+    if (reverse) {
       if (--t < 0) {
         t = a.T - 1;
         --r;
@@ -132,21 +157,22 @@ scan_chunk_kernel(ScanArgs a) {
       t = 0;
       ++r;
     }
-    const float xv = a.x[row * a.D + d];
+    const long long row = brow + rel;
+    const float xv = a.x[(xrow + rel) * a.D + d];
     const float u = a.silu ? silu(xv) : xv;
-    const float* st = staged + i * width;
+    const float* sv = staged + i * width;
     float dt;
     if (nr) {
       dt = 0.f;
 #pragma unroll
       for (int k = 0; k < kMaxRank; ++k)
-        if (k < nr) dt = fmaf(st[k], wdt[k], dt);
+        if (k < nr) dt = fmaf(sv[k], wdt[k], dt);
     } else {
       dt = a.delta[row * a.D + d];
     }
     dt = softplus(dt + bias);
     const float du = dt * u;
-    const float* bs = st + nr;
+    const float* bs = sv + nr;
     const float* cs = bs + a.N;
     float yv = 0.f;
 #pragma unroll
@@ -245,7 +271,8 @@ bool fits_int(int T, int R, int chunk) {
   return (long long)T * R + chunk <= 0x7fffffffLL;
 }
 
-cudaError_t run_scan(ScanArgs a, int B, cudaStream_t stream) {
+// Three passes over `seqs` = G * Bt sequences.
+cudaError_t run_scan(ScanArgs a, int seqs, cudaStream_t stream) {
   const int width = (a.delta ? 0 : a.dt_rank) + 2 * a.N;
   const size_t smem = size_t(a.chunk) * width * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -256,13 +283,13 @@ cudaError_t run_scan(ScanArgs a, int B, cudaStream_t stream) {
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              int(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.nchunk, (a.D + kScanThreads - 1) / kScanThreads, B);
+  const dim3 grid(a.nchunk, (a.D + kScanThreads - 1) / kScanThreads, seqs);
   scan_chunk_kernel<false><<<grid, kScanThreads, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const long long total = (long long)B * a.D * a.N;
+  const long long total = (long long)seqs * a.D * a.N;
   scan_compose_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      a.P, a.Hc, B, a.nchunk, a.D * a.N);
+      a.P, a.Hc, seqs, a.nchunk, a.D * a.N);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   scan_chunk_kernel<true><<<grid, kScanThreads, smem, stream>>>(a);
@@ -294,32 +321,40 @@ extern "C" int ff_selective_scan_proj(
   a.x = xc; a.delta = nullptr; a.dt_low = x_dbl; a.dt_w = dt_proj_w;
   a.Bm = x_dbl + dt_rank; a.Cm = x_dbl + dt_rank + N;
   a.A = A; a.Dskip = Dskip; a.bias = bias; a.y = y; a.P = P; a.Hc = Hc;
-  a.T = T; a.R = R; a.D = D; a.N = N; a.dt_rank = dt_rank;
+  a.Bt = B; a.Gu = 1;
+  a.T = T; a.R = R; a.L = T * R; a.st = R; a.sr = 1;
+  a.D = D; a.N = N; a.dt_rank = dt_rank;
   a.ld_dbl = K; a.ld_bc = K; a.chunk = chunk;
-  a.L = T * R;
   a.nchunk = (a.L + chunk - 1) / chunk;
-  a.reverse = reverse; a.silu = 1;
+  a.rev_mask = reverse ? 1 : 0; a.silu = 1;
   return int(run_scan(a, B, s));
 }
 
-// (b) chain contract. u, delta [B, T, R, D]; Bm, Cm [B, T, R, N]; the rest
-// as in (a).
+// (b) explicit contract: G groups of B sequences of L = T * R positions,
+// position r * T + t at row t * st + r * sr. u [Gu, B, L rows, D] (group g
+// reads u group g % Gu); delta [G, B, L rows, D]; Bm, Cm [G, B, L rows, N];
+// A [G, D, N]; Dskip, bias [G, D]; y like delta; P, Hc scratch
+// [G * B, nchunk, D, N]. Group g scans in reverse when bit g of rev_mask
+// is set. All fp32 contiguous.
 extern "C" int ff_selective_scan(const float* u, const float* delta,
                                  const float* A, const float* Bm,
                                  const float* Cm, const float* Dskip,
                                  const float* bias, float* y, float* P,
-                                 float* Hc, int B, int T, int R, int D, int N,
-                                 int reverse, int chunk, void* stream) {
-  if (N > kMaxState || !fits_int(T, R, chunk))
+                                 float* Hc, int G, int Gu, int B, int T,
+                                 int R, int st, int sr, int D, int N,
+                                 int rev_mask, int chunk, void* stream) {
+  if (N > kMaxState || G < 1 || G > 31 || Gu < 1 || G % Gu != 0 ||
+      (long long)G * B > 65535 || !fits_int(T, R, chunk))
     return int(cudaErrorInvalidValue);
   ScanArgs a;
   a.x = u; a.delta = delta; a.dt_low = nullptr; a.dt_w = nullptr;
   a.Bm = Bm; a.Cm = Cm; a.A = A; a.Dskip = Dskip; a.bias = bias;
   a.y = y; a.P = P; a.Hc = Hc;
-  a.T = T; a.R = R; a.D = D; a.N = N; a.dt_rank = 0;
+  a.Bt = B; a.Gu = Gu;
+  a.T = T; a.R = R; a.L = T * R; a.st = st; a.sr = sr;
+  a.D = D; a.N = N; a.dt_rank = 0;
   a.ld_dbl = 0; a.ld_bc = N; a.chunk = chunk;
-  a.L = T * R;
   a.nchunk = (a.L + chunk - 1) / chunk;
-  a.reverse = reverse; a.silu = 0;
-  return int(run_scan(a, B, static_cast<cudaStream_t>(stream)));
+  a.rev_mask = rev_mask; a.silu = 0;
+  return int(run_scan(a, G * B, static_cast<cudaStream_t>(stream)));
 }

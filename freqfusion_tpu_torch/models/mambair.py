@@ -6,19 +6,36 @@ LN -> SS2D (2-D selective scan over rows and columns, each forward and
 reverse) with a skip scale, then LN -> CAB with a skip scale.
 FREQFUSION_DWCONV=1 runs SS2D's depthwise conv through ``ops/dwconv.py``
 and FREQFUSION_CAB=1 the LN -> CAB -> skip half through ``ops/cab.py``, as
-``freqfusion_tpu/models/mambair.py:88,423`` gate them. SS2D's four
-directions run through ``ops/selective_scan.py:selective_scan_chain_proj``
-(silu and the dt/B/C projections inside, exact cross-chain state): the
-row directions read the [B, W, H, D] transpose (sequence h * W + w), the
-column directions the NHWC tensor itself (sequence w * H + h). Returns
-(sr, conv_after_body feature). Module names follow the reference state
-dict (layers.i.residual_group.blocks.j.{ln_1, self_attention.*,
+``freqfusion_tpu/models/mambair.py:88,423`` gate them.
+
+SS2D's four directions (0 row-major, 1 column-major, 2 and 3 their
+reversals) run on one of the JAX package's scan routes, chosen at forward
+time by :func:`scan_route` as the JAX SS2D chooses with its kernels on
+(``freqfusion_tpu/models/mambair.py:118-135``); each runs the entries of
+``ops/selective_scan.py``, whose plain versions take CPU tensors:
+
+- chain (default): ``selective_scan_chain_proj`` x4, silu and the dt/B/C
+  projections inside; the row directions read the [B, W, H, D] transpose
+  (sequence h * W + w), the column directions the NHWC tensor itself
+  (sequence w * H + h);
+- chainv5: the same layouts, the projections in PyTorch, then
+  ``selective_scan_chain`` x4;
+- spatial: the projections in PyTorch, then ``selective_scan_spatial`` x4,
+  the row directions over the NHWC tensor, the column ones over its
+  transpose;
+- bidir (H or W not a multiple of 8): the projections of all four
+  directions from the two unflipped sequences, then one
+  ``selective_scan_bidir``.
+
+Returns (sr, conv_after_body feature). Module names follow the reference
+state dict (layers.i.residual_group.blocks.j.{ln_1, self_attention.*,
 skip_scale, conv_blk.cab.*, ln_2, skip_scale2}, layers.i.conv, ...).
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -26,12 +43,28 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.dwconv import dwconv3x3
-from ..ops.selective_scan import selective_scan_chain_proj
+from ..ops.selective_scan import (selective_scan_bidir, selective_scan_chain,
+                                  selective_scan_chain_proj,
+                                  selective_scan_spatial)
 from .common import (RGB_MEAN, PatchEmbed, conv_nhwc, gate, hwio,
                      init_weights, pixel_shuffle_upsampler, to_nchw, to_nhwc)
 from .grl import CAB
 
-__all__ = ["SS2D", "VSSBlock", "MambaIR"]
+__all__ = ["SS2D", "VSSBlock", "MambaIR", "scan_route"]
+
+
+def scan_route(h: int, w: int) -> str:
+    """SS2D's scan route for an H x W feature map: "bidir" when H or W is
+    not a multiple of 8; else "chain" for FREQFUSION_SCAN unset, "chain"
+    or "chainproj", "chainv5" for "chainv5", and "spatial" for any other
+    value ("xla" included), as the JAX package routes with its kernels
+    on."""
+    if h % 8 or w % 8:
+        return "bidir"
+    impl = os.environ.get("FREQFUSION_SCAN", "chain")
+    if impl in ("chain", "chainproj"):
+        return "chain"
+    return "chainv5" if impl == "chainv5" else "spatial"
 
 
 class SS2D(nn.Module):
@@ -81,18 +114,74 @@ class SS2D(nn.Module):
             xc = conv_nhwc(self.conv2d, xc)
         A = -torch.exp(self.A_logs.float()).view(4, d, self.d_state)
         Ds = self.Ds.view(4, d)
-        y = None
-        # rows read [B, W, H, D] (directions 0, 2); columns NHWC (1, 3)
-        for first, lay in ((0, xc.transpose(1, 2).contiguous()), (1, xc)):
-            pair = None
-            for k in (first, first + 2):
-                yk = selective_scan_chain_proj(
-                    lay, self.x_proj_weight[k], self.dt_projs_weight[k], A[k],
-                    Ds[k], self.dt_projs_bias[k], reverse=k >= 2)
-                pair = yk if pair is None else pair + yk
-            y = pair.transpose(1, 2) if first == 0 else y + pair
+        bias = self.dt_projs_bias
+        route = scan_route(xc.shape[1], xc.shape[2])
+        if route == "chain":
+            y = self._directions(xc, True, lambda k, lay: (
+                selective_scan_chain_proj(
+                    lay, self.x_proj_weight[k], self.dt_projs_weight[k],
+                    A[k], Ds[k], bias[k], reverse=k >= 2)))
+        elif route == "bidir":
+            y = self._bidir(F.silu(xc), A, Ds)
+        else:
+            scan = (selective_scan_chain if route == "chainv5"
+                    else selective_scan_spatial)
+
+            def one(k, lay):
+                dt, B, C = self._project(lay, k)
+                return scan(lay, dt, A[k], B, C, Ds[k], bias[k],
+                            reverse=k >= 2)
+            y = self._directions(F.silu(xc), route == "chainv5", one)
         y = self.out_norm(y.to(x.dtype))
         return self.out_proj(y * F.silu(z))
+
+    @staticmethod
+    def _directions(xc: torch.Tensor, rows_transposed: bool, scan
+                    ) -> torch.Tensor:
+        """The sum of the four directions over xc [B, H, W, D]:
+        `scan(k, layout)` scans direction k over `layout`, xc or its
+        [B, W, H, D] transpose. The row directions (0, 2) read the
+        transpose when `rows_transposed` (the chain layout [B, T, R, D],
+        T = W), else xc (the spatial layout [B, R, T, D], R = H); the
+        column directions (1, 3) read the other one."""
+        xt = xc.transpose(1, 2).contiguous()
+        y = None
+        for first, lay in ((0, xt if rows_transposed else xc),
+                           (1, xc if rows_transposed else xt)):
+            pair = scan(first, lay) + scan(first + 2, lay)
+            if lay is xt:
+                pair = pair.transpose(1, 2)
+            y = pair if y is None else y + pair
+        return y
+
+    def _project(self, u: torch.Tensor, k: int):
+        """Direction k's dt [.., D], B and C [.., N] from u [.., D], as the
+        JAX chainv5 and spatial routes' einsums compute them."""
+        r, n = self.dt_rank, self.d_state
+        dbl = F.linear(u, self.x_proj_weight[k])
+        dt = F.linear(dbl[..., :r], self.dt_projs_weight[k])
+        return dt, dbl[..., r:r + n].contiguous(), dbl[..., r + n:].contiguous()
+
+    def _bidir(self, u: torch.Tensor, A: torch.Tensor, Ds: torch.Tensor
+               ) -> torch.Tensor:
+        """The bidir route over u [B, H, W, D] (post-silu): direction k's
+        projections from the row-major (k even) or column-major sequence,
+        one scan of all four, the backward outputs already in natural
+        order."""
+        b, h, w, d = u.shape
+        l, r, n = h * w, self.dt_rank, self.d_state
+        xs2 = torch.stack([u.reshape(b, l, d),
+                           u.transpose(1, 2).reshape(b, l, d)])
+        # [4, C, D] -> [fwd/bwd, row/col, C, D]: direction k = 2 j + i
+        w4 = self.x_proj_weight.view(2, 2, r + 2 * n, d)
+        dbl = torch.einsum("ibld,jicd->jiblc", xs2, w4).reshape(4, b, l, -1)
+        dts = torch.einsum("kblr,kdr->kbld", dbl[..., :r],
+                           self.dt_projs_weight).contiguous()
+        y_fwd, y_bwd = selective_scan_bidir(
+            xs2, dts, A, dbl[..., r:r + n].contiguous(),
+            dbl[..., r + n:].contiguous(), Ds, self.dt_projs_bias)
+        y_col = (y_fwd[1] + y_bwd[1]).view(b, w, h, d).transpose(1, 2)
+        return (y_fwd[0] + y_bwd[0]).view(b, h, w, d) + y_col
 
 
 class VSSBlock(nn.Module):

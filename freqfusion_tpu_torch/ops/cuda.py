@@ -12,7 +12,10 @@ everything it needs by itself. A missing ``nvcc`` or a failed build
 raises with the compiler's output.
 
 ``launch_counts`` counts, per kernel wrapper, the calls that launched the
-kernel, so a run can show that the main path went through it.
+kernel, so a run can show that the main path went through it. The scan's
+entries count apart: ``selective_scan`` (chain_proj, TPU kernels #3/#4),
+``selective_scan_chain`` (#5), ``selective_scan_flat``, ``_dirs``,
+``_bidir`` and ``_spatial`` (#6-#9).
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ _SIGNATURES = {
     "ff_window_attention_nhwc": [_P] * 6 + [_I] * 6 + [_F, _P],
     "ff_grl_mixed_attention_nhwc": [_P] * 16 + [_I] * 8 + [_P],
     "ff_selective_scan_proj": [_P] * 10 + [_I] * 8 + [_P],
-    "ff_selective_scan": [_P] * 10 + [_I] * 7 + [_P],
+    "ff_selective_scan": [_P] * 10 + [_I] * 11 + [_P],
     "ff_fused_mlp": [_P] * 8 + [_I] * 4 + [_F, _F, _P],
     "ff_cab_tiles": [_I] * 3,
     "ff_cab_pool": [_P] * 10 + [_I] * 5 + [_F, _P],

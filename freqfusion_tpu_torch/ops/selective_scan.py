@@ -7,17 +7,27 @@ batch b, channel d, state n, over sequence position t:
     h_t   = exp(delta_t * A) * h_{t-1} + delta_t * B_t * u_t      (fp32)
     y_t   = sum_n C_t[n] * h_t[n] + D * u_t
 
-``selective_scan`` is the plain PyTorch version over [B, L, D]. The chain
-functions take the JAX chain kernels' layout, [B, T, R, D], whose scanned
-sequence is chain 0, then chain 1, ... (position r * T + t), and scan it
-forward or, with ``reverse=True``, from the last position down; y stays
-in natural order. ``selective_scan_chain_proj`` is the
-chain_fused/chain_proj contract (pre-silu xc, projections inside),
-``selective_scan_chain`` the chain contract (u, dt, B, C given). A CPU
-tensor goes to the plain version; a CUDA tensor goes to
-``csrc/selective_scan.cu`` or the call raises. The approximate per-chain
-init and the 360 -> 384 channel padding of the TPU kernels are not
-carried over: the port is exact for any D and L.
+``selective_scan`` is the plain PyTorch version over [B, L, D]. The
+entries take the JAX scan kernels' contracts and layouts:
+
+- ``selective_scan_chain_proj`` (chain_fused / chain_proj, TPU kernels
+  #3/#4): pre-silu xc [B, T, R, D], projections inside;
+- ``selective_scan_chain`` (chain, #5): u, dt, B, C given, [B, T, R, D],
+  whose scanned sequence is chain 0, then chain 1, ... (position r * T + t);
+- ``selective_scan_flat`` (#6): [B, L, D];
+- ``selective_scan_dirs`` (#7): K directions [K, B, L, D], each with its
+  own A, D and bias;
+- ``selective_scan_bidir`` (#8): SS2D's four directions from two unflipped
+  sequences, the last two scanned backward;
+- ``selective_scan_spatial`` (#9): one direction over [B, R, T, D], the
+  NHWC rows in sequence order (position r * T + t).
+
+``reverse=True`` scans from the last position down; y stays in natural
+order. Every entry returns fp32. A CPU tensor goes to the plain version
+(``*_reference``); a CUDA tensor goes to ``csrc/selective_scan.cu`` or the
+call raises. All entries share one strided CUDA scan. The approximate
+per-chain init and the 360 -> 384 channel padding of the TPU kernels are
+not carried over: the port is exact for any D and L.
 """
 
 from __future__ import annotations
@@ -31,7 +41,11 @@ from . import cuda
 
 __all__ = ["selective_scan", "selective_scan_chain",
            "selective_scan_chain_reference", "selective_scan_chain_proj",
-           "selective_scan_chain_proj_reference"]
+           "selective_scan_chain_proj_reference", "selective_scan_flat",
+           "selective_scan_flat_reference", "selective_scan_dirs",
+           "selective_scan_dirs_reference", "selective_scan_bidir",
+           "selective_scan_bidir_reference", "selective_scan_spatial",
+           "selective_scan_spatial_reference"]
 
 _CHUNK = 256  # scan steps per CUDA block (csrc/selective_scan.cu)
 
@@ -77,28 +91,30 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     return y
 
 
-def _to_seq(x: torch.Tensor, reverse: bool) -> torch.Tensor:
-    """[B, T, R, F] -> [B, R*T, F] in scan order."""
+def _seq_scan(u, delta, A, B, C, D, delta_bias, reverse: bool
+              ) -> torch.Tensor:
+    """Plain scan over [B, L, *], backward when `reverse` (flip, scan,
+    flip back)."""
+    if not reverse:
+        return selective_scan(u, delta, A, B, C, D, delta_bias=delta_bias)
+    u, delta, B, C = (x.flip(1) for x in (u, delta, B, C))
+    return selective_scan(u, delta, A, B, C, D,
+                          delta_bias=delta_bias).flip(1)
+
+
+def _to_seq(x: torch.Tensor) -> torch.Tensor:
+    """[B, T, R, F] -> [B, R*T, F] in sequence order."""
     b, t, r, f = x.shape
-    s = x.permute(0, 2, 1, 3).reshape(b, r * t, f)
-    return s.flip(1) if reverse else s
-
-
-def _from_seq(y: torch.Tensor, t: int, r: int, reverse: bool) -> torch.Tensor:
-    if reverse:
-        y = y.flip(1)
-    b, _, f = y.shape
-    return y.reshape(b, r, t, f).permute(0, 2, 1, 3).contiguous()
+    return x.permute(0, 2, 1, 3).reshape(b, r * t, f)
 
 
 def selective_scan_chain_reference(u, delta, A, B, C, D, delta_bias,
                                    reverse: bool = False) -> torch.Tensor:
     """Plain version of :func:`selective_scan_chain`."""
-    _, t, r, _ = u.shape
-    y = selective_scan(_to_seq(u, reverse), _to_seq(delta, reverse), A,
-                       _to_seq(B, reverse), _to_seq(C, reverse), D,
-                       delta_bias=delta_bias)
-    return _from_seq(y, t, r, reverse)
+    b, t, r, d = u.shape
+    y = _seq_scan(_to_seq(u), _to_seq(delta), A, _to_seq(B), _to_seq(C), D,
+                  delta_bias, reverse)
+    return y.reshape(b, r, t, d).permute(0, 2, 1, 3).contiguous()
 
 
 def selective_scan_chain_proj_reference(xc, x_proj_w, dt_proj_w, A, D,
@@ -116,11 +132,44 @@ def selective_scan_chain_proj_reference(xc, x_proj_w, dt_proj_w, A, D,
         reverse)
 
 
-def _scratch(x: torch.Tensor, d: int, n: int):
-    b, t, r, _ = x.shape
-    nchunk = -(-(t * r) // _CHUNK)
-    return (torch.empty(b, nchunk, d, n, device=x.device, dtype=torch.float32),
-            torch.empty(b, nchunk, d, n, device=x.device, dtype=torch.float32))
+def selective_scan_flat_reference(u, delta, A, B, C, D, delta_bias
+                                  ) -> torch.Tensor:
+    """Plain version of :func:`selective_scan_flat`."""
+    return selective_scan(u, delta, A, B, C, D, delta_bias=delta_bias)
+
+
+def selective_scan_dirs_reference(u, delta, A, B, C, D, delta_bias
+                                  ) -> torch.Tensor:
+    """Plain version of :func:`selective_scan_dirs`."""
+    return torch.stack([
+        selective_scan(u[k], delta[k], A[k], B[k], C[k], D[k],
+                       delta_bias=delta_bias[k]) for k in range(u.shape[0])])
+
+
+def selective_scan_bidir_reference(u, delta, A, B, C, D, delta_bias):
+    """Plain version of :func:`selective_scan_bidir`."""
+    ys = [_seq_scan(u[k % 2], delta[k], A[k], B[k], C[k], D[k],
+                    delta_bias[k], k >= 2) for k in range(4)]
+    return torch.stack(ys[:2]), torch.stack(ys[2:])
+
+
+def selective_scan_spatial_reference(u, delta, A, B, C, D, delta_bias,
+                                     reverse: bool = False) -> torch.Tensor:
+    """Plain version of :func:`selective_scan_spatial`."""
+    b, r, t, d = u.shape
+
+    def seq(x):
+        return x.reshape(b, r * t, x.shape[-1])
+    return _seq_scan(seq(u), seq(delta), A, seq(B), seq(C), D, delta_bias,
+                     reverse).reshape(b, r, t, d)
+
+
+def _scratch(x: torch.Tensor, seqs: int, length: int, d: int, n: int):
+    nchunk = -(-length // _CHUNK)
+    return (torch.empty(seqs, nchunk, d, n, device=x.device,
+                        dtype=torch.float32),
+            torch.empty(seqs, nchunk, d, n, device=x.device,
+                        dtype=torch.float32))
 
 
 def _require_cuda(x: torch.Tensor, name: str) -> None:
@@ -128,34 +177,122 @@ def _require_cuda(x: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: unsupported device {x.device}")
 
 
+def _launch(name: str, u, delta, A, B, C, D, delta_bias, u_lead: tuple,
+            lead: tuple, group: tuple, t: int, r: int, st: int, sr: int,
+            rev_mask: int) -> torch.Tensor:
+    """Check the operands of an explicit-contract entry and run the strided
+    scan kernel over them. delta, B, C and y are [*lead, D or N], u is
+    [*u_lead, D]: sequences of L = t * r positions, position i * t + j
+    (j < t) at row j * st + i * sr of its sequence. `group` is () for one
+    parameter group (A [D, N], D and delta_bias [D]) or (G,), when
+    lead[0] = G indexes the groups (A [G, D, N], D and delta_bias [G, D])
+    and u_lead[0] u's groups (group g reads u group g % u_lead[0]). Group
+    g scans backward when bit g of `rev_mask` is set."""
+    d, n = u.shape[-1], A.shape[-1]
+    dev = u.device
+    cuda.require(u, "u", u_lead + (d,), dev)
+    cuda.require(delta, "delta", lead + (d,), dev)
+    cuda.require(A, "A", group + (d, n), dev)
+    cuda.require(B, "B", lead + (n,), dev)
+    cuda.require(C, "C", lead + (n,), dev)
+    cuda.require(D, "D", group + (d,), dev)
+    cuda.require(delta_bias, "delta_bias", group + (d,), dev)
+    groups, u_groups = (group[0], u_lead[0]) if group else (1, 1)
+    seqs = delta.numel() // (t * r * d)
+    y = torch.empty_like(delta)
+    P, Hc = _scratch(u, seqs, t * r, d, n)
+    err = cuda.library().ff_selective_scan(
+        *(cuda.ptr(x) for x in (u, delta, A, B, C, D, delta_bias, y, P, Hc)),
+        groups, u_groups, seqs // groups, t, r, st, sr, d, n, rev_mask,
+        _CHUNK, cuda.stream(u))
+    cuda.check(err, name)
+    cuda.launch_counts[name] += 1
+    return y
+
+
 def selective_scan_chain(u: torch.Tensor, delta: torch.Tensor,
                          A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                          D: torch.Tensor, delta_bias: torch.Tensor,
                          reverse: bool = False) -> torch.Tensor:
-    """Chain contract: u, delta [B, T, R, D]; B, C [B, T, R, N]; A [D, N];
-    D, delta_bias [D]. Returns fp32 y [B, T, R, D]."""
+    """Chain contract (TPU kernel #5): u, delta [B, T, R, D]; B, C
+    [B, T, R, N]; A [D, N]; D, delta_bias [D]. Returns fp32 y
+    [B, T, R, D]."""
     if u.device.type == "cpu":
         return selective_scan_chain_reference(u, delta, A, B, C, D,
                                               delta_bias, reverse)
     _require_cuda(u, "selective_scan_chain")
-    b, t, r, d = u.shape
-    n = A.shape[-1]
-    dev = u.device
-    cuda.require(u, "u", (b, t, r, d), dev)
-    cuda.require(delta, "delta", (b, t, r, d), dev)
-    cuda.require(A, "A", (d, n), dev)
-    cuda.require(B, "B", (b, t, r, n), dev)
-    cuda.require(C, "C", (b, t, r, n), dev)
-    cuda.require(D, "D", (d,), dev)
-    cuda.require(delta_bias, "delta_bias", (d,), dev)
-    y = torch.empty_like(u)
-    P, Hc = _scratch(u, d, n)
-    err = cuda.library().ff_selective_scan(
-        *(cuda.ptr(x) for x in (u, delta, A, B, C, D, delta_bias, y, P, Hc)),
-        b, t, r, d, n, int(reverse), _CHUNK, cuda.stream(u))
-    cuda.check(err, "selective_scan_chain")
-    cuda.launch_counts["selective_scan"] += 1
-    return y
+    b, t, r, _ = u.shape
+    return _launch("selective_scan_chain", u, delta, A, B, C, D, delta_bias,
+                   (b, t, r), (b, t, r), (), t, r, r, 1, int(reverse))
+
+
+def selective_scan_flat(u: torch.Tensor, delta: torch.Tensor,
+                        A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                        D: torch.Tensor, delta_bias: torch.Tensor
+                        ) -> torch.Tensor:
+    """Flat contract (TPU kernel #6): u, delta [B, L, D]; B, C [B, L, N];
+    A [D, N]; D, delta_bias [D]. Returns fp32 y [B, L, D]."""
+    if u.device.type == "cpu":
+        return selective_scan_flat_reference(u, delta, A, B, C, D, delta_bias)
+    _require_cuda(u, "selective_scan_flat")
+    b, l, _ = u.shape
+    return _launch("selective_scan_flat", u, delta, A, B, C, D, delta_bias,
+                   (b, l), (b, l), (), l, 1, 1, l, 0)
+
+
+def selective_scan_dirs(u: torch.Tensor, delta: torch.Tensor,
+                        A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                        D: torch.Tensor, delta_bias: torch.Tensor
+                        ) -> torch.Tensor:
+    """K-direction contract (TPU kernel #7): u, delta [K, B, L, D]; B, C
+    [K, B, L, N]; A [K, D, N]; D, delta_bias [K, D]; every direction
+    forward. Returns fp32 y [K, B, L, D]."""
+    if u.device.type == "cpu":
+        return selective_scan_dirs_reference(u, delta, A, B, C, D, delta_bias)
+    _require_cuda(u, "selective_scan_dirs")
+    k, b, l, _ = u.shape
+    return _launch("selective_scan_dirs", u, delta, A, B, C, D, delta_bias,
+                   (k, b, l), (k, b, l), (k,), l, 1, 1, l, 0)
+
+
+def selective_scan_bidir(u: torch.Tensor, delta: torch.Tensor,
+                         A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                         D: torch.Tensor, delta_bias: torch.Tensor):
+    """SS2D's four directions from unflipped sequences (TPU kernel #8).
+
+    u [2, B, L, D] (row-major, column-major); delta [4, B, L, D] and B, C
+    [4, B, L, N] for the directions (row-fwd, col-fwd, row-bwd, col-bwd),
+    all computed from the unflipped sequences; A [4, D, N]; D, delta_bias
+    [4, D]. Direction k reads u[k % 2]; directions 2 and 3 run the suffix
+    recurrence. Returns (y_fwd, y_bwd), each fp32 [2, B, L, D] in natural
+    order, from one launch."""
+    if u.device.type == "cpu":
+        return selective_scan_bidir_reference(u, delta, A, B, C, D,
+                                              delta_bias)
+    _require_cuda(u, "selective_scan_bidir")
+    _, b, l, _ = u.shape
+    y = _launch("selective_scan_bidir", u, delta, A, B, C, D, delta_bias,
+                (2, b, l), (4, b, l), (4,), l, 1, 1, l, 0b1100)
+    return y[:2], y[2:]
+
+
+def selective_scan_spatial(u: torch.Tensor, delta: torch.Tensor,
+                           A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                           D: torch.Tensor, delta_bias: torch.Tensor,
+                           reverse: bool = False) -> torch.Tensor:
+    """One direction over a spatial layout (TPU kernel #9): u, delta
+    [B, R, T, D], R rows of T positions in sequence order (row-major: the
+    NHWC tensor itself; column-major: its [B, W, H, D] transpose); B, C
+    [B, R, T, N]; A [D, N]; D, delta_bias [D]. ``reverse=True`` runs the
+    suffix recurrence over the same layout. Returns fp32 y [B, R, T, D]."""
+    if u.device.type == "cpu":
+        return selective_scan_spatial_reference(u, delta, A, B, C, D,
+                                                delta_bias, reverse)
+    _require_cuda(u, "selective_scan_spatial")
+    b, r, t, _ = u.shape
+    return _launch("selective_scan_spatial", u, delta, A, B, C, D,
+                   delta_bias, (b, r, t), (b, r, t), (), t, r, 1, t,
+                   int(reverse))
 
 
 def selective_scan_chain_proj(xc: torch.Tensor, x_proj_w: torch.Tensor,
@@ -186,7 +323,7 @@ def selective_scan_chain_proj(xc: torch.Tensor, x_proj_w: torch.Tensor,
                          f"dt_rank={dtr} must be <= 16")
     x_dbl = torch.empty(b * t * r, k, device=dev, dtype=torch.float32)
     y = torch.empty_like(xc)
-    P, Hc = _scratch(xc, d, n)
+    P, Hc = _scratch(xc, b, t * r, d, n)
     err = cuda.library().ff_selective_scan_proj(
         *(cuda.ptr(x) for x in (xc, x_proj_w, dt_proj_w, A, D, delta_bias,
                                 x_dbl, y, P, Hc)),

@@ -30,8 +30,12 @@ from freqfusion_tpu_torch.ops.attention import (
     window_attention_nhwc, window_attention_nhwc_reference,
     window_attention_qkv_nhwc, window_attention_qkv_nhwc_reference)
 from freqfusion_tpu_torch.ops.selective_scan import (
-    selective_scan_chain, selective_scan_chain_proj,
-    selective_scan_chain_proj_reference, selective_scan_chain_reference)
+    selective_scan_bidir, selective_scan_bidir_reference, selective_scan_chain,
+    selective_scan_chain_proj, selective_scan_chain_proj_reference,
+    selective_scan_chain_reference, selective_scan_dirs,
+    selective_scan_dirs_reference, selective_scan_flat,
+    selective_scan_flat_reference, selective_scan_spatial,
+    selective_scan_spatial_reference)
 from freqfusion_tpu_torch.ops.token_attention import (
     token_attention, token_attention_reference)
 from freqfusion_tpu_torch.ops.window_attention import shifted_window_mask
@@ -125,6 +129,70 @@ def test_scan_kernels(reverse):
                                                reverse)
     torch.cuda.synchronize()
     assert (got - want).abs().max() <= SCAN_REL_TOL * want.abs().max()
+
+
+def _scan_inputs(rng, lead, d, n, dev, group=()):
+    """u, dt, A, B, C, D, bias on the card: u and dt [*lead, d], B and C
+    [*lead, n], A [*group, d, n], D and bias [*group, d]."""
+    return (_t(rng.normal(size=lead + (d,)), dev),
+            _t(0.3 * rng.normal(size=lead + (d,)), dev),
+            _t(-np.exp(rng.uniform(0, 2.7, group + (d, n))), dev),
+            _t(rng.normal(size=lead + (n,)), dev),
+            _t(rng.normal(size=lead + (n,)), dev),
+            _t(rng.normal(size=group + (d,)), dev),
+            _t(0.1 * rng.normal(size=group + (d,)), dev))
+
+
+def _scan_close(got, want, name):
+    torch.cuda.synchronize()
+    assert cuda.launch_counts[name] == 1
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert (g - w).abs().max() <= SCAN_REL_TOL * w.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n", [(360, 16), (24, 4)])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_scan_chain_and_spatial_kernels(d, n, reverse):
+    """#5 over [B, T, R, D] and #9 over [B, R, T, D], batch 2, L = 37 * 29
+    = 1073: four whole 256-step chunks and a ragged one, each direction;
+    D 24 leaves most of a 128-channel block idle."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(17 + reverse)
+    args = _scan_inputs(rng, (2, 37, 29), d, n, dev)
+    cuda.reset_launch_counts()
+    _scan_close(selective_scan_chain(*args, reverse),
+                selective_scan_chain_reference(*args, reverse),
+                "selective_scan_chain")
+    cuda.reset_launch_counts()
+    _scan_close(selective_scan_spatial(*args, reverse=reverse),
+                selective_scan_spatial_reference(*args, reverse=reverse),
+                "selective_scan_spatial")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n", [(360, 16), (24, 4)])
+def test_scan_flat_dirs_bidir_kernels(d, n):
+    """#6 over [B, L, D], #7 over four directions with their own A, D and
+    bias, and #8 (two u tensors, directions 2 and 3 backward): batch 2,
+    L = 1000, a ragged last chunk."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(23)
+    args = _scan_inputs(rng, (2, 1000), d, n, dev)
+    cuda.reset_launch_counts()
+    _scan_close(selective_scan_flat(*args),
+                selective_scan_flat_reference(*args), "selective_scan_flat")
+    u, *rest = _scan_inputs(rng, (4, 2, 1000), d, n, dev, (4,))
+    cuda.reset_launch_counts()
+    _scan_close(selective_scan_dirs(u, *rest),
+                selective_scan_dirs_reference(u, *rest),
+                "selective_scan_dirs")
+    args = (u[:2].contiguous(), *rest)
+    cuda.reset_launch_counts()
+    _scan_close(selective_scan_bidir(*args),
+                selective_scan_bidir_reference(*args), "selective_scan_bidir")
 
 
 def _fused_close(got, want):
