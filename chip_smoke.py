@@ -15,6 +15,10 @@ exits non-zero without the final ok line):
    the kernel's and the plain version's times and, where one PyTorch call
    computes the same function, that call's (CUDA events, median of 5
    after warm-up), beside the bound the card's peaks set for the work.
+   Window attention (#1) runs at DRCT-L's ten shapes; its window-major
+   form (#10, on no path) on the same windows partitioned, bit-equal to
+   #1 and timed beside it. The one-pass LayerNorm (#22, on no path) runs
+   at 172,032 rows and the experts' six LN widths, beside F.layer_norm.
    The scan's seven contracts (TPU kernels #3-#9) run at L = 172,032,
    D 360, N 16: chain_proj and chain on both chain layouts and spatial on
    the NHWC tensor and its transpose, each direction; flat; four
@@ -35,6 +39,10 @@ exits non-zero without the final ok line):
    reference file names, three LR PNGs (128x128, 100x140, 336x512)
    through ``freqfusion_tpu_torch.interface.io.main(..., device="cuda")``,
    output checks, the kernels' launch counts and the seconds per request;
+3i. serving other inputs, default path: an 8x12 PNG (shorter than the
+   pad to 16), a BMP copy of the 128x128 input (its output equal to phase
+   3's) and a JPEG (served where PIL imports, else named and counted as
+   skipped) through ``io.main``, with the launch counts per served image;
 3b. serving, byte-floor configuration: the same with FREQFUSION_MLP,
    _CAB, _NAFBLOCK and _DWCONV set to "1", its launch counts, and its
    336x512 output against phase 3's (PSNR >= 60 dB);
@@ -64,7 +72,8 @@ exits non-zero without the final ok line):
    configuration; PSNR >= 60 dB.
 
 The last three lines are {"kernels": [...]} (each kernel with its launch
-count from the run of its own configuration; #6 and #7 lie on no path),
+count from the run of its own configuration; #6, #7, #10 and #22 lie on
+no path),
 the card's name and power limit (card: ...), and
 {"ok": true, "device": {...}}.
 
@@ -72,11 +81,14 @@ the card's name and power limit (card: ...), and
     python3 chip_smoke.py --qkv-only
     python3 chip_smoke.py --fusion-only
     python3 chip_smoke.py --scan-only
+    python3 chip_smoke.py --nhwc-attention-only
 
 run phase 1 and phase 2's four byte-floor kernels, its three in-kernel
-projection kernels, its four fusion-eval kernels, or the scan's seven
-contracts, only (to compare two versions of them in one call), and print
-their summary instead of the ok line.
+projection kernels, its four fusion-eval kernels, the scan's seven
+contracts, or window attention #1 alone at its ten shapes, only (to
+compare two versions of them in one call; the last also runs beside an
+older checkout of the package), and print their summary instead of the ok
+line.
 
     python3 chip_smoke.py --pipeline-only
 
@@ -88,10 +100,14 @@ checkout's pipeline the same way.
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import io
 import json
 import math
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -108,6 +124,9 @@ SCAN_REL_TOL = 1e-3    # scan, max-abs relative to max |y_ref|
 # and the four fusion-eval kernels: fp32 sums of up to 9 x 976 terms in
 # another order, max-abs relative to max(1, max |out_ref|)
 FUSED_REL_TOL = 1e-4
+# one-pass LayerNorm: rsqrtf (2 ulp) and row sums in another order,
+# max-abs relative to max(1, max |out_ref|)
+LN_REL_TOL = 1e-5
 PSNR_MIN = 60.0
 PEAK_FLOPS = 67e12     # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3
@@ -157,6 +176,8 @@ PER_IMAGE_BIDIR = {"selective_scan_bidir": 36}
 SOURCES = {
     "window_attention_nhwc": ("freqfusion_tpu_torch/csrc/window_attention.cu",
                               "freqfusion_tpu/ops/pallas_attention.py:238"),
+    "window_attention": ("freqfusion_tpu_torch/csrc/window_attention.cu",
+                         "freqfusion_tpu/ops/pallas_attention.py:95"),
     "grl_mixed_attention_nhwc": ("freqfusion_tpu_torch/csrc/grl_attention.cu",
                                  "freqfusion_tpu/ops/pallas_attention.py:548"),
     "selective_scan": ("freqfusion_tpu_torch/csrc/selective_scan.cu",
@@ -195,6 +216,8 @@ SOURCES = {
                           "freqfusion_tpu/ops/pallas_edge.py:143"),
     "edge_fuse_fused": ("freqfusion_tpu_torch/csrc/edge.cu",
                         "freqfusion_tpu/ops/pallas_edge.py:255"),
+    "fused_layernorm": ("freqfusion_tpu_torch/csrc/layernorm.cu",
+                        "freqfusion_tpu/ops/layernorm.py:70"),
 }
 
 
@@ -225,11 +248,12 @@ class KernelCheck:
         self.shapes = []
 
     def run(self, label: str, kernel, plain, tol_of, flops: float,
-            nbytes: float, library=None, plain_reps: int = 5) -> None:
+            nbytes: float, library=None, plain_reps: int = 5) -> float:
         """`flops` and `nbytes` count the operations the function does on
         these inputs and the bytes it must move (each input read once,
         each output written once). The plain version is timed over
-        `plain_reps` runs after min(2, plain_reps) warm-ups, twice."""
+        `plain_reps` runs after min(2, plain_reps) warm-ups, twice.
+        Returns the kernel's time in ms."""
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         outs = got if isinstance(got, tuple) else (got,)
@@ -262,6 +286,7 @@ class KernelCheck:
         self.byte_ms += byte_ms
         self.bound_ms += max(flop_ms, byte_ms)
         self.shapes.append(label)
+        return ms
 
     def route(self, label: str, on, off, what_off: str) -> None:
         """Time the gated route (`on`, the kernel and what the module does
@@ -289,14 +314,104 @@ def fused_tol(refs) -> float:
     return FUSED_REL_TOL * max(1.0, refs[0].abs().max().item())
 
 
-def phase_kernels(dev):
+def ln_tol(refs) -> float:
+    return LN_REL_TOL * max(1.0, refs[0].abs().max().item())
+
+
+def phase_window_kernels(dev, randn, checks, window_major: bool = True
+                         ) -> None:
+    """Kernel #1 at DRCT-L's ten shapes (five widths, shifted and not) on
+    the 336x512 bucket's NHWC tensors, and (`window_major`) #10 on the same
+    windows partitioned ([672, 256, C]), its output held bit-equal to #1's
+    and its time printed beside #1's. SDPA on the partitioned, head-split
+    windows is both kernels' library yardstick."""
     import torch.nn.functional as F
 
     from freqfusion_tpu_torch.ops.attention import (
-        grl_mixed_attention_nhwc, grl_mixed_attention_nhwc_reference,
         window_attention_nhwc, window_attention_nhwc_reference)
     from freqfusion_tpu_torch.ops.window_attention import (
         device_table, shifted_window_mask, window_partition)
+
+    def attn_tol(_):
+        return ATTN_TOL
+
+    h, w = LR_SIZES["c_336x512"]
+    p = h * w
+    wa = checks["window_attention_nhwc"] = KernelCheck("window_attention_nhwc")
+    if window_major:
+        from freqfusion_tpu_torch.ops.attention import (
+            window_attention, window_attention_reference)
+        wm = checks["window_attention"] = KernelCheck("window_attention")
+    for c, heads in ((180, 6), (212, 4), (244, 2), (276, 6), (308, 4)):
+        q, k, v = (randn(1, h, w, c) for _ in range(3))
+        bias = randn(heads, 256, 256, scale=0.5)
+        hd = c // heads
+        # the library yardstick: SDPA on pre-partitioned windows with the
+        # additive bias (+ mask) materialised per window
+        qw, kw, vw = (window_partition(t, 16).contiguous() for t in (q, k, v))
+        qh, kh, vh = (t.view(-1, 256, heads, hd).transpose(1, 2).contiguous()
+                      for t in (qw, kw, vw))
+        for shift in (0, 8):
+            mask = device_table(shifted_window_mask, h, w, 16, shift,
+                                device=dev)
+            add = bias[None] if mask is None else bias[None] + mask[:, None]
+            args = (q, k, v, bias, mask, heads, 16)
+            nbytes = 4 * (4 * p * c + bias.numel()
+                          + (0 if mask is None else mask.numel()))
+            label = f"C{c}/hd{hd}/{'mask' if shift else 'nomask'}"
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qh, kh, vh,
+                                                      attn_mask=add,
+                                                      scale=hd ** -0.5)
+            ms_nhwc = wa.run(label, lambda: window_attention_nhwc(*args),
+                             lambda: window_attention_nhwc_reference(*args),
+                             attn_tol, 4.0 * p * 256 * c, nbytes, sdpa)
+            if window_major:
+                wargs = (qw, kw, vw, bias, mask, heads)
+                ms_wm = wm.run(label, lambda: window_attention(*wargs),
+                               lambda: window_attention_reference(*wargs),
+                               attn_tol, 4.0 * p * 256 * c, nbytes, sdpa)
+                same = torch.equal(window_attention(*wargs), window_partition(
+                    window_attention_nhwc(*args), 16))
+                print(f"  window_attention {label}: {ms_wm:.3f} ms against "
+                      f"#1's {ms_nhwc:.3f} ms on the same windows; outputs "
+                      f"{'bit-equal' if same else 'DIFFER'}")
+                if not same:
+                    raise AssertionError(f"window_attention {label}: output "
+                                         "differs from #1's")
+            del add
+        del q, k, v, qw, kw, vw, qh, kh, vh
+    torch.cuda.empty_cache()
+
+
+def phase_layernorm_kernel(dev, randn, checks) -> None:
+    """Kernel #22 at 172,032 rows (the 336x512 bucket's tokens) and the
+    experts' six LN widths, fp32, with F.layer_norm as the library call.
+    Bound: bytes, x in and out once (about 8 operations an element)."""
+    import torch.nn.functional as F
+
+    from freqfusion_tpu_torch.ops.layernorm import (fused_layernorm,
+                                                    fused_layernorm_reference)
+
+    rows = LR_SIZES["c_336x512"][0] * LR_SIZES["c_336x512"][1]
+    ln = checks["fused_layernorm"] = KernelCheck("fused_layernorm")
+    for c in (180, 212, 244, 276, 308, 360):
+        x = randn(rows, c)
+        wt, b = 1 + randn(c, scale=0.1), randn(c, scale=0.1)
+        ln.run(f"R{rows}/C{c}", lambda: fused_layernorm(x, wt, b),
+               lambda: fused_layernorm_reference(x, wt, b), ln_tol,
+               8.0 * rows * c, 4 * (2 * rows * c + 2 * c),
+               lambda: F.layer_norm(x, (c,), wt, b, 1e-5))
+        del x
+    torch.cuda.empty_cache()
+
+
+def phase_kernels(dev):
+    from freqfusion_tpu_torch.ops.attention import (
+        grl_mixed_attention_nhwc, grl_mixed_attention_nhwc_reference)
+    from freqfusion_tpu_torch.ops.window_attention import (
+        device_table, shifted_window_mask)
 
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -309,31 +424,7 @@ def phase_kernels(dev):
     h, w = LR_SIZES["c_336x512"]
     p = h * w
     checks = {}
-    wa = checks["window_attention_nhwc"] = KernelCheck("window_attention_nhwc")
-    for c, heads in ((180, 6), (212, 4), (244, 2), (276, 6), (308, 4)):
-        q, k, v = (randn(1, h, w, c) for _ in range(3))
-        bias = randn(heads, 256, 256, scale=0.5)
-        hd = c // heads
-        # the library yardstick: SDPA on pre-partitioned windows with the
-        # additive bias (+ mask) materialised per window
-        qh, kh, vh = (window_partition(t, 16).view(-1, 256, heads, hd)
-                      .transpose(1, 2).contiguous() for t in (q, k, v))
-        for shift in (0, 8):
-            mask = device_table(shifted_window_mask, h, w, 16, shift,
-                                device=dev)
-            add = bias[None] if mask is None else bias[None] + mask[:, None]
-            args = (q, k, v, bias, mask, heads, 16)
-            nbytes = 4 * (4 * p * c + bias.numel()
-                          + (0 if mask is None else mask.numel()))
-            wa.run(f"C{c}/hd{hd}/{'mask' if shift else 'nomask'}",
-                   lambda: window_attention_nhwc(*args),
-                   lambda: window_attention_nhwc_reference(*args), attn_tol,
-                   4.0 * p * 256 * c, nbytes,
-                   lambda: F.scaled_dot_product_attention(
-                       qh, kh, vh, attn_mask=add, scale=hd ** -0.5))
-            del add
-        del qh, kh, vh
-
+    phase_window_kernels(dev, randn, checks)
     ga = checks["grl_mixed_attention_nhwc"] = KernelCheck(
         "grl_mixed_attention_nhwc")
     halves = [randn(1, h, w, 90) for _ in range(6)]
@@ -361,6 +452,8 @@ def phase_kernels(dev):
     phase_qkv_kernels(dev, randn, checks)
     torch.cuda.empty_cache()
     phase_fusion_kernels(dev, randn, checks)
+    torch.cuda.empty_cache()
+    phase_layernorm_kernel(dev, randn, checks)
     return checks
 
 
@@ -867,6 +960,84 @@ def phase_serving(model_dir: Path, in_dir: Path, out_dir: Path,
     return counts
 
 
+def write_bmp(path: Path, img: np.ndarray) -> None:
+    """uint8 [H, W, 3] RGB as an uncompressed 24-bit bottom-up BMP (BGR
+    rows padded to 4 bytes)."""
+    h, w, _ = img.shape
+    stride = (3 * w + 3) // 4 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :3 * w] = img[::-1, :, ::-1].reshape(h, 3 * w)
+    body = rows.tobytes()
+    with open(path, "wb") as f:
+        f.write(struct.pack("<2sIHHI", b"BM", 54 + len(body), 0, 0, 54))
+        f.write(struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, len(body),
+                            2835, 2835, 0, 0))
+        f.write(body)
+
+
+def phase_formats(model_dir: Path, in_dir: Path, work: Path) -> dict:
+    """Serve an 8x12 PNG (shorter than the pad to 16), a BMP copy of the
+    128x128 input and a JPEG through io.main on the card. The JPEG is
+    written with PIL where PIL imports and must be served; otherwise it is
+    a file only a JPEG decoder could read, and the run must name it and
+    count it as skipped. Checks the default path's launch counts per
+    served image, the outputs, and the BMP's output against phase 3's
+    output of the same image as a PNG (equal). Returns the launch
+    counts."""
+    from freqfusion_tpu_torch.interface.io import main
+    from freqfusion_tpu_torch.ops import cuda
+    from freqfusion_tpu_torch.utils.image_io import read_image, write_image
+
+    src, out = work / "in_formats", work / "out_formats"
+    src.mkdir()
+    write_image(str(src / "a_8x12.png"),
+                np.random.default_rng(3).uniform(0, 1, (8, 12, 3)))
+    img = np.round(read_image(str(in_dir / "a_128x128.png")) * 255).astype(
+        np.uint8)
+    write_bmp(src / "b_128x128.bmp", img)
+    sizes = {"a_8x12.png": (8, 12), "b_128x128.bmp": img.shape[:2]}
+    crop = np.ascontiguousarray(img[:40, :56])
+    try:
+        from PIL import Image
+        Image.fromarray(crop).save(src / "c_40x56.jpg", quality=90)
+        sizes["c_40x56.jpg"] = crop.shape[:2]
+    except ImportError:
+        (src / "c_40x56.jpg").write_bytes(b"\xff\xd8\xff\xd9")  # SOI, EOI
+    cuda.reset_launch_counts()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        seconds = main(str(model_dir), str(src), str(out), device="cuda")
+    counts = dict(cuda.launch_counts)
+    print(log.getvalue(), end="")
+    print(f"  launch counts: {json.dumps(counts, sort_keys=True)}")
+    if sorted(seconds) != sorted(sizes):
+        raise AssertionError(f"served {sorted(seconds)}, expected "
+                             f"{sorted(sizes)}")
+    if "c_40x56.jpg" not in sizes and not (
+            "c_40x56.jpg skipped: " in log.getvalue()
+            and "skipped 1: c_40x56.jpg" in log.getvalue()):
+        raise AssertionError("the undecodable JPEG was not named and counted")
+    for name in set(PER_IMAGE) | set(counts):
+        want = PER_IMAGE.get(name, 0) * len(sizes)
+        if counts.get(name, 0) != want:
+            raise AssertionError(f"{name}: {counts.get(name, 0)} launches, "
+                                 f"expected {want}")
+    for name, (h, w) in sizes.items():
+        sr = read_image(str(out / f"{Path(name).stem}.png"))
+        if (sr.shape != (4 * h, 4 * w, 3) or not np.isfinite(sr).all()
+                or sr.std() <= 0.01):
+            raise AssertionError(f"{name}: bad output {sr.shape}")
+        print(f"  {name}: {h}x{w} -> {4 * h}x{4 * w}, "
+              f"{seconds[name]:.3f} s/request")
+    same = np.array_equal(read_image(str(out / "b_128x128.png")),
+                          read_image(str(work / "out" / "a_128x128.png")))
+    print(f"  b_128x128.bmp against phase 3's a_128x128.png: "
+          f"{'equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("the BMP's output differs from the PNG's")
+    return counts
+
+
 def phase_pipeline_ab(model_dir: Path, image: Path, configs=tuple(CONFIGS),
                       rounds: int = 1) -> None:
     """Seconds per request of the pipeline alone on `image` in each of
@@ -1019,7 +1190,10 @@ def main(argv) -> int:
                                phase_qkv_kernels),
                               ("--fusion-only", "fusion-eval",
                                phase_fusion_kernels),
-                              ("--scan-only", "scan", phase_scan_kernels)):
+                              ("--scan-only", "scan", phase_scan_kernels),
+                              ("--nhwc-attention-only", "window attention (#1)",
+                               functools.partial(phase_window_kernels,
+                                                 window_major=False))):
         if flag in argv:
             print(f"[2] the {what} kernels against their plain versions")
             checks = {}
@@ -1063,6 +1237,10 @@ def main(argv) -> int:
               "default path")
         counts = {"default": phase_serving(model_dir, in_dir, work / "out",
                                            PER_IMAGE)}
+        torch.cuda.empty_cache()
+        print("[3i] serving an 8x12 PNG, a BMP copy of the 128x128 PNG and "
+              "a JPEG, default path")
+        counts["formats"] = phase_formats(model_dir, in_dir, work)
         torch.cuda.empty_cache()
         name = "c_336x512.png"
         for phase, config, per_image in (("3b", "byte-floor", PER_IMAGE_GATED),

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 __all__ = ["from_jax_nafnet", "from_jax_drct", "from_jax_grl",
-           "from_jax_mamba", "from_jax_fusion"]
+           "from_jax_mamba", "from_jax_fusion", "from_jax_layernorm"]
 
 _LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
          "var": "running_var"}
@@ -45,7 +45,7 @@ def _convert(variables: Mapping[str, Any],
     out: Dict[str, torch.Tensor] = {}
     for collection, tree in variables.items():
         for path, value in _flatten(tree):
-            w = np.asarray(value, dtype=np.float32)
+            w = np.array(value, dtype=np.float32)  # a writable copy
             module, leaf = _module_path(path[:-1]), path[-1]
             if leaf == "kernel":
                 w = w.transpose(3, 2, 0, 1) if w.ndim == 4 else w.T
@@ -122,3 +122,9 @@ def from_jax_fusion(variables) -> Dict[str, torch.Tensor]:
         elif k.endswith("freq_mask_logits"):
             sd[k] = sd[k].permute(0, 3, 1, 2).contiguous()
     return sd
+
+
+def from_jax_layernorm(variables) -> Dict[str, torch.Tensor]:
+    """JAX ``FusedLayerNorm`` params ({"scale", "bias"}) ->
+    ``ops.layernorm.FusedLayerNorm`` state dict ({"weight", "bias"})."""
+    return _convert(variables, lambda name: name)

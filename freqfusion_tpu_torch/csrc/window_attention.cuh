@@ -3,7 +3,11 @@
 // window_attention_qkv.cu (q, k, v as the column thirds of one projected
 // [B, H, W, 3C] tensor). Per (batch, ws x ws window, head):
 //     out = softmax(q k^T * scale + bias[h] + mask[w]) v
-// with window partition and reverse folded into the addressing.
+// with window partition and reverse folded into the addressing. The
+// template flag WM selects the window-major form instead (TPU kernel #10,
+// q/k/v [B_, N, C] with the windows already partitioned): token i of
+// window b is row b * N + i, its mask is mask[b % nW], and N is any size;
+// the NHWC form's code is unchanged by the flag.
 //
 // What bounds it on the H100: DRCT-L's dense blocks have head dims 30, 53,
 // 122, 46 and 77 (C = 180..308 over 6/4/2/6/4 heads), window 16 (N = 256).
@@ -57,8 +61,11 @@ __host__ __device__ constexpr int kt_floats(int hdp) {
 }
 
 // q, k, v: pixel rows of `ldi` floats (C for separate tensors, 3 C for one
-// packed projection); out: pixel rows of C floats.
-template <int DPT>  // head dims per thread in P V: 16 * DPT >= hd
+// packed projection); out: pixel rows of C floats. The window-major form
+// reads only wm_n (N) and wm_nw (nW) of the geometry; the NHWC form reads
+// H, W and ws and not those two.
+template <int DPT,   // head dims per thread in P V: 16 * DPT >= hd
+          bool WM>   // window-major [B_, N, C] rows instead of NHWC
 __global__ void __launch_bounds__(kThreads)
 window_attention_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
@@ -66,7 +73,8 @@ window_attention_kernel(const float* __restrict__ q,
                         const float* __restrict__ bias,
                         const float* __restrict__ mask,
                         float* __restrict__ out,
-                        int H, int W, int C, int hd, int ws, float scale) {
+                        int H, int W, int C, int hd, int ws, float scale,
+                        int wm_n, int wm_nw) {
   constexpr int hdp = 16 * DPT;
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);  // [hdp][kLd] q^T * scale
@@ -74,21 +82,25 @@ window_attention_kernel(const float* __restrict__ q,
   float* pt = kt;  // [kTile][kTile] P^T, once S is in registers
   float* vs = kt + kt_floats(hdp);              // [kTile][hdp] v of a tile
 
-  const int n = ws * ws;
-  const int nww = W / ws;
-  const int nw_img = (H / ws) * nww;
-  const int b = blockIdx.x / nw_img;
-  const int win = blockIdx.x % nw_img;
+  const int n = WM ? wm_n : ws * ws;
+  const int nww = WM ? 1 : W / ws;
+  const int nw_img = WM ? wm_nw : (H / ws) * nww;
+  const int b = WM ? blockIdx.x : blockIdx.x / nw_img;
+  const int win = blockIdx.x % nw_img;  // the mask's window
   const int wy = win / nww, wx = win % nww;
   const int head = blockIdx.y;
   const int q0 = blockIdx.z * kTile;
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
 
-  // NHWC pixel index of window token i.
+  // Row of window token i: its NHWC pixel, or b * N + i window-major.
   auto pixel = [&](int i) -> long long {
-    const int y = wy * ws + i / ws, x = wx * ws + i % ws;
-    return ((long long)b * H + y) * W + x;
+    if constexpr (WM) {
+      return (long long)b * n + i;
+    } else {
+      const int y = wy * ws + i / ws, x = wx * ws + i % ws;
+      return ((long long)b * H + y) * W + x;
+    }
   };
   const int ch0 = head * hd;
 
@@ -238,24 +250,50 @@ window_attention_kernel(const float* __restrict__ q,
   }
 }
 
-template <int DPT>
+// One launch over `windows` windows of n tokens: the NHWC form's geometry
+// is (B, H, W, ws), the window-major form's (n, nw).
+template <int DPT, bool WM>
 cudaError_t window_attention_launch_dpt(
     const float* q, const float* k, const float* v, int ldi,
-    const float* bias, const float* mask, float* out, int B, int H, int W,
-    int C, int num_heads, int ws, float scale, cudaStream_t stream) {
+    const float* bias, const float* mask, float* out, int windows, int n,
+    int H, int W, int C, int num_heads, int ws, int nw, float scale,
+    cudaStream_t stream) {
   const int hd = C / num_heads;
-  const int n = ws * ws;
   const size_t smem = (size_t(16) * DPT * kLd + kt_floats(16 * DPT) +
                        size_t(kTile) * 16 * DPT) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      window_attention_kernel<DPT>,
+      window_attention_kernel<DPT, WM>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * (H / ws) * (W / ws), num_heads,
-                  (n + kTile - 1) / kTile);
-  window_attention_kernel<DPT><<<grid, kThreads, smem, stream>>>(
-      q, k, v, ldi, bias, mask, out, H, W, C, hd, ws, scale);
+  const dim3 grid(windows, num_heads, (n + kTile - 1) / kTile);
+  window_attention_kernel<DPT, WM><<<grid, kThreads, smem, stream>>>(
+      q, k, v, ldi, bias, mask, out, H, W, C, hd, ws, scale, n, nw);
   return cudaGetLastError();
+}
+
+// Dims per thread sized to DRCT-L's head dims (30, 46, 53, 77, 122 ->
+// 2, 3, 4, 5, 8): unused dims cost FMAs on every key. hd <= 256.
+template <bool WM>
+cudaError_t window_attention_dispatch(
+    const float* q, const float* k, const float* v, int ldi,
+    const float* bias, const float* mask, float* out, int windows, int n,
+    int H, int W, int C, int num_heads, int ws, int nw, float scale,
+    cudaStream_t s) {
+  const int dpt = (C / num_heads + 15) / 16;
+#define FF_WINDOW_LAUNCH(P)                                                  \
+  if (dpt <= P)                                                              \
+    return window_attention_launch_dpt<P, WM>(q, k, v, ldi, bias, mask, out, \
+                                              windows, n, H, W, C, num_heads, \
+                                              ws, nw, scale, s);
+  FF_WINDOW_LAUNCH(2)
+  FF_WINDOW_LAUNCH(3)
+  FF_WINDOW_LAUNCH(4)
+  FF_WINDOW_LAUNCH(5)
+  FF_WINDOW_LAUNCH(6)
+  FF_WINDOW_LAUNCH(8)
+  FF_WINDOW_LAUNCH(16)
+#undef FF_WINDOW_LAUNCH
+  return cudaErrorInvalidValue;
 }
 
 // q, k, v: [B, H, W] pixels of `ldi` floats, each head's hd channels at
@@ -267,22 +305,9 @@ cudaError_t window_attention_launch(const float* q, const float* k,
                                     float* out, int B, int H, int W, int C,
                                     int num_heads, int ws, float scale,
                                     cudaStream_t s) {
-  const int dpt = (C / num_heads + 15) / 16;
-#define FF_WINDOW_LAUNCH(P)                                                  \
-  if (dpt <= P)                                                              \
-    return window_attention_launch_dpt<P>(q, k, v, ldi, bias, mask, out, B,  \
-                                          H, W, C, num_heads, ws, scale, s);
-  // dims per thread sized to DRCT-L's head dims (30, 46, 53, 77, 122 ->
-  // 2, 3, 4, 5, 8): unused dims cost FMAs on every key
-  FF_WINDOW_LAUNCH(2)
-  FF_WINDOW_LAUNCH(3)
-  FF_WINDOW_LAUNCH(4)
-  FF_WINDOW_LAUNCH(5)
-  FF_WINDOW_LAUNCH(6)
-  FF_WINDOW_LAUNCH(8)
-  FF_WINDOW_LAUNCH(16)
-#undef FF_WINDOW_LAUNCH
-  return cudaErrorInvalidValue;
+  return window_attention_dispatch<false>(
+      q, k, v, ldi, bias, mask, out, B * (H / ws) * (W / ws), ws * ws, H, W,
+      C, num_heads, ws, 0, scale, s);
 }
 
 }  // namespace

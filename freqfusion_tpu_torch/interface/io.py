@@ -2,10 +2,16 @@
 
 Counterpart of ``freqfusion_tpu/interface/io.py``. Loads the reference
 torch checkpoints by their file names (``_TORCH_FILES``) straight into the
-port's modules by state-dict name, runs x4 SR over every PNG in
-``input_path`` and writes PNGs to ``output_path``. A missing expert
-checkpoint degrades that expert (bilinear image, zero features), a missing
-fusion checkpoint gives a seeded random fusion net; both are reported.
+port's modules by state-dict name, runs x4 SR over every image in
+``input_path`` and writes PNGs to ``output_path``. DRCT's and MambaIR's
+geometry is read from their checkpoints' tensor shapes
+(``convert/drct.py``, ``convert/mambair.py``). An expert whose checkpoint
+is missing or does not load degrades (bilinear image, zero features), a
+fusion checkpoint that is missing or does not load gives a seeded random
+fusion net; each case is reported with the JAX interface's message.
+Inputs are the PNG, JPEG and BMP files of ``input_path``
+(``utils/image_io.py``); a file that cannot be decoded is named, skipped
+and counted, and the run goes on.
 ``device=None`` means "cuda" and raises without a card: CPU runs pass
 "cpu". The JAX package's native msgpack route and its optional TSD-SR
 refiner are not ported.
@@ -20,10 +26,12 @@ from typing import Dict
 
 import torch
 
+from ..convert.drct import sniff_drct_config
+from ..convert.mambair import sniff_mambair_config
 from ..models.fusion.fusion_v2 import CompleteEnhancedFusionSR
 from ..models.pipeline import (EXPERT_ORDER, FreqFusionPipeline,
                                build_expert_models)
-from ..utils.image_io import read_image, write_image
+from ..utils.image_io import IMAGE_SUFFIXES, read_image, write_image
 
 __all__ = ["main", "load_pipeline", "load_state_dict_file", "resolve_device"]
 
@@ -74,13 +82,32 @@ def load_state_dict_file(path) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _overrides(name: str, sd: Dict[str, torch.Tensor]) -> dict:
-    """Geometry read from the checkpoint: the official DRCT-L release uses
-    mlp_ratio 2 where the reference instantiates 4."""
-    if name == "drct":
-        return {"mlp_ratio": sd["layers.0.swin1.mlp.fc1.weight"].shape[0]
-                / sd["conv_first.weight"].shape[0]}
-    return {}
+_SNIFFERS = {"drct": sniff_drct_config, "mamba": sniff_mambair_config}
+
+
+def _sniff_config(name: str, sd: Dict[str, torch.Tensor]) -> dict:
+    """The geometry `sd` was trained at, as the expert's keyword arguments
+    ({} for the experts whose geometry is fixed, or when sniffing fails)."""
+    sniff = _SNIFFERS.get(name)
+    if sniff is None:
+        return {}
+    try:
+        return sniff(sd)
+    except Exception as e:  # noqa: BLE001 (sniffing is best-effort, as in JAX)
+        print(f"  ! {name} config sniff failed: {e}")
+        return {}
+
+
+def _load_expert(name: str, path: Path, scale: int,
+                 generator: torch.Generator) -> torch.nn.Module:
+    sd = load_state_dict_file(path)
+    model = build_expert_models(scale, {name: _sniff_config(name, sd)},
+                                generator=generator, names=(name,))[name]
+    if name == "nafnet" and not any(k.startswith("nafnet.") for k in sd):
+        model.nafnet.load_state_dict(sd)     # bare NAFNet checkpoint
+    else:
+        model.load_state_dict(sd)
+    return model
 
 
 def load_pipeline(model_dir, device=None, scale: int = 4, seed: int = 0,
@@ -95,25 +122,31 @@ def load_pipeline(model_dir, device=None, scale: int = 4, seed: int = 0,
             print(f"  ! {name} checkpoint not found ({path.name}); "
                   "bilinear image + zero features")
             continue
-        sd = load_state_dict_file(path)
-        model = build_expert_models(scale, {name: _overrides(name, sd)},
-                                    generator=g, names=(name,))[name]
-        if name == "nafnet" and not any(k.startswith("nafnet.") for k in sd):
-            model.nafnet.load_state_dict(sd)     # bare NAFNet checkpoint
-        else:
-            model.load_state_dict(sd)
-        experts[name] = model
+        try:
+            experts[name] = _load_expert(name, path, scale, g)
+        except Exception as e:  # noqa: BLE001 (degrade, as the JAX interface)
+            print(f"  ! {name} conversion failed: {e}")
+            continue
         if verbose:
             print(f"  loaded {name} from {path.name}")
-    fusion = CompleteEnhancedFusionSR(upscale=scale, generator=g)
+    fusion = None
     fpath = mdir / _TORCH_FILES["fusion"]
     if fpath.exists():
-        fusion.load_state_dict(load_state_dict_file(fpath))
-        if verbose:
-            print(f"  loaded fusion from {fpath.name}")
-    else:
+        try:
+            fusion = CompleteEnhancedFusionSR(upscale=scale)
+            fusion.load_state_dict(load_state_dict_file(fpath))
+        except Exception as e:  # noqa: BLE001 (degrade, as the JAX interface)
+            print(f"  ! fusion conversion failed: {e}")
+            fusion = None
+        else:
+            if verbose:
+                print(f"  loaded fusion from {fpath.name}")
+    if fusion is None:
         print(f"  ! fusion weights missing ({fpath.name}); seeded random "
               "init")
+        # a generator of its own: the init does not depend on the experts
+        fusion = CompleteEnhancedFusionSR(
+            upscale=scale, generator=torch.Generator().manual_seed(seed))
     return FreqFusionPipeline(experts, fusion, scale).to(device).eval()
 
 
@@ -128,12 +161,18 @@ def main(model_dir: str, input_path: str, output_path: str,
         print("  ! the TSD-SR refiner is not ported to the PyTorch package; "
               "serving the fusion output (identity refiner)")
     files = sorted(p for p in Path(input_path).iterdir()
-                   if p.suffix.lower() == ".png")
+                   if p.suffix.lower() in IMAGE_SUFFIXES)
     print(f"FreqFusionSR (PyTorch, {device}): {len(files)} images")
-    seconds = {}
+    seconds, skipped = {}, []
     for i, path in enumerate(files):
         t0 = time.perf_counter()
-        lr = torch.from_numpy(read_image(str(path))).permute(2, 0, 1)[None]
+        try:
+            img = read_image(str(path))
+        except (OSError, ValueError) as e:
+            skipped.append(path.name)
+            print(f"  ! [{i + 1}/{len(files)}] {path.name} skipped: {e}")
+            continue
+        lr = torch.from_numpy(img).permute(2, 0, 1)[None]
         with torch.inference_mode():
             sr = pipeline(lr.to(device))
         if not bool(torch.isfinite(sr).all()):
@@ -144,5 +183,7 @@ def main(model_dir: str, input_path: str, output_path: str,
         print(f"  [{i + 1}/{len(files)}] {path.name} {lr.shape[2]}x"
               f"{lr.shape[3]} -> {sr.shape[0]}x{sr.shape[1]} "
               f"({seconds[path.name]:.2f}s)")
+    print(f"  served {len(seconds)} images, skipped {len(skipped)}"
+          + (f": {', '.join(skipped)}" if skipped else ""))
     return seconds
 

@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...ops.pad import pad_reflect
 from ...ops.resize import resize_bilinear
 from ...ops.window_attention import device_table
 
@@ -78,7 +79,7 @@ class DCTDecomposition(nn.Module):
         n = self.block_size
         b, c, h, w = x.shape
         ph, pw = (n - h % n) % n, (n - w % n) % n
-        xp = F.pad(x, (0, pw, 0, ph), mode="reflect") if (ph or pw) else x
+        xp = pad_reflect(x, 0, ph, 0, pw)
         hp, wp = h + ph, w + pw
         basis = device_table(_dct_basis_np, n, device=x.device)
         masks = device_table(_zigzag_band_masks_np, n, device=x.device)
@@ -96,10 +97,10 @@ def _dwt_conv(x: torch.Tensor, filt: torch.Tensor, axis: str) -> torch.Tensor:
     """Depthwise stride-2 1-D wavelet conv along W or H, reflect padded."""
     c, k = x.shape[1], filt.numel()
     if axis == "w":
-        x = F.pad(x, (k - 1, k - 1, 0, 0), mode="reflect")
+        x = pad_reflect(x, 0, 0, k - 1, k - 1)
         return F.conv2d(x, filt.view(1, 1, 1, k).expand(c, 1, 1, k),
                         stride=(1, 2), groups=c)
-    x = F.pad(x, (0, 0, k - 1, k - 1), mode="reflect")
+    x = pad_reflect(x, k - 1, k - 1, 0, 0)
     return F.conv2d(x, filt.view(1, 1, k, 1).expand(c, 1, k, 1),
                     stride=(2, 1), groups=c)
 

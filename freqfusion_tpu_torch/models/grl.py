@@ -34,6 +34,7 @@ from ..ops.grl_tables import (relative_coords_table_all,
                               relative_position_index_simple,
                               window_shift_mask)
 from ..ops.mlp import fused_mlp_block
+from ..ops.pad import pad_reflect
 from ..ops.window_attention import device_table
 from .common import (RGB_MEAN, Mlp, conv_nhwc, gate, hwio, init_weights,
                      pixel_shuffle_upsampler, to_nchw, to_nhwc)
@@ -301,8 +302,7 @@ class GRL(nn.Module):
         h, w = x.shape[-2:]
         p = self.window_size
         ph, pw = (p - h % p) % p, (p - w % p) % p
-        if ph or pw:
-            x = F.pad(x, (0, pw, 0, ph), mode="reflect")
+        x = pad_reflect(x, 0, ph, 0, pw)
         mean = x.new_tensor(RGB_MEAN).view(1, 3, 1, 1)
         x = (x - mean) * self.img_range
         feat = self.conv_first(x)

@@ -14,8 +14,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
+from ..ops.pad import pad_reflect
 from ..ops.resize import resize_bilinear
 from .drct import DRCT
 from .fusion.fusion_v2 import EXPERT_ORDER, CompleteEnhancedFusionSR
@@ -84,8 +84,7 @@ class FreqFusionPipeline(nn.Module):
         b, _, h, w = lr.shape
         s = self.scale
         ph, pw = (16 - h % 16) % 16, (16 - w % 16) % 16
-        lr_padded = F.pad(lr, (0, pw, 0, ph), mode="reflect") if (ph or pw) \
-            else lr
+        lr_padded = pad_reflect(lr, 0, ph, 0, pw)
         imgs, feats = self.run_experts(lr_padded)
         hp, wp = lr_padded.shape[-2:]
         for name in EXPERT_ORDER:

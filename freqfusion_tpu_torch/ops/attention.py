@@ -1,7 +1,8 @@
 """Window attention kernels for DRCT and GRL, with their plain versions.
 
 Counterpart of ``freqfusion_tpu/ops/pallas_attention.py``. Each public
-function takes the Pallas wrapper's NHWC layout and argument order. A CPU
+function takes the Pallas wrapper's layout (NHWC, or window-major
+[B_, N, C] for ``window_attention``) and argument order. A CPU
 tensor goes to the plain PyTorch version (``*_reference``); a CUDA tensor
 goes to the hand-written kernel in ``csrc/`` or the call raises.
 
@@ -22,7 +23,8 @@ from . import cuda
 from .window_attention import (multi_head_window_attention, window_partition,
                                window_reverse)
 
-__all__ = ["window_attention_nhwc", "window_attention_nhwc_reference",
+__all__ = ["window_attention", "window_attention_reference",
+           "window_attention_nhwc", "window_attention_nhwc_reference",
            "grl_mixed_attention_nhwc", "grl_mixed_attention_nhwc_reference",
            "window_attention_qkv_nhwc",
            "window_attention_qkv_nhwc_reference",
@@ -75,6 +77,51 @@ def window_attention_nhwc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         cuda.stream(q))
     cuda.check(err, "window_attention_nhwc")
     cuda.launch_counts["window_attention_nhwc"] += 1
+    return out
+
+
+def window_attention_reference(q, k, v, bias, mask, num_heads: int,
+                               scale: Optional[float] = None):
+    """Plain PyTorch window-major window attention."""
+    scale = (float((q.shape[-1] // num_heads) ** -0.5) if scale is None
+             else scale)
+    return multi_head_window_attention(q, k, v, num_heads, bias, mask, scale)
+
+
+def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: torch.Tensor, mask: Optional[torch.Tensor],
+                     num_heads: int,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """q, k, v [B_, N, C], the nW windows of each image in a row (B_ = B
+    nW); bias [nH, N, N]; mask [nW, N, N], taken by window index mod nW,
+    or None. Returns [B_, N, C]: softmax(q k^T * scale + bias + mask) v
+    per window and head, scale defaulting to head_dim ** -0.5. N is any
+    size; the head dim is at most 256."""
+    b_, n, c = q.shape
+    hd = c // num_heads
+    nw = 1 if mask is None else mask.shape[0]
+    if c % num_heads or hd > 256 or b_ % nw:
+        raise ValueError(f"window_attention: C={c} must be a multiple of "
+                         f"heads={num_heads} with a head dim <= 256, and "
+                         f"B_={b_} a multiple of nW={nw}")
+    scale = float(hd ** -0.5) if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return window_attention_reference(q, k, v, bias, mask, num_heads,
+                                          scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"window_attention: unsupported device {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        cuda.require(t, name, (b_, n, c), q.device)
+    cuda.require(bias, "bias", (num_heads, n, n), q.device)
+    if mask is not None:
+        cuda.require(mask, "mask", (nw, n, n), q.device)
+    out = torch.empty_like(q)
+    err = cuda.library().ff_window_attention(
+        cuda.ptr(q), cuda.ptr(k), cuda.ptr(v), cuda.ptr(bias),
+        cuda.ptr(mask), cuda.ptr(out), b_, n, nw, c, num_heads, scale,
+        cuda.stream(q))
+    cuda.check(err, "window_attention")
+    cuda.launch_counts["window_attention"] += 1
     return out
 
 

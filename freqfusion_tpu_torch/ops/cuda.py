@@ -15,7 +15,8 @@ raises with the compiler's output.
 kernel, so a run can show that the main path went through it. The scan's
 entries count apart: ``selective_scan`` (chain_proj, TPU kernels #3/#4),
 ``selective_scan_chain`` (#5), ``selective_scan_flat``, ``_dirs``,
-``_bidir`` and ``_spatial`` (#6-#9).
+``_bidir`` and ``_spatial`` (#6-#9); ``window_attention_nhwc`` (#1) and
+``window_attention`` (#10, window-major) count apart too.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "ff_window_attention_nhwc": [_P] * 6 + [_I] * 6 + [_F, _P],
+    "ff_window_attention": [_P] * 6 + [_I] * 5 + [_F, _P],
     "ff_grl_mixed_attention_nhwc": [_P] * 16 + [_I] * 8 + [_P],
     "ff_selective_scan_proj": [_P] * 10 + [_I] * 8 + [_P],
     "ff_selective_scan": [_P] * 10 + [_I] * 11 + [_P],
@@ -68,6 +70,7 @@ _SIGNATURES = {
     "ff_hier_stage3": [_P, _I] + [_P] * 19 + [_I] * 5 + [_P],
     "ff_edge_refine": [_P, _I] + [_P] * 13 + [_I] * 5 + [_P],
     "ff_edge_fuse": [_P] * 4 + [_I] + [_P] * 13 + [_I] * 4 + [_P],
+    "ff_layernorm": [_P] * 4 + [_I] * 3 + [_F, _P],
 }
 
 _lock = threading.Lock()

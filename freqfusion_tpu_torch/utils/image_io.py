@@ -1,9 +1,12 @@
-"""8-bit PNG <-> float32 HWC RGB in [0, 1], with zlib and numpy only.
+"""Image files <-> float32 HWC RGB in [0, 1], with zlib and numpy only.
 
 Counterpart of ``freqfusion_tpu/utils/image_io.py``, which uses cv2 or
-PIL; the serving machine has neither. Reads non-interlaced 8-bit gray,
-gray+alpha, RGB and RGBA PNGs (alpha dropped, gray replicated) with all
-five scanline filters; writes 8-bit RGB with filter 0.
+PIL; PNG and BMP need neither here. ``read_image`` reads what the JAX
+interface serves: non-interlaced 8-bit gray, gray+alpha, RGB and RGBA
+PNGs (alpha dropped, gray replicated) with all five scanline filters;
+uncompressed 24-bit BMPs, bottom-up or top-down; and JPEGs through PIL
+where PIL imports (else it raises ``ValueError``). ``write_image`` writes
+8-bit RGB PNGs with filter 0.
 """
 
 from __future__ import annotations
@@ -13,7 +16,9 @@ import zlib
 
 import numpy as np
 
-__all__ = ["read_image", "write_image"]
+__all__ = ["read_image", "write_image", "IMAGE_SUFFIXES"]
+
+IMAGE_SUFFIXES = (".png", ".jpg", ".jpeg", ".bmp")
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}   # PNG colour type -> samples/pixel
@@ -53,12 +58,7 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
     return np.frombuffer(bytes(out), np.uint8).reshape(h, w, bpp)
 
 
-def read_image(path: str) -> np.ndarray:
-    """Read an 8-bit PNG -> float32 [H, W, 3] RGB in [0, 1]."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != _SIGNATURE:
-        raise ValueError(f"{path}: not a PNG file")
+def _read_png(path: str, data: bytes) -> np.ndarray:
     pos, idat, header = 8, [], None
     while pos < len(data):
         length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
@@ -78,8 +78,51 @@ def read_image(path: str) -> np.ndarray:
                          f"PNGs are supported (depth {depth}, colour type "
                          f"{color}, interlace {interlace})")
     px = _unfilter(zlib.decompress(b"".join(idat)), h, w, _CHANNELS[color])
-    rgb = np.repeat(px[..., :1], 3, -1) if color in (0, 4) else px[..., :3]
-    return rgb.astype(np.float32) / 255.0
+    return np.repeat(px[..., :1], 3, -1) if color in (0, 4) else px[..., :3]
+
+
+def _read_bmp(path: str, data: bytes) -> np.ndarray:
+    """Uncompressed 24-bit BMP: BGR rows padded to 4 bytes, bottom-up for
+    a positive height, top-down for a negative one."""
+    offset, dib = struct.unpack_from("<II", data, 10)
+    if dib < 40:
+        raise ValueError(f"{path}: BMP header of {dib} bytes is not "
+                         "supported")
+    w, h, _, bits, compression = struct.unpack_from("<iiHHI", data, 18)
+    if bits != 24 or compression != 0 or w <= 0 or h == 0:
+        raise ValueError(f"{path}: only uncompressed 24-bit BMPs are "
+                         f"supported ({bits} bits, compression "
+                         f"{compression}, {w}x{h})")
+    stride = (3 * w + 3) // 4 * 4
+    rows = np.frombuffer(data, np.uint8, abs(h) * stride, offset)
+    px = rows.reshape(abs(h), stride)[:, :3 * w].reshape(abs(h), w, 3)
+    return px[::-1 if h > 0 else 1, :, ::-1]
+
+
+def _read_jpeg(path: str) -> np.ndarray:
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ValueError(f"{path}: no JPEG decoder (PIL does not import: "
+                         f"{e})") from None
+    with Image.open(path) as img:
+        return np.asarray(img.convert("RGB"))
+
+
+def read_image(path: str) -> np.ndarray:
+    """Read a PNG, BMP or JPEG file -> float32 [H, W, 3] RGB in [0, 1].
+    Raises ``ValueError`` (or ``OSError``) on a file it cannot decode."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] == _SIGNATURE:
+        px = _read_png(path, data)
+    elif data[:2] == b"BM":
+        px = _read_bmp(path, data)
+    elif data[:3] == b"\xff\xd8\xff":
+        px = _read_jpeg(path)
+    else:
+        raise ValueError(f"{path}: not a PNG, BMP or JPEG file")
+    return px.astype(np.float32) / 255.0
 
 
 def _chunk(ctype: bytes, body: bytes) -> bytes:

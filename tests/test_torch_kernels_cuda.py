@@ -27,8 +27,11 @@ from freqfusion_tpu_torch.ops.nafblock import (nafblock_fused,
 from freqfusion_tpu_torch.ops.attention import (
     grl_mixed_attention_nhwc, grl_mixed_attention_nhwc_reference,
     grl_mixed_attention_qkv_nhwc, grl_mixed_attention_qkv_nhwc_reference,
-    window_attention_nhwc, window_attention_nhwc_reference,
-    window_attention_qkv_nhwc, window_attention_qkv_nhwc_reference)
+    window_attention, window_attention_nhwc, window_attention_nhwc_reference,
+    window_attention_qkv_nhwc, window_attention_qkv_nhwc_reference,
+    window_attention_reference)
+from freqfusion_tpu_torch.ops.layernorm import (fused_layernorm,
+                                                fused_layernorm_reference)
 from freqfusion_tpu_torch.ops.selective_scan import (
     selective_scan_bidir, selective_scan_bidir_reference, selective_scan_chain,
     selective_scan_chain_proj, selective_scan_chain_proj_reference,
@@ -38,7 +41,8 @@ from freqfusion_tpu_torch.ops.selective_scan import (
     selective_scan_spatial_reference)
 from freqfusion_tpu_torch.ops.token_attention import (
     token_attention, token_attention_reference)
-from freqfusion_tpu_torch.ops.window_attention import shifted_window_mask
+from freqfusion_tpu_torch.ops.window_attention import (
+    shifted_window_mask, window_partition)
 
 from test_torch_harness import cuda_or_skip
 
@@ -50,6 +54,8 @@ SCAN_REL_TOL = 1e-3
 # and the four fusion-eval kernels: fp32 sums of up to 9 x 976 terms in
 # another order, relative to max(1, max |out|)
 FUSED_REL_TOL = 1e-4
+# fp32 LayerNorm: rsqrtf (2 ulp) and the row sums in another order
+LN_TOL = dict(atol=1e-5, rtol=1e-5)
 
 
 def _t(a, dev):
@@ -512,3 +518,82 @@ def test_edge_fuse_kernel(nchw, hw, fp32_plain):
     got = edge_fuse_fused(sr, *feats, lw, strength, p)
     assert dict(cuda.launch_counts) == {"edge_fuse_fused": 1}
     _fused_close(got, edge_fuse_fused_reference(sr, *feats, lw, strength, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads", [(180, 6), (212, 4), (244, 2), (276, 6),
+                                     (308, 4)])
+def test_window_attention_window_major_kernel(c, heads):
+    """TPU kernel #10 at DRCT-L's five widths (N 256, two images of six
+    windows), with and without the shift mask: against its plain version
+    (ATTN_TOL), and bit-equal to #1 on the same windows in NHWC form (one
+    kernel body, the same arithmetic in the same order)."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c + 1)
+    h, w, ws = 32, 48, 16
+    q, k, v = (_t(rng.normal(size=(2, h, w, c)), dev) for _ in range(3))
+    qw, kw, vw = (window_partition(t, ws).contiguous() for t in (q, k, v))
+    bias = _t(0.5 * rng.normal(size=(heads, ws * ws, ws * ws)), dev)
+    for shift in (0, ws // 2):
+        mask = shifted_window_mask(h, w, ws, shift)
+        m = None if mask is None else _t(mask, dev)
+        cuda.reset_launch_counts()
+        got = window_attention(qw, kw, vw, bias, m, heads)
+        want = window_attention_reference(qw, kw, vw, bias, m, heads)
+        nhwc = window_partition(
+            window_attention_nhwc(q, k, v, bias, m, heads, ws), ws)
+        torch.cuda.synchronize()
+        assert cuda.launch_counts["window_attention"] == 1
+        assert (got - want).abs().max().item() <= ATTN_TOL
+        assert torch.equal(got, nhwc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b_,n,nw,heads,hd", [(12, 49, 3, 3, 20),
+                                              (4, 96, 2, 2, 7),
+                                              (3, 1, 1, 1, 256)])
+def test_window_attention_window_major_shapes(b_, n, nw, heads, hd):
+    """#10 where #1 cannot go: N 49 (scalar bias and mask reads), N 96
+    (not a square, a partial tile, odd head dim), one token with hd 256."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(n)
+    c = heads * hd
+    q, k, v = (_t(rng.normal(size=(b_, n, c)), dev) for _ in range(3))
+    bias = _t(rng.normal(size=(heads, n, n)), dev)
+    mask = _t(np.where(rng.random((nw, n, n)) < 0.2, -100.0, 0.0), dev)
+    for m in (None, mask):
+        got = window_attention(q, k, v, bias, m, heads)
+        want = window_attention_reference(q, k, v, bias, m, heads)
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= ATTN_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(7, 131), (2, 333, 180), (3, 50, 360)])
+def test_layernorm_kernel(shape, dtype):
+    """TPU kernel #22: C 131 takes the scalar loop, 180 and 360 the
+    vector one. fp32 within LN_TOL of the plain version; bf16 within one
+    bf16 ulp of it (both round the fp32 result once)."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(shape[-1])
+    x = _t(rng.normal(size=shape), dev).to(dtype)
+    wt, b = (_t(rng.normal(size=shape[-1]), dev) for _ in range(2))
+    want = fused_layernorm_reference(x, wt, b).float()
+
+    def check(got):
+        assert got.dtype == dtype and got.shape == x.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, **LN_TOL)
+        else:
+            ulp = torch.exp2(torch.floor(torch.log2(
+                want.abs().clamp_min(2.0 ** -126))) - 7)
+            assert bool(((got.float() - want).abs() <= ulp).all())
+
+    cuda.reset_launch_counts()
+    check(fused_layernorm(x, wt, b))
+    torch.cuda.synchronize()
+    assert cuda.launch_counts["fused_layernorm"] == 1
+    # a misaligned base takes the scalar loop
+    xs = torch.empty(x.numel() + 1, device=dev, dtype=dtype)[1:]
+    check(fused_layernorm(xs.view(shape).copy_(x), wt, b))
