@@ -22,9 +22,11 @@ exits non-zero without the final ok line):
    The scan's seven contracts (TPU kernels #3-#9) run at L = 172,032,
    D 360, N 16: chain_proj and chain on both chain layouts and spatial on
    the NHWC tensor and its transpose, each direction; flat; four
-   directions; bidir as SS2D calls it. No PyTorch call computes a scan,
-   and the scan's plain versions (~1 s a direction) are timed over one
-   run after one warm-up. For the in-kernel projection kernels (DRCT's
+   directions; bidir as SS2D calls it. For one #3 call (rows, forward)
+   and one #5 call it prints each launch's device time (torch.profiler,
+   mean of 5 calls). No PyTorch call computes a scan, and the scan's
+   plain versions (~1 s a direction) are timed over one run after one
+   warm-up. For the in-kernel projection kernels (DRCT's
    qkv window attention at the five widths, shifted and not; GRL's 6-way
    qkv mixed attention, shifted and not; the token attention at both
    fusion-net geometries, P = 172032, with nn.MultiheadAttention as the
@@ -66,7 +68,9 @@ exits non-zero without the final ok line):
 3c. the pipeline alone on the 336x512 image in the six configurations
    in turns (default, byte-floor, projection, fusion-eval, chainv5,
    spatial, then back, after a warm-up of each): seconds per request to
-   the synchronised result, without the host's PNG work;
+   the synchronised result, without the host's PNG work; then the
+   default path's split by stage (each expert alone on the same image,
+   CUDA events);
 4. card against CPU: the same weights on one 32x48 LR image through the
    kernels on the card and the plain versions on the CPU, for each
    configuration; PSNR >= 60 dB.
@@ -93,9 +97,9 @@ line.
     python3 chip_smoke.py --pipeline-only
 
 runs phase 1 and phase 3c's default path alone (six runs after a
-warm-up), needing nothing of the port but the pipeline and its loader: a
-copy of this script beside an older checkout of the package times that
-checkout's pipeline the same way.
+warm-up) and its split by stage, needing nothing of the port but the
+pipeline and its loader: a copy of this script beside an older checkout
+of the package times that checkout's pipeline the same way.
 """
 
 from __future__ import annotations
@@ -461,6 +465,36 @@ def scan_tol(refs) -> float:
     return SCAN_REL_TOL * max(r.abs().max().item() for r in refs)
 
 
+def launch_breakdown(label: str, fn, reps: int = 5) -> None:
+    """Device time of each kernel that one call of `fn` launches:
+    torch.profiler's key_averages by kernel name over `reps` calls, per
+    call (the mean launch times the launches a call makes: the profiler
+    may miss a launch of the window), one line a kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        if us > 0:
+            per_call = max(1, round(e.count / reps))
+            split[e.key] = (us / e.count / 1e3 * per_call, per_call)
+    total = sum(ms for ms, _ in split.values())
+    print(f"  launches of one {label} call (torch.profiler, {reps} calls): "
+          f"{total:.3f} ms of device time")
+    if not split:
+        print("    the profiler shows no device time")
+    for name, (ms, count) in sorted(split.items(), key=lambda kv: -kv[1][0]):
+        print(f"    {ms:8.3f} ms  x{count}  {name[:110]}")
+
+
 def phase_scan_kernels(dev, randn, checks) -> None:
     """The scan's seven contracts (TPU kernels #3-#9) at the 336x512
     bucket's shapes: L = 172,032, D 360, N 16, dt_rank 12, the random
@@ -469,7 +503,9 @@ def phase_scan_kernels(dev, randn, checks) -> None:
     direction; #6 over [1, L, D]; #7 over four directions; #8 as SS2D's
     bidir route calls it; #9 on the NHWC tensor and its transpose, each
     direction. The plain versions take ~1 s per direction here, so they
-    are timed over one run after one warm-up (twice)."""
+    are timed over one run after one warm-up (twice). The device time of
+    each launch of one #3 call (rows, forward) and one #5 call (T = W,
+    forward) is printed beside them."""
     import torch.nn.functional as F
 
     from freqfusion_tpu_torch.ops.selective_scan import (
@@ -512,6 +548,9 @@ def phase_scan_kernels(dev, randn, checks) -> None:
                    lambda: selective_scan_chain_proj_reference(*args),
                    scan_tol, scan_ops + p * d * 2.0 * (44 + dtr),
                    4 * (2 * p * d + d * (44 + dtr + n + 2)), plain_reps=1)
+            if label == "rows" and not rev:
+                launch_breakdown("#3 rows/fwd",
+                                 lambda: selective_scan_chain_proj(*args))
     del rows
     torch.cuda.empty_cache()
 
@@ -535,6 +574,9 @@ def phase_scan_kernels(dev, randn, checks) -> None:
             ch.run(tag, lambda: selective_scan_chain(*args),
                    lambda: selective_scan_chain_reference(*args), scan_tol,
                    scan_ops, dir_bytes, plain_reps=1)
+            if a == w and not rev:
+                launch_breakdown(f"#5 {tag}",
+                                 lambda: selective_scan_chain(*args))
             sp.run(tag, lambda: selective_scan_spatial(*args),
                    lambda: selective_scan_spatial_reference(*args), scan_tol,
                    scan_ops, dir_bytes, plain_reps=1)
@@ -1071,7 +1113,27 @@ def phase_pipeline_ab(model_dir: Path, image: Path, configs=tuple(CONFIGS),
         print(f"  {config}: {' '.join(f'{v:.3f}' for v in t)} s, mean "
               f"{mean:.3f} s ("
               f"{4 * lr.shape[2] * 4 * lr.shape[3] / mean / 1e6:.3f} MP/s)")
+    stage_split(pipe, lr)
     del pipe
+
+
+def stage_split(pipe, lr) -> None:
+    """Device time of each expert alone on `lr` (a multiple of 16: the
+    pipeline's pad is empty) and of the whole default pipeline, CUDA
+    events, median of 3 after a warm-up; the rest (fusion net, crops) is
+    the difference."""
+    if lr.shape[2] % 16 or lr.shape[3] % 16:
+        raise ValueError("stage_split needs an LR image with sides that "
+                         "are multiples of 16")
+    set_gates("default")
+    with torch.inference_mode():
+        whole = cuda_ms(lambda: pipe(lr), reps=3, warmup=1)
+        split = {name: cuda_ms(lambda e=expert: e(lr), reps=3, warmup=1)
+                 for name, expert in pipe.experts.items()}
+    print(f"  default by stage (CUDA events, median of 3): pipeline "
+          f"{whole:.1f} ms; " + ", ".join(
+              f"{name} {ms:.1f}" for name, ms in split.items())
+          + f"; fusion net and crops {whole - sum(split.values()):.1f} ms")
 
 
 def load_mambair(model_dir: Path, device):

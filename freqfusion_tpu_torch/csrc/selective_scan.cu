@@ -19,7 +19,7 @@
 // st = 1, sr = T. A reverse direction scans from the last position down
 // and writes y in natural order, with no flipped copy.
 //
-// One launch scans G parameter groups of Bt sequences each (grid z =
+// One launch scans G parameter groups of Bt sequences each (sequence z =
 // g * Bt + b): group g has its own A [D, N], D and bias, its own direction
 // (bit g of rev_mask) and reads u group g % Gu, so SS2D's bidir route scans
 // its four directions from two u tensors in one launch (Gu = 2, groups 2
@@ -30,331 +30,773 @@
 // kernel here, and (b) the explicit contract with u, dt, B, C given, in
 // any of the layouts above.
 //
-// What bounds it on the H100: a serial walk over L = 336 * 512 = 172,032
-// positions per (b, d) would use 360 threads of the card. The work is
-// L * D * N exp + FMA steps (~1e9 per call at the main path's shape) and
-// two reads of the [B, L, D] input; device memory is not the limit.
+// What bounds it on the H100. Per (position, channel) a pass does N = 16
+// exp2 (one per state) and one or three more MUFU operations (softplus;
+// silu on contract a); the SFU does 16 a clock per SM, so one pass over the
+// main path's 172,032 x 360 positions-channels needs ~0.3 ms of MUFU time,
+// and its FP32 work (4-5 instructions a state) about as much issue time.
+// A pass also streams x (248 MB), and dt on contract b, in 512-byte pieces
+// a step apart by a whole chain row; pass 2 writes y as much. Cut into
+// chunks scanned in parallel, the scan runs twice (summary, then correct),
+// so ~0.6 ms a direction is the floor of this scheme. Measured (H100 80GB
+// HBM3, 700 W, chip_smoke.py --scan-only's split): ~0.44 + 0.52 ms for
+// the passes of contract a; a copy with the recurrence's exp2 and state
+// update taken out kept about two thirds of that, so staging, the per-step
+// delta and the memory stream, not the SFU, hold most of the time.
 //
-// Design: the TPU kernel's summary / compose / correct scheme moved onto
-// blocks. The sequence is cut into 256-step chunks that run in parallel,
-// one thread per (chunk, channel d) holding all N <= 16 states in
-// registers. Pass 1 walks each chunk from a zero state and keeps its decay
-// product P and end state H; a short pass composes the chunk carries
-// serially per (sequence, d, n); pass 2 re-walks each chunk from its true
-// initial state and writes y. Per-position rows shared by all channels
-// (dt_low, B, C) are staged in shared memory once per chunk. The Pallas
-// kernels' tiling knobs (chunk, inner, the padding of L and of D to lane
-// multiples, the approximate per-chain init) do not carry over: the scan
-// is exact for any D and L.
-//
-// Projections: the TPU kernel composes the two dt projections into one
-// [D, D] weight (x_proj_w[:r]^T dt_proj_w^T) because the MXU favours one
-// square matmul. On fp32 CUDA cores that costs 2 D^2 FLOPs per position
-// instead of 2 * (dt_rank + 2N) * D + 2 * dt_rank * D, so here the
-// projection kernel writes only x_dbl = u x_proj_w^T ([rows, dt_rank + 2N],
-// 44 floats a position) and the scan expands dt = dt_low . dt_proj_w[d]
-// (dt_rank FMAs) in registers; dt never reaches device memory.
+// Design:
+//  - Items: a (sequence, chunk, 128-channel tile) triple; a block of 128
+//    threads, one channel each, scans one item with all N <= 16 states in
+//    registers. The grid is persistent: min(items, SMs x resident blocks),
+//    each block walking items blockIdx.x, + gridDim.x, ...; the chunk length
+//    is planned in Python (ops/selective_scan.py:plan_scan) so that the
+//    items fill the resident slots once (one wave, no idle tail).
+//  - An asynchronous ring: each item's inputs (x, and dt on the explicit
+//    contract; the rows dt_low/B/C shared by the tile's channels) are
+//    streamed by cp.async, 16 bytes a copy where rows are 16-byte aligned
+//    (else 4), into kStages = 2 stages of kSub = 16 steps: one stage is in
+//    flight while the other is scanned (a third stage measured no faster).
+//    Rows are found by stepping (t, r), never by division. The recurrence
+//    reads only shared memory and registers: no step waits on device
+//    memory. A stage is scanned in two sweeps: first delta (and u) of its
+//    16 steps, independent of each other, written back over dt (and x) in
+//    the thread's own column; then the recurrence. Pass 2 leaves y in the
+//    x column and the block stores the stage's y rows 16 bytes at a time.
+//  - N and dt_rank are template parameters on the main path (16, 12), with
+//    a generic instantiation (predicated, N and dt_rank <= 16) for other
+//    shapes; B, C and dt_low come from shared memory as float4 broadcasts.
+//  - Pass 1 keeps, per item and channel, the end state H from a zero state
+//    and the sum of delta; the chunk's decay is exp2(A2 * sum) in closed
+//    form (its rounding differs from the product's within the scan
+//    tolerance). The compose is a parallel scan over chunks: per (sequence,
+//    channel, state), 8 warps each fold a contiguous run of chunks, combine
+//    their (decay, state) pairs through shared memory, and re-walk the run
+//    writing each chunk's initial state. Pass 2 re-walks each item from its
+//    initial state and writes y. x is read twice from device memory (pass
+//    1 and pass 2): a chunk of one wave is ~800 steps x 512 bytes, too large
+//    to stay resident.
+//  - Projection (contract a): x_dbl = silu(xc) x_proj_w^T in a register-
+//    tiled fp32 kernel whose 128 x 48 tile fits K = dt_rank + 2N <= 48, the
+//    next slab of xc fetched into registers while one is multiplied; its
+//    rows are written padded (dt_low at 0, B at R4, C at R4 + N4, each a
+//    multiple of 4 floats) so the scan stages them with 16-byte copies. A
+//    3xTF32 tensor-core version of it was within tolerance but slower on
+//    the H100 (199 registers, 8 warps an SM). The TPU kernel
+//    composes the two dt projections into one [D, D] weight because the
+//    MXU favours one square matmul; on fp32 CUDA cores that costs 2 D^2
+//    FLOPs per position instead of 2 (dt_rank + 2N) D, so the scan expands
+//    dt = dt_low . dt_proj_w[d] (dt_rank FMAs) in registers. No TF32: the
+//    arithmetic is fp32 throughout.
+// The Pallas kernels' tiling knobs (chunk, inner, the padding of L and of D
+// to lane multiples, the approximate per-chain init) do not carry over: the
+// scan is exact for any D and L.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kMaxState = 16;   // N (d_state)
 constexpr int kMaxRank = 16;    // dt_rank
-constexpr int kScanThreads = 128;
-constexpr int kProjRows = 64, kProjCols = 32, kProjThreads = 256;
-constexpr int kProjMaxK = 64;   // dt_rank + 2N
-constexpr int kProjLd = kProjRows + 4;  // float4-aligned, fewer conflicts
-static_assert(kProjRows == kProjMaxK && kProjThreads == 256,
-              "projection tiles: 16 x 16 threads of 4 x 4 outputs");
+constexpr int kTile = 128;      // channels an item covers, one a thread
+constexpr int kThreads = kTile;
+constexpr int kSub = 16;        // steps a ring stage holds
+constexpr int kStages = 2;      // ring depth: one stage in flight
+constexpr int kComposeWarps = 8;
+// projection tile: 128 rows x 48 columns, 8 x 4 outputs a thread, the
+// reduction over D in slabs of 24 (360 = 15 x 24)
+constexpr int kProjRows = 128, kProjCols = 48, kProjSlab = 24;
+constexpr int kProjThreads = (kProjRows / 8) * (kProjCols / 4);  // 192
+constexpr int kProjX4 = kProjRows * kProjSlab / 4 / kProjThreads;  // 4
+constexpr int kProjW = kProjCols * kProjSlab / kProjThreads;       // 6
+static_assert(kProjRows * kProjSlab % (4 * kProjThreads) == 0 &&
+                  kProjCols * kProjSlab % kProjThreads == 0,
+              "projection slabs split evenly over the threads");
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float silu(float x) { return x / (1.f + expf(-x)); }
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
+__device__ __forceinline__ float silu(float x) {
+  return __fdividef(x, 1.f + ex2(-kLog2e * x));
+}
+
+// max(x, 0) + log1p(exp(-|x|)), log1p(z) = 2 atanh(q), q = z / (2 + z) <=
+// 1/3, by 7 terms of the series (the next is below 2e-8 relative): within
+// 2e-6 of F.softplus, in 13 instructions where log1pf takes ~30
 __device__ __forceinline__ float softplus(float x) {
-  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
+  const float z = ex2(-kLog2e * fabsf(x));
+  const float q = __fdividef(z, 2.f + z), w = q * q;
+  float p = 1.f / 13.f;
+  p = fmaf(p, w, 1.f / 11.f);
+  p = fmaf(p, w, 1.f / 9.f);
+  p = fmaf(p, w, 1.f / 7.f);
+  p = fmaf(p, w, 1.f / 5.f);
+  p = fmaf(p, w, 1.f / 3.f);
+  p = fmaf(p, w, 1.f);
+  return fmaxf(x, 0.f) + 2.f * q * p;
+}
+
+__device__ __forceinline__ void cp16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 struct ScanArgs {
-  const float* x;       // u, or xc (pre-silu) when silu != 0
-  const float* delta;   // dt, or null: dt = dt_low . dt_w[d]
-  const float* dt_low;  // rows of ld_dbl floats, first dt_rank used
-  const float* dt_w;    // [D, dt_rank]
-  const float* Bm;      // rows of ld_bc floats, first N used
+  const float* x;      // u, or xc (pre-silu) on the projection contract
+  const float* delta;  // dt (explicit contract)
+  const float* dbl;    // padded x_dbl rows of W floats (projection contract)
+  const float* Bm;     // [rows, N] (explicit contract)
   const float* Cm;
-  const float* A;       // [G, D, N], already negative
-  const float* Dskip;   // [G, D]
-  const float* bias;    // [G, D]
-  float* y;             // [G, Bt, L, D] in the layout of x
-  float* P;             // [G * Bt, nchunk, D, N] chunk decay products
-  float* Hc;            // [G * Bt, nchunk, D, N] chunk end states, then inits
-  int Bt, Gu;           // sequences per group; x holds Gu groups of Bt
-  int T, R, L, st, sr;  // position r * T + t lies at row t * st + r * sr
-  int D, N, dt_rank, ld_dbl, ld_bc, chunk, nchunk, rev_mask, silu;
+  const float* dt_w;   // [D, dt_rank]
+  const float* A;      // [G, D, N], already negative
+  const float* Dskip;  // [G, D]
+  const float* bias;   // [G, D]
+  float* y;            // [G, Bt, L, D] in the layout of x
+  float* Sdt;          // [G * Bt, nchunk, D] sum of delta over each chunk
+  float* Hc;           // [G * Bt, nchunk, D, N] chunk end states, then inits
+  int Bt, Gu;          // sequences per group; x holds Gu groups of Bt
+  int T, R, L, st, sr; // position r * T + t lies at row t * st + r * sr
+  int D, N, dt_rank;
+  int W, R4;           // floats a staged row holds; offset of B in it
+  int chunk, nchunk, tiles, items, rev_mask;
+  int vec_x, vec_bc;   // x (and dt), B and C rows 16-byte aligned
+  int vec_y;           // y rows 16-byte aligned
 };
 
-// Row, within its sequence, of scan step s.
-__device__ __forceinline__ int row_of(const ScanArgs& a, int s, bool reverse) {
-  const int p = reverse ? a.L - 1 - s : s;
-  const int r = p / a.T, t = p - r * a.T;
+// Move (t, r), a position of the scan, i >= 0 steps on in scan order (a
+// chain shorter than i wraps more than once).
+__device__ __forceinline__ void step_by(const ScanArgs& a, int& t, int& r,
+                                        int i, bool rev) {
+  if (rev) {
+    t -= i;
+    while (t < 0) {
+      t += a.T;
+      --r;
+    }
+  } else {
+    t += i;
+    while (t >= a.T) {
+      t -= a.T;
+      ++r;
+    }
+  }
+}
+
+// Row, within its sequence, of the position i steps after (t, r).
+__device__ __forceinline__ int row_after(const ScanArgs& a, int t, int r,
+                                         int i, bool rev) {
+  step_by(a, t, r, i, rev);
   return t * a.st + r * a.sr;
 }
 
-template <bool kFinal>
-__global__ void __launch_bounds__(kScanThreads)
-scan_chunk_kernel(ScanArgs a) {
-  extern __shared__ float staged[];
-  const int c = blockIdx.x, z = blockIdx.z;  // z = g * Bt + b
-  const int g = z / a.Bt;
-  const bool reverse = (a.rev_mask >> g) & 1;
-  const int d = blockIdx.y * blockDim.x + threadIdx.x;
-  const int s0 = c * a.chunk;
-  const int len = min(a.chunk, a.L - s0);
-  const int nr = a.delta ? 0 : a.dt_rank;
-  const int width = nr + 2 * a.N;
-  // first row of this sequence in delta / dt_low / B / C / y, and in x
-  const long long brow = (long long)z * a.L;
-  const long long xrow =
-      ((long long)(g % a.Gu) * a.Bt + (z - g * a.Bt)) * a.L;
+// Floats of a staged per-position row: compile-time on the main path.
+template <bool kProj, int kN, int kR>
+__device__ __forceinline__ int staged_width(const ScanArgs& a) {
+  if (kN && (kR || !kProj))
+    return (kProj ? (kR + 3) & ~3 : 0) + 2 * ((kN + 3) & ~3);
+  return a.W;
+}
 
-  for (int e = threadIdx.x; e < len * width; e += blockDim.x) {
-    const int i = e / width, f = e - i * width;
-    const long long row = brow + row_of(a, s0 + i, reverse);
-    float val;
-    if (f < nr) val = a.dt_low[row * a.ld_dbl + f];
-    else if (f < nr + a.N) val = a.Bm[row * a.ld_bc + (f - nr)];
-    else val = a.Cm[row * a.ld_bc + (f - nr - a.N)];
-    staged[e] = val;
-  }
-  __syncthreads();
-  if (d >= a.D) return;
+// Floats of one ring stage: kSub steps of the tile's x (then u, then y),
+// of its dt (then delta) and of the per-position row.
+__host__ __device__ __forceinline__ int stage_floats(int W) {
+  return kSub * (2 * kTile + W);
+}
 
-  // exp(delta A) = exp2(delta A log2(e)): one ex2 per state and step
-  float A2[kMaxState], h[kMaxState], P[kMaxState], wdt[kMaxRank];
-  const long long so = (((long long)z * a.nchunk + c) * a.D + d) * a.N;
-  const int gd = g * a.D + d;
-#pragma unroll
-  for (int n = 0; n < kMaxState; ++n) {
-    A2[n] = n < a.N ? a.A[gd * a.N + n] * 1.4426950408889634f : 0.f;
-    h[n] = (kFinal && n < a.N) ? a.Hc[so + n] : 0.f;
-    P[n] = 1.f;
-  }
-#pragma unroll
-  for (int k = 0; k < kMaxRank; ++k) wdt[k] = k < nr ? a.dt_w[d * nr + k] : 0.f;
-  const float bias = a.bias[gd], dskip = a.Dskip[gd];
-
-  // (t, r) of the chunk's first position, then stepped without division
-  const int p0 = reverse ? a.L - 1 - s0 : s0;
-  int r = p0 / a.T, t = p0 - r * a.T;
-  for (int i = 0; i < len; ++i) {
-    const int rel = t * a.st + r * a.sr;
-    if (reverse) {
-      if (--t < 0) {
-        t = a.T - 1;
-        --r;
+// Issue the copies of cnt steps of an item into a stage, the first at
+// position (t, r). Copies are spread over the threads; none divides.
+template <bool kProj, int kN, int kR>
+__device__ __forceinline__ void stage_in(const ScanArgs& a, float* stage,
+                                         int t, int r, int cnt, bool rev,
+                                         long long brow, long long xrow,
+                                         int d0) {
+  const int tid = threadIdx.x;
+  const int W = staged_width<kProj, kN, kR>(a);
+  float* xs = stage;
+  float* ds = stage + kSub * kTile;
+  float* rs = stage + 2 * kSub * kTile;
+  const int dl = min(kTile, a.D - d0);
+  if (a.vec_x) {
+    const int q = tid & 31;  // float4 column of the tile
+    if (4 * q < dl) {
+      for (int i = tid >> 5; i < cnt; i += kThreads / 32) {
+        const long long row = row_after(a, t, r, i, rev);
+        cp16(xs + i * kTile + 4 * q, a.x + (xrow + row) * a.D + d0 + 4 * q);
+        if (!kProj)
+          cp16(ds + i * kTile + 4 * q,
+               a.delta + (brow + row) * a.D + d0 + 4 * q);
       }
-    } else if (++t == a.T) {
-      t = 0;
-      ++r;
     }
-    const long long row = brow + rel;
-    const float xv = a.x[(xrow + rel) * a.D + d];
-    const float u = a.silu ? silu(xv) : xv;
-    const float* sv = staged + i * width;
-    float dt;
-    if (nr) {
-      dt = 0.f;
-#pragma unroll
-      for (int k = 0; k < kMaxRank; ++k)
-        if (k < nr) dt = fmaf(sv[k], wdt[k], dt);
+  } else if (tid < dl) {
+    for (int i = 0; i < cnt; ++i) {
+      const long long row = row_after(a, t, r, i, rev);
+      cp4(xs + i * kTile + tid, a.x + (xrow + row) * a.D + d0 + tid);
+      if (!kProj)
+        cp4(ds + i * kTile + tid, a.delta + (brow + row) * a.D + d0 + tid);
+    }
+  }
+  if (kProj) {
+    const int w4 = W / 4;
+    for (int e = tid; e < cnt * w4; e += kThreads) {
+      const int i = e / w4, f = e - i * w4;
+      const long long row = row_after(a, t, r, i, rev);
+      cp16(rs + i * W + 4 * f, a.dbl + (brow + row) * W + 4 * f);
+    }
+  } else {
+    const int N = kN ? kN : a.N, N4 = (N + 3) & ~3;
+    if (a.vec_bc) {
+      const int n4 = N / 4;
+      for (int e = tid; e < cnt * 2 * n4; e += kThreads) {
+        const int i = e / (2 * n4), f = e - i * 2 * n4;
+        const int c = f >= n4, k = f - c * n4;
+        const long long row = row_after(a, t, r, i, rev);
+        cp16(rs + i * W + c * N4 + 4 * k,
+             (c ? a.Cm : a.Bm) + (brow + row) * N + 4 * k);
+      }
     } else {
-      dt = a.delta[row * a.D + d];
-    }
-    dt = softplus(dt + bias);
-    const float du = dt * u;
-    const float* bs = sv + nr;
-    const float* cs = bs + a.N;
-    float yv = 0.f;
-#pragma unroll
-    for (int n = 0; n < kMaxState; ++n) {
-      if (n < a.N) {
-        const float dA = exp2f(dt * A2[n]);
-        h[n] = fmaf(dA, h[n], du * bs[n]);
-        if (kFinal) yv = fmaf(cs[n], h[n], yv);
-        else P[n] *= dA;
-      }
-    }
-    if (kFinal) a.y[row * a.D + d] = yv + dskip * u;
-  }
-  if (!kFinal) {
-#pragma unroll
-    for (int n = 0; n < kMaxState; ++n) {
-      if (n < a.N) {
-        a.P[so + n] = P[n];
-        a.Hc[so + n] = h[n];
+      for (int e = tid; e < cnt * 2 * N; e += kThreads) {
+        const int i = e / (2 * N), f = e - i * 2 * N;
+        const int c = f >= N, k = f - c * N;
+        const long long row = row_after(a, t, r, i, rev);
+        cp4(rs + i * W + c * N4 + k,
+            (c ? a.Cm : a.Bm) + (brow + row) * N + k);
       }
     }
   }
 }
 
-// Serial carry composition per (b, d, n): Hc[c] becomes chunk c's initial
-// state, carry_{c+1} = P[c] carry_c + H[c].
-__global__ void scan_compose_kernel(const float* __restrict__ P,
-                                    float* __restrict__ Hc, int B, int nchunk,
-                                    int DN) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)B * DN) return;
-  const long long b = idx / DN, e = idx - b * DN;
+// Pass 1 (kFinal false): each item from a zero state; writes the chunk's
+// sum of delta and end state. Pass 2 (kFinal true): each item from its
+// initial state (Hc after the compose); writes y. kN / kR: N and dt_rank
+// known at compile time (0: read from the arguments, <= 16).
+// The generic instantiations are held to 4 blocks an SM (<= 128
+// registers): left to itself ptxas gives them 80 and spills.
+template <bool kProj, bool kFinal, int kN, int kR>
+__global__ void __launch_bounds__(kThreads, kN ? 1 : 4)
+scan_pass_kernel(const ScanArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  const int N = kN ? kN : a.N;
+  const int N4 = (N + 3) & ~3;
+  const int nr = kProj ? (kR ? kR : a.dt_rank) : 0;
+  const int W = staged_width<kProj, kN, kR>(a);
+  const int R4 = kR ? (kR + 3) & ~3 : a.R4;
+  const int sfl = stage_floats(W);
+
+  for (int item = blockIdx.x; item < a.items; item += gridDim.x) {
+    const int j = item % a.tiles, zc = item / a.tiles;
+    const int c = zc % a.nchunk, z = zc / a.nchunk;
+    const int g = z / a.Bt;
+    const bool rev = (a.rev_mask >> g) & 1;
+    const int d0 = j * kTile, d = d0 + tid;
+    const int dl = min(kTile, a.D - d0);
+    const bool live = tid < dl;
+    const int dc = live ? d : a.D - 1;  // parameters of a channel in range
+    const int s0 = c * a.chunk, len = min(a.chunk, a.L - s0);
+    const int nsub = (len + kSub - 1) / kSub;
+    // first row of this sequence in delta / dbl / B / C / y, and in x
+    const long long brow = (long long)z * a.L;
+    const long long xrow =
+        ((long long)(g % a.Gu) * a.Bt + (z - g * a.Bt)) * a.L;
+
+    // (t, r) of the item's first position: of the next stage to copy in,
+    // and of the stage being scanned
+    const int p0 = rev ? a.L - 1 - s0 : s0;
+    int rn = p0 / a.T, tn = p0 - rn * a.T;
+    int rc = rn, tc = tn;
+    for (int k = 0; k < kStages - 1; ++k) {
+      if (k < nsub) {
+        stage_in<kProj, kN, kR>(a, smem + k * sfl, tn, rn,
+                                min(kSub, len - k * kSub), rev, brow, xrow,
+                                d0);
+        step_by(a, tn, rn, kSub, rev);
+      }
+      cp_commit();
+    }
+
+    // exp(delta A) = exp2(delta A log2(e)): one ex2 per state and step
+    float A2[kMaxState], h[kMaxState], wdt[kMaxRank];
+    const int gd = g * a.D + dc;
+    const long long so = (((long long)z * a.nchunk + c) * a.D + dc) * N;
+#pragma unroll
+    for (int n = 0; n < kMaxState; ++n) {
+      const bool on = kN ? n < kN : n < N;
+      A2[n] = on ? a.A[(long long)gd * N + n] * kLog2e : 0.f;
+      h[n] = (kFinal && on) ? a.Hc[so + n] : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < kMaxRank; ++k)
+      wdt[k] = (kProj && k < nr) ? a.dt_w[(long long)dc * nr + k] : 0.f;
+    const float bias = a.bias[gd], dskip = a.Dskip[gd];
+    float sdt = 0.f;
+
+    for (int k = 0; k < nsub; ++k) {
+      __syncthreads();  // the stage refilled below was scanned at k - 1
+      if (k + kStages - 1 < nsub) {
+        stage_in<kProj, kN, kR>(
+            a, smem + ((k + kStages - 1) % kStages) * sfl, tn, rn,
+            min(kSub, len - (k + kStages - 1) * kSub), rev, brow, xrow, d0);
+        step_by(a, tn, rn, kSub, rev);
+      }
+      cp_commit();
+      cp_wait<kStages - 1>();  // stage k has landed (this thread's copies)
+      __syncthreads();         // ... and every thread's
+      float* stage = smem + (k % kStages) * sfl;
+      float* xs = stage + tid;                 // x, then u
+      float* ds = stage + kSub * kTile + tid;  // dt (explicit), then delta
+      const float* rs = stage + 2 * kSub * kTile;
+      const int cnt = min(kSub, len - k * kSub);
+      // delta and u of the stage's steps, independent of each other; each
+      // thread rewrites its own column
+#pragma unroll 4
+      for (int i = 0; i < cnt; ++i) {
+        float dt = 0.f;
+        if (kProj) {
+          const float* rw = rs + i * W;
+          if (kR) {
+#pragma unroll
+            for (int k4 = 0; k4 < kR; k4 += 4) {
+              const float4 v = *reinterpret_cast<const float4*>(rw + k4);
+              dt = fmaf(v.x, wdt[k4], dt);
+              dt = fmaf(v.y, wdt[k4 + 1], dt);
+              dt = fmaf(v.z, wdt[k4 + 2], dt);
+              dt = fmaf(v.w, wdt[k4 + 3], dt);
+            }
+          } else {
+#pragma unroll
+            for (int kk = 0; kk < kMaxRank; ++kk)
+              if (kk < nr) dt = fmaf(rw[kk], wdt[kk], dt);
+          }
+          xs[i * kTile] = silu(xs[i * kTile]);
+        } else {
+          dt = ds[i * kTile];
+        }
+        dt = softplus(dt + bias);
+        ds[i * kTile] = dt;
+        sdt += dt;
+      }
+      // the recurrence: shared memory and registers only
+#pragma unroll 2
+      for (int i = 0; i < cnt; ++i) {
+        const float dt = ds[i * kTile], u = xs[i * kTile];
+        const float du = dt * u;
+        const float* bs = rs + i * W + (kProj ? R4 : 0);
+        const float* cs = bs + N4;
+        float Bv[kMaxState], Cv[kMaxState];
+        if (kN && kN % 4 == 0) {
+#pragma unroll
+          for (int n = 0; n < kN; n += 4) {
+            const float4 b4 = *reinterpret_cast<const float4*>(bs + n);
+            Bv[n] = b4.x; Bv[n + 1] = b4.y; Bv[n + 2] = b4.z; Bv[n + 3] = b4.w;
+            if (kFinal) {
+              const float4 c4 = *reinterpret_cast<const float4*>(cs + n);
+              Cv[n] = c4.x; Cv[n + 1] = c4.y; Cv[n + 2] = c4.z;
+              Cv[n + 3] = c4.w;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int n = 0; n < kMaxState; ++n) {
+            Bv[n] = n < N ? bs[n] : 0.f;
+            Cv[n] = (kFinal && n < N) ? cs[n] : 0.f;
+          }
+        }
+        float y0 = 0.f, y1 = 0.f;  // even and odd states: shorter chains
+#pragma unroll
+        for (int n = 0; n < kMaxState; ++n) {
+          if (kN ? n < kN : n < N) {
+            h[n] = fmaf(ex2(dt * A2[n]), h[n], du * Bv[n]);
+            if (kFinal) {
+              if (n & 1) y1 = fmaf(Cv[n], h[n], y1);
+              else y0 = fmaf(Cv[n], h[n], y0);
+            }
+          }
+        }
+        if (kFinal) xs[i * kTile] = (y0 + y1) + dskip * u;  // u is spent
+      }
+      if (kFinal) {
+        // the stage's y rows, 16 bytes a store where they align
+        __syncthreads();
+        if (a.vec_y) {
+          const int q = tid & 31;
+          if (4 * q < dl) {
+            for (int i = tid >> 5; i < cnt; i += kThreads / 32) {
+              const long long row = row_after(a, tc, rc, i, rev);
+              *reinterpret_cast<float4*>(a.y + (brow + row) * a.D + d0 +
+                                         4 * q) =
+                  *reinterpret_cast<const float4*>(stage + i * kTile + 4 * q);
+            }
+          }
+        } else if (live) {
+          for (int i = 0; i < cnt; ++i)
+            a.y[(brow + row_after(a, tc, rc, i, rev)) * a.D + d] =
+                xs[i * kTile];
+        }
+        step_by(a, tc, rc, kSub, rev);
+      }
+    }
+    if (!kFinal && live) {
+      a.Sdt[((long long)z * a.nchunk + c) * a.D + d] = sdt;
+#pragma unroll
+      for (int n = 0; n < kMaxState; ++n)
+        if (kN ? n < kN : n < N) a.Hc[so + n] = h[n];
+    }
+    __syncthreads();  // the next item's prologue refills the ring
+  }
+}
+
+// Chunk carries, composed in parallel over chunks. Block (32, 8) covers 32
+// (channel, state) pairs e of one sequence (blockIdx.y); warp w folds the
+// chunks of its run [c0, c1) into one (decay, state) pair, the pairs of
+// the warps before it give its run's carry, and a second walk writes each
+// chunk's initial state into Hc: carry_{c+1} = P_c carry_c + H_c with P_c
+// = exp2(A2 * Sdt_c).
+template <int kN>
+__global__ void __launch_bounds__(32 * kComposeWarps)
+scan_compose_kernel(const float* __restrict__ A, const float* __restrict__ Sdt,
+                    float* __restrict__ Hc, int Bt, int nchunk, int D,
+                    int n_) {
+  __shared__ float sp[kComposeWarps][32], sh[kComposeWarps][32];
+  const int N = kN ? kN : n_;
+  const int lane = threadIdx.x, w = threadIdx.y;
+  const int DN = D * N;
+  const int e = blockIdx.x * 32 + lane;
+  const int z = blockIdx.y, g = z / Bt;
+  const bool live = e < DN;
+  const int ec = live ? e : DN - 1;
+  const float a2 = A[(long long)g * DN + ec] * kLog2e;
+  const int per = (nchunk + kComposeWarps - 1) / kComposeWarps;
+  const int c0 = min(nchunk, w * per), c1 = min(nchunk, c0 + per);
+  const float* sd = Sdt + (long long)z * nchunk * D + ec / N;
+  float* hc = Hc + (long long)z * nchunk * DN + ec;
+  float sum = 0.f, agg = 0.f;
+#pragma unroll 4
+  for (int c = c0; c < c1; ++c) {
+    const float s = sd[(long long)c * D];
+    agg = fmaf(ex2(a2 * s), agg, hc[(long long)c * DN]);
+    sum += s;
+  }
+  sp[w][lane] = ex2(a2 * sum);
+  sh[w][lane] = agg;
+  __syncthreads();
   float carry = 0.f;
-  for (int c = 0; c < nchunk; ++c) {
-    const long long o = (b * nchunk + c) * DN + e;
-    const float p = P[o], hl = Hc[o];
-    Hc[o] = carry;
-    carry = fmaf(p, carry, hl);
+  for (int v = 0; v < w; ++v) carry = fmaf(sp[v][lane], carry, sh[v][lane]);
+#pragma unroll 4
+  for (int c = c0; c < c1; ++c) {
+    const float s = sd[(long long)c * D];
+    const float hl = hc[(long long)c * DN];
+    if (live) hc[(long long)c * DN] = carry;
+    carry = fmaf(ex2(a2 * s), carry, hl);
   }
 }
 
-// out[r, k] = sum_d silu(xc[r, d]) w[k, d], register-tiled: thread
-// (ty, tx) of a 16 x 16 grid owns rows 4 ty .. 4 ty + 3 and columns
-// 4 tx .. 4 tx + 3 of the block's 64-row x 64-column tile (K <= 64). Per
-// d, one float4 of the transposed silu(xc) tile and one of the transposed
-// weight tile feed 16 FMAs.
+// out[r, off(k)] = sum_d silu(xc[r, d]) w[k, d], register-tiled: thread
+// (ty, tx) of a 16 x 12 grid owns rows 8 ty .. 8 ty + 7 and columns
+// 4 tx .. 4 tx + 3 of the block's 128-row x 48-column tile (K <= 48). Per
+// d, two float4 of the transposed silu(xc) tile and one of the transposed
+// weight tile feed 32 FMAs. The next slab is fetched into registers while
+// this one is multiplied; silu is applied once, as a slab is stashed. Column
+// k < dt_rank goes to k, the next N to R4 + (k - dt_rank), the last N to
+// R4 + N4 + (k - dt_rank - N). `vec`: xc's rows are 16-byte aligned.
 __global__ void __launch_bounds__(kProjThreads)
 scan_project_kernel(const float* __restrict__ xc, const float* __restrict__ w,
-                    float* __restrict__ out, long long rows, int D, int K) {
-  __shared__ __align__(16) float xs[kProjCols][kProjLd];  // [d][row]
-  __shared__ __align__(16) float wt[kProjCols][kProjLd];  // [d][k]
+                    float* __restrict__ out, long long rows, int D, int nr,
+                    int N, int R4, int W, int vec) {
+  __shared__ __align__(16) float xs[kProjSlab][kProjRows + 4];  // [d][row]
+  __shared__ __align__(16) float wt[kProjSlab][kProjCols + 4];  // [d][k]
+  const int K = nr + 2 * N, N4 = (N + 3) & ~3;
   const long long r0 = (long long)blockIdx.x * kProjRows;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  float acc[4][4];
+  const int tid = threadIdx.x, ty = tid / (kProjCols / 4),
+            tx = tid % (kProjCols / 4);
+  float4 xr[kProjX4];
+  float wr[kProjW];
+  // slab element e: row e % kProjRows (consecutive threads, consecutive
+  // rows: the transposed stores hit distinct banks), float4 e / kProjRows
+  // along d
+  auto fetch = [&](int d0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int m = 0; m < kProjX4; ++m) {
+      const int e = tid + m * kProjThreads;
+      const int i = e % kProjRows, q = e / kProjRows;
+      const long long r = r0 + i;
+      const int dcol = d0 + 4 * q;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < rows) {
+        const float* src = xc + r * D + dcol;
+        if (vec) {
+          if (dcol < D) v = *reinterpret_cast<const float4*>(src);
+        } else {
+          if (dcol < D) v.x = src[0];
+          if (dcol + 1 < D) v.y = src[1];
+          if (dcol + 2 < D) v.z = src[2];
+          if (dcol + 3 < D) v.w = src[3];
+        }
+      }
+      xr[m] = v;
+    }
+#pragma unroll
+    for (int m = 0; m < kProjW; ++m) {
+      const int e = tid + m * kProjThreads;
+      const int k = e / kProjSlab, dd = e % kProjSlab;
+      wr[m] = (k < K && d0 + dd < D) ? w[(long long)k * D + d0 + dd] : 0.f;
+    }
+  };
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  for (int d0 = 0; d0 < D; d0 += kProjCols) {
+  fetch(0);
+  for (int d0 = 0; d0 < D; d0 += kProjSlab) {
     __syncthreads();
-    // i is a row of the silu(xc) tile and a column of the weight tile
-    for (int e = tid; e < kProjRows * kProjCols; e += kProjThreads) {
-      const int i = e / kProjCols, dd = e % kProjCols;
-      const long long r = r0 + i;
-      const int dcol = d0 + dd;
-      xs[dd][i] = (r < rows && dcol < D) ? silu(xc[r * D + dcol]) : 0.f;
-      wt[dd][i] = (i < K && dcol < D) ? w[(long long)i * D + dcol] : 0.f;
+#pragma unroll
+    for (int m = 0; m < kProjX4; ++m) {
+      const int e = tid + m * kProjThreads;
+      const int i = e % kProjRows, q = e / kProjRows;
+      xs[4 * q][i] = silu(xr[m].x);
+      xs[4 * q + 1][i] = silu(xr[m].y);
+      xs[4 * q + 2][i] = silu(xr[m].z);
+      xs[4 * q + 3][i] = silu(xr[m].w);
+    }
+#pragma unroll
+    for (int m = 0; m < kProjW; ++m) {
+      const int e = tid + m * kProjThreads;
+      wt[e % kProjSlab][e / kProjSlab] = wr[m];
     }
     __syncthreads();
-#pragma unroll 8
-    for (int dd = 0; dd < kProjCols; ++dd) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&xs[dd][4 * ty]);
+    if (d0 + kProjSlab < D) fetch(d0 + kProjSlab);
+#pragma unroll
+    for (int dd = 0; dd < kProjSlab; ++dd) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&xs[dd][8 * ty]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&xs[dd][8 * ty + 4]);
       const float4 w4 = *reinterpret_cast<const float4*>(&wt[dd][4 * tx]);
-      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
       const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long r = r0 + 4 * ty + i;
+  for (int i = 0; i < 8; ++i) {
+    const long long r = r0 + 8 * ty + i;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int col = 4 * tx + j;
-      if (r < rows && col < K) out[r * K + col] = acc[i][j];
+      const int k = 4 * tx + j;
+      const int off = k < nr       ? k
+                      : k < nr + N ? R4 + k - nr
+                                   : R4 + N4 + k - nr - N;
+      if (r < rows && k < K) out[r * W + off] = acc[i][j];
     }
   }
 }
 
-// Sequence positions are 32-bit: L = T * R, padded to whole chunks.
-bool fits_int(int T, int R, int chunk) {
-  return (long long)T * R + chunk <= 0x7fffffffLL;
+size_t ring_bytes(int W) {
+  return size_t(kStages) * stage_floats(W) * sizeof(float);
 }
 
-// Three passes over `seqs` = G * Bt sequences.
-cudaError_t run_scan(ScanArgs a, int seqs, cudaStream_t stream) {
-  const int width = (a.delta ? 0 : a.dt_rank) + 2 * a.N;
-  const size_t smem = size_t(a.chunk) * width * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      scan_chunk_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+// Let both passes take `W`'s ring: set once a device for each
+// instantiation (again only for a larger ring).
+template <bool kProj, int kN, int kR>
+cudaError_t allow_smem(int W) {
+  static int allowed[64] = {};
+  const int bytes = int(ring_bytes(W));
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(scan_chunk_kernel<true>,
+  if (dev < 64 && bytes <= allowed[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(scan_pass_kernel<kProj, false, kN, kR>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             int(smem));
+                             bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.nchunk, (a.D + kScanThreads - 1) / kScanThreads, seqs);
-  scan_chunk_kernel<false><<<grid, kScanThreads, smem, stream>>>(a);
-  err = cudaGetLastError();
+  err = cudaFuncSetAttribute(scan_pass_kernel<kProj, true, kN, kR>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && dev < 64) allowed[dev] = bytes;
+  return err;
+}
+
+// Resident blocks of both passes on the whole card.
+template <bool kProj, int kN, int kR>
+cudaError_t slots_of(int W, int* slots) {
+  cudaError_t err = allow_smem<kProj, kN, kR>(W);
   if (err != cudaSuccess) return err;
-  const long long total = (long long)seqs * a.D * a.N;
-  scan_compose_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      a.P, a.Hc, seqs, a.nchunk, a.D * a.N);
-  err = cudaGetLastError();
+  const size_t bytes = ring_bytes(W);
+  int dev = 0, sms = 0, b1 = 0, b2 = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &b1, scan_pass_kernel<kProj, false, kN, kR>, kThreads, bytes)) !=
+      cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &b2, scan_pass_kernel<kProj, true, kN, kR>, kThreads, bytes)) !=
+      cudaSuccess)
+    return err;
+  *slots = sms * min(b1, b2);
+  return cudaSuccess;
+}
+
+// Pass 1, the compose and pass 2 over `seqs` = G * Bt sequences.
+template <bool kProj, int kN, int kR>
+cudaError_t run_passes(const ScanArgs& a, int seqs, int grid,
+                       cudaStream_t stream) {
+  cudaError_t err = allow_smem<kProj, kN, kR>(a.W);
   if (err != cudaSuccess) return err;
-  scan_chunk_kernel<true><<<grid, kScanThreads, smem, stream>>>(a);
+  const size_t smem = ring_bytes(a.W);
+  scan_pass_kernel<kProj, false, kN, kR><<<grid, kThreads, smem, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const dim3 cgrid((a.D * a.N + 31) / 32, seqs);
+  scan_compose_kernel<kN><<<cgrid, dim3(32, kComposeWarps), 0, stream>>>(
+      a.A, a.Sdt, a.Hc, a.Bt, a.nchunk, a.D, a.N);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  scan_pass_kernel<kProj, true, kN, kR><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+int round4(int v) { return (v + 3) & ~3; }
+
+// Floats of a staged per-position row: dt_low, B, C (projection contract)
+// or B, C, each padded to a multiple of 4.
+int row_width(int proj, int N, int dt_rank) {
+  return (proj ? round4(dt_rank) : 0) + 2 * round4(N);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Common checks and the fields of ScanArgs both contracts set alike.
+bool plan_ok(ScanArgs& a, int seqs, int chunk, int grid) {
+  if (a.T < 1 || a.R < 1 || a.D < 1 || a.N < 1 || a.N > kMaxState ||
+      chunk < 1 || grid < 1 || seqs < 1 || seqs > 65535)
+    return false;
+  const long long L = (long long)a.T * a.R;
+  if (L + chunk > 0x7fffffffLL) return false;  // positions are 32-bit
+  a.L = int(L);
+  a.chunk = chunk;
+  a.nchunk = int((L + chunk - 1) / chunk);
+  a.tiles = (a.D + kTile - 1) / kTile;
+  const long long items = (long long)seqs * a.nchunk * a.tiles;
+  if (items > 0x7fffffffLL) return false;
+  a.items = int(items);
+  return true;
 }
 
 }  // namespace
 
+// Resident blocks of the scan's passes on the current device (SMs x
+// blocks an SM holds), for the contract `proj` at N and dt_rank: the
+// persistent grid is at most this. Returns it, or minus a CUDA error.
+extern "C" int ff_selective_scan_slots(int proj, int N, int dt_rank) {
+  if (N < 1 || N > kMaxState || dt_rank < 0 || dt_rank > kMaxRank)
+    return -int(cudaErrorInvalidValue);
+  const int W = row_width(proj, N, dt_rank);
+  int slots = 0;
+  cudaError_t err;
+  if (proj)
+    err = (N == 16 && dt_rank == 12) ? slots_of<true, 16, 12>(W, &slots)
+                                     : slots_of<true, 0, 0>(W, &slots);
+  else
+    err = N == 16 ? slots_of<false, 16, 0>(W, &slots)
+                  : slots_of<false, 0, 0>(W, &slots);
+  return err == cudaSuccess ? slots : -int(err);
+}
+
 // (a) chain_fused / chain_proj contract. xc [B, T, R, D] pre-silu;
 // x_proj_w [dt_rank + 2N, D]; dt_proj_w [D, dt_rank]; A [D, N]; Dskip,
-// bias [D]; x_dbl scratch [B * T * R, dt_rank + 2N]; P, Hc scratch
-// [B, nchunk, D, N]; y [B, T, R, D]. All fp32 contiguous.
+// bias [D]; x_dbl scratch [B * T * R, W] (W = round4(dt_rank) +
+// 2 round4(N)); y [B, T, R, D]; Sdt [B, nchunk, D] and Hc
+// [B, nchunk, D, N] scratch, nchunk = ceil(T R / chunk); `grid` blocks
+// walk the items. All fp32 contiguous.
 extern "C" int ff_selective_scan_proj(
     const float* xc, const float* x_proj_w, const float* dt_proj_w,
     const float* A, const float* Dskip, const float* bias, float* x_dbl,
-    float* y, float* P, float* Hc, int B, int T, int R, int D, int N,
-    int dt_rank, int reverse, int chunk, void* stream) {
-  if (N > kMaxState || dt_rank > kMaxRank || dt_rank + 2 * N > kProjMaxK ||
-      !fits_int(T, R, chunk))
+    float* y, float* Sdt, float* Hc, int B, int T, int R, int D, int N,
+    int dt_rank, int reverse, int chunk, int grid, void* stream) {
+  ScanArgs a = {};
+  a.x = xc; a.dbl = x_dbl; a.dt_w = dt_proj_w;
+  a.A = A; a.Dskip = Dskip; a.bias = bias; a.y = y; a.Sdt = Sdt; a.Hc = Hc;
+  a.Bt = B; a.Gu = 1;
+  a.T = T; a.R = R; a.st = R; a.sr = 1;
+  a.D = D; a.N = N; a.dt_rank = dt_rank;
+  a.R4 = round4(dt_rank); a.W = row_width(1, N, dt_rank);
+  a.rev_mask = reverse ? 1 : 0;
+  a.vec_x = D % 4 == 0 && aligned16(xc);
+  a.vec_y = D % 4 == 0 && aligned16(y);
+  if (dt_rank < 1 || dt_rank > kMaxRank || !aligned16(x_dbl) ||
+      !plan_ok(a, B, chunk, grid))
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int K = dt_rank + 2 * N;
-  const long long rows = (long long)B * T * R;
+  const long long rows = (long long)B * a.L;
   scan_project_kernel<<<(unsigned)((rows + kProjRows - 1) / kProjRows),
-                        kProjThreads, 0, s>>>(xc, x_proj_w, x_dbl, rows, D, K);
+                        kProjThreads, 0, s>>>(xc, x_proj_w, x_dbl, rows, D,
+                                              dt_rank, N, a.R4, a.W,
+                                              a.vec_x);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  ScanArgs a;
-  a.x = xc; a.delta = nullptr; a.dt_low = x_dbl; a.dt_w = dt_proj_w;
-  a.Bm = x_dbl + dt_rank; a.Cm = x_dbl + dt_rank + N;
-  a.A = A; a.Dskip = Dskip; a.bias = bias; a.y = y; a.P = P; a.Hc = Hc;
-  a.Bt = B; a.Gu = 1;
-  a.T = T; a.R = R; a.L = T * R; a.st = R; a.sr = 1;
-  a.D = D; a.N = N; a.dt_rank = dt_rank;
-  a.ld_dbl = K; a.ld_bc = K; a.chunk = chunk;
-  a.nchunk = (a.L + chunk - 1) / chunk;
-  a.rev_mask = reverse ? 1 : 0; a.silu = 1;
-  return int(run_scan(a, B, s));
+  if (N == 16 && dt_rank == 12)
+    return int(run_passes<true, 16, 12>(a, B, grid, s));
+  return int(run_passes<true, 0, 0>(a, B, grid, s));
 }
 
 // (b) explicit contract: G groups of B sequences of L = T * R positions,
 // position r * T + t at row t * st + r * sr. u [Gu, B, L rows, D] (group g
 // reads u group g % Gu); delta [G, B, L rows, D]; Bm, Cm [G, B, L rows, N];
-// A [G, D, N]; Dskip, bias [G, D]; y like delta; P, Hc scratch
-// [G * B, nchunk, D, N]. Group g scans in reverse when bit g of rev_mask
+// A [G, D, N]; Dskip, bias [G, D]; y like delta; Sdt [G * B, nchunk, D]
+// and Hc [G * B, nchunk, D, N] scratch, nchunk = ceil(L / chunk); `grid`
+// blocks walk the items. Group g scans in reverse when bit g of rev_mask
 // is set. All fp32 contiguous.
 extern "C" int ff_selective_scan(const float* u, const float* delta,
                                  const float* A, const float* Bm,
                                  const float* Cm, const float* Dskip,
-                                 const float* bias, float* y, float* P,
+                                 const float* bias, float* y, float* Sdt,
                                  float* Hc, int G, int Gu, int B, int T,
                                  int R, int st, int sr, int D, int N,
-                                 int rev_mask, int chunk, void* stream) {
-  if (N > kMaxState || G < 1 || G > 31 || Gu < 1 || G % Gu != 0 ||
-      (long long)G * B > 65535 || !fits_int(T, R, chunk))
-    return int(cudaErrorInvalidValue);
-  ScanArgs a;
-  a.x = u; a.delta = delta; a.dt_low = nullptr; a.dt_w = nullptr;
-  a.Bm = Bm; a.Cm = Cm; a.A = A; a.Dskip = Dskip; a.bias = bias;
-  a.y = y; a.P = P; a.Hc = Hc;
+                                 int rev_mask, int chunk, int grid,
+                                 void* stream) {
+  ScanArgs a = {};
+  a.x = u; a.delta = delta; a.Bm = Bm; a.Cm = Cm;
+  a.A = A; a.Dskip = Dskip; a.bias = bias; a.y = y; a.Sdt = Sdt; a.Hc = Hc;
   a.Bt = B; a.Gu = Gu;
-  a.T = T; a.R = R; a.L = T * R; a.st = st; a.sr = sr;
+  a.T = T; a.R = R; a.st = st; a.sr = sr;
   a.D = D; a.N = N; a.dt_rank = 0;
-  a.ld_dbl = 0; a.ld_bc = N; a.chunk = chunk;
-  a.nchunk = (a.L + chunk - 1) / chunk;
-  a.rev_mask = rev_mask; a.silu = 0;
-  return int(run_scan(a, G * B, static_cast<cudaStream_t>(stream)));
+  a.R4 = 0; a.W = row_width(0, N, 0);
+  a.rev_mask = rev_mask;
+  a.vec_x = D % 4 == 0 && aligned16(u) && aligned16(delta);
+  a.vec_bc = N % 4 == 0 && aligned16(Bm) && aligned16(Cm);
+  a.vec_y = D % 4 == 0 && aligned16(y);
+  if (G < 1 || G > 31 || Gu < 1 || G % Gu != 0 ||
+      (long long)G * B > 65535 || !plan_ok(a, G * B, chunk, grid))
+    return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N == 16) return int(run_passes<false, 16, 0>(a, G * B, grid, s));
+  return int(run_passes<false, 0, 0>(a, G * B, grid, s));
 }

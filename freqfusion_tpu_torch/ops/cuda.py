@@ -52,8 +52,9 @@ _SIGNATURES = {
     "ff_window_attention_nhwc": [_P] * 6 + [_I] * 6 + [_F, _P],
     "ff_window_attention": [_P] * 6 + [_I] * 5 + [_F, _P],
     "ff_grl_mixed_attention_nhwc": [_P] * 16 + [_I] * 8 + [_P],
-    "ff_selective_scan_proj": [_P] * 10 + [_I] * 8 + [_P],
-    "ff_selective_scan": [_P] * 10 + [_I] * 11 + [_P],
+    "ff_selective_scan_slots": [_I] * 3,
+    "ff_selective_scan_proj": [_P] * 10 + [_I] * 9 + [_P],
+    "ff_selective_scan": [_P] * 10 + [_I] * 12 + [_P],
     "ff_fused_mlp": [_P] * 8 + [_I] * 4 + [_F, _F, _P],
     "ff_cab_tiles": [_I] * 3,
     "ff_cab_pool": [_P] * 10 + [_I] * 5 + [_F, _P],

@@ -25,14 +25,19 @@ entries take the JAX scan kernels' contracts and layouts:
 ``reverse=True`` scans from the last position down; y stays in natural
 order. Every entry returns fp32. A CPU tensor goes to the plain version
 (``*_reference``); a CUDA tensor goes to ``csrc/selective_scan.cu`` or the
-call raises. All entries share one strided CUDA scan. The approximate
+call raises. All entries share one strided CUDA scan: a persistent grid
+of blocks, each scanning (sequence, chunk, 128-channel tile) items out of
+an asynchronous shared-memory ring, in two passes around a parallel
+compose of the chunk carries; :func:`plan_scan` sizes the chunks so that
+the items fill the card's resident blocks once. The approximate
 per-chain init and the 360 -> 384 channel padding of the TPU kernels are
 not carried over: the port is exact for any D and L.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -45,9 +50,13 @@ __all__ = ["selective_scan", "selective_scan_chain",
            "selective_scan_flat_reference", "selective_scan_dirs",
            "selective_scan_dirs_reference", "selective_scan_bidir",
            "selective_scan_bidir_reference", "selective_scan_spatial",
-           "selective_scan_spatial_reference"]
+           "selective_scan_spatial_reference", "ScanPlan", "plan_scan",
+           "dbl_width"]
 
-_CHUNK = 256  # scan steps per CUDA block (csrc/selective_scan.cu)
+# csrc/selective_scan.cu: channels one block scans (one a thread), and
+# scan steps one stage of its shared-memory ring holds
+_TILE = 128
+_SUB = 16
 
 
 def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
@@ -164,12 +173,71 @@ def selective_scan_spatial_reference(u, delta, A, B, C, D, delta_bias,
                      reverse).reshape(b, r, t, d)
 
 
-def _scratch(x: torch.Tensor, seqs: int, length: int, d: int, n: int):
-    nchunk = -(-length // _CHUNK)
-    return (torch.empty(seqs, nchunk, d, n, device=x.device,
-                        dtype=torch.float32),
-            torch.empty(seqs, nchunk, d, n, device=x.device,
-                        dtype=torch.float32))
+class ScanPlan(NamedTuple):
+    """How one launch of the CUDA scan cuts its work: sequences of
+    `chunk`-step chunks (`nchunk` a sequence, the last one ragged) and
+    `tiles` 128-channel tiles make `items` = sequences x nchunk x tiles
+    (sequence, chunk, tile) items, walked by `grid` persistent blocks."""
+    chunk: int
+    nchunk: int
+    tiles: int
+    items: int
+    grid: int
+
+
+@functools.lru_cache(maxsize=256)
+def plan_scan(length: int, d: int, seqs: int, slots: int) -> ScanPlan:
+    """Plan a launch over `seqs` sequences of `length` positions and `d`
+    channels on a card that holds `slots` blocks of the scan at once.
+
+    The chunk is as long as lets the items fill the slots once (one wave:
+    ``slots // (tiles * seqs)`` chunks a sequence), a whole number of ring
+    stages, and at least one stage. Where the sequences and tiles alone
+    outnumber the slots, a chunk is the whole sequence and each block
+    walks several items."""
+    tiles = -(-d // _TILE)
+    per_seq = max(1, slots // (tiles * seqs))
+    chunk = -(-length // per_seq)
+    chunk = -(-chunk // _SUB) * _SUB
+    nchunk = -(-length // chunk)
+    items = seqs * nchunk * tiles
+    return ScanPlan(chunk, nchunk, tiles, items, min(items, slots))
+
+
+def dbl_width(n: int, dt_rank: int) -> int:
+    """Floats of one x_dbl row on the projection contract: dt_low, B and
+    C, each padded to a multiple of 4 so the scan copies 16 bytes at a
+    time."""
+    return -(-dt_rank // 4) * 4 + 2 * (-(-n // 4) * 4)
+
+
+_slots: dict = {}
+
+
+def _plan(x: torch.Tensor, proj: bool, length: int, d: int, n: int,
+          dt_rank: int, seqs: int) -> ScanPlan:
+    """:func:`plan_scan` with the card's resident blocks of the scan's
+    passes (SMs x blocks an SM holds), asked of the library at first use
+    for each contract, N and dt_rank."""
+    key = (x.device.index, proj, n, dt_rank)
+    if key not in _slots:
+        got = cuda.library().ff_selective_scan_slots(int(proj), n, dt_rank)
+        if got <= 0:
+            raise RuntimeError(f"selective scan: occupancy query failed "
+                               f"(CUDA error {-got})")
+        _slots[key] = got
+    return plan_scan(length, d, seqs, _slots[key])
+
+
+def _scratch(x: torch.Tensor, seqs: int, plan: ScanPlan, d: int, n: int):
+    """Pass 1's outputs, which the compose turns into each chunk's initial
+    state: the sum of delta over each chunk [seqs, nchunk, D] and the
+    chunk end states [seqs, nchunk, D, N] (about 5 MB a direction at the
+    336x512 bucket's one-wave plan), two views of one allocation."""
+    cells = seqs * plan.nchunk * d
+    buf = torch.empty(cells * (n + 1), device=x.device, dtype=torch.float32)
+    return (buf[:cells].view(seqs, plan.nchunk, d),
+            buf[cells:].view(seqs, plan.nchunk, d, n))
 
 
 def _require_cuda(x: torch.Tensor, name: str) -> None:
@@ -200,11 +268,13 @@ def _launch(name: str, u, delta, A, B, C, D, delta_bias, u_lead: tuple,
     groups, u_groups = (group[0], u_lead[0]) if group else (1, 1)
     seqs = delta.numel() // (t * r * d)
     y = torch.empty_like(delta)
-    P, Hc = _scratch(u, seqs, t * r, d, n)
+    plan = _plan(u, False, t * r, d, n, 0, seqs)
+    sdt, Hc = _scratch(u, seqs, plan, d, n)
     err = cuda.library().ff_selective_scan(
-        *(cuda.ptr(x) for x in (u, delta, A, B, C, D, delta_bias, y, P, Hc)),
+        *(cuda.ptr(x) for x in (u, delta, A, B, C, D, delta_bias, y, sdt,
+                                Hc)),
         groups, u_groups, seqs // groups, t, r, st, sr, d, n, rev_mask,
-        _CHUNK, cuda.stream(u))
+        plan.chunk, plan.grid, cuda.stream(u))
     cuda.check(err, name)
     cuda.launch_counts[name] += 1
     return y
@@ -321,13 +391,16 @@ def selective_scan_chain_proj(xc: torch.Tensor, x_proj_w: torch.Tensor,
     if n > 16 or not 0 < dtr <= 16:
         raise ValueError(f"selective_scan_chain_proj: N={n} and "
                          f"dt_rank={dtr} must be <= 16")
-    x_dbl = torch.empty(b * t * r, k, device=dev, dtype=torch.float32)
+    x_dbl = torch.empty(b * t * r, dbl_width(n, dtr), device=dev,
+                        dtype=torch.float32)
     y = torch.empty_like(xc)
-    P, Hc = _scratch(xc, b, t * r, d, n)
+    plan = _plan(xc, True, t * r, d, n, dtr, b)
+    sdt, Hc = _scratch(xc, b, plan, d, n)
     err = cuda.library().ff_selective_scan_proj(
         *(cuda.ptr(x) for x in (xc, x_proj_w, dt_proj_w, A, D, delta_bias,
-                                x_dbl, y, P, Hc)),
-        b, t, r, d, n, dtr, int(reverse), _CHUNK, cuda.stream(xc))
+                                x_dbl, y, sdt, Hc)),
+        b, t, r, d, n, dtr, int(reverse), plan.chunk, plan.grid,
+        cuda.stream(xc))
     cuda.check(err, "selective_scan_chain_proj")
     cuda.launch_counts["selective_scan"] += 1
     return y

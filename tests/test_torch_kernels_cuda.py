@@ -32,6 +32,7 @@ from freqfusion_tpu_torch.ops.attention import (
     window_attention_reference)
 from freqfusion_tpu_torch.ops.layernorm import (fused_layernorm,
                                                 fused_layernorm_reference)
+from freqfusion_tpu_torch.ops import selective_scan as ss
 from freqfusion_tpu_torch.ops.selective_scan import (
     selective_scan_bidir, selective_scan_bidir_reference, selective_scan_chain,
     selective_scan_chain_proj, selective_scan_chain_proj_reference,
@@ -199,6 +200,145 @@ def test_scan_flat_dirs_bidir_kernels(d, n):
     cuda.reset_launch_counts()
     _scan_close(selective_scan_bidir(*args),
                 selective_scan_bidir_reference(*args), "selective_scan_bidir")
+
+
+def _check_contracts(rng, dev, b, t, r, d, n, dtr=12):
+    """The six scan entries (TPU contracts #3-#9) against their plain
+    versions over b sequences of L = t * r positions: chain_proj, chain and
+    spatial on [b, t, r] each direction, flat on [b, L], four directions,
+    and bidir (G = 4 groups from Gu = 2 u tensors, rev_mask 0b1100)."""
+    l = t * r
+    xpw = _t(0.05 * rng.normal(size=(dtr + 2 * n, d)), dev)
+    dtw = _t(0.3 * rng.normal(size=(d, dtr)), dev)
+    for rev in (False, True):
+        xc = _t(rng.normal(size=(b, t, r, d)), dev)
+        _, _, A, _, _, D, bias = _scan_inputs(rng, (b, t, r), d, n, dev)
+        cuda.reset_launch_counts()
+        _scan_close(selective_scan_chain_proj(xc, xpw, dtw, A, D, bias, rev),
+                    selective_scan_chain_proj_reference(xc, xpw, dtw, A, D,
+                                                        bias, rev),
+                    "selective_scan")
+        args = _scan_inputs(rng, (b, t, r), d, n, dev)
+        cuda.reset_launch_counts()
+        _scan_close(selective_scan_chain(*args, rev),
+                    selective_scan_chain_reference(*args, rev),
+                    "selective_scan_chain")
+        cuda.reset_launch_counts()
+        _scan_close(selective_scan_spatial(*args, reverse=rev),
+                    selective_scan_spatial_reference(*args, reverse=rev),
+                    "selective_scan_spatial")
+    args = _scan_inputs(rng, (b, l), d, n, dev)
+    cuda.reset_launch_counts()
+    _scan_close(selective_scan_flat(*args),
+                selective_scan_flat_reference(*args), "selective_scan_flat")
+    u, *rest = _scan_inputs(rng, (4, b, l), d, n, dev, (4,))
+    cuda.reset_launch_counts()
+    _scan_close(selective_scan_dirs(u, *rest),
+                selective_scan_dirs_reference(u, *rest), "selective_scan_dirs")
+    args = (u[:2].contiguous(), *rest)
+    cuda.reset_launch_counts()
+    _scan_close(selective_scan_bidir(*args),
+                selective_scan_bidir_reference(*args), "selective_scan_bidir")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,r", [(1, 1), (5, 3), (17, 1), (7, 5)])
+def test_scan_lengths_kernel(t, r):
+    """L = 1, one ring stage less one step (15), one planned chunk plus one
+    (17: at these sizes a chunk is one 16-step stage) and two chunks plus
+    three (35), at D 360, N 16, dt_rank 12."""
+    dev = cuda_or_skip()
+    _check_contracts(np.random.default_rng(t * r), dev, 2, t, r, 360, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 24, 31, 129, 360])
+def test_scan_widths_kernel(d):
+    """D 1, 31 and 129 (a 1-channel second tile) take the 4-byte copies,
+    24 and 360 the 16-byte ones (D % 4 == 0); L = 37 * 29."""
+    dev = cuda_or_skip()
+    _check_contracts(np.random.default_rng(d), dev, 2, 37, 29, d, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4, 16])
+@pytest.mark.parametrize("dtr", [1, 12, 16])
+def test_scan_state_and_rank_kernel(n, dtr):
+    """N and dt_rank around the compiled (16, 12): the generic
+    instantiations, 4-byte B/C copies at N 1, padded x_dbl rows."""
+    dev = cuda_or_skip()
+    _check_contracts(np.random.default_rng(17 * n + dtr), dev, 1, 23, 19, 24,
+                     n, dtr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+def test_scan_chain_t336_kernel(reverse, monkeypatch):
+    """The chain layout with T = 336 (SS2D's rows at the 336x512 bucket) and
+    chunks of 544 steps that straddle chains (a card of 5 resident blocks,
+    set in the plan), for #3 and #5: ring stages walk across t = 335 -> 0,
+    backward too."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(336 + reverse)
+    t, r, d, n = 336, 8, 24, 16
+    for proj in (True, False):
+        monkeypatch.setitem(ss._slots, (0, proj, n, 12 if proj else 0), 5)
+    assert ss.plan_scan(t * r, d, 1, 5).chunk == 544
+    xc = _t(rng.normal(size=(1, t, r, d)), dev)
+    xpw = _t(0.05 * rng.normal(size=(44, d)), dev)
+    dtw = _t(0.3 * rng.normal(size=(d, 12)), dev)
+    _, _, A, _, _, D, bias = _scan_inputs(rng, (1, t, r), d, n, dev)
+    cuda.reset_launch_counts()
+    _scan_close(selective_scan_chain_proj(xc, xpw, dtw, A, D, bias, reverse),
+                selective_scan_chain_proj_reference(xc, xpw, dtw, A, D, bias,
+                                                    reverse),
+                "selective_scan")
+    args = _scan_inputs(rng, (1, t, r), d, n, dev)
+    cuda.reset_launch_counts()
+    _scan_close(selective_scan_chain(*args, reverse),
+                selective_scan_chain_reference(*args, reverse),
+                "selective_scan_chain")
+
+
+@pytest.mark.cuda
+def test_scan_persistent_walk_kernel(monkeypatch):
+    """A grid of 3 blocks each walking many items (sequence, chunk, tile),
+    the ring refilled from item to item: all contracts at D 129 (two tiles)
+    and N 4."""
+    dev = cuda_or_skip()
+    for key in ((0, True, 4, 12), (0, False, 4, 0)):
+        monkeypatch.setitem(ss._slots, key, 3)
+    _check_contracts(np.random.default_rng(3), dev, 2, 37, 29, 129, 4)
+
+
+@pytest.mark.cuda
+def test_scan_unaligned_and_repeatable_kernel():
+    """Bases off 16 bytes take the 4-byte copies at D % 4 == 0 and N 16;
+    two runs of #3 and of #8 give bit-equal y (no atomics, a fixed
+    order)."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(5)
+    args = _scan_inputs(rng, (2, 37, 29), 24, 16, dev)
+
+    def shifted(x):
+        return torch.empty(x.numel() + 1, device=dev)[1:].view(
+            x.shape).copy_(x)
+    moved = tuple(shifted(x) if x.dim() > 2 else x for x in args)
+    cuda.reset_launch_counts()
+    _scan_close(selective_scan_chain(*moved, True),
+                selective_scan_chain_reference(*args, True),
+                "selective_scan_chain")
+    xc = _t(rng.normal(size=(1, 64, 48, 360)), dev)
+    xpw = _t(0.05 * rng.normal(size=(44, 360)), dev)
+    dtw = _t(0.3 * rng.normal(size=(360, 12)), dev)
+    _, _, A, _, _, D, bias = _scan_inputs(rng, (1,), 360, 16, dev)
+    first = selective_scan_chain_proj(xc, xpw, dtw, A, D, bias)
+    assert torch.equal(first, selective_scan_chain_proj(xc, xpw, dtw, A, D,
+                                                        bias))
+    u, *rest = _scan_inputs(rng, (4, 1, 3000), 360, 16, dev, (4,))
+    first = selective_scan_bidir(u[:2].contiguous(), *rest)
+    again = selective_scan_bidir(u[:2].contiguous(), *rest)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def _fused_close(got, want):
