@@ -15,7 +15,10 @@ exits non-zero without the final ok line):
    the kernel's and the plain version's times and, where one PyTorch call
    computes the same function, that call's (CUDA events, median of 5
    after warm-up), beside the bound the card's peaks set for the work.
-   Window attention (#1) runs at DRCT-L's ten shapes; its window-major
+   Window attention (#1) runs at DRCT-L's ten shapes, each with its time
+   beside a bound of both terms: its products as 3xTF32 on the tensor
+   cores (three TF32 products for each fp32 one, at 495 TFLOP/s) and its
+   bytes (the table's bound stays the fp32-core one); its window-major
    form (#10, on no path) on the same windows partitioned, bit-equal to
    #1 and timed beside it. The one-pass LayerNorm (#22, on no path) runs
    at 172,032 rows and the experts' six LN widths, beside F.layer_norm.
@@ -133,7 +136,11 @@ FUSED_REL_TOL = 1e-4
 LN_REL_TOL = 1e-5
 PSNR_MIN = 60.0
 PEAK_FLOPS = 67e12     # H100 SXM fp32 outside the tensor cores
+PEAK_TF32 = 495e12     # H100 SXM TF32 on the tensor cores, dense
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3
+# window attention's head boxes at DRCT-L's five widths (head dims 30, 53,
+# 122, 46, 77): ptxas must report no spill for them
+DRCT_HEAD_BOXES = (32, 56, 128, 48, 80)
 LR_SIZES = {"a_128x128": (128, 128), "b_100x140": (100, 140),
             "c_336x512": (336, 512)}
 # the variables each configuration sets (none: the default path); every
@@ -342,6 +349,7 @@ def phase_window_kernels(dev, randn, checks, window_major: bool = True
     h, w = LR_SIZES["c_336x512"]
     p = h * w
     wa = checks["window_attention_nhwc"] = KernelCheck("window_attention_nhwc")
+    tc_bound = {"operations": 0.0, "bytes": 0.0}
     if window_major:
         from freqfusion_tpu_torch.ops.attention import (
             window_attention, window_attention_reference)
@@ -368,9 +376,18 @@ def phase_window_kernels(dev, randn, checks, window_major: bool = True
                 return F.scaled_dot_product_attention(qh, kh, vh,
                                                       attn_mask=add,
                                                       scale=hd ** -0.5)
+            flops = 4.0 * p * 256 * c
             ms_nhwc = wa.run(label, lambda: window_attention_nhwc(*args),
                              lambda: window_attention_nhwc_reference(*args),
-                             attn_tol, 4.0 * p * 256 * c, nbytes, sdpa)
+                             attn_tol, flops, nbytes, sdpa)
+            ops_ms = 1e3 * 3 * flops / PEAK_TF32
+            bytes_ms = 1e3 * nbytes / PEAK_BYTES
+            tc_bound["operations"] += ops_ms
+            tc_bound["bytes"] += bytes_ms
+            print(f"  window_attention_nhwc {label}: {ms_nhwc:.3f} ms against "
+                  f"a 3xTF32 bound of {max(ops_ms, bytes_ms):.3f} ms "
+                  f"(operations {ops_ms:.3f} ms: 3 x {flops / 1e9:.1f} GFLOP "
+                  f"at 495 TFLOP/s; bytes {bytes_ms:.3f} ms)")
             if window_major:
                 wargs = (qw, kw, vw, bias, mask, heads)
                 ms_wm = wm.run(label, lambda: window_attention(*wargs),
@@ -386,7 +403,43 @@ def phase_window_kernels(dev, randn, checks, window_major: bool = True
                                          "differs from #1's")
             del add
         del q, k, v, qw, kw, vw, qh, kh, vh
+    print(f"  window_attention_nhwc, the ten shapes: {wa.ms:.3f} ms against a "
+          f"3xTF32 bound of {max(tc_bound.values()):.3f} ms (operations "
+          f"{tc_bound['operations']:.3f}, bytes {tc_bound['bytes']:.3f}; "
+          f"fp32 cores {wa.flop_ms:.3f})")
     torch.cuda.empty_cache()
+
+
+def check_window_spills(log: str, required: bool) -> None:
+    """Print ptxas's registers and spills for window attention's
+    instantiations at DRCT-L's head boxes (csrc/window_attention.cuh,
+    window_attention_kernel<HDP, WM>, in every source that builds them)
+    and raise if one spills, or (`required`) if none is found."""
+    import re
+
+    found, entry = [], None
+    for line in log.splitlines():
+        hit = re.search(r"window_attention_kernelILi(\d+)ELb([01])E", line)
+        if "Compiling entry" in line:
+            entry = ((int(hit.group(1)), int(hit.group(2))) if hit
+                     and int(hit.group(1)) in DRCT_HEAD_BOXES else None)
+        elif entry and "spill stores" in line:
+            spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+            found.append((*entry, spill))
+        elif entry and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            hdp, wm, spill = found[-1]
+            print(f"  window attention, head box {hdp}"
+                  f"{' (window-major)' if wm else ''}: {regs} registers, "
+                  f"{spill} bytes spill stores")
+            entry = None
+    if required and not found:
+        raise AssertionError("no ptxas report for window attention's "
+                             "DRCT-L instantiations")
+    spilled = sorted({(h, w) for h, w, sp in found if sp})
+    if spilled:
+        raise AssertionError(f"window attention spills at head boxes "
+                             f"{spilled}")
 
 
 def phase_layernorm_kernel(dev, randn, checks) -> None:
@@ -1243,6 +1296,9 @@ def main(argv) -> int:
     for line in cuda.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("    " + line.strip())
+    if cuda.build_seconds is not None:
+        check_window_spills(cuda.build_log, not any(
+            a.endswith("-only") for a in argv))
     cuda.library()
     dev = torch.device("cuda")
 

@@ -17,17 +17,17 @@
 // window_attention.cuh, with no library call:
 //   1. qkv = x Wqkv + bqkv, a register-tiled SGEMM into a [B, H, W, 3C]
 //      scratch;
-//   2. the window attention of window_attention.cuh, reading q, k and v
-//      as the column thirds of that scratch (row stride 3 C), into a
+//   2. the window attention of window_attention.cuh (3xTF32 on the
+//      tensor cores, a cp.async K/V ring), reading q, k and v as the
+//      column thirds of that scratch (row stride 3 C), into a
 //      [B, H, W, C] scratch;
 //   3. out = attn Wproj + bproj, the same SGEMM.
 // The TPU kernel keeps q/k/v in VMEM to save their HBM round trip; here
 // that round trip (write and re-read 4 C floats a pixel, about 0.5 ms a
 // call at C = 308) is a twentieth of the operations' bound, while fusing
-// the projections into the attention block would cost it the registers
-// and shared memory that keep two blocks per SM (one head's K/V at hd 122
-// alone is 250 KB, over a block's 227 KB; one window's x at C 308 is
-// 315 KB). So the projections stay separate launches, and the GEMM is
+// the projections into the attention block would cost it the shared
+// memory its Q tile and K/V ring hold (one head's K/V at hd 122 alone is
+// 250 KB, over a block's 227 KB; one window's x at C 308 is 315 KB). So the projections stay separate launches, and the GEMM is
 // the part to make fast.
 //
 // The SGEMM: 128 x 128 output tiles, 256 threads, each thread 8 x 8
@@ -36,8 +36,8 @@
 // memory for 64 FMAs. Depth tiles of 8 are double-buffered through
 // registers, one barrier a tile; A is stored transposed with a row stride
 // of 132 so the transposing stores hit distinct banks. Ragged M, N and K
-// are zero-filled on load and masked on store. Tensor cores (wgmma, TF32
-// or bf16) are left to later versions.
+// are zero-filled on load and masked on store. Tensor cores for the
+// SGEMM (wgmma, TF32 or bf16) are left to later versions.
 
 #include "window_attention.cuh"
 
@@ -146,19 +146,22 @@ cudaError_t gemm_bias(const float* a, int lda, const float* b, int ldb,
 // x [B, H, W, Cin]; wqkv [Cin, 3C] (q | k | v columns), bqkv [3C];
 // wproj [C, C] ([in, out]), bproj [C]; bias [heads, N, N]; mask [nW, N, N]
 // or null; qkv [B, H, W, 3C] and attn [B, H, W, C] scratch; out
-// [B, H, W, C]. All fp32 contiguous; H % ws == 0 == W % ws.
+// [B, H, W, C]. All fp32 contiguous; H % ws == 0 == W % ws. hdp and vec:
+// the attention's plan (ops/attention.py:plan_window_attention, row
+// stride 3 C).
 extern "C" int ff_window_attention_qkv_nhwc(
     const float* x, const float* wqkv, const float* bqkv, const float* wproj,
     const float* bproj, const float* bias, const float* mask, float* qkv,
     float* attn, float* out, int B, int H, int W, int Cin, int C,
-    int num_heads, int ws, float scale, void* stream) {
+    int num_heads, int ws, float scale, int hdp, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long M = (long long)B * H * W;
   cudaError_t err = gemm_bias(x, Cin, wqkv, 3 * C, bqkv, qkv, 3 * C, M,
                               3 * C, Cin, s);
   if (err != cudaSuccess) return int(err);
   err = window_attention_launch(qkv, qkv + C, qkv + 2 * C, 3 * C, bias, mask,
-                                attn, B, H, W, C, num_heads, ws, scale, s);
+                                attn, B, H, W, C, num_heads, ws, scale,
+                                hdp, vec, s);
   if (err != cudaSuccess) return int(err);
   return int(gemm_bias(attn, C, wproj, C, bproj, out, C, M, C, C, s));
 }

@@ -23,13 +23,43 @@ from . import cuda
 from .window_attention import (multi_head_window_attention, window_partition,
                                window_reverse)
 
-__all__ = ["window_attention", "window_attention_reference",
+__all__ = ["plan_window_attention", "window_attention",
+           "window_attention_reference",
            "window_attention_nhwc", "window_attention_nhwc_reference",
            "grl_mixed_attention_nhwc", "grl_mixed_attention_nhwc_reference",
            "window_attention_qkv_nhwc",
            "window_attention_qkv_nhwc_reference",
            "grl_mixed_attention_qkv_nhwc",
            "grl_mixed_attention_qkv_nhwc_reference"]
+
+
+# padded head widths csrc/window_attention.cuh is instantiated for
+HEAD_BOXES = (16, 32, 48, 56, 64, 80, 96, 128, 256)
+
+
+def plan_window_attention(hd: int, heads: int, ldi: int,
+                          aligned: bool) -> Tuple[int, bool]:
+    """(hdp, vec): how csrc/window_attention.cuh reads a head of `hd`
+    channels at head * hd from rows of `ldi` floats. vec (rows a multiple
+    of 16 bytes, `aligned` bases): 16-byte copies of a box of hdp channels
+    from the head's first channel rounded down to a multiple of 4, so
+    hdp covers hd + (head * hd) % 4 for every head; otherwise 4-byte
+    copies of the hd channels. hdp is the smallest instantiated width that
+    fits."""
+    if hd > HEAD_BOXES[-1]:
+        raise ValueError(f"window attention: head dim {hd} > "
+                         f"{HEAD_BOXES[-1]}")
+    vec = aligned and ldi % 4 == 0
+    need = hd + max((h * hd) % 4 for h in range(heads)) if vec else hd
+    if need > HEAD_BOXES[-1]:
+        vec, need = False, hd
+    return next(p for p in HEAD_BOXES if p >= need), vec
+
+
+def _plan(hd: int, heads: int, ldi: int, *tensors) -> Tuple[int, int]:
+    hdp, vec = plan_window_attention(
+        hd, heads, ldi, all(t.data_ptr() % 16 == 0 for t in tensors))
+    return hdp, int(vec)
 
 
 def window_attention_nhwc_reference(q, k, v, bias, mask, num_heads: int,
@@ -74,7 +104,7 @@ def window_attention_nhwc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = cuda.library().ff_window_attention_nhwc(
         cuda.ptr(q), cuda.ptr(k), cuda.ptr(v), cuda.ptr(bias),
         cuda.ptr(mask), cuda.ptr(out), b, h, w, c, num_heads, ws, scale,
-        cuda.stream(q))
+        *_plan(hd, num_heads, c, q, k, v), cuda.stream(q))
     cuda.check(err, "window_attention_nhwc")
     cuda.launch_counts["window_attention_nhwc"] += 1
     return out
@@ -119,7 +149,7 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = cuda.library().ff_window_attention(
         cuda.ptr(q), cuda.ptr(k), cuda.ptr(v), cuda.ptr(bias),
         cuda.ptr(mask), cuda.ptr(out), b_, n, nw, c, num_heads, scale,
-        cuda.stream(q))
+        *_plan(hd, num_heads, c, q, k, v), cuda.stream(q))
     cuda.check(err, "window_attention")
     cuda.launch_counts["window_attention"] += 1
     return out
@@ -284,10 +314,15 @@ def window_attention_qkv_nhwc(x: torch.Tensor, wqkv: torch.Tensor,
     qkv = x.new_empty(b, h, w, 3 * c)
     attn = x.new_empty(b, h, w, c)
     out = x.new_empty(b, h, w, c)
+    # q, k, v: the column thirds of qkv (bases qkv + 0, C, 2 C; rows of 3 C
+    # floats, so aligned with qkv where 3 C % 4 == 0, which the plan checks)
+    hdp, vec = plan_window_attention(c // num_heads, num_heads, 3 * c,
+                                     qkv.data_ptr() % 16 == 0)
     err = cuda.library().ff_window_attention_qkv_nhwc(
         *(cuda.ptr(t) for t in (x, wqkv, bqkv, wproj, bproj, bias, mask,
                                 qkv, attn, out)),
-        b, h, w, cin, c, num_heads, ws, scale, cuda.stream(x))
+        b, h, w, cin, c, num_heads, ws, scale, hdp, int(vec),
+        cuda.stream(x))
     cuda.check(err, "window_attention_qkv_nhwc")
     cuda.launch_counts["window_attention_qkv_nhwc"] += 1
     return out

@@ -49,8 +49,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "ff_window_attention_nhwc": [_P] * 6 + [_I] * 6 + [_F, _P],
-    "ff_window_attention": [_P] * 6 + [_I] * 5 + [_F, _P],
+    "ff_window_attention_nhwc": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
+    "ff_window_attention": [_P] * 6 + [_I] * 5 + [_F, _I, _I, _P],
     "ff_grl_mixed_attention_nhwc": [_P] * 16 + [_I] * 8 + [_P],
     "ff_selective_scan_slots": [_I] * 3,
     "ff_selective_scan_proj": [_P] * 10 + [_I] * 9 + [_P],
@@ -63,7 +63,7 @@ _SIGNATURES = {
     "ff_nafblock_gate": [_P] * 10 + [_I] * 4 + [_F, _P],
     "ff_nafblock_apply": [_P] * 16 + [_I] * 4 + [_F, _P],
     "ff_dwconv3x3": [_P] * 4 + [_I] * 4 + [_P],
-    "ff_window_attention_qkv_nhwc": [_P] * 10 + [_I] * 7 + [_F, _P],
+    "ff_window_attention_qkv_nhwc": [_P] * 10 + [_I] * 7 + [_F, _I, _I, _P],
     "ff_grl_qkv_scratch_floats": [_I] * 4,
     "ff_grl_mixed_attention_qkv_nhwc": [_P] * 15 + [_I] * 9 + [_P],
     "ff_token_attention": [_P] * 6 + [_I] * 4 + [_P],

@@ -91,6 +91,73 @@ def test_window_attention_kernel(c, heads, ws):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c,heads", [(244, 2), (180, 6)])
+def test_window_attention_precision_guard(c, heads):
+    """Head dims 122 and 30 with q and k scaled so that logits reach +-30:
+    the kernel's 3xTF32 products hold ATTN_TOL; one TF32 product a step
+    (hi * hi alone) misses it by ~60x (tests/
+    test_torch_window_attention_plan.py models both)."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c + 7)
+    h, w, ws = 32, 48, 16
+    q, k = (_t(2.6 * rng.normal(size=(1, h, w, c)), dev) for _ in range(2))
+    v = _t(rng.normal(size=(1, h, w, c)), dev)
+    bias = _t(0.5 * rng.normal(size=(heads, ws * ws, ws * ws)), dev)
+    hd = c // heads
+    qh, kh = (window_partition(t, ws).reshape(-1, ws * ws, heads, hd)
+              .transpose(1, 2) for t in (q, k))
+    logits = (qh @ kh.transpose(-2, -1)).abs().max().item() * hd ** -0.5
+    assert logits >= 30
+    for shift in (0, ws // 2):
+        mask = shifted_window_mask(h, w, ws, shift)
+        m = None if mask is None else _t(mask, dev)
+        got = window_attention_nhwc(q, k, v, bias, m, heads, ws)
+        want = window_attention_nhwc_reference(q, k, v, bias, m, heads, ws)
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= ATTN_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,ws", [(42, 3, 8), (42, 3, 7), (30, 2, 8)])
+def test_window_attention_unaligned_rows_kernel(c, heads, ws):
+    """#1 where C * 4 is not a multiple of 16 (C 42, 30): rows cannot be
+    read in 16-byte pieces, so the kernel takes its 4-byte copies; window
+    7 leaves a ragged last key tile."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c + ws)
+    h, w, n = 2 * ws, 3 * ws, ws * ws
+    q, k, v = (_t(rng.normal(size=(2, h, w, c)), dev) for _ in range(3))
+    bias = _t(0.5 * rng.normal(size=(heads, n, n)), dev)
+    for shift in (0, ws // 2):
+        mask = shifted_window_mask(h, w, ws, shift)
+        m = None if mask is None else _t(mask, dev)
+        cuda.reset_launch_counts()
+        got = window_attention_nhwc(q, k, v, bias, m, heads, ws)
+        want = window_attention_nhwc_reference(q, k, v, bias, m, heads, ws)
+        torch.cuda.synchronize()
+        assert cuda.launch_counts["window_attention_nhwc"] == 1
+        assert (got - want).abs().max().item() <= ATTN_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,ws", [(180, 6, 16), (60, 3, 7),
+                                        (42, 3, 12)])
+def test_window_attention_reruns_bit_equal(c, heads, ws):
+    """#1 run twice on the same inputs gives the same bits (no atomics,
+    a fixed order of every sum), on both copy routes, shifted."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c + 2 * ws)
+    h, w, n = 2 * ws, 2 * ws, ws * ws
+    q, k, v = (_t(rng.normal(size=(1, h, w, c)), dev) for _ in range(3))
+    bias = _t(0.5 * rng.normal(size=(heads, n, n)), dev)
+    m = _t(shifted_window_mask(h, w, ws, ws // 2), dev)
+    first = window_attention_nhwc(q, k, v, bias, m, heads, ws)
+    again = window_attention_nhwc(q, k, v, bias, m, heads, ws)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shift", [0, 4])
 def test_grl_mixed_attention_kernel(shift):
     dev = cuda_or_skip()
@@ -476,6 +543,31 @@ def test_window_attention_qkv_kernel(c, heads, ws, fp32_plain):
     dev = cuda_or_skip()
     rng = np.random.default_rng(c + ws)
     h, w, n = 2 * ws, 3 * ws, ws * ws
+    x = _t(rng.normal(size=(1, h, w, c)), dev)
+    wqkv = _t(rng.normal(size=(c, 3 * c)) / np.sqrt(c), dev)
+    wproj = _t(rng.normal(size=(c, c)) / np.sqrt(c), dev)
+    bqkv, bproj = (_t(0.1 * rng.normal(size=k), dev) for k in (3 * c, c))
+    bias = _t(0.5 * rng.normal(size=(heads, n, n)), dev)
+    for shift in (0, ws // 2):
+        mask = shifted_window_mask(h, w, ws, shift)
+        args = (x, wqkv, bqkv, wproj, bproj, bias,
+                None if mask is None else _t(mask, dev), heads, ws)
+        cuda.reset_launch_counts()
+        got = window_attention_qkv_nhwc(*args)
+        assert dict(cuda.launch_counts) == {"window_attention_qkv_nhwc": 1}
+        _fused_close(got, window_attention_qkv_nhwc_reference(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,ws", [(60, 3, 7), (96, 4, 12),
+                                        (42, 3, 7)])
+def test_window_attention_qkv_ragged_kernel(c, heads, ws, fp32_plain):
+    """#11 with its attention stage at ragged windows: N 49 and 144 leave a
+    partial last key tile and a partial query tile; C 42 gives rows of
+    3 C = 126 floats, so the stage takes its 4-byte copies."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c + ws + 1)
+    h, w, n = 2 * ws, 2 * ws, ws * ws
     x = _t(rng.normal(size=(1, h, w, c)), dev)
     wqkv = _t(rng.normal(size=(c, 3 * c)) / np.sqrt(c), dev)
     wproj = _t(rng.normal(size=(c, c)) / np.sqrt(c), dev)
