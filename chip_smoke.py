@@ -7,7 +7,9 @@ exits non-zero without the final ok line):
 
 1. device: the card's name and power limit, the nvcc build of every CUDA
    kernel from ``freqfusion_tpu_torch/csrc`` (one nvcc per source, in
-   parallel; seconds, ptxas report), TF32 off for matmuls and
+   parallel; seconds, ptxas report, which fails the run on a spill in
+   window attention at DRCT-L's head boxes, the fused FFN's products at
+   the path's widths or the CAB's convolutions), TF32 off for matmuls and
    convolutions;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the shapes its path gives it (336x512 LR bucket, NAFNet's levels at
@@ -20,7 +22,13 @@ exits non-zero without the final ok line):
    cores (three TF32 products for each fp32 one, at 495 TFLOP/s) and its
    bytes (the table's bound stays the fp32-core one); its window-major
    form (#10, on no path) on the same windows partitioned, bit-equal to
-   #1 and timed beside it. The one-pass LayerNorm (#22, on no path) runs
+   #1 and timed beside it. The fused FFN (#14, six shapes) and the CAB
+   (#15, two), also 3xTF32, print the same two-term bound a shape, their
+   share of a 336x512 request from the launches it makes at each shape
+   (12 a DRCT-L width and 40 GRL-B FFNs; 40 GRL-B and 36 MambaIR CABs),
+   and one call's launches by torch.profiler at one or two shapes; the
+   NAFBlock (#16) runs at NAFNet's five levels with its loss a request.
+   The one-pass LayerNorm (#22, on no path) runs
    at 172,032 rows and the experts' six LN widths, beside F.layer_norm.
    The scan's seven contracts (TPU kernels #3-#9) run at L = 172,032,
    D 360, N 16: chain_proj and chain on both chain layouts and spatial on
@@ -97,12 +105,13 @@ compare two versions of them in one call; the last also runs beside an
 older checkout of the package), and print their summary instead of the ok
 line.
 
-    python3 chip_smoke.py --pipeline-only
+    python3 chip_smoke.py --pipeline-only [CONFIG]
 
-runs phase 1 and phase 3c's default path alone (six runs after a
-warm-up) and its split by stage, needing nothing of the port but the
-pipeline and its loader: a copy of this script beside an older checkout
-of the package times that checkout's pipeline the same way.
+runs phase 1 and phase 3c's pipeline alone in one configuration (default
+unless CONFIG names another, e.g. byte-floor; six runs after a warm-up)
+and its split by stage, needing nothing of the port but the pipeline and
+its loader: a copy of this script beside an older checkout of the package
+times that checkout's pipeline the same way.
 """
 
 from __future__ import annotations
@@ -138,9 +147,14 @@ PSNR_MIN = 60.0
 PEAK_FLOPS = 67e12     # H100 SXM fp32 outside the tensor cores
 PEAK_TF32 = 495e12     # H100 SXM TF32 on the tensor cores, dense
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3
-# window attention's head boxes at DRCT-L's five widths (head dims 30, 53,
-# 122, 46, 77): ptxas must report no spill for them
+# ptxas must report no spill for these instantiations: window attention's
+# head boxes at DRCT-L's five widths (head dims 30, 53, 122, 46, 77); the
+# FFN's up products and its down product at the six path widths (C 180,
+# 212, 244, 276, 308: 6, 8, 8, 9, 10 n-tiles a warp); the CAB's convs (4
+# and 6 n-tiles a block)
 DRCT_HEAD_BOXES = (32, 56, 128, 48, 80)
+FFN_DOWN_TILES = (6, 8, 9, 10)
+CAB_CONV_TILES = (4, 6)
 LR_SIZES = {"a_128x128": (128, 128), "b_100x140": (100, 140),
             "c_336x512": (336, 512)}
 # the variables each configuration sets (none: the default path); every
@@ -321,6 +335,46 @@ class KernelCheck:
                 "gate_off_route_ms": self.route_off_ms}
 
 
+class TensorCoreBound:
+    """A 3xTF32 kernel's time at each shape beside the bound of both terms
+    (its products as three TF32 products on the tensor cores at 495
+    TFLOP/s, and its bytes), and its share of a 336x512 request from the
+    launches a request makes at each shape."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.ops_ms = self.bytes_ms = self.bound_ms = 0.0
+        self.request_ms = self.request_loss = 0.0
+        self.launches = 0
+
+    def shape(self, label: str, ms: float, flops: float, nbytes: float,
+              per_request: int) -> None:
+        ops_ms = 1e3 * 3 * flops / PEAK_TF32
+        bytes_ms = 1e3 * nbytes / PEAK_BYTES
+        bound = max(ops_ms, bytes_ms)
+        self.ops_ms += ops_ms
+        self.bytes_ms += bytes_ms
+        self.bound_ms += bound
+        self.request_ms += per_request * ms
+        self.request_loss += per_request * (ms - bound)
+        self.launches += per_request
+        print(f"  {self.name} {label}: {ms:.3f} ms against a 3xTF32 bound "
+              f"of {bound:.3f} ms (operations {ops_ms:.3f} ms: 3 x "
+              f"{flops / 1e9:.1f} GFLOP at 495 TFLOP/s; bytes "
+              f"{bytes_ms:.3f} ms); {per_request} a request: "
+              f"{per_request * ms:.2f} ms, {per_request * (ms - bound):.2f} "
+              "ms above the bound")
+
+    def total(self, check: "KernelCheck") -> None:
+        print(f"  {self.name}, the {len(check.shapes)} shapes: "
+              f"{check.ms:.3f} ms against a 3xTF32 bound of "
+              f"{self.bound_ms:.3f} ms (operations {self.ops_ms:.3f}, bytes "
+              f"{self.bytes_ms:.3f}; fp32 cores {check.flop_ms:.3f}); a "
+              f"336x512 request ({self.launches} launches): "
+              f"{self.request_ms:.2f} ms, {self.request_loss:.2f} ms above "
+              "the bound")
+
+
 def fused_tol(refs) -> float:
     return FUSED_REL_TOL * max(1.0, refs[0].abs().max().item())
 
@@ -410,36 +464,67 @@ def phase_window_kernels(dev, randn, checks, window_major: bool = True
     torch.cuda.empty_cache()
 
 
-def check_window_spills(log: str, required: bool) -> None:
-    """Print ptxas's registers and spills for window attention's
-    instantiations at DRCT-L's head boxes (csrc/window_attention.cuh,
-    window_attention_kernel<HDP, WM>, in every source that builds them)
-    and raise if one spills, or (`required`) if none is found."""
+def _ptxas_entries(log: str):
+    """(mangled name, registers, spill-store bytes) of each entry in a
+    ptxas -v report."""
     import re
 
-    found, entry = [], None
+    entries, name, spill = [], None, 0
     for line in log.splitlines():
-        hit = re.search(r"window_attention_kernelILi(\d+)ELb([01])E", line)
-        if "Compiling entry" in line:
-            entry = ((int(hit.group(1)), int(hit.group(2))) if hit
-                     and int(hit.group(1)) in DRCT_HEAD_BOXES else None)
-        elif entry and "spill stores" in line:
+        hit = re.search(r"Compiling entry function '([^']+)'", line)
+        if hit:
+            name, spill = hit.group(1), 0
+        elif name and "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
-            found.append((*entry, spill))
-        elif entry and "Used" in line and "registers" in line:
-            regs = re.search(r"Used (\d+) registers", line).group(1)
-            hdp, wm, spill = found[-1]
-            print(f"  window attention, head box {hdp}"
-                  f"{' (window-major)' if wm else ''}: {regs} registers, "
-                  f"{spill} bytes spill stores")
-            entry = None
-    if required and not found:
-        raise AssertionError("no ptxas report for window attention's "
-                             "DRCT-L instantiations")
-    spilled = sorted({(h, w) for h, w, sp in found if sp})
+        elif name and "Used" in line and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            entries.append((name, regs, spill))
+            name = None
+    return entries
+
+
+def check_spills(log: str, required: bool) -> None:
+    """Print ptxas's registers and spills for the instantiations named
+    above (window attention's at DRCT-L's head boxes, csrc/
+    window_attention.cuh, in every source that builds them; the FFN's up
+    and down products, csrc/fused_mlp.cu; the CAB's convs, csrc/cab.cu)
+    and raise if one spills, or (`required`) if one of the groups has no
+    report."""
+    import re
+
+    groups = {
+        "window attention": (r"window_attention_kernelILi(\d+)ELb([01])E",
+                             lambda m: int(m.group(1)) in DRCT_HEAD_BOXES,
+                             lambda m: f"head box {m.group(1)}"
+                             + (" (window-major)" if m.group(2) == "1"
+                                else "")),
+        "fused FFN (#14)": (r"ffn_up_kernelILi(\d)E|ffn_down_kernelILi(\d+)E",
+                            lambda m: m.group(1) or int(m.group(2))
+                            in FFN_DOWN_TILES,
+                            lambda m: f"up, {64 * int(m.group(1))} columns"
+                            if m.group(1) else
+                            f"down, {m.group(2)} n-tiles a warp"),
+        "CAB conv (#15)": (r"cab_conv_kernelILi(\d+)E",
+                           lambda m: int(m.group(1)) in CAB_CONV_TILES,
+                           lambda m: f"{m.group(1)} n-tiles a block"),
+    }
+    entries = _ptxas_entries(log)
+    spilled = []
+    for group, (pattern, on_path, label) in groups.items():
+        found = 0
+        for name, regs, spill in entries:
+            m = re.search(pattern, name)
+            if not m or not on_path(m):
+                continue
+            found += 1
+            print(f"  {group}, {label(m)}: {regs} registers, {spill} bytes "
+                  "spill stores")
+            if spill:
+                spilled.append(f"{group} {label(m)}")
+        if required and not found:
+            raise AssertionError(f"no ptxas report for {group}")
     if spilled:
-        raise AssertionError(f"window attention spills at head boxes "
-                             f"{spilled}")
+        raise AssertionError(f"ptxas spills in {spilled}")
 
 
 def phase_layernorm_kernel(dev, randn, checks) -> None:
@@ -690,23 +775,35 @@ def phase_fused_kernels(dev, randn, checks) -> None:
     h, w = LR_SIZES["c_336x512"]
     p = h * w
     fm = checks["fused_mlp_block"] = KernelCheck("fused_mlp_block")
-    # DRCT-L's five widths (pre-norm), GRL-B's (post-norm, res_scale 1)
-    for c, ch, pre in ((180, 720, True), (212, 848, True), (244, 976, True),
-                       (276, 276, True), (308, 308, True),
-                       (180, 360, False)):
+    tc = TensorCoreBound("fused_mlp_block")
+    # DRCT-L's five widths (pre-norm, 12 blocks each), GRL-B's (post-norm,
+    # res_scale 1, 40 blocks)
+    for c, ch, pre, per_request in ((180, 720, True, 12), (212, 848, True, 12),
+                                    (244, 976, True, 12), (276, 276, True, 12),
+                                    (308, 308, True, 12),
+                                    (180, 360, False, 40)):
         x = randn(1, h, w, c)
         args = (x, randn(c, ch, scale=c ** -0.5), randn(ch, scale=0.1),
                 randn(ch, c, scale=ch ** -0.5), randn(c, scale=0.1),
                 1 + randn(c, scale=0.1), randn(c, scale=0.1), pre)
-        fm.run(f"C{c}/Ch{ch}/{'pre' if pre else 'post'}",
-               lambda: fused_mlp_block(*args),
-               lambda: fused_mlp_block_reference(*args), fused_tol,
-               4.0 * p * c * ch, 4 * (2 * p * c + 2 * c * ch + ch + 4 * c))
+        label = f"C{c}/Ch{ch}/{'pre' if pre else 'post'}"
+        flops, nbytes = 4.0 * p * c * ch, 4 * (2 * p * c + 2 * c * ch + ch
+                                              + 4 * c)
+        ms = fm.run(label, lambda: fused_mlp_block(*args),
+                    lambda: fused_mlp_block_reference(*args), fused_tol,
+                    flops, nbytes)
+        tc.shape(label, ms, flops, nbytes, per_request)
+        if c == 244 or not pre:
+            launch_breakdown(f"#14 {label}", lambda: fused_mlp_block(*args))
         del x, args
+    tc.total(fm)
 
     cb = checks["cab_fused"] = KernelCheck("cab_fused")
+    tc = TensorCoreBound("cab_fused")
     x = randn(1, h, w, 180, scale=0.5)
-    for form, cr, sq in (("grl", 45, 18), ("mambair", 60, 30)):
+    # GRL-B's 40 CABs, MambaIR's 36
+    for form, cr, sq, per_request in (("grl", 45, 18, 40),
+                                      ("mambair", 60, 30, 36)):
         wt = {"cab_0": _conv_tree(randn, 3, 180, cr),
               "cab_2": _conv_tree(randn, 3, cr, 180),
               "ca_1": _conv_tree(randn, 1, 180, 180 // sq),
@@ -715,12 +812,26 @@ def phase_fused_kernels(dev, randn, checks) -> None:
         if form == "mambair":
             ln, skip = _norm_tree(randn, 180), 1 + randn(180, scale=0.2)
         args = (x, wt, ln, skip)
-        cb.run(f"{form}/C180/Cr{cr}", lambda: cab_fused(*args),
-               lambda: cab_fused_reference(*args), fused_tol,
-               36.0 * p * 180 * cr, 4 * (2 * p * 180 + 18 * 180 * cr))
+        label = f"{form}/C180/Cr{cr}"
+        flops, nbytes = 36.0 * p * 180 * cr, 4 * (2 * p * 180 + 18 * 180 * cr)
+        ms = cb.run(label, lambda: cab_fused(*args),
+                    lambda: cab_fused_reference(*args), fused_tol, flops,
+                    nbytes)
+        tc.shape(label, ms, flops, nbytes, per_request)
+        launch_breakdown(f"#15 {label}", lambda: cab_fused(*args))
+    tc.total(cb)
+    del x
 
+    # NAFNet-SIDD-64's five levels at the 1344x2048 HR size, with its
+    # blocks a level (encoders 2, 2, 4, 8 and decoders 2, 2, 2, 2 at C 64 ..
+    # 512, 12 middle blocks at C 1024); on the fp32 cores
     nb = checks["nafblock_fused"] = KernelCheck("nafblock_fused")
-    for c, (hh, ww) in ((64, (4 * h, 4 * w)), (1024, (h // 4, w // 4))):
+    request = {"ms": 0.0, "loss": 0.0}
+    for c, (hh, ww), per_request in ((64, (4 * h, 4 * w), 4),
+                                     (128, (2 * h, 2 * w), 4),
+                                     (256, (h, w), 6),
+                                     (512, (h // 2, w // 2), 10),
+                                     (1024, (h // 4, w // 4), 12)):
         wt = {"norm1": _norm_tree(randn, c), "norm2": _norm_tree(randn, c),
               "conv1": _conv_tree(randn, 1, c, 2 * c),
               "conv2": _conv_tree(randn, 3, 2 * c, 2 * c, groups=2 * c),
@@ -731,12 +842,22 @@ def phase_fused_kernels(dev, randn, checks) -> None:
               "beta": randn(c, scale=0.5), "gamma": randn(c, scale=0.5)}
         x = torch.rand(1, hh, ww, c, device=dev)
         npx = hh * ww
-        nb.run(f"C{c}/{hh}x{ww}", lambda: nafblock_fused(x, wt),
-               lambda: nafblock_fused_reference(x, wt), fused_tol,
-               npx * (12.0 * c * c + 60.0 * c),
-               4 * (2 * npx * c + 7 * c * c + 40 * c))
+        flops = npx * (12.0 * c * c + 60.0 * c)
+        nbytes = 4 * (2 * npx * c + 7 * c * c + 40 * c)
+        ms = nb.run(f"C{c}/{hh}x{ww}", lambda: nafblock_fused(x, wt),
+                    lambda: nafblock_fused_reference(x, wt), fused_tol,
+                    flops, nbytes)
+        bound = max(1e3 * flops / PEAK_FLOPS, 1e3 * nbytes / PEAK_BYTES)
+        request["ms"] += per_request * ms
+        request["loss"] += per_request * (ms - bound)
+        print(f"  nafblock_fused C{c}: {per_request} a request, "
+              f"{per_request * ms:.2f} ms, {per_request * (ms - bound):.2f} "
+              "ms above the fp32-core bound")
         del x, wt
         torch.cuda.empty_cache()
+    print(f"  nafblock_fused, a 336x512 request (36 launches): "
+          f"{request['ms']:.2f} ms, {request['loss']:.2f} ms above the "
+          "bound")
 
     dw = checks["dwconv3x3"] = KernelCheck("dwconv3x3")
     x = randn(1, h, w, 360)
@@ -1137,7 +1258,7 @@ def phase_pipeline_ab(model_dir: Path, image: Path, configs=tuple(CONFIGS),
                       rounds: int = 1) -> None:
     """Seconds per request of the pipeline alone on `image` in each of
     `configs`: a warm-up of each, then `rounds` times all in order and
-    back."""
+    back; then the split by stage of the first configuration."""
     from freqfusion_tpu_torch.interface.io import load_pipeline
     from freqfusion_tpu_torch.utils.image_io import read_image
 
@@ -1166,24 +1287,25 @@ def phase_pipeline_ab(model_dir: Path, image: Path, configs=tuple(CONFIGS),
         print(f"  {config}: {' '.join(f'{v:.3f}' for v in t)} s, mean "
               f"{mean:.3f} s ("
               f"{4 * lr.shape[2] * 4 * lr.shape[3] / mean / 1e6:.3f} MP/s)")
-    stage_split(pipe, lr)
+    stage_split(pipe, lr, order[0])
     del pipe
 
 
-def stage_split(pipe, lr) -> None:
+def stage_split(pipe, lr, config: str = "default") -> None:
     """Device time of each expert alone on `lr` (a multiple of 16: the
-    pipeline's pad is empty) and of the whole default pipeline, CUDA
+    pipeline's pad is empty) and of the whole pipeline, in `config`, CUDA
     events, median of 3 after a warm-up; the rest (fusion net, crops) is
     the difference."""
     if lr.shape[2] % 16 or lr.shape[3] % 16:
         raise ValueError("stage_split needs an LR image with sides that "
                          "are multiples of 16")
-    set_gates("default")
+    set_gates(config)
     with torch.inference_mode():
         whole = cuda_ms(lambda: pipe(lr), reps=3, warmup=1)
         split = {name: cuda_ms(lambda e=expert: e(lr), reps=3, warmup=1)
                  for name, expert in pipe.experts.items()}
-    print(f"  default by stage (CUDA events, median of 3): pipeline "
+    set_gates("default")
+    print(f"  {config} by stage (CUDA events, median of 3): pipeline "
           f"{whole:.1f} ms; " + ", ".join(
               f"{name} {ms:.1f}" for name, ms in split.items())
           + f"; fusion net and crops {whole - sum(split.values()):.1f} ms")
@@ -1297,7 +1419,7 @@ def main(argv) -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("    " + line.strip())
     if cuda.build_seconds is not None:
-        check_window_spills(cuda.build_log, not any(
+        check_spills(cuda.build_log, not any(
             a.endswith("-only") for a in argv))
     cuda.library()
     dev = torch.device("cuda")
@@ -1324,6 +1446,11 @@ def main(argv) -> int:
             return 0
 
     if "--pipeline-only" in argv:
+        at = argv.index("--pipeline-only") + 1
+        config = argv[at] if at < len(argv) else "default"
+        if config not in CONFIGS:
+            raise SystemExit(f"chip_smoke: unknown configuration {config!r}"
+                             f" (one of {', '.join(CONFIGS)})")
         with tempfile.TemporaryDirectory() as tmp:
             work = Path(tmp)
             model_dir, in_dir = work / "models", work / "in"
@@ -1331,9 +1458,10 @@ def main(argv) -> int:
             in_dir.mkdir()
             write_checkpoints(model_dir)
             write_inputs(in_dir)
-            print("[3c] pipeline alone, 336x512, default path, 6 runs")
+            print(f"[3c] pipeline alone, 336x512, {config} configuration, "
+                  "6 runs")
             phase_pipeline_ab(model_dir, in_dir / "c_336x512.png",
-                              ("default",), rounds=3)
+                              (config,), rounds=3)
         print(f"card: {smi}")
         return 0
 

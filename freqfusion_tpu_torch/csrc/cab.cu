@@ -13,46 +13,78 @@
 // through.
 //
 // What bounds it on the H100: the two convolutions, 36 C (C/cr) FLOPs per
-// pixel (GRL: 5.0e10 at 336x512, 0.75 ms at 67 TFLOP/s fp32) against 8 C
-// bytes of x and out (0.25 GB, 0.07 ms at 3.35 TB/s). fp32 FMA issue bounds
-// it, as the two 3x3 products are implicit GEMMs with K = 9 Cin.
+// pixel (GRL: 5.0e10 at 336x512, 0.75 ms on the fp32 cores at 67 TFLOP/s)
+// against 8 C bytes of x and out (0.25 GB, 0.07 ms at 3.35 TB/s). The old
+// register-tiled FMA body took 7.31 ms over chip_smoke.py's two shapes
+// (fp32-core bound 1.75), held by FMA issue. So both convolutions run on
+// the tensor cores in 3xTF32 (tf32_mma.cuh), as implicit GEMMs: M a tile
+// of output pixels, N the output channels, K = 9 Cin taken tap by tap
+// (3 x 117 GFLOP / 495 TFLOP/s = 0.71 ms over the two shapes). This body
+// takes 3.27-3.29 ms there on an H100 at 700 W, the convs at ~120-180
+// TFLOP/s of tensor work: a stage's halo copy, LayerNorm and split run
+// in step across the block between its barriers, MambaIR's first conv
+// (Cout 60) repeats them for its two 32-channel blocks, and each block's
+// LN prologue and epilogue are exposed. Tried and not kept (phase 2, two
+// shapes): one block of 8 warps an SM with 48- or 64-channel blocks and
+// the halo split from a raw buffer into padded planes (3.85 ms), a
+// three-stage ring split in place (3.55), the weights copied 16 bytes a
+// thread (3.51, two blocks an SM).
 //
 // The global pool makes it two passes, as on the TPU. The TPU kernel's pass
-// B recomputes y from x; on this card that recomputation (another 0.75 ms
-// of FMAs at peak) costs ten times what writing y and reading it back
-// does (2 P C 4 bytes = 0.25 GB, 0.07 ms), so pass A stores y. The same
-// count decides the intermediate u: it is a quarter of x's width, so the
-// first conv writes it (2 P C/cr 4 bytes, 0.02 ms) rather than fusing both
-// convs behind a 2-pixel halo, which would recompute the first conv on
-// (8+2)(16+2)/(8 x 16) = 1.4x the pixels (+0.3 ms). So the call is three
-// kernels: conv1 (LN prologue, GELU epilogue), conv2 (+ per-tile channel
-// sums of y), then an elementwise pass that applies a and the skip. The
-// squeeze MLP between the passes is [B, C]-sized plain PyTorch, as it is
-// plain XLA in the JAX wrapper.
+// B recomputes y from x; on this card writing y and reading it back (2 P C
+// 4 bytes, 0.07 ms) costs less than the second conv again, so pass A
+// stores y. The same count decides the intermediate u: it is a quarter of
+// x's width, so the first conv writes it rather than fusing both convs
+// behind a 2-pixel halo. So pass A is three launches (the weights split,
+// conv1 with the LN prologue and the GELU epilogue, conv2 with per-tile
+// channel sums of y), then the squeeze MLP on [B, C] in PyTorch, then pass
+// B, an elementwise kernel that applies a and the skip.
 //
-// Conv design: one block of 256 threads per TH x 16 output pixels and all
-// output channels (<= 16 NC). Input channels are walked in chunks of 8: the
-// chunk's (TH+2) x (16+2) halo and its 9 x 8 x Cout weights sit in shared
-// memory; each thread accumulates TH pixels (one column of the tile) x NC
-// channels (co = 64 g + 4 tc + j, read as float4s) in registers over the 9
-// taps. TH is 16 for the narrow first conv (Cout <= 64, so a thread's 4
-// channels meet 16 pixels per weight load) and 8 for the wide second. With
-// LN, the halo pixels' mean and 1/std are computed first and applied as
-// the chunks are staged. No cuDNN: the products are register-tiled loops.
+// Conv design: a block of 8 warps takes a 16 x 16 tile of output pixels
+// and 8 NT output channels (NT 4 or 6: 32 or 48; wider convs take several
+// blocks), two blocks an SM; warp w owns output rows 2w and 2w + 1 (one
+// m-tile each: the tile's 16 columns are an m-tile's 16 rows) and all the
+// block's n-tiles. Input channels go 8 a stage (one k8 step a tap) through
+// a two-stage ring, one barrier a stage: the stage's 18 x 18 halo lands in
+// its hi plane by cp.async (zeros outside the image and past Cin), then
+// each thread normalises (LN) and splits in place the pieces it copied
+// itself, hi over the copy and lo in a plane beside it; the stage's
+// weights for all 9 taps, split once a call by the first launch into
+// fragment order (a lane's B fragment, hi and lo, is one 16-byte load; a
+// block's stage one contiguous piece), land by one bulk copy on the
+// stage's mbarrier. A tap's A fragment is the halo shifted by (dy, dx).
+// The k8 block's channels are permuted (fragment column t is channel 2t,
+// t + 4 is 2t + 1, in the weights' split as in the halo's read), so a
+// lane reads a pixel's two channels as one 8-byte load, free of bank
+// conflicts at a pixel stride of 8 floats. With LN, each halo pixel's
+// mean and 1/std are computed first, one warp a pixel from registers,
+// while stage 0's copies are in flight. No cuDNN.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTW = 16;          // output tile columns (rows: TH)
-constexpr int kHW = kTW + 2;     // input halo tile columns
-constexpr int kCin = 8;          // input channels per chunk
+constexpr int kTH = 16, kTW = 16;          // output tile rows, columns
+constexpr int kHW = kTW + 2;               // halo columns
+constexpr int kHalo = (kTH + 2) * kHW;     // halo pixels (324)
+constexpr int kCK = 8;                     // input channels a stage
+constexpr int kLdH = kCK;                  // halo hi/lo pixel stride
+constexpr int kHaloPieces = kHalo * kCK / 4;  // 4-float pieces a stage
+constexpr int kMaxCin = 256;               // the LN prologue's registers
+constexpr int kStages = 2;                 // the cp.async ring
 
-// Output tile rows for Cout output channels.
-__host__ __device__ constexpr int tile_rows(int nc) { return nc <= 4 ? 16 : 8; }
-int rows_for(int cout) { return tile_rows((cout + 15) / 16); }
+// n-tiles a block for Cout output channels: 4 or 6 (32 or 48 channels),
+// whichever pads Cout less, 6 on a tie.
+__host__ __device__ inline int conv_tiles(int cout) {
+  return (cout + 31) / 32 * 32 < (cout + 47) / 48 * 48 ? 4 : 6;
+}
+
+int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
 __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
@@ -64,170 +96,315 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// HWIO weights [3, 3, cin, cout], zero-padded, split into fragment order
+// over [coutp / (8 nt) blocks][cinp / 8][9 taps][nt][32 lanes][4]: unit u
+// is lane (g, t) of a (block, k8 block, tap, n-tile), its hi W[2t][g], hi
+// W[2t + 1][g], then the two lo, so a product reads a lane's B fragment
+// with one 16-byte load and a block's stage is one contiguous piece.
+// The k8 block's channels go in the order 0, 2, 4, 6, 1, 3, 5, 7
+// (fragment row t is channel 2t, row t + 4 channel 2t + 1), the order in
+// which a lane reads the halo: two adjacent channels, one 8-byte load.
+__device__ __forceinline__ void split_conv_weight(const float* __restrict__ w,
+                                                  float* __restrict__ fr,
+                                                  int cin, int cout, int cinp,
+                                                  int nt, long long u) {
+  const int lane = int(u % 32), g = lane / 4, t = lane % 4;
+  long long blk = u / 32;
+  const int ntl = int(blk % nt);
+  blk /= nt;
+  const int tap = int(blk % 9);
+  blk /= 9;
+  const int kb = int(blk % (cinp / 8)), nb = int(blk / (cinp / 8));
+  const int ci = 8 * kb + 2 * t, co = 8 * (nb * nt + ntl) + g;
+  const float* wt = w + (long long)tap * cin * cout;
+  const float v0 = ci < cin && co < cout ? wt[(long long)ci * cout + co] : 0.f;
+  const float v1 =
+      ci + 1 < cin && co < cout ? wt[(long long)(ci + 1) * cout + co] : 0.f;
+  uint4 o;
+  split_tf32(v0, o.x, o.z);
+  split_tf32(v1, o.y, o.w);
+  *reinterpret_cast<uint4*>(fr + 4 * u) = o;
+}
+
+__global__ void __launch_bounds__(kThreads)
+cab_split_weights(const float* __restrict__ w1, const float* __restrict__ w2,
+                  float* __restrict__ fr1, float* __restrict__ fr2, int C,
+                  int Cr, int cinp1, int coutp1, int cinp2, int coutp2) {
+  const long long n1 = 9LL * cinp1 * coutp1 / 2;  // units: 64 floats / 8 x 8
+  const long long n2 = 9LL * cinp2 * coutp2 / 2;
+  for (long long u = blockIdx.x * (long long)kThreads + threadIdx.x;
+       u < n1 + n2; u += (long long)gridDim.x * kThreads) {
+    if (u < n1)
+      split_conv_weight(w1, fr1, C, Cr, cinp1, conv_tiles(Cr), u);
+    else
+      split_conv_weight(w2, fr2, Cr, C, cinp2, conv_tiles(C), u - n1);
+  }
+}
+
 struct ConvArgs {
   const float* x;      // [B, H, W, Cin]
-  const float* w;      // [3, 3, Cin, Cout]
+  const float* w;      // split weights, fragment order (above)
   const float* bias;   // [Cout]
   const float* ln_s;   // [Cin] or null: LayerNorm the input first
   const float* ln_b;
   float* out;          // [B, H, W, Cout]
   float* partials;     // [B, tiles, Cout] or null: per-tile channel sums
-  int H, W, Cin, Cout, gelu;
+  int H, W, Cin, Cout, cinp, coutp, gelu, vec;
   float eps;
 };
 
-template <int NC>
-__global__ void __launch_bounds__(kThreads) conv3x3_kernel(ConvArgs p) {
-  constexpr int CP = 16 * NC, NG = NC / 4;
-  constexpr int kTH = tile_rows(NC);
-  constexpr int kHalo = (kTH + 2) * kHW;
-  extern __shared__ __align__(16) float smem[];
-  float* Wt = smem;                   // [9][kCin][CP]
-  float* In = Wt + 9 * kCin * CP;     // [kHalo][kCin]
-  float* mu = In + kHalo * kCin;      // [kHalo]
-  float* rs = mu + kHalo;             // [kHalo]
-  const int tid = threadIdx.x, tc = tid & 15, tp = tid >> 4;
+template <int NT>
+struct ConvShape {
+  static constexpr int kN = 8 * NT;            // output channels a block
+  static constexpr int kPlaneH = kHalo * kLdH;  // the halo's hi (or lo)
+  static constexpr int kW = 9 * NT * 128;      // 9 taps' B fragments
+  static constexpr int kStage = 2 * kPlaneH + kW;
+  static constexpr size_t smem_bytes() {  // + an mbarrier a stage
+    return (kStages * size_t(kStage) + 2 * kHalo) * sizeof(float) +
+           kStages * sizeof(uint64_t);
+  }
+};
+
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 2) cab_conv_kernel(ConvArgs p) {
+  using S = ConvShape<NT>;
+  constexpr int kN = S::kN;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* mu = smem + kStages * S::kStage;  // [kHalo]
+  float* rs = mu + kHalo;            // [kHalo]
+  uint64_t* full = reinterpret_cast<uint64_t*>(rs + kHalo);  // [kStages]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
   const int tiles_x = (p.W + kTW - 1) / kTW;
   const int tile = blockIdx.x;
   const int y0 = (tile / tiles_x) * kTH, x0 = (tile % tiles_x) * kTW;
+  const int n0 = blockIdx.y * kN;
   const int b = blockIdx.z;
   const float* xb = p.x + (long long)b * p.H * p.W * p.Cin;
+  auto hh = [&](int b) { return smem + b * S::kStage; };
+  auto wh = [&](int b) { return smem + b * S::kStage + 2 * S::kPlaneH; };
+  auto in_image = [&](int q, int& gy, int& gx) {
+    gy = y0 - 1 + q / kHW;
+    gx = x0 - 1 + q % kHW;
+    return gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
+  };
 
-  if (p.ln_s) {
-    const int warp = tid >> 5, lane = tid & 31;
-    for (int q = warp; q < kHalo; q += kThreads / 32) {
-      const int gy = y0 - 1 + q / kHW, gx = x0 - 1 + q % kHW;
-      float m = 0.f, r = 0.f;
-      if (gy >= 0 && gy < p.H && gx >= 0 && gx < p.W) {
-        const float* px = xb + ((long long)gy * p.W + gx) * p.Cin;
-        float s = 0.f;
-        for (int c = lane; c < p.Cin; c += 32) s += px[c];
-        m = warp_sum(s) / p.Cin;
-        float v = 0.f;
-        for (int c = lane; c < p.Cin; c += 32) {
-          const float d = px[c] - m;
-          v += d * d;
+  // Stage s: the halo's channels [8 s, 8 s + 8) into the hi plane (thread
+  // tid owns the pieces tid + i kThreads: pixel q / 2, channels 4 (q % 2)
+  // + 0..3), and (thread 0, one bulk copy on the stage's mbarrier) the
+  // block's B fragments of all 9 taps.
+  auto copy_stage = [&](int s) {
+    const int c0 = s * kCK;
+    float* r = hh(s % kStages);
+    for (int q = tid; q < kHaloPieces; q += kThreads) {
+      const int px = q / 2, c = 4 * (q % 2);
+      int gy, gx;
+      const bool in = in_image(px, gy, gx);
+      const float* src = xb + ((long long)gy * p.W + gx) * p.Cin + c0 + c;
+      if (p.vec) {
+        const bool ok = in && c0 + c < p.Cin;
+        cp_async16(r + px * kLdH + c, ok ? src : p.x, ok);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool ok = in && c0 + c + j < p.Cin;
+          cp_async4(r + px * kLdH + c + j, ok ? src + j : p.x, ok);
         }
-        r = rsqrtf(warp_sum(v) / p.Cin + p.eps);
+      }
+    }
+    if (tid == 0) {
+      constexpr uint32_t kBytes = 4 * S::kW;
+      uint64_t* bar = &full[s % kStages];
+      fence_proxy_async();
+      mbar_arrive_expect_tx(bar, kBytes);
+      bulk_copy(wh(s % kStages),
+                p.w + ((long long)blockIdx.y * (p.cinp / kCK) + s) * S::kW,
+                kBytes, bar);
+    }
+  };
+
+  // This thread's pieces of stage s, normalised (LN) and split in place:
+  // hi over the copy, lo in the plane beside it.
+  auto split_stage = [&](int s) {
+    const int c0 = s * kCK;
+    float* h = hh(s % kStages);
+    for (int q = tid; q < kHaloPieces; q += kThreads) {
+      const int px = q / 2, c = 4 * (q % 2);
+      float v[4];
+      *reinterpret_cast<float4*>(v) =
+          *reinterpret_cast<const float4*>(h + px * kLdH + c);
+      if (p.ln_s) {
+        int gy, gx;
+        const bool in = in_image(px, gy, gx);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int ci = c0 + c + j;
+          v[j] = in && ci < p.Cin
+                     ? fmaf((v[j] - mu[px]) * rs[px], p.ln_s[ci], p.ln_b[ci])
+                     : 0.f;
+        }
+      }
+      uint4 hi, lo;
+      split_tf32(v[0], hi.x, lo.x);
+      split_tf32(v[1], hi.y, lo.y);
+      split_tf32(v[2], hi.z, lo.z);
+      split_tf32(v[3], hi.w, lo.w);
+      *reinterpret_cast<uint4*>(h + px * kLdH + c) = hi;
+      *reinterpret_cast<uint4*>(h + S::kPlaneH + px * kLdH + c) = lo;
+    }
+  };
+
+  const int stages = p.cinp / kCK;
+  if (tid == 0) {
+    for (int b = 0; b < kStages; ++b) mbar_init(&full[b], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  copy_stage(0);
+  cp_async_commit();
+  if (p.ln_s) {  // each halo pixel's mean and 1/std, one warp a pixel
+    for (int q = warp; q < kHalo; q += kThreads / 32) {
+      int gy, gx;
+      float m = 0.f, r = 0.f;
+      if (in_image(q, gy, gx)) {
+        const float* px = xb + ((long long)gy * p.W + gx) * p.Cin;
+        float v[kMaxCin / 32];
+        float s = 0.f;
+#pragma unroll
+        for (int i = 0; i < kMaxCin / 32; ++i) {
+          const int c = lane + 32 * i;
+          v[i] = c < p.Cin ? px[c] : 0.f;
+          s += v[i];
+        }
+        m = warp_sum(s) / p.Cin;
+        float d2 = 0.f;
+#pragma unroll
+        for (int i = 0; i < kMaxCin / 32; ++i) {
+          const float d = lane + 32 * i < p.Cin ? v[i] - m : 0.f;
+          d2 += d * d;
+        }
+        r = rsqrtf(warp_sum(d2) / p.Cin + p.eps);
       }
       if (lane == 0) {
         mu[q] = m;
         rs[q] = r;
       }
     }
+    __syncthreads();
   }
 
-  float acc[kTH][NC];
+  float acc[NT][2][4];
 #pragma unroll
-  for (int i = 0; i < kTH; ++i)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int k = 0; k < NC; ++k) acc[i][k] = 0.f;
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][mt][e] = 0.f;
 
-  for (int c0 = 0; c0 < p.Cin; c0 += kCin) {
-    __syncthreads();  // the previous chunk is consumed (and the LN stats are in)
-    for (int e = tid; e < kHalo * kCin; e += kThreads) {
-      const int q = e / kCin, kc = e % kCin, ci = c0 + kc;
-      const int gy = y0 - 1 + q / kHW, gx = x0 - 1 + q % kHW;
-      float v = 0.f;
-      if (ci < p.Cin && gy >= 0 && gy < p.H && gx >= 0 && gx < p.W) {
-        v = xb[((long long)gy * p.W + gx) * p.Cin + ci];
-        if (p.ln_s) v = (v - mu[q]) * rs[q] * p.ln_s[ci] + p.ln_b[ci];
-      }
-      In[e] = v;
-    }
-    for (int e = tid; e < 9 * kCin * CP; e += kThreads) {
-      const int co = e % CP, r = e / CP, kc = r % kCin, tap = r / kCin;
-      const int ci = c0 + kc;
-      Wt[e] = (ci < p.Cin && co < p.Cout)
-                  ? p.w[((long long)tap * p.Cin + ci) * p.Cout + co] : 0.f;
-    }
-    __syncthreads();
+  for (int s = 0; s < stages; ++s) {
+    cp_async_wait<0>();  // this thread's copies of stage s
+    split_stage(s);
+    mbar_wait(&full[s % kStages], (s / kStages) & 1);  // its weights
+    __syncthreads();  // stage s is in; stage s - 1's products are done
+    if (s + 1 < stages) copy_stage(s + 1);
+    cp_async_commit();
+    const float* ah = hh(s % kStages);
+    const float* al = ah + S::kPlaneH;
+    const float* w = wh(s % kStages);
 #pragma unroll 1
     for (int tap = 0; tap < 9; ++tap) {
       const int dy = tap / 3, dx = tap % 3;
-#pragma unroll 1
-      for (int kc = 0; kc < kCin; ++kc) {
-        float a[kTH];
+      // lane (g, t): pixels g and g + 8 of the m-tile's row, channels
+      // 2t and 2t + 1 (fragment columns t and t + 4)
+      uint32_t fh[2][4], fl[2][4];
 #pragma unroll
-        for (int i = 0; i < kTH; ++i)
-          a[i] = In[((i + dy) * kHW + tp + dx) * kCin + kc];
-        const float* wrow = Wt + (tap * kCin + kc) * CP + 4 * tc;
+      for (int mt = 0; mt < 2; ++mt) {
+        const int o = ((2 * warp + mt + dy) * kHW + g + dx) * kLdH + 2 * t;
+        const uint2 h0 = *reinterpret_cast<const uint2*>(ah + o);
+        const uint2 h1 = *reinterpret_cast<const uint2*>(ah + o + 8 * kLdH);
+        const uint2 l0 = *reinterpret_cast<const uint2*>(al + o);
+        const uint2 l1 = *reinterpret_cast<const uint2*>(al + o + 8 * kLdH);
+        fh[mt][0] = h0.x, fh[mt][1] = h1.x, fh[mt][2] = h0.y, fh[mt][3] = h1.y;
+        fl[mt][0] = l0.x, fl[mt][1] = l1.x, fl[mt][2] = l0.y, fl[mt][3] = l1.y;
+      }
+      const float* wt = w + tap * NT * 128 + 4 * lane;
 #pragma unroll
-        for (int g = 0; g < NG; ++g) {
-          const float4 w4 = *reinterpret_cast<const float4*>(wrow + 64 * g);
-          const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t bh[2][2], bl[2][2];
 #pragma unroll
-          for (int i = 0; i < kTH; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              acc[i][4 * g + j] = fmaf(a[i], wv[j], acc[i][4 * g + j]);
+        for (int q = 0; q < 2; ++q) {
+          const uint4 f = *reinterpret_cast<const uint4*>(wt + 128 * (j + q));
+          bh[q][0] = f.x, bh[q][1] = f.y, bl[q][0] = f.z, bl[q][1] = f.w;
         }
+        mma_3xtf32_split(*reinterpret_cast<float(*)[2][2][4]>(&acc[j]), fh,
+                         fl, bh, bl);
       }
     }
   }
 
-  const int gx = x0 + tp;
-  float colsum[NC];
+  // epilogue: + bias (GELU), store, and the columns' sums for the pool
+  float colsum[NT][2];
 #pragma unroll
-  for (int k = 0; k < NC; ++k) {
-    const int co = 64 * (k / 4) + 4 * tc + k % 4;
-    const float bias = co < p.Cout ? p.bias[co] : 0.f;
-    colsum[k] = 0.f;
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int i = 0; i < kTH; ++i) {
-      const int gy = y0 + i;
-      float v = acc[i][k] + bias;
-      if (p.gelu) v = gelu_erf(v);
-      if (co < p.Cout && gy < p.H && gx < p.W) {
-        p.out[(((long long)b * p.H + gy) * p.W + gx) * p.Cout + co] = v;
-        colsum[k] += v;
-      }
+    for (int e = 0; e < 2; ++e) {
+      const int co = n0 + 8 * j + 2 * t + e;
+      const float bias = co < p.Cout ? p.bias[co] : 0.f;
+      colsum[j][e] = 0.f;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int gy = y0 + 2 * warp + mt, gx = x0 + g + 8 * h;
+          float v = acc[j][mt][2 * h + e] + bias;
+          if (p.gelu) v = gelu_erf(v);
+          if (co < p.Cout && gy < p.H && gx < p.W) {
+            p.out[(((long long)b * p.H + gy) * p.W + gx) * p.Cout + co] = v;
+            colsum[j][e] += v;
+          }
+        }
     }
-  }
   if (p.partials) {
-    // sum over the 16 tile columns: the two of a warp by shuffle, the
-    // eight warps through shared memory (the weight tile is free now)
+    // over the warp's pixels (the 8 lanes of a t) by shuffles, over the
+    // 8 warps through shared memory (the stage buffers are free now)
     __syncthreads();
-    float* red = Wt;  // [8][CP]
+    float* red = smem;  // [8][kN]
 #pragma unroll
-    for (int k = 0; k < NC; ++k) {
-      const float s = colsum[k] + __shfl_xor_sync(0xffffffffu, colsum[k], 16);
-      if ((tp & 1) == 0) red[(tp >> 1) * CP + 64 * (k / 4) + 4 * tc + k % 4] = s;
-    }
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float s = colsum[j][e];
+        s += __shfl_xor_sync(0xffffffffu, s, 4);
+        s += __shfl_xor_sync(0xffffffffu, s, 8);
+        s += __shfl_xor_sync(0xffffffffu, s, 16);
+        if (g == 0) red[warp * kN + 8 * j + 2 * t + e] = s;
+      }
     __syncthreads();
-    const int tiles = gridDim.x;
-    for (int co = tid; co < p.Cout; co += kThreads) {
+    for (int c = tid; c < kN && n0 + c < p.Cout; c += kThreads) {
       float s = 0.f;
-      for (int w8 = 0; w8 < kThreads / 32; ++w8) s += red[w8 * CP + co];
-      p.partials[((long long)b * tiles + tile) * p.Cout + co] = s;
+      for (int w8 = 0; w8 < kThreads / 32; ++w8) s += red[w8 * kN + c];
+      p.partials[((long long)b * gridDim.x + tile) * p.Cout + n0 + c] = s;
     }
   }
 }
 
-template <int NC>
+template <int NT>
 int launch_conv(const ConvArgs& a, int B, cudaStream_t stream) {
-  constexpr int kTH = tile_rows(NC);
-  constexpr int kHalo = (kTH + 2) * kHW;
-  const size_t smem =
-      (size_t(kHalo) * kCin + size_t(9) * kCin * 16 * NC + 2 * kHalo) *
-      sizeof(float);
+  const size_t smem = ConvShape<NT>::smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cab_conv_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return int(err);
   const dim3 grid(unsigned(((a.H + kTH - 1) / kTH) * ((a.W + kTW - 1) / kTW)),
-                  1, unsigned(B));
-  conv3x3_kernel<NC><<<grid, kThreads, smem, stream>>>(a);
+                  unsigned(a.coutp / (8 * NT)), unsigned(B));
+  cab_conv_kernel<NT><<<grid, kThreads, smem, stream>>>(a);
   return int(cudaGetLastError());
 }
 
 int conv(const ConvArgs& a, int B, cudaStream_t stream) {
-  const int nc = (a.Cout + 15) / 16;
-  if (nc <= 4) return launch_conv<4>(a, B, stream);
-  if (nc <= 8) return launch_conv<8>(a, B, stream);
-  if (nc <= 12) return launch_conv<12>(a, B, stream);
-  if (nc <= 16) return launch_conv<16>(a, B, stream);
-  return int(cudaErrorInvalidValue);
+  if (conv_tiles(a.Cout) == 4) return launch_conv<4>(a, B, stream);
+  return launch_conv<6>(a, B, stream);
 }
 
 // out = y * a[b, c] (+ x * skip[c])
@@ -246,29 +423,64 @@ cab_scale_kernel(const float* __restrict__ y, const float* __restrict__ a,
   }
 }
 
+// The padded extents of both convs' split weights.
+struct CabPlan {
+  int cinp1, coutp1, cinp2, coutp2;
+};
+
+CabPlan cab_plan(int C, int Cr) {
+  return {round_up(C, kCK), round_up(Cr, 8 * conv_tiles(Cr)),
+          round_up(Cr, kCK), round_up(C, 8 * conv_tiles(C))};
+}
+
 }  // namespace
 
-// Tiles per image of the conv kernel with C output channels (the
-// partials' middle axis).
+// Tiles per image of the conv kernels (the partials' middle axis); C is
+// not used (every width takes 16 x 16 tiles).
 extern "C" int ff_cab_tiles(int H, int W, int C) {
-  const int th = rows_for(C);
-  return ((H + th - 1) / th) * ((W + kTW - 1) / kTW);
+  (void)C;
+  return ((H + kTH - 1) / kTH) * ((W + kTW - 1) / kTW);
+}
+
+// Floats of scratch ff_cab_pool needs: both convs' weights split, 18 cinp
+// coutp floats each.
+extern "C" long long ff_cab_scratch_floats(int C, int Cr) {
+  const CabPlan q = cab_plan(C, Cr);
+  return 18LL * q.cinp1 * q.coutp1 + 18LL * q.cinp2 * q.coutp2;
 }
 
 // Pass A. x [B, H, W, C]; w1 [3, 3, C, Cr]; b1 [Cr]; ln_s/ln_b [C] or
 // null; u [B, H, W, Cr] (scratch); w2 [3, 3, Cr, C]; b2 [C]; y [B, H, W,
-// C]; partials [B, ff_cab_tiles(H, W, C), C]. C, Cr <= 256. All fp32
-// contiguous.
+// C]; partials [B, ff_cab_tiles(H, W, C), C]; scratch of
+// ff_cab_scratch_floats(C, Cr) floats, 16-byte aligned. C, Cr <= 256. All
+// fp32 contiguous.
 extern "C" int ff_cab_pool(const float* x, const float* w1, const float* b1,
                            const float* ln_s, const float* ln_b, float* u,
                            const float* w2, const float* b2, float* y,
-                           float* partials, int B, int H, int W, int C, int Cr,
-                           float eps, void* stream_) {
+                           float* partials, float* scratch,
+                           long long scratch_floats, int B, int H, int W,
+                           int C, int Cr, float eps, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  ConvArgs a1{x, w1, b1, ln_s, ln_b, u, nullptr, H, W, C, Cr, 1, eps};
+  if (C > kMaxCin || Cr > kMaxCin || C <= 0 || Cr <= 0 ||
+      scratch_floats < ff_cab_scratch_floats(C, Cr) ||
+      reinterpret_cast<size_t>(scratch) % 16 || B > 65535)
+    return int(cudaErrorInvalidValue);
+  const CabPlan q = cab_plan(C, Cr);
+  float* hl1 = scratch;
+  float* hl2 = scratch + 18LL * q.cinp1 * q.coutp1;
+  cab_split_weights<<<132, kThreads, 0, stream>>>(
+      w1, w2, hl1, hl2, C, Cr, q.cinp1, q.coutp1, q.cinp2, q.coutp2);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+  auto vec = [](const float* t, int c) {
+    return c % 4 == 0 && reinterpret_cast<size_t>(t) % 16 == 0;
+  };
+  ConvArgs a1{x, hl1, b1, ln_s, ln_b, u, nullptr, H, W, C, Cr,
+              q.cinp1, q.coutp1, 1, vec(x, C), eps};
   int err = conv(a1, B, stream);
   if (err) return err;
-  ConvArgs a2{u, w2, b2, nullptr, nullptr, y, partials, H, W, Cr, C, 0, eps};
+  ConvArgs a2{u, hl2, b2, nullptr, nullptr, y, partials, H, W, Cr, C,
+              q.cinp2, q.coutp2, 0, vec(u, Cr), eps};
   return conv(a2, B, stream);
 }
 

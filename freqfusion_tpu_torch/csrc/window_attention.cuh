@@ -22,7 +22,8 @@
 // That is 2.61 ms of operations over the ten shapes; the bytes (q/k/v/out
 // once) are 2.01 ms. PyTorch's TF32 switches do not touch this split.
 //
-// Design (CUDA C++, mma.sync m16n8k8 TF32, cp.async). What holds it now is
+// Design (CUDA C++, mma.sync m16n8k8 TF32, cp.async; the split, product
+// and copy helpers are tf32_mma.cuh's). What holds it now is
 // instruction issue around the tensor cores (the splits, the softmax, the
 // copies' addressing), not the products; the choices below cut that:
 //   - A warp owns 32 query rows (two m16 tiles), so each K or V fragment
@@ -81,6 +82,8 @@
 
 #include <type_traits>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
 // Launch shape by padded head width: warps a block, 16-row m-tiles a
@@ -107,91 +110,10 @@ struct WaShape {
   }
 };
 
-// x's TF32 rounding as cvt.rna.tf32.f32 does it (to nearest, ties away
-// from zero, 10 mantissa bits), in two integer operations.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo: hi its TF32 rounding, lo = x - hi exactly (|lo| <= 2^-11
-// |x|). lo goes to the tensor core as it is, which reads its top 10
-// mantissa bits: an error of at most 2^-10 |lo| <= 2^-21 |x| in the lo
-// terms, of the order of rounding lo to TF32 first (two more operations).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c[p][mt] += a[mt] b[p] in 3xTF32 for P n-tiles and the warp's M
-// m-tiles, b[p] given as fp32 and split here once for all m-tiles: the
-// two cross terms first, then hi * hi, each pass over all P x M tiles so
-// that no product waits on the one just before it.
-template <int P, int M>
-__device__ __forceinline__ void mma_3xtf32(float (&c)[P][M][4],
-                                           const uint32_t (&ah)[M][4],
-                                           const uint32_t (&al)[M][4],
-                                           const float (&b)[P][2]) {
-  uint32_t bh[P][2], bl[P][2];
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    split_tf32(b[p][0], bh[p][0], bl[p][0]);
-    split_tf32(b[p][1], bh[p][1], bl[p][1]);
-  }
-#pragma unroll
-  for (int p = 0; p < P; ++p)
-#pragma unroll
-    for (int mt = 0; mt < M; ++mt)
-      mma_tf32(c[p][mt], al[mt], bh[p][0], bh[p][1]);
-#pragma unroll
-  for (int p = 0; p < P; ++p)
-#pragma unroll
-    for (int mt = 0; mt < M; ++mt)
-      mma_tf32(c[p][mt], ah[mt], bl[p][0], bl[p][1]);
-#pragma unroll
-  for (int p = 0; p < P; ++p)
-#pragma unroll
-    for (int mt = 0; mt < M; ++mt)
-      mma_tf32(c[p][mt], ah[mt], bh[p][0], bh[p][1]);
-}
-
 __device__ __forceinline__ float ex2(float x) {  // 2^x, -inf -> 0
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  const uint32_t d = uint32_t(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  const uint32_t d = uint32_t(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 constexpr float kLog2e = 1.4426950408889634f;

@@ -9,25 +9,82 @@ tensors: ``cab_0`` / ``cab_2`` kernels [3, 3, Cin, Cout] (HWIO) and biases,
     out = y * sigmoid(ca_3(relu(ca_1(mean_hw(y)))))  (+ x * skip_scale)
 
 GELU is exact (erf); the convolutions zero-pad. A CPU tensor goes to the
-plain version; a CUDA tensor goes to ``csrc/cab.cu`` (pass A: both convs,
-writing y and per-tile channel sums; the [B, C] squeeze MLP in PyTorch;
-pass B: the scale and the skip) or the call raises. Unlike the JAX
-wrapper, the kernel takes every H and W itself: there is no XLA fallback
-for small or indivisible shapes.
+plain version; a CUDA tensor goes to ``csrc/cab.cu`` (pass A: both convs
+as 3xTF32 implicit GEMMs on the tensor cores, writing y and per-tile
+channel sums; the [B, C] squeeze MLP in PyTorch; pass B: the scale and the
+skip) or the call raises. Unlike the JAX wrapper, the kernel takes every H
+and W itself: there is no XLA fallback for small or indivisible shapes.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from . import cuda
 
-__all__ = ["cab_fused", "cab_fused_reference"]
+__all__ = ["cab_fused", "cab_fused_reference", "plan_cab", "CabPlan"]
 
-MAX_CHANNELS = 256  # the conv kernels' output channels live in registers
+MAX_CHANNELS = 256  # the LN prologue holds a pixel's channels in registers
+# csrc/cab.cu's conv tiles: output pixels a side, input channels a stage,
+# halo pixels, stages in the ring
+TILE = 16
+CK = 8
+HALO = (TILE + 2) ** 2
+STAGES = 2
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def conv_tiles(cout: int) -> int:
+    """n-tiles (8 output channels each) a conv block takes: 4 or 6,
+    whichever pads `cout` less, 6 on a tie."""
+    return 4 if _round_up(cout, 32) < _round_up(cout, 48) else 6
+
+
+def conv_smem(nt: int) -> int:
+    """Bytes of shared memory a conv block with `nt` n-tiles takes: two
+    stages of the split halo ([2][HALO][CK]) and of the split weights of 9
+    taps ([9][CK][8 nt], hi and lo), then each halo pixel's mean and
+    1/std, and an mbarrier a stage."""
+    stage = 2 * HALO * CK + 9 * CK * 8 * nt * 2
+    return 4 * (STAGES * stage + 2 * HALO) + 8 * STAGES
+
+
+class CabPlan(NamedTuple):
+    """How ``csrc/cab.cu`` runs one call (its ``cab_plan``): conv1 (C ->
+    Cr) and conv2 (Cr -> C)."""
+    tiles: int           # 16 x 16 output tiles an image (partials' axis 1)
+    nt1: int             # n-tiles a conv1 block
+    nt2: int             # n-tiles a conv2 block
+    cinp1: int           # C padded to CK
+    coutp1: int          # Cr padded to 8 nt1
+    cinp2: int           # Cr padded to CK
+    coutp2: int          # C padded to 8 nt2
+    scratch_floats: int  # both convs' weights split, 18 cinp coutp each
+    smem1: int           # bytes of shared memory a conv1 block takes
+    smem2: int
+    blocks1: int         # conv1 blocks an image
+    blocks2: int
+
+
+def plan_cab(h: int, w: int, c: int, cr: int) -> CabPlan:
+    """Tiles, padded extents, scratch and shared memory of a call on
+    [B, h, w, c] with C/cr = `cr` channels in the middle."""
+    if max(c, cr) > MAX_CHANNELS:
+        raise ValueError(f"cab_fused: C={c}, C/cr={cr} > {MAX_CHANNELS}")
+    tiles = -(-h // TILE) * -(-w // TILE)
+    nt1, nt2 = conv_tiles(cr), conv_tiles(c)
+    cinp1, coutp1 = _round_up(c, CK), _round_up(cr, 8 * nt1)
+    cinp2, coutp2 = _round_up(cr, CK), _round_up(c, 8 * nt2)
+    return CabPlan(tiles, nt1, nt2, cinp1, coutp1, cinp2, coutp2,
+                   18 * (cinp1 * coutp1 + cinp2 * coutp2), conv_smem(nt1),
+                   conv_smem(nt2), tiles * coutp1 // (8 * nt1),
+                   tiles * coutp2 // (8 * nt2))
 
 
 def _conv3x3(t: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -68,8 +125,7 @@ def cab_fused(x: torch.Tensor, w: Dict[str, Dict[str, torch.Tensor]],
         raise ValueError(f"cab_fused: unsupported device {x.device}")
     b, h, w_, c = x.shape
     cr = w["cab_0"]["kernel"].shape[-1]
-    if max(c, cr) > MAX_CHANNELS:
-        raise ValueError(f"cab_fused: C={c}, C/cr={cr} > {MAX_CHANNELS}")
+    plan = plan_cab(h, w_, c, cr)
     dev = x.device
     cuda.require(x, "x", (b, h, w_, c), dev)
     cuda.require(w["cab_0"]["kernel"], "cab_0", (3, 3, c, cr), dev)
@@ -82,16 +138,17 @@ def cab_fused(x: torch.Tensor, w: Dict[str, Dict[str, torch.Tensor]],
     if skip_scale is not None:
         cuda.require(skip_scale, "skip_scale", (c,), dev)
     lib = cuda.library()
-    tiles = lib.ff_cab_tiles(h, w_, c)
     u = torch.empty(b, h, w_, cr, device=dev, dtype=torch.float32)
     y = torch.empty_like(x)
-    partials = torch.empty(b, tiles, c, device=dev, dtype=torch.float32)
+    partials = torch.empty(b, plan.tiles, c, device=dev, dtype=torch.float32)
+    scratch = torch.empty(plan.scratch_floats, device=dev,
+                          dtype=torch.float32)
     lnp = (None, None) if ln is None else (ln["scale"], ln["bias"])
     err = lib.ff_cab_pool(
         *(cuda.ptr(t) for t in (x, w["cab_0"]["kernel"], w["cab_0"]["bias"],
                                 *lnp, u, w["cab_2"]["kernel"],
-                                w["cab_2"]["bias"], y, partials)),
-        b, h, w_, c, cr, float(eps), cuda.stream(x))
+                                w["cab_2"]["bias"], y, partials, scratch)),
+        plan.scratch_floats, b, h, w_, c, cr, float(eps), cuda.stream(x))
     cuda.check(err, "cab_fused (pool)")
     a = _squeeze(partials.sum(1) / (h * w_), w).contiguous()
     out = torch.empty_like(x)

@@ -47,6 +47,7 @@ launch_counts: "collections.Counter[str]" = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "ff_window_attention_nhwc": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
@@ -55,9 +56,11 @@ _SIGNATURES = {
     "ff_selective_scan_slots": [_I] * 3,
     "ff_selective_scan_proj": [_P] * 10 + [_I] * 9 + [_P],
     "ff_selective_scan": [_P] * 10 + [_I] * 12 + [_P],
-    "ff_fused_mlp": [_P] * 8 + [_I] * 4 + [_F, _F, _P],
+    "ff_fused_mlp_scratch_floats": [_I] * 3,
+    "ff_fused_mlp": [_P] * 9 + [_L] + [_I] * 4 + [_F, _F, _P],
     "ff_cab_tiles": [_I] * 3,
-    "ff_cab_pool": [_P] * 10 + [_I] * 5 + [_F, _P],
+    "ff_cab_scratch_floats": [_I] * 2,
+    "ff_cab_pool": [_P] * 11 + [_L] + [_I] * 5 + [_F, _P],
     "ff_cab_apply": [_P] * 5 + [_I] * 4 + [_P],
     "ff_nafblock_tiles": [_I] * 2,
     "ff_nafblock_gate": [_P] * 10 + [_I] * 4 + [_F, _P],
@@ -73,6 +76,8 @@ _SIGNATURES = {
     "ff_edge_fuse": [_P] * 4 + [_I] + [_P] * 13 + [_I] * 4 + [_P],
     "ff_layernorm": [_P] * 4 + [_I] * 3 + [_F, _P],
 }
+# entries that return a count of 64 bits (the rest return an int)
+_RETURNS_LONG = ("ff_fused_mlp_scratch_floats", "ff_cab_scratch_floats")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -168,7 +173,7 @@ def library() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = _L if name in _RETURNS_LONG else ctypes.c_int
             _lib = lib
         return _lib
 

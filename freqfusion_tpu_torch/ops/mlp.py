@@ -7,20 +7,78 @@ its argument layout (w1 [C, Ch], w2 [Ch, C]) and its two norm orders:
     post-norm (GRL)   out = x + res_scale * LN(fc2(gelu(fc1(x))))
 
 GELU is exact (erf). A CPU tensor goes to the plain version; a CUDA tensor
-goes to ``csrc/fused_mlp.cu``, which keeps the hidden activation on-chip,
-or the call raises.
+goes to ``csrc/fused_mlp.cu`` (both products in 3xTF32 on the tensor
+cores, the hidden through a scratch that :func:`plan_fused_mlp` sizes), or
+the call raises.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from . import cuda
 
-__all__ = ["fused_mlp_block", "fused_mlp_block_reference"]
+__all__ = ["fused_mlp_block", "fused_mlp_block_reference", "plan_fused_mlp",
+           "MlpPlan"]
 
-MAX_CHANNELS = 384  # the kernel's output row lives in registers
+MAX_CHANNELS = 384  # the down product's output row lives in registers
+# csrc/fused_mlp.cu's tiles: K columns a stage; rows of an up block (T and
+# H have their rows padded to UP_ROWS) and its hidden columns, whichever of
+# UP_COLS pads Ch less (the wider on a tie); rows of a down block (which
+# spans all of C); the n-tiles a warp of the down product is instantiated
+# for (4 warps across C); stages in the rings
+BK = 16
+UP_ROWS, UP_COLS = 128, (64, 128)
+DOWN_ROWS = 64
+DOWN_TILES = (2, 4, 6, 8, 9, 10, 12)
+UP_STAGES, DOWN_STAGES = 4, 3
+SMEM_LIMIT = 232448  # bytes of shared memory a block can have on sm_90
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+class MlpPlan(NamedTuple):
+    """How ``csrc/fused_mlp.cu`` runs one call (its ``ffn_plan``)."""
+    kp1: int             # C padded to BK: the up product's K
+    upn: int             # hidden columns an up block (of UP_COLS)
+    np1: int             # Ch padded to upn: W1's split columns
+    kp2: int             # Ch padded to BK: the down product's K, H's stride
+    nt: int              # n-tiles a warp of the down product
+    cp: int              # 32 nt: the down product's padded N (>= C)
+    scratch_floats: int  # W1, W2 split; H, T = LN(x): [Mp, kp2], [Mp, kp1]
+    up_smem: int         # bytes of shared memory an up block takes
+    down_smem: int       # ... a down block
+    up_blocks: int
+    down_blocks: int
+
+
+def _ring_bytes(rows: int, cols: int, stages: int) -> int:
+    """Shared memory of a product's ring: per stage the A tile (rows x BK),
+    the W tile's fragments (BK x cols, hi and lo) and an mbarrier."""
+    return stages * (4 * (rows * BK + 2 * BK * cols) + 8)
+
+
+def plan_fused_mlp(m: int, c: int, ch: int) -> MlpPlan:
+    """The padded extents, scratch and shared memory of a call on `m` rows
+    of `c` channels with `ch` hidden units."""
+    need = -(-c // 32)
+    nt = next((n for n in DOWN_TILES if n >= need), None)
+    if nt is None or c > MAX_CHANNELS:
+        raise ValueError(f"fused_mlp_block: C={c} > {MAX_CHANNELS}")
+    upn = min(UP_COLS[::-1], key=lambda n: _round_up(ch, n))
+    kp1, np1 = _round_up(c, BK), _round_up(ch, upn)
+    kp2, cp = _round_up(ch, BK), 32 * nt
+    mp = _round_up(m, UP_ROWS)
+    return MlpPlan(kp1, upn, np1, kp2, nt, cp,
+                   2 * kp1 * np1 + 2 * kp2 * cp + mp * (kp2 + kp1),
+                   _ring_bytes(UP_ROWS, upn, UP_STAGES),
+                   _ring_bytes(DOWN_ROWS, cp, DOWN_STAGES),
+                   (np1 // upn) * (mp // UP_ROWS), -(-m // DOWN_ROWS))
 
 
 def fused_mlp_block_reference(x, w1, b1, w2, b2, ln_scale, ln_bias,
@@ -49,9 +107,8 @@ def fused_mlp_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp_block: unsupported device {x.device}")
     c, ch = x.shape[-1], w1.shape[-1]
-    if c > MAX_CHANNELS:
-        raise ValueError(f"fused_mlp_block: C={c} > {MAX_CHANNELS}")
     m = x.numel() // c
+    plan = plan_fused_mlp(m, c, ch)
     dev = x.device
     cuda.require(x, "x", x.shape, dev)
     cuda.require(w1, "w1", (c, ch), dev)
@@ -60,9 +117,13 @@ def fused_mlp_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     for name, t in (("b2", b2), ("ln_scale", ln_scale), ("ln_bias", ln_bias)):
         cuda.require(t, name, (c,), dev)
     out = torch.empty_like(x)
+    scratch = torch.empty(plan.scratch_floats, device=dev,
+                          dtype=torch.float32)
     err = cuda.library().ff_fused_mlp(
-        *(cuda.ptr(t) for t in (x, w1, b1, w2, b2, ln_scale, ln_bias, out)),
-        m, c, ch, int(prenorm), float(res_scale), float(eps), cuda.stream(x))
+        *(cuda.ptr(t) for t in (x, w1, b1, w2, b2, ln_scale, ln_bias, out,
+                                scratch)),
+        plan.scratch_floats, m, c, ch, int(prenorm), float(res_scale),
+        float(eps), cuda.stream(x))
     cuda.check(err, "fused_mlp_block")
     cuda.launch_counts["fused_mlp_block"] += 1
     return out

@@ -425,59 +425,158 @@ def fp32_plain():
     cudnn.allow_tf32, matmul.allow_tf32 = old
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("c,ch,prenorm", [(180, 720, True), (212, 848, True),
-                                          (244, 976, True), (276, 276, True),
-                                          (308, 308, True), (180, 360, False),
-                                          (20, 76, False)])
-@pytest.mark.parametrize("hw", [(13, 18), (112, 144)])
-def test_fused_mlp_kernel(c, ch, prenorm, hw, fp32_plain):
-    """DRCT-L's five FFN widths (pre-norm) and GRL-B's (post-norm) at
-    ragged row counts (13 x 18 = 234 and 112 x 144 rows, not multiples of
-    the 64-row tile)."""
-    dev = cuda_or_skip()
-    rng = np.random.default_rng(c + ch)
-    x = _t(rng.normal(size=(1, *hw, c)), dev)
-    w1, w2 = (_t(0.05 * rng.normal(size=s), dev) for s in ((c, ch), (ch, c)))
+def _tf32(t):
+    """t rounded to TF32 as the kernels' hi part: to nearest, ties away
+    from zero, on the float32's bits."""
+    return ((t.float().view(torch.int32) + 0x1000) & -0x2000).view(
+        torch.float32)
+
+
+def _mlp_args(rng, c, ch, prenorm, hw, dev, x_scale=1.0, w1_scale=1.0):
+    x = _t(x_scale * rng.normal(size=(1, *hw, c)), dev)
+    w1 = _t(w1_scale * rng.normal(size=(c, ch)) / np.sqrt(c), dev)
+    w2 = _t(rng.normal(size=(ch, c)) / np.sqrt(ch), dev)
     b1, b2, lb = (_t(0.1 * rng.normal(size=n), dev) for n in (ch, c, c))
     ls = _t(1 + 0.1 * rng.normal(size=c), dev)
-    args = (x, w1, b1, w2, b2, ls, lb, prenorm, 0.75)
+    return (x, w1, b1, w2, b2, ls, lb, prenorm, 0.75)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,ch", [(180, 720), (212, 848), (244, 976),
+                                  (276, 276), (308, 308), (180, 360),
+                                  (20, 76)])
+@pytest.mark.parametrize("prenorm", [True, False])
+@pytest.mark.parametrize("hw", [(13, 18), (37, 61)])
+def test_fused_mlp_kernel(c, ch, prenorm, hw, fp32_plain):
+    """The six path shapes (DRCT-L's five FFN widths, GRL-B's) and a narrow
+    one, each pre- and post-norm, res_scale 0.75, at row counts that are
+    not multiples of the 128- or 64-row tiles (234 and 2257 rows)."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c + ch + prenorm)
+    args = _mlp_args(rng, c, ch, prenorm, hw, dev)
     cuda.reset_launch_counts()
     got = fused_mlp_block(*args)
     assert cuda.launch_counts["fused_mlp_block"] == 1
     _fused_close(got, fused_mlp_block_reference(*args))
 
 
-def _cab_tree(rng, c, cr, sq, dev):
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,ch,prenorm", [(244, 976, True), (180, 360, False)])
+def test_fused_mlp_precision_guard(c, ch, prenorm, fp32_plain):
+    """A large hidden (W1 3x its fan-in scale: the GELU passes large,
+    mostly positive values, so the second product cancels; a larger x would
+    only widen the tolerance through the residual): the kernel's 3xTF32
+    holds FUSED_REL_TOL, while the same FFN with one TF32 product (operands
+    rounded to TF32, summed in float64) misses it, by ~3x on the CPU's
+    model of these inputs."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c + 11)
+    args = _mlp_args(rng, c, ch, prenorm, (40, 64), dev, 1.0, 3.0)
+    x, w1, b1, w2, b2, ls, lb = args[:7]
+    want = fused_mlp_block_reference(*args)
+    tol = FUSED_REL_TOL * max(1.0, want.abs().max().item())
+    err = (fused_mlp_block(*args) - want).abs().max().item()
+    d = torch.float64
+    t = (torch.nn.functional.layer_norm(x, (c,), ls, lb, 1e-5) if prenorm
+         else x)
+    hid = torch.nn.functional.gelu(_tf32(t).to(d) @ _tf32(w1).to(d)
+                                   + b1.to(d))
+    y = _tf32(hid).to(d) @ _tf32(w2).to(d) + b2.to(d)
+    if not prenorm:
+        y = torch.nn.functional.layer_norm(y, (c,), ls.to(d), lb.to(d), 1e-5)
+    one = (x.to(d) + 0.75 * y - want.to(d)).abs().max().item()
+    assert err <= tol
+    assert one > tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c,ch,h,w", [(172032, 180, 720, 336, 512),
+                                        (172032, 212, 848, 100, 140),
+                                        (172032, 244, 976, 8, 12),
+                                        (2257, 276, 276, 37, 61),
+                                        (2257, 308, 308, 5, 3),
+                                        (234, 180, 360, 13, 18)])
+def test_plans_match_the_kernels(m, c, ch, h, w):
+    """The wrappers size the kernels' scratch from their plans
+    (ops/mlp.py:plan_fused_mlp, ops/cab.py:plan_cab); the C entries compute
+    the same sizes and the same partial tiles."""
+    from freqfusion_tpu_torch.ops.cab import plan_cab
+    from freqfusion_tpu_torch.ops.mlp import plan_fused_mlp
+
+    cuda_or_skip()
+    lib = cuda.library()
+    assert lib.ff_fused_mlp_scratch_floats(m, c, ch) == \
+        plan_fused_mlp(m, c, ch).scratch_floats
+    for cr in (45, 60):
+        plan = plan_cab(h, w, 180, cr)
+        assert lib.ff_cab_scratch_floats(180, cr) == plan.scratch_floats
+        assert lib.ff_cab_tiles(h, w, 180) == plan.tiles
+
+
+def _cab_tree(rng, c, cr, sq, dev, scale=1.0):
     def conv(shape):
-        return {"kernel": _t(rng.normal(size=shape) / np.sqrt(np.prod(
+        return {"kernel": _t(scale * rng.normal(size=shape) / np.sqrt(np.prod(
                     shape[:-1])), dev),
                 "bias": _t(0.1 * rng.normal(size=shape[-1]), dev)}
     return {"cab_0": conv((3, 3, c, cr)), "cab_2": conv((3, 3, cr, c)),
             "ca_1": conv((1, 1, c, c // sq)), "ca_3": conv((1, 1, c // sq, c))}
 
 
+def _cab_norms(rng, dev, with_ln):
+    if not with_ln:
+        return None, None
+    ln = {"scale": _t(1 + 0.1 * rng.normal(size=180), dev),
+          "bias": _t(0.1 * rng.normal(size=180), dev)}
+    return ln, _t(1 + 0.2 * rng.normal(size=180), dev)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("form", ["grl", "mambair"])
-@pytest.mark.parametrize("hw", [(13, 18), (112, 144), (5, 3)])
-def test_cab_kernel(form, hw, fp32_plain):
-    """GRL's CAB (C 180 -> 45, squeeze 18) and MambaIR's ln_2 + CAB +
-    skip_scale2 half-block (C 180 -> 60, squeeze 30), at ragged sizes and
-    one smaller than the 8 x 16 tile."""
+@pytest.mark.parametrize("cr,sq", [(45, 18), (60, 30)])
+@pytest.mark.parametrize("with_ln", [False, True])
+@pytest.mark.parametrize("hw", [(13, 18), (37, 61), (5, 3)])
+def test_cab_kernel(cr, sq, with_ln, hw, fp32_plain):
+    """GRL's CAB width (C 180 -> 45, squeeze 18) and MambaIR's (C 180 ->
+    60, squeeze 30), each without and with the ln_2 LayerNorm and skip
+    scale, batch 2, at sizes that are not multiples of the 16 x 16 tile
+    and one smaller than it."""
     dev = cuda_or_skip()
-    rng = np.random.default_rng(len(form) + hw[0])
-    cr, sq = (45, 18) if form == "grl" else (60, 30)
+    rng = np.random.default_rng(cr + with_ln + hw[0])
     w = _cab_tree(rng, 180, cr, sq, dev)
     x = _t(rng.normal(size=(2, *hw, 180)), dev)
-    ln = skip = None
-    if form == "mambair":
-        ln = {"scale": _t(1 + 0.1 * rng.normal(size=180), dev),
-              "bias": _t(0.1 * rng.normal(size=180), dev)}
-        skip = _t(1 + 0.2 * rng.normal(size=180), dev)
+    ln, skip = _cab_norms(rng, dev, with_ln)
     cuda.reset_launch_counts()
     got = cab_fused(x, w, ln, skip)
     assert cuda.launch_counts["cab_fused"] == 1
     _fused_close(got, cab_fused_reference(x, w, ln, skip))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cr,sq", [(45, 18), (60, 30)])
+def test_cab_precision_guard(cr, sq, fp32_plain):
+    """Large inputs (x 4 + N(0, 1), weights 2x their fan-in scale): the
+    kernel's 3xTF32 convolutions hold FUSED_REL_TOL, while the same CAB with
+    one TF32 product (both convolutions' operands rounded to TF32, summed
+    in float64) misses it, by 12-18x on the CPU's model of these inputs."""
+    from freqfusion_tpu_torch.ops.cab import _conv3x3, _squeeze
+
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(cr + 5)
+    w = _cab_tree(rng, 180, cr, sq, dev, 2.0)
+    x = _t(4 + rng.normal(size=(1, 48, 64, 180)), dev)
+    want = cab_fused_reference(x, w)
+    tol = FUSED_REL_TOL * max(1.0, want.abs().max().item())
+    err = (cab_fused(x, w) - want).abs().max().item()
+    d = torch.float64
+
+    def rounded(p):
+        return {"kernel": _tf32(p["kernel"]).to(d), "bias": p["bias"].to(d)}
+    u = torch.nn.functional.gelu(_conv3x3(_tf32(x).to(d), rounded(w["cab_0"])))
+    y = _conv3x3(_tf32(u).to(d), rounded(w["cab_2"]))
+    wd = {k: {n: t.to(d) for n, t in v.items()} for k, v in w.items()}
+    one = (y * _squeeze(y.mean((1, 2)), wd)[:, None, None, :]
+           - want.to(d)).abs().max().item()
+    assert err <= tol
+    assert one > tol
 
 
 def _naf_tree(rng, c, dev):
