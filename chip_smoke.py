@@ -20,14 +20,18 @@ exits non-zero without the final ok line):
    Window attention (#1) runs at DRCT-L's ten shapes, each with its time
    beside a bound of both terms: its products as 3xTF32 on the tensor
    cores (three TF32 products for each fp32 one, at 495 TFLOP/s) and its
-   bytes (the table's bound stays the fp32-core one); its window-major
+   bytes, the bound its entry of the kernels line takes (with the
+   fp32-core figure beside it, as for every 3xTF32 kernel); its window-major
    form (#10, on no path) on the same windows partitioned, bit-equal to
    #1 and timed beside it. The fused FFN (#14, six shapes) and the CAB
    (#15, two), also 3xTF32, print the same two-term bound a shape, their
    share of a 336x512 request from the launches it makes at each shape
    (12 a DRCT-L width and 40 GRL-B FFNs; 40 GRL-B and 36 MambaIR CABs),
    and one call's launches by torch.profiler at one or two shapes; the
-   NAFBlock (#16) runs at NAFNet's five levels with its loss a request.
+   NAFBlock (#16, 3xTF32 too) runs at NAFNet's five levels with the same
+   two-term bound, the bytes a pixel its nine launches move beside the
+   bound's, its share of a request (4, 4, 6, 10 and 12 blocks) and one
+   call's launches at C 64 and C 1024.
    The one-pass LayerNorm (#22, on no path) runs
    at 172,032 rows and the experts' six LN widths, beside F.layer_norm.
    The scan's seven contracts (TPU kernels #3-#9) run at L = 172,032,
@@ -43,11 +47,13 @@ exits non-zero without the final ok line):
    fusion-net geometries, P = 172032, with nn.MultiheadAttention as the
    library call) it also prints, beside DRCT's and GRL's, the time of the
    route the gate replaces (F.linear projections around kernels #1 and
-   #2). For the fusion-eval kernels (the LKABlock at C 64 and C 128 on the
-   336x512 bucket; hierarchical stage 3, the edge fuse and the three edge
-   refine levels at the 1344x2048 HR size and below, in the NCHW views
-   the modules hand them) it prints the gate-off route (the PyTorch module
-   on cuDNN) beside each;
+   #2); DRCT's (#11, its projections and attention all 3xTF32) also its
+   3xTF32 bound a shape, its share of a request (6 launches a shape) and
+   one call's launches at C 244. For the fusion-eval kernels (the
+   LKABlock at C 64 and C 128 on the 336x512 bucket; hierarchical stage
+   3, the edge fuse and the three edge refine levels at the 1344x2048 HR
+   size and below, in the NCHW views the modules hand them) it prints the
+   gate-off route (the PyTorch module on cuDNN) beside each;
 3. serving, default path: seeded full-width random checkpoints under the
    reference file names, three LR PNGs (128x128, 100x140, 336x512)
    through ``freqfusion_tpu_torch.interface.io.main(..., device="cuda")``,
@@ -151,8 +157,11 @@ PEAK_BYTES = 3.35e12   # H100 SXM HBM3
 # head boxes at DRCT-L's five widths (head dims 30, 53, 122, 46, 77); the
 # FFN's up products and its down product at the six path widths (C 180,
 # 212, 244, 276, 308: 6, 8, 8, 9, 10 n-tiles a warp); the CAB's convs (4
-# and 6 n-tiles a block)
+# and 6 n-tiles a block); the NAFBlock's and #11's GEMM (64 and 128
+# columns a block, each epilogue)
 DRCT_HEAD_BOXES = (32, 56, 128, 48, 80)
+# csrc/tf32_gemm.cuh's gemm_tf32_kernel<WC, EPI>: every instantiation
+GEMM_EPILOGUES = ("bias", "residual", "gate")
 FFN_DOWN_TILES = (6, 8, 9, 10)
 CAB_CONV_TILES = (4, 6)
 LR_SIZES = {"a_128x128": (128, 128), "b_100x140": (100, 140),
@@ -270,6 +279,7 @@ class KernelCheck:
         self.name, self.err, self.ms, self.plain_ms = name, 0.0, 0.0, 0.0
         self.library_ms = self.route_off_ms = None
         self.flop_ms = self.byte_ms = self.bound_ms = 0.0
+        self.fp32_core_bound_ms = None
         self.shapes = []
 
     def run(self, label: str, kernel, plain, tol_of, flops: float,
@@ -313,6 +323,15 @@ class KernelCheck:
         self.shapes.append(label)
         return ms
 
+    def tensor_core_bound(self, ops_ms: float, bytes_ms: float,
+                          bound_ms: float) -> None:
+        """Take the two-term 3xTF32 bound (operations as three TF32
+        products on the tensor cores, bytes), summed over the shapes, as
+        the bound of a kernel whose products run there; the fp32-core
+        figure stays beside it as `fp32_core_bound_ms`."""
+        self.fp32_core_bound_ms = self.bound_ms
+        self.flop_ms, self.byte_ms, self.bound_ms = ops_ms, bytes_ms, bound_ms
+
     def route(self, label: str, on, off, what_off: str) -> None:
         """Time the gated route (`on`, the kernel and what the module does
         around it) against the route the gate replaces (`off`), in turns."""
@@ -331,7 +350,9 @@ class KernelCheck:
                 "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
                 "bound_by": ("operations" if self.flop_ms >= self.byte_ms
                              else "bytes"),
-                "library_ms": self.library_ms, "ms_covers": self.shapes,
+                "library_ms": self.library_ms,
+                "fp32_core_bound_ms": self.fp32_core_bound_ms,
+                "ms_covers": self.shapes,
                 "gate_off_route_ms": self.route_off_ms}
 
 
@@ -366,6 +387,7 @@ class TensorCoreBound:
               "ms above the bound")
 
     def total(self, check: "KernelCheck") -> None:
+        """Print the sums and make them `check`'s bound."""
         print(f"  {self.name}, the {len(check.shapes)} shapes: "
               f"{check.ms:.3f} ms against a 3xTF32 bound of "
               f"{self.bound_ms:.3f} ms (operations {self.ops_ms:.3f}, bytes "
@@ -373,6 +395,7 @@ class TensorCoreBound:
               f"336x512 request ({self.launches} launches): "
               f"{self.request_ms:.2f} ms, {self.request_loss:.2f} ms above "
               "the bound")
+        check.tensor_core_bound(self.ops_ms, self.bytes_ms, self.bound_ms)
 
 
 def fused_tol(refs) -> float:
@@ -403,7 +426,7 @@ def phase_window_kernels(dev, randn, checks, window_major: bool = True
     h, w = LR_SIZES["c_336x512"]
     p = h * w
     wa = checks["window_attention_nhwc"] = KernelCheck("window_attention_nhwc")
-    tc_bound = {"operations": 0.0, "bytes": 0.0}
+    tc_bound = {"operations": 0.0, "bytes": 0.0, "bound": 0.0}
     if window_major:
         from freqfusion_tpu_torch.ops.attention import (
             window_attention, window_attention_reference)
@@ -438,6 +461,7 @@ def phase_window_kernels(dev, randn, checks, window_major: bool = True
             bytes_ms = 1e3 * nbytes / PEAK_BYTES
             tc_bound["operations"] += ops_ms
             tc_bound["bytes"] += bytes_ms
+            tc_bound["bound"] += max(ops_ms, bytes_ms)
             print(f"  window_attention_nhwc {label}: {ms_nhwc:.3f} ms against "
                   f"a 3xTF32 bound of {max(ops_ms, bytes_ms):.3f} ms "
                   f"(operations {ops_ms:.3f} ms: 3 x {flops / 1e9:.1f} GFLOP "
@@ -458,9 +482,13 @@ def phase_window_kernels(dev, randn, checks, window_major: bool = True
             del add
         del q, k, v, qw, kw, vw, qh, kh, vh
     print(f"  window_attention_nhwc, the ten shapes: {wa.ms:.3f} ms against a "
-          f"3xTF32 bound of {max(tc_bound.values()):.3f} ms (operations "
+          f"3xTF32 bound of {tc_bound['bound']:.3f} ms (operations "
           f"{tc_bound['operations']:.3f}, bytes {tc_bound['bytes']:.3f}; "
           f"fp32 cores {wa.flop_ms:.3f})")
+    # #10 does #1's work on the same windows: the same bound
+    for check in (wa, wm) if window_major else (wa,):
+        check.tensor_core_bound(tc_bound["operations"], tc_bound["bytes"],
+                                tc_bound["bound"])
     torch.cuda.empty_cache()
 
 
@@ -487,9 +515,10 @@ def check_spills(log: str, required: bool) -> None:
     """Print ptxas's registers and spills for the instantiations named
     above (window attention's at DRCT-L's head boxes, csrc/
     window_attention.cuh, in every source that builds them; the FFN's up
-    and down products, csrc/fused_mlp.cu; the CAB's convs, csrc/cab.cu)
-    and raise if one spills, or (`required`) if one of the groups has no
-    report."""
+    and down products, csrc/fused_mlp.cu; the CAB's convs, csrc/cab.cu;
+    the 3xTF32 GEMM of csrc/tf32_gemm.cuh in nafblock.cu and
+    window_attention_qkv.cu) and raise if one spills, or (`required`) if
+    one of the groups has no report."""
     import re
 
     groups = {
@@ -507,6 +536,12 @@ def check_spills(log: str, required: bool) -> None:
         "CAB conv (#15)": (r"cab_conv_kernelILi(\d+)E",
                            lambda m: int(m.group(1)) in CAB_CONV_TILES,
                            lambda m: f"{m.group(1)} n-tiles a block"),
+        "3xTF32 GEMM (#16, #11)": (
+            r"(nafblock|window_attention_qkv)_cu.*gemm_tf32_kernelILi(\d)ELi"
+            r"(\d)E",
+            lambda m: True,
+            lambda m: f"{m.group(1)}.cu, {64 * int(m.group(2))} columns, "
+                      f"{GEMM_EPILOGUES[int(m.group(3))]} epilogue"),
     }
     entries = _ptxas_entries(log)
     spilled = []
@@ -824,9 +859,11 @@ def phase_fused_kernels(dev, randn, checks) -> None:
 
     # NAFNet-SIDD-64's five levels at the 1344x2048 HR size, with its
     # blocks a level (encoders 2, 2, 4, 8 and decoders 2, 2, 2, 2 at C 64 ..
-    # 512, 12 middle blocks at C 1024); on the fp32 cores
+    # 512, 12 middle blocks at C 1024); the products in 3xTF32
+    from freqfusion_tpu_torch.ops.nafblock import plan_nafblock
+
     nb = checks["nafblock_fused"] = KernelCheck("nafblock_fused")
-    request = {"ms": 0.0, "loss": 0.0}
+    tc = TensorCoreBound("nafblock_fused")
     for c, (hh, ww), per_request in ((64, (4 * h, 4 * w), 4),
                                      (128, (2 * h, 2 * w), 4),
                                      (256, (h, w), 6),
@@ -844,20 +881,23 @@ def phase_fused_kernels(dev, randn, checks) -> None:
         npx = hh * ww
         flops = npx * (12.0 * c * c + 60.0 * c)
         nbytes = 4 * (2 * npx * c + 7 * c * c + 40 * c)
-        ms = nb.run(f"C{c}/{hh}x{ww}", lambda: nafblock_fused(x, wt),
+        label = f"C{c}/{hh}x{ww}"
+        ms = nb.run(label, lambda: nafblock_fused(x, wt),
                     lambda: nafblock_fused_reference(x, wt), fused_tol,
                     flops, nbytes)
-        bound = max(1e3 * flops / PEAK_FLOPS, 1e3 * nbytes / PEAK_BYTES)
-        request["ms"] += per_request * ms
-        request["loss"] += per_request * (ms - bound)
-        print(f"  nafblock_fused C{c}: {per_request} a request, "
-              f"{per_request * ms:.2f} ms, {per_request * (ms - bound):.2f} "
-              "ms above the fp32-core bound")
+        # the products (12 C^2 a pixel) on the tensor cores; the rest
+        # (depthwise conv, gate, norms: 60 C) is negligible beside them
+        tc.shape(label, ms, npx * 12.0 * c * c, nbytes, per_request)
+        plan = plan_nafblock(npx, c)
+        print(f"  nafblock_fused {label}: the nine launches move "
+              f"{plan.bytes_per_pixel} bytes a pixel "
+              f"({1e3 * npx * plan.bytes_per_pixel / PEAK_BYTES:.3f} ms at "
+              f"3.35 TB/s) against the bound's {plan.bound_bytes_per_pixel}")
+        if c in (64, 1024):
+            launch_breakdown(f"#16 {label}", lambda: nafblock_fused(x, wt))
         del x, wt
         torch.cuda.empty_cache()
-    print(f"  nafblock_fused, a 336x512 request (36 launches): "
-          f"{request['ms']:.2f} ms, {request['loss']:.2f} ms above the "
-          "bound")
+    tc.total(nb)
 
     dw = checks["dwconv3x3"] = KernelCheck("dwconv3x3")
     x = randn(1, h, w, 360)
@@ -888,6 +928,7 @@ def phase_qkv_kernels(dev, randn, checks) -> None:
     p = h * w
     wq = checks["window_attention_qkv_nhwc"] = KernelCheck(
         "window_attention_qkv_nhwc")
+    tc = TensorCoreBound("window_attention_qkv_nhwc")
     for c, heads in ((180, 6), (212, 4), (244, 2), (276, 6), (308, 4)):
         x = randn(1, h, w, c)
         wqkv, wproj = randn(c, 3 * c, scale=c ** -0.5), randn(
@@ -901,12 +942,18 @@ def phase_qkv_kernels(dev, randn, checks) -> None:
                                 device=dev)
             args = (x, wqkv, bqkv, wproj, bproj, bias, mask, heads, 16)
             label = f"C{c}/hd{c // heads}/{'mask' if shift else 'nomask'}"
-            # projections 8 p C^2, attention 4 p N C (N 256)
-            wq.run(label, lambda: window_attention_qkv_nhwc(*args),
-                   lambda: window_attention_qkv_nhwc_reference(*args),
-                   fused_tol, 8.0 * p * c * c + 4.0 * p * 256 * c,
-                   4 * (2 * p * c + 4 * c * c + 4 * c + bias.numel()
-                        + (0 if mask is None else mask.numel())))
+            # projections 8 p C^2, attention 4 p N C (N 256), all of it
+            # 3xTF32 on the tensor cores
+            flops = 8.0 * p * c * c + 4.0 * p * 256 * c
+            nbytes = 4 * (2 * p * c + 4 * c * c + 4 * c + bias.numel()
+                          + (0 if mask is None else mask.numel()))
+            ms = wq.run(label, lambda: window_attention_qkv_nhwc(*args),
+                        lambda: window_attention_qkv_nhwc_reference(*args),
+                        fused_tol, flops, nbytes)
+            tc.shape(label, ms, flops, nbytes, 6)
+            if c == 244 and not shift:
+                launch_breakdown(f"#11 {label}",
+                                 lambda: window_attention_qkv_nhwc(*args))
 
             def gate_off():
                 q, k, v = (F.linear(x, w_t[i * c:(i + 1) * c],
@@ -918,6 +965,7 @@ def phase_qkv_kernels(dev, randn, checks) -> None:
             wq.route(label, lambda: window_attention_qkv_nhwc(*args),
                      gate_off, "3 F.linear + kernel #1 + F.linear")
         del x, args
+    tc.total(wq)
     torch.cuda.empty_cache()
 
     gq = checks["grl_mixed_attention_qkv_nhwc"] = KernelCheck(

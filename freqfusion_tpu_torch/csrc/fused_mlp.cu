@@ -27,8 +27,10 @@
 //   1. split W1 and W2 into hi/lo once a call, zero-padded to the tiles,
 //      into the caller's scratch, in fragment order: for each k8 block and
 //      n-tile, lane (g, t)'s four values side by side, so a product reads
-//      a lane's whole B fragment (hi and lo) with one 16-byte load;
-//   2. T = LN(x) (pre-norm) or x, zero-padded to kp1 columns, tiled;
+//      a lane's whole B fragment (hi and lo) with one 16-byte load
+//      (tf32_gemm.cuh's gemm_split, two jobs);
+//   2. T = LN(x) (pre-norm) or x, zero-padded to kp1 columns, tiled
+//      (tf32_gemm.cuh's gemm_rows);
 //   3. up:   H = gelu(T W1 + b1), 128-row tiles of 128 hidden columns (64
 //      where that pads Ch less), H written tiled for the down product;
 //   4. down: out = x + res_scale * (LN)(H W2 + b2), 64-row tiles of all of
@@ -39,7 +41,9 @@
 // on chip instead, a 64-row block must hold T (79 KB at C 308 in fp32,
 // 158 KB split), a hidden chunk, both weights' rings and a 64 x C output
 // in registers, with two barrier-separated phases a hidden chunk.
-// Both products run one pipeline: 8 warps a block (4 for the 64-column up
+// Both products run one pipeline (tf32_gemm.cuh's Tile, tiled() layout,
+// fragment order and Product, which the NAFBlock's and #11's GEMMs share):
+// 8 warps a block (4 for the 64-column up
 // tile), each owning 32 rows (two m-tiles) x 8 NT columns; K goes 16
 // columns a stage through a ring of 3-4 stages (two or three blocks an
 // SM; one for the down product's widest rows, whose registers allow one).
@@ -70,28 +74,12 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "tf32_mma.cuh"
+#include "tf32_gemm.cuh"
 
 namespace {
 
-constexpr int kBK = 16;    // K columns a stage: two k8 blocks
-constexpr int kUpM = 128;  // up: rows a block (T's and H's row padding)
-
-// A block of WR x WC warps, each 32 rows x 8 NT columns, with a ring of
-// `Stages` stages and MinBlocks blocks an SM (128 registers a thread at 2).
-// A stage: the A tile ([kBM][kBK], as tiled() lays it out) and the W
-// tile's fragments (two k8 blocks of kBN / 8 n-tiles, 128 floats each);
-// then an mbarrier a stage.
-template <int WR, int WC, int NT, int Stages, int MinBlocks>
-struct Tile {
-  static constexpr int kThreads = 32 * WR * WC, kWC = WC;
-  static constexpr int kStages = Stages, kMinBlocks = MinBlocks;
-  static constexpr int kBM = 32 * WR, kBN = 8 * NT * WC;
-  static constexpr int kA = kBM * kBK, kW = 2 * 16 * kBN;
-  static constexpr int kStage = kA + kW;  // floats
-  static constexpr size_t kSmemBytes = size_t(Stages) * kStage * 4 +
-                                       Stages * sizeof(uint64_t);
-};
+// up: rows a block (T's and H's row padding), as gemm_rows pads them
+constexpr int kUpM = kGemmRows;
 
 // up: 128 x 128 (8 warps, two blocks an SM), or 128 x 64 (4 warps, three
 // blocks an SM) where that pads Ch less (Ch 276, 308)
@@ -100,20 +88,6 @@ using UpTile = Tile<4, WC, 8, 4, WC == 2 ? 2 : 3>;
 
 template <int NT>  // 64 x 32 NT; wider than 8, one block an SM
 using DownTile = Tile<2, 4, NT, 3, NT <= 8 ? 2 : 1>;
-
-// The activations' tiled layout (T for the up product, H for the down):
-// row m, column c of a matrix with `ks` 16-column stages, in row blocks of
-// `bm` rows, at [m / bm][c / 16][m % bm][16], so that a block's A tile of
-// a stage is one contiguous piece (one bulk copy). Within a row the 8
-// column pairs are swizzled (pair p at p ^ 4 on rows with bit 1 set), so
-// that a warp's 8-byte fragment reads (rows g, pairs t or 4 + t) hit 32
-// distinct banks.
-__device__ __forceinline__ long long tiled(long long m, int c, int ks,
-                                           int bm) {
-  const int r = int(m % bm), p = (c % 16) / 2;
-  return (((m / bm) * ks + c / 16) * bm + r) * 16 +
-         2 * (p ^ (((r >> 1) & 1) << 2)) + c % 2;
-}
 
 // Padded extents of a call, as ops/mlp.py:plan_fused_mlp computes them.
 struct FfnPlan {
@@ -147,194 +121,6 @@ FfnPlan ffn_plan(int C, int Ch) {
 __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
 }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// W [K, N] (row-major; k < K, n < N valid) into fragment order over
-// [kp / 8][np / 8][32 lanes][4]: unit u is lane (g, t) of a (k8 block,
-// n-tile) and holds hi W[2t][g], hi W[2t + 1][g], then the two lo. The k8
-// block's rows are taken in the order 0, 2, 4, 6, 1, 3, 5, 7 (fragment
-// row t is row 2t, row t + 4 is row 2t + 1), the order in which a lane
-// reads A's columns: two adjacent columns, one 8-byte load.
-__device__ __forceinline__ void split_weight_unit(const float* __restrict__ w,
-                                                  float* __restrict__ fr,
-                                                  int K, int N, int np,
-                                                  long long u) {
-  const int lane = int(u % 32), g = lane / 4, t = lane % 4;
-  const long long blk = u / 32;
-  const int nt = int(blk % (np / 8)), kb = int(blk / (np / 8));
-  const int k = 8 * kb + 2 * t, n = 8 * nt + g;
-  const float v0 = k < K && n < N ? w[(long long)k * N + n] : 0.f;
-  const float v1 = k + 1 < K && n < N ? w[(long long)(k + 1) * N + n] : 0.f;
-  uint4 o;
-  split_tf32(v0, o.x, o.z);
-  split_tf32(v1, o.y, o.w);
-  *reinterpret_cast<uint4*>(fr + 4 * u) = o;
-}
-
-// 1. W1 and W2 into fragment order.
-__global__ void __launch_bounds__(256)
-ffn_split_weights(const float* __restrict__ w1, const float* __restrict__ w2,
-                  float* __restrict__ w1fr, float* __restrict__ w2fr, int C,
-                  int Ch, FfnPlan p) {
-  const long long n1 = (long long)p.kp1 / 8 * (p.np1 / 8) * 32;
-  const long long n2 = (long long)p.kp2 / 8 * (p.cp / 8) * 32;
-  for (long long u = blockIdx.x * 256LL + threadIdx.x; u < n1 + n2;
-       u += gridDim.x * 256LL) {
-    if (u < n1)
-      split_weight_unit(w1, w1fr, C, Ch, p.np1, u);
-    else
-      split_weight_unit(w2, w2fr, Ch, C, p.cp, u - n1);
-  }
-}
-
-// 2. T = LN(x) (norm) or x, zero-padded to kp1 columns and Mp rows (a
-// multiple of kUpM), tiled: the up product's A. One warp a row, held in
-// registers (C <= 384).
-__global__ void __launch_bounds__(256)
-ffn_rows(const float* __restrict__ x, const float* __restrict__ ln_s,
-         const float* __restrict__ ln_b, float* __restrict__ tbuf, int M,
-         int Mp, int C, int kp1, int norm, float eps) {
-  const long long m = (blockIdx.x * 256LL + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (m >= Mp) return;
-  const float* xr = x + (m < M ? m : 0) * C;
-  const int cv = m < M ? C : 0;  // padding rows are zeros
-  float v[12];
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < 12; ++i) {
-    const int c = lane + 32 * i;
-    v[i] = c < cv ? xr[c] : 0.f;
-    s += v[i];
-  }
-  float mu = 0.f, rs = 1.f;
-  if (norm) {
-    mu = warp_sum(s) / C;
-    float q = 0.f;
-#pragma unroll
-    for (int i = 0; i < 12; ++i) {
-      const float d = lane + 32 * i < C ? v[i] - mu : 0.f;
-      q += d * d;
-    }
-    rs = rsqrtf(warp_sum(q) / C + eps);
-  }
-#pragma unroll
-  for (int i = 0; i < 12; ++i) {
-    const int c = lane + 32 * i;
-    if (c < kp1)
-      tbuf[tiled(m, c, kp1 / kBK, kUpM)] =
-          c >= cv ? 0.f
-          : norm ? fmaf((v[i] - mu) * rs, ln_s[c], ln_b[c])
-                 : v[i];
-  }
-}
-
-// The staged product both launches run: acc (the warp's two m-tiles x NT
-// n-tiles) = A W[:, n0..] over `stages` 16-column stages, A the block's
-// row block of a tiled() matrix (stage s at atile + s kBM kBK) and W in
-// fragment order with `npt` n-tiles a k8 block. Thread 0 issues each stage
-// as three bulk copies on the stage's mbarrier; a barrier a stage keeps
-// the ring's refill behind every warp's reads.
-template <class T, int NT>
-struct Product {
-  static constexpr int S = T::kStages;
-
-  __device__ __forceinline__ static void run(float (&acc)[NT][2][4],
-                                             float* smem,
-                                             const float* __restrict__ atile,
-                                             int stages,
-                                             const float* __restrict__ w,
-                                             int npt, int n0) {
-    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-    const int g = lane / 4, t = lane % 4;
-    const int wr = warp / T::kWC, wc = warp % T::kWC;
-    uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * T::kStage);
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][mt][e] = 0.f;
-    if (tid == 0) {
-      for (int b = 0; b < S; ++b) mbar_init(&full[b], 1);
-      mbar_init_fence();
-    }
-    __syncthreads();
-
-    auto issue = [&](int s) {  // thread 0
-      const int b = s % S;
-      float* as = smem + b * T::kStage;
-      constexpr uint32_t kABytes = 4 * T::kA, kWBytes = 64 * T::kBN;
-      fence_proxy_async();
-      mbar_arrive_expect_tx(&full[b], kABytes + 2 * kWBytes);
-      bulk_copy(as, atile + (long long)s * T::kA, kABytes, &full[b]);
-      const float* src = w + ((long long)2 * s * npt + n0 / 8) * 128;
-      bulk_copy(as + T::kA, src, kWBytes, &full[b]);
-      bulk_copy(as + T::kA + 16 * T::kBN, src + (long long)npt * 128,
-                kWBytes, &full[b]);
-    };
-
-    if (tid == 0)
-      for (int s = 0; s < S - 1 && s < stages; ++s) issue(s);
-    // this lane's fragment rows (32 wr + 16 mt + g, and + 8) and the
-    // swizzle of their column pairs
-    const int sw = ((g >> 1) & 1) << 2;
-    for (int s = 0; s < stages; ++s) {
-      if (s + S - 1 < stages) {
-        if (s > 0) __syncthreads();  // stage s - 1's buffer is read
-        if (tid == 0) issue(s + S - 1);
-      }
-      mbar_wait(&full[s % S], (s / S) & 1);
-      const float* as = smem + (s % S) * T::kStage;
-      const float* wk0 = as + T::kA + 4 * (NT * wc * 32 + lane);
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        // lane (g, t): rows g and g + 8, columns 2t and 2t + 1 of the k8
-        // block (fragment columns t and t + 4), split here
-        uint32_t fh[2][4], fl[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const int o =
-              (32 * wr + 16 * mt + g) * kBK + 2 * ((4 * kk + t) ^ sw);
-          const float2 r0 = *reinterpret_cast<const float2*>(as + o);
-          const float2 r1 =
-              *reinterpret_cast<const float2*>(as + o + 8 * kBK);
-          split_tf32(r0.x, fh[mt][0], fl[mt][0]);
-          split_tf32(r1.x, fh[mt][1], fl[mt][1]);
-          split_tf32(r0.y, fh[mt][2], fl[mt][2]);
-          split_tf32(r1.y, fh[mt][3], fl[mt][3]);
-        }
-        const float* wk = wk0 + kk * 16 * T::kBN;
-        constexpr int kWhole = NT / 2 * 2;
-#pragma unroll
-        for (int j = 0; j < kWhole; j += 2) {
-          uint32_t bh[2][2], bl[2][2];
-#pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            const uint4 f =
-                *reinterpret_cast<const uint4*>(wk + 128 * (j + q));
-            bh[q][0] = f.x, bh[q][1] = f.y, bl[q][0] = f.z, bl[q][1] = f.w;
-          }
-          mma_3xtf32_split(*reinterpret_cast<float(*)[2][2][4]>(&acc[j]), fh,
-                           fl, bh, bl);
-        }
-        if constexpr (kWhole < NT) {  // an odd last n-tile
-          const uint4 f =
-              *reinterpret_cast<const uint4*>(wk + 128 * kWhole);
-          const uint32_t bh[1][2] = {{f.x, f.y}}, bl[1][2] = {{f.z, f.w}};
-          mma_3xtf32_split(
-              *reinterpret_cast<float(*)[1][2][4]>(&acc[kWhole]), fh, fl, bh,
-              bl);
-        }
-      }
-    }
-  }
-};
 
 // 3. H[m0 .. + 128, n0 .. + 128] = gelu(T W1 + b1), tiled for the down
 // product (64-row blocks), columns < kp2 stored (padding rows too). Warp
@@ -555,12 +341,18 @@ extern "C" int ff_fused_mlp(const float* x, const float* w1, const float* b1,
   float* h = w2fr + 2LL * p.kp2 * p.cp;
   float* tbuf = h + (long long)mp * p.kp2;
 
-  ffn_split_weights<<<264, 256, 0, stream>>>(w1, w2, w1fr, w2fr, C, Ch, p);
-  cudaError_t err = cudaGetLastError();
+  // 1. W1 and W2 into fragment order
+  const SplitJobs<2> jobs{
+      {SplitJob{w1, nullptr, w1fr, C, Ch, Ch, p.np1, 0, 1,
+                (long long)p.kp1 / 8 * (p.np1 / 8) * 32},
+       SplitJob{w2, nullptr, w2fr, Ch, C, C, p.cp, 0, 1,
+                (long long)p.kp2 / 8 * (p.cp / 8) * 32}}};
+  cudaError_t err = gemm_split(jobs, stream);
   if (err != cudaSuccess) return int(err);
-  ffn_rows<<<unsigned((mp + 7) / 8), 256, 0, stream>>>(
-      x, ln_s, ln_b, tbuf, M, mp, C, p.kp1, prenorm, eps);
-  err = cudaGetLastError();
+  // 2. T = LN(x) (pre-norm) or x, zero-padded to kp1 columns and mp rows,
+  // tiled: the up product's A
+  err = gemm_rows<2>(x, C, prenorm ? ln_s : nullptr, ln_b, eps, tbuf, 1, mp,
+                     M, C, p.kp1, stream);
   if (err != cudaSuccess) return int(err);
 
   err = p.upn == 128 ? launch_up<2>(tbuf, w1fr, b1, h, Ch, p, mp, stream)

@@ -13,181 +13,115 @@
 //
 // What bounds it on the H100: the five 1x1 products, 12 C^2 FLOPs a pixel,
 // 1.35e11 per block at every level (C 64 at 1344x2048 up to C 1024 at
-// 84x128), 2.0 ms at 67 TFLOP/s fp32. The byte floor (read x, write out:
-// 8 C bytes a pixel) is 0.42 ms at level 1 and less below it, so the
-// block is bound by fp32 FMA issue at every level, and the fused TPU
-// design (one pass per side of the SCA pool, g recomputed in pass B) would
-// only trade bytes this card can afford for FLOPs it cannot: recomputing
-// g costs another 4 C^2 (1 + halo) FLOPs a pixel (0.67 ms at peak for
-// level 1), spilling g costs 2 C 4 bytes a pixel (0.42 ms). So g is
-// spilled, and so is u (0.84 ms at level 1), which keeps the 1x1 products
-// plain tiled GEMMs instead of halo-recomputed ones.
+// 84x128): 2.0 ms on the fp32 cores (67 TFLOP/s), 0.82 ms as 3xTF32 on the
+// tensor cores (three TF32 products an fp32 one at 495 TFLOP/s). The
+// byte floor (x in, out out: 8 C bytes a pixel) is 0.42 ms at level 1.
+// The products run in 3xTF32 (tf32_gemm.cuh, as the fused FFN's): x = hi
+// + lo, lo*hi + hi*lo + hi*hi on mma.sync, fp32 accumulation; one TF32
+// product misses the fp32 tolerance at K up to 1024.
 //
-// Design: five launches over [P, C] rows (P = B H W), none of them a
-// library call:
-//   1. gemm: LN1 prologue (row stats per block), + b1          -> u [P, 2C]
-//   2. gate: depthwise 3x3 on both halves, SimpleGate, and per-tile
-//      channel sums of g (the SCA pool's partials)               -> g [P, C]
-//   (the [B, C] SCA product runs between the two entries, in PyTorch)
-//   3. gemm: g * s prologue, beta residual epilogue               -> y [P, C]
-//   4. gemm: LN2 prologue, both gate halves in one block, product  -> g2
-//   5. gemm: gamma residual epilogue                              -> out
-// The gemm is a 64 x 64 output tile per block of 256 threads, each thread
-// 4 x 4 (4 x 8 for the gate), over K in steps of 16 staged in shared
-// memory (A transposed so a thread reads its 4 rows as one float4).
-// Device-memory traffic is about 14 C 4 bytes a pixel, against ~25 C for
-// the plain PyTorch composition.
+// Design: nine launches over [P, C] rows (P = B H W), none a library call;
+// the [B, C] SCA product runs between the two entries, in PyTorch, as the
+// JAX wrapper runs it between its two Pallas calls.
+//   pass A  1. split W1, W4 and W5 into hi/lo fragment order (W4's two
+//              halves interleaved by n-tile, so a lane holds column j of
+//              both: the gate runs in the product's epilogue);
+//           2. T1 = LN1(x), tiled (each row's statistics once);
+//           3. conv1: u = T1 W1 + b1, row-major [P, 2C];
+//           4. gate: the depthwise 3x3 on both halves, SimpleGate, g
+//              written tiled for conv3, and the SCA pool's per-tile
+//              channel sums;
+//   pass B  5. split W3 with its rows scaled by s, one copy an image:
+//              (g * s_b) W3 = g (diag(s_b) W3), so conv3 has no prologue;
+//           6. conv3: y = x + beta * (g W3_b + b3), row-major;
+//           7. T2 = LN2(y), tiled;
+//           8. conv4, gated: g2 = (T2 W4a + b4a) * (T2 W4b + b4b), tiled;
+//           9. conv5: out = y + gamma * (g2 W5 + b5).
+// The products' A operands are tiled with each image's rows padded to 128,
+// so a conv3 block's rows lie in one image and read that image's W3.
+// Device memory a pixel: 4 (10 C + 8 kp) bytes (kp = C rounded up to 16;
+// 72 C at NAFNet's widths) against the 8 C of the bound; at level 1 (C 64,
+// 2.75 M pixels) 12.7 GB, 3.8 ms at 3.35 TB/s, so levels 1-2 are bound by
+// the passes' bytes and levels 3-5 by the products. Keeping u or g on chip
+// would need conv1's output for a tile plus its halo (the depthwise conv)
+// or g recomputed in pass B (4 C^2 (1 + halo) FLOPs a pixel more); both
+// are left for a later version.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tf32_gemm.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int BM = 64, BN = 64, BK = 16;
 constexpr int kGateRun = 8;   // output rows per thread in the gate kernel
 constexpr int kGateCols = 8;  // tile columns per gate block
 constexpr int kGateCh = 32;   // channels per gate block
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-struct GemmArgs {
-  const float* A;         // [M, K]
-  const float* W;         // [K, ldw]
-  float* out;             // [M, N]
-  int M, K, N, ldw;
-  const float* ln_s;      // [K] or null: LayerNorm each row of A first
-  const float* ln_b;
-  float eps;
-  const float* colscale;  // [M / rows_per_batch, K] or null: A * colscale
-  int rows_per_batch;
-  const float* bias;      // [ldw]
-  const float* res;       // [M, N] or null: out = res + res_scale * value
-  const float* res_scale; // [N]
+// Padded extents and the scratch's layout, as ops/nafblock.py:
+// plan_nafblock computes them.
+struct NafPlan {
+  int kp;         // C rounded up to kBK: every product's K, A's columns
+  int mpi;        // H W rounded up to 128: A's rows an image
+  int np1;        // conv1's N (2C) padded to its block width
+  int np3;        // conv3's and conv5's (C)
+  int np4;        // conv4's, the two halves interleaved (2 kp)
+  long long w1, w4, w5, w3;  // floats of each split (W3's: one copy)
+  long long a;    // floats of a tiled A buffer (B mpi kp)
+  long long rows; // floats of the row-major u (pass A) / y (pass B)
+  long long total;
 };
 
-// GATE: value[n] = (acc(W[:, n]) + bias[n]) * (acc(W[:, N + n]) + bias[N + n])
-template <bool GATE>
-__global__ void __launch_bounds__(kThreads) naf_gemm_kernel(GemmArgs p) {
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Ws[GATE ? 2 : 1][BK][BN];
-  __shared__ float mu[BM], rs[BM];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-
-  if (p.ln_s) {
-    const int warp = tid >> 5, lane = tid & 31;
-    for (int r = warp; r < BM; r += kThreads / 32) {
-      const int m = m0 + r;
-      float mean = 0.f, rstd = 0.f;
-      if (m < p.M) {
-        const float* a = p.A + (long long)m * p.K;
-        float s = 0.f;
-        for (int k = lane; k < p.K; k += 32) s += a[k];
-        mean = warp_sum(s) / p.K;
-        float q = 0.f;
-        for (int k = lane; k < p.K; k += 32) {
-          const float d = a[k] - mean;
-          q += d * d;
-        }
-        rstd = rsqrtf(warp_sum(q) / p.K + p.eps);
-      }
-      if (lane == 0) {
-        mu[r] = mean;
-        rs[r] = rstd;
-      }
-    }
-    __syncthreads();
-  }
-
-  float acc[4][4], acc2[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = acc2[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < p.K; k0 += BK) {
-    for (int e = tid; e < BM * BK; e += kThreads) {
-      const int r = e / BK, kk = e % BK;
-      const int m = m0 + r, k = k0 + kk;
-      float v = 0.f;
-      if (m < p.M && k < p.K) {
-        v = p.A[(long long)m * p.K + k];
-        if (p.ln_s) v = (v - mu[r]) * rs[r] * p.ln_s[k] + p.ln_b[k];
-        if (p.colscale)
-          v *= p.colscale[(long long)(m / p.rows_per_batch) * p.K + k];
-      }
-      As[kk][r] = v;
-    }
-    for (int e = tid; e < BK * BN; e += kThreads) {
-      const int kk = e / BN, j = e % BN;
-      const int k = k0 + kk, n = n0 + j;
-      const bool ok = k < p.K && n < p.N;
-      Ws[0][kk][j] = ok ? p.W[(long long)k * p.ldw + n] : 0.f;
-      if (GATE) Ws[GATE ? 1 : 0][kk][j] = ok ? p.W[(long long)k * p.ldw + p.N + n] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Ws[0][kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      if (GATE) {
-        const float4 c = *reinterpret_cast<const float4*>(&Ws[GATE ? 1 : 0][kk][tx * 4]);
-        const float cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc2[i][j] = fmaf(av[i], cv[j], acc2[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= p.M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= p.N) continue;
-      float v = acc[i][j] + p.bias[n];
-      if (GATE) v *= acc2[i][j] + p.bias[p.N + n];
-      const long long o = (long long)m * p.N + n;
-      if (p.res) v = fmaf(p.res_scale[n], v, p.res[o]);
-      p.out[o] = v;
-    }
-  }
+NafPlan naf_plan(int hw, int C, int B) {
+  NafPlan p;
+  p.kp = int(round_up(C, kBK));
+  p.mpi = int(round_up(hw, kGemmRows));
+  p.np1 = int(round_up(2 * C, gemm_cols(2 * C)));
+  p.np3 = int(round_up(C, gemm_cols(C)));
+  p.np4 = int(round_up(2 * p.kp, gemm_cols(2 * p.kp)));
+  p.w1 = 2LL * p.kp * p.np1;
+  p.w4 = 2LL * p.kp * p.np4;
+  p.w5 = p.w3 = 2LL * p.kp * p.np3;
+  p.a = (long long)B * p.mpi * p.kp;
+  p.rows = 2LL * B * hw * C;
+  p.total = p.w1 + p.w4 + p.w5 + B * p.w3 + 2 * p.a + p.rows;
+  return p;
 }
 
-int gemm(const GemmArgs& a, bool gate, cudaStream_t stream) {
-  const dim3 grid(unsigned((a.M + BM - 1) / BM), unsigned((a.N + BN - 1) / BN));
-  if (gate)
-    naf_gemm_kernel<true><<<grid, kThreads, 0, stream>>>(a);
-  else
-    naf_gemm_kernel<false><<<grid, kThreads, 0, stream>>>(a);
-  return int(cudaGetLastError());
+struct NafScratch {
+  float *w1, *w4, *w5, *w3, *a, *b, *rows;
+};
+
+NafScratch naf_scratch(float* s, const NafPlan& p, int B) {
+  NafScratch o;
+  o.w1 = s;
+  o.w4 = o.w1 + p.w1;
+  o.w5 = o.w4 + p.w4;
+  o.w3 = o.w5 + p.w5;
+  o.a = o.w3 + B * p.w3;
+  o.b = o.a + p.a;
+  o.rows = o.b + p.a;
+  return o;
+}
+
+SplitJob split_job(const float* w, const float* rowscale, float* fr, int C,
+                   int N, int ldw, int np, int gate, int kp, int copies) {
+  return SplitJob{w, rowscale, fr, C, N, ldw, np, gate, copies,
+                  (long long)kp / 8 * (np / 8) * 32};
 }
 
 // g = (dw(u_a) + d_a) * (dw(u_b) + d_b) for a tile of kGateRun rows x
 // kGateCols columns x kGateCh channels; threads: channel fastest, then
 // column. Each thread walks its column down the tile with a 3 x 3 window
-// of both halves in registers. partials [B, tiles, C] get the tile's
-// channel sums of g.
+// of both halves in registers. g goes to conv3's A in tiled() order
+// (image b's pixel i at row b mpi + i, columns C..kp zeros); partials [B,
+// tiles, C] get the tile's channel sums of g.
 __global__ void __launch_bounds__(kThreads)
 naf_gate_kernel(const float* __restrict__ u, const float* __restrict__ dk,
                 const float* __restrict__ db, float* __restrict__ g,
-                float* __restrict__ partials, int H, int W, int C) {
+                float* __restrict__ partials, int H, int W, int C, int kp,
+                int mpi) {
   __shared__ float red[kThreads / kGateCh][kGateCh];
   const int cl = threadIdx.x % kGateCh, col = threadIdx.x / kGateCh;
   const int c = blockIdx.y * kGateCh + cl;
@@ -198,6 +132,7 @@ naf_gate_kernel(const float* __restrict__ u, const float* __restrict__ dk,
   const int b = blockIdx.z;
   const int C2 = 2 * C;
   const float* ub = u + (long long)b * H * W * C2;
+  const long long gb = (long long)b * mpi;
   float sum = 0.f;
   if (c < C && xx < W) {
     float ka[9], kb[9];
@@ -251,9 +186,13 @@ naf_gate_kernel(const float* __restrict__ u, const float* __restrict__ dk,
           sb = fmaf(wb[r][d], kb[r * 3 + d], sb);
         }
       const float v = sa * sb;
-      g[(((long long)b * H + y) * W + xx) * C + c] = v;
+      g[tiled(gb + (long long)y * W + xx, c, kp / kBK, kGemmRows)] = v;
       sum += v;
     }
+  } else if (c < kp && xx < W) {  // A's padding columns
+    for (int i = 0; i < kGateRun && y0 + i < H; ++i)
+      g[tiled(gb + (long long)(y0 + i) * W + xx, c, kp / kBK, kGemmRows)] =
+          0.f;
   }
   red[col][cl] = sum;
   __syncthreads();
@@ -264,6 +203,16 @@ naf_gate_kernel(const float* __restrict__ u, const float* __restrict__ dk,
   }
 }
 
+// The plan of a call, or a zero kp where the call is refused.
+NafPlan naf_checked(int B, int H, int W, int C, const float* scratch,
+                    long long scratch_floats) {
+  NafPlan p = naf_plan(H * W, C, B);
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C > kGemmMaxC ||
+      scratch_floats < p.total || reinterpret_cast<size_t>(scratch) % 16)
+    p.kp = 0;
+  return p;
+}
+
 }  // namespace
 
 // Tiles per image of the gate kernel (the partials' middle axis).
@@ -271,50 +220,88 @@ extern "C" int ff_nafblock_tiles(int H, int W) {
   return ((H + kGateRun - 1) / kGateRun) * ((W + kGateCols - 1) / kGateCols);
 }
 
-// Pass A. x [B, H, W, C]; ln1 [C] x2; w1 [C, 2C]; b1 [2C]; u [B, H, W, 2C]
-// (scratch); dk [3, 3, 2C]; db [2C]; g [B, H, W, C]; partials [B,
-// ff_nafblock_tiles(H, W), C]. All fp32 contiguous.
+// Floats of scratch a call on B images of H W pixels of C channels needs
+// (the splits, two tiled A buffers, u / y); -1 for a width it refuses.
+extern "C" long long ff_nafblock_scratch_floats(int hw, int C, int B) {
+  return C > kGemmMaxC ? -1 : naf_plan(hw, C, B).total;
+}
+
+// Pass A. x [B, H, W, C]; ln1 [C] x2; w1 [C, 2C]; b1 [2C]; w4 [C, 2C]; w5
+// [C, C]; dk [3, 3, 2C]; db [2C]; partials [B, ff_nafblock_tiles(H, W),
+// C]; scratch (16-byte aligned) of ff_nafblock_scratch_floats(H W, C, B)
+// floats, which pass B reads. All fp32 contiguous.
 extern "C" int ff_nafblock_gate(const float* x, const float* ln1_s,
                                 const float* ln1_b, const float* w1,
-                                const float* b1, float* u, const float* dk,
-                                const float* db, float* g, float* partials,
+                                const float* b1, const float* w4,
+                                const float* w5, const float* dk,
+                                const float* db, float* partials,
+                                float* scratch, long long scratch_floats,
                                 int B, int H, int W, int C, float eps,
                                 void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const int M = B * H * W;
-  GemmArgs a{x, w1, u, M, C, 2 * C, 2 * C, ln1_s, ln1_b, eps, nullptr, 1,
-             b1, nullptr, nullptr};
-  int err = gemm(a, false, stream);
-  if (err) return err;
+  const NafPlan p = naf_checked(B, H, W, C, scratch, scratch_floats);
+  if (!p.kp) return int(cudaErrorInvalidValue);
+  const NafScratch s = naf_scratch(scratch, p, B);
+  const int hw = H * W;
+  const SplitJobs<3> jobs{
+      {split_job(w1, nullptr, s.w1, C, 2 * C, 2 * C, p.np1, 0, p.kp, 1),
+       split_job(w4, nullptr, s.w4, C, C, 2 * C, p.np4, 1, p.kp, 1),
+       split_job(w5, nullptr, s.w5, C, C, C, p.np3, 0, p.kp, 1)}};
+  cudaError_t err = gemm_split(jobs, stream);
+  if (err == cudaSuccess)
+    err = gemm_rows<2>(x, C, ln1_s, ln1_b, eps, s.a, B, p.mpi, hw, C, p.kp,
+                       stream);
+  if (err == cudaSuccess)
+    err = gemm_launch<kEpiBias>(
+        GemmArgs{s.a, s.w1, 0, p.kp, p.np1, 2 * C, p.mpi, hw, b1, s.rows,
+                 2 * C, nullptr, nullptr},
+        B, stream);
+  if (err != cudaSuccess) return int(err);
   const dim3 grid(unsigned(ff_nafblock_tiles(H, W)),
                   unsigned((C + kGateCh - 1) / kGateCh), unsigned(B));
-  naf_gate_kernel<<<grid, kThreads, 0, stream>>>(u, dk, db, g, partials, H, W,
-                                                 C);
+  naf_gate_kernel<<<grid, kThreads, 0, stream>>>(s.rows, dk, db, s.a,
+                                                 partials, H, W, C, p.kp,
+                                                 p.mpi);
   return int(cudaGetLastError());
 }
 
-// Pass B. g, x [B, H, W, C]; s [B, C]; w3 [C, C]; b3, beta [C]; y, g2
-// (scratch) and out [B, H, W, C]; ln2 [C] x2; w4 [C, 2C]; b4 [2C]; w5 [C,
-// C]; b5, gamma [C].
-extern "C" int ff_nafblock_apply(const float* g, const float* s,
-                                 const float* x, const float* w3,
-                                 const float* b3, const float* beta, float* y,
-                                 const float* ln2_s, const float* ln2_b,
-                                 const float* w4, const float* b4, float* g2,
-                                 const float* w5, const float* b5,
-                                 const float* gamma, float* out, int B, int H,
+// Pass B, after pass A on the same scratch. s [B, C]; x [B, H, W, C]; w3
+// [C, C]; b3, beta [C]; ln2 [C] x2; b4 [2C]; b5, gamma [C]; out [B, H, W,
+// C].
+extern "C" int ff_nafblock_apply(const float* sca, const float* x,
+                                 const float* w3, const float* b3,
+                                 const float* beta, const float* ln2_s,
+                                 const float* ln2_b, const float* b4,
+                                 const float* b5, const float* gamma,
+                                 float* out, float* scratch,
+                                 long long scratch_floats, int B, int H,
                                  int W, int C, float eps, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const int M = B * H * W;
-  GemmArgs a3{g, w3, y, M, C, C, C, nullptr, nullptr, eps, s, H * W,
-              b3, x, beta};
-  int err = gemm(a3, false, stream);
-  if (err) return err;
-  GemmArgs a4{y, w4, g2, M, C, C, 2 * C, ln2_s, ln2_b, eps, nullptr, 1,
-              b4, nullptr, nullptr};
-  err = gemm(a4, true, stream);
-  if (err) return err;
-  GemmArgs a5{g2, w5, out, M, C, C, C, nullptr, nullptr, eps, nullptr, 1,
-              b5, y, gamma};
-  return gemm(a5, false, stream);
+  const NafPlan p = naf_checked(B, H, W, C, scratch, scratch_floats);
+  if (!p.kp) return int(cudaErrorInvalidValue);
+  const NafScratch s = naf_scratch(scratch, p, B);
+  const int hw = H * W;
+  float* y = s.rows;
+  const SplitJobs<1> jobs{
+      {split_job(w3, sca, s.w3, C, C, C, p.np3, 0, p.kp, B)}};
+  cudaError_t err = gemm_split(jobs, stream);
+  if (err == cudaSuccess)  // y = x + beta * (g W3_b + b3)
+    err = gemm_launch<kEpiResidual>(
+        GemmArgs{s.a, s.w3, p.w3, p.kp, p.np3, C, p.mpi, hw, b3, y, C, x,
+                 beta},
+        B, stream);
+  if (err == cudaSuccess)
+    err = gemm_rows<2>(y, C, ln2_s, ln2_b, eps, s.a, B, p.mpi, hw, C, p.kp,
+                       stream);
+  if (err == cudaSuccess)  // g2, tiled into the second buffer
+    err = gemm_launch<kEpiGate>(
+        GemmArgs{s.a, s.w4, 0, p.kp, p.np4, C, p.mpi, hw, b4, s.b, p.kp,
+                 nullptr, nullptr},
+        B, stream);
+  if (err == cudaSuccess)  // out = y + gamma * (g2 W5 + b5)
+    err = gemm_launch<kEpiResidual>(
+        GemmArgs{s.b, s.w5, 0, p.kp, p.np3, C, p.mpi, hw, b5, out, C, y,
+                 gamma},
+        B, stream);
+  return int(err);
 }

@@ -9,21 +9,25 @@ goes to the hand-written kernel in ``csrc/`` or the call raises.
 The ``*_qkv_nhwc`` entries take x and the packed projection weights in
 the JAX layout ([in, out]) and project inside their kernels
 (FREQFUSION_ATTN_QKV and FREQFUSION_GRL_QKV); their plain versions are
-``F.linear`` projections around the plain attention.
+``F.linear`` projections around the plain attention. DRCT's runs its two
+projections on ``csrc/tf32_gemm.cuh``'s 3xTF32 GEMM through a scratch
+that :func:`plan_qkv_projections` sizes.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import cuda
+from .tf32_gemm import MAX_CHANNELS, ROWS, GemmPlan, _round_up, plan_gemm
 from .window_attention import (multi_head_window_attention, window_partition,
                                window_reverse)
 
-__all__ = ["plan_window_attention", "window_attention",
+__all__ = ["plan_window_attention", "plan_qkv_projections", "QkvPlan",
+           "window_attention",
            "window_attention_reference",
            "window_attention_nhwc", "window_attention_nhwc_reference",
            "grl_mixed_attention_nhwc", "grl_mixed_attention_nhwc_reference",
@@ -266,6 +270,27 @@ def _project(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, i: int,
     return F.linear(x, w[:, cols].t(), b[cols])
 
 
+class QkvPlan(NamedTuple):
+    """How ``csrc/window_attention_qkv.cu`` runs its two projections on
+    ``csrc/tf32_gemm.cuh``'s GEMM (its ``qkv_plan``)."""
+    qkv: GemmPlan        # x [M, Cin] -> [M, 3C]
+    proj: GemmPlan       # attn [M, C] -> [M, C]
+    mp: int              # M padded to ROWS: A's rows
+    scratch_floats: int  # both splits, one tiled A (x, then attn)
+
+
+def plan_qkv_projections(m: int, cin: int, c: int) -> QkvPlan:
+    """The projections' padded extents and scratch for `m` pixels of `cin`
+    channels projected to q | k | v of `c` each."""
+    if max(cin, c) > MAX_CHANNELS:
+        raise ValueError(f"window_attention_qkv_nhwc: Cin={cin}, C={c} > "
+                         f"{MAX_CHANNELS}")
+    mp = _round_up(m, ROWS)
+    qkv, proj = plan_gemm(mp, cin, 3 * c), plan_gemm(mp, c, c)
+    return QkvPlan(qkv, proj, mp, qkv.split_floats + proj.split_floats
+                   + mp * max(qkv.kp, proj.kp))
+
+
 def window_attention_qkv_nhwc_reference(x, wqkv, bqkv, wproj, bproj, bias,
                                         mask, num_heads: int,
                                         window_size: int,
@@ -311,17 +336,20 @@ def window_attention_qkv_nhwc(x: torch.Tensor, wqkv: torch.Tensor,
     cuda.require(bias, "bias", (num_heads, n, n), dev)
     if mask is not None:
         cuda.require(mask, "mask", ((h // ws) * (w // ws), n, n), dev)
+    plan = plan_qkv_projections(b * h * w, cin, c)
     qkv = x.new_empty(b, h, w, 3 * c)
     attn = x.new_empty(b, h, w, c)
     out = x.new_empty(b, h, w, c)
+    scratch = x.new_empty(plan.scratch_floats)
     # q, k, v: the column thirds of qkv (bases qkv + 0, C, 2 C; rows of 3 C
     # floats, so aligned with qkv where 3 C % 4 == 0, which the plan checks)
     hdp, vec = plan_window_attention(c // num_heads, num_heads, 3 * c,
                                      qkv.data_ptr() % 16 == 0)
     err = cuda.library().ff_window_attention_qkv_nhwc(
         *(cuda.ptr(t) for t in (x, wqkv, bqkv, wproj, bproj, bias, mask,
-                                qkv, attn, out)),
-        b, h, w, cin, c, num_heads, ws, scale, hdp, int(vec),
+                                qkv, attn, out, scratch)),
+        plan.scratch_floats, b, h, w, cin, c, num_heads, ws, scale, hdp,
+        int(vec),
         cuda.stream(x))
     cuda.check(err, "window_attention_qkv_nhwc")
     cuda.launch_counts["window_attention_qkv_nhwc"] += 1

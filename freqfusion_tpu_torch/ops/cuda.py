@@ -63,10 +63,13 @@ _SIGNATURES = {
     "ff_cab_pool": [_P] * 11 + [_L] + [_I] * 5 + [_F, _P],
     "ff_cab_apply": [_P] * 5 + [_I] * 4 + [_P],
     "ff_nafblock_tiles": [_I] * 2,
-    "ff_nafblock_gate": [_P] * 10 + [_I] * 4 + [_F, _P],
-    "ff_nafblock_apply": [_P] * 16 + [_I] * 4 + [_F, _P],
+    "ff_nafblock_scratch_floats": [_I] * 3,
+    "ff_nafblock_gate": [_P] * 11 + [_L] + [_I] * 4 + [_F, _P],
+    "ff_nafblock_apply": [_P] * 12 + [_L] + [_I] * 4 + [_F, _P],
     "ff_dwconv3x3": [_P] * 4 + [_I] * 4 + [_P],
-    "ff_window_attention_qkv_nhwc": [_P] * 10 + [_I] * 7 + [_F, _I, _I, _P],
+    "ff_window_attention_qkv_scratch_floats": [_L, _I, _I],
+    "ff_window_attention_qkv_nhwc": [_P] * 11 + [_L] + [_I] * 7
+                                    + [_F, _I, _I, _P],
     "ff_grl_qkv_scratch_floats": [_I] * 4,
     "ff_grl_mixed_attention_qkv_nhwc": [_P] * 15 + [_I] * 9 + [_P],
     "ff_token_attention": [_P] * 6 + [_I] * 4 + [_P],
@@ -77,7 +80,9 @@ _SIGNATURES = {
     "ff_layernorm": [_P] * 4 + [_I] * 3 + [_F, _P],
 }
 # entries that return a count of 64 bits (the rest return an int)
-_RETURNS_LONG = ("ff_fused_mlp_scratch_floats", "ff_cab_scratch_floats")
+_RETURNS_LONG = ("ff_fused_mlp_scratch_floats", "ff_cab_scratch_floats",
+                 "ff_nafblock_scratch_floats",
+                 "ff_window_attention_qkv_scratch_floats")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

@@ -20,26 +20,21 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda
+from .tf32_gemm import BK, SMEM_LIMIT, _ring_bytes, _round_up
 
 __all__ = ["fused_mlp_block", "fused_mlp_block_reference", "plan_fused_mlp",
            "MlpPlan"]
 
 MAX_CHANNELS = 384  # the down product's output row lives in registers
-# csrc/fused_mlp.cu's tiles: K columns a stage; rows of an up block (T and
-# H have their rows padded to UP_ROWS) and its hidden columns, whichever of
-# UP_COLS pads Ch less (the wider on a tie); rows of a down block (which
-# spans all of C); the n-tiles a warp of the down product is instantiated
-# for (4 warps across C); stages in the rings
-BK = 16
+# csrc/fused_mlp.cu's tiles (K columns a stage is tf32_gemm.BK): rows of an
+# up block (T and H have their rows padded to UP_ROWS) and its hidden
+# columns, whichever of UP_COLS pads Ch less (the wider on a tie); rows of a
+# down block (which spans all of C); the n-tiles a warp of the down product
+# is instantiated for (4 warps across C); stages in the rings
 UP_ROWS, UP_COLS = 128, (64, 128)
 DOWN_ROWS = 64
 DOWN_TILES = (2, 4, 6, 8, 9, 10, 12)
 UP_STAGES, DOWN_STAGES = 4, 3
-SMEM_LIMIT = 232448  # bytes of shared memory a block can have on sm_90
-
-
-def _round_up(v: int, m: int) -> int:
-    return -(-v // m) * m
 
 
 class MlpPlan(NamedTuple):
@@ -55,12 +50,6 @@ class MlpPlan(NamedTuple):
     down_smem: int       # ... a down block
     up_blocks: int
     down_blocks: int
-
-
-def _ring_bytes(rows: int, cols: int, stages: int) -> int:
-    """Shared memory of a product's ring: per stage the A tile (rows x BK),
-    the W tile's fragments (BK x cols, hi and lo) and an mbarrier."""
-    return stages * (4 * (rows * BK + 2 * BK * cols) + 8)
 
 
 def plan_fused_mlp(m: int, c: int, ch: int) -> MlpPlan:

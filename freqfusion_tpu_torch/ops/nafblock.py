@@ -10,29 +10,66 @@ conv2 (depthwise) kernel [3, 3, 1, 2C] and bias [2C]; beta, gamma [C].
     y   = x + beta * conv3(g * sca(mean_hw(g)))
     out = y + gamma * conv5(SimpleGate(conv4(LN2(y))))
 
-The kernels read each 1x1 kernel's [C, N] matrix as it lies in the tree,
-so no packed copy of the weights is made (the TPU wrapper's
-``pack_nafblock_weights`` splits the gate halves for its lane layout; the
-CUDA gate kernel reads both halves of the [.., 2C] rows instead). A CPU
+The kernels read each 1x1 kernel's [C, N] matrix as it lies in the tree
+and split it into their own fragment order once a call (conv4's two gate
+halves interleaved, conv3's rows scaled by each image's SCA vector). A CPU
 tensor goes to the plain version; a CUDA tensor goes to
-``csrc/nafblock.cu`` (pass A: conv1 and the gate with the SCA pool's
-per-tile sums; the [B, C] SCA product in PyTorch; pass B: conv3, the beta
-residual and the FFN half) or the call raises. Every H and W is taken by
-the kernels: there is no XLA-style fallback for small shapes.
+``csrc/nafblock.cu`` (pass A: the splits, LN1, conv1 and the gate with
+the SCA pool's per-tile sums; the [B, C] SCA product in PyTorch, as the
+JAX wrapper runs it between its two Pallas calls; pass B: conv3 with the
+beta residual, LN2, the gated conv4 and conv5 with the gamma residual, the
+products in 3xTF32 on the tensor cores, ``csrc/tf32_gemm.cuh``) through a
+scratch that :func:`plan_nafblock` sizes, or the call raises. Every H and
+W is taken by the kernels: there is no XLA-style fallback for small
+shapes.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from . import cuda
+from .tf32_gemm import (BK, MAX_CHANNELS, ROWS, GemmPlan, _round_up,
+                        plan_gemm)
 
-__all__ = ["nafblock_fused", "nafblock_fused_reference"]
+__all__ = ["nafblock_fused", "nafblock_fused_reference", "plan_nafblock",
+           "NafPlan", "MAX_CHANNELS"]
 
 EPS = 1e-6
+
+
+class NafPlan(NamedTuple):
+    """How ``csrc/nafblock.cu`` runs one call (its ``naf_plan``)."""
+    kp: int              # C padded to BK: every product's K
+    mpi: int             # H W padded to ROWS: A's rows an image
+    conv1: GemmPlan      # C -> 2C
+    conv3: GemmPlan      # C -> C, one W3 copy an image (conv5's the same)
+    conv4: GemmPlan      # C -> 2 kp virtual columns, the halves interleaved
+    scratch_floats: int  # the splits, two tiled A buffers, u / y
+    bytes_per_pixel: int  # device memory the nine launches move a pixel
+    bound_bytes_per_pixel: int  # x in, out out
+
+
+def plan_nafblock(m: int, c: int, batch: int = 1) -> NafPlan:
+    """The padded extents, tiles and scratch of a call on `batch` images
+    of `m` pixels each, `c` channels."""
+    if c > MAX_CHANNELS:
+        raise ValueError(f"nafblock_fused: C={c} > {MAX_CHANNELS}")
+    kp, mpi = _round_up(c, BK), _round_up(m, ROWS)
+    rows = batch * mpi
+    conv1, conv3 = plan_gemm(rows, c, 2 * c), plan_gemm(rows, c, c)
+    conv4 = plan_gemm(rows, c, 2 * kp)
+    scratch = (conv1.split_floats + conv4.split_floats
+               + (1 + batch) * conv3.split_floats + 2 * rows * kp
+               + 2 * batch * m * c)
+    # LN1 x -> T1, conv1 T1 -> u, gate u -> g, conv3 g + x -> y, LN2 y ->
+    # T2, conv4 T2 -> g2, conv5 g2 + y -> out; fp32
+    moved = 4 * ((c + kp) + (kp + 2 * c) + (2 * c + kp) + (kp + 2 * c)
+                 + (c + kp) + 2 * kp + (kp + 2 * c))
+    return NafPlan(kp, mpi, conv1, conv3, conv4, scratch, moved, 8 * c)
 
 
 def _mat(w: Dict[str, Any], name: str) -> torch.Tensor:
@@ -67,6 +104,7 @@ def nafblock_fused(x: torch.Tensor, w: Dict[str, Any]) -> torch.Tensor:
         raise ValueError(f"nafblock_fused: unsupported device {x.device}")
     b, h, w_, c = x.shape
     dev = x.device
+    plan = plan_nafblock(h * w_, c, b)
     cuda.require(x, "x", (b, h, w_, c), dev)
     mats = {n: _mat(w, n) for n in ("conv1", "conv3", "conv4", "conv5", "sca")}
     for n, m in mats.items():
@@ -81,27 +119,25 @@ def nafblock_fused(x: torch.Tensor, w: Dict[str, Any]) -> torch.Tensor:
     lib = cuda.library()
     stream = cuda.stream(x)
     tiles = lib.ff_nafblock_tiles(h, w_)
-    u = torch.empty(b, h, w_, 2 * c, device=dev, dtype=torch.float32)
-    g = torch.empty_like(x)
     partials = torch.empty(b, tiles, c, device=dev, dtype=torch.float32)
+    scratch = torch.empty(plan.scratch_floats, device=dev,
+                          dtype=torch.float32)
     err = lib.ff_nafblock_gate(
         *(cuda.ptr(t) for t in (
             x, w["norm1"]["scale"], w["norm1"]["bias"], mats["conv1"],
-            w["conv1"]["bias"], u, w["conv2"]["kernel"], w["conv2"]["bias"],
-            g, partials)),
-        b, h, w_, c, EPS, stream)
+            w["conv1"]["bias"], mats["conv4"], mats["conv5"],
+            w["conv2"]["kernel"], w["conv2"]["bias"], partials, scratch)),
+        plan.scratch_floats, b, h, w_, c, EPS, stream)
     cuda.check(err, "nafblock_fused (gate)")
     s = (partials.sum(1) / (h * w_) @ mats["sca"] + w["sca"]["bias"]
          ).contiguous()
-    del u
-    y, g2, out = (torch.empty_like(x) for _ in range(3))
+    out = torch.empty_like(x)
     err = lib.ff_nafblock_apply(
         *(cuda.ptr(t) for t in (
-            g, s, x, mats["conv3"], w["conv3"]["bias"], w["beta"], y,
-            w["norm2"]["scale"], w["norm2"]["bias"], mats["conv4"],
-            w["conv4"]["bias"], g2, mats["conv5"], w["conv5"]["bias"],
-            w["gamma"], out)),
-        b, h, w_, c, EPS, stream)
+            s, x, mats["conv3"], w["conv3"]["bias"], w["beta"],
+            w["norm2"]["scale"], w["norm2"]["bias"], w["conv4"]["bias"],
+            w["conv5"]["bias"], w["gamma"], out, scratch)),
+        plan.scratch_floats, b, h, w_, c, EPS, stream)
     cuda.check(err, "nafblock_fused (apply)")
     cuda.launch_counts["nafblock_fused"] += 1
     return out

@@ -599,10 +599,12 @@ def _naf_tree(rng, c, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [64, 128, 256, 512, 1024])
-@pytest.mark.parametrize("hw", [(13, 18), (112, 144)])
+@pytest.mark.parametrize("c", [64, 128, 256, 512, 1024, 36])
+@pytest.mark.parametrize("hw", [(13, 18), (112, 144), (17, 23)])
 def test_nafblock_kernel(c, hw, fp32_plain):
-    """NAFNet-SIDD-64's five widths at ragged sizes."""
+    """NAFNet-SIDD-64's five widths and C 36 (K padded to 48, the gate's
+    virtual columns to 96) at ragged sizes (odd H and W in 17 x 23), two
+    images: each image's rows padded to 128 and its own scaled W3."""
     dev = cuda_or_skip()
     rng = np.random.default_rng(c)
     w = _naf_tree(rng, c, dev)
@@ -611,6 +613,70 @@ def test_nafblock_kernel(c, hw, fp32_plain):
     got = nafblock_fused(x, w)
     assert cuda.launch_counts["nafblock_fused"] == 1
     _fused_close(got, nafblock_fused_reference(x, w))
+
+
+def _naf_one_product(x, w):
+    """The NAFBlock with each 1x1 product's operands rounded to TF32 (one
+    TF32 product), the rest in float64."""
+    f, d, c = torch.nn.functional, torch.float64, x.shape[-1]
+
+    def mm(a, n):
+        return (_tf32(a.float()).to(d) @ _tf32(w[n]["kernel"][0, 0]).to(d)
+                + w[n]["bias"].to(d))
+
+    def ln(v, n):
+        return f.layer_norm(v, (c,), w[n]["scale"].to(d), w[n]["bias"].to(d),
+                            1e-6)
+    u = mm(ln(x.to(d), "norm1"), "conv1")
+    u = f.conv2d(u.permute(0, 3, 1, 2),
+                 w["conv2"]["kernel"].permute(3, 2, 0, 1).to(d),
+                 w["conv2"]["bias"].to(d), padding=1,
+                 groups=2 * c).permute(0, 2, 3, 1)
+    g = u[..., :c] * u[..., c:]
+    s = (g.mean((1, 2)) @ w["sca"]["kernel"][0, 0].to(d)
+         + w["sca"]["bias"].to(d))
+    y = x.to(d) + mm(g * s[:, None, None, :], "conv3") * w["beta"].to(d)
+    u2 = mm(ln(y, "norm2"), "conv4")
+    return y + mm(u2[..., :c] * u2[..., c:], "conv5") * w["gamma"].to(d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [64, 256, 1024])
+def test_nafblock_precision_guard(c, fp32_plain):
+    """The card tests' NAFBlock (fan-in scaled weights, x uniform in [0,
+    1)): the kernel's 3xTF32 products hold FUSED_REL_TOL, while the same
+    block with one TF32 product (the five products' operands rounded to
+    TF32, summed in float64) misses it, by 4.4-4.7x on the CPU's model of
+    these inputs."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c)
+    w = _naf_tree(rng, c, dev)
+    x = _t(rng.uniform(size=(2, 12, 16, c)), dev)
+    want = nafblock_fused_reference(x, w)
+    tol = FUSED_REL_TOL * max(1.0, want.abs().max().item())
+    err = (nafblock_fused(x, w) - want).abs().max().item()
+    one = (_naf_one_product(x, w) - want.double()).abs().max().item()
+    assert err <= tol
+    assert one > tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,c,b", [((336, 512), 256, 1), ((17, 23), 36, 2),
+                                    ((84, 128), 1024, 1), ((5, 3), 64, 3)])
+def test_nafblock_plan_matches_the_kernel(hw, c, b):
+    """ops/nafblock.py:plan_nafblock sizes the scratch the C entries check
+    against their own plan; and #11's: ops/attention.py:
+    plan_qkv_projections against its entry."""
+    from freqfusion_tpu_torch.ops.attention import plan_qkv_projections
+    from freqfusion_tpu_torch.ops.nafblock import plan_nafblock
+
+    cuda_or_skip()
+    lib = cuda.library()
+    m = hw[0] * hw[1]
+    assert lib.ff_nafblock_scratch_floats(m, c, b) == \
+        plan_nafblock(m, c, b).scratch_floats
+    assert lib.ff_window_attention_qkv_scratch_floats(b * m, c, c) == \
+        plan_qkv_projections(b * m, c, c).scratch_floats
 
 
 @pytest.mark.cuda
@@ -655,6 +721,40 @@ def test_window_attention_qkv_kernel(c, heads, ws, fp32_plain):
         got = window_attention_qkv_nhwc(*args)
         assert dict(cuda.launch_counts) == {"window_attention_qkv_nhwc": 1}
         _fused_close(got, window_attention_qkv_nhwc_reference(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads", [(180, 6), (244, 2)])
+@pytest.mark.parametrize("shift", [0, 8])
+def test_window_attention_qkv_precision_guard(c, heads, shift, fp32_plain):
+    """DRCT-L widths at window 16, the card tests' inputs: the kernel's
+    3xTF32 projections hold FUSED_REL_TOL, while the same #11 with the two
+    projections' operands rounded to TF32 (one TF32 product; the attention
+    in float64) misses it, by 4.3-6.3x on the CPU's model of these
+    inputs."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c + 16)
+    ws, d = 16, torch.float64
+    h, w, n = 2 * ws, 3 * ws, ws * ws
+    x = _t(rng.normal(size=(1, h, w, c)), dev)
+    wqkv = _t(rng.normal(size=(c, 3 * c)) / np.sqrt(c), dev)
+    wproj = _t(rng.normal(size=(c, c)) / np.sqrt(c), dev)
+    bqkv, bproj = (_t(0.1 * rng.normal(size=k), dev) for k in (3 * c, c))
+    bias = _t(0.5 * rng.normal(size=(heads, n, n)), dev)
+    mask = shifted_window_mask(h, w, ws, shift)
+    mask = None if mask is None else _t(mask, dev)
+    args = (x, wqkv, bqkv, wproj, bproj, bias, mask, heads, ws)
+    want = window_attention_qkv_nhwc_reference(*args)
+    tol = FUSED_REL_TOL * max(1.0, want.abs().max().item())
+    err = (window_attention_qkv_nhwc(*args) - want).abs().max().item()
+    qkv = _tf32(x).to(d) @ _tf32(wqkv).to(d) + bqkv.to(d)
+    att = window_attention_nhwc_reference(
+        qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:], bias.to(d),
+        None if mask is None else mask.to(d), heads, ws)
+    one = (_tf32(att).to(d) @ _tf32(wproj).to(d) + bproj.to(d)
+           - want.to(d)).abs().max().item()
+    assert err <= tol
+    assert one > tol
 
 
 @pytest.mark.cuda

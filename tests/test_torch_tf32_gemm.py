@@ -8,8 +8,10 @@ nearest, ties away from zero, 10 mantissa bits, on the float's bits) and
 lo = x - hi, which the tensor core truncates to its top 10 mantissa bits;
 a product is lo*hi + hi*lo + hi*hi, summed in fp32 in k8 steps. These
 tests hold a numpy model of that rounding to the value it must give, hold
-the 3xTF32 sum to float64 at the K both kernels reach (FFN: C up to 308,
-Ch up to 976; CAB: 9 x 180 = 1620) inside ``FUSED_REL_TOL`` where one TF32
+the 3xTF32 sum to float64 at the K the kernels reach (FFN: C up to 308,
+Ch up to 976; CAB: 9 x 180 = 1620; NAFBlock: C up to 1024, on
+``csrc/tf32_gemm.cuh`` with #11's projections, whose plans and model are
+``test_torch_nafblock_plan.py``) inside ``FUSED_REL_TOL`` where one TF32
 product misses it, and check the plans ``ops/mlp.py:plan_fused_mlp`` and
 ``ops/cab.py:plan_cab`` make at the path's shapes: padding of widths that
 are 4 mod 8, edge tiles, shared memory under the card's limit, and models
@@ -136,11 +138,12 @@ def test_split_keeps_every_bit():
     assert (np.abs(lo) <= np.abs(x) * 2.0 ** -11).all()
 
 
-@pytest.mark.parametrize("k", [180, 308, 976, 1620])
+@pytest.mark.parametrize("k", [180, 308, 976, 1024, 1620])
 def test_three_products_hold_the_tolerance_one_misses_it(k):
-    """Activations near unit scale against fan-in scaled weights, as both
-    kernels see them: 3xTF32 stays far inside FUSED_REL_TOL of the float64
-    sum, one TF32 product a step misses it."""
+    """Activations near unit scale against fan-in scaled weights, as the
+    kernels see them (K 1024: the NAFBlock's widest products): 3xTF32
+    stays far inside FUSED_REL_TOL of the float64 sum, one TF32 product a
+    step misses it."""
     rng = np.random.default_rng(k)
     a = rng.normal(size=(64, k)).astype(np.float32)
     b = (rng.normal(size=(k, 64)) / np.sqrt(k)).astype(np.float32)
