@@ -9,7 +9,8 @@ exits non-zero without the final ok line):
    kernel from ``freqfusion_tpu_torch/csrc`` (one nvcc per source, in
    parallel; seconds, ptxas report, which fails the run on a spill in
    window attention at DRCT-L's head boxes, the fused FFN's products at
-   the path's widths or the CAB's convolutions), TF32 off for matmuls and
+   the path's widths, the CAB's convolutions, the 3xTF32 GEMM or GRL's
+   mixed attention at GRL-B's head box), TF32 off for matmuls and
    convolutions;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the shapes its path gives it (336x512 LR bucket, NAFNet's levels at
@@ -31,7 +32,9 @@ exits non-zero without the final ok line):
    NAFBlock (#16, 3xTF32 too) runs at NAFNet's five levels with the same
    two-term bound, the bytes a pixel its nine launches move beside the
    bound's, its share of a request (4, 4, 6, 10 and 12 blocks) and one
-   call's launches at C 64 and C 1024.
+   call's launches at C 64 and C 1024. GRL's mixed attention (#2, 3xTF32
+   too) runs at GRL-B's two shapes with the same two-term bound (bytes
+   bind it) and its share of a request (20 launches a shape).
    The one-pass LayerNorm (#22, on no path) runs
    at 172,032 rows and the experts' six LN widths, beside F.layer_norm.
    The scan's seven contracts (TPU kernels #3-#9) run at L = 172,032,
@@ -49,7 +52,10 @@ exits non-zero without the final ok line):
    route the gate replaces (F.linear projections around kernels #1 and
    #2); DRCT's (#11, its projections and attention all 3xTF32) also its
    3xTF32 bound a shape, its share of a request (6 launches a shape) and
-   one call's launches at C 244. For the fusion-eval kernels (the
+   one call's launches at C 244; GRL's (#12, likewise) its 3xTF32 bound a
+   shape, its share of a request (20 launches a shape) and one shifted
+   call's launches (weight split, rows passes, the two GEMMs, the
+   attention). For the fusion-eval kernels (the
    LKABlock at C 64 and C 128 on the 336x512 bucket; hierarchical stage
    3, the edge fuse and the three edge refine levels at the 1344x2048 HR
    size and below, in the NCHW views the modules hand them) it prints the
@@ -103,13 +109,14 @@ the card's name and power limit (card: ...), and
     python3 chip_smoke.py --fusion-only
     python3 chip_smoke.py --scan-only
     python3 chip_smoke.py --nhwc-attention-only
+    python3 chip_smoke.py --grl-only
 
 run phase 1 and phase 2's four byte-floor kernels, its three in-kernel
 projection kernels, its four fusion-eval kernels, the scan's seven
-contracts, or window attention #1 alone at its ten shapes, only (to
-compare two versions of them in one call; the last also runs beside an
-older checkout of the package), and print their summary instead of the ok
-line.
+contracts, window attention #1 alone at its ten shapes, or GRL's mixed
+attention #2 and #12 at GRL-B's two shapes, only (to compare two versions
+of them in one call; the last two also run beside an older checkout of the
+package), and print their summary instead of the ok line.
 
     python3 chip_smoke.py --pipeline-only [CONFIG]
 
@@ -158,8 +165,12 @@ PEAK_BYTES = 3.35e12   # H100 SXM HBM3
 # FFN's up products and its down product at the six path widths (C 180,
 # 212, 244, 276, 308: 6, 8, 8, 9, 10 n-tiles a warp); the CAB's convs (4
 # and 6 n-tiles a block); the NAFBlock's and #11's GEMM (64 and 128
-# columns a block, each epilogue)
+# columns a block, each epilogue, #12's too); GRL mixed attention's body
+# at GRL-B's head box
 DRCT_HEAD_BOXES = (32, 56, 128, 48, 80)
+# GRL mixed attention's head box at GRL-B (head dim 30), csrc/
+# grl_attention.cuh, in both sources that build it (#2, #12)
+GRL_HEAD_BOX = 32
 # csrc/tf32_gemm.cuh's gemm_tf32_kernel<WC, EPI>: every instantiation
 GEMM_EPILOGUES = ("bias", "residual", "gate")
 FFN_DOWN_TILES = (6, 8, 9, 10)
@@ -536,12 +547,16 @@ def check_spills(log: str, required: bool) -> None:
         "CAB conv (#15)": (r"cab_conv_kernelILi(\d+)E",
                            lambda m: int(m.group(1)) in CAB_CONV_TILES,
                            lambda m: f"{m.group(1)} n-tiles a block"),
-        "3xTF32 GEMM (#16, #11)": (
-            r"(nafblock|window_attention_qkv)_cu.*gemm_tf32_kernelILi(\d)ELi"
-            r"(\d)E",
+        "3xTF32 GEMM (#16, #11, #12)": (
+            r"(nafblock|window_attention_qkv|grl_attention_qkv)_cu.*"
+            r"gemm_tf32_kernelILi(\d)ELi(\d)E",
             lambda m: True,
             lambda m: f"{m.group(1)}.cu, {64 * int(m.group(2))} columns, "
                       f"{GEMM_EPILOGUES[int(m.group(3))]} epilogue"),
+        "GRL attention (#2, #12)": (
+            r"(grl_attention(?:_qkv)?)_cu.*grl_attention_kernelILi(\d+)E",
+            lambda m: int(m.group(2)) == GRL_HEAD_BOX,
+            lambda m: f"{m.group(1)}.cu, head box {m.group(2)}"),
     }
     entries = _ptxas_entries(log)
     spilled = []
@@ -585,43 +600,14 @@ def phase_layernorm_kernel(dev, randn, checks) -> None:
 
 
 def phase_kernels(dev):
-    from freqfusion_tpu_torch.ops.attention import (
-        grl_mixed_attention_nhwc, grl_mixed_attention_nhwc_reference)
-    from freqfusion_tpu_torch.ops.window_attention import (
-        device_table, shifted_window_mask)
-
     g = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device=dev) * scale
 
-    def attn_tol(_):
-        return ATTN_TOL
-
-    h, w = LR_SIZES["c_336x512"]
-    p = h * w
     checks = {}
     phase_window_kernels(dev, randn, checks)
-    ga = checks["grl_mixed_attention_nhwc"] = KernelCheck(
-        "grl_mixed_attention_nhwc")
-    halves = [randn(1, h, w, 90) for _ in range(6)]
-    anchor = randn(1, h // 2, w // 2, 90)
-    scales = [10.0 + randn(3, 1, 1).abs() for _ in range(3)]
-    biases = [16 * torch.sigmoid(randn(*s)) for s in ((3, 64, 64),
-                                                     (3, 16, 64), (3, 64, 16))]
-    for shift in (0, 4):
-        mask = device_table(shifted_window_mask, h, w, 8, shift, device=dev)
-        args = (*halves, anchor, *scales, *biases, mask, 3, 3, 8)
-        # window half 4 N C2 per pixel (N 64), stripe half 8 Na C2 (Na 16)
-        nbytes = 4 * (8 * p * 90 + anchor.numel()
-                      + sum(b.numel() for b in biases)
-                      + (0 if mask is None else mask.numel()))
-        ga.run("shift" if shift else "noshift",
-               lambda: grl_mixed_attention_nhwc(*args),
-               lambda: grl_mixed_attention_nhwc_reference(*args), attn_tol,
-               p * 90 * (4.0 * 64 + 8 * 16), nbytes)
-    del halves, anchor
-    torch.cuda.empty_cache()
+    phase_grl_kernel(dev, randn, checks)
     phase_scan_kernels(dev, randn, checks)
     torch.cuda.empty_cache()
     phase_fused_kernels(dev, randn, checks)
@@ -632,6 +618,44 @@ def phase_kernels(dev):
     torch.cuda.empty_cache()
     phase_layernorm_kernel(dev, randn, checks)
     return checks
+
+
+def phase_grl_kernel(dev, randn, checks) -> None:
+    """Kernel #2 at GRL-B's two shapes on the 336x512 bucket (C/2 90, 3 + 3
+    heads of 30, 8x8 tiles, 4x4 anchors; shifted with the mask and not),
+    each beside the two-term 3xTF32 bound (bytes bind it) and its share of
+    a request (20 launches a shape)."""
+    from freqfusion_tpu_torch.ops.attention import (
+        grl_mixed_attention_nhwc, grl_mixed_attention_nhwc_reference)
+    from freqfusion_tpu_torch.ops.window_attention import (
+        device_table, shifted_window_mask)
+
+    h, w = LR_SIZES["c_336x512"]
+    p = h * w
+    ga = checks["grl_mixed_attention_nhwc"] = KernelCheck(
+        "grl_mixed_attention_nhwc")
+    tc = TensorCoreBound("grl_mixed_attention_nhwc")
+    halves = [randn(1, h, w, 90) for _ in range(6)]
+    anchor = randn(1, h // 2, w // 2, 90)
+    scales = [10.0 + randn(3, 1, 1).abs() for _ in range(3)]
+    biases = [16 * torch.sigmoid(randn(*s)) for s in ((3, 64, 64),
+                                                     (3, 16, 64), (3, 64, 16))]
+    for shift in (0, 4):
+        mask = device_table(shifted_window_mask, h, w, 8, shift, device=dev)
+        args = (*halves, anchor, *scales, *biases, mask, 3, 3, 8)
+        # window half 4 N C2 per pixel (N 64), stripe half 8 Na C2 (Na 16)
+        flops = p * 90 * (4.0 * 64 + 8 * 16)
+        nbytes = 4 * (8 * p * 90 + anchor.numel()
+                      + sum(b.numel() for b in biases)
+                      + (0 if mask is None else mask.numel()))
+        label = "shift" if shift else "noshift"
+        ms = ga.run(label, lambda: grl_mixed_attention_nhwc(*args),
+                    lambda: grl_mixed_attention_nhwc_reference(*args),
+                    lambda _: ATTN_TOL, flops, nbytes)
+        tc.shape(label, ms, flops, nbytes, 20)
+    tc.total(ga)
+    del halves, anchor
+    torch.cuda.empty_cache()
 
 
 def scan_tol(refs) -> float:
@@ -916,9 +940,8 @@ def phase_qkv_kernels(dev, randn, checks) -> None:
     import torch.nn.functional as F
 
     from freqfusion_tpu_torch.ops.attention import (
-        grl_mixed_attention_nhwc, grl_mixed_attention_qkv_nhwc,
-        grl_mixed_attention_qkv_nhwc_reference, window_attention_nhwc,
-        window_attention_qkv_nhwc, window_attention_qkv_nhwc_reference)
+        window_attention_nhwc, window_attention_qkv_nhwc,
+        window_attention_qkv_nhwc_reference)
     from freqfusion_tpu_torch.ops.token_attention import (
         token_attention, token_attention_reference)
     from freqfusion_tpu_torch.ops.window_attention import (
@@ -968,48 +991,7 @@ def phase_qkv_kernels(dev, randn, checks) -> None:
     tc.total(wq)
     torch.cuda.empty_cache()
 
-    gq = checks["grl_mixed_attention_qkv_nhwc"] = KernelCheck(
-        "grl_mixed_attention_qkv_nhwc")
-    x = randn(1, h, w, 180)
-    anchor = randn(1, h // 2, w // 2, 90)
-    wqkv, bqkv = randn(180, 540, scale=180 ** -0.5), randn(540, scale=0.1)
-    w_t = wqkv.t().contiguous()
-    scales = [10.0 + randn(3, 1, 1).abs() for _ in range(3)]
-    biases = [16 * torch.sigmoid(randn(*s)) for s in ((3, 64, 64),
-                                                     (3, 16, 64), (3, 64, 16))]
-    for shift in (0, 4):
-        mask = device_table(shifted_window_mask, h, w, 8, shift, device=dev)
-        x_rolled = (torch.roll(x, (-shift, -shift), (1, 2)) if shift
-                    else None)
-        args = (x, x_rolled, anchor, wqkv, bqkv, *scales, *biases, mask, 3,
-                3, 8)
-        label = "shift" if shift else "noshift"
-        # projection 2 p 180 540; attention as grl_mixed_attention_nhwc
-        gq.run(label, lambda: grl_mixed_attention_qkv_nhwc(*args),
-               lambda: grl_mixed_attention_qkv_nhwc_reference(*args),
-               fused_tol, 2.0 * p * 180 * 540 + p * 90 * (4.0 * 64 + 8 * 16),
-               4 * ((2 if shift else 1) * p * 180 + anchor.numel()
-                    + 2 * p * 90 + 181 * 540
-                    + sum(b.numel() for b in biases)
-                    + (0 if mask is None else mask.numel())))
-
-        def gate_on():
-            xr = torch.roll(x, (-shift, -shift), (1, 2)) if shift else None
-            return grl_mixed_attention_qkv_nhwc(
-                x, xr, anchor, wqkv, bqkv, *scales, *biases, mask, 3, 3, 8)
-
-        def gate_off():
-            qkv6 = [F.linear(x, w_t[i * 90:(i + 1) * 90],
-                             bqkv[i * 90:(i + 1) * 90]) for i in range(6)]
-            if shift:
-                qkv6[:3] = [torch.roll(t, (-shift, -shift), (1, 2))
-                            for t in qkv6[:3]]
-            return grl_mixed_attention_nhwc(*qkv6, anchor, *scales, *biases,
-                                            mask, 3, 3, 8)
-        gq.route(label, gate_on, gate_off,
-                 "6 F.linear + rolls + kernel #2; on: roll + kernel")
-    del x, x_rolled, args, anchor
-    torch.cuda.empty_cache()
+    phase_grl_qkv_kernel(dev, randn, checks)
 
     ta = checks["token_attention"] = KernelCheck("token_attention")
     for t, e, nh in ((9, 64, 4), (4, 128, 8)):
@@ -1029,6 +1011,80 @@ def phase_qkv_kernels(dev, randn, checks) -> None:
                lambda: mha(x, x, x, need_weights=False)[0])
         del x, args, mha
         torch.cuda.empty_cache()
+
+
+def phase_grl_kernels(dev, randn, checks) -> None:
+    """#2 and #12 alone (``--grl-only``)."""
+    phase_grl_kernel(dev, randn, checks)
+    phase_grl_qkv_kernel(dev, randn, checks)
+
+
+def phase_grl_qkv_kernel(dev, randn, checks) -> None:
+    """Kernel #12 at GRL-B's two shapes (x [1, 336, 512, 180], wqkv
+    [180, 540]; shifted with x_rolled and the mask, and not), each beside
+    its two-term 3xTF32 bound (the projection's 33.4 GFLOP bind it), its
+    share of a request (20 launches a shape) and the route the gate
+    replaces (6 F.linear + rolls + #2); one shifted call's launches
+    (split, rows passes, the two GEMMs, the attention) by torch.profiler."""
+    import torch.nn.functional as F
+
+    from freqfusion_tpu_torch.ops.attention import (
+        grl_mixed_attention_nhwc, grl_mixed_attention_qkv_nhwc,
+        grl_mixed_attention_qkv_nhwc_reference)
+    from freqfusion_tpu_torch.ops.window_attention import (
+        device_table, shifted_window_mask)
+
+    h, w = LR_SIZES["c_336x512"]
+    p = h * w
+    gq = checks["grl_mixed_attention_qkv_nhwc"] = KernelCheck(
+        "grl_mixed_attention_qkv_nhwc")
+    tc = TensorCoreBound("grl_mixed_attention_qkv_nhwc")
+    x = randn(1, h, w, 180)
+    anchor = randn(1, h // 2, w // 2, 90)
+    wqkv, bqkv = randn(180, 540, scale=180 ** -0.5), randn(540, scale=0.1)
+    w_t = wqkv.t().contiguous()
+    scales = [10.0 + randn(3, 1, 1).abs() for _ in range(3)]
+    biases = [16 * torch.sigmoid(randn(*s)) for s in ((3, 64, 64),
+                                                     (3, 16, 64), (3, 64, 16))]
+    for shift in (0, 4):
+        mask = device_table(shifted_window_mask, h, w, 8, shift, device=dev)
+        x_rolled = (torch.roll(x, (-shift, -shift), (1, 2)) if shift
+                    else None)
+        args = (x, x_rolled, anchor, wqkv, bqkv, *scales, *biases, mask, 3,
+                3, 8)
+        label = "shift" if shift else "noshift"
+        # projection 2 p 180 540; attention as grl_mixed_attention_nhwc
+        flops = 2.0 * p * 180 * 540 + p * 90 * (4.0 * 64 + 8 * 16)
+        nbytes = 4 * ((2 if shift else 1) * p * 180 + anchor.numel()
+                      + 2 * p * 90 + 181 * 540
+                      + sum(b.numel() for b in biases)
+                      + (0 if mask is None else mask.numel()))
+        ms = gq.run(label, lambda: grl_mixed_attention_qkv_nhwc(*args),
+                    lambda: grl_mixed_attention_qkv_nhwc_reference(*args),
+                    lambda _: ATTN_TOL, flops, nbytes)
+        tc.shape(label, ms, flops, nbytes, 20)
+        if shift:
+            launch_breakdown(f"#12 {label}",
+                             lambda: grl_mixed_attention_qkv_nhwc(*args))
+
+        def gate_on():
+            xr = torch.roll(x, (-shift, -shift), (1, 2)) if shift else None
+            return grl_mixed_attention_qkv_nhwc(
+                x, xr, anchor, wqkv, bqkv, *scales, *biases, mask, 3, 3, 8)
+
+        def gate_off():
+            qkv6 = [F.linear(x, w_t[i * 90:(i + 1) * 90],
+                             bqkv[i * 90:(i + 1) * 90]) for i in range(6)]
+            if shift:
+                qkv6[:3] = [torch.roll(t, (-shift, -shift), (1, 2))
+                            for t in qkv6[:3]]
+            return grl_mixed_attention_nhwc(*qkv6, anchor, *scales, *biases,
+                                            mask, 3, 3, 8)
+        gq.route(label, gate_on, gate_off,
+                 "6 F.linear + rolls + kernel #2; on: roll + kernel")
+    tc.total(gq)
+    del x, x_rolled, args, anchor
+    torch.cuda.empty_cache()
 
 
 def _numel(tree) -> int:
@@ -1481,7 +1537,9 @@ def main(argv) -> int:
                               ("--scan-only", "scan", phase_scan_kernels),
                               ("--nhwc-attention-only", "window attention (#1)",
                                functools.partial(phase_window_kernels,
-                                                 window_major=False))):
+                                                 window_major=False)),
+                              ("--grl-only", "GRL mixed attention (#2, #12)",
+                               phase_grl_kernels)):
         if flag in argv:
             print(f"[2] the {what} kernels against their plain versions")
             checks = {}

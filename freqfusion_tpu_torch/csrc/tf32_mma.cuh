@@ -1,6 +1,7 @@
 // 3xTF32 products on the tensor cores, cp.async and bulk copies: the
-// helpers that window attention (window_attention.cuh), the fused FFN
-// (fused_mlp.cu) and the CAB convolutions (cab.cu) share.
+// helpers that window attention (window_attention.cuh), GRL's mixed
+// attention (grl_attention.cuh), the fused FFN (fused_mlp.cu), the CAB
+// convolutions (cab.cu) and tf32_gemm.cuh share.
 //
 // TF32 keeps 10 mantissa bits, too few for fp32 tolerances, so a product
 // runs as three TF32 products: x = hi + lo with hi = x rounded to TF32 (to
@@ -81,6 +82,15 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[P][M][4],
   }
   mma_3xtf32_split(c, ah, al, bh, bl);
 }
+
+// 2^x (-inf -> 0), for softmaxes taken in exp2 of log2 e-scaled logits.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
 
 // Copies into shared memory that do not wait: 16 or 4 bytes, or zeros
 // where !ok (src-size 0; src must still be a valid address).

@@ -110,14 +110,6 @@ struct WaShape {
   }
 };
 
-__device__ __forceinline__ float ex2(float x) {  // 2^x, -inf -> 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-constexpr float kLog2e = 1.4426950408889634f;
-
 // q, k, v: pixel rows of `ldi` floats (C for separate tensors, 3 C for one
 // packed projection); out: pixel rows of C floats. The window-major form
 // reads only wm_n (N) and wm_nw (nW) of the geometry; the NHWC form reads

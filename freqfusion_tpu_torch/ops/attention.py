@@ -9,9 +9,12 @@ goes to the hand-written kernel in ``csrc/`` or the call raises.
 The ``*_qkv_nhwc`` entries take x and the packed projection weights in
 the JAX layout ([in, out]) and project inside their kernels
 (FREQFUSION_ATTN_QKV and FREQFUSION_GRL_QKV); their plain versions are
-``F.linear`` projections around the plain attention. DRCT's runs its two
-projections on ``csrc/tf32_gemm.cuh``'s 3xTF32 GEMM through a scratch
-that :func:`plan_qkv_projections` sizes.
+``F.linear`` projections around the plain attention. DRCT's and GRL's run
+their projections on ``csrc/tf32_gemm.cuh``'s 3xTF32 GEMM through a
+scratch that :func:`plan_qkv_projections` and
+:func:`plan_grl_qkv_projections` size. GRL's mixed attention
+(``csrc/grl_attention.cuh``, both entries) takes 8x8 tiles with 4x4
+anchors in blocks that :func:`plan_grl_attention` describes.
 """
 
 from __future__ import annotations
@@ -22,11 +25,14 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda
-from .tf32_gemm import MAX_CHANNELS, ROWS, GemmPlan, _round_up, plan_gemm
+from .tf32_gemm import (MAX_CHANNELS, ROWS, SMEM_LIMIT, GemmPlan, _round_up,
+                        plan_gemm)
 from .window_attention import (multi_head_window_attention, window_partition,
                                window_reverse)
 
 __all__ = ["plan_window_attention", "plan_qkv_projections", "QkvPlan",
+           "plan_grl_attention", "GrlPlan", "plan_grl_qkv_projections",
+           "GrlQkvPlan",
            "window_attention",
            "window_attention_reference",
            "window_attention_nhwc", "window_attention_nhwc_reference",
@@ -172,6 +178,61 @@ def _merge(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b_, n, h * d)
 
 
+# head boxes csrc/grl_attention.cuh is instantiated for
+GRL_HEAD_BOXES = (16, 32, 48, 64, 96)
+GRL_WINDOW, GRL_DOWN = 8, 2  # the tile side and anchor down factor it takes
+GRL_WARPS = 6
+
+
+class GrlPlan(NamedTuple):
+    """How ``csrc/grl_attention.cuh`` runs a call: one block of GRL_WARPS
+    warps a (tile, half), each warp a unit of `rows` query rows of one
+    head; the head box `hdp` of the wider half's head."""
+    hdp: int         # head box: a multiple of 16 holding the head dim
+    rows: int        # query rows a warp unit (two m-tiles, one past box 64)
+    units_w: int     # warp units of the window half
+    units_s: int     # of the stripe half
+    smem: int        # bytes of dynamic shared memory a block
+    blocks: int      # B * tiles * 2
+
+
+def plan_grl_attention(b: int, h: int, w: int, c2: int, heads_w: int,
+                       heads_s: int) -> GrlPlan:
+    """The blocks of a GRL mixed attention call over [b, h, w, c2] halves
+    (8x8 tiles, 4x4 anchors). A block's shared memory holds a half's q, k
+    and v tiles (192 c2 floats), the anchor tile (16 c2) and hdp zeros the
+    last rows' boxes read."""
+    hd = max(c2 // heads_w, c2 // heads_s)
+    if hd > GRL_HEAD_BOXES[-1]:
+        raise ValueError(f"grl mixed attention: head dim {hd} > "
+                         f"{GRL_HEAD_BOXES[-1]}")
+    hdp = next(p for p in GRL_HEAD_BOXES if p >= hd)
+    rows = 32 if hdp <= 64 else 16
+    smem = 4 * (208 * c2 + hdp)
+    if smem > SMEM_LIMIT - 16:
+        raise ValueError(f"grl mixed attention: C/2={c2} needs {smem} bytes "
+                         f"of shared memory a block (> {SMEM_LIMIT - 16})")
+    n = GRL_WINDOW * GRL_WINDOW
+    return GrlPlan(hdp, rows, heads_w * n // rows, heads_s * n // rows, smem,
+                   2 * b * (h // GRL_WINDOW) * (w // GRL_WINDOW))
+
+
+def _check_grl(name: str, h: int, w: int, c2: int, heads_w: int,
+               heads_s: int, ws: int, df: int) -> None:
+    if (ws != GRL_WINDOW or df != GRL_DOWN or h % ws or w % ws
+            or c2 % heads_w or c2 % heads_s):
+        raise ValueError(f"{name}: bad geometry H={h} W={w} ws={ws} df={df} "
+                         f"C/2={c2} heads {heads_w}/{heads_s} (the kernel "
+                         f"takes ws {GRL_WINDOW}, df {GRL_DOWN})")
+
+
+def _check_aligned(name: str, *tensors) -> None:
+    """The bulk copies of csrc/grl_attention.cuh read tile rows from
+    16-byte aligned bases."""
+    if any(t is not None and t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: operands must be 16-byte aligned")
+
+
 def grl_mixed_attention_nhwc_reference(qw, kw, vw, qs, ks, vs, anchor,
                                        scale_w, scale_s1, scale_s2, bias_w,
                                        bias_s1, bias_s2, mask,
@@ -223,7 +284,9 @@ def grl_mixed_attention_nhwc(
     scale_s1/scale_s2 [nHs, 1, 1]; bias_w [nHw, N, N], bias_s1 [nHs, Na,
     N], bias_s2 [nHs, N, Na]; mask [nW, N, N] or None. Per-head L2
     normalisation happens inside. Returns (x_window, x_stripe), each
-    [B, H, W, C/2]."""
+    [B, H, W, C/2]. The kernel takes GRL's 8x8 tiles with 4x4 anchors (ws
+    8, df 2), head dims up to 96 and 16-byte aligned operands
+    (:func:`plan_grl_attention`)."""
     b, h, w, c2 = qw.shape
     ws, df = window_size, down_factor
     if qw.device.type == "cpu":
@@ -233,10 +296,9 @@ def grl_mixed_attention_nhwc(
     if qw.device.type != "cuda":
         raise ValueError(f"grl_mixed_attention_nhwc: unsupported device "
                          f"{qw.device}")
-    if (h % ws or w % ws or ws % df or c2 % num_heads_w
-            or c2 % num_heads_s):
-        raise ValueError(f"grl_mixed_attention_nhwc: bad geometry H={h} "
-                         f"W={w} ws={ws} df={df} C/2={c2}")
+    _check_grl("grl_mixed_attention_nhwc", h, w, c2, num_heads_w,
+               num_heads_s, ws, df)
+    plan_grl_attention(b, h, w, c2, num_heads_w, num_heads_s)
     n, na = ws * ws, (ws // df) ** 2
     dev = qw.device
     for name, t in (("qw", qw), ("kw", kw), ("vw", vw), ("qs", qs),
@@ -251,6 +313,8 @@ def grl_mixed_attention_nhwc(
     cuda.require(bias_s2, "bias_s2", (num_heads_s, n, na), dev)
     if mask is not None:
         cuda.require(mask, "mask", ((h // ws) * (w // ws), n, n), dev)
+    _check_aligned("grl_mixed_attention_nhwc", qw, kw, vw, qs, ks, vs,
+                   anchor, bias_w, bias_s1, bias_s2, mask)
     out_w = torch.empty_like(qw)
     out_s = torch.empty_like(qs)
     err = cuda.library().ff_grl_mixed_attention_nhwc(
@@ -289,6 +353,30 @@ def plan_qkv_projections(m: int, cin: int, c: int) -> QkvPlan:
     qkv, proj = plan_gemm(mp, cin, 3 * c), plan_gemm(mp, c, c)
     return QkvPlan(qkv, proj, mp, qkv.split_floats + proj.split_floats
                    + mp * max(qkv.kp, proj.kp))
+
+
+class GrlQkvPlan(NamedTuple):
+    """How ``csrc/grl_attention_qkv.cu`` projects GRL's six q/k/v halves
+    on ``csrc/tf32_gemm.cuh``'s GEMM (its ``grl_qkv_plan``): two products
+    of `proj`'s extents (the window half's columns from x_rolled, the
+    stripe half's from x), each into a q|k|v scratch of [M, 3 C/2]."""
+    proj: GemmPlan       # x [M, Cin] -> one half's q|k|v [M, 3 C/2]
+    mp: int              # M padded to ROWS: A's rows
+    qkv_floats: int      # one half's q|k|v, rounded up to 4 floats
+    scratch_floats: int  # both splits, the tiled A, both q|k|v
+
+
+def plan_grl_qkv_projections(m: int, cin: int, c2: int) -> GrlQkvPlan:
+    """The projections' padded extents and scratch for `m` pixels of
+    `cin` channels projected to GRL's six halves of `c2` each."""
+    if cin > MAX_CHANNELS:
+        raise ValueError(f"grl_mixed_attention_qkv_nhwc: Cin={cin} > "
+                         f"{MAX_CHANNELS}")
+    mp = _round_up(m, ROWS)
+    proj = plan_gemm(mp, cin, 3 * c2)
+    qkv = _round_up(m * 3 * c2, 4)
+    return GrlQkvPlan(proj, mp, qkv, 2 * proj.split_floats + mp * proj.kp
+                      + 2 * qkv)
 
 
 def window_attention_qkv_nhwc_reference(x, wqkv, bqkv, wproj, bproj, bias,
@@ -393,8 +481,8 @@ def grl_mixed_attention_qkv_nhwc(
     (then mask is None too): the window half projects from x_rolled, the
     stripe half from x. wqkv [C, 3C] / bqkv [3C] in _SplitQKV6's order
     (qw | kw | vw | qs | ks | vs, each C/2). anchor, scales, biases and
-    mask as in grl_mixed_attention_nhwc. Returns (x_window, x_stripe),
-    each [B, H, W, C/2]."""
+    mask as in grl_mixed_attention_nhwc, and the same geometry. Returns
+    (x_window, x_stripe), each [B, H, W, C/2]."""
     _check_shifted(x_rolled, mask)
     b, h, w, cin = x.shape
     c2 = wqkv.shape[1] // 6
@@ -406,12 +494,9 @@ def grl_mixed_attention_qkv_nhwc(
     if x.device.type != "cuda":
         raise ValueError(f"grl_mixed_attention_qkv_nhwc: unsupported device "
                          f"{x.device}")
-    if (h % ws or w % ws or ws % df or ws * ws > 64 or c2 % num_heads_w
-            or c2 % num_heads_s
-            or max(c2 // num_heads_w, c2 // num_heads_s) > 64):
-        raise ValueError(f"grl_mixed_attention_qkv_nhwc: bad geometry H={h} "
-                         f"W={w} ws={ws} df={df} C/2={c2} (ws * ws <= 64, "
-                         "head dims <= 64)")
+    _check_grl("grl_mixed_attention_qkv_nhwc", h, w, c2, num_heads_w,
+               num_heads_s, ws, df)
+    plan_grl_attention(b, h, w, c2, num_heads_w, num_heads_s)
     n, na = ws * ws, (ws // df) ** 2
     dev = x.device
     cuda.require(x, "x", (b, h, w, cin), dev)
@@ -428,16 +513,18 @@ def grl_mixed_attention_qkv_nhwc(
     cuda.require(bias_s2, "bias_s2", (num_heads_s, n, na), dev)
     if mask is not None:
         cuda.require(mask, "mask", ((h // ws) * (w // ws), n, n), dev)
-    lib = cuda.library()
+    _check_aligned("grl_mixed_attention_qkv_nhwc", anchor, bias_w, bias_s1,
+                   bias_s2, mask)
+    plan = plan_grl_qkv_projections(b * h * w, cin, c2)
     out_w = x.new_empty(b, h, w, c2)
     out_s = x.new_empty(b, h, w, c2)
-    wpack = x.new_empty(lib.ff_grl_qkv_scratch_floats(
-        cin, c2, num_heads_w, num_heads_s))
-    err = lib.ff_grl_mixed_attention_qkv_nhwc(
+    scratch = x.new_empty(plan.scratch_floats)
+    err = cuda.library().ff_grl_mixed_attention_qkv_nhwc(
         *(cuda.ptr(t) for t in (x, x_rolled, anchor, wqkv, bqkv, scale_w,
                                 scale_s1, scale_s2, bias_w, bias_s1,
-                                bias_s2, mask, out_w, out_s, wpack)),
-        b, h, w, cin, c2, num_heads_w, num_heads_s, ws, df, cuda.stream(x))
+                                bias_s2, mask, out_w, out_s, scratch)),
+        plan.scratch_floats, b, h, w, cin, c2, num_heads_w, num_heads_s, ws,
+        df, cuda.stream(x))
     cuda.check(err, "grl_mixed_attention_qkv_nhwc")
     cuda.launch_counts["grl_mixed_attention_qkv_nhwc"] += 1
     return out_w, out_s

@@ -70,8 +70,8 @@ _SIGNATURES = {
     "ff_window_attention_qkv_scratch_floats": [_L, _I, _I],
     "ff_window_attention_qkv_nhwc": [_P] * 11 + [_L] + [_I] * 7
                                     + [_F, _I, _I, _P],
-    "ff_grl_qkv_scratch_floats": [_I] * 4,
-    "ff_grl_mixed_attention_qkv_nhwc": [_P] * 15 + [_I] * 9 + [_P],
+    "ff_grl_qkv_scratch_floats": [_L, _I, _I],
+    "ff_grl_mixed_attention_qkv_nhwc": [_P] * 15 + [_L] + [_I] * 9 + [_P],
     "ff_token_attention": [_P] * 6 + [_I] * 4 + [_P],
     "ff_lka_block": [_P] * 19 + [_I] * 5 + [_P],
     "ff_hier_stage3": [_P, _I] + [_P] * 19 + [_I] * 5 + [_P],
@@ -82,7 +82,8 @@ _SIGNATURES = {
 # entries that return a count of 64 bits (the rest return an int)
 _RETURNS_LONG = ("ff_fused_mlp_scratch_floats", "ff_cab_scratch_floats",
                  "ff_nafblock_scratch_floats",
-                 "ff_window_attention_qkv_scratch_floats")
+                 "ff_window_attention_qkv_scratch_floats",
+                 "ff_grl_qkv_scratch_floats")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

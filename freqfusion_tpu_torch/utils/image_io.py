@@ -1,12 +1,20 @@
 """Image files <-> float32 HWC RGB in [0, 1], with zlib and numpy only.
 
-Counterpart of ``freqfusion_tpu/utils/image_io.py``, which uses cv2 or
-PIL; PNG and BMP need neither here. ``read_image`` reads what the JAX
-interface serves: non-interlaced 8-bit gray, gray+alpha, RGB and RGBA
-PNGs (alpha dropped, gray replicated) with all five scanline filters;
-uncompressed 24-bit BMPs, bottom-up or top-down; and JPEGs through PIL
-where PIL imports (else it raises ``ValueError``). ``write_image`` writes
-8-bit RGB PNGs with filter 0.
+Counterpart of ``freqfusion_tpu/utils/image_io.py``, which decodes every
+input with ``cv2.imread(..., IMREAD_COLOR)``; PNG and BMP need neither cv2
+nor PIL here, and ``read_image`` gives the pixels cv2 gives:
+
+- PNG: every colour type (gray, RGB, palette, gray+alpha, RGBA) at every
+  bit depth, interlaced (Adam7) or not, all five scanline filters. Alpha
+  and transparency are dropped, gray is replicated, gray of 1/2/4 bits is
+  scaled to 0..255 (x 255, 85, 17) and 16-bit samples keep their high
+  byte (``v >> 8``), as libpng's expand and strip_16 do for cv2.
+- BMP: uncompressed 1/4/8-bit palette, 24-bit and 32-bit (``BI_RGB``, or
+  ``BI_BITFIELDS`` with byte-wide masks from the header) images, bottom-up
+  or top-down; the fourth byte of a 32-bit pixel is dropped.
+- JPEG through PIL where PIL imports (else it raises ``ValueError``).
+
+``write_image`` writes 8-bit RGB PNGs with filter 0.
 """
 
 from __future__ import annotations
@@ -21,14 +29,25 @@ __all__ = ["read_image", "write_image", "IMAGE_SUFFIXES"]
 IMAGE_SUFFIXES = (".png", ".jpg", ".jpeg", ".bmp")
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}   # PNG colour type -> samples/pixel
+# PNG colour type -> samples a pixel, and the bit depths it allows
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+# Adam7's seven passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
-def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
-    stride = w * bpp
+def _unfilter(raw: bytes, pos: int, h: int, stride: int,
+              bpp: int) -> "tuple[np.ndarray, int]":
+    """Undo the scanline filters of `h` rows of `stride` bytes starting at
+    raw[pos] (each row a filter byte, then its bytes); bpp is the bytes a
+    pixel, at least 1. Returns the rows [h, stride] and the position after
+    them."""
     out = bytearray(h * stride)
     prev = bytearray(stride)
-    pos = 0
+    if pos + h * (1 + stride) > len(raw):
+        raise ValueError("PNG image data is truncated")
     for y in range(h):
         ftype = raw[pos]
         line = bytearray(raw[pos + 1: pos + 1 + stride])
@@ -55,17 +74,35 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
             raise ValueError(f"bad PNG filter type {ftype}")
         out[y * stride:(y + 1) * stride] = line
         prev = line
-    return np.frombuffer(bytes(out), np.uint8).reshape(h, w, bpp)
+    return np.frombuffer(bytes(out), np.uint8).reshape(h, stride), pos
+
+
+def _samples(rows: np.ndarray, w: int, depth: int, channels: int
+             ) -> np.ndarray:
+    """Unfiltered rows [h, stride] -> samples [h, w, channels]: 8-bit as
+    they are, 16-bit as their high byte, 1/2/4-bit unpacked (most
+    significant bits first) to values 0..2^depth - 1."""
+    h = rows.shape[0]
+    if depth == 8:
+        return rows[:, :w * channels].reshape(h, w, channels)
+    if depth == 16:
+        return rows[:, 0:2 * w * channels:2].reshape(h, w, channels)
+    bits = np.unpackbits(rows, axis=1)[:, :w * depth]
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits.reshape(h, w, depth) * weights).sum(-1, dtype=np.uint8)[
+        ..., None]
 
 
 def _read_png(path: str, data: bytes) -> np.ndarray:
-    pos, idat, header = 8, [], None
+    pos, idat, header, plte = 8, [], None, None
     while pos < len(data):
         length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8: pos + 8 + length]
         pos += 12 + length
         if ctype == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif ctype == b"PLTE":
+            plte = body
         elif ctype == b"IDAT":
             idat.append(body)
         elif ctype == b"IEND":
@@ -73,30 +110,83 @@ def _read_png(path: str, data: bytes) -> np.ndarray:
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, color, _, _, interlace = header
-    if depth != 8 or color not in _CHANNELS or interlace:
-        raise ValueError(f"{path}: only non-interlaced 8-bit gray/RGB(A) "
-                         f"PNGs are supported (depth {depth}, colour type "
-                         f"{color}, interlace {interlace})")
-    px = _unfilter(zlib.decompress(b"".join(idat)), h, w, _CHANNELS[color])
-    return np.repeat(px[..., :1], 3, -1) if color in (0, 4) else px[..., :3]
+    if depth not in _DEPTHS.get(color, ()) or interlace > 1:
+        raise ValueError(f"{path}: not a valid PNG (bit depth {depth}, "
+                         f"colour type {color}, interlace {interlace})")
+    if color == 3 and not plte:
+        raise ValueError(f"{path}: palette PNG without a PLTE chunk")
+    channels = _CHANNELS[color]
+    bits = depth * channels                   # bits a pixel
+    bpp = max(1, bits // 8)                   # the filters' pixel bytes
+    raw = zlib.decompress(b"".join(idat))
+    if interlace:
+        px = np.zeros((h, w, channels), np.uint8)
+        pos = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw <= 0 or ph <= 0:
+                continue  # an empty pass has no rows, not even filters
+            rows, pos = _unfilter(raw, pos, ph, -(-pw * bits // 8), bpp)
+            px[y0::dy, x0::dx] = _samples(rows, pw, depth, channels)
+    else:
+        rows, _ = _unfilter(raw, 0, h, -(-w * bits // 8), bpp)
+        px = _samples(rows, w, depth, channels)
+    if color == 3:
+        pal = np.zeros((256, 3), np.uint8)
+        entries = np.frombuffer(plte, np.uint8)[:768]
+        pal[:len(entries) // 3] = entries[:len(entries) // 3 * 3].reshape(
+            -1, 3)
+        return pal[px[..., 0]]
+    if color in (0, 4):
+        gray = px[..., :1]
+        if depth < 8:
+            gray = gray * np.uint8(255 // ((1 << depth) - 1))
+        return np.repeat(gray, 3, -1)
+    return px[..., :3]
+
+
+def _mask_channel(px: np.ndarray, mask: int) -> np.ndarray:
+    """A BI_BITFIELDS channel: the byte under `mask` (one of 0xFF << 8k)."""
+    shift = (mask & -mask).bit_length() - 1
+    return ((px >> np.uint32(shift)) & np.uint32(0xFF)).astype(np.uint8)
 
 
 def _read_bmp(path: str, data: bytes) -> np.ndarray:
-    """Uncompressed 24-bit BMP: BGR rows padded to 4 bytes, bottom-up for
-    a positive height, top-down for a negative one."""
+    """Uncompressed BMP: 1/4/8-bit palette indices, 24-bit BGR or 32-bit
+    BGRX (or BI_BITFIELDS masks) pixels, rows padded to 4 bytes, bottom-up
+    for a positive height, top-down for a negative one."""
     offset, dib = struct.unpack_from("<II", data, 10)
     if dib < 40:
         raise ValueError(f"{path}: BMP header of {dib} bytes is not "
                          "supported")
     w, h, _, bits, compression = struct.unpack_from("<iiHHI", data, 18)
-    if bits != 24 or compression != 0 or w <= 0 or h == 0:
-        raise ValueError(f"{path}: only uncompressed 24-bit BMPs are "
-                         f"supported ({bits} bits, compression "
-                         f"{compression}, {w}x{h})")
-    stride = (3 * w + 3) // 4 * 4
-    rows = np.frombuffer(data, np.uint8, abs(h) * stride, offset)
-    px = rows.reshape(abs(h), stride)[:, :3 * w].reshape(abs(h), w, 3)
-    return px[::-1 if h > 0 else 1, :, ::-1]
+    ok = (compression == 0 and bits in (1, 4, 8, 24, 32)) or (
+        compression == 3 and bits == 32)
+    if not ok or w <= 0 or h == 0:
+        raise ValueError(f"{path}: only uncompressed 1/4/8/24/32-bit and "
+                         f"bit-field 32-bit BMPs are supported ({bits} "
+                         f"bits, compression {compression}, {w}x{h})")
+    stride = (bits * w + 31) // 32 * 4
+    rows = np.frombuffer(data, np.uint8, abs(h) * stride, offset).reshape(
+        abs(h), stride)
+    if bits <= 8:
+        used = struct.unpack_from("<I", data, 46)[0] or 1 << bits
+        pal = np.zeros((256, 3), np.uint8)
+        entries = np.frombuffer(data, np.uint8, 4 * used, 14 + dib)
+        pal[:used] = entries.reshape(used, 4)[:, 2::-1]
+        idx = _samples(rows, w, bits, 1)[..., 0]
+        px = pal[idx]
+    elif bits == 24:
+        px = rows[:, :3 * w].reshape(abs(h), w, 3)[..., ::-1]
+    else:
+        masks = (struct.unpack_from("<III", data, 54) if compression == 3
+                 else (0xFF0000, 0xFF00, 0xFF))
+        if any(m not in (0xFF, 0xFF00, 0xFF0000, 0xFF000000) for m in masks):
+            raise ValueError(f"{path}: only byte-wide BMP bit-field masks "
+                             f"are supported ({[hex(m) for m in masks]})")
+        v = rows[:, :4 * w].copy().view("<u4")
+        px = np.stack([_mask_channel(v, m) for m in masks], -1)
+    return px[::-1] if h > 0 else px
 
 
 def _read_jpeg(path: str) -> np.ndarray:

@@ -27,7 +27,8 @@ from freqfusion_tpu_torch.ops.nafblock import (nafblock_fused,
 from freqfusion_tpu_torch.ops.attention import (
     grl_mixed_attention_nhwc, grl_mixed_attention_nhwc_reference,
     grl_mixed_attention_qkv_nhwc, grl_mixed_attention_qkv_nhwc_reference,
-    window_attention, window_attention_nhwc, window_attention_nhwc_reference,
+    plan_grl_qkv_projections, window_attention, window_attention_nhwc,
+    window_attention_nhwc_reference,
     window_attention_qkv_nhwc, window_attention_qkv_nhwc_reference,
     window_attention_reference)
 from freqfusion_tpu_torch.ops.layernorm import (fused_layernorm,
@@ -175,6 +176,95 @@ def test_grl_mixed_attention_kernel(shift):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert (g - w).abs().max().item() <= ATTN_TOL
+
+
+def _grl_args(rng, dev, b, c2, heads_w, heads_s, shift, scale_range=(1, 30),
+              h=16, w=24):
+    """Halves, anchor, scales, biases and mask of a GRL mixed attention
+    call on [b, h, w, c2] (8x8 tiles, 4x4 anchors)."""
+    halves = [_t(rng.normal(size=(b, h, w, c2)), dev) for _ in range(6)]
+    anchor = _t(rng.normal(size=(b, h // 2, w // 2, c2)), dev)
+    scales = [_t(rng.uniform(*scale_range, (n, 1, 1)), dev)
+              for n in (heads_w, heads_s, heads_s)]
+    biases = [_t(rng.uniform(0, 16, (n, r, c)), dev)
+              for n, r, c in ((heads_w, 64, 64), (heads_s, 16, 64),
+                              (heads_s, 64, 16))]
+    mask = shifted_window_mask(h, w, 8, 4) if shift else None
+    return (*halves, anchor, *scales, *biases,
+            None if mask is None else _t(mask, dev), heads_w, heads_s, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c2,heads_w,heads_s", [
+    (42, 2, 3), (42, 6, 6), (90, 2, 3), (90, 6, 6), (180, 3, 3),
+    (180, 2, 6)])
+@pytest.mark.parametrize("shift", [False, True])
+def test_grl_mixed_attention_shapes_kernel(c2, heads_w, heads_s, shift):
+    """#2 at batch 2 over head counts 2/3/6 and C/2 42 (rows of 168
+    bytes), 90 and 180 (head dims 7 to 90: boxes 16 to 96, one m-tile a
+    warp at box 96), with and without the shift mask; one launch a call."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c2 + 10 * heads_w + heads_s + shift)
+    args = _grl_args(rng, dev, 2, c2, heads_w, heads_s, shift)
+    cuda.reset_launch_counts()
+    got = grl_mixed_attention_nhwc(*args)
+    assert dict(cuda.launch_counts) == {"grl_mixed_attention_nhwc": 1}
+    want = grl_mixed_attention_nhwc_reference(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= ATTN_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [False, True])
+def test_grl_mixed_attention_precision_guard(shift):
+    """GRL-B's heads (3 + 3 of 30) with scales up to 100, so logits reach
+    +-100 + bias 16: the kernel's 3xTF32 products hold ATTN_TOL, while one
+    TF32 product a step (hi * hi alone) misses it by ~150x
+    (tests/test_torch_grl_attention_plan.py models both)."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(31 + shift)
+    args = _grl_args(rng, dev, 2, 90, 3, 3, shift, (30, 100), 32, 48)
+    for scale in args[7:10]:
+        scale[0] = 100.0
+    got = grl_mixed_attention_nhwc(*args)
+    want = grl_mixed_attention_nhwc_reference(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= ATTN_TOL
+
+
+@pytest.mark.cuda
+def test_grl_mixed_attention_reruns_bit_equal():
+    """#2 and #12 run twice on the same inputs give the same bits (no
+    atomics, a fixed order of every sum), shifted."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(8)
+    args = _grl_args(rng, dev, 2, 90, 3, 3, True)
+    first = grl_mixed_attention_nhwc(*args)
+    again = grl_mixed_attention_nhwc(*args)
+    x = _t(rng.normal(size=(2, 16, 24, 180)), dev)
+    qargs = (x, torch.roll(x, (-4, -4), (1, 2)).contiguous(), args[6],
+             _t(rng.normal(size=(180, 540)) / np.sqrt(180), dev),
+             _t(0.1 * rng.normal(size=540), dev), *args[7:])
+    qfirst = grl_mixed_attention_qkv_nhwc(*qargs)
+    qagain = grl_mixed_attention_qkv_nhwc(*qargs)
+    torch.cuda.synchronize()
+    for a, b in zip(first + qfirst, again + qagain):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_grl_mixed_attention_refuses_unaligned():
+    """The bulk copies need 16-byte aligned operands: a contiguous half
+    that starts one float into its storage is refused, not misread."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(9)
+    args = list(_grl_args(rng, dev, 1, 90, 3, 3, False))
+    args[0] = torch.empty(1 + args[0].numel(), device=dev)[1:].view_as(
+        args[0]).copy_(args[0])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        grl_mixed_attention_nhwc(*args)
 
 
 @pytest.mark.cuda
@@ -805,6 +895,83 @@ def test_grl_mixed_attention_qkv_kernel(shift, fp32_plain):
     assert dict(cuda.launch_counts) == {"grl_mixed_attention_qkv_nhwc": 1}
     for g, w in zip(got, grl_mixed_attention_qkv_nhwc_reference(*args)):
         _fused_close(g, w)
+
+
+def _grl_qkv_args(rng, dev, b, c2, heads_w, heads_s, shift, cin=None,
+                  scale_range=(1, 30)):
+    """x, x_rolled (or None), the anchor, wqkv [Cin, 6 C2], bqkv and the
+    attention's tables of a #12 call on [b, 16, 24, Cin] (Cin 2 C2)."""
+    cin = cin or 2 * c2
+    x = _t(rng.normal(size=(b, 16, 24, cin)), dev)
+    att = _grl_args(rng, dev, b, c2, heads_w, heads_s, shift, scale_range)
+    return (x, torch.roll(x, (-4, -4), (1, 2)).contiguous() if shift
+            else None, att[6],
+            _t(rng.normal(size=(cin, 6 * c2)) / np.sqrt(cin), dev),
+            _t(0.1 * rng.normal(size=6 * c2), dev), *att[7:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c2,heads_w,heads_s", [
+    (42, 2, 3), (42, 6, 6), (90, 2, 3), (90, 6, 3), (180, 2, 6),
+    (180, 6, 6)])
+@pytest.mark.parametrize("shift", [False, True])
+def test_grl_mixed_attention_qkv_shapes_kernel(c2, heads_w, heads_s, shift,
+                                               fp32_plain):
+    """#12 at batch 2 over head counts 2/3/6 and C/2 42, 90, 180 (Cin 84,
+    180, 360: K padded to 96, 192, 368; 3 C/2 to 128, 320, 576 columns),
+    shifted (x_rolled) and not; one launch a call."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(2 * c2 + heads_w + heads_s + shift)
+    args = _grl_qkv_args(rng, dev, 2, c2, heads_w, heads_s, shift)
+    cuda.reset_launch_counts()
+    got = grl_mixed_attention_qkv_nhwc(*args)
+    assert dict(cuda.launch_counts) == {"grl_mixed_attention_qkv_nhwc": 1}
+    for g, w in zip(got, grl_mixed_attention_qkv_nhwc_reference(*args)):
+        _fused_close(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [False, True])
+def test_grl_mixed_attention_qkv_precision_guard(shift, fp32_plain):
+    """GRL-B's geometry (C 180, 3 + 3 heads) with scales up to 100: the
+    kernel's 3xTF32 projections and attention hold FUSED_REL_TOL, while the
+    same #12 with the projection's operands rounded to TF32 (one TF32
+    product; the attention in float64) misses it."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(40 + shift)
+    d = torch.float64
+    args = _grl_qkv_args(rng, dev, 2, 90, 3, 3, shift,
+                         scale_range=(30, 100))
+    x, xr, anchor, wqkv, bqkv = args[:5]
+    want = grl_mixed_attention_qkv_nhwc_reference(*args)
+    got = grl_mixed_attention_qkv_nhwc(*args)
+    xw = x if xr is None else xr
+    one_w = _tf32(xw).to(d) @ _tf32(wqkv).to(d) + bqkv.to(d)
+    one_s = _tf32(x).to(d) @ _tf32(wqkv).to(d) + bqkv.to(d)
+    tables = [a.to(d) if torch.is_tensor(a) else a for a in args[5:]]
+    one = grl_mixed_attention_nhwc_reference(
+        one_w[..., :90], one_w[..., 90:180], one_w[..., 180:270],
+        one_s[..., 270:360], one_s[..., 360:450], one_s[..., 450:],
+        anchor.to(d), *tables)
+    torch.cuda.synchronize()
+    misses = []
+    for g, w, o in zip(got, want, one):
+        tol = FUSED_REL_TOL * max(1.0, w.abs().max().item())
+        assert (g - w).abs().max().item() <= tol
+        misses.append((o - w.to(d)).abs().max().item() > tol)
+    assert any(misses)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,cin,c2", [(336 * 512, 180, 90), (768, 84, 42),
+                                      (64, 360, 180)])
+def test_grl_qkv_plan_matches_the_kernel(m, cin, c2):
+    """ops/attention.py:plan_grl_qkv_projections sizes #12's scratch as
+    csrc/grl_attention_qkv.cu's grl_qkv_plan lays it out."""
+    cuda_or_skip()
+    plan = plan_grl_qkv_projections(m, cin, c2)
+    assert cuda.library().ff_grl_qkv_scratch_floats(m, cin, c2) == (
+        plan.scratch_floats)
 
 
 @pytest.mark.cuda
