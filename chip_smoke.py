@@ -9,9 +9,9 @@ exits non-zero without the final ok line):
    kernel from ``freqfusion_tpu_torch/csrc`` (one nvcc per source, in
    parallel; seconds, ptxas report, which fails the run on a spill in
    window attention at DRCT-L's head boxes, the fused FFN's products at
-   the path's widths, the CAB's convolutions, the 3xTF32 GEMM or GRL's
-   mixed attention at GRL-B's head box), TF32 off for matmuls and
-   convolutions;
+   the path's widths, the CAB's convolutions, the 3xTF32 GEMM, GRL's
+   mixed attention at GRL-B's head box, hierarchical stage 3's convs or
+   the LKABlock's kernels), TF32 off for matmuls and convolutions;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the shapes its path gives it (336x512 LR bucket, NAFNet's levels at
    the 1344x2048 HR size), max-abs error against the stated tolerance,
@@ -59,7 +59,11 @@ exits non-zero without the final ok line):
    LKABlock at C 64 and C 128 on the 336x512 bucket; hierarchical stage
    3, the edge fuse and the three edge refine levels at the 1344x2048 HR
    size and below, in the NCHW views the modules hand them) it prints the
-   gate-off route (the PyTorch module on cuDNN) beside each;
+   gate-off route (the PyTorch module on cuDNN) beside each; the LKABlock
+   (#18) and stage 3 (#19), whose products run in 3xTF32, also their
+   two-term bound (the LKABlock's depthwise taps, on the fp32 cores, a
+   third term), their share of a request (9 LKABlocks at C 64 and 4 at C
+   128, one stage 3) and one call's launches;
 3. serving, default path: seeded full-width random checkpoints under the
    reference file names, three LR PNGs (128x128, 100x140, 336x512)
    through ``freqfusion_tpu_torch.interface.io.main(..., device="cuda")``,
@@ -115,8 +119,9 @@ run phase 1 and phase 2's four byte-floor kernels, its three in-kernel
 projection kernels, its four fusion-eval kernels, the scan's seven
 contracts, window attention #1 alone at its ten shapes, or GRL's mixed
 attention #2 and #12 at GRL-B's two shapes, only (to compare two versions
-of them in one call; the last two also run beside an older checkout of the
-package), and print their summary instead of the ok line.
+of them in one call; --fusion-only and the last two also run beside an
+older checkout of the package), and print their summary instead of the ok
+line.
 
     python3 chip_smoke.py --pipeline-only [CONFIG]
 
@@ -166,7 +171,8 @@ PEAK_BYTES = 3.35e12   # H100 SXM HBM3
 # 212, 244, 276, 308: 6, 8, 8, 9, 10 n-tiles a warp); the CAB's convs (4
 # and 6 n-tiles a block); the NAFBlock's and #11's GEMM (64 and 128
 # columns a block, each epilogue, #12's too); GRL mixed attention's body
-# at GRL-B's head box
+# at GRL-B's head box; every instantiation of #19's convs and #18's
+# kernels
 DRCT_HEAD_BOXES = (32, 56, 128, 48, 80)
 # GRL mixed attention's head box at GRL-B (head dim 30), csrc/
 # grl_attention.cuh, in both sources that build it (#2, #12)
@@ -380,10 +386,15 @@ class TensorCoreBound:
         self.launches = 0
 
     def shape(self, label: str, ms: float, flops: float, nbytes: float,
-              per_request: int) -> None:
+              per_request: int, core_flops: float = 0.0) -> None:
+        """`flops` are the products' (on the tensor cores); `core_flops`
+        the work that stays on the fp32 cores beside them (the LKABlock's
+        depthwise taps), a third term of the bound: the units run side by
+        side, so the bound is the largest term, not their sum."""
         ops_ms = 1e3 * 3 * flops / PEAK_TF32
         bytes_ms = 1e3 * nbytes / PEAK_BYTES
-        bound = max(ops_ms, bytes_ms)
+        core_ms = 1e3 * core_flops / PEAK_FLOPS
+        bound = max(ops_ms, bytes_ms, core_ms)
         self.ops_ms += ops_ms
         self.bytes_ms += bytes_ms
         self.bound_ms += bound
@@ -393,7 +404,9 @@ class TensorCoreBound:
         print(f"  {self.name} {label}: {ms:.3f} ms against a 3xTF32 bound "
               f"of {bound:.3f} ms (operations {ops_ms:.3f} ms: 3 x "
               f"{flops / 1e9:.1f} GFLOP at 495 TFLOP/s; bytes "
-              f"{bytes_ms:.3f} ms); {per_request} a request: "
+              f"{bytes_ms:.3f} ms" + (
+                  f"; fp32-core work {core_ms:.3f} ms" if core_flops else "")
+              + f"); {per_request} a request: "
               f"{per_request * ms:.2f} ms, {per_request * (ms - bound):.2f} "
               "ms above the bound")
 
@@ -528,8 +541,9 @@ def check_spills(log: str, required: bool) -> None:
     window_attention.cuh, in every source that builds them; the FFN's up
     and down products, csrc/fused_mlp.cu; the CAB's convs, csrc/cab.cu;
     the 3xTF32 GEMM of csrc/tf32_gemm.cuh in nafblock.cu and
-    window_attention_qkv.cu) and raise if one spills, or (`required`) if
-    one of the groups has no report."""
+    window_attention_qkv.cu; the hierarchical stage's convs, csrc/
+    conv3x3_tf32.cuh; the LKABlock's three kernels, csrc/lka.cu) and raise
+    if one spills, or (`required`) if one of the groups has no report."""
     import re
 
     groups = {
@@ -557,6 +571,17 @@ def check_spills(log: str, required: bool) -> None:
             r"(grl_attention(?:_qkv)?)_cu.*grl_attention_kernelILi(\d+)E",
             lambda m: int(m.group(2)) == GRL_HEAD_BOX,
             lambda m: f"{m.group(1)}.cu, head box {m.group(2)}"),
+        "hier conv (#19)": (
+            r"conv3x3_tf3211conv_kernelILi(\d+)ELi(\d+)ELb([01])E",
+            lambda m: True,
+            lambda m: f"{m.group(1)} n-tiles x {m.group(2)} m-tiles a warp"
+                      + (", SpatialGate" if m.group(3) == "1" else "")),
+        "LKA (#18)": (
+            r"lka_(mix)_kernelILi(\d+)ELi(\d+)ELi(\d+)E|lka_(dw|prep)_kernel",
+            lambda m: True,
+            lambda m: f"mix, Cp {m.group(2)}, {32 * int(m.group(3))} rows, "
+                      f"{m.group(4)} stages" if m.group(1)
+                      else f"{m.group(5)} pass"),
     }
     entries = _ptxas_entries(log)
     spilled = []
@@ -1132,18 +1157,27 @@ def phase_fusion_kernels(dev, randn, checks) -> None:
     h, w = LR_SIZES["c_336x512"]
     p = h * w
     lk = checks["lka_block_fused"] = KernelCheck("lka_block_fused")
-    for c in (64, 128):
+    tc = TensorCoreBound("lka_block_fused")
+    # phase 3's 9 per-band blocks at C 64, phase 4's 4 per-expert at C 128
+    for c, per_request in ((64, 9), (128, 4)):
         mod = module(LKABlock(c))
         tree = mod.fused_params()
         x = randn(1, h, w, c)
         x_nchw = x.permute(0, 3, 1, 2).contiguous()
-        # 67 depthwise taps, the pw product and the FFN (hidden 2C)
-        lk.run(f"C{c}/{h}x{w}", lambda: lka_block_fused(x, tree),
-               lambda: lka_block_fused_reference(x, tree), fused_tol,
-               p * (134.0 * c + 10.0 * c * c), 4 * (2 * p * c + _numel(tree)))
+        # 67 depthwise taps (fp32 cores), the pw product and the FFN
+        # (hidden 2C): 10 C^2 a pixel on the tensor cores
+        label = f"C{c}/{h}x{w}"
+        nbytes = 4 * (2 * p * c + _numel(tree))
+        ms = lk.run(label, lambda: lka_block_fused(x, tree),
+                    lambda: lka_block_fused_reference(x, tree), fused_tol,
+                    p * (134.0 * c + 10.0 * c * c), nbytes)
+        tc.shape(label, ms, p * 10.0 * c * c, nbytes, per_request,
+                 core_flops=p * 134.0 * c)
+        launch_breakdown(f"#18 {label}", lambda: lka_block_fused(x, tree))
         lk.route(f"C{c}", lambda: lka_block_fused(x, mod.fused_params()),
                  lambda: mod(x_nchw), "LKABlock on cuDNN, NCHW")
         del x, x_nchw
+    tc.total(lk)
     torch.cuda.empty_cache()
 
     hh, ww = 4 * h, 4 * w
@@ -1158,12 +1192,18 @@ def phase_fusion_kernels(dev, randn, checks) -> None:
         f3 = hm.stage3_res(hm.stage3_gate(hm.stage3_conv(s3)))
         return hm.to_rgb(f3 + hm.residual_weight_2_3 * s3[:, :hm.half])
     # six 3x3 convs: 9 x 2 x (76 x 64 + 64 x 32 + 2 x 32 x 32 + 32 x 16
-    # + 16 x 3) per pixel
-    hi.run(f"{hh}x{ww}/C76", lambda: hier_stage3_fused(s3v, tree),
-           lambda: hier_stage3_fused_reference(s3v, tree), fused_tol,
-           ph * 18.0 * 9520, 4 * (ph * 79 + _numel(tree)))
+    # + 16 x 3) per pixel, on the tensor cores
+    tc = TensorCoreBound("hier_stage3_fused")
+    label, flops = f"{hh}x{ww}/C76", ph * 18.0 * 9520
+    nbytes = 4 * (ph * 79 + _numel(tree))
+    ms = hi.run(label, lambda: hier_stage3_fused(s3v, tree),
+                lambda: hier_stage3_fused_reference(s3v, tree), fused_tol,
+                flops, nbytes)
+    tc.shape(label, ms, flops, nbytes, 1)
+    launch_breakdown(f"#19 {label}", lambda: hier_stage3_fused(s3v, tree))
     hi.route(f"{hh}x{ww}", lambda: hier_stage3_fused(s3v, hm.stage3_params()),
              hier_off, "stage-3 + to_rgb modules on cuDNN")
+    tc.total(hi)
     del s3, s3v
     torch.cuda.empty_cache()
 

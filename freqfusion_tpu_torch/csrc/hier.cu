@@ -14,33 +14,76 @@
 // 1344x2048 at the 336x512 bucket.
 //
 // What bounds it on the H100: the six 3x3 convs, 9 x 2 x 9520 FLOPs per
-// pixel (473 GFLOP at 1344x2048, 7.1 ms at 67 TFLOP/s fp32), against 79
+// pixel (471.7 GFLOP at 1344x2048: 7.04 ms on the fp32 cores at 67
+// TFLOP/s, 2.86 ms as three TF32 products at 495 TFLOP/s) against 79
 // channels of 4 bytes in and out per pixel (0.87 GB, 0.26 ms at 3.35
-// TB/s). fp32 FMA issue.
+// TB/s). The old body ran the convs as register-tiled fp32 FMA loops
+// (csrc/conv3x3.cuh, 27.4 ms on an H100 at 700 W), held by FMA issue. So
+// every conv runs on the tensor cores in 3xTF32, as an implicit GEMM
+// (csrc/conv3x3_tf32.cuh, #15's convolution without its LayerNorm): 9.5-9.6
+// ms there, the convs at ~125-150 TFLOP/s of tensor work.
 //
 // The TPU kernel runs the chain in one halo-6 pass. On this card a 16 x 16
 // output tile's 28 x 28 x 76 input block is 238 KB, over a block's 227 KB,
-// and the chain's six stages want different thread layouts, so the call is
-// seven launches of csrc/conv3x3.cuh's kernels through two scratch tensors
-// at HR (64 and 32 channels, NHWC): conv0, conv1, the per-pixel gate (in
-// place), the residual block's two convs (the second with both residuals
-// in its epilogue, in place), to_rgb's two convs (the last writes the
-// output in the input's layout). Each intermediate makes one round trip
-// through device memory, about 1.8 KB a pixel in all (4.9 GB, 1.5 ms at
-// 3.35 TB/s): a fifth of the compute bound, paid for convs that each fit
-// the register tile. Zero padding comes from each conv reading a whole
-// image from device memory, so no stage needs a mask.
+// and the chain's stages want different tiles, so the call is seven
+// launches through two scratch tensors at HR (64 and 32 channels, NHWC):
+// the six convs' weights split once into fragment order, conv0 (two
+// blocks of 4 n-tiles a tile: 8 n-tiles a warp spill at 128 registers),
+// conv1 with the SpatialGate in its epilogue (its 32 channels
+// are one block's: the squeeze's sums go over a lane quad by shuffles),
+// the residual block's two convs (the second with both residuals in its
+// epilogue, in place), all four on 24 x 16 tiles (3 m-tiles a warp),
+// to_rgb's two convs on 32 x 16 tiles (2 and 1
+// n-tiles; the last, Cout 3 padded to 8, writes the output in the input's
+// layout). Each intermediate makes one round trip through device memory,
+// about 1.6 KB a pixel in all (4.4 GB, 1.3 ms at 3.35 TB/s). Zero padding
+// comes from each conv reading a whole image from device memory.
 
-#include "conv3x3.cuh"
+#include "conv3x3_tf32.cuh"
 
-using namespace conv3x3;
+using namespace conv3x3_tf32;
+
+namespace {
+
+// n-tiles a block of each conv (conv0, conv1, r0, r2, t0, t2)
+constexpr int kNT[6] = {4, 4, 4, 4, 2, 1};
+
+struct HierPlan {
+  int cin[6], cout[6], cinp[6], coutp[6];
+  long long off[7];  // floats: conv i's split weights at off[i]
+};
+
+HierPlan hier_plan(int Cin, int C1) {
+  const int c2 = C1 / 2, ct = C1 / 4;
+  const int cin[6] = {Cin, C1, c2, c2, c2, ct};
+  const int cout[6] = {C1, c2, c2, c2, ct, 3};
+  HierPlan q;
+  q.off[0] = 0;
+  for (int i = 0; i < 6; ++i) {
+    q.cin[i] = cin[i];
+    q.cout[i] = cout[i];
+    q.cinp[i] = (cin[i] + kCK - 1) / kCK * kCK;
+    q.coutp[i] = (cout[i] + 8 * kNT[i] - 1) / (8 * kNT[i]) * 8 * kNT[i];
+    q.off[i + 1] = q.off[i] + 18LL * q.cinp[i] * q.coutp[i];
+  }
+  return q;
+}
+
+}  // namespace
+
+// Floats of scratch ff_hier_stage3 needs: the six convs' weights split,
+// 18 cinp coutp floats each.
+extern "C" long long ff_hier_scratch_floats(int Cin, int C1) {
+  return hier_plan(Cin, C1).off[6];
+}
 
 // s3 [B, H, W, Cin] and out [B, H, W, 3], NHWC-contiguous or (nchw)
 // NCHW-contiguous; conv kernels [3, 3, Cin', Cout'] with C1 = 64 (bc):
 // w0 (Cin -> C1) + b0, w2 (C1 -> C1/2) + b2, r0 / r2 (C1/2 -> C1/2, no
 // bias), t0 (C1/2 -> C1/4) + t0b, t2 (C1/4 -> 3) + t2b; the gate's g0
 // [C1/2, C1/8] + g0b, g2 [C1/8] + g2b [1]; scale, rw23 one float each on
-// the card; scratch buf64 [B, H, W, C1], buf32 [B, H, W, C1/2]. All fp32.
+// the card; scratch buf64 [B, H, W, C1], buf32 [B, H, W, C1/2] and the
+// split weights' (ff_hier_scratch_floats, 16-byte aligned). All fp32.
 extern "C" int ff_hier_stage3(const float* s3, int nchw, const float* w0,
                               const float* b0, const float* w2,
                               const float* b2, const float* g0,
@@ -50,38 +93,54 @@ extern "C" int ff_hier_stage3(const float* s3, int nchw, const float* w0,
                               const float* t0b, const float* t2,
                               const float* t2b, const float* scale,
                               const float* rw23, float* buf64, float* buf32,
+                              float* scratch, long long scratch_floats,
                               float* out, int B, int H, int W, int Cin, int C1,
                               void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const int c2 = C1 / 2, cg = c2 / 4, ct = C1 / 4;
+  if (C1 != 64 || Cin < C1 / 2 || scratch_floats < ff_hier_scratch_floats(
+                                                       Cin, C1) ||
+      reinterpret_cast<size_t>(scratch) % 16)
+    return int(cudaErrorInvalidValue);
+  const HierPlan q = hier_plan(Cin, C1);
+  const float* w[6] = {w0, w2, r0, r2, t0, t2};
+  SplitJobs<6> jobs;
+  for (int i = 0; i < 6; ++i)
+    jobs.job[i] = SplitJob{w[i], scratch + q.off[i], q.cin[i], q.cout[i],
+                           q.cinp[i], q.coutp[i], kNT[i]};
+  cudaError_t e = split(jobs, stream);
+  if (e != cudaSuccess) return int(e);
+
+  const int c2 = C1 / 2, ct = C1 / 4;
   const T4 in = tensor(s3, H, W, Cin, nchw);
   const T4 a64 = tensor(buf64, H, W, C1, 0), a32 = tensor(buf32, H, W, c2, 0);
   const T4 g32 = tensor(buf64, H, W, c2, 0), r16 = tensor(buf64, H, W, ct, 0);
+  const int vec_in = !nchw && Cin % 4 == 0 &&
+                     reinterpret_cast<size_t>(s3) % 16 == 0;
+  auto wt = [&](int i) { return scratch + q.off[i]; };
   int err;
 
-  Conv p = plain(w0, b0, C1, kGelu, buf64, a64, H, W);
-  add_source(p, in, Cin);
-  if ((err = run(p, B, stream))) return err;
-  p = plain(w2, b2, c2, kGelu, buf32, a32, H, W);
-  add_source(p, a64, C1);
-  if ((err = run(p, B, stream))) return err;
-  if ((err = pixel_gate(a32, c2, g0, g0b, cg, g2, g2b, buf32, a32, B, H, W,
-                        stream)))
-    return err;
-  p = plain(r0, nullptr, c2, kGelu, buf64, g32, H, W);
-  add_source(p, a32, c2);
-  if ((err = run(p, B, stream))) return err;
-  p = plain(r2, nullptr, c2, kNone, buf32, a32, H, W);
-  add_source(p, g32, c2);
+  Conv p = plain(in, Cin, vec_in, wt(0), b0, C1, q.coutp[0], kGelu, buf64,
+                 a64, H, W);
+  if ((err = launch<4, 3>(p, B, stream))) return err;
+  p = plain(a64, C1, 1, wt(1), b2, c2, q.coutp[1], kGelu, buf32, a32, H, W);
+  p.g0 = g0;
+  p.g0b = g0b;
+  p.g2 = g2;
+  p.g2b = g2b;
+  if ((err = launch<4, 3, true>(p, B, stream))) return err;
+  p = plain(a32, c2, 1, wt(2), nullptr, c2, q.coutp[2], kGelu, buf64, g32, H,
+            W);
+  if ((err = launch<4, 3>(p, B, stream))) return err;
+  p = plain(g32, c2, 1, wt(3), nullptr, c2, q.coutp[3], kNone, buf32, a32, H,
+            W);
   p.r1 = a32;
   p.alpha = scale;
   p.r2 = in;  // its first c2 channels
   p.beta = rw23;
-  if ((err = run(p, B, stream))) return err;
-  p = plain(t0, t0b, ct, kGelu, buf64, r16, H, W);
-  add_source(p, a32, c2);
-  if ((err = run(p, B, stream))) return err;
-  p = plain(t2, t2b, 3, kSigmoid, out, tensor(out, H, W, 3, nchw), H, W);
-  add_source(p, r16, ct);
-  return run(p, B, stream);
+  if ((err = launch<4, 3>(p, B, stream))) return err;
+  p = plain(a32, c2, 1, wt(4), t0b, ct, q.coutp[4], kGelu, buf64, r16, H, W);
+  if ((err = launch<2, 4>(p, B, stream))) return err;
+  p = plain(r16, ct, 1, wt(5), t2b, 3, q.coutp[5], kSigmoid, out,
+            tensor(out, H, W, 3, nchw), H, W);
+  return launch<1, 4>(p, B, stream);
 }

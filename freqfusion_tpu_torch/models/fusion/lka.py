@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from ...ops.lka import lka_block_fused
 from ...ops.resize import resize_bilinear
 from ...ops.token_attention import token_attention
-from ..common import gate, hwio, to_nchw, to_nhwc
+from ..common import gate, to_nchw, to_nhwc
 
 __all__ = ["LargeKernelAttention", "LKABlock", "TokenMultiheadAttention",
            "EnhancedCrossBandWithLKA", "EnhancedCollaborativeWithLKA"]
@@ -83,8 +83,12 @@ class LKABlock(nn.Module):
             return {"scale": m.weight, "bias": m.bias,
                     "mean": m.running_mean, "var": m.running_var}
 
+        # views, no copies: ops/lka.py reads weights through their strides
         def kernel(conv: nn.Conv2d) -> dict:
             return {"kernel": conv.weight.permute(2, 3, 1, 0)}
+
+        def dense(conv: nn.Conv2d) -> dict:
+            return {**kernel(conv), "bias": conv.bias}
 
         lka = self.lka
         return {"norm1": bn(self.norm1),
@@ -93,7 +97,7 @@ class LKABlock(nn.Module):
                         "v_conv": kernel(lka.v_conv),
                         "pw_conv": kernel(lka.pw_conv), "bn": bn(lka.bn)},
                 "scale1": self.scale1, "norm2": bn(self.norm2),
-                "ffn_0": hwio(self.ffn[0]), "ffn_2": hwio(self.ffn[2]),
+                "ffn_0": dense(self.ffn[0]), "ffn_2": dense(self.ffn[2]),
                 "scale2": self.scale2}
 
 

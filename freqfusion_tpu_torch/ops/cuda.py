@@ -73,8 +73,11 @@ _SIGNATURES = {
     "ff_grl_qkv_scratch_floats": [_L, _I, _I],
     "ff_grl_mixed_attention_qkv_nhwc": [_P] * 15 + [_L] + [_I] * 9 + [_P],
     "ff_token_attention": [_P] * 6 + [_I] * 4 + [_P],
-    "ff_lka_block": [_P] * 19 + [_I] * 5 + [_P],
-    "ff_hier_stage3": [_P, _I] + [_P] * 19 + [_I] * 5 + [_P],
+    "ff_lka_scratch_floats": [_L, _I, _I],
+    "ff_lka_block": [_P] * 13 + [_P, _I, _I] * 5 + [_P] + [_P, _I, _I]
+                    + [_P] * 4 + [_L, _P] + [_I] * 5 + [_P],
+    "ff_hier_scratch_floats": [_I] * 2,
+    "ff_hier_stage3": [_P, _I] + [_P] * 19 + [_L, _P] + [_I] * 5 + [_P],
     "ff_edge_refine": [_P, _I] + [_P] * 13 + [_I] * 5 + [_P],
     "ff_edge_fuse": [_P] * 4 + [_I] + [_P] * 13 + [_I] * 4 + [_P],
     "ff_layernorm": [_P] * 4 + [_I] * 3 + [_F, _P],
@@ -83,7 +86,8 @@ _SIGNATURES = {
 _RETURNS_LONG = ("ff_fused_mlp_scratch_floats", "ff_cab_scratch_floats",
                  "ff_nafblock_scratch_floats",
                  "ff_window_attention_qkv_scratch_floats",
-                 "ff_grl_qkv_scratch_floats")
+                 "ff_grl_qkv_scratch_floats", "ff_hier_scratch_floats",
+                 "ff_lka_scratch_floats")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

@@ -10,27 +10,77 @@ here as tensors (BN trees {scale, bias, mean, var}; depthwise kernels
     x1  = x + scale1 * t * sigmoid(BN(dw21x1(dw1x21(dw5x5(t))) @ pw))
     out = x1 + scale2 * (gelu(BN2(x1) @ ffn_0 + b) @ ffn_2 + b)
 
-Eval BatchNorm (running statistics, eps 1e-5) is a per-channel affine,
-folded on the host. GELU is exact (erf); the depthwise convolutions
-zero-pad. A CPU tensor goes to the plain version; a CUDA tensor goes to
-``csrc/lka.cu`` (a depthwise pass into a scratch, then the chain of
-products) or the call raises. Unlike the JAX wrapper, the kernel takes
-every H and W itself: there is no XLA fallback.
+Eval BatchNorm (running statistics, eps 1e-5) is a per-channel affine.
+GELU is exact (erf); the depthwise convolutions zero-pad. A CPU tensor goes
+to the plain version; a CUDA tensor goes to ``csrc/lka.cu`` or the call
+raises: a prep launch (the affines from the running statistics, folded into
+the products where they can be: sbn into pw's columns, BN2 into ffn_0's
+rows and bias; the products' weights split for the tensor cores), a
+depthwise pass into a scratch, then the chain of products in 3xTF32 on the
+tensor cores. The wrapper launches no PyTorch kernel (it allocates the
+scratch and the output): the kernels read the weights through their
+strides, so the module's views need no copy. Unlike
+the JAX wrapper, the kernel takes every H and W itself: there is no XLA
+fallback.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from . import cuda
 
-__all__ = ["lka_block_fused", "lka_block_fused_reference"]
+__all__ = ["lka_block_fused", "lka_block_fused_reference", "plan_lka",
+           "LkaPlan", "fold_lka"]
 
-MAX_CHANNELS = 128  # the kernel's output row lives in registers
+MAX_CHANNELS = 128  # the mix's widest tile
 EPS = 1e-5
+# csrc/lka.cu: the depthwise pass's output tile and channels a block; the
+# mix's rows, warps and ring stages a block, by padded width
+DW_TILE = 32
+DW_CHANNELS = 4
+MIX = {64: dict(rows=64, warps=8, ring=4), 128: dict(rows=96, warps=12,
+                                                     ring=4)}
+
+
+class LkaPlan(NamedTuple):
+    """How ``csrc/lka.cu`` runs a call on M = B H W pixels of C channels
+    (its ``ff_lka_scratch_floats``)."""
+    cp: int              # C padded to the mix's width: 64 or 128
+    rows: int            # pixels a mix block
+    warps: int           # warps a mix block
+    ring: int            # 16-row weight stages in its ring
+    stages: int          # stages of the weight stream: 5 Cp / 16
+    mix_blocks: int
+    mix_smem: int        # bytes of shared memory a mix block takes
+    dw_blocks: int       # (C / 4) x 32 x 32 tiles
+    dw_smem: int
+    scratch_floats: int  # split weights 10 Cp^2, vectors 5 Cp, a C M
+
+
+def plan_lka(b: int, h: int, w: int, c: int, ch: int) -> LkaPlan:
+    """Padded width, tiles, shared memory and scratch of a call on
+    [b, h, w, c] with a hidden of `ch` units."""
+    if c % 4 or not 0 < c <= MAX_CHANNELS:
+        raise ValueError(f"lka_block_fused: C={c} is not a multiple of 4 "
+                         f"<= {MAX_CHANNELS}")
+    cp = 64 if c <= 64 else 128
+    if not 0 < ch <= 2 * cp:
+        raise ValueError(f"lka_block_fused: hidden {ch} > 2 x {cp}")
+    m = b * h * w
+    mix = MIX[cp]
+    stage = 2 * (cp // 8) * 128  # floats: 16 weight rows of Cp columns
+    mix_smem = 4 * (2 * mix["rows"] * (cp + 8) + mix["ring"] * stage) \
+        + 8 * mix["ring"]
+    s1, s2 = DW_TILE + 24, DW_TILE + 20
+    dw_smem = 4 * DW_CHANNELS * (s1 * s1 + s2 * 65 + 67)
+    tiles = -(-h // DW_TILE) * -(-w // DW_TILE)
+    return LkaPlan(cp, mix["rows"], mix["warps"], mix["ring"], 5 * cp // 16,
+                   -(-m // mix["rows"]), mix_smem, tiles * c // DW_CHANNELS,
+                   dw_smem, 10 * cp * cp + 5 * cp + c * m)
 
 
 def _affine(bn: Dict[str, torch.Tensor]):
@@ -65,50 +115,81 @@ def lka_block_fused_reference(x: torch.Tensor, p: Dict[str, Any]
     return x1 + p["scale2"] * f
 
 
+def fold_lka(p: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The LKABlock's weights as ``csrc/lka.cu``'s prep folds them, in
+    plain PyTorch: s1/b1 (BN1), pw' = pw diag(sbn) with bbn, f0' = diag(s2)
+    f0 and c0' = c0 + b2 f0 (BN2 folded into the FFN's first product)."""
+    lka = p["lka"]
+    s1, b1 = _affine(p["norm1"])
+    sbn, bbn = _affine(lka["bn"])
+    s2, b2 = _affine(p["norm2"])
+    f0 = p["ffn_0"]["kernel"][0, 0]
+    return {"s1": s1, "b1": b1, "pw": lka["pw_conv"]["kernel"][0, 0] * sbn,
+            "bbn": bbn, "f0": s2[:, None] * f0,
+            "c0": p["ffn_0"]["bias"] + b2 @ f0}
+
+
+def _strided(t: torch.Tensor, name: str, axes, shape, device):
+    """A weight as the 2-D [K, N] its kernel reads: its pointer and the
+    strides of K (the merged dims `axes[0]`, outer first) and N (dim
+    `axes[1]`), from the tensor's own strides where the dims merge, else
+    from a reshaped copy. `shape` is [K, N]."""
+    if t.device != device or t.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32 on {device}")
+    if t.numel() != shape[0] * shape[1]:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{shape[0] * shape[1]} elements")
+    st, sz = t.stride(), t.shape
+    k = axes[0]
+    if all(st[k[i]] == st[k[i + 1]] * sz[k[i + 1]] for i in range(len(k) - 1)):
+        return t.data_ptr(), st[k[-1]], st[axes[1]]
+    v = t.reshape(shape)
+    return v.data_ptr(), v.stride(0), v.stride(1)
+
+
 def lka_block_fused(x: torch.Tensor, p: Dict[str, Any]) -> torch.Tensor:
-    """One eval LKABlock. x [B, H, W, C] contiguous, C a multiple of 4 and
-    <= 128; p the tree above. Returns [B, H, W, C]."""
+    """One eval LKABlock. x [B, H, W, C] contiguous, 16-byte aligned, C a
+    multiple of 4 and <= 128, the hidden <= 2 x (64 or 128); p the tree
+    above. Returns [B, H, W, C]."""
     if x.device.type == "cpu":
         return lka_block_fused_reference(x, p)
     if x.device.type != "cuda":
         raise ValueError(f"lka_block_fused: unsupported device {x.device}")
     b, h, w, c = x.shape
     ch = p["ffn_0"]["kernel"].shape[-1]
-    if c % 4 or c > MAX_CHANNELS:
-        raise ValueError(f"lka_block_fused: C={c} is not a multiple of 4 "
-                         f"<= {MAX_CHANNELS}")
+    plan = plan_lka(b, h, w, c, ch)
     dev = x.device
     cuda.require(x, "x", (b, h, w, c), dev)
     if x.data_ptr() % 16:
         raise ValueError("lka_block_fused: x must be 16-byte aligned")
     lka = p["lka"]
-    s1, b1 = _affine(p["norm1"])
-    sbn, bbn = _affine(lka["bn"])
-    s2, b2 = _affine(p["norm2"])
-    w5 = lka["local_conv"]["kernel"].reshape(25, c).contiguous()
-    wh = lka["h_conv"]["kernel"].reshape(21, c).contiguous()
-    wv = lka["v_conv"]["kernel"].reshape(21, c).contiguous()
-    pw = lka["pw_conv"]["kernel"][0, 0].contiguous()
-    f0 = p["ffn_0"]["kernel"][0, 0].contiguous()
-    f2 = p["ffn_2"]["kernel"][0, 0].contiguous()
-    c0, c2 = p["ffn_0"]["bias"], p["ffn_2"]["bias"]
-    for name, t, shape in (
-            ("norm1 scale", s1, (c,)), ("norm1 shift", b1, (c,)),
-            ("local_conv", w5, (25, c)), ("h_conv", wh, (21, c)),
-            ("v_conv", wv, (21, c)), ("pw_conv", pw, (c, c)),
-            ("bn scale", sbn, (c,)), ("bn shift", bbn, (c,)),
-            ("norm2 scale", s2, (c,)), ("norm2 shift", b2, (c,)),
-            ("ffn_0", f0, (c, ch)), ("ffn_0 bias", c0, (ch,)),
-            ("ffn_2", f2, (ch, c)), ("ffn_2 bias", c2, (c,)),
-            ("scale1", p["scale1"], ()), ("scale2", p["scale2"], ())):
-        cuda.require(t, name, shape, dev)
-    a = torch.empty_like(x)
+    vectors = []
+    for bn_name, bn in (("norm1", p["norm1"]), ("bn", lka["bn"]),
+                        ("norm2", p["norm2"])):
+        for k in ("scale", "bias", "mean", "var"):
+            cuda.require(bn[k], f"{bn_name} {k}", (c,), dev)
+            vectors.append(bn[k].data_ptr())
+    cuda.require(p["ffn_0"]["bias"], "ffn_0 bias", (ch,), dev)
+    cuda.require(p["ffn_2"]["bias"], "ffn_2 bias", (c,), dev)
+    cuda.require(p["scale1"], "scale1", (), dev)
+    cuda.require(p["scale2"], "scale2", (), dev)
+    # kernels [kh, kw, 1, C] and [1, 1, Cin, Cout] as [K, N]
+    w5 = _strided(lka["local_conv"]["kernel"], "local_conv", ((0, 1), 3),
+                  (25, c), dev)
+    wh = _strided(lka["h_conv"]["kernel"], "h_conv", ((1,), 3), (21, c), dev)
+    wv = _strided(lka["v_conv"]["kernel"], "v_conv", ((0,), 3), (21, c), dev)
+    pw = _strided(lka["pw_conv"]["kernel"], "pw_conv", ((2,), 3), (c, c),
+                  dev)
+    f0 = _strided(p["ffn_0"]["kernel"], "ffn_0", ((2,), 3), (c, ch), dev)
+    f2 = _strided(p["ffn_2"]["kernel"], "ffn_2", ((2,), 3), (ch, c), dev)
+    scratch = torch.empty(plan.scratch_floats, device=dev)
     out = torch.empty_like(x)
     err = cuda.library().ff_lka_block(
-        *(cuda.ptr(t) for t in (x, s1, b1, w5, wh, wv, pw, sbn, bbn, s2, b2,
-                                f0, c0, f2, c2, p["scale1"], p["scale2"], a,
-                                out)),
-        b, h, w, c, ch, cuda.stream(x))
+        x.data_ptr(), *vectors, *w5, *wh, *wv, *pw, *f0,
+        p["ffn_0"]["bias"].data_ptr(), *f2, p["ffn_2"]["bias"].data_ptr(),
+        p["scale1"].data_ptr(), p["scale2"].data_ptr(), scratch.data_ptr(),
+        plan.scratch_floats, out.data_ptr(), b, h, w, c, ch,
+        cuda.stream(x))
     cuda.check(err, "lka_block_fused")
     cuda.launch_counts["lka_block_fused"] += 1
     return out

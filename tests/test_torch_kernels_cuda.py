@@ -1040,14 +1040,7 @@ def test_lka_kernel(c, hw, fp32_plain):
     batch 2."""
     dev = cuda_or_skip()
     rng = np.random.default_rng(c + hw[0])
-    bn = {"scale": (c,), "bias": (c,), "mean": (c,), "var": (c,)}
-    p = _tree(rng, {"norm1": bn, "norm2": bn,
-                    "lka": {"local_conv": {"kernel": (5, 5, 1, c)},
-                            "h_conv": {"kernel": (1, 21, 1, c)},
-                            "v_conv": {"kernel": (21, 1, 1, c)},
-                            "pw_conv": {"kernel": (1, 1, c, c)}, "bn": bn},
-                    "ffn_0": _conv(1, c, 2 * c), "ffn_2": _conv(1, 2 * c, c),
-                    "scale1": (), "scale2": ()}, dev)
+    p = _lka_tree(rng, c, dev)
     x = _image(rng, 2, hw, c, False, dev)
     cuda.reset_launch_counts()
     got = lka_block_fused(x, p)
@@ -1063,6 +1056,46 @@ def test_hier_kernel(nchw, hw, fp32_plain):
     as an NCHW view."""
     dev = cuda_or_skip()
     rng = np.random.default_rng(hw[0] + nchw)
+    p = _hier_tree(rng, dev)
+    x = _image(rng, 2, hw, 76, nchw, dev, uniform=True)
+    cuda.reset_launch_counts()
+    got = hier_stage3_fused(x, p)
+    assert dict(cuda.launch_counts) == {"hier_stage3_fused": 1}
+    assert (got.permute(0, 3, 1, 2) if nchw else got).is_contiguous()
+    _fused_close(got, hier_stage3_fused_reference(x, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,ch", [(60, 120), (100, 200), (128, 192)])
+def test_lka_kernel_padded_widths(c, ch, fp32_plain):
+    """Widths the mix pads (C 60 to 64, C 100 to 128) and a hidden
+    narrower than 2C, batch 2 at a border shape."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c + ch)
+    p = _lka_tree(rng, c, dev)
+    p["ffn_0"] = _tree(rng, {"k": _conv(1, c, ch)}, dev)["k"]
+    p["ffn_2"] = _tree(rng, {"k": _conv(1, ch, c)}, dev)["k"]
+    x = _image(rng, 2, (45, 70), c, False, dev)
+    got = lka_block_fused(x, p)
+    _fused_close(got, lka_block_fused_reference(x, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,nchw", [(35, False), (35, True), (64, False)])
+def test_hier_kernel_other_inputs(cin, nchw, fp32_plain):
+    """s3_in of other widths: 35 (padded to 40; 4-byte copies from NHWC
+    too) and 64, batch 2 at a border shape."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(cin + nchw)
+    p = _hier_tree(rng, dev)
+    p["stage3_conv_0"] = _tree(rng, {"k": _conv(3, cin, 64)}, dev)["k"]
+    x = _image(rng, 2, (45, 70), cin, nchw, dev, uniform=True)
+    got = hier_stage3_fused(x, p)
+    assert (got.permute(0, 3, 1, 2) if nchw else got).is_contiguous()
+    _fused_close(got, hier_stage3_fused_reference(x, p))
+
+
+def _hier_tree(rng, dev, scale=1.0):
     p = _tree(rng, {"stage3_conv_0": _conv(3, 76, 64),
                     "stage3_conv_2": _conv(3, 64, 32),
                     "stage3_gate": {"gate_0": _conv(1, 32, 8),
@@ -1072,12 +1105,123 @@ def test_hier_kernel(nchw, hw, fp32_plain):
                                    "scale": ()},
                     "rw23": (), "to_rgb_0": _conv(3, 32, 16),
                     "to_rgb_2": _conv(3, 16, 3)}, dev)
-    x = _image(rng, 2, hw, 76, nchw, dev, uniform=True)
-    cuda.reset_launch_counts()
-    got = hier_stage3_fused(x, p)
-    assert dict(cuda.launch_counts) == {"hier_stage3_fused": 1}
-    assert (got.permute(0, 3, 1, 2) if nchw else got).is_contiguous()
-    _fused_close(got, hier_stage3_fused_reference(x, p))
+    for q in (p["stage3_conv_0"], p["stage3_conv_2"], p["to_rgb_0"],
+              p["to_rgb_2"], p["stage3_res"]["block_0"],
+              p["stage3_res"]["block_2"]):
+        q["kernel"].mul_(scale)
+    return p
+
+
+def _hier_one_product(s3, p):
+    """Stage 3 + to_rgb with each conv as one TF32 product: its input and
+    kernel rounded to TF32, summed in float64."""
+    from freqfusion_tpu_torch.ops.hier import conv3x3, dense1x1
+
+    d = torch.float64
+    gelu = torch.nn.functional.gelu
+
+    def conv(x, q):
+        return conv3x3(_tf32(x).to(d), {"kernel": _tf32(q["kernel"]).to(d),
+                                        "bias": None if "bias" not in q
+                                        else q["bias"].to(d)})
+
+    def dense(x, q):
+        return dense1x1(x, {k: v.to(d) for k, v in q.items()})
+    a = gelu(conv(gelu(conv(s3, p["stage3_conv_0"])), p["stage3_conv_2"]))
+    g = p["stage3_gate"]
+    f = a * torch.sigmoid(dense(gelu(dense(a, g["gate_0"])), g["gate_2"]))
+    r = p["stage3_res"]
+    f3 = (f + r["scale"].to(d) * conv(gelu(conv(f, r["block_0"])),
+                                      r["block_2"])
+          + p["rw23"].to(d) * s3[..., :32].to(d))
+    return torch.sigmoid(conv(gelu(conv(f3, p["to_rgb_0"])), p["to_rgb_2"]))
+
+
+@pytest.mark.cuda
+def test_hier_precision_guard(fp32_plain):
+    """Large inputs (s3_in 8 + N(0, 1) as the fusion net's NCHW view): the
+    kernel's 3xTF32 convs hold FUSED_REL_TOL, while the same chain with one
+    TF32 product a conv misses it, by ~13x on the CPU's model of such
+    inputs (tests/test_torch_fusion_eval_plan.py). With the kernels at 2x
+    their fan-in scale the plain version's own fp32 sums come within a
+    fifth of the tolerance and the card's 3xTF32 past it."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(23)
+    p = _hier_tree(rng, dev)
+    s3 = _t(8 + rng.normal(size=(1, 76, 48, 64)), dev).permute(0, 2, 3, 1)
+    want = hier_stage3_fused_reference(s3, p)
+    tol = FUSED_REL_TOL * max(1.0, want.abs().max().item())
+    err = (hier_stage3_fused(s3, p) - want).abs().max().item()
+    one = (_hier_one_product(s3, p) - want.double()).abs().max().item()
+    assert err <= tol
+    assert one > tol
+
+
+def _lka_tree(rng, c, dev, scale=1.0):
+    bn = {"scale": (c,), "bias": (c,), "mean": (c,), "var": (c,)}
+    p = _tree(rng, {"norm1": bn, "norm2": bn,
+                    "lka": {"local_conv": {"kernel": (5, 5, 1, c)},
+                            "h_conv": {"kernel": (1, 21, 1, c)},
+                            "v_conv": {"kernel": (21, 1, 1, c)},
+                            "pw_conv": {"kernel": (1, 1, c, c)}, "bn": bn},
+                    "ffn_0": _conv(1, c, 2 * c), "ffn_2": _conv(1, 2 * c, c),
+                    "scale1": (), "scale2": ()}, dev)
+    for q in (p["lka"]["pw_conv"], p["ffn_0"], p["ffn_2"]):
+        q["kernel"].mul_(scale)
+    return p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [64, 128])
+def test_lka_precision_guard(c, fp32_plain):
+    """Large inputs (x 8 + N(0, 1), the three products' kernels 4x their
+    fan-in scale): the kernel's 3xTF32 products hold FUSED_REL_TOL, while
+    the same block with one TF32 product each (operands rounded to TF32,
+    summed in float64, on the folded weights) misses it, by ~6x on the
+    CPU's model of such inputs (tests/test_torch_fusion_eval_plan.py)."""
+    from freqfusion_tpu_torch.ops.lka import _dw, fold_lka
+
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c + 9)
+    p = _lka_tree(rng, c, dev, 4.0)
+    x = _t(8 + rng.normal(size=(1, 48, 64, c)), dev)
+    want = lka_block_fused_reference(x, p)
+    tol = FUSED_REL_TOL * max(1.0, want.abs().max().item())
+    err = (lka_block_fused(x, p) - want).abs().max().item()
+    d, gelu = torch.float64, torch.nn.functional.gelu
+    fold = fold_lka(p)
+    t = x * fold["s1"] + fold["b1"]
+    a = t
+    for k in ("local_conv", "h_conv", "v_conv"):
+        a = _dw(a, p["lka"][k]["kernel"])
+
+    def mm(u, w):
+        return _tf32(u).to(d) @ _tf32(w).to(d)
+    x1 = x.to(d) + p["scale1"].to(d) * t.to(d) * torch.sigmoid(
+        mm(a, fold["pw"]) + fold["bbn"].to(d))
+    hid = gelu(mm(x1.float(), fold["f0"]) + fold["c0"].to(d))
+    f = mm(hid.float(), p["ffn_2"]["kernel"][0, 0])
+    one = x1 + p["scale2"].to(d) * (f + p["ffn_2"]["bias"].to(d))
+    assert err <= tol
+    assert (one - want.to(d)).abs().max().item() > tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,ch", [(1, 336, 512, 64, 128),
+                                        (1, 336, 512, 128, 256),
+                                        (2, 13, 18, 60, 120)])
+def test_fusion_eval_plans_match_the_kernels(b, h, w, c, ch):
+    """ops/hier.py:plan_hier and ops/lka.py:plan_lka size the scratch as
+    csrc/hier.cu's hier_plan and csrc/lka.cu lay it out."""
+    from freqfusion_tpu_torch.ops.hier import plan_hier
+    from freqfusion_tpu_torch.ops.lka import plan_lka
+
+    cuda_or_skip()
+    lib = cuda.library()
+    assert lib.ff_hier_scratch_floats(76, 64) == plan_hier(
+        4 * h, 4 * w, 76).scratch_floats
+    assert lib.ff_lka_scratch_floats(b * h * w, c, ch) == plan_lka(
+        b, h, w, c, ch).scratch_floats
 
 
 @pytest.mark.cuda
