@@ -10,8 +10,9 @@ exits non-zero without the final ok line):
    parallel; seconds, ptxas report, which fails the run on a spill in
    window attention at DRCT-L's head boxes, the fused FFN's products at
    the path's widths, the CAB's convolutions, the 3xTF32 GEMM, GRL's
-   mixed attention at GRL-B's head box, hierarchical stage 3's convs or
-   the LKABlock's kernels), TF32 off for matmuls and convolutions;
+   mixed attention at GRL-B's head box, the 3x3 convs of hierarchical
+   stage 3 and the edge refinement or the LKABlock's kernels), TF32 off
+   for matmuls and convolutions;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the shapes its path gives it (336x512 LR bucket, NAFNet's levels at
    the 1344x2048 HR size), max-abs error against the stated tolerance,
@@ -59,11 +60,13 @@ exits non-zero without the final ok line):
    LKABlock at C 64 and C 128 on the 336x512 bucket; hierarchical stage
    3, the edge fuse and the three edge refine levels at the 1344x2048 HR
    size and below, in the NCHW views the modules hand them) it prints the
-   gate-off route (the PyTorch module on cuDNN) beside each; the LKABlock
-   (#18) and stage 3 (#19), whose products run in 3xTF32, also their
-   two-term bound (the LKABlock's depthwise taps, on the fp32 cores, a
-   third term), their share of a request (9 LKABlocks at C 64 and 4 at C
-   128, one stage 3) and one call's launches;
+   gate-off route (the PyTorch module on cuDNN) beside each; all four run
+   their products in 3xTF32, so they also print their two-term bound (the
+   LKABlock's depthwise taps and the edge refine's squeeze, on the fp32
+   cores, a third term), their share of a request (9 LKABlocks at C 64
+   and 4 at C 128, one stage 3, one refine a level, one fuse) and one
+   call's launches (the edge kernels at 1344x2048, the refine at 336x512
+   too);
 3. serving, default path: seeded full-width random checkpoints under the
    reference file names, three LR PNGs (128x128, 100x140, 336x512)
    through ``freqfusion_tpu_torch.interface.io.main(..., device="cuda")``,
@@ -171,14 +174,17 @@ PEAK_BYTES = 3.35e12   # H100 SXM HBM3
 # 212, 244, 276, 308: 6, 8, 8, 9, 10 n-tiles a warp); the CAB's convs (4
 # and 6 n-tiles a block); the NAFBlock's and #11's GEMM (64 and 128
 # columns a block, each epilogue, #12's too); GRL mixed attention's body
-# at GRL-B's head box; every instantiation of #19's convs and #18's
-# kernels
+# at GRL-B's head box; every instantiation of the 3x3 conv (#19-#21)
+# and of #18's kernels
 DRCT_HEAD_BOXES = (32, 56, 128, 48, 80)
 # GRL mixed attention's head box at GRL-B (head dim 30), csrc/
 # grl_attention.cuh, in both sources that build it (#2, #12)
 GRL_HEAD_BOX = 32
 # csrc/tf32_gemm.cuh's gemm_tf32_kernel<WC, EPI>: every instantiation
 GEMM_EPILOGUES = ("bias", "residual", "gate")
+# csrc/conv3x3_tf32.cuh's conv_kernel<NT, MT, EPI, MULTI>: every
+# instantiation
+CONV_EPILOGUES = ("store", "SpatialGate", "squeeze", "broadcast")
 FFN_DOWN_TILES = (6, 8, 9, 10)
 CAB_CONV_TILES = (4, 6)
 LR_SIZES = {"a_128x128": (128, 128), "b_100x140": (100, 140),
@@ -541,9 +547,10 @@ def check_spills(log: str, required: bool) -> None:
     window_attention.cuh, in every source that builds them; the FFN's up
     and down products, csrc/fused_mlp.cu; the CAB's convs, csrc/cab.cu;
     the 3xTF32 GEMM of csrc/tf32_gemm.cuh in nafblock.cu and
-    window_attention_qkv.cu; the hierarchical stage's convs, csrc/
-    conv3x3_tf32.cuh; the LKABlock's three kernels, csrc/lka.cu) and raise
-    if one spills, or (`required`) if one of the groups has no report."""
+    window_attention_qkv.cu; the 3x3 conv of csrc/conv3x3_tf32.cuh in
+    hier.cu and edge.cu; the LKABlock's three kernels, csrc/lka.cu) and
+    raise if one spills, or (`required`) if one of the groups has no
+    report."""
     import re
 
     groups = {
@@ -571,11 +578,12 @@ def check_spills(log: str, required: bool) -> None:
             r"(grl_attention(?:_qkv)?)_cu.*grl_attention_kernelILi(\d+)E",
             lambda m: int(m.group(2)) == GRL_HEAD_BOX,
             lambda m: f"{m.group(1)}.cu, head box {m.group(2)}"),
-        "hier conv (#19)": (
-            r"conv3x3_tf3211conv_kernelILi(\d+)ELi(\d+)ELb([01])E",
+        "3x3 conv (#19, #20, #21)": (
+            r"conv3x3_tf3211conv_kernelILi(\d+)ELi(\d+)ELi(\d)ELb([01])E",
             lambda m: True,
-            lambda m: f"{m.group(1)} n-tiles x {m.group(2)} m-tiles a warp"
-                      + (", SpatialGate" if m.group(3) == "1" else "")),
+            lambda m: f"{m.group(1)} n-tiles x {m.group(2)} m-tiles a warp, "
+                      + CONV_EPILOGUES[int(m.group(3))] + " epilogue"
+                      + (", several sources" if m.group(4) == "1" else "")),
         "LKA (#18)": (
             r"lka_(mix)_kernelILi(\d+)ELi(\d+)ELi(\d+)E|lka_(dw|prep)_kernel",
             lambda m: True,
@@ -1208,20 +1216,30 @@ def phase_fusion_kernels(dev, randn, checks) -> None:
     torch.cuda.empty_cache()
 
     er = checks["edge_refine_fused"] = KernelCheck("edge_refine_fused")
+    tc = TensorCoreBound("edge_refine_fused")
     rm = module(EdgeRefineBlock(3, 32))
     tree = rm.fused_params()
     for s in (1, 2, 4):
         lap = randn(1, 3, hh // s, ww // s, scale=0.1)
         lapv = lap.permute(0, 2, 3, 1)
         npx = lap.numel() // 3
-        # 9 x 2 x (3 x 32 + 2 x 32 x 32 + 8) + 2 x (3 + 8) x 32 per pixel
-        er.run(f"{hh // s}x{ww // s}", lambda: edge_refine_fused(lapv, tree),
-               lambda: edge_refine_fused_reference(lapv, tree), fused_tol,
-               npx * 39440.0, 4 * (npx * 35 + _numel(tree)))
-        er.route(f"{hh // s}x{ww // s}",
-                 lambda: edge_refine_fused(lapv, rm.fused_params()),
+        label = f"{hh // s}x{ww // s}"
+        # 9 x 2 x (3 x 32 + 2 x 32 x 32 + 8) + 2 x (3 + 8) x 32 per pixel:
+        # the 3x3 convs and the projection on the tensor cores, the
+        # squeeze (2 x 32 x 8) on the fp32 cores
+        nbytes = 4 * (npx * 35 + _numel(tree))
+        ms = er.run(label, lambda: edge_refine_fused(lapv, tree),
+                    lambda: edge_refine_fused_reference(lapv, tree),
+                    fused_tol, npx * 39440.0, nbytes)
+        tc.shape(label, ms, npx * 38928.0, nbytes, 1,
+                 core_flops=npx * 512.0)
+        if s in (1, 4):
+            launch_breakdown(f"#20 {label}",
+                             lambda: edge_refine_fused(lapv, tree))
+        er.route(label, lambda: edge_refine_fused(lapv, rm.fused_params()),
                  lambda: rm(lap), "EdgeRefineBlock on cuDNN")
         del lap, lapv
+    tc.total(er)
     torch.cuda.empty_cache()
 
     ef = checks["edge_fuse_fused"] = KernelCheck("edge_fuse_fused")
@@ -1238,12 +1256,19 @@ def phase_fusion_kernels(dev, randn, checks) -> None:
                                    1))
         gate = em.edge_gate(torch.cat([sr, edge], 1))
         return (sr + gate * em.edge_strength * edge).clamp(0.0, 1.0)
-    # 9 x 2 x (96 x 32 + 32 x 3 + 6 x 16 + 16) per pixel
-    ef.run(f"{hh}x{ww}", lambda: edge_fuse_fused(*args),
-           lambda: edge_fuse_fused_reference(*args), fused_tol, ph * 59040.0,
-           4 * (ph * 102 + _numel(tree) + 4))
-    ef.route(f"{hh}x{ww}", lambda: edge_fuse_fused(*args), fuse_off,
+    # 9 x 2 x (96 x 32 + 32 x 3 + 6 x 16 + 16) per pixel, on the tensor
+    # cores
+    tc = TensorCoreBound("edge_fuse_fused")
+    label, flops = f"{hh}x{ww}", ph * 59040.0
+    nbytes = 4 * (ph * 102 + _numel(tree) + 4)
+    ms = ef.run(label, lambda: edge_fuse_fused(*args),
+                lambda: edge_fuse_fused_reference(*args), fused_tol, flops,
+                nbytes)
+    tc.shape(label, ms, flops, nbytes, 1)
+    launch_breakdown(f"#21 {label}", lambda: edge_fuse_fused(*args))
+    ef.route(label, lambda: edge_fuse_fused(*args), fuse_off,
              "fusion + edge-gate modules on cuDNN")
+    tc.total(ef)
     del sr, feats, views, args
     torch.cuda.empty_cache()
 

@@ -1,14 +1,23 @@
 // A 3x3 convolution over [B, H, W, C] tensors of any layout, fp32, zero
 // padded, on the tensor cores in 3xTF32 (tf32_mma.cuh): the building block
-// of the fusion net's hierarchical stage 3 (csrc/hier.cu). Each tensor is
-// read through its element strides (b, y, x, c), so an NCHW tensor and an
-// NHWC scratch mix in one call.
+// of the fusion net's hierarchical stage 3 (csrc/hier.cu) and Laplacian
+// edge refinement (csrc/edge.cu). Each tensor is read through its element
+// strides (b, y, x, c), so an NCHW tensor and an NHWC scratch mix in one
+// call. The input is the channel concatenation of up to three sources,
+// each padded to a stage's 8 channels on its own, so that a stage never
+// mixes two tensors; each keeps its own strides and copy width.
 //
-// out = act(conv + bias), then optionally out = r1 + alpha out and out +=
-// beta r2 (residuals read at the same pixel), or the SpatialGate out = v *
-// sigmoid(gelu(v G0 + g0) g2 + g2b) over the pixel's Cout channels v. A
-// residual may be the output itself: each thread reads it at its own
-// pixels before writing them.
+// out = act(conv + bias [+ bias2]), then one epilogue:
+//  - kStore: optionally out = r1 + alpha out and out += beta r2
+//    (residuals read at the same pixel);
+//  - kSpatialGate: out = v * sigmoid(gelu(v G0 + g0) g2 + g2b) over the
+//    pixel's Cout channels v;
+//  - kSqueeze: out = v, and out2 = gelu(v G0 + g0) (8 channels);
+//  - kBroadcast (Cout 1): out[..., c] = ba[..., c] + v k bm[..., c] for c
+//    < bC, optionally clipped to [0, 1] (a per-pixel gate applied to a
+//    bC-channel tensor).
+// A residual or gate tensor may be the output itself: each thread reads it
+// at its own pixels before writing them.
 //
 // Design, #15's convolution (csrc/cab.cu) without its LayerNorm and
 // channel sums: an implicit GEMM, M a tile of output pixels, N the output
@@ -19,8 +28,9 @@
 // block's n-tiles. Input
 // channels go 8 a stage (one k8 step a tap) through a two-stage ring, one
 // barrier a stage: the stage's (8 MT + 2) x 18 halo lands by cp.async
-// (zeros outside the image and past Cin; a pixel's 4 channels a thread,
-// one 16-byte copy from an NHWC source, else four 4-byte copies), and a
+// (zeros outside the image and past the source's channels; a pixel's 4
+// channels a thread, one 16-byte copy from an NHWC source, else four
+// 4-byte copies), and a
 // lane splits its A fragment in registers as it reads it, as
 // tf32_gemm.cuh's Product does (#15 splits its halo in place once a
 // stage: twice the shared-memory reads a tap, and a split pass in step
@@ -49,6 +59,7 @@ constexpr int kTW = 16;        // output tile columns: an m-tile's rows
 constexpr int kHW = kTW + 2;   // halo columns
 constexpr int kCK = 8;         // input channels a stage: one k8 block
 constexpr int kStages = 2;     // the ring
+constexpr int kBroadcastPer = 8;  // kBroadcast: bm's channels a lane, at most
 
 struct T4 {
   const float* p;
@@ -75,12 +86,20 @@ __device__ __forceinline__ float sigmoidf(float v) {
 }
 
 enum Act { kNone = 0, kGelu = 1, kSigmoid = 2 };
+enum Epilogue { kStore = 0, kSpatialGate = 1, kSqueeze = 2, kBroadcast = 3 };
+
+struct Src {
+  T4 t;        // [B, H, W, C]
+  int C, vec;  // channels; 16-byte copies (NHWC, C % 4 == 0, aligned)
+  int stages;  // C padded to kCK, in stages
+};
 
 struct Conv {
-  T4 src;               // the input
-  int Cin, cinp, vec;   // its channels, padded to kCK; 16-byte copies
+  Src src[3];           // the sources, concatenated along C
+  int nsrc, cinp;       // their count; their padded channels, summed
   const float* w;       // split weights, fragment order (split_unit)
   const float* bias;    // [Cout] or null
+  const float* bias2;   // [Cout] or null, added to bias
   int Cout, coutp, act;
   float* out;           // output, strides of `o`
   T4 o;
@@ -88,10 +107,16 @@ struct Conv {
   const float* alpha;
   T4 r2;                // residual or null: out += beta * r2
   const float* beta;
-  const float* g0;      // SpatialGate or null: G0 [Cout, 8], g0 [8],
-  const float* g0b;     // g2 [8], g2b [1]; the block holds all of Cout
-  const float* g2;
+  const float* g0;      // kSpatialGate, kSqueeze: G0 [Cout, 8], g0 [8];
+  const float* g0b;     // kSpatialGate: g2 [8], g2b [1]; the block holds
+  const float* g2;      // all of Cout
   const float* g2b;
+  long long g0i, g0o;   // kSqueeze: G0's strides (kSpatialGate's: 8, 1)
+  float* out2;          // kSqueeze: [B, H, W, 8], strides of `o2`
+  T4 o2;
+  T4 bm, ba;            // kBroadcast: out[c] = ba[c] + v k bm[c], c < bC;
+  const float* bk;      // ba may be null; k one float on the card, or null
+  int bC, clamp;        // for 1
   int H, W;
 };
 
@@ -109,39 +134,97 @@ struct Shape {
       kStages * size_t(kStage) * sizeof(float) + kStages * sizeof(uint64_t);
 };
 
-// HWIO weights [3, 3, cin, cout], zero-padded, split into fragment order
-// over [coutp / (8 nt) blocks][cinp / 8][9 taps][nt][32 lanes][4]: unit u
-// is lane (g, t) of a (block, k8 block, tap, n-tile), its hi W[2t][g], hi
-// W[2t + 1][g], then the two lo. The k8 block's channels go in the order
-// 0, 2, 4, 6, 1, 3, 5, 7, the order in which a lane reads the halo.
-__device__ __forceinline__ void split_unit(const float* __restrict__ w,
-                                           float* __restrict__ fr, int cin,
-                                           int cout, int cinp, int nt,
-                                           long long u) {
-  const int lane = int(u % 32), g = lane / 4, t = lane % 4;
-  long long blk = u / 32;
-  const int ntl = int(blk % nt);
-  blk /= nt;
-  const int tap = int(blk % 9);
-  blk /= 9;
-  const int kb = int(blk % (cinp / 8)), nb = int(blk / (cinp / 8));
-  const int ci = 8 * kb + 2 * t, co = 8 * (nb * nt + ntl) + g;
-  const float* wt = w + (long long)tap * cin * cout;
-  const float v0 = ci < cin && co < cout ? wt[(long long)ci * cout + co] : 0.f;
-  const float v1 =
-      ci + 1 < cin && co < cout ? wt[(long long)(ci + 1) * cout + co] : 0.f;
-  uint4 o;
-  split_tf32(v0, o.x, o.z);
-  split_tf32(v1, o.y, o.w);
-  *reinterpret_cast<uint4*>(fr + 4 * u) = o;
+// A conv kernel as HWIO [kh, kw, cin, cout] through its element strides:
+// a contiguous HWIO tensor, or a view of PyTorch's OIHW weight.
+struct W4 {
+  const float* p;
+  long long sh, sw, si, so;
+};
+
+// A contiguous HWIO [kh, kw, cin, cout] kernel.
+inline W4 hwio(const float* p, int kw, int cin, int cout) {
+  return W4{p, (long long)kw * cin * cout, (long long)cin * cout, cout, 1};
 }
+
+// One source's rows of a conv's weights: [k, k, cin, cout] with k 3, or 1
+// (a 1x1 kernel: the centre tap, zeros around it), scaled by one float on
+// the card or not.
+struct SplitSrc {
+  W4 w;
+  const float* scale;
+  int cin, cinp, k;
+};
 
 // One conv's weights to split: 9 cinp coutp / 2 units.
 struct SplitJob {
-  const float* w;
+  SplitSrc src[3];
+  int nsrc;
   float* fr;
-  int cin, cout, cinp, coutp, nt;
+  int cout, coutp, cinp, nt;
 };
+
+// A conv's split with no source yet: add_split_source adds them in the
+// order of the conv's sources.
+inline SplitJob split_job(float* fr, int cout, int coutp, int nt) {
+  SplitJob j{};
+  j.fr = fr;
+  j.cout = cout;
+  j.coutp = coutp;
+  j.nt = nt;
+  return j;
+}
+
+// Appends a source's rows (SplitSrc) to j; a fourth is dropped, and the
+// conv that reads j's weights then refuses its fourth source too.
+inline void add_split_source(SplitJob& j, W4 w, int cin, int k = 3,
+                             const float* scale = nullptr) {
+  const int cinp = (cin + kCK - 1) / kCK * kCK;
+  if (j.nsrc < 3) j.src[j.nsrc++] = SplitSrc{w, scale, cin, cinp, k};
+  j.cinp += cinp;
+}
+
+// A conv of one [3, 3, cin, cout] kernel.
+inline SplitJob split_job(W4 w, float* fr, int cin, int cout, int coutp,
+                          int nt) {
+  SplitJob j = split_job(fr, cout, coutp, nt);
+  add_split_source(j, w, cin);
+  return j;
+}
+
+// The split weights, zero-padded, in fragment order over [coutp / (8 nt)
+// blocks][cinp / 8][9 taps][nt][32 lanes][4]: unit u is lane (g, t) of a
+// (block, k8 block, tap, n-tile), its hi W[2t][g], hi W[2t + 1][g], then
+// the two lo. The k8 block's channels go in the order 0, 2, 4, 6, 1, 3,
+// 5, 7, the order in which a lane reads the halo; k8 block kb lies in the
+// source whose padded rows hold it.
+__device__ __forceinline__ void split_unit(const SplitJob& s, long long u) {
+  const int lane = int(u % 32), g = lane / 4, t = lane % 4;
+  long long blk = u / 32;
+  const int ntl = int(blk % s.nt);
+  blk /= s.nt;
+  const int tap = int(blk % 9);
+  blk /= 9;
+  int kb = int(blk % (s.cinp / 8));
+  const int nb = int(blk / (s.cinp / 8));
+  int i = 0;
+  while (i + 1 < s.nsrc && kb >= s.src[i].cinp / 8)
+    kb -= s.src[i++].cinp / 8;
+  const SplitSrc& q = s.src[i];
+  const int ci = 8 * kb + 2 * t, co = 8 * (nb * s.nt + ntl) + g;
+  float v0 = 0.f, v1 = 0.f;
+  if (co < s.cout && (q.k == 3 || tap == 4)) {
+    const W4& w = q.w;
+    const float* wt = w.p + co * w.so +
+                      (q.k == 3 ? (tap / 3) * w.sh + (tap % 3) * w.sw : 0);
+    const float sc = q.scale ? *q.scale : 1.f;
+    if (ci < q.cin) v0 = wt[ci * w.si] * sc;
+    if (ci + 1 < q.cin) v1 = wt[(ci + 1) * w.si] * sc;
+  }
+  uint4 o;
+  split_tf32(v0, o.x, o.z);
+  split_tf32(v1, o.y, o.w);
+  *reinterpret_cast<uint4*>(s.fr + 4 * u) = o;
+}
 
 template <int J>
 struct SplitJobs {
@@ -160,8 +243,7 @@ __global__ void __launch_bounds__(256) split_kernel(SplitJobs<J> jobs) {
     int j = 0;
 #pragma unroll
     for (int q = 1; q < J; ++q) j += i >= base[q];
-    const SplitJob& s = jobs.job[j];
-    split_unit(s.w, s.fr, s.cin, s.cout, s.cinp, s.nt, i - base[j]);
+    split_unit(jobs.job[j], i - base[j]);
   }
 }
 
@@ -171,9 +253,11 @@ cudaError_t split(const SplitJobs<J>& jobs, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// kGate: the SpatialGate in the epilogue (p.g0 set), an instantiation of
-// its own: its sums would crowd the registers of the other convs.
-template <int NT, int MT, bool kGate>
+// Each epilogue is an instantiation of its own: the SpatialGate's and the
+// squeeze's sums would crowd the registers of the other convs. kMulti:
+// several sources, each stage picking its own (a conv of one source reads
+// it as a loop invariant: the pick costs #19's convs ~4%).
+template <int NT, int MT, int kEpi, bool kMulti>
 __global__ void __launch_bounds__(256, 2) conv_kernel(Conv p) {
   using S = Shape<NT, MT>;
   constexpr int kThreads = S::kThreads;
@@ -187,7 +271,6 @@ __global__ void __launch_bounds__(256, 2) conv_kernel(Conv p) {
   const int x0 = (blockIdx.x % tiles_x) * kTW;
   const int n0 = blockIdx.y * S::kN;
   const int b = blockIdx.z;
-  const float* xb = p.src.p + b * p.src.sb;
   auto in_image = [&](int q, int& gy, int& gx) {
     gy = y0 - 1 + q / kHW;
     gx = x0 - 1 + q % kHW;
@@ -195,28 +278,41 @@ __global__ void __launch_bounds__(256, 2) conv_kernel(Conv p) {
   };
   auto plane = [&](int s) { return smem + (s % kStages) * S::kStage; };
 
-  // Stage s: the halo's channels [8 s, 8 s + 8) (thread tid owns the
+  // Stage s: the halo's channels [8 s', 8 s' + 8) of the source whose
+  // padded channels hold it, s' its stage there (thread tid owns the
   // pieces tid + i kThreads: pixel q / 2, channels 4 (q % 2) + 0..3; one
   // 16-byte copy from an NHWC source, else four 4-byte copies, neighbouring
   // threads on neighbouring pixels of a channel plane), and (thread 0, one
   // bulk copy on the stage's mbarrier) the block's B fragments of all 9
   // taps.
   auto copy_stage = [&](int s) {
-    const int c0 = s * kCK;
+    Src x = p.src[0];
+    int c0 = s * kCK;
+    if constexpr (kMulti) {
+      const int s1 = p.src[0].stages, s2 = s1 + p.src[1].stages;
+      if (s >= s2) {
+        x = p.src[2];
+        c0 = (s - s2) * kCK;
+      } else if (s >= s1) {
+        x = p.src[1];
+        c0 = (s - s1) * kCK;
+      }
+    }
+    const float* xb = x.t.p + b * x.t.sb;
     float* r = plane(s);
     for (int q = tid; q < S::kHalo * 2; q += kThreads) {
       const int px = q / 2, c = c0 + 4 * (q % 2);
       int gy, gx;
       const bool in = in_image(px, gy, gx);
-      const float* src = xb + gy * p.src.sy + gx * p.src.sx;
-      if (p.vec) {
-        const bool ok = in && c < p.Cin;
+      const float* src = xb + gy * x.t.sy + gx * x.t.sx;
+      if (x.vec) {
+        const bool ok = in && c < x.C;
         cp_async16(r + 4 * q, ok ? src + c : p.w, ok);
       } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const bool ok = in && c + j < p.Cin;
-          cp_async4(r + 4 * q + j, ok ? src + (c + j) * p.src.sc : p.w, ok);
+          const bool ok = in && c + j < x.C;
+          cp_async4(r + 4 * q + j, ok ? src + (c + j) * x.t.sc : p.w, ok);
         }
       }
     }
@@ -302,7 +398,11 @@ __global__ void __launch_bounds__(256, 2) conv_kernel(Conv p) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int co = n0 + 8 * j + 2 * t + e;
-      const float bias = p.bias && co < p.Cout ? p.bias[co] : 0.f;
+      float bias = 0.f;
+      if (co < p.Cout) {
+        if (p.bias) bias = p.bias[co];
+        if (p.bias2) bias += p.bias2[co];
+      }
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -313,11 +413,71 @@ __global__ void __launch_bounds__(256, 2) conv_kernel(Conv p) {
           else if (p.act == kSigmoid) v = sigmoidf(v);
         }
     }
-  if constexpr (kGate) {
-    // SpatialGate over the pixel's 8 NT = Cout channels, 8 a lane: squeeze
+  if constexpr (kEpi == kBroadcast) {
+    // Cout 1: lane t = 0 of the quad holds the pixel's one channel; the
+    // quad takes it by a shuffle, and lane t applies it to bm's channels
+    // [per t, per t + per), per = bC / 4 rounded up (<= kBroadcastPer): a
+    // row's loads all issued before its stores, so they overlap
+    const float k = p.bk ? *p.bk : 1.f;
+    const int per = (p.bC + 3) / 4, c0 = per * t;
+    // without ba, bm's kBroadcastPer channels a lane as two 16-byte loads
+    const bool quads = per == kBroadcastPer && p.bC == 4 * per && !p.ba.p &&
+                       p.bm.sc == 1 && p.bm.sx % 4 == 0 &&
+                       reinterpret_cast<size_t>(p.bm.p) % 16 == 0;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int gy = y0 + MT * warp + mt;
+      if (gy >= p.H) continue;  // the warp's row: every lane alike
+      float v[2], m[2][kBroadcastPer], a[2][kBroadcastPer];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        v[h] = k * __shfl_sync(0xffffffffu, acc[0][mt][2 * h], lane & ~3);
+        const int gx = x0 + g + 8 * h;
+        if (quads) {
+          float4 u[2] = {};
+          if (gx < p.W) {
+            const float4* q = reinterpret_cast<const float4*>(
+                p.bm.p + at(p.bm, b, gy, gx, c0));
+            u[0] = q[0];
+            u[1] = q[1];
+          }
+          const float* uf = reinterpret_cast<const float*>(u);
+#pragma unroll
+          for (int i = 0; i < kBroadcastPer; ++i) {
+            m[h][i] = uf[i];
+            a[h][i] = 0.f;
+          }
+          continue;
+        }
+#pragma unroll
+        for (int i = 0; i < kBroadcastPer; ++i) {
+          const int c = c0 + i;
+          m[h][i] = a[h][i] = 0.f;
+          if (i < per && gx < p.W && c < p.bC) {
+            m[h][i] = p.bm.p[at(p.bm, b, gy, gx, c)];
+            if (p.ba.p) a[h][i] = p.ba.p[at(p.ba, b, gy, gx, c)];
+          }
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gx = x0 + g + 8 * h;
+#pragma unroll
+        for (int i = 0; i < kBroadcastPer; ++i) {
+          const int c = c0 + i;
+          if (gx >= p.W || i >= per || c >= p.bC) continue;
+          float o = a[h][i] + v[h] * m[h][i];
+          if (p.clamp) o = fminf(fmaxf(o, 0.f), 1.f);
+          p.out[at(p.o, b, gy, gx, c)] = o;
+        }
+      }
+    }
+    return;
+  }
+  if constexpr (kEpi == kSpatialGate || kEpi == kSqueeze) {
+    // the squeeze v G0 over the pixel's 8 NT = Cout channels, 8 a lane:
     // unit k's sum a pixel over the quad (t) by shuffles, one unit at a
-    // time; lane t keeps units 2t and 2t + 1, takes them through GELU and
-    // g2, and the quad sums the two
+    // time; lane t keeps units 2t and 2t + 1 and takes them through GELU
     float mine[MT][2][2] = {};
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
@@ -326,7 +486,10 @@ __global__ void __launch_bounds__(256, 2) conv_kernel(Conv p) {
       for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e)
-          gw[j][e] = __ldg(p.g0 + (8 * j + 2 * t + e) * 8 + k);
+          gw[j][e] = kEpi == kSqueeze
+                         ? __ldg(p.g0 + (8 * j + 2 * t + e) * p.g0i +
+                                 k * p.g0o)
+                         : __ldg(p.g0 + (8 * j + 2 * t + e) * 8 + k);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -344,22 +507,46 @@ __global__ void __launch_bounds__(256, 2) conv_kernel(Conv p) {
         }
     }
     const float b0 = __ldg(p.g0b + 2 * t), b1 = __ldg(p.g0b + 2 * t + 1);
-    const float w0 = __ldg(p.g2 + 2 * t), w1 = __ldg(p.g2 + 2 * t + 1);
-    const float gb = __ldg(p.g2b);
+    if constexpr (kEpi == kSpatialGate) {
+      // g2 on the two units, summed over the quad: the pixel's gate
+      const float w0 = __ldg(p.g2 + 2 * t), w1 = __ldg(p.g2 + 2 * t + 1);
+      const float gb = __ldg(p.g2b);
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float gs = gelu_erf(mine[mt][h][0] + b0) * w0 +
-                   gelu_erf(mine[mt][h][1] + b1) * w1;
-        gs += __shfl_xor_sync(0xffffffffu, gs, 1);
-        gs += __shfl_xor_sync(0xffffffffu, gs, 2);
-        const float gate = sigmoidf(gs + gb);
+        for (int h = 0; h < 2; ++h) {
+          float gs = gelu_erf(mine[mt][h][0] + b0) * w0 +
+                     gelu_erf(mine[mt][h][1] + b1) * w1;
+          gs += __shfl_xor_sync(0xffffffffu, gs, 1);
+          gs += __shfl_xor_sync(0xffffffffu, gs, 2);
+          const float gate = sigmoidf(gs + gb);
 #pragma unroll
-        for (int j = 0; j < NT; ++j)
+          for (int j = 0; j < NT; ++j)
 #pragma unroll
-          for (int e = 0; e < 2; ++e) acc[j][mt][2 * h + e] *= gate;
+            for (int e = 0; e < 2; ++e) acc[j][mt][2 * h + e] *= gate;
+        }
+    } else {
+      // the two units to out2's channels 2t, 2t + 1
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int gy = y0 + MT * warp + mt;
+        if (gy >= p.H) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int gx = x0 + g + 8 * h;
+          if (gx >= p.W) continue;
+          const float u0 = gelu_erf(mine[mt][h][0] + b0);
+          const float u1 = gelu_erf(mine[mt][h][1] + b1);
+          const long long o = at(p.o2, b, gy, gx, 2 * t);
+          if (p.o2.sc == 1) {
+            *reinterpret_cast<float2*>(p.out2 + o) = make_float2(u0, u1);
+          } else {
+            p.out2[o] = u0;
+            p.out2[o + p.o2.sc] = u1;
+          }
+        }
       }
+    }
   }
   const float alpha = p.alpha ? *p.alpha : 1.f;
   const float beta = p.beta ? *p.beta : 1.f;
@@ -397,34 +584,57 @@ __global__ void __launch_bounds__(256, 2) conv_kernel(Conv p) {
   }
 }
 
-template <int NT, int MT, bool kGate = false>
+template <int NT, int MT, int kEpi = kStore, bool kMulti = false>
 int launch(const Conv& p, int B, cudaStream_t stream) {
   using S = Shape<NT, MT>;
-  if (p.coutp % S::kN || p.cinp % kCK || kGate != (p.g0 != nullptr) ||
-      (kGate && (p.Cout != S::kN || p.coutp != S::kN)))
+  constexpr bool kSums = kEpi == kSpatialGate || kEpi == kSqueeze;
+  if (p.nsrc < 1 || p.nsrc > (kMulti ? 3 : 1))
+    return int(cudaErrorInvalidValue);
+  int stages = 0;
+  for (int i = 0; i < p.nsrc; ++i) stages += p.src[i].stages;
+  if (p.coutp % S::kN || stages * kCK != p.cinp ||
+      kSums != (p.g0 != nullptr) ||
+      (kSums && (p.Cout != S::kN || p.coutp != S::kN)) ||
+      (kEpi == kSqueeze && !p.out2) ||
+      (kEpi == kBroadcast) != (p.bm.p != nullptr) ||
+      (kEpi == kBroadcast && (NT != 1 || p.Cout != 1 || p.bC < 1 ||
+                              p.bC > 4 * kBroadcastPer)))
     return int(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      conv_kernel<NT, MT, kGate>,
+      conv_kernel<NT, MT, kEpi, kMulti>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(S::kSmem));
   if (err != cudaSuccess) return int(err);
   const long long tiles = (long long)((p.H + S::kTH - 1) / S::kTH) *
                           ((p.W + kTW - 1) / kTW);
   if (tiles > 0x7fffffffLL || B > 65535) return int(cudaErrorInvalidValue);
-  conv_kernel<NT, MT, kGate>
+  conv_kernel<NT, MT, kEpi, kMulti>
       <<<dim3(unsigned(tiles), unsigned(p.coutp / S::kN), unsigned(B)),
          S::kThreads, S::kSmem, stream>>>(p);
   return int(cudaGetLastError());
 }
 
-// A conv with its source, weights and output set and every epilogue off.
+// Appends a source of C channels (vec: 16-byte copies) to p's input; a
+// fourth makes the launch refuse p.
+inline void add_source(Conv& p, T4 src, int C, int vec) {
+  const int stages = (C + kCK - 1) / kCK;
+  if (p.nsrc < 3) p.src[p.nsrc] = Src{src, C, vec, stages};
+  ++p.nsrc;
+  p.cinp += stages * kCK;
+}
+
+// Whether 16-byte copies can read a [B, H, W, C] tensor: NHWC, C % 4 == 0,
+// 16-byte aligned.
+inline int vec_ok(const float* p, int C, int nchw) {
+  return !nchw && C % 4 == 0 && reinterpret_cast<size_t>(p) % 16 == 0;
+}
+
+// A conv with its first source, weights and output set and every epilogue
+// off.
 inline Conv plain(T4 src, int Cin, int vec, const float* w, const float* bias,
                   int Cout, int coutp, int act, float* out, T4 o, int H,
                   int W) {
   Conv p{};
-  p.src = src;
-  p.Cin = Cin;
-  p.cinp = (Cin + kCK - 1) / kCK * kCK;
-  p.vec = vec;
+  add_source(p, src, Cin, vec);
   p.w = w;
   p.bias = bias;
   p.Cout = Cout;

@@ -20,112 +20,220 @@
 // and 336x512, fuse at 1344x2048, for the 336x512 bucket.
 //
 // What bounds them on the H100: the 3x3 convs. Refine: 9 x 2 x (3 x 32 +
-// 2 x 32 x 32 + 8) + 2 x (3 + 8) x 32 FLOPs a pixel, 3.63 M pixels over the
-// levels (143 GFLOP, 2.1 ms at 67 TFLOP/s fp32) against 35 channels of 4
-// bytes a pixel (0.5 GB, 0.15 ms at 3.35 TB/s). Fuse: 9 x 2 x (96 x 32 +
-// 32 x 3 + 6 x 16 + 16) FLOPs a pixel (163 GFLOP at 1344x2048, 2.4 ms)
-// against 102 channels (1.1 GB, 0.34 ms). fp32 FMA issue, both.
+// 2 x 32 x 32 + 8) + 2 x (3 + 8) x 32 FLOPs a pixel, 3.61 M pixels over the
+// levels (142.5 GFLOP: 0.86 ms as three TF32 products at 495 TFLOP/s, 2.1
+// on the fp32 cores) against 35 channels of 4 bytes a pixel (0.5 GB, 0.15
+// ms at 3.35 TB/s). Fuse: 9 x 2 x (96 x 32 + 32 x 3 + 6 x 16 + 16) FLOPs a
+// pixel (162.5 GFLOP at 1344x2048: 0.99 ms in 3xTF32, 2.4 on the fp32
+// cores) against 102 channels (1.1 GB, 0.34 ms). Operations, both. The old
+// bodies ran the convs as register-tiled fp32 FMA loops (13.7 and 8.4 ms
+// on an H100 at 700 W), held by FMA issue; so every conv runs on the
+// tensor cores in 3xTF32, as #19's do (csrc/conv3x3_tf32.cuh).
 //
 // The TPU kernels run each in one halo-4 pass. Here each is a chain of
-// launches of csrc/conv3x3.cuh's kernels through NHWC scratch tensors, as
-// in csrc/hier.cu, for the same reasons: every stage fits its own register
-// tile, and zero padding comes from reading whole images. What the chain
-// saves:
-//  - refine's 1x1 projection of the input joins conv3 as three more input
-//    channels whose 3x3 weights are zero but the centre tap (the wrapper
-//    builds the [3, 3, 35, 32] bank): no launch and no 32-channel sum;
-//  - the squeeze 32 -> 8 is one per-pixel kernel, and the attention conv
-//    multiplies hid by its gate in its epilogue, in place in the output;
-//  - fuse's 96-channel concat never exists: the first conv reads its three
-//    sources through their strides, with each level's weight folded into
-//    its input channels' weights (the wrapper scales the bank); the last
-//    conv applies the gate, the strength, the residual and the clip in its
-//    epilogue.
-// Round trips through device memory: refine ~1.1 KB a pixel (3.9 GB over
-// the levels, 1.2 ms at 3.35 TB/s), fuse ~0.4 KB (1.2 GB, 0.35 ms).
+// conv launches through NHWC scratch tensors, as in csrc/hier.cu, for the
+// same reasons: every stage fits its own tile, and zero padding comes from
+// reading whole images. One split launch first puts every conv's weights
+// in fragment order into one scratch, and does what would otherwise be
+// PyTorch work around the call: refine's 1x1 projection becomes the
+// centre tap of conv3's second source, fuse's level weights scale their
+// sources' rows (read on the card). So a call launches no PyTorch kernel.
+// What the chain saves:
+//  - refine's projection joins conv3 as a second source (lap, 3 channels
+//    padded to 8): no launch and no 32-channel sum; its bias is conv3's
+//    second;
+//  - refine's conv3 block holds all 32 channels, so its epilogue writes
+//    hid and the squeeze gelu(hid A0 + a0) (8 channels, a lane's two units
+//    as one float2) side by side into one NHWC scratch, with no launch of
+//    its own; the attention conv (Cout 1) reads the squeeze as its source
+//    and hid in its epilogue (a lane's 8 channels as two 16-byte loads:
+//    0.34 ms at 1344x2048 against 0.60 for hid read back from the NCHW
+//    output by 4-byte loads) and writes hid times its gate;
+//  - fuse's 96-channel concat never exists: fusion_0 reads its three
+//    sources through their strides; edge_gate_0 reads (sr, edge) as two
+//    sources; edge_gate_2 applies the gate, the strength, the residual and
+//    the clip in its epilogue.
+// Tiles: the 32-channel convs (conv1-3, fusion_0) 24 x 16 pixels and all
+// 32 channels a block (#19's conv1), the 16-channel one 32 x 16, Cout 3 and
+// 1 padded to one n-tile on 32 x 16.
 
-#include "conv3x3.cuh"
+#include "conv3x3_tf32.cuh"
 
-using namespace conv3x3;
+using namespace conv3x3_tf32;
+
+namespace {
+
+// n-tiles a block of each conv: refine's conv1, conv2, conv3 (+ the
+// projection), attention conv; fuse's fusion_0, fusion_2, edge_gate_0,
+// edge_gate_2
+constexpr int kNT[2][4] = {{4, 4, 4, 1}, {4, 1, 2, 1}};
+constexpr int kGate = 16;  // edge_gate_0's outputs
+
+int pad(int c) { return (c + kCK - 1) / kCK * kCK; }
+
+struct EdgePlan {
+  int cinp[4], coutp[4];
+  long long off[5];  // floats: conv i's split weights at off[i]
+};
+
+EdgePlan edge_plan(int Cin, int F, int fuse) {
+  const int cinp[2][4] = {{pad(Cin), pad(F), pad(F) + pad(Cin), pad(F / 4)},
+                          {3 * pad(F), pad(F), 2 * pad(3), pad(kGate)}};
+  const int cout[2][4] = {{F, F, F, 1}, {F, 3, kGate, 1}};
+  EdgePlan q;
+  q.off[0] = 0;
+  for (int i = 0; i < 4; ++i) {
+    const int n = 8 * kNT[fuse][i];
+    q.cinp[i] = cinp[fuse][i];
+    q.coutp[i] = (cout[fuse][i] + n - 1) / n * n;
+    q.off[i + 1] = q.off[i] + 18LL * q.cinp[i] * q.coutp[i];
+  }
+  return q;
+}
+
+bool bad_scratch(const float* scratch, long long floats, long long need) {
+  return floats < need || reinterpret_cast<size_t>(scratch) % 16;
+}
+
+}  // namespace
+
+// Floats of scratch ff_edge_refine (fuse 0, lap of Cin channels) or
+// ff_edge_fuse (fuse 1) needs: the four convs' weights split, 18 cinp
+// coutp floats each.
+extern "C" long long ff_edge_scratch_floats(int Cin, int F, int fuse) {
+  return edge_plan(Cin, F, fuse != 0).off[4];
+}
 
 // lap [B, H, W, Cin] and out [B, H, W, F], NHWC-contiguous or (nchw)
-// NCHW-contiguous; conv kernels [3, 3, Cin', Cout']: w1 (Cin -> F) + b1,
-// w2 (F -> F) + b2, w3p (F + Cin -> F: conv3 and the projection) + b3p,
-// a2 (F/4 -> 1) + a2b [1]; a0 [F, F/4] + a0b; scratch t1, t2
-// [B, H, W, F] NHWC. All fp32.
-extern "C" int ff_edge_refine(const float* lap, int nchw, const float* w1,
-                              const float* b1, const float* w2,
-                              const float* b2, const float* w3p,
-                              const float* b3p, const float* a0,
-                              const float* a0b, const float* a2,
+// NCHW-contiguous; conv kernels [kh, kw, Cin', Cout'] (HWIO) through their
+// element strides (kh, kw, Cin', Cout'; the module's views of its OIHW
+// weights need no copy) with F = 32: w1 (Cin -> F) + b1, w2 (F -> F) + b2,
+// w3 (F -> F) + b3, the projection wp [1, 1, Cin, F] + bp, a0 [1, 1, F,
+// F/4] + a0b, a2 (F/4 -> 1) + a2b [1]; scratch t1 [B, H, W, F + F/4], t2
+// [B, H, W, F] NHWC and the split weights' (ff_edge_scratch_floats), each
+// 16-byte aligned. All fp32.
+// A kernel argument, its pointer and four strides, and its W4.
+#define FF_KERNEL(w) \
+  const float *w, int w##h, int w##w, int w##i, int w##o
+#define FF_W4(w) W4{w, w##h, w##w, w##i, w##o}
+extern "C" int ff_edge_refine(const float* lap, int nchw, FF_KERNEL(w1),
+                              const float* b1, FF_KERNEL(w2),
+                              const float* b2, FF_KERNEL(w3),
+                              const float* b3, FF_KERNEL(wp),
+                              const float* bp, FF_KERNEL(a0),
+                              const float* a0b, FF_KERNEL(a2),
                               const float* a2b, float* t1, float* t2,
+                              float* scratch, long long scratch_floats,
                               float* out, int B, int H, int W, int Cin, int F,
                               void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (F != 32 || Cin < 1 ||
+      bad_scratch(scratch, scratch_floats, ff_edge_scratch_floats(Cin, F, 0)))
+    return int(cudaErrorInvalidValue);
+  const EdgePlan q = edge_plan(Cin, F, 0);
+  auto wt = [&](int i) { return scratch + q.off[i]; };
+  SplitJobs<4> jobs;
+  jobs.job[0] = split_job(FF_W4(w1), wt(0), Cin, F, q.coutp[0], kNT[0][0]);
+  jobs.job[1] = split_job(FF_W4(w2), wt(1), F, F, q.coutp[1], kNT[0][1]);
+  jobs.job[2] = split_job(FF_W4(w3), wt(2), F, F, q.coutp[2], kNT[0][2]);
+  add_split_source(jobs.job[2], FF_W4(wp), Cin, 1);
+  jobs.job[3] = split_job(FF_W4(a2), wt(3), F / 4, 1, q.coutp[3], kNT[0][3]);
+  cudaError_t e = split(jobs, stream);
+  if (e != cudaSuccess) return int(e);
+
   const T4 in = tensor(lap, H, W, Cin, nchw), o = tensor(out, H, W, F, nchw);
   const T4 u1 = tensor(t1, H, W, F, 0), u2 = tensor(t2, H, W, F, 0);
-  const T4 sq = tensor(t1, H, W, F / 4, 0);
+  // conv3's outputs, a pixel's hid and squeeze side by side in t1 (conv2
+  // has read it): F + F/4 channels
+  const T4 hid = tensor(t1, H, W, F + F / 4, 0);
+  const T4 sq = T4{t1 + F, hid.sb, hid.sy, hid.sx, 1};
+  const int vin = vec_ok(lap, Cin, nchw);
   int err;
 
-  Conv p = plain(w1, b1, F, kGelu, t1, u1, H, W);
-  add_source(p, in, Cin);
-  if ((err = run(p, B, stream))) return err;
-  p = plain(w2, b2, F, kGelu, t2, u2, H, W);
-  add_source(p, u1, F);
-  if ((err = run(p, B, stream))) return err;
-  p = plain(w3p, b3p, F, kNone, out, o, H, W);
-  add_source(p, u2, F);
-  add_source(p, in, Cin);
-  if ((err = run(p, B, stream))) return err;
-  if ((err = pixel_gate(o, F, a0, a0b, F / 4, nullptr, nullptr, t1, sq, B, H,
-                        W, stream)))
-    return err;
-  p = plain(a2, a2b, 1, kSigmoid, out, o, H, W);
-  add_source(p, sq, F / 4);
-  p.bm = o;
+  Conv p = plain(in, Cin, vin, wt(0), b1, F, q.coutp[0], kGelu, t1, u1, H, W);
+  if ((err = launch<4, 3>(p, B, stream))) return err;
+  p = plain(u1, F, 1, wt(1), b2, F, q.coutp[1], kGelu, t2, u2, H, W);
+  if ((err = launch<4, 3>(p, B, stream))) return err;
+  p = plain(u2, F, 1, wt(2), b3, F, q.coutp[2], kNone, t1, hid, H, W);
+  add_source(p, in, Cin, vin);
+  p.bias2 = bp;
+  p.g0 = a0;
+  p.g0i = a0i;
+  p.g0o = a0o;
+  p.g0b = a0b;
+  p.out2 = t1 + F;
+  p.o2 = sq;
+  if ((err = launch<4, 3, kSqueeze, true>(p, B, stream))) return err;
+  p = plain(sq, F / 4, 1, wt(3), a2b, 1, q.coutp[3], kSigmoid, out, o, H, W);
+  p.bm = hid;
   p.bC = F;
-  return run(p, B, stream);
+  return launch<1, 4, kBroadcast>(p, B, stream);
 }
 
 // sr, out [B, H, W, 3] and f0, f1, f2 [B, H, W, F], NHWC-contiguous or
-// (nchw) NCHW-contiguous; strength one float on the card; conv kernels
-// wf0 (3F -> F, level l's input channels scaled by its weight lw[l]) +
-// bf0, wf2 (F -> 3) + bf2, wg0 (6 -> 16) + bg0,
-// wg2 (16 -> 1) + bg2 [1]; scratch e1 [B, H, W, F], e [B, H, W, 3],
-// g [B, H, W, 16] NHWC. All fp32.
+// (nchw) NCHW-contiguous; lw [3] and strength one float on the card; conv
+// kernels (HWIO, through their strides as refine's) wf0 (3F -> F) + bf0,
+// wf2 (F -> 3) + bf2, wg0 (6 -> 16) + bg0, wg2 (16 -> 1) + bg2 [1];
+// scratch e1 [B, H, W, F], e [B, H, W, 3], g [B, H, W, 16] NHWC and the
+// split weights' (ff_edge_scratch_floats, 16-byte aligned). All fp32.
 extern "C" int ff_edge_fuse(const float* sr, const float* f0, const float* f1,
-                            const float* f2, int nchw,
-                            const float* strength, const float* wf0,
-                            const float* bf0, const float* wf2,
-                            const float* bf2, const float* wg0,
-                            const float* bg0, const float* wg2,
+                            const float* f2, int nchw, const float* lw,
+                            const float* strength, FF_KERNEL(wf0),
+                            const float* bf0, FF_KERNEL(wf2),
+                            const float* bf2, FF_KERNEL(wg0),
+                            const float* bg0, FF_KERNEL(wg2),
                             const float* bg2, float* e1, float* e, float* g,
+                            float* scratch, long long scratch_floats,
                             float* out, int B, int H, int W, int F,
                             void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (F < 1 ||
+      bad_scratch(scratch, scratch_floats, ff_edge_scratch_floats(3, F, 1)))
+    return int(cudaErrorInvalidValue);
+  const EdgePlan q = edge_plan(3, F, 1);
+  auto wt = [&](int i) { return scratch + q.off[i]; };
+  // a source's rows of a kernel: its W4 from row r on
+  auto rows = [](W4 w, int r) {
+    w.p += r * w.si;
+    return w;
+  };
+  SplitJobs<4> jobs;
+  jobs.job[0] = split_job(wt(0), F, q.coutp[0], kNT[1][0]);
+  for (int l = 0; l < 3; ++l)  // level l's rows, scaled by lw[l]
+    add_split_source(jobs.job[0], rows(FF_W4(wf0), l * F), F, 3, lw + l);
+  jobs.job[1] = split_job(FF_W4(wf2), wt(1), F, 3, q.coutp[1], kNT[1][1]);
+  jobs.job[2] = split_job(wt(2), kGate, q.coutp[2], kNT[1][2]);
+  add_split_source(jobs.job[2], FF_W4(wg0), 3);           // sr's rows
+  add_split_source(jobs.job[2], rows(FF_W4(wg0), 3), 3);  // edge's
+  jobs.job[3] = split_job(FF_W4(wg2), wt(3), kGate, 1, q.coutp[3], kNT[1][3]);
+  cudaError_t ce = split(jobs, stream);
+  if (ce != cudaSuccess) return int(ce);
+
   const T4 s = tensor(sr, H, W, 3, nchw);
   const T4 u1 = tensor(e1, H, W, F, 0), ue = tensor(e, H, W, 3, 0);
-  const T4 ug = tensor(g, H, W, 16, 0);
+  const T4 ug = tensor(g, H, W, kGate, 0);
   int err;
 
-  Conv p = plain(wf0, bf0, F, kGelu, e1, u1, H, W);
-  add_source(p, tensor(f0, H, W, F, nchw), F);
-  add_source(p, tensor(f1, H, W, F, nchw), F);
-  add_source(p, tensor(f2, H, W, F, nchw), F);
-  if ((err = run(p, B, stream))) return err;
-  p = plain(wf2, bf2, 3, kNone, e, ue, H, W);
-  add_source(p, u1, F);
-  if ((err = run(p, B, stream))) return err;
-  p = plain(wg0, bg0, 16, kGelu, g, ug, H, W);
-  add_source(p, s, 3);
-  add_source(p, ue, 3);
-  if ((err = run(p, B, stream))) return err;
-  p = plain(wg2, bg2, 1, kSigmoid, out, tensor(out, H, W, 3, nchw), H, W);
-  add_source(p, ug, 16);
+  Conv p = plain(tensor(f0, H, W, F, nchw), F, vec_ok(f0, F, nchw), wt(0),
+                 bf0, F, q.coutp[0], kGelu, e1, u1, H, W);
+  add_source(p, tensor(f1, H, W, F, nchw), F, vec_ok(f1, F, nchw));
+  add_source(p, tensor(f2, H, W, F, nchw), F, vec_ok(f2, F, nchw));
+  if ((err = launch<4, 3, kStore, true>(p, B, stream))) return err;
+  p = plain(u1, F, vec_ok(e1, F, 0), wt(1), bf2, 3, q.coutp[1], kNone, e, ue,
+            H, W);
+  if ((err = launch<1, 4>(p, B, stream))) return err;
+  p = plain(s, 3, 0, wt(2), bg0, kGate, q.coutp[2], kGelu, g, ug, H, W);
+  add_source(p, ue, 3, 0);
+  if ((err = launch<2, 4, kStore, true>(p, B, stream))) return err;
+  p = plain(ug, kGate, 1, wt(3), bg2, 1, q.coutp[3], kSigmoid, out,
+            tensor(out, H, W, 3, nchw), H, W);
   p.ba = s;
   p.bm = ue;
   p.bk = strength;
   p.bC = 3;
   p.clamp = 1;
-  return run(p, B, stream);
+  return launch<1, 4, kBroadcast>(p, B, stream);
 }
+
+#undef FF_W4
+#undef FF_KERNEL

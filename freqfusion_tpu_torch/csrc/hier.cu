@@ -18,7 +18,7 @@
 // TFLOP/s, 2.86 ms as three TF32 products at 495 TFLOP/s) against 79
 // channels of 4 bytes in and out per pixel (0.87 GB, 0.26 ms at 3.35
 // TB/s). The old body ran the convs as register-tiled fp32 FMA loops
-// (csrc/conv3x3.cuh, 27.4 ms on an H100 at 700 W), held by FMA issue. So
+// (27.4 ms on an H100 at 700 W), held by FMA issue. So
 // every conv runs on the tensor cores in 3xTF32, as an implicit GEMM
 // (csrc/conv3x3_tf32.cuh, #15's convolution without its LayerNorm): 9.5-9.6
 // ms there, the convs at ~125-150 TFLOP/s of tensor work.
@@ -105,8 +105,9 @@ extern "C" int ff_hier_stage3(const float* s3, int nchw, const float* w0,
   const float* w[6] = {w0, w2, r0, r2, t0, t2};
   SplitJobs<6> jobs;
   for (int i = 0; i < 6; ++i)
-    jobs.job[i] = SplitJob{w[i], scratch + q.off[i], q.cin[i], q.cout[i],
-                           q.cinp[i], q.coutp[i], kNT[i]};
+    jobs.job[i] = split_job(hwio(w[i], 3, q.cin[i], q.cout[i]),
+                            scratch + q.off[i], q.cin[i], q.cout[i],
+                            q.coutp[i], kNT[i]);
   cudaError_t e = split(jobs, stream);
   if (e != cudaSuccess) return int(e);
 
@@ -114,8 +115,7 @@ extern "C" int ff_hier_stage3(const float* s3, int nchw, const float* w0,
   const T4 in = tensor(s3, H, W, Cin, nchw);
   const T4 a64 = tensor(buf64, H, W, C1, 0), a32 = tensor(buf32, H, W, c2, 0);
   const T4 g32 = tensor(buf64, H, W, c2, 0), r16 = tensor(buf64, H, W, ct, 0);
-  const int vec_in = !nchw && Cin % 4 == 0 &&
-                     reinterpret_cast<size_t>(s3) % 16 == 0;
+  const int vec_in = vec_ok(s3, Cin, nchw);
   auto wt = [&](int i) { return scratch + q.off[i]; };
   int err;
 
@@ -127,7 +127,7 @@ extern "C" int ff_hier_stage3(const float* s3, int nchw, const float* w0,
   p.g0b = g0b;
   p.g2 = g2;
   p.g2b = g2b;
-  if ((err = launch<4, 3, true>(p, B, stream))) return err;
+  if ((err = launch<4, 3, kSpatialGate>(p, B, stream))) return err;
   p = plain(a32, c2, 1, wt(2), nullptr, c2, q.coutp[2], kGelu, buf64, g32, H,
             W);
   if ((err = launch<4, 3>(p, B, stream))) return err;

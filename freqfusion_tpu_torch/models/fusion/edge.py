@@ -24,7 +24,6 @@ from ...ops.edge import edge_fuse_fused, edge_refine_fused
 from ...ops.resize import resize_bilinear
 from ...ops.window_attention import device_table
 from .. import common
-from ..common import hwio
 
 __all__ = ["EdgeRefineBlock", "LaplacianPyramidRefinement",
            "gaussian_blur_5x5"]
@@ -43,6 +42,13 @@ def gaussian_blur_5x5(x: torch.Tensor) -> torch.Tensor:
     k = device_table(_gaussian_kernel_np, 5, 1.5, device=x.device)
     return F.conv2d(x, k.view(1, 1, 5, 5).expand(c, 1, 5, 5), padding=2,
                     groups=c)
+
+
+def _hwio_view(conv: nn.Conv2d) -> dict:
+    """A Conv2d's parameters as {kernel [kh, kw, Cin, Cout], bias}, the
+    kernel a view of the OIHW weight, no copy: ``ops/edge.py`` reads it
+    through its strides."""
+    return {"kernel": conv.weight.permute(2, 3, 1, 0), "bias": conv.bias}
 
 
 class _SpatialAttention(nn.Module):
@@ -69,11 +75,13 @@ class EdgeRefineBlock(nn.Module):
         return self.attn(self.conv3(h) + self.proj(x))
 
     def fused_params(self) -> dict:
-        """The block as the flax tree ``ops/edge.py`` takes."""
-        return {"proj": hwio(self.proj), "conv1": hwio(self.conv1),
-                "conv2": hwio(self.conv2), "conv3": hwio(self.conv3),
-                "attn_0": hwio(self.attn.conv[0]),
-                "attn_2": hwio(self.attn.conv[2])}
+        """The block as the flax tree ``ops/edge.py`` takes, the kernels
+        as views (``ops/edge.py`` reads them through their strides)."""
+        return {"proj": _hwio_view(self.proj), "conv1": _hwio_view(self.conv1),
+                "conv2": _hwio_view(self.conv2),
+                "conv3": _hwio_view(self.conv3),
+                "attn_0": _hwio_view(self.attn.conv[0]),
+                "attn_2": _hwio_view(self.attn.conv[2])}
 
 
 def build_laplacian_pyramid(img: torch.Tensor, num_levels: int
@@ -136,8 +144,8 @@ class LaplacianPyramidRefinement(nn.Module):
 
     def fuse_params(self) -> dict:
         """The fusion and edge gate as the flax tree ``ops/edge.py``'s fuse
-        takes."""
-        return {"fusion_0": hwio(self.fusion[0]),
-                "fusion_2": hwio(self.fusion[2]),
-                "edge_gate_0": hwio(self.edge_gate[0]),
-                "edge_gate_2": hwio(self.edge_gate[2])}
+        takes, the kernels as views."""
+        return {"fusion_0": _hwio_view(self.fusion[0]),
+                "fusion_2": _hwio_view(self.fusion[2]),
+                "edge_gate_0": _hwio_view(self.edge_gate[0]),
+                "edge_gate_2": _hwio_view(self.edge_gate[2])}

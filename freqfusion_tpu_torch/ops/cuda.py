@@ -78,8 +78,11 @@ _SIGNATURES = {
                     + [_P] * 4 + [_L, _P] + [_I] * 5 + [_P],
     "ff_hier_scratch_floats": [_I] * 2,
     "ff_hier_stage3": [_P, _I] + [_P] * 19 + [_L, _P] + [_I] * 5 + [_P],
-    "ff_edge_refine": [_P, _I] + [_P] * 13 + [_I] * 5 + [_P],
-    "ff_edge_fuse": [_P] * 4 + [_I] + [_P] * 13 + [_I] * 4 + [_P],
+    "ff_edge_scratch_floats": [_I] * 3,
+    "ff_edge_refine": [_P, _I] + ([_P] + [_I] * 4 + [_P]) * 6 + [_P] * 3
+                      + [_L, _P] + [_I] * 5 + [_P],
+    "ff_edge_fuse": [_P] * 4 + [_I] + [_P] * 2 + ([_P] + [_I] * 4 + [_P]) * 4
+                    + [_P] * 4 + [_L, _P] + [_I] * 4 + [_P],
     "ff_layernorm": [_P] * 4 + [_I] * 3 + [_F, _P],
 }
 # entries that return a count of 64 bits (the rest return an int)
@@ -87,7 +90,7 @@ _RETURNS_LONG = ("ff_fused_mlp_scratch_floats", "ff_cab_scratch_floats",
                  "ff_nafblock_scratch_floats",
                  "ff_window_attention_qkv_scratch_floats",
                  "ff_grl_qkv_scratch_floats", "ff_hier_scratch_floats",
-                 "ff_lka_scratch_floats")
+                 "ff_lka_scratch_floats", "ff_edge_scratch_floats")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

@@ -1157,6 +1157,113 @@ def test_hier_precision_guard(fp32_plain):
     assert one > tol
 
 
+def _edge_refine_tree(rng, dev):
+    return _tree(rng, {"proj": _conv(1, 3, 32), "conv1": _conv(3, 3, 32),
+                       "conv2": _conv(3, 32, 32), "conv3": _conv(3, 32, 32),
+                       "attn_0": _conv(1, 32, 8), "attn_2": _conv(3, 8, 1)},
+                 dev)
+
+
+def _one_product_conv(x, q):
+    """A 3x3 conv as one TF32 product: its input and kernel rounded to
+    TF32, summed in float64."""
+    from freqfusion_tpu_torch.ops.hier import conv3x3
+
+    d = torch.float64
+    return conv3x3(_tf32(x).to(d), {"kernel": _tf32(q["kernel"]).to(d),
+                                    "bias": q["bias"].to(d)})
+
+
+def _edge_refine_one_product(lap, p):
+    """The EdgeRefineBlock with one TF32 product a conv (the projection's
+    too: the kernel runs it inside conv3), the squeeze in float64."""
+    from freqfusion_tpu_torch.ops.hier import dense1x1
+
+    d, gelu = torch.float64, torch.nn.functional.gelu
+    h = gelu(_one_product_conv(gelu(_one_product_conv(lap, p["conv1"])),
+                               p["conv2"]))
+    proj = {"kernel": _tf32(p["proj"]["kernel"]).to(d),
+            "bias": p["proj"]["bias"].to(d)}
+    t = _one_product_conv(h, p["conv3"]) + dense1x1(_tf32(lap).to(d), proj)
+    sq = gelu(dense1x1(t, {k: v.to(d) for k, v in p["attn_0"].items()}))
+    return t * torch.sigmoid(_one_product_conv(sq, p["attn_2"]))
+
+
+@pytest.mark.cuda
+def test_edge_refine_precision_guard(fp32_plain):
+    """Large inputs (lap 8 + N(0, 1) as the fusion net's NCHW view): the
+    kernel's 3xTF32 convs hold FUSED_REL_TOL, while the same block with one
+    TF32 product a conv misses it, by ~8x on the CPU's model of such inputs
+    (tests/test_torch_edge_plan.py)."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(29)
+    p = _edge_refine_tree(rng, dev)
+    lap = _t(8 + rng.normal(size=(1, 3, 48, 64)), dev).permute(0, 2, 3, 1)
+    want = edge_refine_fused_reference(lap, p)
+    tol = FUSED_REL_TOL * max(1.0, want.abs().max().item())
+    err = (edge_refine_fused(lap, p) - want).abs().max().item()
+    one = (_edge_refine_one_product(lap, p) - want.double()).abs().max()
+    assert err <= tol
+    assert one.item() > tol
+
+
+def _edge_fuse_one_product(sr, feats, lw, strength, p):
+    """The edge fuse with one TF32 product a conv (fusion_0's kernel rows
+    scaled by the level weights in fp32, as the kernel's split does);
+    returns the output and the value before the clip."""
+    d, gelu = torch.float64, torch.nn.functional.gelu
+    f = feats[0].shape[-1]
+    w0 = {"kernel": p["fusion_0"]["kernel"] * lw.repeat_interleave(f)[:, None],
+          "bias": p["fusion_0"]["bias"]}
+    e1 = gelu(_one_product_conv(torch.cat(feats, -1), w0))
+    edge = _one_product_conv(e1, p["fusion_2"])
+    g = gelu(_one_product_conv(torch.cat([sr.to(d), edge], -1),
+                               p["edge_gate_0"]))
+    gate = torch.sigmoid(_one_product_conv(g, p["edge_gate_2"]))
+    pre = sr.to(d) + gate * strength.to(d) * edge
+    return pre.clamp(0.0, 1.0), pre
+
+
+@pytest.mark.cuda
+def test_edge_fuse_precision_guard(fp32_plain):
+    """Levels 8 + N(0, 1), sr 0.5 + 0.1 N(0, 1) and strength 1, as the
+    fusion net's NCHW views; fusion_2's bias minus the mean of its conv
+    over the image (an edge of large terms that cancel) and the gate held
+    near 0.2 (edge_gate_2's kernel at a tenth, its bias log(0.25)), so
+    that under 10% of the outputs clip (under 1% on the CPU's model): the
+    kernel's 3xTF32 convs hold FUSED_REL_TOL through the clipped output,
+    while one TF32 product a conv misses it, by ~5x on the CPU's model
+    (tests/test_torch_edge_plan.py)."""
+    from freqfusion_tpu_torch.ops.hier import conv3x3
+
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(31)
+    p = _tree(rng, {"fusion_0": _conv(3, 96, 32), "fusion_2": _conv(3, 32, 3),
+                    "edge_gate_0": _conv(3, 6, 16),
+                    "edge_gate_2": _conv(3, 16, 1)}, dev)
+    hw = (48, 64)
+    sr = _t(np.clip(0.5 + 0.1 * rng.normal(size=(1, 3, *hw)), 0, 1),
+            dev).permute(0, 2, 3, 1)
+    feats = [_t(8 + rng.normal(size=(1, 32, *hw)), dev).permute(0, 2, 3, 1)
+             for _ in range(3)]
+    lw = torch.softmax(_t(rng.normal(size=3), dev), 0)
+    strength = _t(1.0, dev)
+    p["edge_gate_2"]["kernel"].mul_(0.1)
+    p["edge_gate_2"]["bias"].fill_(float(np.log(0.25)))
+    allf = torch.cat([t * lw[i] for i, t in enumerate(feats)], -1)
+    e = conv3x3(torch.nn.functional.gelu(conv3x3(allf, p["fusion_0"])),
+                {"kernel": p["fusion_2"]["kernel"]})
+    p["fusion_2"]["bias"] = -e.mean((0, 1, 2))
+    want = edge_fuse_fused_reference(sr, *feats, lw, strength, p)
+    tol = FUSED_REL_TOL * max(1.0, want.abs().max().item())
+    err = (edge_fuse_fused(sr, *feats, lw, strength, p)
+           - want).abs().max().item()
+    one, pre = _edge_fuse_one_product(sr, feats, lw, strength, p)
+    assert ((pre < 0) | (pre > 1)).double().mean().item() < 0.1
+    assert err <= tol
+    assert (one - want.double()).abs().max().item() > tol
+
+
 def _lka_tree(rng, c, dev, scale=1.0):
     bn = {"scale": (c,), "bias": (c,), "mean": (c,), "var": (c,)}
     p = _tree(rng, {"norm1": bn, "norm2": bn,
@@ -1225,6 +1332,22 @@ def test_fusion_eval_plans_match_the_kernels(b, h, w, c, ch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cin,f", [(3, 32), (5, 20)])
+def test_edge_plans_match_the_kernels(cin, f):
+    """ops/edge.py:plan_edge sizes the scratch as csrc/edge.cu's edge_plan
+    lays it out, for refine (a level of cin channels) and fuse (levels of
+    f channels)."""
+    from freqfusion_tpu_torch.ops.edge import plan_edge
+
+    cuda_or_skip()
+    lib = cuda.library()
+    assert lib.ff_edge_scratch_floats(cin, 32, 0) == plan_edge(
+        8, 8, cin).scratch_floats
+    assert lib.ff_edge_scratch_floats(3, f, 1) == plan_edge(
+        8, 8, 3, f, fuse=True).scratch_floats
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("nchw", [False, True])
 @pytest.mark.parametrize("hw", BORDER_SHAPES)
 def test_edge_refine_kernel(nchw, hw, fp32_plain):
@@ -1260,6 +1383,32 @@ def test_edge_fuse_kernel(nchw, hw, fp32_plain):
     got = edge_fuse_fused(sr, *feats, lw, strength, p)
     assert dict(cuda.launch_counts) == {"edge_fuse_fused": 1}
     _fused_close(got, edge_fuse_fused_reference(sr, *feats, lw, strength, p))
+
+
+@pytest.mark.cuda
+def test_edge_kernels_take_module_views(fp32_plain):
+    """The modules hand their kernels as views of PyTorch's OIHW weights,
+    not copies: both kernels read them through their strides, batch 2 at a
+    border shape, in the NCHW views the fusion net hands them."""
+    from freqfusion_tpu_torch.models.fusion.edge import (
+        EdgeRefineBlock, LaplacianPyramidRefinement)
+
+    dev = cuda_or_skip()
+    torch.manual_seed(0)
+    rm = EdgeRefineBlock(3, 32).to(dev).requires_grad_(False)
+    em = LaplacianPyramidRefinement(3, 32, 0.15).to(dev).requires_grad_(False)
+    tree, fuse_tree = rm.fused_params(), em.fuse_params()
+    assert not tree["conv2"]["kernel"].is_contiguous()
+    assert not fuse_tree["fusion_0"]["kernel"].is_contiguous()
+    rng = np.random.default_rng(37)
+    lap = _image(rng, 2, (45, 70), 3, True, dev)
+    _fused_close(edge_refine_fused(lap, tree),
+                 edge_refine_fused_reference(lap, tree))
+    sr = _image(rng, 2, (45, 70), 3, True, dev, uniform=True)
+    feats = [_image(rng, 2, (45, 70), 32, True, dev) for _ in range(3)]
+    args = (sr, *feats, torch.softmax(em.level_weights, 0), em.edge_strength,
+            fuse_tree)
+    _fused_close(edge_fuse_fused(*args), edge_fuse_fused_reference(*args))
 
 
 @pytest.mark.cuda
