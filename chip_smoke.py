@@ -56,7 +56,12 @@ exits non-zero without the final ok line):
    one call's launches at C 244; GRL's (#12, likewise) its 3xTF32 bound a
    shape, its share of a request (20 launches a shape) and one shifted
    call's launches (weight split, rows passes, the two GEMMs, the
-   attention). For the fusion-eval kernels (the
+   attention); the token attention's (#13, its projections 3xTF32, handed
+   the module's weight views) the route the gate replaces (the module's
+   forward), its 3xTF32 bound a geometry (the attention's fp32-core work a
+   third term), its plan, its share of a request (one launch a geometry)
+   and one T 4 call's launches (weight layout, attention). For the
+   fusion-eval kernels (the
    LKABlock at C 64 and C 128 on the 336x512 bucket; hierarchical stage
    3, the edge fuse and the three edge refine levels at the 1344x2048 HR
    size and below, in the NCHW views the modules hand them) it prints the
@@ -117,14 +122,16 @@ the card's name and power limit (card: ...), and
     python3 chip_smoke.py --scan-only
     python3 chip_smoke.py --nhwc-attention-only
     python3 chip_smoke.py --grl-only
+    python3 chip_smoke.py --token-only
 
 run phase 1 and phase 2's four byte-floor kernels, its three in-kernel
 projection kernels, its four fusion-eval kernels, the scan's seven
-contracts, window attention #1 alone at its ten shapes, or GRL's mixed
-attention #2 and #12 at GRL-B's two shapes, only (to compare two versions
-of them in one call; --fusion-only and the last two also run beside an
-older checkout of the package), and print their summary instead of the ok
-line.
+contracts, window attention #1 alone at its ten shapes, GRL's mixed
+attention #2 and #12 at GRL-B's two shapes, or the token attention #13 at
+the fusion net's two geometries, only (to compare two versions of them in
+one call; --fusion-only, --nhwc-attention-only and --grl-only also run
+beside an older checkout of the package), and print their summary instead
+of the ok line.
 
     python3 chip_smoke.py --pipeline-only [CONFIG]
 
@@ -175,7 +182,8 @@ PEAK_BYTES = 3.35e12   # H100 SXM HBM3
 # and 6 n-tiles a block); the NAFBlock's and #11's GEMM (64 and 128
 # columns a block, each epilogue, #12's too); GRL mixed attention's body
 # at GRL-B's head box; every instantiation of the 3x3 conv (#19-#21)
-# and of #18's kernels
+# and of #18's kernels; the token attention's (#13) at the path's two
+# geometries (T 9 with 8 warps, T 4 with 16) and its layout pass
 DRCT_HEAD_BOXES = (32, 56, 128, 48, 80)
 # GRL mixed attention's head box at GRL-B (head dim 30), csrc/
 # grl_attention.cuh, in both sources that build it (#2, #12)
@@ -548,7 +556,9 @@ def check_spills(log: str, required: bool) -> None:
     and down products, csrc/fused_mlp.cu; the CAB's convs, csrc/cab.cu;
     the 3xTF32 GEMM of csrc/tf32_gemm.cuh in nafblock.cu and
     window_attention_qkv.cu; the 3x3 conv of csrc/conv3x3_tf32.cuh in
-    hier.cu and edge.cu; the LKABlock's three kernels, csrc/lka.cu) and
+    hier.cu and edge.cu; the LKABlock's three kernels, csrc/lka.cu; the
+    token attention's at the path's two geometries and its layout pass,
+    csrc/token_attention.cu) and
     raise if one spills, or (`required`) if one of the groups has no
     report."""
     import re
@@ -584,6 +594,13 @@ def check_spills(log: str, required: bool) -> None:
             lambda m: f"{m.group(1)} n-tiles x {m.group(2)} m-tiles a warp, "
                       + CONV_EPILOGUES[int(m.group(3))] + " epilogue"
                       + (", several sources" if m.group(4) == "1" else "")),
+        "token attention (#13)": (
+            r"token_attention_(?:kernelILi(\d)ELi(\d+)ELi(\d+)E|"
+            r"(prep)_kernel)",
+            lambda m: m.group(4) or m.group(3) != "0",
+            lambda m: "layout pass" if m.group(4)
+            else f"{4 * int(m.group(1))} warps, {m.group(2)} out n-tiles a "
+                 f"warp, T {m.group(3)}"),
         "LKA (#18)": (
             r"lka_(mix)_kernelILi(\d+)ELi(\d+)ELi(\d+)E|lka_(dw|prep)_kernel",
             lambda m: True,
@@ -1026,24 +1043,69 @@ def phase_qkv_kernels(dev, randn, checks) -> None:
 
     phase_grl_qkv_kernel(dev, randn, checks)
 
+    phase_token_kernel(dev, randn, checks)
+
+
+def phase_token_kernel(dev, randn, checks) -> None:
+    """Kernel #13 at the fusion net's two geometries over the 336x512
+    bucket's pixels (also ``--token-only``), handed the weights as the
+    gated module hands them (the transposed views of its torch-layout
+    weights), beside nn.MultiheadAttention (the library call), its
+    two-term 3xTF32 bound (the projections on the tensor cores; the
+    attention, 4 T^2 E a pixel, on the fp32 cores, a third term), its plan
+    (tiles, shared memory, L2 weight bytes), one launch a geometry a
+    request, and the gate-off route (the module's forward: F.linear, two
+    einsums, softmax, out_proj); one T 4 call's launches (the weight
+    layout and the attention kernel) by torch.profiler."""
+    from freqfusion_tpu_torch.models.fusion.lka import TokenMultiheadAttention
+    from freqfusion_tpu_torch.ops.token_attention import (
+        plan_token_attention, token_attention, token_attention_reference)
+
+    h, w = LR_SIZES["c_336x512"]
+    p = h * w
+    set_gates("default")  # the module's forward below is the gate-off route
     ta = checks["token_attention"] = KernelCheck("token_attention")
+    tc = TensorCoreBound("token_attention")
     for t, e, nh in ((9, 64, 4), (4, 128, 8)):
         x = randn(p, t, e)
-        args = (x, randn(e, 3 * e, scale=e ** -0.5), randn(3 * e, scale=0.1),
-                randn(e, e, scale=e ** -0.5), randn(e, scale=0.1), nh)
+        mod = TokenMultiheadAttention(e, nh).to(dev).eval().requires_grad_(
+            False)
+        mod.in_proj_weight.copy_(randn(3 * e, e, scale=e ** -0.5))
+        mod.in_proj_bias.copy_(randn(3 * e, scale=0.1))
+        mod.out_proj.weight.copy_(randn(e, e, scale=e ** -0.5))
+        mod.out_proj.bias.copy_(randn(e, scale=0.1))
+        args = (x, mod.in_proj_weight.t(), mod.in_proj_bias,
+                mod.out_proj.weight.t(), mod.out_proj.bias, nh)
         mha = torch.nn.MultiheadAttention(e, nh, batch_first=True).to(
             dev).eval().requires_grad_(False)
-        mha.in_proj_weight.copy_(args[1].t())
-        mha.in_proj_bias.copy_(args[2])
-        mha.out_proj.weight.copy_(args[3].t())
-        mha.out_proj.bias.copy_(args[4])
-        ta.run(f"T{t}/E{e}/h{nh}/P{p}", lambda: token_attention(*args),
-               lambda: token_attention_reference(*args), fused_tol,
-               p * (2.0 * t * e * 3 * e + 2.0 * t * e * e + 4.0 * t * t * e),
-               4 * (2 * p * t * e + 4 * e * e + 4 * e),
-               lambda: mha(x, x, x, need_weights=False)[0])
-        del x, args, mha
+        mha.in_proj_weight.copy_(mod.in_proj_weight)
+        mha.in_proj_bias.copy_(mod.in_proj_bias)
+        mha.out_proj.weight.copy_(mod.out_proj.weight)
+        mha.out_proj.bias.copy_(mod.out_proj.bias)
+        label = f"T{t}/E{e}/h{nh}/P{p}"
+        products = p * (2.0 * t * e * 3 * e + 2.0 * t * e * e)
+        core = p * 4.0 * t * t * e
+        nbytes = 4 * (2 * p * t * e + 4 * e * e + 4 * e)
+        ms = ta.run(label, lambda: token_attention(*args),
+                    lambda: token_attention_reference(*args), fused_tol,
+                    products + core, nbytes,
+                    lambda: mha(x, x, x, need_weights=False)[0])
+        tc.shape(label, ms, products, nbytes, 1, core_flops=core)
+        plan = plan_token_attention(p, t, e, nh)
+        print(f"  token_attention {label} plan: {4 * plan.wc} warps in "
+              f"{plan.teams} teams of {plan.pixels} pixels ({plan.rows} of "
+              f"{plan.rows_pad} rows) a tile, {plan.tiles} tiles, "
+              f"{plan.smem} bytes of shared memory a block "
+              f"({plan.blocks_per_sm} an SM by it), weight bytes from L2 "
+              f"{plan.l2_weight_bytes / 1e9:.3f} GB a call")
+        if t == 4:
+            launch_breakdown(f"#13 {label}", lambda: token_attention(*args))
+        ta.route(label, lambda: token_attention(*args), lambda: mod(x),
+                 "the module's forward: F.linear, 2 einsums, softmax, "
+                 "out_proj")
+        del x, args, mha, mod
         torch.cuda.empty_cache()
+    tc.total(ta)
 
 
 def phase_grl_kernels(dev, randn, checks) -> None:
@@ -1604,7 +1666,9 @@ def main(argv) -> int:
                                functools.partial(phase_window_kernels,
                                                  window_major=False)),
                               ("--grl-only", "GRL mixed attention (#2, #12)",
-                               phase_grl_kernels)):
+                               phase_grl_kernels),
+                              ("--token-only", "token attention (#13)",
+                               phase_token_kernel)):
         if flag in argv:
             print(f"[2] the {what} kernels against their plain versions")
             checks = {}

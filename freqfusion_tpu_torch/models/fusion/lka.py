@@ -131,12 +131,12 @@ class TokenMultiheadAttention(nn.Module):
         e = x.shape[-1]
         if gate("FREQFUSION_TOKEN_ATTN"):
             # the whole per-pixel MHA in one kernel, over P = the leading
-            # dims flattened; the kernel takes [in, out] weights
+            # dims flattened; the kernel reads the [in, out] views of the
+            # weights through their strides (no copy)
             flat = x.reshape(-1, *x.shape[-2:]).contiguous()
             out = token_attention(
-                flat, self.in_proj_weight.t().contiguous(), self.in_proj_bias,
-                self.out_proj.weight.t().contiguous(), self.out_proj.bias,
-                self.num_heads)
+                flat, self.in_proj_weight.t(), self.in_proj_bias,
+                self.out_proj.weight.t(), self.out_proj.bias, self.num_heads)
             return out.reshape(x.shape)
         hd = e // self.num_heads
         q, k, v = F.linear(x, self.in_proj_weight,

@@ -72,7 +72,9 @@ _SIGNATURES = {
                                     + [_F, _I, _I, _P],
     "ff_grl_qkv_scratch_floats": [_L, _I, _I],
     "ff_grl_mixed_attention_qkv_nhwc": [_P] * 15 + [_L] + [_I] * 9 + [_P],
-    "ff_token_attention": [_P] * 6 + [_I] * 4 + [_P],
+    "ff_token_attention_scratch_floats": [_L] + [_I] * 3,
+    "ff_token_attention": [_P, _P, _L, _L, _P, _P, _L, _L] + [_P] * 3
+                          + [_L, _L] + [_I] * 3 + [_P],
     "ff_lka_scratch_floats": [_L, _I, _I],
     "ff_lka_block": [_P] * 13 + [_P, _I, _I] * 5 + [_P] + [_P, _I, _I]
                     + [_P] * 4 + [_L, _P] + [_I] * 5 + [_P],
@@ -90,7 +92,8 @@ _RETURNS_LONG = ("ff_fused_mlp_scratch_floats", "ff_cab_scratch_floats",
                  "ff_nafblock_scratch_floats",
                  "ff_window_attention_qkv_scratch_floats",
                  "ff_grl_qkv_scratch_floats", "ff_hier_scratch_floats",
-                 "ff_lka_scratch_floats", "ff_edge_scratch_floats")
+                 "ff_lka_scratch_floats", "ff_edge_scratch_floats",
+                 "ff_token_attention_scratch_floats")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

@@ -974,23 +974,97 @@ def test_grl_qkv_plan_matches_the_kernel(m, cin, c2):
         plan.scratch_floats)
 
 
+def _token_args(rng, p, t, e, nh, dev, views, offset=0.0):
+    """x [p, t, e] (offset + N(0, 1)) and fan-in scaled weights on the
+    card; with `views`, the weights as the gated module hands them: the
+    transposed views of torch-layout [3E, E] and [E, E] tensors."""
+    win = rng.normal(size=(e, 3 * e)) / np.sqrt(e)
+    wout = rng.normal(size=(e, e)) / np.sqrt(e)
+    if views:
+        win_t, wout_t = _t(win.T, dev), _t(wout.T, dev)
+        win, wout = win_t.t(), wout_t.t()
+    else:
+        win, wout = _t(win, dev), _t(wout, dev)
+    return [_t(offset + rng.normal(size=(p, t, e)), dev), win,
+            _t(0.1 * rng.normal(size=3 * e), dev), wout,
+            _t(0.1 * rng.normal(size=e), dev), nh]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("t,e,nh", [(9, 64, 4), (4, 128, 8)])
-@pytest.mark.parametrize("p", [14000, 5])
-def test_token_attention_kernel(t, e, nh, p, fp32_plain):
+@pytest.mark.parametrize("p", [14000, 5, 336 * 512])
+@pytest.mark.parametrize("views", [False, True])
+def test_token_attention_kernel(t, e, nh, p, views, fp32_plain):
     """Both fusion-net geometries at P = 100 x 140 (not a multiple of the
-    7 or 16 pixels a block holds) and at P = 5 (one partial block)."""
+    14 or 32 pixels a tile holds), at P = 5 (one partial tile) and at the
+    path's P = 336 x 512; the weights contiguous [in, out] and as the
+    module's transposed views (strides (1, E))."""
     dev = cuda_or_skip()
     rng = np.random.default_rng(t + p)
-    args = (_t(rng.normal(size=(p, t, e)), dev),
-            _t(rng.normal(size=(e, 3 * e)) / np.sqrt(e), dev),
-            _t(0.1 * rng.normal(size=3 * e), dev),
-            _t(rng.normal(size=(e, e)) / np.sqrt(e), dev),
-            _t(0.1 * rng.normal(size=e), dev), nh)
+    args = _token_args(rng, p, t, e, nh, dev, views)
     cuda.reset_launch_counts()
     got = token_attention(*args)
     assert dict(cuda.launch_counts) == {"token_attention": 1}
     _fused_close(got, token_attention_reference(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,e,nh", [(16, 160, 1), (16, 160, 2), (9, 160, 10),
+                                    (3, 12, 4), (2, 72, 6), (6, 120, 10),
+                                    (1, 4, 1)])
+def test_token_attention_other_geometries_kernel(t, e, nh, fp32_plain):
+    """Off the path: heads wider than 16 (a group each; one team of 32
+    rows at E 160 in one head, two at E 160 in two), heads of 16 or less
+    two a group at E > 64 (E 160: teams of 32 rows; E 120 in ten heads of
+    12: a zero head pads the last group), E 12 and E 4 (K padded to 8), P
+    = 1001."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(t + e + nh)
+    args = _token_args(rng, 1001, t, e, nh, dev, True)
+    _fused_close(token_attention(*args), token_attention_reference(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,e,nh", [(9, 64, 4), (4, 128, 8)])
+def test_token_attention_precision_guard(t, e, nh, fp32_plain):
+    """x 2 + N(0, 1) and out_b centred (minus the mean over rows of the
+    output it would give: a moderate output of larger terms): the kernel's
+    3xTF32 projections hold FUSED_REL_TOL, while the same attention with
+    both projections' operands rounded to TF32 (one TF32 product; the
+    attention in float64) misses it, by ~13x on the CPU's model of these
+    inputs (tests/test_torch_token_attention_plan.py)."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(t + 13)
+    args = _token_args(rng, 2000, t, e, nh, dev, True, offset=2.0)
+    args[4] = args[4] - token_attention_reference(*args).reshape(
+        -1, e).mean(0)
+    x, win, bin_, wout, bout = args[:5]
+    want = token_attention_reference(*args)
+    tol = FUSED_REL_TOL * max(1.0, want.abs().max().item())
+    err = (token_attention(*args) - want).abs().max().item()
+    d, hd = torch.float64, e // nh
+    q, k, v = (_tf32(x).to(d) @ _tf32(win).to(d) + bin_.to(d)).reshape(
+        -1, t, 3, nh, hd).unbind(2)
+    att = torch.einsum("pqhd,pkhd->phqk", q, k) / hd ** 0.5
+    o = torch.einsum("phqk,pkhd->pqhd", att.softmax(-1), v).reshape(-1, t, e)
+    one = (_tf32(o).to(d) @ _tf32(wout).to(d) + bout.to(d)
+           - want.to(d)).abs().max().item()
+    assert err <= tol
+    assert one > tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,t,e,nh", [(336 * 512, 9, 64, 4),
+                                      (336 * 512, 4, 128, 8), (5, 16, 160, 1),
+                                      (7, 3, 12, 4)])
+def test_token_attention_plan_matches_the_kernel(p, t, e, nh):
+    """ops/token_attention.py:plan_token_attention sizes the scratch as
+    csrc/token_attention.cu's ta_plan lays it out."""
+    from freqfusion_tpu_torch.ops.token_attention import plan_token_attention
+
+    cuda_or_skip()
+    assert cuda.library().ff_token_attention_scratch_floats(p, t, e, nh) == (
+        plan_token_attention(p, t, e, nh).scratch_floats)
 
 
 def _tree(rng, spec, dev):
