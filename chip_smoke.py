@@ -71,7 +71,13 @@ exits non-zero without the final ok line):
    cores, a third term), their share of a request (9 LKABlocks at C 64
    and 4 at C 128, one stage 3, one refine a level, one fuse) and one
    call's launches (the edge kernels at 1344x2048, the refine at 336x512
-   too);
+   too). Last, the three bf16 kernels of the bf16 expert mode at their
+   path's shapes, each against its bf16 plain version (two bf16 ulps of
+   the output's largest magnitude, max-abs), beside the fp32 kernel's
+   time at the same shapes and the bound at the bf16 tensor-core rate
+   (989 TFLOP/s; the scan's recurrence at the fp32 cores'): #1 at DRCT-L's
+   ten shapes with SDPA in bf16 as its library call, #2 at GRL-B's two,
+   #3/#4 on both chain layouts, each direction;
 3. serving, default path: seeded full-width random checkpoints under the
    reference file names, three LR PNGs (128x128, 100x140, 336x512)
    through ``freqfusion_tpu_torch.interface.io.main(..., device="cuda")``,
@@ -100,19 +106,27 @@ exits non-zero without the final ok line):
    not padded (neither side a multiple of 8): 36 launches of #8 and no
    other kernel, then the card against the CPU's plain route on the same
    weights at 20x28 (PSNR >= 60 dB);
-3c. the pipeline alone on the 336x512 image in the six configurations
+3j. serving, bf16 configuration (FREQFUSION_EXPERT_DTYPE=bf16): the three
+   LR PNGs through ``python -m freqfusion_tpu_torch.interface.ntire``'s
+   main in a subprocess whose working directory holds
+   model_zoo/team29_FreqFusionSR (the seeded checkpoints); results.json,
+   the outputs, 60, 40 and 144 launches of the three bf16 kernels per
+   image and none of an fp32 kernel, the 336x512 output against phase
+   3's (PSNR >= 52 dB, the JAX package's composed floor), then each expert
+   alone in bf16 against its fp32 output (PSNR >= 48 dB);
+3c. the pipeline alone on the 336x512 image in the seven configurations
    in turns (default, byte-floor, projection, fusion-eval, chainv5,
-   spatial, then back, after a warm-up of each): seconds per request to
-   the synchronised result, without the host's PNG work; then the
-   default path's split by stage (each expert alone on the same image,
-   CUDA events);
+   spatial, bf16, then back, after a warm-up of each): seconds per
+   request to the synchronised result, without the host's PNG work; then
+   the default path's and the bf16 configuration's split by stage (each
+   expert alone on the same image, CUDA events);
 4. card against CPU: the same weights on one 32x48 LR image through the
    kernels on the card and the plain versions on the CPU, for each
-   configuration; PSNR >= 60 dB.
+   configuration; PSNR >= 60 dB (bf16: both in bf16, >= 48 dB).
 
 The last three lines are {"kernels": [...]} (each kernel with its launch
-count from the run of its own configuration; #6, #7, #10 and #22 lie on
-no path),
+count from the run of its own configuration, the bf16 kernels' from 3j;
+#6, #7, #10 and #22 lie on no path),
 the card's name and power limit (card: ...), and
 {"ok": true, "device": {...}}.
 
@@ -123,15 +137,17 @@ the card's name and power limit (card: ...), and
     python3 chip_smoke.py --nhwc-attention-only
     python3 chip_smoke.py --grl-only
     python3 chip_smoke.py --token-only
+    python3 chip_smoke.py --bf16-only
 
 run phase 1 and phase 2's four byte-floor kernels, its three in-kernel
 projection kernels, its four fusion-eval kernels, the scan's seven
 contracts, window attention #1 alone at its ten shapes, GRL's mixed
-attention #2 and #12 at GRL-B's two shapes, or the token attention #13 at
-the fusion net's two geometries, only (to compare two versions of them in
-one call; --fusion-only, --nhwc-attention-only and --grl-only also run
-beside an older checkout of the package), and print their summary instead
-of the ok line.
+attention #2 and #12 at GRL-B's two shapes, the token attention #13 at
+the fusion net's two geometries, or the three bf16 kernels, only (to
+compare two versions of them in one call; --fusion-only,
+--nhwc-attention-only, --grl-only and --bf16-only also run beside an
+older checkout of the package), and print their summary instead of the ok
+line.
 
     python3 chip_smoke.py --pipeline-only [CONFIG]
 
@@ -175,6 +191,17 @@ PSNR_MIN = 60.0
 PEAK_FLOPS = 67e12     # H100 SXM fp32 outside the tensor cores
 PEAK_TF32 = 495e12     # H100 SXM TF32 on the tensor cores, dense
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3
+PEAK_BF16 = 989e12     # H100 SXM bf16 on the tensor cores, dense
+# bf16 kernels against their bf16 plain versions (the same rounding
+# points, fp32 sums in another order): max-abs within two bf16 ulps of the
+# output's largest magnitude
+BF16_ULPS = 2
+# bf16 experts (fusion net fp32) against the fp32 pipeline, and each expert
+# alone against its fp32 output: the JAX package's floors
+# (tests/test_full_geometry.py); the card against the CPU, both in bf16
+PSNR_BF16_PIPELINE = 52.0
+PSNR_BF16_EXPERT = 48.0
+PSNR_BF16_CARD_CPU = 48.0
 # ptxas must report no spill for these instantiations: window attention's
 # head boxes at DRCT-L's five widths (head dims 30, 53, 122, 46, 77); the
 # FFN's up products and its down product at the six path widths (C 180,
@@ -209,7 +236,8 @@ CONFIGS = {"default": {},
            "fusion-eval": dict.fromkeys(("FREQFUSION_LKA", "FREQFUSION_HIER",
                                          "FREQFUSION_EDGE"), "1"),
            "chainv5": {"FREQFUSION_SCAN": "chainv5"},
-           "spatial": {"FREQFUSION_SCAN": "spatial"}}
+           "spatial": {"FREQFUSION_SCAN": "spatial"},
+           "bf16": {"FREQFUSION_EXPERT_DTYPE": "bf16"}}
 # launches per image: DRCT 12 RDGs x 5 blocks, GRL sum of depths, MambaIR
 # 36 layers x 4 directions
 PER_IMAGE = {"window_attention_nhwc": 60, "grl_mixed_attention_nhwc": 40,
@@ -238,15 +266,28 @@ PER_IMAGE_SPATIAL = {"window_attention_nhwc": 60,
                      "grl_mixed_attention_nhwc": 40,
                      "selective_scan_spatial": 144}
 PER_IMAGE_BIDIR = {"selective_scan_bidir": 36}
+# the experts in bf16: the bf16 kernels take the default path's calls and
+# no fp32 kernel launches
+PER_IMAGE_BF16 = {"window_attention_nhwc.bf16": 60,
+                  "grl_mixed_attention_nhwc.bf16": 40,
+                  "selective_scan.bf16": 144}
 SOURCES = {
     "window_attention_nhwc": ("freqfusion_tpu_torch/csrc/window_attention.cu",
                               "freqfusion_tpu/ops/pallas_attention.py:238"),
+    "window_attention_nhwc.bf16": (
+        "freqfusion_tpu_torch/csrc/window_attention.cu",
+        "freqfusion_tpu/ops/pallas_attention.py:238"),
     "window_attention": ("freqfusion_tpu_torch/csrc/window_attention.cu",
                          "freqfusion_tpu/ops/pallas_attention.py:95"),
     "grl_mixed_attention_nhwc": ("freqfusion_tpu_torch/csrc/grl_attention.cu",
                                  "freqfusion_tpu/ops/pallas_attention.py:548"),
+    "grl_mixed_attention_nhwc.bf16": (
+        "freqfusion_tpu_torch/csrc/grl_attention.cu",
+        "freqfusion_tpu/ops/pallas_attention.py:548"),
     "selective_scan": ("freqfusion_tpu_torch/csrc/selective_scan.cu",
                        "freqfusion_tpu/ops/selective_scan.py:1310"),
+    "selective_scan.bf16": ("freqfusion_tpu_torch/csrc/selective_scan.cu",
+                            "freqfusion_tpu/ops/selective_scan.py:1031"),
     "selective_scan_chain": ("freqfusion_tpu_torch/csrc/selective_scan.cu",
                              "freqfusion_tpu/ops/selective_scan.py:771"),
     "selective_scan_flat": ("freqfusion_tpu_torch/csrc/selective_scan.cu",
@@ -314,17 +355,20 @@ class KernelCheck:
         self.shapes = []
 
     def run(self, label: str, kernel, plain, tol_of, flops: float,
-            nbytes: float, library=None, plain_reps: int = 5) -> float:
+            nbytes: float, library=None, plain_reps: int = 5,
+            peak_flops: float = PEAK_FLOPS) -> float:
         """`flops` and `nbytes` count the operations the function does on
         these inputs and the bytes it must move (each input read once,
-        each output written once). The plain version is timed over
-        `plain_reps` runs after min(2, plain_reps) warm-ups, twice.
-        Returns the kernel's time in ms."""
+        each output written once); `peak_flops` is the rate of the units
+        its operations run on (the fp32 cores unless given). The plain
+        version is timed over `plain_reps` runs after min(2, plain_reps)
+        warm-ups, twice. Returns the kernel's time in ms."""
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         outs = got if isinstance(got, tuple) else (got,)
         refs = want if isinstance(want, tuple) else (want,)
-        err = max((g - w).abs().max().item() for g, w in zip(outs, refs))
+        err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(outs, refs))
         tol = tol_of(refs)
         del got, want, outs, refs
         warm = min(2, plain_reps)
@@ -334,7 +378,7 @@ class KernelCheck:
             lib_ms = (cuda_ms(library) + cuda_ms(library)) / 2
         ms2, plain_ms2 = cuda_ms(kernel), cuda_ms(plain, plain_reps, warm)
         ms, plain_ms = (ms + ms2) / 2, (plain_ms + plain_ms2) / 2
-        flop_ms, byte_ms = 1e3 * flops / PEAK_FLOPS, 1e3 * nbytes / PEAK_BYTES
+        flop_ms, byte_ms = 1e3 * flops / peak_flops, 1e3 * nbytes / PEAK_BYTES
         lib = "" if lib_ms is None else f"  library {lib_ms:.3f} ms"
         reps = "" if plain_reps == 5 else f" (median of {plain_reps})"
         print(f"  {self.name} {label}: max_abs_err {err:.3e} (tol {tol:.3e})"
@@ -623,6 +667,20 @@ def check_spills(log: str, required: bool) -> None:
                 spilled.append(f"{group} {label(m)}")
         if required and not found:
             raise AssertionError(f"no ptxas report for {group}")
+    # the bf16 kernels' instantiations: reported, a spill not held against
+    # them (simple first versions)
+    bf16 = (r"(window_attention|grl_attention)_bf16_kernelILi(\d+)E|"
+            r"(scan_project)_bf16_kernel|"
+            r"scan_pass_kernelILb0ELb([01])ELi(\d+)ELi0ELb1E")
+    for name, regs, spill in entries:
+        m = re.search(bf16, name)
+        if m:
+            what = (f"{m.group(1)}, head box {m.group(2)}" if m.group(1)
+                    else "scan projection" if m.group(3)
+                    else f"scan pass {int(m.group(4)) + 1}, N "
+                         f"{m.group(5) if m.group(5) != '0' else 'any'}")
+            print(f"  bf16 {what}: {regs} registers, {spill} bytes spill "
+                  "stores (reported)")
     if spilled:
         raise AssertionError(f"ptxas spills in {spilled}")
 
@@ -667,6 +725,8 @@ def phase_kernels(dev):
     phase_fusion_kernels(dev, randn, checks)
     torch.cuda.empty_cache()
     phase_layernorm_kernel(dev, randn, checks)
+    torch.cuda.empty_cache()
+    phase_bf16_kernels(dev, randn, checks)
     return checks
 
 
@@ -855,6 +915,132 @@ def phase_scan_kernels(dev, randn, checks) -> None:
            lambda: selective_scan_bidir_reference(*args), scan_tol,
            4 * scan_ops, 4 * dir_bytes - 4 * 2 * p * d, plain_reps=1)
     del u, dt, Bm, Cm, args, xc
+
+
+def bf16_tol(refs) -> float:
+    top = max(r.float().abs().max().item() for r in refs)
+    return BF16_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def phase_bf16_kernels(dev, randn, checks) -> None:
+    """The bf16 kernels (the bf16 expert mode) at their path's shapes on the
+    336x512 bucket, each against its bf16 plain version (BF16_ULPS), timed
+    beside the plain version, one library call where there is one (SDPA in
+    bf16 for #1) and the bound at the bf16 tensor-core rate; each total is
+    printed beside the fp32 kernel's at the same shapes where this run
+    measured it. #1 at DRCT-L's ten shapes (bf16 q, k, v and bias, fp32
+    mask), #2 at GRL-B's two (bf16 halves and anchor, fp32 scales, biases
+    and mask), #3/#4 on both chain layouts, each direction (bf16 xc and
+    weights, fp32 A, bf16 D and dt bias)."""
+    import torch.nn.functional as F
+
+    from freqfusion_tpu_torch.ops.attention import (
+        grl_mixed_attention_nhwc, grl_mixed_attention_nhwc_reference,
+        window_attention_nhwc, window_attention_nhwc_reference)
+    from freqfusion_tpu_torch.ops.selective_scan import (
+        selective_scan_chain_proj, selective_scan_chain_proj_reference)
+    from freqfusion_tpu_torch.ops.window_attention import (
+        device_table, shifted_window_mask, window_partition)
+
+    bf = torch.bfloat16
+    h, w = LR_SIZES["c_336x512"]
+    p = h * w
+
+    def beside(name: str, check: KernelCheck) -> None:
+        fp32 = checks.get(name)
+        print(f"  {check.name}, the {len(check.shapes)} shapes: "
+              f"{check.ms:.3f} ms against a bf16 bound of "
+              f"{check.bound_ms:.3f} ms; plain {check.plain_ms:.3f} ms"
+              + ("" if check.library_ms is None
+                 else f"; library {check.library_ms:.3f} ms")
+              + ("" if fp32 is None else
+                 f"; the fp32 kernel {fp32.ms:.3f} ms at the same shapes"))
+
+    wa = checks["window_attention_nhwc.bf16"] = KernelCheck(
+        "window_attention_nhwc.bf16")
+    for c, heads in ((180, 6), (212, 4), (244, 2), (276, 6), (308, 4)):
+        q, k, v = (randn(1, h, w, c).to(bf) for _ in range(3))
+        bias = randn(heads, 256, 256, scale=0.5).to(bf)
+        hd = c // heads
+        qh, kh, vh = (window_partition(t, 16).contiguous().view(
+            -1, 256, heads, hd).transpose(1, 2).contiguous()
+            for t in (q, k, v))
+        for shift in (0, 8):
+            mask = device_table(shifted_window_mask, h, w, 16, shift,
+                                device=dev)
+            add = (bias[None] if mask is None
+                   else bias[None] + mask[:, None].to(bf))
+            args = (q, k, v, bias, mask, heads, 16)
+            nbytes = 2 * (4 * p * c + bias.numel()) + (
+                0 if mask is None else 4 * mask.numel())
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qh, kh, vh,
+                                                      attn_mask=add,
+                                                      scale=hd ** -0.5)
+            wa.run(f"C{c}/hd{hd}/{'mask' if shift else 'nomask'}",
+                   lambda: window_attention_nhwc(*args),
+                   lambda: window_attention_nhwc_reference(*args), bf16_tol,
+                   4.0 * p * 256 * c, nbytes, sdpa, peak_flops=PEAK_BF16)
+            del add
+        del q, k, v, qh, kh, vh
+    beside("window_attention_nhwc", wa)
+    torch.cuda.empty_cache()
+
+    ga = checks["grl_mixed_attention_nhwc.bf16"] = KernelCheck(
+        "grl_mixed_attention_nhwc.bf16")
+    halves = [randn(1, h, w, 90).to(bf) for _ in range(6)]
+    anchor = randn(1, h // 2, w // 2, 90).to(bf)
+    scales = [10.0 + randn(3, 1, 1).abs() for _ in range(3)]
+    biases = [16 * torch.sigmoid(randn(*s)) for s in ((3, 64, 64),
+                                                     (3, 16, 64), (3, 64, 16))]
+    for shift in (0, 4):
+        mask = device_table(shifted_window_mask, h, w, 8, shift, device=dev)
+        args = (*halves, anchor, *scales, *biases, mask, 3, 3, 8)
+        nbytes = (2 * (8 * p * 90 + anchor.numel())
+                  + 4 * sum(b.numel() for b in biases)
+                  + (0 if mask is None else 4 * mask.numel()))
+        ga.run("shift" if shift else "noshift",
+               lambda: grl_mixed_attention_nhwc(*args),
+               lambda: grl_mixed_attention_nhwc_reference(*args), bf16_tol,
+               p * 90 * (4.0 * 64 + 8 * 16), nbytes, peak_flops=PEAK_BF16)
+    beside("grl_mixed_attention_nhwc", ga)
+    del halves, anchor
+    torch.cuda.empty_cache()
+
+    d, n, dtr = 360, 16, 12
+    g = torch.Generator(device=dev).manual_seed(1)
+    xc = randn(1, h, w, d).to(bf)
+    xpw = ((torch.rand(44, d, generator=g, device=dev) * 2 - 1)
+           / math.sqrt(d)).to(bf)
+    dtw = ((torch.rand(d, dtr, generator=g, device=dev) * 2 - 1)
+           / math.sqrt(dtr)).to(bf)
+    dt = torch.exp(torch.rand(d, generator=g, device=dev)
+                   * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    bias = (dt + torch.log(-torch.expm1(-dt))).to(bf)
+    A = -torch.arange(1, n + 1, device=dev, dtype=torch.float32).repeat(d, 1)
+    D = torch.ones(d, device=dev, dtype=bf)
+    sc = checks["selective_scan.bf16"] = KernelCheck("selective_scan.bf16")
+    # operations: the recurrence's, which stays on the fp32 cores (the
+    # projection with the composed [D + 2N, D] weight, 2 D (D + 2N) a
+    # position on the bf16 tensor cores, is ~0.05 ms beside it); bytes: xc
+    # and y in bf16, the weight, A, D and the bias
+    scan_ops = p * d * (8.0 * n + 8)
+    nbytes = 2 * (2 * p * d + d * (d + 2 * n)) + 4 * d * (n + 2)
+    rows = xc.transpose(1, 2).contiguous()
+    for label, lay in (("rows", rows), ("cols", xc)):
+        for rev in (False, True):
+            args = (lay, xpw, dtw, A, D, bias, rev)
+            sc.run(f"{label}/{'rev' if rev else 'fwd'}/T{lay.shape[1]}",
+                   lambda: selective_scan_chain_proj(*args),
+                   lambda: selective_scan_chain_proj_reference(*args),
+                   bf16_tol, scan_ops, nbytes, plain_reps=1)
+            if label == "rows" and not rev:
+                launch_breakdown("#3 bf16 rows/fwd",
+                                 lambda: selective_scan_chain_proj(*args))
+    beside("selective_scan", sc)
+    del rows, xc
+    torch.cuda.empty_cache()
 
 
 def _conv_tree(randn, k, cin, cout, groups=1):
@@ -1489,16 +1675,28 @@ def phase_pipeline_ab(model_dir: Path, image: Path, configs=tuple(CONFIGS),
                       rounds: int = 1) -> None:
     """Seconds per request of the pipeline alone on `image` in each of
     `configs`: a warm-up of each, then `rounds` times all in order and
-    back; then the split by stage of the first configuration."""
-    from freqfusion_tpu_torch.interface.io import load_pipeline
+    back; then the split by stage of the first configuration and of the
+    bf16 one where it is among `configs`. The gates are read at forward
+    time; the experts' dtype at load time, so each dtype has a pipeline of
+    its own, loaded under its configuration."""
+    from freqfusion_tpu_torch.interface.io import expert_dtype, load_pipeline
     from freqfusion_tpu_torch.utils.image_io import read_image
 
-    pipe = load_pipeline(str(model_dir), "cuda", verbose=False)
+    pipes = {}
+
+    def pipe_of(config: str):
+        set_gates(config)
+        dtype = expert_dtype()
+        if dtype not in pipes:
+            pipes[dtype] = load_pipeline(str(model_dir), "cuda",
+                                         verbose=False)
+        return pipes[dtype]
+
     lr = torch.from_numpy(read_image(str(image))).permute(2, 0, 1)[None]
     lr = lr.cuda()
 
     def run(config: str) -> float:
-        set_gates(config)
+        pipe = pipe_of(config)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.inference_mode():
@@ -1518,8 +1716,11 @@ def phase_pipeline_ab(model_dir: Path, image: Path, configs=tuple(CONFIGS),
         print(f"  {config}: {' '.join(f'{v:.3f}' for v in t)} s, mean "
               f"{mean:.3f} s ("
               f"{4 * lr.shape[2] * 4 * lr.shape[3] / mean / 1e6:.3f} MP/s)")
-    stage_split(pipe, lr, order[0])
-    del pipe
+    for config in dict.fromkeys((order[0], "bf16")):
+        if config in order:
+            stage_split(pipe_of(config), lr, config)
+    set_gates("default")
+    del pipes
 
 
 def stage_split(pipe, lr, config: str = "default") -> None:
@@ -1531,9 +1732,10 @@ def stage_split(pipe, lr, config: str = "default") -> None:
         raise ValueError("stage_split needs an LR image with sides that "
                          "are multiples of 16")
     set_gates(config)
+    x = lr.to(pipe.expert_dtype or lr.dtype)
     with torch.inference_mode():
         whole = cuda_ms(lambda: pipe(lr), reps=3, warmup=1)
-        split = {name: cuda_ms(lambda e=expert: e(lr), reps=3, warmup=1)
+        split = {name: cuda_ms(lambda e=expert: e(x), reps=3, warmup=1)
                  for name, expert in pipe.experts.items()}
     set_gates("default")
     print(f"  {config} by stage (CUDA events, median of 3): pipeline "
@@ -1600,7 +1802,101 @@ def phase_bidir(model_dir: Path, image: Path) -> dict:
     return counts
 
 
-def phase_card_vs_cpu(model_dir: Path) -> None:
+# the bf16 configuration served through the CLI in a process of its own;
+# TF32 off there too, as in this script, so that its output compares with
+# phase 3's
+NTIRE_DRIVER = """
+import json, sys
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from freqfusion_tpu_torch.interface import ntire
+from freqfusion_tpu_torch.ops import cuda
+ntire.main(sys.argv[1:])
+print("LAUNCHES " + json.dumps(dict(cuda.launch_counts)))
+"""
+
+
+def phase_ntire_bf16(model_dir: Path, in_dir: Path, work: Path) -> dict:
+    """The bf16 configuration (FREQFUSION_EXPERT_DTYPE=bf16) served by
+    ``python -m freqfusion_tpu_torch.interface.ntire``'s main in a
+    subprocess whose working directory holds
+    model_zoo/team29_FreqFusionSR (the seeded checkpoints): results.json,
+    the three outputs, the bf16 kernels' launches per image and no other
+    kernel's, the 336x512 output against phase 3's fp32 one (PSNR >= 52
+    dB); then each expert alone in bf16 against its fp32 output on the
+    336x512 image (PSNR >= 48 dB). Returns the launch counts."""
+    from freqfusion_tpu_torch.interface.io import load_pipeline
+    from freqfusion_tpu_torch.utils.image_io import read_image
+
+    cwd = work / "ntire"
+    (cwd / "model_zoo").mkdir(parents=True)
+    (cwd / "model_zoo" / "team29_FreqFusionSR").symlink_to(model_dir)
+    env = dict(os.environ, FREQFUSION_EXPERT_DTYPE="bf16",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT)] + os.environ.get("PYTHONPATH", "").split(
+                       os.pathsep)).rstrip(os.pathsep))
+    proc = subprocess.run(
+        [sys.executable, "-c", NTIRE_DRIVER, "--test_dir", str(in_dir)],
+        cwd=cwd, env=env, capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        if not line.startswith("LAUNCHES "):
+            print("  | " + line)
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:])
+        raise AssertionError(f"the ntire CLI exited {proc.returncode}")
+    counts = json.loads(next(line for line in lines
+                             if line.startswith("LAUNCHES "))[9:])
+    print(f"  launch counts: {json.dumps(counts, sort_keys=True)}")
+    for name in set(PER_IMAGE_BF16) | set(counts):
+        want = PER_IMAGE_BF16.get(name, 0) * len(LR_SIZES)
+        if counts.get(name, 0) != want:
+            raise AssertionError(f"{name}: {counts.get(name, 0)} launches, "
+                                 f"expected {want}")
+    results = json.loads((cwd / "results.json").read_text())
+    print(f"  results.json: {json.dumps(results)}")
+    if list(results) != ["29_FreqFusionSR_test_ms"]:
+        raise AssertionError(f"results.json keys {list(results)}")
+    out = cwd / "results" / "29_FreqFusionSR" / "test"
+    for name, (h, w) in LR_SIZES.items():
+        sr = read_image(str(out / f"{name}.png"))
+        if sr.shape != (4 * h, 4 * w, 3) or sr.std() <= 0.01:
+            raise AssertionError(f"{name}: bad bf16 output {sr.shape}")
+    name = "c_336x512.png"
+    db = psnr(read_image(str(out / name)),
+              read_image(str(work / "out" / name)))
+    print(f"  {name}: bf16 experts against phase 3's fp32 output PSNR "
+          f"{db:.2f} dB (min {PSNR_BF16_PIPELINE})")
+    if not db >= PSNR_BF16_PIPELINE:
+        raise AssertionError(f"bf16 against fp32 PSNR {db:.2f} < "
+                             f"{PSNR_BF16_PIPELINE}")
+
+    lr = torch.from_numpy(read_image(str(in_dir / name))).permute(
+        2, 0, 1)[None].cuda()
+    srs = {}
+    for dtype in ("", "bf16"):
+        os.environ["FREQFUSION_EXPERT_DTYPE"] = dtype
+        pipe = load_pipeline(str(model_dir), "cuda", verbose=False)
+        with torch.inference_mode():
+            srs[dtype] = {n: e(lr.to(pipe.expert_dtype or lr.dtype))[0]
+                          .float().cpu() for n, e in pipe.experts.items()}
+        del pipe
+        torch.cuda.empty_cache()
+    os.environ.pop("FREQFUSION_EXPERT_DTYPE")
+    for n in srs[""]:
+        db = psnr(srs["bf16"][n], srs[""][n])
+        print(f"  {n} alone, bf16 against fp32 on 336x512: PSNR {db:.2f} "
+              f"dB (min {PSNR_BF16_EXPERT})")
+        if not db >= PSNR_BF16_EXPERT:
+            raise AssertionError(f"{n} bf16 against fp32 PSNR {db:.2f} < "
+                                 f"{PSNR_BF16_EXPERT}")
+    return counts
+
+
+def phase_card_vs_cpu(model_dir: Path, floor: float = PSNR_MIN) -> None:
+    """The pipeline of the set configuration (its experts' dtype read at
+    load time) on the card and on the CPU, one 32x48 LR: PSNR >= floor."""
     from freqfusion_tpu_torch.interface.io import load_pipeline
 
     lr = torch.from_numpy(np.random.default_rng(1).uniform(
@@ -1616,9 +1912,9 @@ def phase_card_vs_cpu(model_dir: Path) -> None:
     diff = (outs["cuda"] - outs["cpu"]).abs()
     db = psnr(outs["cuda"], outs["cpu"])
     print(f"  card vs CPU on 32x48: max_abs {diff.max().item():.3e}, "
-          f"PSNR {db:.2f} dB (min {PSNR_MIN})")
-    if not db >= PSNR_MIN:
-        raise AssertionError(f"card vs CPU PSNR {db:.2f} < {PSNR_MIN}")
+          f"PSNR {db:.2f} dB (min {floor})")
+    if not db >= floor:
+        raise AssertionError(f"card vs CPU PSNR {db:.2f} < {floor}")
 
 
 def main(argv) -> int:
@@ -1668,7 +1964,9 @@ def main(argv) -> int:
                               ("--grl-only", "GRL mixed attention (#2, #12)",
                                phase_grl_kernels),
                               ("--token-only", "token attention (#13)",
-                               phase_token_kernel)):
+                               phase_token_kernel),
+                              ("--bf16-only", "bf16 (#1, #2, #3/#4)",
+                               phase_bf16_kernels)):
         if flag in argv:
             print(f"[2] the {what} kernels against their plain versions")
             checks = {}
@@ -1747,6 +2045,10 @@ def main(argv) -> int:
         print("[3h] MambaIR alone, bidir route, 100x140 not padded")
         counts["bidir"] = phase_bidir(model_dir, in_dir / "b_100x140.png")
         torch.cuda.empty_cache()
+        print("[3j] serving, bf16 configuration (FREQFUSION_EXPERT_DTYPE="
+              "bf16), through python -m freqfusion_tpu_torch.interface.ntire")
+        counts["bf16"] = phase_ntire_bf16(model_dir, in_dir, work)
+        torch.cuda.empty_cache()
         print(f"[3c] pipeline alone, 336x512, the {len(CONFIGS)} "
               "configurations in turns")
         phase_pipeline_ab(model_dir, in_dir / name)
@@ -1754,7 +2056,8 @@ def main(argv) -> int:
         for config in CONFIGS:
             set_gates(config)
             print(f"[4] card against CPU, {config} configuration")
-            phase_card_vs_cpu(model_dir)
+            phase_card_vs_cpu(model_dir, PSNR_BF16_CARD_CPU
+                              if config == "bf16" else PSNR_MIN)
         set_gates("default")
 
     # launches: each kernel's count from the run of its own configuration
@@ -1763,7 +2066,7 @@ def main(argv) -> int:
         ("byte-floor", PER_IMAGE_GATED), ("projection", PER_IMAGE_QKV),
         ("fusion-eval", PER_IMAGE_FUSION), ("chainv5", PER_IMAGE_CHAINV5),
         ("spatial", PER_IMAGE_SPATIAL), ("bidir", PER_IMAGE_BIDIR),
-        ("default", PER_IMAGE)) for k in per_image}
+        ("bf16", PER_IMAGE_BF16), ("default", PER_IMAGE)) for k in per_image}
     print(json.dumps({"kernels": [c.entry(launches.get(c.name, 0))
                                   for c in checks.values()]}))
     print(f"card: {smi}")

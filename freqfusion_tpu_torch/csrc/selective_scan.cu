@@ -25,10 +25,16 @@
 // its four directions from two u tensors in one launch (Gu = 2, groups 2
 // and 3 reversed) and the K-direction contract has Gu = G = K.
 //
-// Two entry points share the scan: (a) the chain_fused / chain_proj
+// Three entry points share the scan: (a) the chain_fused / chain_proj
 // contract, u = silu(xc) with dt/B/C projected from u in a hand-written
-// kernel here, and (b) the explicit contract with u, dt, B, C given, in
-// any of the layouts above.
+// kernel here, (b) the explicit contract with u, dt, B, C given, in any of
+// the layouts above, and (c) the bf16 chain_proj contract (the bf16 expert
+// mode), with the JAX kernel's bf16 rounding points: xc and y in bf16, u =
+// silu(xc) rounded to bf16, dt/B/C from one product with the composed
+// weight (rounded to bf16 once) on the bf16 tensor cores into fp32 rows,
+// then (b)'s passes over them. (c) moves more bytes than (a): dt lands in
+// device memory (4 bytes a position and channel) and both passes read it,
+// where (a) expands its rank-12 dt in registers.
 //
 // What bounds it on the H100. Per (position, channel) a pass does N = 16
 // exp2 (one per state) and one or three more MUFU operations (softplus;
@@ -94,6 +100,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "bf16_mma.cuh"
 
 namespace {
 
@@ -166,6 +174,8 @@ __device__ __forceinline__ void cp_wait() {
 
 struct ScanArgs {
   const float* x;      // u, or xc (pre-silu) on the projection contract
+  const __nv_bfloat16* xh;  // xc (pre-silu) on the bf16 contract
+  __nv_bfloat16* yh;        // y on the bf16 contract
   const float* delta;  // dt (explicit contract)
   const float* dbl;    // padded x_dbl rows of W floats (projection contract)
   const float* Bm;     // [rows, N] (explicit contract)
@@ -221,14 +231,20 @@ __device__ __forceinline__ int staged_width(const ScanArgs& a) {
 }
 
 // Floats of one ring stage: kSub steps of the tile's x (then u, then y),
-// of its dt (then delta) and of the per-position row.
-__host__ __device__ __forceinline__ int stage_floats(int W) {
-  return kSub * (2 * kTile + W);
+// of its dt (then delta) and of the per-position row; on the bf16
+// contract, then the steps' raw bf16 xc (kTile / 2 floats a step).
+__host__ __device__ __forceinline__ int stage_floats(int W, bool bf16) {
+  return kSub * (2 * kTile + W + (bf16 ? kTile / 2 : 0));
+}
+
+// The raw bf16 xc rows of a stage (bf16 contract).
+__device__ __forceinline__ __nv_bfloat16* stage_xh(float* stage, int W) {
+  return reinterpret_cast<__nv_bfloat16*>(stage + kSub * (2 * kTile + W));
 }
 
 // Issue the copies of cnt steps of an item into a stage, the first at
 // position (t, r). Copies are spread over the threads; none divides.
-template <bool kProj, int kN, int kR>
+template <bool kProj, int kN, int kR, bool kBf16>
 __device__ __forceinline__ void stage_in(const ScanArgs& a, float* stage,
                                          int t, int r, int cnt, bool rev,
                                          long long brow, long long xrow,
@@ -244,16 +260,34 @@ __device__ __forceinline__ void stage_in(const ScanArgs& a, float* stage,
     if (4 * q < dl) {
       for (int i = tid >> 5; i < cnt; i += kThreads / 32) {
         const long long row = row_after(a, t, r, i, rev);
-        cp16(xs + i * kTile + 4 * q, a.x + (xrow + row) * a.D + d0 + 4 * q);
+        if (!kBf16)
+          cp16(xs + i * kTile + 4 * q,
+               a.x + (xrow + row) * a.D + d0 + 4 * q);
         if (!kProj)
           cp16(ds + i * kTile + 4 * q,
                a.delta + (brow + row) * a.D + d0 + 4 * q);
       }
     }
+    if (kBf16) {  // raw xc, 8 channels a 16-byte copy (D % 8 == 0)
+      __nv_bfloat16* xh = stage_xh(stage, W);
+      const int q8 = tid & 15;
+      if (8 * q8 < dl) {
+        for (int i = tid >> 4; i < cnt; i += kThreads / 16) {
+          const long long row = row_after(a, t, r, i, rev);
+          cp16(reinterpret_cast<float*>(xh + i * kTile + 8 * q8),
+               reinterpret_cast<const float*>(a.xh + (xrow + row) * a.D +
+                                              d0 + 8 * q8));
+        }
+      }
+    }
   } else if (tid < dl) {
+    __nv_bfloat16* xh = kBf16 ? stage_xh(stage, W) : nullptr;
     for (int i = 0; i < cnt; ++i) {
       const long long row = row_after(a, t, r, i, rev);
-      cp4(xs + i * kTile + tid, a.x + (xrow + row) * a.D + d0 + tid);
+      if (kBf16)  // no 2-byte cp.async: a plain load, seen after the barrier
+        xh[i * kTile + tid] = a.xh[(xrow + row) * a.D + d0 + tid];
+      else
+        cp4(xs + i * kTile + tid, a.x + (xrow + row) * a.D + d0 + tid);
       if (!kProj)
         cp4(ds + i * kTile + tid, a.delta + (brow + row) * a.D + d0 + tid);
     }
@@ -293,8 +327,10 @@ __device__ __forceinline__ void stage_in(const ScanArgs& a, float* stage,
 // initial state (Hc after the compose); writes y. kN / kR: N and dt_rank
 // known at compile time (0: read from the arguments, <= 16).
 // The generic instantiations are held to 4 blocks an SM (<= 128
-// registers): left to itself ptxas gives them 80 and spills.
-template <bool kProj, bool kFinal, int kN, int kR>
+// registers): left to itself ptxas gives them 80 and spills. kBf16 (with
+// the explicit contract's dt, B and C): x is the bf16 xc, u = silu(xc)
+// rounded to bf16, y is written as bf16.
+template <bool kProj, bool kFinal, int kN, int kR, bool kBf16>
 __global__ void __launch_bounds__(kThreads, kN ? 1 : 4)
 scan_pass_kernel(const ScanArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -304,7 +340,7 @@ scan_pass_kernel(const ScanArgs a) {
   const int nr = kProj ? (kR ? kR : a.dt_rank) : 0;
   const int W = staged_width<kProj, kN, kR>(a);
   const int R4 = kR ? (kR + 3) & ~3 : a.R4;
-  const int sfl = stage_floats(W);
+  const int sfl = stage_floats(W, kBf16);
 
   for (int item = blockIdx.x; item < a.items; item += gridDim.x) {
     const int j = item % a.tiles, zc = item / a.tiles;
@@ -329,7 +365,7 @@ scan_pass_kernel(const ScanArgs a) {
     int rc = rn, tc = tn;
     for (int k = 0; k < kStages - 1; ++k) {
       if (k < nsub) {
-        stage_in<kProj, kN, kR>(a, smem + k * sfl, tn, rn,
+        stage_in<kProj, kN, kR, kBf16>(a, smem + k * sfl, tn, rn,
                                 min(kSub, len - k * kSub), rev, brow, xrow,
                                 d0);
         step_by(a, tn, rn, kSub, rev);
@@ -356,7 +392,7 @@ scan_pass_kernel(const ScanArgs a) {
     for (int k = 0; k < nsub; ++k) {
       __syncthreads();  // the stage refilled below was scanned at k - 1
       if (k + kStages - 1 < nsub) {
-        stage_in<kProj, kN, kR>(
+        stage_in<kProj, kN, kR, kBf16>(
             a, smem + ((k + kStages - 1) % kStages) * sfl, tn, rn,
             min(kSub, len - (k + kStages - 1) * kSub), rev, brow, xrow, d0);
         step_by(a, tn, rn, kSub, rev);
@@ -368,6 +404,7 @@ scan_pass_kernel(const ScanArgs a) {
       float* xs = stage + tid;                 // x, then u
       float* ds = stage + kSub * kTile + tid;  // dt (explicit), then delta
       const float* rs = stage + 2 * kSub * kTile;
+      const __nv_bfloat16* xh = stage_xh(stage, W) + tid;  // kBf16 only
       const int cnt = min(kSub, len - k * kSub);
       // delta and u of the stage's steps, independent of each other; each
       // thread rewrites its own column
@@ -393,6 +430,8 @@ scan_pass_kernel(const ScanArgs a) {
           xs[i * kTile] = silu(xs[i * kTile]);
         } else {
           dt = ds[i * kTile];
+          if (kBf16)
+            xs[i * kTile] = round_bf16(silu(__bfloat162float(xh[i * kTile])));
         }
         dt = softplus(dt + bias);
         ds[i * kTile] = dt;
@@ -440,7 +479,26 @@ scan_pass_kernel(const ScanArgs a) {
       if (kFinal) {
         // the stage's y rows, 16 bytes a store where they align
         __syncthreads();
-        if (a.vec_y) {
+        if (kBf16) {  // rounded to bf16, 8 channels a 16-byte store
+          if (a.vec_y) {
+            const int q = tid & 15;
+            if (8 * q < dl) {
+              for (int i = tid >> 4; i < cnt; i += kThreads / 16) {
+                const long long row = row_after(a, tc, rc, i, rev);
+                const float* v = stage + i * kTile + 8 * q;
+                const uint4 pk = make_uint4(
+                    pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                    pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+                *reinterpret_cast<uint4*>(a.yh + (brow + row) * a.D + d0 +
+                                          8 * q) = pk;
+              }
+            }
+          } else if (live) {
+            for (int i = 0; i < cnt; ++i)
+              a.yh[(brow + row_after(a, tc, rc, i, rev)) * a.D + d] =
+                  __float2bfloat16_rn(xs[i * kTile]);
+          }
+        } else if (a.vec_y) {
           const int q = tid & 31;
           if (4 * q < dl) {
             for (int i = tid >> 5; i < cnt; i += kThreads / 32) {
@@ -616,25 +674,129 @@ scan_project_kernel(const float* __restrict__ xc, const float* __restrict__ w,
   }
 }
 
+// out[r, :] = silu(xc[r, :]) rounded to bf16, times wt^T on the bf16
+// tensor cores (mma.sync m16n8k16, fp32 accumulators): the bf16 contract's
+// projection, the composed weight of the JAX kernel (wt [D + 2N, D] bf16:
+// rows W_dt_full^T = dt_proj_w x_proj_w[:dt_rank], then x_proj_w's B and C
+// rows). Columns c < D go to dt[r, c], the next N to B, the last N to C,
+// all fp32 as the JAX kernel's scratch holds them. A block is 128 rows x
+// 208 columns (two column blocks cover MambaIR's 392), 8 warps of 16 rows;
+// the reduction over D in chunks of 32, 8 values a load item (16 bytes
+// where rows align), the next chunk fetched into registers while this one
+// is multiplied, u formed as a chunk is stashed.
+constexpr int kPbRows = 128, kPbCols = 208, kPbK = 32, kPbLd = kPbK + 8;
+constexpr int kPbThreads = 32 * (kPbRows / 16);
+constexpr int kPbA = kPbRows * kPbK / 8 / kPbThreads;                   // 2
+constexpr int kPbB = (kPbCols * kPbK / 8 + kPbThreads - 1) / kPbThreads;  // 4
+static_assert(kPbA * 8 * kPbThreads == kPbRows * kPbK, "whole A items");
+
+__global__ void __launch_bounds__(kPbThreads, 1)
+scan_project_bf16_kernel(const __nv_bfloat16* __restrict__ xc,
+                         const __nv_bfloat16* __restrict__ wt,
+                         float* __restrict__ dt, float* __restrict__ Bm,
+                         float* __restrict__ Cm, long long rows, int D,
+                         int N) {
+  __shared__ __align__(16) __nv_bfloat16 as[kPbRows][kPbLd];
+  __shared__ __align__(16) __nv_bfloat16 bs[kPbCols][kPbLd];
+  constexpr int kNt = kPbCols / 8;  // n-tiles a warp
+  const int K = D + 2 * N;
+  const int ctiles = (K + kPbCols - 1) / kPbCols;
+  const int c0 = (blockIdx.x % ctiles) * kPbCols;
+  const long long r0 = (long long)(blockIdx.x / ctiles) * kPbRows;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  constexpr int kCh = kPbK / 8;  // load items a row of a chunk
+  uint4 ra[kPbA], rb[kPbB];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int m = 0; m < kPbA; ++m) {
+      const int e = tid + m * kPbThreads, r = e / kCh, d = k0 + 8 * (e % kCh);
+      ra[m] = r0 + r < rows ? load8_bf16(xc + (r0 + r) * D + d, D - d)
+                            : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int m = 0; m < kPbB; ++m) {
+      const int e = tid + m * kPbThreads, c = e / kCh, d = k0 + 8 * (e % kCh);
+      rb[m] = c < kPbCols && c0 + c < K
+                  ? load8_bf16(wt + (long long)(c0 + c) * D + d, D - d)
+                  : make_uint4(0, 0, 0, 0);
+    }
+  };
+  float acc[kNt][4];
+#pragma unroll
+  for (int j = 0; j < kNt; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  fetch(0);
+  for (int k0 = 0; k0 < D; k0 += kPbK) {
+    __syncthreads();  // the last chunk is consumed
+#pragma unroll
+    for (int m = 0; m < kPbA; ++m) {
+      const int e = tid + m * kPbThreads;
+      *reinterpret_cast<uint4*>(&as[e / kCh][8 * (e % kCh)]) =
+          map8_bf16(ra[m], [](float x) { return silu(x); });
+    }
+#pragma unroll
+    for (int m = 0; m < kPbB; ++m) {
+      const int e = tid + m * kPbThreads;
+      if (e / kCh < kPbCols)
+        *reinterpret_cast<uint4*>(&bs[e / kCh][8 * (e % kCh)]) = rb[m];
+    }
+    __syncthreads();
+    if (k0 + kPbK < D) fetch(k0 + kPbK);
+#pragma unroll
+    for (int k16 = 0; k16 < kPbK / 16; ++k16) {
+      uint32_t a[4];
+      ldsm_a(a, &as[16 * warp][16 * k16], kPbLd);
+#pragma unroll
+      for (int j = 0; j < kNt; j += 2) {
+        uint32_t bf[2][2];
+        ldsm_b_nk(bf, &bs[8 * j][16 * k16], kPbLd);
+        mma_bf16(acc[j], a, bf[0][0], bf[0][1]);
+        mma_bf16(acc[j + 1], a, bf[1][0], bf[1][1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long row = r0 + 16 * warp + g + 8 * h;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < kNt; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = c0 + 8 * j + 2 * t + e;
+        const float v = acc[j][2 * h + e];
+        if (c < D)
+          dt[row * D + c] = v;
+        else if (c < D + N)
+          Bm[row * N + c - D] = v;
+        else if (c < K)
+          Cm[row * N + c - D - N] = v;
+      }
+  }
+}
+
+template <bool kBf16>
 size_t ring_bytes(int W) {
-  return size_t(kStages) * stage_floats(W) * sizeof(float);
+  return size_t(kStages) * stage_floats(W, kBf16) * sizeof(float);
 }
 
 // Let both passes take `W`'s ring: set once a device for each
 // instantiation (again only for a larger ring).
-template <bool kProj, int kN, int kR>
+template <bool kProj, int kN, int kR, bool kBf16>
 cudaError_t allow_smem(int W) {
   static int allowed[64] = {};
-  const int bytes = int(ring_bytes(W));
+  const int bytes = int(ring_bytes<kBf16>(W));
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 64 && bytes <= allowed[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(scan_pass_kernel<kProj, false, kN, kR>,
+  err = cudaFuncSetAttribute(scan_pass_kernel<kProj, false, kN, kR, kBf16>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(scan_pass_kernel<kProj, true, kN, kR>,
+  err = cudaFuncSetAttribute(scan_pass_kernel<kProj, true, kN, kR, kBf16>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes);
   if (err == cudaSuccess && dev < 64) allowed[dev] = bytes;
@@ -642,22 +804,24 @@ cudaError_t allow_smem(int W) {
 }
 
 // Resident blocks of both passes on the whole card.
-template <bool kProj, int kN, int kR>
+template <bool kProj, int kN, int kR, bool kBf16 = false>
 cudaError_t slots_of(int W, int* slots) {
-  cudaError_t err = allow_smem<kProj, kN, kR>(W);
+  cudaError_t err = allow_smem<kProj, kN, kR, kBf16>(W);
   if (err != cudaSuccess) return err;
-  const size_t bytes = ring_bytes(W);
+  const size_t bytes = ring_bytes<kBf16>(W);
   int dev = 0, sms = 0, b1 = 0, b2 = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess)
     return err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &b1, scan_pass_kernel<kProj, false, kN, kR>, kThreads, bytes)) !=
+           &b1, scan_pass_kernel<kProj, false, kN, kR, kBf16>, kThreads,
+           bytes)) !=
       cudaSuccess)
     return err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &b2, scan_pass_kernel<kProj, true, kN, kR>, kThreads, bytes)) !=
+           &b2, scan_pass_kernel<kProj, true, kN, kR, kBf16>, kThreads,
+           bytes)) !=
       cudaSuccess)
     return err;
   *slots = sms * min(b1, b2);
@@ -665,19 +829,21 @@ cudaError_t slots_of(int W, int* slots) {
 }
 
 // Pass 1, the compose and pass 2 over `seqs` = G * Bt sequences.
-template <bool kProj, int kN, int kR>
+template <bool kProj, int kN, int kR, bool kBf16 = false>
 cudaError_t run_passes(const ScanArgs& a, int seqs, int grid,
                        cudaStream_t stream) {
-  cudaError_t err = allow_smem<kProj, kN, kR>(a.W);
+  cudaError_t err = allow_smem<kProj, kN, kR, kBf16>(a.W);
   if (err != cudaSuccess) return err;
-  const size_t smem = ring_bytes(a.W);
-  scan_pass_kernel<kProj, false, kN, kR><<<grid, kThreads, smem, stream>>>(a);
+  const size_t smem = ring_bytes<kBf16>(a.W);
+  scan_pass_kernel<kProj, false, kN, kR, kBf16>
+      <<<grid, kThreads, smem, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const dim3 cgrid((a.D * a.N + 31) / 32, seqs);
   scan_compose_kernel<kN><<<cgrid, dim3(32, kComposeWarps), 0, stream>>>(
       a.A, a.Sdt, a.Hc, a.Bt, a.nchunk, a.D, a.N);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  scan_pass_kernel<kProj, true, kN, kR><<<grid, kThreads, smem, stream>>>(a);
+  scan_pass_kernel<kProj, true, kN, kR, kBf16>
+      <<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -713,14 +879,22 @@ bool plan_ok(ScanArgs& a, int seqs, int chunk, int grid) {
 }  // namespace
 
 // Resident blocks of the scan's passes on the current device (SMs x
-// blocks an SM holds), for the contract `proj` at N and dt_rank: the
-// persistent grid is at most this. Returns it, or minus a CUDA error.
+// blocks an SM holds), for the contract `proj` (0 explicit, 1 projection,
+// 2 the bf16 projection contract) at N and dt_rank: the persistent grid is
+// at most this. Returns it, or minus a CUDA error.
 extern "C" int ff_selective_scan_slots(int proj, int N, int dt_rank) {
-  if (N < 1 || N > kMaxState || dt_rank < 0 || dt_rank > kMaxRank)
+  if (N < 1 || N > kMaxState || dt_rank < 0 || dt_rank > kMaxRank ||
+      proj < 0 || proj > 2)
     return -int(cudaErrorInvalidValue);
-  const int W = row_width(proj, N, dt_rank);
   int slots = 0;
   cudaError_t err;
+  if (proj == 2) {
+    const int W = row_width(0, N, 0);
+    err = N == 16 ? slots_of<false, 16, 0, true>(W, &slots)
+                  : slots_of<false, 0, 0, true>(W, &slots);
+    return err == cudaSuccess ? slots : -int(err);
+  }
+  const int W = row_width(proj, N, dt_rank);
   if (proj)
     err = (N == 16 && dt_rank == 12) ? slots_of<true, 16, 12>(W, &slots)
                                      : slots_of<true, 0, 0>(W, &slots);
@@ -799,4 +973,42 @@ extern "C" int ff_selective_scan(const float* u, const float* delta,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N == 16) return int(run_passes<false, 16, 0>(a, G * B, grid, s));
   return int(run_passes<false, 0, 0>(a, G * B, grid, s));
+}
+
+// (c) the bf16 chain_proj contract: xc [B, T, R, D] bf16 pre-silu; wt
+// [D + 2N, D] bf16, the composed weight (see scan_project_bf16_kernel);
+// A [D, N], Dskip and bias [D] fp32; dt [B * T * R, D], Bm and Cm
+// [B * T * R, N] fp32 scratch the projection fills; y [B, T, R, D] bf16;
+// Sdt, Hc and `grid` as (a). The projection, then the explicit contract's
+// passes with u = silu(xc) rounded to bf16 and y rounded to bf16.
+extern "C" int ff_selective_scan_proj_bf16(
+    const void* xc, const void* wt, const float* A, const float* Dskip,
+    const float* bias, float* dt, float* Bm, float* Cm, void* y, float* Sdt,
+    float* Hc, int B, int T, int R, int D, int N, int reverse, int chunk,
+    int grid, void* stream) {
+  ScanArgs a = {};
+  a.xh = static_cast<const __nv_bfloat16*>(xc);
+  a.yh = static_cast<__nv_bfloat16*>(y);
+  a.delta = dt; a.Bm = Bm; a.Cm = Cm;
+  a.A = A; a.Dskip = Dskip; a.bias = bias; a.Sdt = Sdt; a.Hc = Hc;
+  a.Bt = B; a.Gu = 1;
+  a.T = T; a.R = R; a.st = R; a.sr = 1;
+  a.D = D; a.N = N; a.dt_rank = 0;
+  a.R4 = 0; a.W = row_width(0, N, 0);
+  a.rev_mask = reverse ? 1 : 0;
+  a.vec_x = D % 8 == 0 && aligned16(xc) && aligned16(dt);
+  a.vec_bc = N % 4 == 0 && aligned16(Bm) && aligned16(Cm);
+  a.vec_y = D % 8 == 0 && aligned16(y);
+  if (!plan_ok(a, B, chunk, grid)) return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long rows = (long long)B * a.L;
+  const long long blocks = (rows + kPbRows - 1) / kPbRows *
+                           ((D + 2 * N + kPbCols - 1) / kPbCols);
+  if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+  scan_project_bf16_kernel<<<unsigned(blocks), kPbThreads, 0, s>>>(
+      a.xh, static_cast<const __nv_bfloat16*>(wt), dt, Bm, Cm, rows, D, N);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  if (N == 16) return int(run_passes<false, 16, 0, true>(a, B, grid, s));
+  return int(run_passes<false, 0, 0, true>(a, B, grid, s));
 }

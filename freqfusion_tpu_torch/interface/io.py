@@ -13,7 +13,9 @@ Inputs are the PNG, JPEG and BMP files of ``input_path``
 (``utils/image_io.py``); a file that cannot be decoded is named, skipped
 and counted, and the run goes on.
 ``device=None`` means "cuda" and raises without a card: CPU runs pass
-"cpu". The JAX package's native msgpack route and its optional TSD-SR
+"cpu". ``FREQFUSION_EXPERT_DTYPE`` set to "bf16" or "bfloat16" (any case)
+serves the experts in bf16 (:func:`expert_dtype`), as the JAX interface
+reads it. The JAX package's native msgpack route and its optional TSD-SR
 refiner are not ported.
 """
 
@@ -22,7 +24,7 @@ from __future__ import annotations
 import os
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -33,7 +35,8 @@ from ..models.pipeline import (EXPERT_ORDER, FreqFusionPipeline,
                                build_expert_models)
 from ..utils.image_io import IMAGE_SUFFIXES, read_image, write_image
 
-__all__ = ["main", "load_pipeline", "load_state_dict_file", "resolve_device"]
+__all__ = ["main", "load_pipeline", "load_state_dict_file", "resolve_device",
+           "expert_dtype"]
 
 _TORCH_FILES = {
     "drct": "DRCT-L_X4.pth",
@@ -50,6 +53,14 @@ _BUFFER_PREFIXES = ("table_", "index_", "mask_")
 _BUFFER_SUFFIXES = ("dct_basis", "dct_basis_t", "low_mask", "mid_mask",
                     "high_mask", "lo_row", "hi_row", "lo_col", "hi_col",
                     "gaussian.kernel")
+
+
+def expert_dtype() -> Optional[torch.dtype]:
+    """The experts' dtype FREQFUSION_EXPERT_DTYPE asks for: bf16 for "bf16"
+    or "bfloat16" (any case), else None (fp32), as
+    freqfusion_tpu/interface/io.py reads it."""
+    return {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16}.get(
+        os.environ.get("FREQFUSION_EXPERT_DTYPE", "").lower())
 
 
 def resolve_device(device) -> torch.device:
@@ -147,7 +158,8 @@ def load_pipeline(model_dir, device=None, scale: int = 4, seed: int = 0,
         # a generator of its own: the init does not depend on the experts
         fusion = CompleteEnhancedFusionSR(
             upscale=scale, generator=torch.Generator().manual_seed(seed))
-    return FreqFusionPipeline(experts, fusion, scale).to(device).eval()
+    return FreqFusionPipeline(experts, fusion, scale,
+                              expert_dtype()).to(device).eval()
 
 
 def main(model_dir: str, input_path: str, output_path: str,
@@ -162,7 +174,9 @@ def main(model_dir: str, input_path: str, output_path: str,
               "serving the fusion output (identity refiner)")
     files = sorted(p for p in Path(input_path).iterdir()
                    if p.suffix.lower() in IMAGE_SUFFIXES)
-    print(f"FreqFusionSR (PyTorch, {device}): {len(files)} images")
+    dtype = str(pipeline.expert_dtype or torch.float32).replace("torch.", "")
+    print(f"FreqFusionSR (PyTorch, {device}, experts in {dtype}): "
+          f"{len(files)} images")
     seconds, skipped = {}, []
     for i, path in enumerate(files):
         t0 = time.perf_counter()

@@ -59,13 +59,21 @@ class AffineTransform(nn.Module):
         self.logit_scale.fill_(math.log(10.0))
 
     def scale(self) -> torch.Tensor:
-        """[nH, 1, 1] exp(min(logit_scale, log 100))."""
-        return torch.exp(torch.clamp(self.logit_scale, max=_LOGIT_MAX))
+        """[nH, 1, 1] exp(min(logit_scale, log 100)), in fp32 whatever the
+        parameter's dtype (the JAX module's numpy clamp bound promotes a
+        bf16 logit scale to fp32)."""
+        return torch.exp(torch.clamp(self.logit_scale.float(),
+                                     max=_LOGIT_MAX))
 
     def bias(self, table: torch.Tensor, index: torch.Tensor, n1: int,
              n2: int) -> torch.Tensor:
-        """[nH, n1, n2] 16 * sigmoid(CPB-MLP(table)[index])."""
-        bt = self.cpb_mlp(table).view(-1, self.num_heads)
+        """[nH, n1, n2] 16 * sigmoid(CPB-MLP(table)[index]), in the
+        table's dtype (fp32: flax's Dense promotes bf16 weights to the fp32
+        table's dtype)."""
+        fc0, fc2 = self.cpb_mlp[0], self.cpb_mlp[2]
+        dt = table.dtype
+        hid = F.relu(F.linear(table, fc0.weight.to(dt), fc0.bias.to(dt)))
+        bt = F.linear(hid, fc2.weight.to(dt)).view(-1, self.num_heads)
         b = bt[index.reshape(-1)].view(n1, n2, -1).permute(2, 0, 1)
         return (16.0 * torch.sigmoid(b)).contiguous()
 

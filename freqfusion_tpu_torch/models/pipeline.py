@@ -5,7 +5,11 @@ image to a multiple of 16, run DRCT-L, GRL-B, NAFNet-SIDD-64 and MambaIR,
 crop the SR outputs to 4x the original size and the features to the
 original LR size (NAFNet's HR feature is resized down bilinearly), clamp
 MambaIR's output, and run the fusion net on the unpadded LR. A missing
-expert degrades to the bilinear image and zero features.
+expert degrades to the bilinear image and zero features. With
+``expert_dtype=torch.bfloat16`` the experts run in bf16 (their floating
+parameters cast once, the padded LR cast before them, their outputs cast
+back to fp32 before the crops), as the JAX pipeline's ``expert_dtype``;
+the fusion net and the fallbacks stay fp32.
 """
 
 from __future__ import annotations
@@ -60,22 +64,32 @@ def build_expert_models(scale: int = 4,
 
 
 class FreqFusionPipeline(nn.Module):
-    """lr [B, 3, H, W] in [0, 1] -> SR [B, 3, 4H, 4W]."""
+    """lr [B, 3, H, W] in [0, 1] -> SR [B, 3, 4H, 4W]. ``expert_dtype``
+    casts the experts' floating parameters in place, once."""
 
     def __init__(self, experts: Dict[str, nn.Module],
-                 fusion: CompleteEnhancedFusionSR, scale: int = 4):
+                 fusion: CompleteEnhancedFusionSR, scale: int = 4,
+                 expert_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        if expert_dtype is not None:
+            for model in experts.values():
+                model.to(expert_dtype)
         self.experts = nn.ModuleDict(experts)
         self.fusion = fusion
         self.scale = scale
+        self.expert_dtype = expert_dtype
 
     def run_experts(self, lr_padded: torch.Tensor
                     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-        """Expert outputs and features on a padded LR batch."""
+        """Expert outputs and features on a padded LR batch, in fp32 (cast
+        back from ``expert_dtype``)."""
         imgs, feats = {}, {}
+        x = (lr_padded if self.expert_dtype is None
+             else lr_padded.to(self.expert_dtype))
         for name in EXPERT_ORDER:
             if name in self.experts:
-                sr, feat = self.experts[name](lr_padded)
+                sr, feat = self.experts[name](x)
+                sr, feat = sr.float(), feat.float()
                 imgs[name] = sr.clamp(0.0, 1.0) if name == "mamba" else sr
                 feats[name] = feat
         return imgs, feats

@@ -15,6 +15,15 @@ scratch that :func:`plan_qkv_projections` and
 :func:`plan_grl_qkv_projections` size. GRL's mixed attention
 (``csrc/grl_attention.cuh``, both entries) takes 8x8 tiles with 4x4
 anchors in blocks that :func:`plan_grl_attention` describes.
+
+``window_attention_nhwc`` and ``grl_mixed_attention_nhwc`` also take bf16
+operands (the bf16 expert mode): their bf16 kernels
+(``csrc/window_attention.cu``, ``csrc/grl_attention.cu``, counted as
+``<name>.bf16``) and their plain versions round where the JAX kernels'
+bf16 runs round: products of bf16 values accumulated in fp32, the
+softmax in fp32 and rounded to bf16 before its product, bf16 outputs.
+The other entries take fp32 only and refuse bf16
+(:func:`cuda.fp32_only`).
 """
 
 from __future__ import annotations
@@ -72,16 +81,84 @@ def _plan(hd: int, heads: int, ldi: int, *tensors) -> Tuple[int, int]:
     return hdp, int(vec)
 
 
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (to nearest even) and back to fp32."""
+    return x.to(torch.bfloat16).float()
+
+
+def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[B_, N, C] -> fp32 [B_, nH, N, hd]."""
+    b_, n, c = x.shape
+    return x.float().reshape(b_, n, num_heads, c // num_heads).transpose(1, 2)
+
+
+def _masked(attn: torch.Tensor, mask: Optional[torch.Tensor]
+            ) -> torch.Tensor:
+    """attn [B_, nH, N, M] plus mask [nW, N, M] (tiled over the batch) in
+    bf16 and back, as the JAX wrappers cast it to the operands' dtype."""
+    if mask is None:
+        return attn
+    b_, nh, n, m = attn.shape
+    nw = mask.shape[0]
+    return (attn.view(b_ // nw, nw, nh, n, m)
+            + _bf16(mask)[None, :, None]).view(b_, nh, n, m)
+
+
+def _window_attention_bf16(q, k, v, num_heads: int, bias, mask,
+                           scale: float) -> torch.Tensor:
+    """bf16 window attention over [B_, N, C] windows with the JAX kernel's
+    rounding points (pallas_attention.py:_attn_heads): q times scale in
+    bf16; logits, bias and mask in fp32; the softmax in fp32, rounded to
+    bf16; P V accumulated in fp32, rounded to bf16."""
+    b_, n, c = q.shape
+    qh = _bf16(_heads(q, num_heads) * _bf16(torch.tensor(scale)))
+    attn = qh @ _heads(k, num_heads).transpose(-2, -1) + bias.float()[None]
+    p = _bf16(torch.softmax(_masked(attn, mask), -1))
+    out = p @ _heads(v, num_heads)
+    return out.transpose(1, 2).reshape(b_, n, c).to(torch.bfloat16)
+
+
 def window_attention_nhwc_reference(q, k, v, bias, mask, num_heads: int,
                                     window_size: int,
                                     scale: Optional[float] = None):
-    """Plain PyTorch window attention: partition, attention, reverse."""
+    """Plain PyTorch window attention: partition, attention, reverse (in
+    bf16 for bf16 operands, see :func:`_window_attention_bf16`)."""
     _, h, w, c = q.shape
     scale = float((c // num_heads) ** -0.5) if scale is None else scale
     qw, kw, vw = (window_partition(t, window_size) for t in (q, k, v))
-    out = multi_head_window_attention(qw, kw, vw, num_heads, bias, mask,
-                                      scale)
+    attend = (_window_attention_bf16 if q.dtype == torch.bfloat16
+              else multi_head_window_attention)
+    out = attend(qw, kw, vw, num_heads, bias, mask, scale)
     return window_reverse(out, window_size, h, w)
+
+
+def _window_attention_nhwc_bf16(q, k, v, bias, mask, num_heads: int,
+                                ws: int, scale: float) -> torch.Tensor:
+    """The bf16 kernel: q, k, v bf16; bias bf16 (the module's bf16
+    table); mask fp32. N = ws * ws a multiple of 16 up to 256, head dims
+    up to 128."""
+    b, h, w, c = q.shape
+    n, hd, dev = ws * ws, c // num_heads, q.device
+    if n % 16 or n > 256 or hd > 128:
+        raise ValueError(f"window_attention_nhwc (bf16): N={n} must be a "
+                         f"multiple of 16 up to 256 and the head dim {hd} "
+                         "at most 128")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        cuda.require(t, name, (b, h, w, c), dev, torch.bfloat16)
+    cuda.require(bias, "bias", (num_heads, n, n), dev, torch.bfloat16)
+    if mask is not None:
+        cuda.require(mask, "mask", ((h // ws) * (w // ws), n, n), dev)
+    if bias.data_ptr() % 4 or (mask is not None and mask.data_ptr() % 8):
+        raise ValueError("window_attention_nhwc (bf16): bias must be 4-byte "
+                         "and mask 8-byte aligned")
+    out = torch.empty_like(q)
+    err = cuda.library().ff_window_attention_nhwc_bf16(
+        cuda.ptr(q), cuda.ptr(k), cuda.ptr(v), cuda.ptr(bias),
+        cuda.ptr(mask), cuda.ptr(out), b, h, w, c, num_heads, ws, scale,
+        cuda.stream(q))
+    cuda.check(err, "window_attention_nhwc (bf16)")
+    cuda.launch_counts["window_attention_nhwc.bf16"] += 1
+    return out
 
 
 def window_attention_nhwc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -91,7 +168,8 @@ def window_attention_nhwc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q, k, v [B, H, W, C] (H % ws == 0 == W % ws); bias [nH, N, N]; mask
     [nW, N, N] (row-major windows) or None. Returns [B, H, W, C]:
     softmax(q k^T * scale + bias + mask) v per window and head, scale
-    defaulting to head_dim ** -0.5."""
+    defaulting to head_dim ** -0.5. fp32 operands throughout, or q, k, v
+    and bias in bf16 with an fp32 mask (the bf16 kernel, bf16 out)."""
     b, h, w, c = q.shape
     ws = window_size
     hd = c // num_heads
@@ -104,6 +182,9 @@ def window_attention_nhwc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if h % ws or w % ws or c % num_heads:
         raise ValueError(f"window_attention_nhwc: H={h}, W={w} must be "
                          f"multiples of ws={ws} and C={c} of heads={num_heads}")
+    if q.dtype == torch.bfloat16:
+        return _window_attention_nhwc_bf16(q, k, v, bias, mask, num_heads,
+                                           ws, scale)
     n = ws * ws
     for name, t in (("q", q), ("k", k), ("v", v)):
         cuda.require(t, name, (b, h, w, c), q.device)
@@ -150,6 +231,7 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                           scale)
     if q.device.type != "cuda":
         raise ValueError(f"window_attention: unsupported device {q.device}")
+    cuda.fp32_only("window_attention", q)
     for name, t in (("q", q), ("k", k), ("v", v)):
         cuda.require(t, name, (b_, n, c), q.device)
     cuda.require(bias, "bias", (num_heads, n, n), q.device)
@@ -171,6 +253,14 @@ def _cosine_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     b_, n, c = x.shape
     xh = x.reshape(b_, n, num_heads, c // num_heads).transpose(1, 2)
     return F.normalize(xh, dim=-1, eps=1e-12)
+
+
+def _cosine_heads_bf16(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """bf16 [B_, N, C] -> fp32 [B_, nH, N, hd] of bf16 values: x times
+    1 / max(||x||, 1e-12) in fp32, rounded to bf16 (the JAX kernel's
+    _cosnorm)."""
+    xh = _heads(x, num_heads)
+    return _bf16(xh * (1.0 / xh.norm(dim=-1, keepdim=True).clamp_min(1e-12)))
 
 
 def _merge(x: torch.Tensor) -> torch.Tensor:
@@ -240,10 +330,15 @@ def grl_mixed_attention_nhwc_reference(qw, kw, vw, qs, ks, vs, anchor,
                                        window_size: int,
                                        down_factor: int = 2):
     """Plain PyTorch GRL mixed attention (window half and anchored stripe
-    half of each ws x ws tile)."""
+    half of each ws x ws tile); in bf16 for bf16 operands (see
+    :func:`_grl_mixed_attention_bf16`)."""
     _, h, w, _ = qw.shape
     ws = window_size
     aws = ws // down_factor
+    if qw.dtype == torch.bfloat16:
+        return _grl_mixed_attention_bf16(
+            qw, kw, vw, qs, ks, vs, anchor, scale_w, scale_s1, scale_s2,
+            bias_w, bias_s1, bias_s2, mask, num_heads_w, num_heads_s, ws, aws)
     qh, kh = (_cosine_heads(window_partition(t, ws), num_heads_w)
               for t in (qw, kw))
     vh = window_partition(vw, ws)
@@ -269,6 +364,74 @@ def grl_mixed_attention_nhwc_reference(qw, kw, vw, qs, ks, vs, anchor,
     return x_window, window_reverse(_merge(x_stripe), ws, h, w)
 
 
+def _grl_mixed_attention_bf16(qw, kw, vw, qs, ks, vs, anchor, scale_w,
+                              scale_s1, scale_s2, bias_w, bias_s1, bias_s2,
+                              mask, num_heads_w: int, num_heads_s: int,
+                              ws: int, aws: int):
+    """bf16 GRL mixed attention with the JAX kernel's rounding points
+    (pallas_attention.py:_grl_mixed_core): q, k and the anchors normalised
+    and rounded to bf16; logits times the scale plus the bias (and the
+    mask) in fp32; each softmax rounded to bf16 before its product; the
+    anchor stage's x1 and both outputs rounded to bf16."""
+    _, h, w, _ = qw.shape
+
+    def part(t, size=ws):
+        return window_partition(t, size)
+
+    def attend(q, k, scale, bias, msk=None):
+        attn = (q @ k.transpose(-2, -1)) * scale.float().reshape(1, -1, 1, 1)
+        return _bf16(torch.softmax(_masked(attn + bias.float()[None], msk),
+                                   -1))
+
+    def out(x):
+        return window_reverse(_merge(x).to(torch.bfloat16), ws, h, w)
+
+    qh, kh = (_cosine_heads_bf16(part(t), num_heads_w) for t in (qw, kw))
+    x_window = attend(qh, kh, scale_w, bias_w, mask) @ _heads(
+        part(vw), num_heads_w)
+    qh, kh = (_cosine_heads_bf16(part(t), num_heads_s) for t in (qs, ks))
+    ah = _cosine_heads_bf16(part(anchor, aws), num_heads_s)
+    x1 = _bf16(attend(ah, kh, scale_s1, bias_s1)
+               @ _heads(part(vs), num_heads_s))
+    x_stripe = attend(qh, ah, scale_s2, bias_s2) @ x1
+    return out(x_window), out(x_stripe)
+
+
+def _grl_mixed_attention_nhwc_bf16(args, b: int, h: int, w: int, c2: int,
+                                   num_heads_w: int, num_heads_s: int,
+                                   ws: int, df: int):
+    """The bf16 kernel: halves and anchor bf16; scales, biases and mask
+    fp32 (GRL computes its logit scales and position biases in fp32)."""
+    (qw, kw, vw, qs, ks, vs, anchor, scale_w, scale_s1, scale_s2, bias_w,
+     bias_s1, bias_s2, mask) = args
+    n, na, dev = ws * ws, (ws // df) ** 2, qw.device
+    for name, t in (("qw", qw), ("kw", kw), ("vw", vw), ("qs", qs),
+                    ("ks", ks), ("vs", vs)):
+        cuda.require(t, name, (b, h, w, c2), dev, torch.bfloat16)
+    cuda.require(anchor, "anchor", (b, h // df, w // df, c2), dev,
+                 torch.bfloat16)
+    cuda.require(scale_w, "scale_w", (num_heads_w, 1, 1), dev)
+    cuda.require(scale_s1, "scale_s1", (num_heads_s, 1, 1), dev)
+    cuda.require(scale_s2, "scale_s2", (num_heads_s, 1, 1), dev)
+    cuda.require(bias_w, "bias_w", (num_heads_w, n, n), dev)
+    cuda.require(bias_s1, "bias_s1", (num_heads_s, na, n), dev)
+    cuda.require(bias_s2, "bias_s2", (num_heads_s, n, na), dev)
+    if mask is not None:
+        cuda.require(mask, "mask", ((h // ws) * (w // ws), n, n), dev)
+    _check_aligned("grl_mixed_attention_nhwc (bf16)", bias_w, bias_s1,
+                   bias_s2, mask)
+    out_w = torch.empty_like(qw)
+    out_s = torch.empty_like(qs)
+    err = cuda.library().ff_grl_mixed_attention_nhwc_bf16(
+        *(cuda.ptr(t) for t in (qw, kw, vw, qs, ks, vs, anchor, scale_w,
+                                scale_s1, scale_s2, bias_w, bias_s1,
+                                bias_s2, mask, out_w, out_s)),
+        b, h, w, c2, num_heads_w, num_heads_s, ws, df, cuda.stream(qw))
+    cuda.check(err, "grl_mixed_attention_nhwc (bf16)")
+    cuda.launch_counts["grl_mixed_attention_nhwc.bf16"] += 1
+    return out_w, out_s
+
+
 def grl_mixed_attention_nhwc(
         qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor,
         qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
@@ -286,7 +449,9 @@ def grl_mixed_attention_nhwc(
     normalisation happens inside. Returns (x_window, x_stripe), each
     [B, H, W, C/2]. The kernel takes GRL's 8x8 tiles with 4x4 anchors (ws
     8, df 2), head dims up to 96 and 16-byte aligned operands
-    (:func:`plan_grl_attention`)."""
+    (:func:`plan_grl_attention`). fp32 throughout, or the halves and the
+    anchor in bf16 with fp32 scales, biases and mask (the bf16 kernel,
+    bf16 outputs)."""
     b, h, w, c2 = qw.shape
     ws, df = window_size, down_factor
     if qw.device.type == "cpu":
@@ -299,6 +464,11 @@ def grl_mixed_attention_nhwc(
     _check_grl("grl_mixed_attention_nhwc", h, w, c2, num_heads_w,
                num_heads_s, ws, df)
     plan_grl_attention(b, h, w, c2, num_heads_w, num_heads_s)
+    if qw.dtype == torch.bfloat16:
+        return _grl_mixed_attention_nhwc_bf16(
+            (qw, kw, vw, qs, ks, vs, anchor, scale_w, scale_s1, scale_s2,
+             bias_w, bias_s1, bias_s2, mask), b, h, w, c2, num_heads_w,
+            num_heads_s, ws, df)
     n, na = ws * ws, (ws // df) ** 2
     dev = qw.device
     for name, t in (("qw", qw), ("kw", kw), ("vw", vw), ("qs", qs),
@@ -411,6 +581,7 @@ def window_attention_qkv_nhwc(x: torch.Tensor, wqkv: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"window_attention_qkv_nhwc: unsupported device "
                          f"{x.device}")
+    cuda.fp32_only("window_attention_qkv_nhwc", x)
     if h % ws or w % ws or c % num_heads or c // num_heads > 256:
         raise ValueError(f"window_attention_qkv_nhwc: H={h}, W={w} must be "
                          f"multiples of ws={ws} and C={c} of heads="
@@ -494,6 +665,7 @@ def grl_mixed_attention_qkv_nhwc(
     if x.device.type != "cuda":
         raise ValueError(f"grl_mixed_attention_qkv_nhwc: unsupported device "
                          f"{x.device}")
+    cuda.fp32_only("grl_mixed_attention_qkv_nhwc", x)
     _check_grl("grl_mixed_attention_qkv_nhwc", h, w, c2, num_heads_w,
                num_heads_s, ws, df)
     plan_grl_attention(b, h, w, c2, num_heads_w, num_heads_s)

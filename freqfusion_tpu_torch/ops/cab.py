@@ -123,6 +123,7 @@ def cab_fused(x: torch.Tensor, w: Dict[str, Dict[str, torch.Tensor]],
         return cab_fused_reference(x, w, ln, skip_scale, eps)
     if x.device.type != "cuda":
         raise ValueError(f"cab_fused: unsupported device {x.device}")
+    cuda.fp32_only("cab_fused", x)
     b, h, w_, c = x.shape
     cr = w["cab_0"]["kernel"].shape[-1]
     plan = plan_cab(h, w_, c, cr)

@@ -16,7 +16,13 @@ kernel, so a run can show that the main path went through it. The scan's
 entries count apart: ``selective_scan`` (chain_proj, TPU kernels #3/#4),
 ``selective_scan_chain`` (#5), ``selective_scan_flat``, ``_dirs``,
 ``_bidir`` and ``_spatial`` (#6-#9); ``window_attention_nhwc`` (#1) and
-``window_attention`` (#10, window-major) count apart too.
+``window_attention`` (#10, window-major) count apart too. A kernel with a
+bf16 version counts that version under its name with ``.bf16`` added
+(``window_attention_nhwc.bf16``, ``grl_mixed_attention_nhwc.bf16``,
+``selective_scan.bf16``), so a run shows which of the two ran. A kernel
+takes the dtypes :func:`require` is given; handed a bf16 tensor, an
+fp32-only kernel raises naming itself (:func:`fp32_only`), and nothing is
+cast around it.
 """
 
 from __future__ import annotations
@@ -35,8 +41,8 @@ from typing import Optional
 import torch
 
 __all__ = ["library", "build", "check", "ptr", "stream", "require",
-           "nhwc_layout", "require_layout", "empty_nhwc", "launch_counts",
-           "reset_launch_counts"]
+           "fp32_only", "nhwc_layout", "require_layout", "empty_nhwc",
+           "launch_counts", "reset_launch_counts"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -51,10 +57,13 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "ff_window_attention_nhwc": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
+    "ff_window_attention_nhwc_bf16": [_P] * 6 + [_I] * 6 + [_F, _P],
     "ff_window_attention": [_P] * 6 + [_I] * 5 + [_F, _I, _I, _P],
     "ff_grl_mixed_attention_nhwc": [_P] * 16 + [_I] * 8 + [_P],
+    "ff_grl_mixed_attention_nhwc_bf16": [_P] * 16 + [_I] * 8 + [_P],
     "ff_selective_scan_slots": [_I] * 3,
     "ff_selective_scan_proj": [_P] * 10 + [_I] * 9 + [_P],
+    "ff_selective_scan_proj_bf16": [_P] * 11 + [_I] * 8 + [_P],
     "ff_selective_scan": [_P] * 10 + [_I] * 12 + [_P],
     "ff_fused_mlp_scratch_floats": [_I] * 3,
     "ff_fused_mlp": [_P] * 9 + [_L] + [_I] * 4 + [_F, _F, _P],
@@ -208,18 +217,29 @@ def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require(t: torch.Tensor, name: str, shape, device) -> None:
-    """Validate a tensor handed to a kernel: fp32, contiguous, on `device`,
-    of `shape`."""
+def require(t: torch.Tensor, name: str, shape, device,
+            dtype: torch.dtype = torch.float32) -> None:
+    """Validate a tensor handed to a kernel: of `dtype` (the one the kernel
+    takes for it), contiguous, on `device`, of `shape`."""
     if t.device != device:
         raise ValueError(f"{name} on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def fp32_only(kernel: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Refuse a bf16 tensor handed to a kernel that has only an fp32
+    version: raise naming `kernel`; nothing is cast around it."""
+    for t in tensors:
+        if t is not None and t.dtype == torch.bfloat16:
+            raise ValueError(f"{kernel}: got a bfloat16 tensor; this "
+                             "kernel's bf16 version is not ported yet (it "
+                             "takes float32)")
 
 
 def nhwc_layout(t: torch.Tensor) -> int:

@@ -38,6 +38,7 @@ def dwconv3x3(x: torch.Tensor, kernel: torch.Tensor,
         return dwconv3x3_reference(x, kernel, bias)
     if x.device.type != "cuda":
         raise ValueError(f"dwconv3x3: unsupported device {x.device}")
+    cuda.fp32_only("dwconv3x3", x)
     b, h, w, c = x.shape
     dev = x.device
     cuda.require(x, "x", (b, h, w, c), dev)

@@ -132,6 +132,7 @@ def edge_refine_fused(lap: torch.Tensor, p: Dict[str, Any]) -> torch.Tensor:
         return edge_refine_fused_reference(lap, p)
     if lap.device.type != "cuda":
         raise ValueError(f"edge_refine_fused: unsupported device {lap.device}")
+    cuda.fp32_only("edge_refine_fused", lap)
     b, h, w, cin = lap.shape
     f = p["conv1"]["kernel"].shape[-1]
     if f != 32:
@@ -179,6 +180,7 @@ def edge_fuse_fused(sr: torch.Tensor, f0: torch.Tensor, f1: torch.Tensor,
         return edge_fuse_fused_reference(sr, f0, f1, f2, lw, strength, p)
     if sr.device.type != "cuda":
         raise ValueError(f"edge_fuse_fused: unsupported device {sr.device}")
+    cuda.fp32_only("edge_fuse_fused", sr)
     b, h, w, _ = sr.shape
     f = f0.shape[-1]
     if f > 64:

@@ -132,6 +132,7 @@ def hier_stage3_fused(s3_in: torch.Tensor, p: Dict[str, Any]
     if s3_in.device.type != "cuda":
         raise ValueError(f"hier_stage3_fused: unsupported device "
                          f"{s3_in.device}")
+    cuda.fp32_only("hier_stage3_fused", s3_in)
     b, h, w, cin = s3_in.shape
     c1 = p["stage3_conv_0"]["kernel"].shape[-1]
     c2, cg, ct = c1 // 2, c1 // 8, c1 // 4

@@ -155,6 +155,7 @@ def lka_block_fused(x: torch.Tensor, p: Dict[str, Any]) -> torch.Tensor:
         return lka_block_fused_reference(x, p)
     if x.device.type != "cuda":
         raise ValueError(f"lka_block_fused: unsupported device {x.device}")
+    cuda.fp32_only("lka_block_fused", x)
     b, h, w, c = x.shape
     ch = p["ffn_0"]["kernel"].shape[-1]
     plan = plan_lka(b, h, w, c, ch)

@@ -95,6 +95,7 @@ def fused_mlp_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                                          ln_bias, prenorm, res_scale, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp_block: unsupported device {x.device}")
+    cuda.fp32_only("fused_mlp_block", x)
     c, ch = x.shape[-1], w1.shape[-1]
     m = x.numel() // c
     plan = plan_fused_mlp(m, c, ch)

@@ -102,6 +102,7 @@ def nafblock_fused(x: torch.Tensor, w: Dict[str, Any]) -> torch.Tensor:
         return nafblock_fused_reference(x, w)
     if x.device.type != "cuda":
         raise ValueError(f"nafblock_fused: unsupported device {x.device}")
+    cuda.fp32_only("nafblock_fused", x)
     b, h, w_, c = x.shape
     dev = x.device
     plan = plan_nafblock(h * w_, c, b)

@@ -23,9 +23,15 @@ entries take the JAX scan kernels' contracts and layouts:
   NHWC rows in sequence order (position r * T + t).
 
 ``reverse=True`` scans from the last position down; y stays in natural
-order. Every entry returns fp32. A CPU tensor goes to the plain version
-(``*_reference``); a CUDA tensor goes to ``csrc/selective_scan.cu`` or the
-call raises. All entries share one strided CUDA scan: a persistent grid
+order. Every entry returns fp32, except ``selective_scan_chain_proj`` on a
+bf16 xc (the bf16 expert mode), which returns bf16 y: its bf16 kernel
+(counted as ``selective_scan.bf16``) and plain version round where the
+JAX kernel's bf16 run does (u = silu(xc) rounded to bf16, one product
+with the composed projection weight rounded to bf16 once, dt/B/C, the
+softplus and the state in fp32, y rounded to bf16). The other entries
+take fp32 only and refuse bf16 (:func:`cuda.fp32_only`). A CPU tensor
+goes to the plain version (``*_reference``); a CUDA tensor goes to
+``csrc/selective_scan.cu`` or the call raises. All entries share one strided CUDA scan: a persistent grid
 of blocks, each scanning (sequence, chunk, 128-channel tile) items out of
 an asynchronous shared-memory ring, in two passes around a parallel
 compose of the chunk carries; :func:`plan_scan` sizes the chunks so that
@@ -51,7 +57,7 @@ __all__ = ["selective_scan", "selective_scan_chain",
            "selective_scan_dirs_reference", "selective_scan_bidir",
            "selective_scan_bidir_reference", "selective_scan_spatial",
            "selective_scan_spatial_reference", "ScanPlan", "plan_scan",
-           "dbl_width"]
+           "dbl_width", "composed_weight"]
 
 # csrc/selective_scan.cu: channels one block scans (one a thread), and
 # scan steps one stage of its shared-memory ring holds
@@ -126,11 +132,41 @@ def selective_scan_chain_reference(u, delta, A, B, C, D, delta_bias,
     return y.reshape(b, r, t, d).permute(0, 2, 1, 3).contiguous()
 
 
+def composed_weight(x_proj_w: torch.Tensor, dt_proj_w: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """The bf16 projection weight [D + 2N, D] of the chain_proj contract,
+    as the JAX kernel composes its ``wf``: the dt rows dt_proj_w @
+    x_proj_w[:dt_rank] composed in fp32, then x_proj_w's B and C rows, all
+    rounded to bf16 once."""
+    dtr = x_proj_w.shape[0] - 2 * n
+    w = torch.cat([dt_proj_w.float() @ x_proj_w[:dtr].float(),
+                   x_proj_w[dtr:].float()])
+    return w.to(torch.bfloat16).contiguous()
+
+
+def _chain_proj_bf16_reference(xc, x_proj_w, dt_proj_w, A, D, delta_bias,
+                               reverse: bool) -> torch.Tensor:
+    """bf16 xc: u = silu(xc) in fp32 rounded to bf16, one product with the
+    composed weight (fp32 sums of bf16 values), the scan in fp32, y
+    rounded to bf16."""
+    n, d = A.shape[-1], xc.shape[-1]
+    u = F.silu(xc.float()).to(torch.bfloat16).float()
+    proj = u @ composed_weight(x_proj_w, dt_proj_w, n).float().t()
+    y = selective_scan_chain_reference(
+        u, proj[..., :d], A, proj[..., d:d + n], proj[..., d + n:],
+        D.float(), delta_bias.float(), reverse)
+    return y.to(torch.bfloat16)
+
+
 def selective_scan_chain_proj_reference(xc, x_proj_w, dt_proj_w, A, D,
                                         delta_bias, reverse: bool = False
                                         ) -> torch.Tensor:
     """Plain version of :func:`selective_scan_chain_proj`: silu, the x_proj
-    and dt_proj einsums (as SS2D's XLA route runs them), then the scan."""
+    and dt_proj einsums (as SS2D's XLA route runs them), then the scan; for
+    a bf16 xc, :func:`_chain_proj_bf16_reference`."""
+    if xc.dtype == torch.bfloat16:
+        return _chain_proj_bf16_reference(xc, x_proj_w, dt_proj_w, A, D,
+                                          delta_bias, reverse)
     n = A.shape[-1]
     dtr = x_proj_w.shape[0] - 2 * n
     u = F.silu(xc)
@@ -214,11 +250,12 @@ def dbl_width(n: int, dt_rank: int) -> int:
 _slots: dict = {}
 
 
-def _plan(x: torch.Tensor, proj: bool, length: int, d: int, n: int,
+def _plan(x: torch.Tensor, proj: int, length: int, d: int, n: int,
           dt_rank: int, seqs: int) -> ScanPlan:
     """:func:`plan_scan` with the card's resident blocks of the scan's
     passes (SMs x blocks an SM holds), asked of the library at first use
-    for each contract, N and dt_rank."""
+    for each contract (`proj`: 0 explicit, 1 projection, 2 the bf16
+    projection contract), N and dt_rank."""
     key = (x.device.index, proj, n, dt_rank)
     if key not in _slots:
         got = cuda.library().ff_selective_scan_slots(int(proj), n, dt_rank)
@@ -256,6 +293,7 @@ def _launch(name: str, u, delta, A, B, C, D, delta_bias, u_lead: tuple,
     lead[0] = G indexes the groups (A [G, D, N], D and delta_bias [G, D])
     and u_lead[0] u's groups (group g reads u group g % u_lead[0]). Group
     g scans backward when bit g of `rev_mask` is set."""
+    cuda.fp32_only(name, u, delta)
     d, n = u.shape[-1], A.shape[-1]
     dev = u.device
     cuda.require(u, "u", u_lead + (d,), dev)
@@ -372,11 +410,16 @@ def selective_scan_chain_proj(xc: torch.Tensor, x_proj_w: torch.Tensor,
     """chain_fused / chain_proj contract: xc [B, T, R, D] is the PRE-silu
     depthwise-conv output; x_proj_w [dt_rank + 2N, D]; dt_proj_w
     [D, dt_rank]; A [D, N]; D, delta_bias [D]. u = silu(xc), dt/B/C are
-    projected from u inside. Returns fp32 y [B, T, R, D]."""
+    projected from u inside. Returns fp32 y [B, T, R, D], or bf16 y for a
+    bf16 xc (the bf16 kernel; A fp32, the weights, D and delta_bias of any
+    float dtype)."""
     if xc.device.type == "cpu":
         return selective_scan_chain_proj_reference(
             xc, x_proj_w, dt_proj_w, A, D, delta_bias, reverse)
     _require_cuda(xc, "selective_scan_chain_proj")
+    if xc.dtype == torch.bfloat16:
+        return _chain_proj_bf16(xc, x_proj_w, dt_proj_w, A, D, delta_bias,
+                                reverse)
     b, t, r, d = xc.shape
     n = A.shape[-1]
     k = x_proj_w.shape[0]
@@ -403,4 +446,41 @@ def selective_scan_chain_proj(xc: torch.Tensor, x_proj_w: torch.Tensor,
         cuda.stream(xc))
     cuda.check(err, "selective_scan_chain_proj")
     cuda.launch_counts["selective_scan"] += 1
+    return y
+
+
+def _chain_proj_bf16(xc, x_proj_w, dt_proj_w, A, D, delta_bias,
+                     reverse: bool) -> torch.Tensor:
+    """The bf16 kernel of :func:`selective_scan_chain_proj`: the projection
+    with :func:`composed_weight` on the bf16 tensor cores into fp32 dt
+    [rows, D] and B, C [rows, N] scratch, then the scan's passes over the
+    bf16 xc (u = silu(xc) rounded to bf16), y written as bf16. D and
+    delta_bias are taken in fp32, as the JAX wrapper casts them."""
+    b, t, r, d = xc.shape
+    n = A.shape[-1]
+    dev = xc.device
+    cuda.require(xc, "xc", (b, t, r, d), dev, torch.bfloat16)
+    cuda.require(A, "A", (d, n), dev)
+    if n > 16 or x_proj_w.shape != (x_proj_w.shape[0], d) or \
+            dt_proj_w.shape != (d, x_proj_w.shape[0] - 2 * n):
+        raise ValueError(f"selective_scan_chain_proj (bf16): N={n} must be "
+                         f"<= 16, x_proj_w {tuple(x_proj_w.shape)} and "
+                         f"dt_proj_w {tuple(dt_proj_w.shape)} of D={d}")
+    wt = composed_weight(x_proj_w, dt_proj_w, n)
+    D, delta_bias = (v.float().contiguous() for v in (D, delta_bias))
+    cuda.require(D, "D", (d,), dev)
+    cuda.require(delta_bias, "delta_bias", (d,), dev)
+    rows = b * t * r
+    dt = torch.empty(rows, d, device=dev, dtype=torch.float32)
+    Bm = torch.empty(rows, n, device=dev, dtype=torch.float32)
+    Cm = torch.empty(rows, n, device=dev, dtype=torch.float32)
+    y = torch.empty_like(xc)
+    plan = _plan(xc, 2, t * r, d, n, 0, b)
+    sdt, Hc = _scratch(xc, b, plan, d, n)
+    err = cuda.library().ff_selective_scan_proj_bf16(
+        *(cuda.ptr(x) for x in (xc, wt, A, D, delta_bias, dt, Bm, Cm, y, sdt,
+                                Hc)),
+        b, t, r, d, n, int(reverse), plan.chunk, plan.grid, cuda.stream(xc))
+    cuda.check(err, "selective_scan_chain_proj (bf16)")
+    cuda.launch_counts["selective_scan.bf16"] += 1
     return y

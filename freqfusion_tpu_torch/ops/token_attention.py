@@ -150,6 +150,7 @@ def token_attention(x: torch.Tensor, in_proj_w: torch.Tensor,
                                          out_b, num_heads)
     if x.device.type != "cuda":
         raise ValueError(f"token_attention: unsupported device {x.device}")
+    cuda.fp32_only("token_attention", x)
     if not 1 <= t <= MAX_T or e % num_heads or e % 4 or e > MAX_E or p < 1:
         raise ValueError(f"token_attention: T={t} must be 1..16, E={e} at "
                          f"most 160 and a multiple of 4 and of heads="

@@ -1562,3 +1562,107 @@ def test_layernorm_kernel(shape, dtype):
     # a misaligned base takes the scalar loop
     xs = torch.empty(x.numel() + 1, device=dev, dtype=dtype)[1:]
     check(fused_layernorm(xs.view(shape).copy_(x), wt, b))
+
+
+# bf16 kernels against their bf16 plain versions (the same rounding
+# points): fp32 sums in another order, so an output may land on the
+# neighbouring bf16 value; max-abs within two bf16 ulps of the output's
+# largest magnitude
+BF16_ULPS = 2
+
+
+def _bf16_close(got, want, name):
+    torch.cuda.synchronize()
+    assert cuda.launch_counts[name] == 1
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert g.dtype == w.dtype == torch.bfloat16 and g.shape == w.shape
+        top = w.float().abs().max().item()
+        tol = BF16_ULPS * 2.0 ** (np.floor(np.log2(top)) - 7)
+        assert (g.float() - w.float()).abs().max().item() <= tol
+
+
+def _b(a, dev):
+    return _t(a, dev).to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,ws,shift", [(244, 2, 16, 8),
+                                              (60, 6, 8, 0)])
+def test_window_attention_bf16_kernel(c, heads, ws, shift):
+    """DRCT-L's widest head (hd 122, shifted) and a small one (hd 10):
+    bf16 q, k, v and bias, fp32 mask, as the bf16 module hands them."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c)
+    h, w, n = 2 * ws, 3 * ws, ws * ws
+    q, k, v = (_b(rng.normal(size=(2, h, w, c)), dev) for _ in range(3))
+    bias = _b(0.5 * rng.normal(size=(heads, n, n)), dev)
+    mask = shifted_window_mask(h, w, ws, shift)
+    args = (q, k, v, bias, None if mask is None else _t(mask, dev), heads, ws)
+    cuda.reset_launch_counts()
+    got = window_attention_nhwc(*args)
+    _bf16_close(got, window_attention_nhwc_reference(*args),
+                "window_attention_nhwc.bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c2,heads,shift", [(90, 3, True), (24, 3, False)])
+def test_grl_mixed_attention_bf16_kernel(c2, heads, shift):
+    """GRL-B's halves (hd 30, shifted) and hd 8: bf16 halves and anchor,
+    fp32 scales, biases and mask, as the bf16 module hands them."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c2)
+    args = list(_grl_args(rng, dev, 2, c2, heads, heads, shift))
+    args[:7] = [a.to(torch.bfloat16) for a in args[:7]]
+    cuda.reset_launch_counts()
+    got = grl_mixed_attention_nhwc(*args)
+    _bf16_close(got, grl_mixed_attention_nhwc_reference(*args),
+                "grl_mixed_attention_nhwc.bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,r,d,n,dtr,reverse", [(40, 24, 360, 16, 12, True),
+                                                 (9, 5, 20, 4, 2, False)])
+def test_scan_chain_proj_bf16_kernel(t, r, d, n, dtr, reverse):
+    """MambaIR's widths over several chunks, backward, and a narrow
+    generic shape (D % 8 != 0: the 2-byte staging and stores), forward:
+    bf16 xc and weights, fp32 A, bf16 D and dt bias, as SS2D hands them."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(d)
+    xc = _b(rng.normal(size=(2, t, r, d)), dev)
+    xpw = _b(rng.uniform(-1, 1, (dtr + 2 * n, d)) / np.sqrt(d), dev)
+    dtw = _b(rng.uniform(-1, 1, (d, dtr)) / np.sqrt(dtr), dev)
+    A = _t(-np.tile(np.arange(1, n + 1), (d, 1)), dev)
+    D = _b(1 + 0.1 * rng.normal(size=d), dev)
+    dt = np.exp(rng.uniform(np.log(1e-3), np.log(0.1), d))
+    bias = _b(dt + np.log(-np.expm1(-dt)), dev)
+    args = (xc, xpw, dtw, A, D, bias, reverse)
+    cuda.reset_launch_counts()
+    got = selective_scan_chain_proj(*args)
+    _bf16_close(got, selective_scan_chain_proj_reference(*args),
+                "selective_scan.bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["window_attention",
+                                    "selective_scan_chain",
+                                    "fused_mlp_block"])
+def test_fp32_only_kernels_refuse_bf16(kernel):
+    """A kernel with no bf16 version raises on a bf16 tensor, naming
+    itself; nothing is cast around it."""
+    dev = cuda_or_skip()
+    x = torch.zeros(1, 8, 8, 16, device=dev, dtype=torch.bfloat16)
+    calls = {
+        "window_attention": lambda: window_attention(
+            x.view(1, 64, 16), x.view(1, 64, 16), x.view(1, 64, 16),
+            torch.zeros(1, 64, 64, device=dev), None, 1),
+        "selective_scan_chain": lambda: selective_scan_chain(
+            x, x, torch.zeros(16, 4, device=dev), x[..., :4], x[..., :4],
+            torch.zeros(16, device=dev), torch.zeros(16, device=dev)),
+        "fused_mlp_block": lambda: fused_mlp_block(
+            x, *(torch.zeros(s, device=dev) for s in
+                 ((16, 32), (32,), (32, 16), (16,), (16,), (16,)))),
+    }
+    with pytest.raises(ValueError, match=f"{kernel}: .*bf16 version is not "
+                                         "ported"):
+        calls[kernel]()
