@@ -77,7 +77,11 @@ exits non-zero without the final ok line):
    time at the same shapes and the bound at the bf16 tensor-core rate
    (989 TFLOP/s; the scan's recurrence at the fp32 cores'): #1 at DRCT-L's
    ten shapes with SDPA in bf16 as its library call, #2 at GRL-B's two,
-   #3/#4 on both chain layouts, each direction;
+   #3/#4 on both chain layouts, each direction; then the byte-floor
+   kernels' bf16 versions at phase 2's byte-floor shapes (the fused FFN
+   #14 at its six, the CAB #15 at its two, the NAFBlock #16 at NAFNet's
+   five levels, the depthwise conv #17 at SS2D's D 360 with cuDNN's bf16
+   depthwise F.conv2d as its library call);
 3. serving, default path: seeded full-width random checkpoints under the
    reference file names, three LR PNGs (128x128, 100x140, 336x512)
    through ``freqfusion_tpu_torch.interface.io.main(..., device="cuda")``,
@@ -114,18 +118,24 @@ exits non-zero without the final ok line):
    image and none of an fp32 kernel, the 336x512 output against phase
    3's (PSNR >= 52 dB, the JAX package's composed floor), then each expert
    alone in bf16 against its fp32 output (PSNR >= 48 dB);
-3c. the pipeline alone on the 336x512 image in the seven configurations
+3k. serving, bf16 byte-floor configuration (the four byte-floor gates and
+   FREQFUSION_EXPERT_DTYPE=bf16) through ``io.main``: 60, 40, 144, 100,
+   76, 36 and 36 launches of the seven bf16 kernels per image and none of
+   an fp32 kernel, the 336x512 output against phase 3b's fp32 byte-floor
+   one (PSNR >= 52 dB);
+3c. the pipeline alone on the 336x512 image in the eight configurations
    in turns (default, byte-floor, projection, fusion-eval, chainv5,
-   spatial, bf16, then back, after a warm-up of each): seconds per
-   request to the synchronised result, without the host's PNG work; then
-   the default path's and the bf16 configuration's split by stage (each
-   expert alone on the same image, CUDA events);
+   spatial, bf16, bf16-byte-floor, then back, after a warm-up of each):
+   seconds per request to the synchronised result, without the host's
+   PNG work; then the default path's and the two bf16 configurations'
+   split by stage (each expert alone on the same image, CUDA events);
 4. card against CPU: the same weights on one 32x48 LR image through the
    kernels on the card and the plain versions on the CPU, for each
-   configuration; PSNR >= 60 dB (bf16: both in bf16, >= 48 dB).
+   configuration; PSNR >= 60 dB (bf16 experts: both in bf16, >= 48 dB).
 
 The last three lines are {"kernels": [...]} (each kernel with its launch
-count from the run of its own configuration, the bf16 kernels' from 3j;
+count from the run of its own configuration, the bf16 kernels' from 3j,
+the byte-floor kernels' bf16 versions' from 3k;
 #6, #7, #10 and #22 lie on no path),
 the card's name and power limit (card: ...), and
 {"ok": true, "device": {...}}.
@@ -143,7 +153,7 @@ run phase 1 and phase 2's four byte-floor kernels, its three in-kernel
 projection kernels, its four fusion-eval kernels, the scan's seven
 contracts, window attention #1 alone at its ten shapes, GRL's mixed
 attention #2 and #12 at GRL-B's two shapes, the token attention #13 at
-the fusion net's two geometries, or the three bf16 kernels, only (to
+the fusion net's two geometries, or the seven bf16 kernels, only (to
 compare two versions of them in one call; --fusion-only,
 --nhwc-attention-only, --grl-only and --bf16-only also run beside an
 older checkout of the package), and print their summary instead of the ok
@@ -221,6 +231,8 @@ GEMM_EPILOGUES = ("bias", "residual", "gate")
 # instantiation
 CONV_EPILOGUES = ("store", "SpatialGate", "squeeze", "broadcast")
 FFN_DOWN_TILES = (6, 8, 9, 10)
+# csrc/bf16_gemm.cuh's bg_gemm_kernel<A, Epi>: every instantiation, in the
+# three sources that build it (the bf16 #14, #15, #16)
 CAB_CONV_TILES = (4, 6)
 LR_SIZES = {"a_128x128": (128, 128), "b_100x140": (100, 140),
             "c_336x512": (336, 512)}
@@ -237,7 +249,10 @@ CONFIGS = {"default": {},
                                          "FREQFUSION_EDGE"), "1"),
            "chainv5": {"FREQFUSION_SCAN": "chainv5"},
            "spatial": {"FREQFUSION_SCAN": "spatial"},
-           "bf16": {"FREQFUSION_EXPERT_DTYPE": "bf16"}}
+           "bf16": {"FREQFUSION_EXPERT_DTYPE": "bf16"},
+           "bf16-byte-floor": {**dict.fromkeys((
+               "FREQFUSION_MLP", "FREQFUSION_CAB", "FREQFUSION_NAFBLOCK",
+               "FREQFUSION_DWCONV"), "1"), "FREQFUSION_EXPERT_DTYPE": "bf16"}}
 # launches per image: DRCT 12 RDGs x 5 blocks, GRL sum of depths, MambaIR
 # 36 layers x 4 directions
 PER_IMAGE = {"window_attention_nhwc": 60, "grl_mixed_attention_nhwc": 40,
@@ -271,6 +286,11 @@ PER_IMAGE_BIDIR = {"selective_scan_bidir": 36}
 PER_IMAGE_BF16 = {"window_attention_nhwc.bf16": 60,
                   "grl_mixed_attention_nhwc.bf16": 40,
                   "selective_scan.bf16": 144}
+# the experts in bf16 with the four byte-floor gates: the byte-floor
+# kernels' bf16 versions take the gated calls
+PER_IMAGE_BF16_GATED = {**PER_IMAGE_BF16, "fused_mlp_block.bf16": 100,
+                        "cab_fused.bf16": 76, "nafblock_fused.bf16": 36,
+                        "dwconv3x3.bf16": 36}
 SOURCES = {
     "window_attention_nhwc": ("freqfusion_tpu_torch/csrc/window_attention.cu",
                               "freqfusion_tpu/ops/pallas_attention.py:238"),
@@ -300,12 +320,20 @@ SOURCES = {
                                "freqfusion_tpu/ops/selective_scan.py:550"),
     "fused_mlp_block": ("freqfusion_tpu_torch/csrc/fused_mlp.cu",
                         "freqfusion_tpu/ops/pallas_mlp.py:85"),
+    "fused_mlp_block.bf16": ("freqfusion_tpu_torch/csrc/fused_mlp.cu",
+                             "freqfusion_tpu/ops/pallas_mlp.py:85"),
     "cab_fused": ("freqfusion_tpu_torch/csrc/cab.cu",
                   "freqfusion_tpu/ops/pallas_cab.py:174"),
+    "cab_fused.bf16": ("freqfusion_tpu_torch/csrc/cab.cu",
+                       "freqfusion_tpu/ops/pallas_cab.py:174"),
     "nafblock_fused": ("freqfusion_tpu_torch/csrc/nafblock.cu",
                        "freqfusion_tpu/ops/pallas_nafblock.py:231"),
+    "nafblock_fused.bf16": ("freqfusion_tpu_torch/csrc/nafblock.cu",
+                            "freqfusion_tpu/ops/pallas_nafblock.py:231"),
     "dwconv3x3": ("freqfusion_tpu_torch/csrc/dwconv.cu",
                   "freqfusion_tpu/ops/pallas_dwconv.py:56"),
+    "dwconv3x3.bf16": ("freqfusion_tpu_torch/csrc/dwconv.cu",
+                       "freqfusion_tpu/ops/pallas_dwconv.py:56"),
     "window_attention_qkv_nhwc": (
         "freqfusion_tpu_torch/csrc/window_attention_qkv.cu",
         "freqfusion_tpu/ops/pallas_attention.py:709"),
@@ -356,11 +384,14 @@ class KernelCheck:
 
     def run(self, label: str, kernel, plain, tol_of, flops: float,
             nbytes: float, library=None, plain_reps: int = 5,
-            peak_flops: float = PEAK_FLOPS) -> float:
+            peak_flops: float = PEAK_FLOPS, core_flops: float = 0.0
+            ) -> float:
         """`flops` and `nbytes` count the operations the function does on
         these inputs and the bytes it must move (each input read once,
         each output written once); `peak_flops` is the rate of the units
-        its operations run on (the fp32 cores unless given). The plain
+        its operations run on (the fp32 cores unless given); `core_flops`
+        the work that stays on the fp32 cores beside tensor-core products,
+        a third term (the units run side by side). The plain
         version is timed over `plain_reps` runs after min(2, plain_reps)
         warm-ups, twice. Returns the kernel's time in ms."""
         got, want = kernel(), plain()
@@ -378,7 +409,8 @@ class KernelCheck:
             lib_ms = (cuda_ms(library) + cuda_ms(library)) / 2
         ms2, plain_ms2 = cuda_ms(kernel), cuda_ms(plain, plain_reps, warm)
         ms, plain_ms = (ms + ms2) / 2, (plain_ms + plain_ms2) / 2
-        flop_ms, byte_ms = 1e3 * flops / peak_flops, 1e3 * nbytes / PEAK_BYTES
+        flop_ms = max(1e3 * flops / peak_flops, 1e3 * core_flops / PEAK_FLOPS)
+        byte_ms = 1e3 * nbytes / PEAK_BYTES
         lib = "" if lib_ms is None else f"  library {lib_ms:.3f} ms"
         reps = "" if plain_reps == 5 else f" (median of {plain_reps})"
         print(f"  {self.name} {label}: max_abs_err {err:.3e} (tol {tol:.3e})"
@@ -645,6 +677,12 @@ def check_spills(log: str, required: bool) -> None:
             lambda m: "layout pass" if m.group(4)
             else f"{4 * int(m.group(1))} warps, {m.group(2)} out n-tiles a "
                  f"warp, T {m.group(3)}"),
+        "bf16 GEMM (#14, #15, #16)": (
+            r"(fused_mlp|cab|nafblock)_cu.*bg_gemm_kernelIN\w*?(BgRows|"
+            r"BgConv3x3)\w*?(\d+)(\w+?Epi)E",
+            lambda m: True,
+            lambda m: f"{m.group(1)}.cu, {m.group(2)} rows, "
+                      f"{m.group(4)[:-3]} epilogue"),
         "LKA (#18)": (
             r"lka_(mix)_kernelILi(\d+)ELi(\d+)ELi(\d+)E|lka_(dw|prep)_kernel",
             lambda m: True,
@@ -671,12 +709,16 @@ def check_spills(log: str, required: bool) -> None:
     # them (simple first versions)
     bf16 = (r"(window_attention|grl_attention)_bf16_kernelILi(\d+)E|"
             r"(scan_project)_bf16_kernel|"
-            r"scan_pass_kernelILb0ELb([01])ELi(\d+)ELi0ELb1E")
+            r"scan_pass_kernelILb0ELb([01])ELi(\d+)ELi0ELb1E|"
+            r"dwconv3x3_kernelI(N?S?_?6?Bf16x4|13__nv_bfloat16)E")
     for name, regs, spill in entries:
         m = re.search(bf16, name)
         if m:
             what = (f"{m.group(1)}, head box {m.group(2)}" if m.group(1)
                     else "scan projection" if m.group(3)
+                    else "dwconv, " + ("four channels" if "x4" in m.group(6)
+                                       else "one channel") + " a thread"
+                    if m.group(6)
                     else f"scan pass {int(m.group(4)) + 1}, N "
                          f"{m.group(5) if m.group(5) != '0' else 'any'}")
             print(f"  bf16 {what}: {regs} registers, {spill} bytes spill "
@@ -1040,6 +1082,111 @@ def phase_bf16_kernels(dev, randn, checks) -> None:
                                  lambda: selective_scan_chain_proj(*args))
     beside("selective_scan", sc)
     del rows, xc
+    torch.cuda.empty_cache()
+    phase_bf16_fused_kernels(dev, randn, checks, beside)
+
+
+def phase_bf16_fused_kernels(dev, randn, checks, beside) -> None:
+    """The byte-floor kernels' bf16 versions at phase_fused_kernels' shapes
+    (bf16 x, weights and vectors, as the cast experts hand them), each
+    against its bf16 plain version (BF16_ULPS), beside the fp32 kernel's
+    time where this run measured it. Bound: the products at the bf16
+    tensor-core rate, the elementwise work beside them on the fp32 cores,
+    and bf16 bytes (x in, out out, the weights once)."""
+    import torch.nn.functional as F
+
+    from freqfusion_tpu_torch.ops.cab import cab_fused, cab_fused_reference
+    from freqfusion_tpu_torch.ops.dwconv import dwconv3x3, dwconv3x3_reference
+    from freqfusion_tpu_torch.ops.mlp import (fused_mlp_block,
+                                              fused_mlp_block_reference)
+    from freqfusion_tpu_torch.ops.nafblock import (nafblock_fused,
+                                                   nafblock_fused_reference)
+
+    bf = torch.bfloat16
+    h, w = LR_SIZES["c_336x512"]
+    p = h * w
+
+    def tree(t):
+        return ({k: tree(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.to(bf))
+
+    fm = checks["fused_mlp_block.bf16"] = KernelCheck("fused_mlp_block.bf16")
+    for c, ch, pre in ((180, 720, True), (212, 848, True), (244, 976, True),
+                       (276, 276, True), (308, 308, True), (180, 360, False)):
+        args = (randn(1, h, w, c).to(bf),
+                *(t.to(bf) for t in (
+                    randn(c, ch, scale=c ** -0.5), randn(ch, scale=0.1),
+                    randn(ch, c, scale=ch ** -0.5), randn(c, scale=0.1),
+                    1 + randn(c, scale=0.1), randn(c, scale=0.1))), pre)
+        fm.run(f"C{c}/Ch{ch}/{'pre' if pre else 'post'}",
+               lambda: fused_mlp_block(*args),
+               lambda: fused_mlp_block_reference(*args), bf16_tol,
+               4.0 * p * c * ch, 2 * (2 * p * c + 2 * c * ch + ch + 4 * c),
+               peak_flops=PEAK_BF16, core_flops=20.0 * p * ch)
+        if c == 244 or not pre:
+            launch_breakdown(f"#14 bf16 C{c}", lambda: fused_mlp_block(*args))
+        del args
+    beside("fused_mlp_block", fm)
+    torch.cuda.empty_cache()
+
+    cb = checks["cab_fused.bf16"] = KernelCheck("cab_fused.bf16")
+    x = randn(1, h, w, 180, scale=0.5).to(bf)
+    for form, cr, sq in (("grl", 45, 18), ("mambair", 60, 30)):
+        wt = tree({"cab_0": _conv_tree(randn, 3, 180, cr),
+                   "cab_2": _conv_tree(randn, 3, cr, 180),
+                   "ca_1": _conv_tree(randn, 1, 180, 180 // sq),
+                   "ca_3": _conv_tree(randn, 1, 180 // sq, 180)})
+        ln = skip = None
+        if form == "mambair":
+            ln = tree(_norm_tree(randn, 180))
+            skip = (1 + randn(180, scale=0.2)).to(bf)
+        args = (x, wt, ln, skip)
+        cb.run(f"{form}/C180/Cr{cr}", lambda: cab_fused(*args),
+               lambda: cab_fused_reference(*args), bf16_tol,
+               36.0 * p * 180 * cr, 2 * (2 * p * 180 + 18 * 180 * cr),
+               peak_flops=PEAK_BF16, core_flops=p * (20.0 * cr + 12 * 180))
+        launch_breakdown(f"#15 bf16 {form}", lambda: cab_fused(*args))
+    beside("cab_fused", cb)
+    del x
+    torch.cuda.empty_cache()
+
+    nb = checks["nafblock_fused.bf16"] = KernelCheck("nafblock_fused.bf16")
+    for c, (hh, ww) in ((64, (4 * h, 4 * w)), (128, (2 * h, 2 * w)),
+                        (256, (h, w)), (512, (h // 2, w // 2)),
+                        (1024, (h // 4, w // 4))):
+        wt = tree({"norm1": _norm_tree(randn, c),
+                   "norm2": _norm_tree(randn, c),
+                   "conv1": _conv_tree(randn, 1, c, 2 * c),
+                   "conv2": _conv_tree(randn, 3, 2 * c, 2 * c, groups=2 * c),
+                   "sca": _conv_tree(randn, 1, c, c),
+                   "conv3": _conv_tree(randn, 1, c, c),
+                   "conv4": _conv_tree(randn, 1, c, 2 * c),
+                   "conv5": _conv_tree(randn, 1, c, c),
+                   "beta": randn(c, scale=0.5), "gamma": randn(c, scale=0.5)})
+        x = torch.rand(1, hh, ww, c, device=dev).to(bf)
+        npx = hh * ww
+        nb.run(f"C{c}/{hh}x{ww}", lambda: nafblock_fused(x, wt),
+               lambda: nafblock_fused_reference(x, wt), bf16_tol,
+               npx * 12.0 * c * c, 2 * (2 * npx * c + 7 * c * c + 40 * c),
+               peak_flops=PEAK_BF16, core_flops=npx * 60.0 * c)
+        if c in (64, 1024):
+            launch_breakdown(f"#16 bf16 C{c}", lambda: nafblock_fused(x, wt))
+        del x, wt
+        torch.cuda.empty_cache()
+    beside("nafblock_fused", nb)
+
+    dw = checks["dwconv3x3.bf16"] = KernelCheck("dwconv3x3.bf16")
+    x = randn(1, h, w, 360).to(bf)
+    k = randn(3, 3, 1, 360, scale=1 / 3).to(bf)
+    b = randn(360, scale=0.1).to(bf)
+    k_torch = k.permute(3, 2, 0, 1).contiguous()
+    x_nchw = x.permute(0, 3, 1, 2)
+    dw.run("SS2D/D360", lambda: dwconv3x3(x, k, b),
+           lambda: dwconv3x3_reference(x, k, b), bf16_tol,
+           18.0 * p * 360, 2 * (2 * p * 360 + 10 * 360),
+           lambda: F.conv2d(x_nchw, k_torch, b, padding=1, groups=360))
+    beside("dwconv3x3", dw)
+    del x, x_nchw
     torch.cuda.empty_cache()
 
 
@@ -1716,7 +1863,7 @@ def phase_pipeline_ab(model_dir: Path, image: Path, configs=tuple(CONFIGS),
         print(f"  {config}: {' '.join(f'{v:.3f}' for v in t)} s, mean "
               f"{mean:.3f} s ("
               f"{4 * lr.shape[2] * 4 * lr.shape[3] / mean / 1e6:.3f} MP/s)")
-    for config in dict.fromkeys((order[0], "bf16")):
+    for config in dict.fromkeys((order[0], "bf16", "bf16-byte-floor")):
         if config in order:
             stage_split(pipe_of(config), lr, config)
     set_gates("default")
@@ -1965,7 +2112,7 @@ def main(argv) -> int:
                                phase_grl_kernels),
                               ("--token-only", "token attention (#13)",
                                phase_token_kernel),
-                              ("--bf16-only", "bf16 (#1, #2, #3/#4)",
+                              ("--bf16-only", "bf16 (#1, #2, #3/#4, #14-#17)",
                                phase_bf16_kernels)):
         if flag in argv:
             print(f"[2] the {what} kernels against their plain versions")
@@ -2049,6 +2196,22 @@ def main(argv) -> int:
               "bf16), through python -m freqfusion_tpu_torch.interface.ntire")
         counts["bf16"] = phase_ntire_bf16(model_dir, in_dir, work)
         torch.cuda.empty_cache()
+        print("[3k] serving, bf16 byte-floor configuration (" + ", ".join(
+            f"{k}={v}" for k, v in CONFIGS["bf16-byte-floor"].items())
+            + ")")
+        set_gates("bf16-byte-floor")
+        out = work / "out_bf16-byte-floor"
+        counts["bf16-byte-floor"] = phase_serving(model_dir, in_dir, out,
+                                                  PER_IMAGE_BF16_GATED)
+        db = psnr(read_image(str(out / name)),
+                  read_image(str(work / "out_byte-floor" / name)))
+        print(f"  {name}: against phase 3b's fp32 byte-floor output PSNR "
+              f"{db:.2f} dB (min {PSNR_BF16_PIPELINE})")
+        if not db >= PSNR_BF16_PIPELINE:
+            raise AssertionError(f"bf16 byte-floor against byte-floor PSNR "
+                                 f"{db:.2f} < {PSNR_BF16_PIPELINE}")
+        set_gates("default")
+        torch.cuda.empty_cache()
         print(f"[3c] pipeline alone, 336x512, the {len(CONFIGS)} "
               "configurations in turns")
         phase_pipeline_ab(model_dir, in_dir / name)
@@ -2057,7 +2220,8 @@ def main(argv) -> int:
             set_gates(config)
             print(f"[4] card against CPU, {config} configuration")
             phase_card_vs_cpu(model_dir, PSNR_BF16_CARD_CPU
-                              if config == "bf16" else PSNR_MIN)
+                              if "FREQFUSION_EXPERT_DTYPE" in CONFIGS[config]
+                              else PSNR_MIN)
         set_gates("default")
 
     # launches: each kernel's count from the run of its own configuration
@@ -2066,7 +2230,8 @@ def main(argv) -> int:
         ("byte-floor", PER_IMAGE_GATED), ("projection", PER_IMAGE_QKV),
         ("fusion-eval", PER_IMAGE_FUSION), ("chainv5", PER_IMAGE_CHAINV5),
         ("spatial", PER_IMAGE_SPATIAL), ("bidir", PER_IMAGE_BIDIR),
-        ("bf16", PER_IMAGE_BF16), ("default", PER_IMAGE)) for k in per_image}
+        ("bf16-byte-floor", PER_IMAGE_BF16_GATED), ("bf16", PER_IMAGE_BF16),
+        ("default", PER_IMAGE)) for k in per_image}
     print(json.dumps({"kernels": [c.entry(launches.get(c.name, 0))
                                   for c in checks.values()]}))
     print(f"card: {smi}")

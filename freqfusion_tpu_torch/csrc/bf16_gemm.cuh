@@ -1,0 +1,390 @@
+// bf16 products on the tensor cores for the bf16 versions of the fused FFN
+// (fused_mlp.cu, TPU #14), the CAB (cab.cu, #15) and the NAFBlock
+// (nafblock.cu, #16), and the row passes around them. Each keeps the JAX
+// kernel's rounding points: a product takes bf16 operands and accumulates
+// in fp32 (one mma.sync m16n8k16 from bf16_mma.cuh), and every other step
+// runs in fp32, rounded to bf16 only where the JAX kernel casts.
+//
+// bg_gemm_kernel<A, Epi>: out = Epi(A W), a simple multistage GEMM. A block
+// is 128 rows x 64 columns, 4 warps of 64 x 32 (4 x 4 m16n8 tiles); K goes
+// 32 columns a stage through a three-stage cp.async ring (16-byte copies,
+// zero-filled where A has no value). Shared memory rows are padded (A 40,
+// W 72 bf16: 80 and 144 bytes), so ldmatrix's eight row reads of a phase
+// fall in distinct banks. W is the weight zero-padded by bg_pad_kernel to
+// [kp][np] bf16 (kp a multiple of 32, np of 64). A comes through a loader:
+//   BgRows     a row-major bf16 matrix whose rows are 16-byte multiples;
+//   BgConv3x3  a 3x3 convolution's implicit-GEMM rows over an NHWC bf16
+//              tensor (column tap * cin + c), zero outside the image.
+// The activations' rows are rarely 16-byte multiples in place (C 180 is
+// 360 bytes, the CAB's Cr 45 is 90), so the passes that make A write it
+// padded (bg_rows_kernel, the epilogues), with zeros past the real
+// columns, which meet W's zero rows.
+//
+// What bounds these products on the H100: the tensor cores (989 TFLOP/s
+// bf16, dense) for the FFN's and the NAFBlock's wide layers; this first
+// version is simple (mma.sync, no TMA or wgmma, intermediates through
+// device memory), and chip_smoke.py phase 2 prints its time beside that
+// bound.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "bf16_mma.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kBgM = 128, kBgN = 64, kBgK = 32, kBgStages = 3;
+constexpr int kBgThreads = 128;
+constexpr int kBgLdA = kBgK + 8, kBgLdB = kBgN + 8;  // padded smem rows
+constexpr int kBgChunk = 256;  // rows a block of bg_colsum_kernel sums
+
+__device__ __forceinline__ void bg_cp16(bf16* dst, const bf16* src,
+                                        bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   bf16_smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void bg_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bg_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float bg_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float bg_f(float v) { return v; }
+
+__device__ __forceinline__ bf16 bg_round(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ float bg_gelu(float v) {  // exact (erf)
+  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+}
+
+__device__ __forceinline__ float bg_warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// A's rows from a row-major bf16 matrix [M, ld] (ld a multiple of 8, the
+// columns past the product's real K zeros).
+struct BgRows {
+  const bf16* a;
+  long long M;
+  int ld;
+  __device__ __forceinline__ const bf16* src(long long m, int k) const {
+    return m < M ? a + m * ld + k : nullptr;
+  }
+};
+
+// A's rows of a 3x3 convolution (zero padding, stride 1) over t [B, H, W,
+// cin] bf16 (cin a multiple of 8, the channels past the real ones zeros):
+// row m is pixel m, column k = tap * cin + c with tap = 3 dy + dx; columns
+// of tap 9 and past (K's padding to 32) are zeros.
+struct BgConv3x3 {
+  const bf16* t;
+  long long M;  // B H W
+  int H, W, cin;
+  __device__ __forceinline__ const bf16* src(long long m, int k) const {
+    const int tap = k / cin, c = k - tap * cin;
+    if (m >= M || tap >= 9) return nullptr;
+    const long long hw = (long long)H * W;
+    const long long img = m / hw;
+    const int pix = int(m - img * hw);
+    const int y = pix / W + tap / 3 - 1, x = pix % W + tap % 3 - 1;
+    if (y < 0 || y >= H || x < 0 || x >= W) return nullptr;
+    return t + ((img * H + y) * W + x) * (long long)cin + c;
+  }
+};
+
+// Epi(m, n, v0, v1) gets the fp32 sums of row m, columns n and n + 1 (n
+// even) of every 128 x 64 tile, padding rows and columns included: it
+// stores what is real.
+template <class A, class Epi>
+__global__ void __launch_bounds__(kBgThreads)
+bg_gemm_kernel(A la, const bf16* __restrict__ w, int ldw, int kp,
+               int nblocks, Epi epi) {
+  __shared__ __align__(16) bf16 as[kBgStages][kBgM * kBgLdA];
+  __shared__ __align__(16) bf16 bs[kBgStages][kBgK * kBgLdB];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wr = warp / 2, wc = warp % 2;
+  const long long m0 = (long long)(blockIdx.x / nblocks) * kBgM;
+  const int n0 = int(blockIdx.x % nblocks) * kBgN;
+  const int stages = kp / kBgK;
+
+  auto load = [&](int buf, int s) {
+    const int k0 = s * kBgK;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // A: 128 rows x 4 pieces of 8
+      const int id = tid + kBgThreads * i, r = id / 4, q = id % 4;
+      const bf16* src = la.src(m0 + r, k0 + 8 * q);
+      bg_cp16(&as[buf][r * kBgLdA + 8 * q], src ? src : w, src != nullptr);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {  // W: 32 rows x 8 pieces of 8
+      const int id = tid + kBgThreads * i, r = id / 8, q = id % 8;
+      bg_cp16(&bs[buf][r * kBgLdB + 8 * q],
+              w + (long long)(k0 + r) * ldw + n0 + 8 * q, true);
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kBgStages - 1; ++s) {
+    if (s < stages) load(s, s);
+    bg_commit();
+  }
+  for (int s = 0; s < stages; ++s) {
+    bg_wait<kBgStages - 2>();  // stage s has landed (this thread's part)
+    __syncthreads();           // ... everyone's; stage s - 1 is read
+    if (s + kBgStages - 1 < stages)
+      load((s + kBgStages - 1) % kBgStages, s + kBgStages - 1);
+    bg_commit();
+    const bf16* a_s = as[s % kBgStages];
+    const bf16* b_s = bs[s % kBgStages];
+#pragma unroll
+    for (int kk = 0; kk < kBgK / 16; ++kk) {
+      uint32_t a[4][4], b[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+        ldsm_a(a[mt], a_s + (64 * wr + 16 * mt) * kBgLdA + 16 * kk, kBgLdA);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t pair[2][2];
+        ldsm_b_kn(pair, b_s + 16 * kk * kBgLdB + 32 * wc + 16 * np, kBgLdB);
+        b[2 * np][0] = pair[0][0];
+        b[2 * np][1] = pair[0][1];
+        b[2 * np + 1][0] = pair[1][0];
+        b[2 * np + 1][1] = pair[1][1];
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          mma_bf16(acc[mt][nt], a[mt], b[nt][0], b[nt][1]);
+    }
+  }
+  bg_wait<0>();
+
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int n = n0 + 32 * wc + 8 * nt + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        epi(m0 + 64 * wr + 16 * mt + g + 8 * h, n, acc[mt][nt][2 * h],
+            acc[mt][nt][2 * h + 1]);
+    }
+}
+
+// Epi(A W) over M rows; W [kp][np] bf16 (rows of ldw, 16-byte aligned).
+template <class A, class Epi>
+cudaError_t bg_gemm(const A& la, long long M, const bf16* w, int ldw, int kp,
+                    int np, const Epi& epi, cudaStream_t stream) {
+  if (kp % kBgK || np % kBgN || ldw < np || ldw % 8 ||
+      reinterpret_cast<size_t>(w) % 16)
+    return cudaErrorInvalidValue;
+  const int nblocks = np / kBgN;
+  const long long blocks = (M + kBgM - 1) / kBgM * nblocks;
+  if (blocks <= 0) return cudaSuccess;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  bg_gemm_kernel<A, Epi><<<unsigned(blocks), kBgThreads, 0, stream>>>(
+      la, w, ldw, kp, nblocks, epi);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------
+// Epilogues
+
+// out[m, n] = bf16(gelu(v + bias[n])) for n < n_real, 0 for n_real <= n <
+// ld: the next product's A (the FFN's hidden, the CAB's conv2 input).
+struct BgGeluEpi {
+  const bf16* bias;
+  bf16* out;
+  long long M;
+  int n_real, ld;
+  __device__ __forceinline__ void operator()(long long m, int n, float v0,
+                                             float v1) const {
+    if (m >= M || n >= ld) return;
+    const float a0 = n < n_real ? bg_gelu(v0 + bg_f(bias[n])) : 0.f;
+    const float a1 = n + 1 < n_real ? bg_gelu(v1 + bg_f(bias[n + 1])) : 0.f;
+    *reinterpret_cast<uint32_t*>(out + m * ld + n) = pack_bf16(a0, a1);
+  }
+};
+
+// y[m, n] = v + bias[n] in fp32, [M, N] row-major (y 8-byte aligned).
+struct BgBiasEpi {
+  const bf16* bias;
+  float* y;
+  long long M;
+  int N;
+  __device__ __forceinline__ void operator()(long long m, int n, float v0,
+                                             float v1) const {
+    if (m >= M || n >= N) return;
+    float* o = y + m * N + n;
+    if (n + 1 < N && N % 2 == 0) {
+      *reinterpret_cast<float2*>(o) =
+          make_float2(v0 + bg_f(bias[n]), v1 + bg_f(bias[n + 1]));
+    } else {
+      o[0] = v0 + bg_f(bias[n]);
+      if (n + 1 < N) o[1] = v1 + bg_f(bias[n + 1]);
+    }
+  }
+};
+
+// ---------------------------------------------------------------------
+// Passes around the products
+
+// dst [kp, np] bf16: row gi kg + k, column n is src row gi K + k, column
+// col(n) for gi < groups, k < K, n < N; zero elsewhere. col(n) = n, or with
+// `interleave` (N even) n / 2 + (n % 2) N / 2, so that a gate's two halves
+// land side by side (columns 2j and 2j + 1 are j and N / 2 + j). groups 9
+// and kg = cin padded lays a 3x3 kernel [9 cin, N] out for BgConv3x3.
+__global__ void __launch_bounds__(256)
+bg_pad_kernel(const bf16* __restrict__ src, int lds, int groups, int K,
+              int kg, int N, int interleave, bf16* __restrict__ dst, int kp,
+              int np) {
+  const long long total = (long long)kp * np;
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < total;
+       i += gridDim.x * 256LL) {
+    const int r = int(i / np), n = int(i % np);
+    const int gi = r / kg, k = r - gi * kg;
+    float v = 0.f;
+    if (gi < groups && k < K && n < N) {
+      const int col = interleave ? n / 2 + (n % 2) * (N / 2) : n;
+      v = bg_f(src[((long long)gi * K + k) * lds + col]);
+    }
+    dst[i] = bg_round(v);
+  }
+}
+
+cudaError_t bg_pad(const bf16* src, int lds, int groups, int K, int kg,
+                   int N, int interleave, bf16* dst, int kp, int np,
+                   cudaStream_t stream) {
+  const long long total = (long long)kp * np;
+  const long long blocks = (total + 255) / 256;
+  if (total <= 0) return cudaSuccess;
+  bg_pad_kernel<<<unsigned(blocks < 1024 ? blocks : 1024), 256, 0,
+                  stream>>>(src, lds, groups, K, kg, N, interleave, dst, kp,
+                            np);
+  return cudaGetLastError();
+}
+
+// out[m, 0 .. ld) = bf16(LN(x[m]) * s + b) (ln_s given; biased variance,
+// as the JAX kernels' _ln) or bf16(x[m]) over C channels, zeros past C; x
+// [M, C] bf16 or fp32. One warp a row, held in registers (C <= 32 V).
+template <typename T, int V>
+__global__ void __launch_bounds__(256)
+bg_rows_kernel(const T* __restrict__ x, long long M, int C,
+               const bf16* __restrict__ ln_s, const bf16* __restrict__ ln_b,
+               float eps, bf16* __restrict__ out, int ld) {
+  const long long m = (blockIdx.x * 256LL + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (m >= M) return;
+  const T* xr = x + m * C;
+  float v[V];
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int c = lane + 32 * i;
+    v[i] = c < C ? bg_f(xr[c]) : 0.f;
+    s += v[i];
+  }
+  float mu = 0.f, rs = 1.f;
+  if (ln_s) {
+    mu = bg_warp_sum(s) / C;
+    float q = 0.f;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const float d = lane + 32 * i < C ? v[i] - mu : 0.f;
+      q += d * d;
+    }
+    rs = rsqrtf(bg_warp_sum(q) / C + eps);
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int c = lane + 32 * i;
+    if (c < ld)
+      out[m * ld + c] = bg_round(
+          c >= C ? 0.f
+          : ln_s ? (v[i] - mu) * rs * bg_f(ln_s[c]) + bg_f(ln_b[c])
+                 : v[i]);
+  }
+}
+
+// rows of C <= 2048 channels into ld >= C padded bf16 columns (ld <= C
+// rounded up to 32), LayerNorm'd where ln_s is given: bg_rows<T, 2>(...)
+// takes the narrowest V (2, 4, .., 64) that holds C
+template <typename T, int V = 2>
+cudaError_t bg_rows(const T* x, long long M, int C, const bf16* ln_s,
+                    const bf16* ln_b, float eps, bf16* out, int ld,
+                    cudaStream_t stream) {
+  if constexpr (V < 64) {
+    if (C > 32 * V)
+      return bg_rows<T, 2 * V>(x, M, C, ln_s, ln_b, eps, out, ld, stream);
+  }
+  const long long blocks = (M + 7) / 8;
+  if (C > 32 * V || ld > 32 * V || blocks > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  if (blocks > 0)
+    bg_rows_kernel<T, V><<<unsigned(blocks), 256, 0, stream>>>(
+        x, M, C, ln_s, ln_b, eps, out, ld);
+  return cudaGetLastError();
+}
+
+// partials[b][j][c] = sum of y[b hw + r][c] over the rows r of chunk j
+// (kBgChunk rows) of image b: the global average pool's partial sums.
+__global__ void __launch_bounds__(256)
+bg_colsum_kernel(const float* __restrict__ y, int hw, int C, int chunks,
+                 float* __restrict__ partials) {
+  const int b = blockIdx.y, j = blockIdx.x;
+  const long long r0 = (long long)j * kBgChunk;
+  const long long r1 = r0 + kBgChunk < hw ? r0 + kBgChunk : hw;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    float s = 0.f;
+    for (long long r = r0; r < r1; ++r)
+      s += y[((long long)b * hw + r) * C + c];
+    partials[((long long)b * chunks + j) * C + c] = s;
+  }
+}
+
+inline int bg_chunks(int hw) { return (hw + kBgChunk - 1) / kBgChunk; }
+
+cudaError_t bg_colsum(const float* y, int B, int hw, int C, float* partials,
+                      cudaStream_t stream) {
+  const int threads = C < 256 ? (C + 31) / 32 * 32 : 256;
+  bg_colsum_kernel<<<dim3(unsigned(bg_chunks(hw)), unsigned(B)), threads, 0,
+                     stream>>>(y, hw, C, bg_chunks(hw), partials);
+  return cudaGetLastError();
+}
+
+// Bytes a scratch piece takes, rounded up to 256 so the next one is
+// aligned for 16-byte copies.
+inline long long bg_piece(long long bytes) {
+  return (bytes + 255) / 256 * 256;
+}
+
+inline int bg_up(int v, int m) { return (v + m - 1) / m * m; }
+
+}  // namespace

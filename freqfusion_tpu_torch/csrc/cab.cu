@@ -64,6 +64,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16_gemm.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -495,5 +496,127 @@ extern "C" int ff_cab_apply(const float* y, const float* a, const float* x,
   if (blocks > 132 * 16) blocks = 132 * 16;
   cab_scale_kernel<<<unsigned(blocks), kThreads, 0, stream>>>(
       y, a, x, skip, out, per_batch, C, total);
+  return int(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------
+// The bf16 version (FREQFUSION_EXPERT_DTYPE=bf16): x, the weights and the
+// vectors bf16, with the JAX kernel's rounding points (pallas_cab.py:
+// _conv_bank :62, _y_tile :74-86, _apply_kernel :99-110): the conv input
+// (LN(x) in fp32, or x) rounded to bf16 before conv1's nine taps, the GELU
+// of conv1 + b1 (fp32) rounded before conv2's, y = conv2 + b2 kept in fp32
+// (JAX recomputes it in fp32 in its apply pass: no rounding of y here
+// either), the pool and the squeeze MLP in fp32, the output y a + x skip
+// rounded once. Both convs run as implicit GEMMs on bf16_gemm.cuh's
+// (BgConv3x3 rows over a padded NHWC bf16 tensor, K = 9 taps x the
+// channels padded to 8, then to 32):
+//   pass A: W1, W2 laid out [K][N] (two launches); T = bf16(LN(x)) or x,
+//           [M][cinp1]; conv1: U = bf16(gelu(. + b1)), [M][cinp2]; conv2:
+//           y = . + b2, fp32 [M][C] (the caller's); the pool's partial sums;
+//   the [B, C] squeeze MLP in PyTorch, as for fp32;
+//   pass B: out = bf16(y a + x skip).
+
+namespace {
+
+struct CabBf16Layout {
+  int cinp1, k1, np1, cinp2, k2, np2;
+  long long w1p, w2p, t, u, bytes;  // byte offsets into the scratch
+};
+
+CabBf16Layout cab_bf16_layout(long long M, int C, int Cr) {
+  CabBf16Layout l;
+  l.cinp1 = bg_up(C, 8);
+  l.k1 = bg_up(9 * l.cinp1, kBgK);
+  l.np1 = bg_up(Cr, kBgN);
+  l.cinp2 = bg_up(Cr, 8);
+  l.k2 = bg_up(9 * l.cinp2, kBgK);
+  l.np2 = bg_up(C, kBgN);
+  l.w1p = 0;
+  l.w2p = l.w1p + bg_piece(2LL * l.k1 * l.np1);
+  l.t = l.w2p + bg_piece(2LL * l.k2 * l.np2);
+  l.u = l.t + bg_piece(2LL * M * l.cinp1);
+  l.bytes = l.u + bg_piece(2LL * M * l.cinp2);
+  return l;
+}
+
+// out = bf16(y a[b] + x skip) (skip given) or bf16(y a[b])
+__global__ void __launch_bounds__(256)
+cab_apply_bf16_kernel(const float* __restrict__ y, const float* __restrict__ a,
+                      const bf16* __restrict__ x,
+                      const bf16* __restrict__ skip, bf16* __restrict__ out,
+                      long long per_batch, int C, long long total) {
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < total;
+       i += gridDim.x * 256LL) {
+    const int c = int(i % C);
+    float v = y[i] * a[(i / per_batch) * C + c];
+    if (skip) v = v + bg_f(x[i]) * bg_f(skip[c]);
+    out[i] = bg_round(v);
+  }
+}
+
+}  // namespace
+
+// Bytes of scratch ff_cab_pool_bf16 needs on B H W = M pixels.
+extern "C" long long ff_cab_bf16_scratch_bytes(long long M, int C, int Cr) {
+  return cab_bf16_layout(M, C, Cr).bytes;
+}
+
+// Pass A, bf16. x [B, H, W, C]; w1 [3, 3, C, Cr]; b1 [Cr]; ln_s/ln_b [C]
+// or null; w2 [3, 3, Cr, C]; b2 [C]: bf16 contiguous. y [B, H, W, C] fp32;
+// partials [B, ceil(H W / 256), C] fp32; scratch of
+// ff_cab_bf16_scratch_bytes(B H W, C, Cr) bytes, 16-byte aligned.
+extern "C" int ff_cab_pool_bf16(const void* x_, const void* w1_,
+                                const void* b1_, const void* ln_s_,
+                                const void* ln_b_, const void* w2_,
+                                const void* b2_, float* y, float* partials,
+                                void* scratch_, long long scratch_bytes,
+                                int B, int H, int W, int C, int Cr, float eps,
+                                void* stream_) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  const long long M = (long long)B * H * W;
+  const CabBf16Layout l = cab_bf16_layout(M, C, Cr);
+  char* scratch = static_cast<char*>(scratch_);
+  if (M <= 0 || C <= 0 || Cr <= 0 || scratch_bytes < l.bytes ||
+      reinterpret_cast<size_t>(scratch) % 16 || B > 65535)
+    return int(cudaErrorInvalidValue);
+  bf16* w1p = reinterpret_cast<bf16*>(scratch + l.w1p);
+  bf16* w2p = reinterpret_cast<bf16*>(scratch + l.w2p);
+  bf16* t = reinterpret_cast<bf16*>(scratch + l.t);
+  bf16* u = reinterpret_cast<bf16*>(scratch + l.u);
+  const bf16* ln_s = static_cast<const bf16*>(ln_s_);
+
+  cudaError_t err = bg_pad(static_cast<const bf16*>(w1_), Cr, 9, C, l.cinp1,
+                           Cr, 0, w1p, l.k1, l.np1, stream);
+  if (err == cudaSuccess)
+    err = bg_pad(static_cast<const bf16*>(w2_), C, 9, Cr, l.cinp2, C, 0, w2p,
+                 l.k2, l.np2, stream);
+  if (err == cudaSuccess)
+    err = bg_rows(static_cast<const bf16*>(x_), M, C, ln_s,
+                  static_cast<const bf16*>(ln_b_), eps, t, l.cinp1, stream);
+  if (err == cudaSuccess)
+    err = bg_gemm(BgConv3x3{t, M, H, W, l.cinp1}, M, w1p, l.np1, l.k1, l.np1,
+                  BgGeluEpi{static_cast<const bf16*>(b1_), u, M, Cr, l.cinp2},
+                  stream);
+  if (err == cudaSuccess)
+    err = bg_gemm(BgConv3x3{u, M, H, W, l.cinp2}, M, w2p, l.np2, l.k2, l.np2,
+                  BgBiasEpi{static_cast<const bf16*>(b2_), y, M, C}, stream);
+  if (err == cudaSuccess) err = bg_colsum(y, B, H * W, C, partials, stream);
+  return int(err);
+}
+
+// Pass B, bf16. y [B, H, W, C] and a [B, C] fp32; x, out [B, H, W, C] and
+// skip [C] (or null: x unused) bf16.
+extern "C" int ff_cab_apply_bf16(const float* y, const float* a,
+                                 const void* x, const void* skip, void* out,
+                                 int B, int H, int W, int C, void* stream_) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  const long long per_batch = (long long)H * W * C;
+  const long long total = per_batch * B;
+  long long blocks = (total + 255) / 256;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  if (blocks <= 0) return 0;
+  cab_apply_bf16_kernel<<<unsigned(blocks), 256, 0, stream>>>(
+      y, a, static_cast<const bf16*>(x), static_cast<const bf16*>(skip),
+      static_cast<bf16*>(out), per_batch, C, total);
   return int(cudaGetLastError());
 }

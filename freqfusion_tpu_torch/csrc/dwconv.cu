@@ -1,5 +1,5 @@
 // Depthwise 3x3 convolution over an NHWC tensor: zero padding, stride 1,
-// per-channel bias, fp32.
+// per-channel bias; fp32, or bf16 in memory with fp32 arithmetic.
 //   out[b, y, x, c] = bias[c] + sum_{dy, dx} k[dy][dx][c] x[b, y+dy-1, x+dx-1, c]
 //
 // Replaces the Pallas kernel freqfusion_tpu/ops/pallas_dwconv.py:
@@ -20,13 +20,58 @@
 // channels, so every load is coalesced, and with C % 4 == 0 a thread moves
 // float4s. The left and right taps are the neighbouring columns' data,
 // which the L1 cache serves; device memory sees each input about once.
+//
+// bf16 (FREQFUSION_EXPERT_DTYPE=bf16): the same kernel on the memory type,
+// x, the taps and the bias bf16, widened to fp32 as they are loaded; the
+// sum and the bias in fp32, the output rounded once to bf16, as the JAX
+// kernel rounds it (pallas_dwconv.py:_dw_kernel, :32-45). Four channels a
+// thread move as one 8-byte load (C % 4 == 0); the bound halves with the
+// bytes: 4 bytes an element, 0.07 ms at 336x512x360.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRun = 8;  // output rows per thread
+
+struct __align__(8) Bf16x4 {  // four bf16 channels, one 8-byte load
+  __nv_bfloat162 lo, hi;
+};
+
+// The fp32 arithmetic type of a memory element and the conversions: fp32
+// elements as they are, bf16 widened as loaded and rounded as stored.
+template <typename M> struct Lanes;
+template <> struct Lanes<float> {
+  using V = float;
+  __device__ __forceinline__ static V load(float m) { return m; }
+  __device__ __forceinline__ static float store(V v) { return v; }
+};
+template <> struct Lanes<float4> {
+  using V = float4;
+  __device__ __forceinline__ static V load(float4 m) { return m; }
+  __device__ __forceinline__ static float4 store(V v) { return v; }
+};
+template <> struct Lanes<__nv_bfloat16> {
+  using V = float;
+  __device__ __forceinline__ static V load(__nv_bfloat16 m) {
+    return __bfloat162float(m);
+  }
+  __device__ __forceinline__ static __nv_bfloat16 store(V v) {
+    return __float2bfloat16_rn(v);
+  }
+};
+template <> struct Lanes<Bf16x4> {
+  using V = float4;
+  __device__ __forceinline__ static V load(Bf16x4 m) {
+    const float2 a = __bfloat1622float2(m.lo), b = __bfloat1622float2(m.hi);
+    return make_float4(a.x, a.y, b.x, b.y);
+  }
+  __device__ __forceinline__ static Bf16x4 store(V v) {
+    return {__floats2bfloat162_rn(v.x, v.y), __floats2bfloat162_rn(v.z, v.w)};
+  }
+};
 
 __device__ __forceinline__ float fma_v(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ float4 fma_v(float4 a, float4 b, float4 c) {
@@ -39,30 +84,34 @@ template <> __device__ __forceinline__ float4 zero_v<float4>() {
   return make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
-template <typename V>
-__device__ __forceinline__ V load_tap(const V* __restrict__ xb, int y, int x,
-                                      int H, int W, int Cv, int c) {
+template <typename M>
+__device__ __forceinline__ typename Lanes<M>::V load_tap(
+    const M* __restrict__ xb, int y, int x, int H, int W, int Cv, int c) {
   return (y >= 0 && y < H && x >= 0 && x < W)
-             ? xb[((long long)y * W + x) * Cv + c] : zero_v<V>();
+             ? Lanes<M>::load(xb[((long long)y * W + x) * Cv + c])
+             : zero_v<typename Lanes<M>::V>();
 }
 
-// V is float or float4; Cv = C / (elements of V).
-template <typename V>
+// M is the memory element (float, float4, bf16 or four bf16); Cv = C /
+// (channels of M).
+template <typename M>
 __global__ void __launch_bounds__(kThreads)
-dwconv3x3_kernel(const V* __restrict__ x, const V* __restrict__ k,
-                 const V* __restrict__ bias, V* __restrict__ out, int H, int W,
+dwconv3x3_kernel(const M* __restrict__ x, const M* __restrict__ k,
+                 const M* __restrict__ bias, M* __restrict__ out, int H, int W,
                  int Cv) {
+  using L = Lanes<M>;
+  using V = typename L::V;
   const int idx = blockIdx.x * kThreads + threadIdx.x;
   if (idx >= W * Cv) return;
   const int c = idx % Cv, xx = idx / Cv;
   const int y0 = blockIdx.y * kRun;
   const long long plane = (long long)H * W * Cv;
-  const V* xb = x + blockIdx.z * plane;
-  V* ob = out + blockIdx.z * plane;
+  const M* xb = x + blockIdx.z * plane;
+  M* ob = out + blockIdx.z * plane;
   V w[9];
 #pragma unroll
-  for (int t = 0; t < 9; ++t) w[t] = k[t * Cv + c];
-  const V b0 = bias[c];
+  for (int t = 0; t < 9; ++t) w[t] = L::load(k[t * Cv + c]);
+  const V b0 = L::load(bias[c]);
 
   // win[r][d]: input row y - 1 + r, column xx - 1 + d (zero outside)
   V win[3][3];
@@ -82,7 +131,7 @@ dwconv3x3_kernel(const V* __restrict__ x, const V* __restrict__ k,
     for (int r = 0; r < 3; ++r)
 #pragma unroll
       for (int d = 0; d < 3; ++d) acc = fma_v(win[r][d], w[r * 3 + d], acc);
-    ob[((long long)y * W + xx) * Cv + c] = acc;
+    ob[((long long)y * W + xx) * Cv + c] = L::store(acc);
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
       win[0][d] = win[1][d];
@@ -91,15 +140,23 @@ dwconv3x3_kernel(const V* __restrict__ x, const V* __restrict__ k,
   }
 }
 
-template <typename V>
-int launch(const float* x, const float* k, const float* bias, float* out,
-           int B, int H, int W, int Cv, cudaStream_t stream) {
+template <typename M>
+int launch(const void* x, const void* k, const void* bias, void* out, int B,
+           int H, int W, int Cv, cudaStream_t stream) {
   const dim3 grid(unsigned((W * Cv + kThreads - 1) / kThreads),
                   unsigned((H + kRun - 1) / kRun), unsigned(B));
-  dwconv3x3_kernel<V><<<grid, kThreads, 0, stream>>>(
-      reinterpret_cast<const V*>(x), reinterpret_cast<const V*>(k),
-      reinterpret_cast<const V*>(bias), reinterpret_cast<V*>(out), H, W, Cv);
+  dwconv3x3_kernel<M><<<grid, kThreads, 0, stream>>>(
+      static_cast<const M*>(x), static_cast<const M*>(k),
+      static_cast<const M*>(bias), static_cast<M*>(out), H, W, Cv);
   return int(cudaGetLastError());
+}
+
+bool aligned(const void* a, const void* b, const void* c, const void* d,
+             unsigned bytes) {
+  return ((reinterpret_cast<unsigned long long>(a) |
+           reinterpret_cast<unsigned long long>(b) |
+           reinterpret_cast<unsigned long long>(c) |
+           reinterpret_cast<unsigned long long>(d)) & (bytes - 1)) == 0;
 }
 
 }  // namespace
@@ -111,11 +168,18 @@ extern "C" int ff_dwconv3x3(const float* x, const float* k, const float* bias,
                             float* out, int B, int H, int W, int C,
                             void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const bool vec = C % 4 == 0 &&
-                   ((reinterpret_cast<unsigned long long>(x) |
-                     reinterpret_cast<unsigned long long>(k) |
-                     reinterpret_cast<unsigned long long>(bias) |
-                     reinterpret_cast<unsigned long long>(out)) & 15) == 0;
-  if (vec) return launch<float4>(x, k, bias, out, B, H, W, C / 4, stream);
+  if (C % 4 == 0 && aligned(x, k, bias, out, 16))
+    return launch<float4>(x, k, bias, out, B, H, W, C / 4, stream);
   return launch<float>(x, k, bias, out, B, H, W, C, stream);
+}
+
+// The same on bf16 tensors (fp32 arithmetic, the output rounded once); the
+// four-channel route needs C % 4 == 0 and 8-byte aligned pointers.
+extern "C" int ff_dwconv3x3_bf16(const void* x, const void* k,
+                                 const void* bias, void* out, int B, int H,
+                                 int W, int C, void* stream_) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if (C % 4 == 0 && aligned(x, k, bias, out, 8))
+    return launch<Bf16x4>(x, k, bias, out, B, H, W, C / 4, stream);
+  return launch<__nv_bfloat16>(x, k, bias, out, B, H, W, C, stream);
 }

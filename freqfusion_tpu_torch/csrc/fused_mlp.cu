@@ -74,6 +74,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16_gemm.cuh"
 #include "tf32_gemm.cuh"
 
 namespace {
@@ -372,4 +373,144 @@ extern "C" int ff_fused_mlp(const float* x, const float* w1, const float* b1,
   FF_DOWN(12)
 #undef FF_DOWN
   return int(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------
+// The bf16 version (FREQFUSION_EXPERT_DTYPE=bf16): x, the weights and the
+// vectors bf16, with the JAX kernel's rounding points (pallas_mlp.py:
+// _kernel, :53-68): LN in fp32 and T rounded to bf16 (:58), h = T W1 in
+// fp32 plus b1 and the exact GELU in fp32, rounded (:62), y = h W2 + b2 in
+// fp32 (post-norm: a second LN in fp32), the output x + res_scale y
+// rounded once (:68). Both products run on bf16_gemm.cuh's GEMM, the
+// activations through padded bf16 rows in the scratch:
+//   1. W1, W2 zero-padded to [kp1][np1] and [kp2][np2] (two launches);
+//   2. T = bf16(LN(x)) or x, [M][kp1];
+//   3. up:   H = bf16(gelu(T W1 + b1)), [M][kp2];
+//   4. down: pre-norm, out = bf16(x + res_scale (H W2 + b2)) in the
+//      epilogue; post-norm, y = H W2 + b2 in fp32 [M][C], then
+//   5. out = bf16(x + res_scale LN(y)), one warp a row.
+
+namespace {
+
+struct MlpBf16Layout {
+  int kp1, np1, kp2, np2;
+  long long w1p, w2p, t, h, y, bytes;  // byte offsets into the scratch
+};
+
+MlpBf16Layout mlp_bf16_layout(int M, int C, int Ch, int prenorm) {
+  MlpBf16Layout l;
+  l.kp1 = bg_up(C, kBgK);
+  l.np1 = bg_up(Ch, kBgN);
+  l.kp2 = bg_up(Ch, kBgK);
+  l.np2 = bg_up(C, kBgN);
+  l.w1p = 0;
+  l.w2p = l.w1p + bg_piece(2LL * l.kp1 * l.np1);
+  l.t = l.w2p + bg_piece(2LL * l.kp2 * l.np2);
+  l.h = l.t + bg_piece(2LL * M * l.kp1);
+  l.y = l.h + bg_piece(2LL * M * l.kp2);
+  l.bytes = l.y + (prenorm ? 0 : bg_piece(4LL * M * C));
+  return l;
+}
+
+struct MlpResidualEpi {  // pre-norm: out = bf16(x + res_scale (v + b2))
+  const bf16* x;
+  const bf16* b2;
+  bf16* out;
+  long long M;
+  int C;
+  float res_scale;
+  __device__ __forceinline__ void operator()(long long m, int n, float v0,
+                                             float v1) const {
+    if (m >= M) return;
+    const long long o = m * C + n;
+    if (n < C)
+      out[o] = bg_round(bg_f(x[o]) + res_scale * (v0 + bg_f(b2[n])));
+    if (n + 1 < C)
+      out[o + 1] =
+          bg_round(bg_f(x[o + 1]) + res_scale * (v1 + bg_f(b2[n + 1])));
+  }
+};
+
+// post-norm: out[m] = bf16(x[m] + res_scale LN(y[m])), one warp a row
+__global__ void __launch_bounds__(256)
+mlp_post_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ y,
+                     long long M, int C, const bf16* __restrict__ ln_s,
+                     const bf16* __restrict__ ln_b, float eps,
+                     float res_scale, bf16* __restrict__ out) {
+  const long long m = (blockIdx.x * 256LL + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (m >= M) return;
+  const float* yr = y + m * C;
+  float s = 0.f;
+  for (int c = lane; c < C; c += 32) s += yr[c];
+  const float mu = bg_warp_sum(s) / C;
+  float q = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    const float d = yr[c] - mu;
+    q += d * d;
+  }
+  const float rs = rsqrtf(bg_warp_sum(q) / C + eps);
+  for (int c = lane; c < C; c += 32) {
+    const float v = (yr[c] - mu) * rs * bg_f(ln_s[c]) + bg_f(ln_b[c]);
+    out[m * C + c] = bg_round(bg_f(x[m * C + c]) + res_scale * v);
+  }
+}
+
+}  // namespace
+
+// Bytes of scratch a bf16 call needs (see mlp_bf16_layout).
+extern "C" long long ff_fused_mlp_bf16_scratch_bytes(int M, int C, int Ch,
+                                                     int prenorm) {
+  return mlp_bf16_layout(M, C, Ch, prenorm).bytes;
+}
+
+// x, out [M, C]; w1 [C, Ch]; b1 [Ch]; w2 [Ch, C]; b2, ln_s, ln_b [C]; all
+// bf16 contiguous; scratch of ff_fused_mlp_bf16_scratch_bytes bytes
+// (16-byte aligned).
+extern "C" int ff_fused_mlp_bf16(const void* x_, const void* w1_,
+                                 const void* b1_, const void* w2_,
+                                 const void* b2_, const void* ln_s_,
+                                 const void* ln_b_, void* out_,
+                                 void* scratch_, long long scratch_bytes,
+                                 int M, int C, int Ch, int prenorm,
+                                 float res_scale, float eps, void* stream_) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  const bf16* x = static_cast<const bf16*>(x_);
+  const bf16* b1 = static_cast<const bf16*>(b1_);
+  const bf16* b2 = static_cast<const bf16*>(b2_);
+  const bf16* ln_s = static_cast<const bf16*>(ln_s_);
+  const bf16* ln_b = static_cast<const bf16*>(ln_b_);
+  bf16* out = static_cast<bf16*>(out_);
+  char* scratch = static_cast<char*>(scratch_);
+  const MlpBf16Layout l = mlp_bf16_layout(M, C, Ch, prenorm);
+  if (M <= 0 || C <= 0 || Ch <= 0 || scratch_bytes < l.bytes ||
+      reinterpret_cast<size_t>(scratch) % 16)
+    return int(cudaErrorInvalidValue);
+  bf16* w1p = reinterpret_cast<bf16*>(scratch + l.w1p);
+  bf16* w2p = reinterpret_cast<bf16*>(scratch + l.w2p);
+  bf16* t = reinterpret_cast<bf16*>(scratch + l.t);
+  bf16* h = reinterpret_cast<bf16*>(scratch + l.h);
+  float* y = reinterpret_cast<float*>(scratch + l.y);
+
+  cudaError_t err = bg_pad(static_cast<const bf16*>(w1_), Ch, 1, C, l.kp1,
+                           Ch, 0, w1p, l.kp1, l.np1, stream);
+  if (err == cudaSuccess)
+    err = bg_pad(static_cast<const bf16*>(w2_), C, 1, Ch, l.kp2, C, 0, w2p,
+                 l.kp2, l.np2, stream);
+  if (err == cudaSuccess)
+    err = bg_rows(x, M, C, prenorm ? ln_s : nullptr, ln_b, eps, t, l.kp1,
+                  stream);
+  if (err == cudaSuccess)
+    err = bg_gemm(BgRows{t, M, l.kp1}, M, w1p, l.np1, l.kp1, l.np1,
+                  BgGeluEpi{b1, h, M, Ch, l.kp2}, stream);
+  if (err != cudaSuccess) return int(err);
+  if (prenorm)
+    return int(bg_gemm(BgRows{h, M, l.kp2}, M, w2p, l.np2, l.kp2, l.np2,
+                       MlpResidualEpi{x, b2, out, M, C, res_scale}, stream));
+  err = bg_gemm(BgRows{h, M, l.kp2}, M, w2p, l.np2, l.kp2, l.np2,
+                BgBiasEpi{b2, y, M, C}, stream);
+  if (err != cudaSuccess) return int(err);
+  mlp_post_bf16_kernel<<<unsigned((M + 7) / 8), 256, 0, stream>>>(
+      x, y, M, C, ln_s, ln_b, eps, res_scale, out);
+  return int(cudaGetLastError());
 }

@@ -50,6 +50,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "bf16_gemm.cuh"
 #include "tf32_gemm.cuh"
 
 namespace {
@@ -303,5 +304,320 @@ extern "C" int ff_nafblock_apply(const float* sca, const float* x,
         GemmArgs{s.b, s.w5, 0, p.kp, p.np3, C, p.mpi, hw, b5, out, C, y,
                  gamma},
         B, stream);
+  return int(err);
+}
+
+// ---------------------------------------------------------------------
+// The bf16 version (FREQFUSION_EXPERT_DTYPE=bf16): x, the weights and the
+// vectors bf16, with the JAX kernel's rounding points (pallas_nafblock.py:
+// _gate_tile :111-137, _apply_kernel :147-174): xn = LN1(x) rounded to
+// bf16 (:122) before conv1; conv1's bias, the depthwise taps and
+// SimpleGate in fp32; the SCA pool and product in fp32; g s rounded (:157)
+// before conv3; y = x + x3 beta kept in fp32 (:161); LN2(y) rounded (:163)
+// before conv4; the gate g2 rounded (:170) before conv5; the output
+// rounded once (:174). The four products run on bf16_gemm.cuh's GEMM; what
+// pass A leaves for pass B (g, fp32) carries no rounding JAX lacks.
+//   pass A  1. W1, W3, W4 (its two halves interleaved column by column,
+//              so the gate runs in conv4's epilogue) and W5 laid out
+//              [kp][np] (four launches);
+//           2. T1 = bf16(LN1(x)), [P][kp];
+//           3. conv1: u = T1 W1 + b1, fp32 [P][2C];
+//           4. g = SimpleGate(dw3x3(u) + db), fp32 [P][C]; the pool's
+//              partial sums;
+//   the [B, C] SCA product in PyTorch, as for fp32;
+//   pass B  5. GS = bf16(g s), [P][kp];
+//           6. conv3: y = x + beta (GS W3 + b3), fp32 [P][C];
+//           7. T2 = bf16(LN2(y)), [P][kp];
+//           8. conv4: g2 = bf16((T2 W4a + b4a) (T2 W4b + b4b)), [P][kp];
+//           9. conv5: out = bf16(y + gamma (g2 W5 + b5)).
+
+namespace {
+
+struct NafBf16Layout {
+  int kp, np1, np3, np4;
+  long long w1p, w3p, w4p, w5p, t1, u, g, gs, y, t2, g2, bytes;
+};
+
+NafBf16Layout naf_bf16_layout(long long M, int C) {
+  NafBf16Layout l;
+  l.kp = bg_up(C, kBgK);
+  l.np1 = bg_up(2 * C, kBgN);
+  l.np3 = bg_up(C, kBgN);
+  l.np4 = 2 * l.kp;
+  l.w1p = 0;
+  l.w3p = l.w1p + bg_piece(2LL * l.kp * l.np1);
+  l.w4p = l.w3p + bg_piece(2LL * l.kp * l.np3);
+  l.w5p = l.w4p + bg_piece(2LL * l.kp * l.np4);
+  l.t1 = l.w5p + bg_piece(2LL * l.kp * l.np3);
+  l.u = l.t1 + bg_piece(2LL * M * l.kp);
+  l.g = l.u + bg_piece(8LL * M * C);
+  l.gs = l.g + bg_piece(4LL * M * C);
+  l.y = l.gs + bg_piece(2LL * M * l.kp);
+  l.t2 = l.y + bg_piece(4LL * M * C);
+  l.g2 = l.t2 + bg_piece(2LL * M * l.kp);
+  l.bytes = l.g2 + bg_piece(2LL * M * l.kp);
+  return l;
+}
+
+// g[p][c] = (sum_taps u_a k_a + db[c]) (sum_taps u_b k_b + db[C + c]): the
+// depthwise 3x3 (zero padding) of u's two halves and SimpleGate, fp32, the
+// taps summed in the JAX kernel's order. As csrc/dwconv.cu's kernel: a
+// thread owns N channels (2: one 8-byte load a half) of one column and
+// walks kNafDwRun rows down it, the 3 x 3 windows of both halves in
+// registers.
+constexpr int kNafDwRun = 8;
+
+template <int N>
+__device__ __forceinline__ void naf_load(float (&v)[N], const float* p,
+                                         bool in) {
+  if constexpr (N == 2) {
+    const float2 t = in ? *reinterpret_cast<const float2*>(p)
+                        : make_float2(0.f, 0.f);
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+    v[0] = in ? *p : 0.f;
+  }
+}
+
+template <int N>
+__global__ void __launch_bounds__(256)
+naf_dwgate_bf16_kernel(const float* __restrict__ u,
+                       const bf16* __restrict__ dk,
+                       const bf16* __restrict__ db, float* __restrict__ g,
+                       int H, int W, int C) {
+  const int groups = C / N;
+  const int idx = blockIdx.x * 256 + threadIdx.x;
+  if (idx >= W * groups) return;
+  const int c = (idx % groups) * N, x = idx / groups;
+  const int y0 = blockIdx.y * kNafDwRun;
+  const long long C2 = 2LL * C;
+  const float* ub = u + (long long)blockIdx.z * H * W * C2;
+  float* gb = g + (long long)blockIdx.z * H * W * C;
+  float ka[9][N], kb[9][N], ba[N], bb[N];
+#pragma unroll
+  for (int t = 0; t < 9; ++t)
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      ka[t][e] = bg_f(dk[t * C2 + c + e]);
+      kb[t][e] = bg_f(dk[t * C2 + C + c + e]);
+    }
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    ba[e] = bg_f(db[c + e]);
+    bb[e] = bg_f(db[C + c + e]);
+  }
+  // wa/wb[r][d]: row y - 1 + r, column x - 1 + d of each half
+  float wa[3][3][N], wb[3][3][N];
+  auto row = [&](float (&ra)[3][N], float (&rb)[3][N], int yy) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const int xx = x - 1 + d;
+      const bool in = yy >= 0 && yy < H && xx >= 0 && xx < W;
+      const float* p =
+          ub + ((long long)(in ? yy : 0) * W + (in ? xx : 0)) * C2 + c;
+      naf_load<N>(ra[d], p, in);
+      naf_load<N>(rb[d], p + C, in);
+    }
+  };
+  row(wa[0], wb[0], y0 - 1);
+  row(wa[1], wb[1], y0);
+  for (int i = 0; i < kNafDwRun; ++i) {
+    const int y = y0 + i;
+    if (y >= H) break;
+    row(wa[2], wb[2], y + 1);
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      float sa = wa[0][0][e] * ka[0][e], sb = wb[0][0][e] * kb[0][e];
+#pragma unroll
+      for (int t = 1; t < 9; ++t) {
+        sa = sa + wa[t / 3][t % 3][e] * ka[t][e];
+        sb = sb + wb[t / 3][t % 3][e] * kb[t][e];
+      }
+      gb[((long long)y * W + x) * C + c + e] = (sa + ba[e]) * (sb + bb[e]);
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d)
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        wa[0][d][e] = wa[1][d][e];
+        wa[1][d][e] = wa[2][d][e];
+        wb[0][d][e] = wb[1][d][e];
+        wb[1][d][e] = wb[2][d][e];
+      }
+  }
+}
+
+template <int N>
+cudaError_t naf_dwgate(const float* u, const bf16* dk, const bf16* db,
+                       float* g, int B, int H, int W, int C,
+                       cudaStream_t stream) {
+  const dim3 grid(unsigned((W * (C / N) + 255) / 256),
+                  unsigned((H + kNafDwRun - 1) / kNafDwRun), unsigned(B));
+  naf_dwgate_bf16_kernel<N><<<grid, 256, 0, stream>>>(u, dk, db, g, H, W, C);
+  return cudaGetLastError();
+}
+
+// gs[p][j] = bf16(g[p][j] s[p / hw][j]) for j < C, 0 up to kp
+__global__ void __launch_bounds__(256)
+naf_scale_bf16_kernel(const float* __restrict__ g, const float* __restrict__ s,
+                      bf16* __restrict__ gs, int hw, int C, int kp,
+                      long long total) {
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < total;
+       i += gridDim.x * 256LL) {
+    const long long p = i / kp;
+    const int j = int(i % kp);
+    gs[i] = bg_round(j < C ? g[p * C + j] * s[(p / hw) * C + j] : 0.f);
+  }
+}
+
+unsigned naf_grid(long long total) {
+  const long long blocks = (total + 255) / 256;
+  return unsigned(blocks < 132 * 16 ? (blocks > 0 ? blocks : 1) : 132 * 16);
+}
+
+struct NafResidualEpi {  // y = x + beta (v + b3), fp32
+  const bf16* x;
+  const bf16* b3;
+  const bf16* beta;
+  float* y;
+  long long M;
+  int C;
+  __device__ __forceinline__ void operator()(long long m, int n, float v0,
+                                             float v1) const {
+    if (m >= M) return;
+    const long long o = m * C + n;
+    if (n < C) y[o] = bg_f(x[o]) + (v0 + bg_f(b3[n])) * bg_f(beta[n]);
+    if (n + 1 < C)
+      y[o + 1] = bg_f(x[o + 1]) + (v1 + bg_f(b3[n + 1])) * bg_f(beta[n + 1]);
+  }
+};
+
+struct NafGateEpi {  // columns 2j, 2j + 1: W4's column j and C + j
+  const bf16* b4;
+  bf16* g2;
+  long long M;
+  int C, kp;
+  __device__ __forceinline__ void operator()(long long m, int n, float v0,
+                                             float v1) const {
+    const int j = n / 2;
+    if (m >= M || j >= kp) return;
+    g2[m * kp + j] = bg_round(
+        j < C ? (v0 + bg_f(b4[j])) * (v1 + bg_f(b4[C + j])) : 0.f);
+  }
+};
+
+struct NafOutEpi {  // out = bf16(y + gamma (v + b5))
+  const float* y;
+  const bf16* b5;
+  const bf16* gamma;
+  bf16* out;
+  long long M;
+  int C;
+  __device__ __forceinline__ void operator()(long long m, int n, float v0,
+                                             float v1) const {
+    if (m >= M) return;
+    const long long o = m * C + n;
+    if (n < C) out[o] = bg_round(y[o] + (v0 + bg_f(b5[n])) * bg_f(gamma[n]));
+    if (n + 1 < C)
+      out[o + 1] =
+          bg_round(y[o + 1] + (v1 + bg_f(b5[n + 1])) * bg_f(gamma[n + 1]));
+  }
+};
+
+}  // namespace
+
+// Bytes of scratch a bf16 call on B H W = M pixels of C channels needs.
+extern "C" long long ff_nafblock_bf16_scratch_bytes(long long M, int C) {
+  return naf_bf16_layout(M, C).bytes;
+}
+
+// Pass A, bf16. x [B, H, W, C]; ln1 [C] x2; w1 [C, 2C]; b1 [2C]; w3, w5
+// [C, C]; w4 [C, 2C]; dk [3, 3, 2C]; db [2C]: bf16 contiguous. partials
+// [B, ceil(H W / 256), C] fp32; scratch of ff_nafblock_bf16_scratch_bytes
+// bytes (16-byte aligned), which pass B reads.
+extern "C" int ff_nafblock_gate_bf16(const void* x_, const void* ln1_s,
+                                     const void* ln1_b, const void* w1,
+                                     const void* b1, const void* w3,
+                                     const void* w4, const void* w5,
+                                     const void* dk, const void* db,
+                                     float* partials, void* scratch_,
+                                     long long scratch_bytes, int B, int H,
+                                     int W, int C, float eps, void* stream_) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  const long long M = (long long)B * H * W;
+  const NafBf16Layout l = naf_bf16_layout(M, C);
+  char* sc = static_cast<char*>(scratch_);
+  if (M <= 0 || C <= 0 || B > 65535 || scratch_bytes < l.bytes ||
+      reinterpret_cast<size_t>(sc) % 16)
+    return int(cudaErrorInvalidValue);
+  auto b = [&](long long off) { return reinterpret_cast<bf16*>(sc + off); };
+  auto f = [&](long long off) { return reinterpret_cast<float*>(sc + off); };
+  auto in = [](const void* p) { return static_cast<const bf16*>(p); };
+  cudaError_t err =
+      bg_pad(in(w1), 2 * C, 1, C, l.kp, 2 * C, 0, b(l.w1p), l.kp, l.np1,
+             stream);
+  if (err == cudaSuccess)
+    err = bg_pad(in(w3), C, 1, C, l.kp, C, 0, b(l.w3p), l.kp, l.np3, stream);
+  if (err == cudaSuccess)
+    err = bg_pad(in(w4), 2 * C, 1, C, l.kp, 2 * C, 1, b(l.w4p), l.kp, l.np4,
+                 stream);
+  if (err == cudaSuccess)
+    err = bg_pad(in(w5), C, 1, C, l.kp, C, 0, b(l.w5p), l.kp, l.np3, stream);
+  if (err == cudaSuccess)
+    err = bg_rows(in(x_), M, C, in(ln1_s), in(ln1_b), eps, b(l.t1), l.kp,
+                  stream);
+  if (err == cudaSuccess)
+    err = bg_gemm(BgRows{b(l.t1), M, l.kp}, M, b(l.w1p), l.np1, l.kp, l.np1,
+                  BgBiasEpi{in(b1), f(l.u), M, 2 * C}, stream);
+  if (err != cudaSuccess) return int(err);
+  err = C % 2 ? naf_dwgate<1>(f(l.u), in(dk), in(db), f(l.g), B, H, W, C,
+                              stream)
+               : naf_dwgate<2>(f(l.u), in(dk), in(db), f(l.g), B, H, W, C,
+                              stream);
+  if (err == cudaSuccess)
+    err = bg_colsum(f(l.g), B, H * W, C, partials, stream);
+  return int(err);
+}
+
+// Pass B, bf16, after pass A on the same scratch. s [B, C] fp32; x [B, H,
+// W, C], b3, beta [C], ln2 [C] x2, b4 [2C], b5, gamma [C], out [B, H, W,
+// C]: bf16.
+extern "C" int ff_nafblock_apply_bf16(const float* sca, const void* x_,
+                                      const void* b3, const void* beta,
+                                      const void* ln2_s, const void* ln2_b,
+                                      const void* b4, const void* b5,
+                                      const void* gamma, void* out,
+                                      void* scratch_, long long scratch_bytes,
+                                      int B, int H, int W, int C, float eps,
+                                      void* stream_) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  const long long M = (long long)B * H * W;
+  const NafBf16Layout l = naf_bf16_layout(M, C);
+  char* sc = static_cast<char*>(scratch_);
+  if (M <= 0 || C <= 0 || scratch_bytes < l.bytes ||
+      reinterpret_cast<size_t>(sc) % 16)
+    return int(cudaErrorInvalidValue);
+  auto b = [&](long long off) { return reinterpret_cast<bf16*>(sc + off); };
+  auto f = [&](long long off) { return reinterpret_cast<float*>(sc + off); };
+  auto in = [](const void* p) { return static_cast<const bf16*>(p); };
+  naf_scale_bf16_kernel<<<naf_grid(M * l.kp), 256, 0, stream>>>(
+      f(l.g), sca, b(l.gs), H * W, C, l.kp, M * l.kp);
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = bg_gemm(BgRows{b(l.gs), M, l.kp}, M, b(l.w3p), l.np3, l.kp, l.np3,
+                  NafResidualEpi{in(x_), in(b3), in(beta), f(l.y), M, C},
+                  stream);
+  if (err == cudaSuccess)
+    err = bg_rows(f(l.y), M, C, in(ln2_s), in(ln2_b), eps, b(l.t2), l.kp,
+                  stream);
+  if (err == cudaSuccess)
+    err = bg_gemm(BgRows{b(l.t2), M, l.kp}, M, b(l.w4p), l.np4, l.kp, l.np4,
+                  NafGateEpi{in(b4), b(l.g2), M, C, l.kp}, stream);
+  if (err == cudaSuccess)
+    err = bg_gemm(BgRows{b(l.g2), M, l.kp}, M, b(l.w5p), l.np3, l.kp, l.np3,
+                  NafOutEpi{f(l.y), in(b5), in(gamma), static_cast<bf16*>(out),
+                            M, C},
+                  stream);
   return int(err);
 }

@@ -14,6 +14,11 @@ as 3xTF32 implicit GEMMs on the tensor cores, writing y and per-tile
 channel sums; the [B, C] squeeze MLP in PyTorch; pass B: the scale and the
 skip) or the call raises. Unlike the JAX wrapper, the kernel takes every H
 and W itself: there is no XLA fallback for small or indivisible shapes.
+bf16 tensors (the bf16 expert mode) go to the bf16 plain version or to the
+file's bf16 kernels (both convs as implicit GEMMs on bf16 ``mma.sync``,
+``csrc/bf16_gemm.cuh``; y kept in fp32 between the passes, as JAX
+recomputes it in fp32), both with the JAX kernel's rounding points,
+counted as ``cab_fused.bf16``.
 """
 
 from __future__ import annotations
@@ -24,10 +29,14 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda
+from .attention import _bf16
 
 __all__ = ["cab_fused", "cab_fused_reference", "plan_cab", "CabPlan"]
 
 MAX_CHANNELS = 256  # the LN prologue holds a pixel's channels in registers
+# rows of an image a block of the bf16 kernels' pool sums
+# (csrc/bf16_gemm.cuh's kBgChunk): the bf16 partials' middle axis
+POOL_ROWS = 256
 # csrc/cab.cu's conv tiles: output pixels a side, input channels a stage,
 # halo pixels, stages in the ring
 TILE = 16
@@ -95,13 +104,40 @@ def _conv3x3(t: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def _squeeze(mean: torch.Tensor, w) -> torch.Tensor:
-    """[B, C] channel mean -> [B, C] sigmoid scale (the CA squeeze MLP)."""
-    a = torch.relu(mean @ w["ca_1"]["kernel"][0, 0] + w["ca_1"]["bias"])
-    return torch.sigmoid(a @ w["ca_3"]["kernel"][0, 0] + w["ca_3"]["bias"])
+    """[B, C] channel mean -> [B, C] sigmoid scale (the CA squeeze MLP), in
+    the mean's dtype (bf16 weights widened to the fp32 mean, as the JAX
+    wrapper runs it)."""
+    def p(name, part):
+        return w[name][part].to(mean.dtype)
+    a = torch.relu(mean @ p("ca_1", "kernel")[0, 0] + p("ca_1", "bias"))
+    return torch.sigmoid(a @ p("ca_3", "kernel")[0, 0] + p("ca_3", "bias"))
+
+
+def _cab_fused_bf16(x, w, ln, skip_scale, eps: float) -> torch.Tensor:
+    """bf16 operands, the JAX kernel's rounding points (pallas_cab.py:
+    _conv_bank, _y_tile, _apply_kernel): each conv's input rounded (LN(x)
+    in fp32, then the GELU output), biases and y in fp32, the pool and the
+    squeeze in fp32, the output rounded once."""
+    f = x.float()
+    c = x.shape[-1]
+    t = f if ln is None else F.layer_norm(f, (c,), ln["scale"].float(),
+                                          ln["bias"].float(), eps)
+
+    def conv(v, p):
+        return _conv3x3(_bf16(v), {"kernel": p["kernel"].float(),
+                                   "bias": p["bias"].float()})
+    y = conv(F.gelu(conv(t, w["cab_0"])), w["cab_2"])
+    out = y * _squeeze(y.mean((1, 2)), w)[:, None, None, :]
+    if skip_scale is not None:
+        out = out + f * skip_scale.float()
+    return out.to(torch.bfloat16)
 
 
 def cab_fused_reference(x, w, ln=None, skip_scale=None, eps: float = 1e-5):
-    """Plain PyTorch version of :func:`cab_fused`."""
+    """Plain PyTorch version of :func:`cab_fused` (in bf16 for a bf16 x,
+    see :func:`_cab_fused_bf16`)."""
+    if x.dtype == torch.bfloat16:
+        return _cab_fused_bf16(x, w, ln, skip_scale, eps)
     c = x.shape[-1]
     t = x if ln is None else F.layer_norm(x, (c,), ln["scale"], ln["bias"],
                                           eps)
@@ -123,7 +159,8 @@ def cab_fused(x: torch.Tensor, w: Dict[str, Dict[str, torch.Tensor]],
         return cab_fused_reference(x, w, ln, skip_scale, eps)
     if x.device.type != "cuda":
         raise ValueError(f"cab_fused: unsupported device {x.device}")
-    cuda.fp32_only("cab_fused", x)
+    if x.dtype == torch.bfloat16:
+        return _cab_fused_bf16_kernel(x, w, ln, skip_scale, eps)
     b, h, w_, c = x.shape
     cr = w["cab_0"]["kernel"].shape[-1]
     plan = plan_cab(h, w_, c, cr)
@@ -158,4 +195,43 @@ def cab_fused(x: torch.Tensor, w: Dict[str, Dict[str, torch.Tensor]],
         b, h, w_, c, cuda.stream(x))
     cuda.check(err, "cab_fused (apply)")
     cuda.launch_counts["cab_fused"] += 1
+    return out
+
+
+def _cab_fused_bf16_kernel(x, w, ln, skip_scale, eps: float) -> torch.Tensor:
+    """The bf16 kernels: x, the conv weights and the vectors bf16 (the
+    squeeze MLP's weights are widened in PyTorch); any C and C/cr."""
+    bf, dev = torch.bfloat16, x.device
+    b, h, w_, c = x.shape
+    cr = w["cab_0"]["kernel"].shape[-1]
+    cuda.require(x, "x", (b, h, w_, c), dev, bf)
+    cuda.require(w["cab_0"]["kernel"], "cab_0", (3, 3, c, cr), dev, bf)
+    cuda.require(w["cab_0"]["bias"], "cab_0 bias", (cr,), dev, bf)
+    cuda.require(w["cab_2"]["kernel"], "cab_2", (3, 3, cr, c), dev, bf)
+    cuda.require(w["cab_2"]["bias"], "cab_2 bias", (c,), dev, bf)
+    if ln is not None:
+        cuda.require(ln["scale"], "ln scale", (c,), dev, bf)
+        cuda.require(ln["bias"], "ln bias", (c,), dev, bf)
+    if skip_scale is not None:
+        cuda.require(skip_scale, "skip_scale", (c,), dev, bf)
+    lib = cuda.library()
+    nbytes = lib.ff_cab_bf16_scratch_bytes(b * h * w_, c, cr)
+    scratch = torch.empty(nbytes, device=dev, dtype=torch.uint8)
+    y = torch.empty(b, h, w_, c, device=dev, dtype=torch.float32)
+    partials = torch.empty(b, -(-(h * w_) // POOL_ROWS), c, device=dev,
+                           dtype=torch.float32)
+    lnp = (None, None) if ln is None else (ln["scale"], ln["bias"])
+    err = lib.ff_cab_pool_bf16(
+        *(cuda.ptr(t) for t in (x, w["cab_0"]["kernel"], w["cab_0"]["bias"],
+                                *lnp, w["cab_2"]["kernel"],
+                                w["cab_2"]["bias"], y, partials, scratch)),
+        nbytes, b, h, w_, c, cr, float(eps), cuda.stream(x))
+    cuda.check(err, "cab_fused (bf16 pool)")
+    a = _squeeze(partials.sum(1) / (h * w_), w).contiguous()
+    out = torch.empty_like(x)
+    err = lib.ff_cab_apply_bf16(
+        *(cuda.ptr(t) for t in (y, a, x, skip_scale, out)),
+        b, h, w_, c, cuda.stream(x))
+    cuda.check(err, "cab_fused (bf16 apply)")
+    cuda.launch_counts["cab_fused.bf16"] += 1
     return out

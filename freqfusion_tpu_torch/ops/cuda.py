@@ -19,7 +19,9 @@ entries count apart: ``selective_scan`` (chain_proj, TPU kernels #3/#4),
 ``window_attention`` (#10, window-major) count apart too. A kernel with a
 bf16 version counts that version under its name with ``.bf16`` added
 (``window_attention_nhwc.bf16``, ``grl_mixed_attention_nhwc.bf16``,
-``selective_scan.bf16``), so a run shows which of the two ran. A kernel
+``selective_scan.bf16``, ``fused_mlp_block.bf16``, ``cab_fused.bf16``,
+``nafblock_fused.bf16``, ``dwconv3x3.bf16``), so a run shows which of the
+two ran. A kernel
 takes the dtypes :func:`require` is given; handed a bf16 tensor, an
 fp32-only kernel raises naming itself (:func:`fp32_only`), and nothing is
 cast around it.
@@ -67,15 +69,24 @@ _SIGNATURES = {
     "ff_selective_scan": [_P] * 10 + [_I] * 12 + [_P],
     "ff_fused_mlp_scratch_floats": [_I] * 3,
     "ff_fused_mlp": [_P] * 9 + [_L] + [_I] * 4 + [_F, _F, _P],
+    "ff_fused_mlp_bf16_scratch_bytes": [_I] * 4,
+    "ff_fused_mlp_bf16": [_P] * 9 + [_L] + [_I] * 4 + [_F, _F, _P],
     "ff_cab_tiles": [_I] * 3,
     "ff_cab_scratch_floats": [_I] * 2,
     "ff_cab_pool": [_P] * 11 + [_L] + [_I] * 5 + [_F, _P],
     "ff_cab_apply": [_P] * 5 + [_I] * 4 + [_P],
+    "ff_cab_bf16_scratch_bytes": [_L, _I, _I],
+    "ff_cab_pool_bf16": [_P] * 10 + [_L] + [_I] * 5 + [_F, _P],
+    "ff_cab_apply_bf16": [_P] * 5 + [_I] * 4 + [_P],
     "ff_nafblock_tiles": [_I] * 2,
     "ff_nafblock_scratch_floats": [_I] * 3,
     "ff_nafblock_gate": [_P] * 11 + [_L] + [_I] * 4 + [_F, _P],
     "ff_nafblock_apply": [_P] * 12 + [_L] + [_I] * 4 + [_F, _P],
+    "ff_nafblock_bf16_scratch_bytes": [_L, _I],
+    "ff_nafblock_gate_bf16": [_P] * 12 + [_L] + [_I] * 4 + [_F, _P],
+    "ff_nafblock_apply_bf16": [_P] * 11 + [_L] + [_I] * 4 + [_F, _P],
     "ff_dwconv3x3": [_P] * 4 + [_I] * 4 + [_P],
+    "ff_dwconv3x3_bf16": [_P] * 4 + [_I] * 4 + [_P],
     "ff_window_attention_qkv_scratch_floats": [_L, _I, _I],
     "ff_window_attention_qkv_nhwc": [_P] * 11 + [_L] + [_I] * 7
                                     + [_F, _I, _I, _P],
@@ -99,6 +110,9 @@ _SIGNATURES = {
 # entries that return a count of 64 bits (the rest return an int)
 _RETURNS_LONG = ("ff_fused_mlp_scratch_floats", "ff_cab_scratch_floats",
                  "ff_nafblock_scratch_floats",
+                 "ff_fused_mlp_bf16_scratch_bytes",
+                 "ff_cab_bf16_scratch_bytes",
+                 "ff_nafblock_bf16_scratch_bytes",
                  "ff_window_attention_qkv_scratch_floats",
                  "ff_grl_qkv_scratch_floats", "ff_hier_scratch_floats",
                  "ff_lka_scratch_floats", "ff_edge_scratch_floats",

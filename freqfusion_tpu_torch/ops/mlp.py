@@ -9,7 +9,10 @@ its argument layout (w1 [C, Ch], w2 [Ch, C]) and its two norm orders:
 GELU is exact (erf). A CPU tensor goes to the plain version; a CUDA tensor
 goes to ``csrc/fused_mlp.cu`` (both products in 3xTF32 on the tensor
 cores, the hidden through a scratch that :func:`plan_fused_mlp` sizes), or
-the call raises.
+the call raises. bf16 tensors (the bf16 expert mode) go to the bf16 plain
+version or to the file's bf16 kernel (products on bf16 ``mma.sync``,
+``csrc/bf16_gemm.cuh``), both with the JAX kernel's rounding points,
+counted as ``fused_mlp_block.bf16``.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda
+from .attention import _bf16
 from .tf32_gemm import BK, SMEM_LIMIT, _ring_bytes, _round_up
 
 __all__ = ["fused_mlp_block", "fused_mlp_block_reference", "plan_fused_mlp",
@@ -70,10 +74,32 @@ def plan_fused_mlp(m: int, c: int, ch: int) -> MlpPlan:
                    (np1 // upn) * (mp // UP_ROWS), -(-m // DOWN_ROWS))
 
 
+def _fused_mlp_block_bf16(x, w1, b1, w2, b2, ln_scale, ln_bias,
+                          prenorm: bool, res_scale: float,
+                          eps: float) -> torch.Tensor:
+    """bf16 operands, the JAX kernel's rounding points
+    (pallas_mlp.py:_kernel): LN in fp32, T rounded; T W1 in fp32 plus b1,
+    GELU, rounded; H W2 + b2 (and the post-norm LN) in fp32; the residual
+    rounded once."""
+    f = x.float()
+    c = x.shape[-1]
+    ls, lb = ln_scale.float(), ln_bias.float()
+    t = F.layer_norm(f, (c,), ls, lb, eps) if prenorm else f
+    h = _bf16(F.gelu(_bf16(t) @ w1.float() + b1.float()))
+    y = h @ w2.float() + b2.float()
+    if not prenorm:
+        y = F.layer_norm(y, (c,), ls, lb, eps)
+    return (f + res_scale * y).to(torch.bfloat16)
+
+
 def fused_mlp_block_reference(x, w1, b1, w2, b2, ln_scale, ln_bias,
                               prenorm: bool = True, res_scale: float = 1.0,
                               eps: float = 1e-5) -> torch.Tensor:
-    """Plain PyTorch version of :func:`fused_mlp_block`."""
+    """Plain PyTorch version of :func:`fused_mlp_block` (in bf16 for a
+    bf16 x, see :func:`_fused_mlp_block_bf16`)."""
+    if x.dtype == torch.bfloat16:
+        return _fused_mlp_block_bf16(x, w1, b1, w2, b2, ln_scale, ln_bias,
+                                     prenorm, res_scale, eps)
     c = x.shape[-1]
     t = F.layer_norm(x, (c,), ln_scale, ln_bias, eps) if prenorm else x
     y = F.gelu(t @ w1 + b1) @ w2 + b2
@@ -95,7 +121,9 @@ def fused_mlp_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                                          ln_bias, prenorm, res_scale, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp_block: unsupported device {x.device}")
-    cuda.fp32_only("fused_mlp_block", x)
+    if x.dtype == torch.bfloat16:
+        return _fused_mlp_block_bf16_kernel(x, w1, b1, w2, b2, ln_scale,
+                                            ln_bias, prenorm, res_scale, eps)
     c, ch = x.shape[-1], w1.shape[-1]
     m = x.numel() // c
     plan = plan_fused_mlp(m, c, ch)
@@ -116,4 +144,31 @@ def fused_mlp_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         float(eps), cuda.stream(x))
     cuda.check(err, "fused_mlp_block")
     cuda.launch_counts["fused_mlp_block"] += 1
+    return out
+
+
+def _fused_mlp_block_bf16_kernel(x, w1, b1, w2, b2, ln_scale, ln_bias,
+                                 prenorm: bool, res_scale: float,
+                                 eps: float) -> torch.Tensor:
+    """The bf16 kernel: every operand bf16, any C and Ch."""
+    bf, dev = torch.bfloat16, x.device
+    c, ch = x.shape[-1], w1.shape[-1]
+    m = x.numel() // c
+    cuda.require(x, "x", x.shape, dev, bf)
+    cuda.require(w1, "w1", (c, ch), dev, bf)
+    cuda.require(b1, "b1", (ch,), dev, bf)
+    cuda.require(w2, "w2", (ch, c), dev, bf)
+    for name, t in (("b2", b2), ("ln_scale", ln_scale), ("ln_bias", ln_bias)):
+        cuda.require(t, name, (c,), dev, bf)
+    lib = cuda.library()
+    nbytes = lib.ff_fused_mlp_bf16_scratch_bytes(m, c, ch, int(prenorm))
+    out = torch.empty_like(x)
+    scratch = torch.empty(nbytes, device=dev, dtype=torch.uint8)
+    err = lib.ff_fused_mlp_bf16(
+        *(cuda.ptr(t) for t in (x, w1, b1, w2, b2, ln_scale, ln_bias, out,
+                                scratch)),
+        nbytes, m, c, ch, int(prenorm), float(res_scale), float(eps),
+        cuda.stream(x))
+    cuda.check(err, "fused_mlp_block (bf16)")
+    cuda.launch_counts["fused_mlp_block.bf16"] += 1
     return out

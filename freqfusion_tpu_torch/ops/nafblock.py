@@ -21,7 +21,10 @@ beta residual, LN2, the gated conv4 and conv5 with the gamma residual, the
 products in 3xTF32 on the tensor cores, ``csrc/tf32_gemm.cuh``) through a
 scratch that :func:`plan_nafblock` sizes, or the call raises. Every H and
 W is taken by the kernels: there is no XLA-style fallback for small
-shapes.
+shapes. bf16 tensors (the bf16 expert mode) go to the bf16 plain version
+or to the file's bf16 kernels (the four products on bf16 ``mma.sync``,
+``csrc/bf16_gemm.cuh``; g and y kept in fp32 between the launches), both
+with the JAX kernel's rounding points, counted as ``nafblock_fused.bf16``.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda
+from .attention import _bf16
+from .cab import POOL_ROWS
 from .tf32_gemm import (BK, MAX_CHANNELS, ROWS, GemmPlan, _round_up,
                         plan_gemm)
 
@@ -76,9 +81,42 @@ def _mat(w: Dict[str, Any], name: str) -> torch.Tensor:
     return w[name]["kernel"][0, 0]
 
 
+def _nafblock_fused_bf16(x: torch.Tensor, w: Dict[str, Any]) -> torch.Tensor:
+    """bf16 operands, the JAX kernel's rounding points (pallas_nafblock.py:
+    _gate_tile, _apply_kernel): LN1(x) rounded; conv1's bias, the
+    depthwise taps, the gate, the SCA in fp32; g s rounded; y fp32; LN2(y)
+    rounded; the gate g2 rounded; the output rounded once."""
+    c = x.shape[-1]
+
+    def p(name, part="kernel"):
+        return w[name][part].float()
+
+    def mat(name):
+        return _mat(w, name).float()
+    f = x.float()
+    xn = _bf16(F.layer_norm(f, (c,), p("norm1", "scale"), p("norm1", "bias"),
+                            EPS))
+    u = xn @ mat("conv1") + p("conv1", "bias")
+    u = F.conv2d(u.permute(0, 3, 1, 2), p("conv2").permute(3, 2, 0, 1),
+                 p("conv2", "bias"), padding=1, groups=2 * c).permute(
+                     0, 2, 3, 1)
+    g = u[..., :c] * u[..., c:]
+    s = g.mean((1, 2)) @ mat("sca") + p("sca", "bias")
+    x3 = _bf16(g * s[:, None, None, :]) @ mat("conv3") + p("conv3", "bias")
+    y = f + x3 * w["beta"].float()
+    t2 = _bf16(F.layer_norm(y, (c,), p("norm2", "scale"), p("norm2", "bias"),
+                            EPS))
+    u2 = t2 @ mat("conv4") + p("conv4", "bias")
+    o = _bf16(u2[..., :c] * u2[..., c:]) @ mat("conv5") + p("conv5", "bias")
+    return (y + o * w["gamma"].float()).to(torch.bfloat16)
+
+
 def nafblock_fused_reference(x: torch.Tensor, w: Dict[str, Any]
                              ) -> torch.Tensor:
-    """Plain PyTorch version of :func:`nafblock_fused`."""
+    """Plain PyTorch version of :func:`nafblock_fused` (in bf16 for a bf16
+    x, see :func:`_nafblock_fused_bf16`)."""
+    if x.dtype == torch.bfloat16:
+        return _nafblock_fused_bf16(x, w)
     c = x.shape[-1]
     xn = F.layer_norm(x, (c,), w["norm1"]["scale"], w["norm1"]["bias"], EPS)
     u = xn @ _mat(w, "conv1") + w["conv1"]["bias"]
@@ -102,7 +140,8 @@ def nafblock_fused(x: torch.Tensor, w: Dict[str, Any]) -> torch.Tensor:
         return nafblock_fused_reference(x, w)
     if x.device.type != "cuda":
         raise ValueError(f"nafblock_fused: unsupported device {x.device}")
-    cuda.fp32_only("nafblock_fused", x)
+    if x.dtype == torch.bfloat16:
+        return _nafblock_fused_bf16_kernel(x, w)
     b, h, w_, c = x.shape
     dev = x.device
     plan = plan_nafblock(h * w_, c, b)
@@ -141,4 +180,49 @@ def nafblock_fused(x: torch.Tensor, w: Dict[str, Any]) -> torch.Tensor:
         plan.scratch_floats, b, h, w_, c, EPS, stream)
     cuda.check(err, "nafblock_fused (apply)")
     cuda.launch_counts["nafblock_fused"] += 1
+    return out
+
+
+def _nafblock_fused_bf16_kernel(x: torch.Tensor, w: Dict[str, Any]
+                                ) -> torch.Tensor:
+    """The bf16 kernels: x and every tensor of the tree bf16 (the SCA's
+    weight is widened in PyTorch); any C."""
+    bf, dev = torch.bfloat16, x.device
+    b, h, w_, c = x.shape
+    cuda.require(x, "x", (b, h, w_, c), dev, bf)
+    mats = {n: _mat(w, n) for n in ("conv1", "conv3", "conv4", "conv5", "sca")}
+    for n, m in mats.items():
+        cuda.require(m, n, (c, 2 * c if n in ("conv1", "conv4") else c), dev,
+                     bf)
+        cuda.require(w[n]["bias"], f"{n} bias", (m.shape[1],), dev, bf)
+    cuda.require(w["conv2"]["kernel"], "conv2", (3, 3, 1, 2 * c), dev, bf)
+    cuda.require(w["conv2"]["bias"], "conv2 bias", (2 * c,), dev, bf)
+    vecs = (w["norm1"]["scale"], w["norm1"]["bias"], w["norm2"]["scale"],
+            w["norm2"]["bias"], w["beta"], w["gamma"])
+    for i, v in enumerate(vecs):
+        cuda.require(v, f"vector {i}", (c,), dev, bf)
+    lib = cuda.library()
+    stream = cuda.stream(x)
+    nbytes = lib.ff_nafblock_bf16_scratch_bytes(b * h * w_, c)
+    scratch = torch.empty(nbytes, device=dev, dtype=torch.uint8)
+    partials = torch.empty(b, -(-(h * w_) // POOL_ROWS), c, device=dev,
+                           dtype=torch.float32)
+    err = lib.ff_nafblock_gate_bf16(
+        *(cuda.ptr(t) for t in (
+            x, w["norm1"]["scale"], w["norm1"]["bias"], mats["conv1"],
+            w["conv1"]["bias"], mats["conv3"], mats["conv4"], mats["conv5"],
+            w["conv2"]["kernel"], w["conv2"]["bias"], partials, scratch)),
+        nbytes, b, h, w_, c, EPS, stream)
+    cuda.check(err, "nafblock_fused (bf16 gate)")
+    s = (partials.sum(1) / (h * w_) @ mats["sca"].float()
+         + w["sca"]["bias"].float()).contiguous()
+    out = torch.empty_like(x)
+    err = lib.ff_nafblock_apply_bf16(
+        *(cuda.ptr(t) for t in (
+            s, x, w["conv3"]["bias"], w["beta"], w["norm2"]["scale"],
+            w["norm2"]["bias"], w["conv4"]["bias"], w["conv5"]["bias"],
+            w["gamma"], out, scratch)),
+        nbytes, b, h, w_, c, EPS, stream)
+    cuda.check(err, "nafblock_fused (bf16 apply)")
+    cuda.launch_counts["nafblock_fused.bf16"] += 1
     return out

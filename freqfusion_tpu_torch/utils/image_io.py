@@ -12,7 +12,11 @@ nor PIL here, and ``read_image`` gives the pixels cv2 gives:
 - BMP: uncompressed 1/4/8-bit palette, 24-bit and 32-bit (``BI_RGB``, or
   ``BI_BITFIELDS`` with byte-wide masks from the header) images, bottom-up
   or top-down; the fourth byte of a 32-bit pixel is dropped.
-- JPEG through PIL where PIL imports (else it raises ``ValueError``).
+- JPEG through PIL where PIL imports (else it raises ``ValueError``);
+  a CMYK JPEG is converted with cv2's integer rule, not PIL's.
+- EXIF orientation: a JPEG's (APP1) and a PNG's (``eXIf`` chunk)
+  Orientation tag is applied, as cv2 applies it, so a rotated file is
+  read in the geometry it is shown in.
 
 ``write_image`` writes 8-bit RGB PNGs with filter 0.
 """
@@ -93,8 +97,43 @@ def _samples(rows: np.ndarray, w: int, depth: int, channels: int
         ..., None]
 
 
+def _exif_orientation(exif: bytes) -> int:
+    """The Orientation tag (0x0112) of IFD0 in a TIFF-structured EXIF
+    block (an optional ``Exif\\0\\0`` prefix skipped); 1 when it is absent
+    or the block does not parse."""
+    if exif.startswith(b"Exif\0\0"):
+        exif = exif[6:]
+    order = {b"II": "<", b"MM": ">"}.get(exif[:2])
+    if order is None or len(exif) < 8:
+        return 1
+    ifd = struct.unpack_from(order + "I", exif, 4)[0]
+    if ifd + 2 > len(exif):
+        return 1
+    count = struct.unpack_from(order + "H", exif, ifd)[0]
+    for i in range(count):
+        at = ifd + 2 + 12 * i
+        if at + 12 > len(exif):
+            break
+        tag, kind = struct.unpack_from(order + "HH", exif, at)
+        if tag == 0x0112 and kind == 3:   # SHORT, held in the value field
+            return struct.unpack_from(order + "H", exif, at + 8)[0]
+    return 1
+
+
+def _orient(px: np.ndarray, orientation: int) -> np.ndarray:
+    """[H, W, ...] as stored -> as shown under an EXIF Orientation."""
+    turn = {2: lambda a: a[:, ::-1],                        # mirror
+            3: lambda a: a[::-1, ::-1],                     # rotate 180
+            4: lambda a: a[::-1],                           # flip
+            5: lambda a: a.swapaxes(0, 1),                  # transpose
+            6: lambda a: a[::-1].swapaxes(0, 1),            # 90 clockwise
+            7: lambda a: a[::-1, ::-1].swapaxes(0, 1),      # transverse
+            8: lambda a: a[:, ::-1].swapaxes(0, 1)}         # 90 anticlockwise
+    return turn[orientation](px) if orientation in turn else px
+
+
 def _read_png(path: str, data: bytes) -> np.ndarray:
-    pos, idat, header, plte = 8, [], None, None
+    pos, idat, header, plte, orientation = 8, [], None, None, 1
     while pos < len(data):
         length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8: pos + 8 + length]
@@ -105,6 +144,8 @@ def _read_png(path: str, data: bytes) -> np.ndarray:
             plte = body
         elif ctype == b"IDAT":
             idat.append(body)
+        elif ctype == b"eXIf":
+            orientation = _exif_orientation(body)
         elif ctype == b"IEND":
             break
     if header is None:
@@ -136,13 +177,15 @@ def _read_png(path: str, data: bytes) -> np.ndarray:
         entries = np.frombuffer(plte, np.uint8)[:768]
         pal[:len(entries) // 3] = entries[:len(entries) // 3 * 3].reshape(
             -1, 3)
-        return pal[px[..., 0]]
-    if color in (0, 4):
+        rgb = pal[px[..., 0]]
+    elif color in (0, 4):
         gray = px[..., :1]
         if depth < 8:
             gray = gray * np.uint8(255 // ((1 << depth) - 1))
-        return np.repeat(gray, 3, -1)
-    return px[..., :3]
+        rgb = np.repeat(gray, 3, -1)
+    else:
+        rgb = px[..., :3]
+    return _orient(rgb, orientation)
 
 
 def _mask_channel(px: np.ndarray, mask: int) -> np.ndarray:
@@ -190,13 +233,21 @@ def _read_bmp(path: str, data: bytes) -> np.ndarray:
 
 
 def _read_jpeg(path: str) -> np.ndarray:
+    """Through PIL, turned by its EXIF orientation; CMYK as cv2 converts
+    it, in integers (k = 255 - K, each of R, G, B = k - C' k >> 8 with C'
+    the decoded, inverted sample), not by PIL's conversion."""
     try:
-        from PIL import Image
+        from PIL import Image, ImageOps
     except ImportError as e:
         raise ValueError(f"{path}: no JPEG decoder (PIL does not import: "
                          f"{e})") from None
     with Image.open(path) as img:
-        return np.asarray(img.convert("RGB"))
+        img = ImageOps.exif_transpose(img)
+        if img.mode != "CMYK":
+            return np.asarray(img.convert("RGB"))
+        raw = np.asarray(img).astype(np.int32)
+    k = 255 - raw[..., 3:]
+    return (k - ((raw[..., :3] * k) >> 8)).astype(np.uint8)
 
 
 def read_image(path: str) -> np.ndarray:

@@ -9,6 +9,7 @@ reference's torch state-dict names.
 """
 
 import ast
+import os
 from pathlib import Path
 
 import numpy as np
@@ -16,6 +17,15 @@ import pytest
 import torch
 
 PORT = Path(__file__).resolve().parent.parent / "freqfusion_tpu_torch"
+
+# Under pytest-xdist each worker takes its share of the cores for
+# PyTorch's intra-op threads: with every worker's threads on every core,
+# PyTorch's threads wait on each other's (test_torch_loading.py's
+# test_load_pipeline_loads_other_geometries: ~2 s alone, ~106 s in a
+# worker of -n 6 on 8 cores). Every worker collects this module.
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0"))
+if _WORKERS > 1:
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // _WORKERS))
 
 # Expert / fusion / pipeline parity bound (that of test_nafnet_parity.py).
 MODEL_TOL = dict(atol=3e-4, rtol=1e-3)

@@ -1643,10 +1643,82 @@ def test_scan_chain_proj_bf16_kernel(t, r, d, n, dtr, reverse):
                 "selective_scan.bf16")
 
 
+def _bf16_tree(tree):
+    return {k: _bf16_tree(v) if isinstance(v, dict) else
+            v.to(torch.bfloat16) for k, v in tree.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,ch,prenorm", [(180, 720, True), (308, 308, True),
+                                          (180, 360, False), (20, 76, False)])
+def test_fused_mlp_bf16_kernel(c, ch, prenorm, fp32_plain):
+    """DRCT-L's first and last FFN widths (pre-norm), GRL-B's (post-norm)
+    and a narrow one, at 2257 rows: every operand bf16, as the bf16
+    module hands them."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c + ch)
+    args = [a.to(torch.bfloat16) if torch.is_tensor(a) else a
+            for a in _mlp_args(rng, c, ch, prenorm, (37, 61), dev)]
+    cuda.reset_launch_counts()
+    got = fused_mlp_block(*args)
+    _bf16_close(got, fused_mlp_block_reference(*args), "fused_mlp_block.bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cr,sq,with_ln", [(45, 18, False), (60, 30, True)])
+@pytest.mark.parametrize("hw", [(37, 61), (5, 3)])
+def test_cab_bf16_kernel(cr, sq, with_ln, hw, fp32_plain):
+    """GRL's CAB (Cr 45: 90-byte rows, padded to 48 channels) and
+    MambaIR's with the ln_2 LayerNorm and skip scale, batch 2, at a ragged
+    size and one smaller than a 3 x 3 window's reach; every tensor of the
+    tree bf16."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(cr + hw[0])
+    w = _bf16_tree(_cab_tree(rng, 180, cr, sq, dev))
+    x = _b(rng.normal(size=(2, *hw, 180)), dev)
+    ln, skip = _cab_norms(rng, dev, with_ln)
+    ln = None if ln is None else _bf16_tree(ln)
+    skip = None if skip is None else skip.to(torch.bfloat16)
+    cuda.reset_launch_counts()
+    got = cab_fused(x, w, ln, skip)
+    _bf16_close(got, cab_fused_reference(x, w, ln, skip), "cab_fused.bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [64, 256, 1024, 36])
+def test_nafblock_bf16_kernel(c, fp32_plain):
+    """NAFNet-SIDD-64's widths at their extremes and C 36 (K padded to 64,
+    conv4's interleaved columns to 128) on two ragged 17 x 23 images;
+    every tensor of the tree bf16."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c)
+    w = _bf16_tree(_naf_tree(rng, c, dev))
+    x = _b(rng.uniform(size=(2, 17, 23, c)), dev)
+    cuda.reset_launch_counts()
+    got = nafblock_fused(x, w)
+    _bf16_close(got, nafblock_fused_reference(x, w), "nafblock_fused.bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [360, 6])
+@pytest.mark.parametrize("hw", [(13, 18), (1, 2)])
+def test_dwconv_bf16_kernel(c, hw, fp32_plain):
+    """SS2D's D 360 (four channels a thread) and C 6 (one), at a ragged
+    size and a 1 x 2 image: bf16 x, taps and bias."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c)
+    x = _b(rng.normal(size=(2, *hw, c)), dev)
+    k = _b(rng.normal(size=(3, 3, 1, c)), dev)
+    b = _b(rng.normal(size=c), dev)
+    cuda.reset_launch_counts()
+    got = dwconv3x3(x, k, b)
+    _bf16_close(got, dwconv3x3_reference(x, k, b), "dwconv3x3.bf16")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["window_attention",
                                     "selective_scan_chain",
-                                    "fused_mlp_block"])
+                                    "window_attention_qkv_nhwc"])
 def test_fp32_only_kernels_refuse_bf16(kernel):
     """A kernel with no bf16 version raises on a bf16 tensor, naming
     itself; nothing is cast around it."""
@@ -1659,9 +1731,10 @@ def test_fp32_only_kernels_refuse_bf16(kernel):
         "selective_scan_chain": lambda: selective_scan_chain(
             x, x, torch.zeros(16, 4, device=dev), x[..., :4], x[..., :4],
             torch.zeros(16, device=dev), torch.zeros(16, device=dev)),
-        "fused_mlp_block": lambda: fused_mlp_block(
+        "window_attention_qkv_nhwc": lambda: window_attention_qkv_nhwc(
             x, *(torch.zeros(s, device=dev) for s in
-                 ((16, 32), (32,), (32, 16), (16,), (16,), (16,)))),
+                 ((16, 48), (48,), (16, 16), (16,), (1, 64, 64))), None, 1,
+            8),
     }
     with pytest.raises(ValueError, match=f"{kernel}: .*bf16 version is not "
                                          "ported"):

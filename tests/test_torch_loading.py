@@ -335,24 +335,67 @@ def test_image_kinds_read_as_the_jax_reader(tmp_path, kind):
     assert got.std() > 0.01
 
 
+def _write_oriented(path_dir, orientation: int, suffix: str):
+    """A 24 x 40 RGB image stored with an EXIF Orientation tag: a PNG's
+    eXIf chunk or a JPEG's APP1 (quality 95), written by PIL."""
+    Image = pytest.importorskip("PIL.Image")
+    exif = Image.Exif()
+    exif[0x0112] = orientation
+    path = path_dir / f"o{orientation}.{suffix}"
+    Image.fromarray(_smooth(24, 40, orientation)).save(
+        path, exif=exif, **({"quality": 95} if suffix == "jpg" else {}))
+    return path
+
+
+@pytest.mark.parametrize("orientation", range(1, 9))
+@pytest.mark.parametrize("suffix", ["png", "jpg"])
+def test_exif_orientation_reads_as_the_jax_reader(tmp_path, orientation,
+                                                  suffix):
+    """The JAX reader (cv2.imread) turns a file by its EXIF Orientation:
+    2 mirror, 3 rotate 180, 4 flip, 5 transpose, 6 rotate 90 clockwise, 7
+    transverse, 8 rotate 90 anticlockwise. Bit-equal, 5-8 in the turned
+    geometry."""
+    path = _write_oriented(tmp_path, orientation, suffix)
+    got = read_image(str(path))
+    assert got.shape == ((24, 40, 3) if orientation < 5 else (40, 24, 3))
+    np.testing.assert_array_equal(got, jax_read_image(str(path)))
+
+
+def test_cmyk_jpeg_reads_as_the_jax_reader(tmp_path):
+    """A CMYK JPEG (PIL, quality 95, Adobe marker): converted by cv2's
+    integer rule, not PIL's, so bit-equal."""
+    Image = pytest.importorskip("PIL.Image")
+    path = tmp_path / "cmyk.jpg"
+    Image.fromarray(_smooth(24, 40, 9)).convert("CMYK").save(path,
+                                                             quality=95)
+    got = read_image(str(path))
+    assert got.shape == (24, 40, 3) and got.std() > 0.01
+    np.testing.assert_array_equal(got, jax_read_image(str(path)))
+
+
 def test_main_serves_the_other_kinds(tmp_path, capsys):
-    """io.main serves a 16-bit PNG, an Adam7 palette PNG and a
-    bit-field 32-bit BMP (no checkpoints: bilinear experts, seeded random
-    fusion net), none skipped."""
+    """io.main serves a 16-bit PNG, an Adam7 palette PNG, a bit-field
+    32-bit BMP and a 24 x 40 PNG with EXIF Orientation 6 (served 40 x 24,
+    turned) (no checkpoints: bilinear experts, seeded random fusion net),
+    none skipped."""
     in_dir, out_dir = tmp_path / "in", tmp_path / "out"
     in_dir.mkdir()
     kinds = ("png_rgb16", "png_adam7_palette4", "bmp_bgra32_bitfields")
     for kind in kinds:
         _write_kind(in_dir, kind)
+    _write_oriented(in_dir, 6, "png")
     seconds = main(str(tmp_path / "models"), str(in_dir), str(out_dir),
                    device="cpu")
     out = capsys.readouterr().out
     assert sorted(seconds) == sorted(
-        f"{k}.{'bmp' if k.startswith('bmp') else 'png'}" for k in kinds)
+        [f"{k}.{'bmp' if k.startswith('bmp') else 'png'}" for k in kinds]
+        + ["o6.png"])
     assert "skipped 0" in out
     for kind in kinds:
         sr = read_image(str(out_dir / f"{kind}.png"))
         assert sr.shape == (52, 76, 3) and np.isfinite(sr).all()
+    sr = read_image(str(out_dir / "o6.png"))
+    assert sr.shape == (160, 96, 3) and np.isfinite(sr).all()
 
 
 def test_jpeg_reads_as_the_jax_reader(tmp_path):
