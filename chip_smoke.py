@@ -11,8 +11,8 @@ exits non-zero without the final ok line):
    window attention at DRCT-L's head boxes, the fused FFN's products at
    the path's widths, the CAB's convolutions, the 3xTF32 GEMM, GRL's
    mixed attention at GRL-B's head box, the 3x3 convs of hierarchical
-   stage 3 and the edge refinement or the LKABlock's kernels), TF32 off
-   for matmuls and convolutions;
+   stage 3 and the edge refinement or the LKABlock's kernels, fp32 and
+   bf16), TF32 off for matmuls and convolutions;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the shapes its path gives it (336x512 LR bucket, NAFNet's levels at
    the 1344x2048 HR size), max-abs error against the stated tolerance,
@@ -81,7 +81,12 @@ exits non-zero without the final ok line):
    kernels' bf16 versions at phase 2's byte-floor shapes (the fused FFN
    #14 at its six, the CAB #15 at its two, the NAFBlock #16 at NAFNet's
    five levels, the depthwise conv #17 at SS2D's D 360 with cuDNN's bf16
-   depthwise F.conv2d as its library call);
+   depthwise F.conv2d as its library call); then the fusion-eval kernels'
+   bf16 versions (#18-#21) at their fp32 versions' shapes and layouts, the
+   modules and inputs cast to bf16 as fusion_dtype casts them, each beside
+   the gate-off route (the bf16 module on cuDNN), the fp32 kernel's time
+   and the bound at the bf16 rate (the LKABlock's taps and the refine's
+   squeeze on the fp32 cores a third term);
 3. serving, default path: seeded full-width random checkpoints under the
    reference file names, three LR PNGs (128x128, 100x140, 336x512)
    through ``freqfusion_tpu_torch.interface.io.main(..., device="cuda")``,
@@ -123,19 +128,32 @@ exits non-zero without the final ok line):
    76, 36 and 36 launches of the seven bf16 kernels per image and none of
    an fp32 kernel, the 336x512 output against phase 3b's fp32 byte-floor
    one (PSNR >= 52 dB);
-3c. the pipeline alone on the 336x512 image in the eight configurations
-   in turns (default, byte-floor, projection, fusion-eval, chainv5,
-   spatial, bf16, bf16-byte-floor, then back, after a warm-up of each):
-   seconds per request to the synchronised result, without the host's
-   PNG work; then the default path's and the two bf16 configurations'
-   split by stage (each expert alone on the same image, CUDA events);
+3l. serving, the experts and the fusion net in bf16 (expert_dtype and
+   fusion_dtype bf16, the JAX package's bench mode as bench.py:bench_full
+   builds it; a pipeline of its own, since fusion_dtype casts the fusion
+   net in place): the three LR PNGs read, served and written as io.main
+   does, with the three fusion-eval gates (bf16-fusion-eval: 60, 40, 144,
+   13, 1, 3 and 1 launches of the bf16 #1, #2, #3/#4 and #18-#21 per
+   image, none of an fp32 kernel, the 336x512 output against phase 3e's
+   fp32 fusion-eval one) and without (bf16-fusion: the experts' bf16
+   kernels only, against phase 3's), PSNR >= 51 dB each (the JAX
+   package's all-bf16 floor);
+3c. the pipeline alone on the 336x512 image in the ten configurations in
+   turns (default, byte-floor, projection, fusion-eval, chainv5, spatial,
+   bf16, bf16-byte-floor, bf16-fusion, bf16-fusion-eval, then back, after
+   a warm-up of each): seconds per request to the synchronised result,
+   without the host's PNG work; then the default path's and the four bf16
+   configurations' split by stage (each expert alone on the same image,
+   CUDA events);
 4. card against CPU: the same weights on one 32x48 LR image through the
    kernels on the card and the plain versions on the CPU, for each
-   configuration; PSNR >= 60 dB (bf16 experts: both in bf16, >= 48 dB).
+   configuration but bf16-fusion; PSNR >= 60 dB (bf16 experts: both in
+   bf16, >= 48 dB; bf16-fusion-eval: the fusion net in bf16 too).
 
 The last three lines are {"kernels": [...]} (each kernel with its launch
 count from the run of its own configuration, the bf16 kernels' from 3j,
-the byte-floor kernels' bf16 versions' from 3k;
+the byte-floor kernels' bf16 versions' from 3k, the fusion-eval kernels'
+bf16 versions' from 3l;
 #6, #7, #10 and #22 lie on no path),
 the card's name and power limit (card: ...), and
 {"ok": true, "device": {...}}.
@@ -153,7 +171,7 @@ run phase 1 and phase 2's four byte-floor kernels, its three in-kernel
 projection kernels, its four fusion-eval kernels, the scan's seven
 contracts, window attention #1 alone at its ten shapes, GRL's mixed
 attention #2 and #12 at GRL-B's two shapes, the token attention #13 at
-the fusion net's two geometries, or the seven bf16 kernels, only (to
+the fusion net's two geometries, or the eleven bf16 kernels, only (to
 compare two versions of them in one call; --fusion-only,
 --nhwc-attention-only, --grl-only and --bf16-only also run beside an
 older checkout of the package), and print their summary instead of the ok
@@ -212,6 +230,9 @@ BF16_ULPS = 2
 PSNR_BF16_PIPELINE = 52.0
 PSNR_BF16_EXPERT = 48.0
 PSNR_BF16_CARD_CPU = 48.0
+# the experts and the fusion net in bf16 against fp32: the JAX package's
+# all-bf16 floor (tests/test_full_geometry.py:213)
+PSNR_BF16_FUSION = 51.0
 # ptxas must report no spill for these instantiations: window attention's
 # head boxes at DRCT-L's five widths (head dims 30, 53, 122, 46, 77); the
 # FFN's up products and its down product at the six path widths (C 180,
@@ -219,15 +240,16 @@ PSNR_BF16_CARD_CPU = 48.0
 # and 6 n-tiles a block); the NAFBlock's and #11's GEMM (64 and 128
 # columns a block, each epilogue, #12's too); GRL mixed attention's body
 # at GRL-B's head box; every instantiation of the 3x3 conv (#19-#21)
-# and of #18's kernels; the token attention's (#13) at the path's two
-# geometries (T 9 with 8 warps, T 4 with 16) and its layout pass
+# and of #18's kernels, fp32 and bf16; the token attention's (#13) at the
+# path's two geometries (T 9 with 8 warps, T 4 with 16) and its layout
+# pass
 DRCT_HEAD_BOXES = (32, 56, 128, 48, 80)
 # GRL mixed attention's head box at GRL-B (head dim 30), csrc/
 # grl_attention.cuh, in both sources that build it (#2, #12)
 GRL_HEAD_BOX = 32
 # csrc/tf32_gemm.cuh's gemm_tf32_kernel<WC, EPI>: every instantiation
 GEMM_EPILOGUES = ("bias", "residual", "gate")
-# csrc/conv3x3_tf32.cuh's conv_kernel<NT, MT, EPI, MULTI>: every
+# csrc/conv3x3_tf32.cuh's conv_kernel<NT, MT, EPI, MULTI, BF16>: every
 # instantiation
 CONV_EPILOGUES = ("store", "SpatialGate", "squeeze", "broadcast")
 FFN_DOWN_TILES = (6, 8, 9, 10)
@@ -252,7 +274,18 @@ CONFIGS = {"default": {},
            "bf16": {"FREQFUSION_EXPERT_DTYPE": "bf16"},
            "bf16-byte-floor": {**dict.fromkeys((
                "FREQFUSION_MLP", "FREQFUSION_CAB", "FREQFUSION_NAFBLOCK",
-               "FREQFUSION_DWCONV"), "1"), "FREQFUSION_EXPERT_DTYPE": "bf16"}}
+               "FREQFUSION_DWCONV"), "1"), "FREQFUSION_EXPERT_DTYPE": "bf16"},
+           "bf16-fusion": {"FREQFUSION_EXPERT_DTYPE": "bf16"},
+           "bf16-fusion-eval": {**dict.fromkeys((
+               "FREQFUSION_LKA", "FREQFUSION_HIER", "FREQFUSION_EDGE"), "1"),
+               "FREQFUSION_EXPERT_DTYPE": "bf16"}}
+# the configurations whose pipeline also runs the fusion net in bf16: the
+# constructor's fusion_dtype (no variable sets it), as bench.py:bench_full
+# builds the JAX pipeline
+FUSION_BF16 = ("bf16-fusion", "bf16-fusion-eval")
+# phase 4 leaves out bf16-fusion (bf16-fusion-eval runs the same pipeline
+# through the kernels)
+NO_CARD_VS_CPU = ("bf16-fusion",)
 # launches per image: DRCT 12 RDGs x 5 blocks, GRL sum of depths, MambaIR
 # 36 layers x 4 directions
 PER_IMAGE = {"window_attention_nhwc": 60, "grl_mixed_attention_nhwc": 40,
@@ -291,6 +324,12 @@ PER_IMAGE_BF16 = {"window_attention_nhwc.bf16": 60,
 PER_IMAGE_BF16_GATED = {**PER_IMAGE_BF16, "fused_mlp_block.bf16": 100,
                         "cab_fused.bf16": 76, "nafblock_fused.bf16": 36,
                         "dwconv3x3.bf16": 36}
+# the experts and the fusion net in bf16 with the three fusion-eval gates:
+# the fusion-eval kernels' bf16 versions take the gated calls
+PER_IMAGE_BF16_FUSION = {**PER_IMAGE_BF16, "lka_block_fused.bf16": 13,
+                         "hier_stage3_fused.bf16": 1,
+                         "edge_refine_fused.bf16": 3,
+                         "edge_fuse_fused.bf16": 1}
 SOURCES = {
     "window_attention_nhwc": ("freqfusion_tpu_torch/csrc/window_attention.cu",
                               "freqfusion_tpu/ops/pallas_attention.py:238"),
@@ -350,6 +389,14 @@ SOURCES = {
                           "freqfusion_tpu/ops/pallas_edge.py:143"),
     "edge_fuse_fused": ("freqfusion_tpu_torch/csrc/edge.cu",
                         "freqfusion_tpu/ops/pallas_edge.py:255"),
+    "lka_block_fused.bf16": ("freqfusion_tpu_torch/csrc/lka.cu",
+                             "freqfusion_tpu/ops/pallas_lka.py:153"),
+    "hier_stage3_fused.bf16": ("freqfusion_tpu_torch/csrc/hier.cu",
+                               "freqfusion_tpu/ops/pallas_hier.py:147"),
+    "edge_refine_fused.bf16": ("freqfusion_tpu_torch/csrc/edge.cu",
+                               "freqfusion_tpu/ops/pallas_edge.py:143"),
+    "edge_fuse_fused.bf16": ("freqfusion_tpu_torch/csrc/edge.cu",
+                             "freqfusion_tpu/ops/pallas_edge.py:255"),
     "fused_layernorm": ("freqfusion_tpu_torch/csrc/layernorm.cu",
                         "freqfusion_tpu/ops/layernorm.py:70"),
 }
@@ -664,10 +711,12 @@ def check_spills(log: str, required: bool) -> None:
             r"(grl_attention(?:_qkv)?)_cu.*grl_attention_kernelILi(\d+)E",
             lambda m: int(m.group(2)) == GRL_HEAD_BOX,
             lambda m: f"{m.group(1)}.cu, head box {m.group(2)}"),
-        "3x3 conv (#19, #20, #21)": (
-            r"conv3x3_tf3211conv_kernelILi(\d+)ELi(\d+)ELi(\d)ELb([01])E",
+        "3x3 conv (#19, #20, #21; fp32 and bf16)": (
+            r"conv3x3_tf3211conv_kernelILi(\d+)ELi(\d+)ELi(\d)ELb([01])E"
+            r"Lb([01])E",
             lambda m: True,
-            lambda m: f"{m.group(1)} n-tiles x {m.group(2)} m-tiles a warp, "
+            lambda m: ("bf16, " if m.group(5) == "1" else "")
+                      + f"{m.group(1)} n-tiles x {m.group(2)} m-tiles a warp, "
                       + CONV_EPILOGUES[int(m.group(3))] + " epilogue"
                       + (", several sources" if m.group(4) == "1" else "")),
         "token attention (#13)": (
@@ -683,12 +732,15 @@ def check_spills(log: str, required: bool) -> None:
             lambda m: True,
             lambda m: f"{m.group(1)}.cu, {m.group(2)} rows, "
                       f"{m.group(4)[:-3]} epilogue"),
-        "LKA (#18)": (
-            r"lka_(mix)_kernelILi(\d+)ELi(\d+)ELi(\d+)E|lka_(dw|prep)_kernel",
+        "LKA (#18; fp32 and bf16)": (
+            r"lka_(mix)(_bf16)?_kernelILi(\d+)ELi(\d+)ELi(\d+)E|"
+            r"lka_(dw|prep)(_bf16)?_kernel(?:ILb([01])E)?",
             lambda m: True,
-            lambda m: f"mix, Cp {m.group(2)}, {32 * int(m.group(3))} rows, "
-                      f"{m.group(4)} stages" if m.group(1)
-                      else f"{m.group(5)} pass"),
+            lambda m: (f"{'bf16 ' if m.group(2) else ''}mix, Cp "
+                       f"{m.group(3)}, {32 * int(m.group(4))} rows, "
+                       f"{m.group(5)} stages") if m.group(1)
+                      else (f"{'bf16 ' if m.group(7) or m.group(8) == '1' else ''}"
+                            f"{m.group(6)} pass")),
     }
     entries = _ptxas_entries(log)
     spilled = []
@@ -964,6 +1016,21 @@ def bf16_tol(refs) -> float:
     return BF16_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
 
 
+def _beside(checks, name: str, check: KernelCheck) -> None:
+    """Print a bf16 kernel's totals beside the fp32 kernel `name`'s time
+    at the same shapes, where this run measured it."""
+    fp32 = checks.get(name)
+    print(f"  {check.name}, the {len(check.shapes)} shapes: "
+          f"{check.ms:.3f} ms against a bf16 bound of "
+          f"{check.bound_ms:.3f} ms; plain {check.plain_ms:.3f} ms"
+          + ("" if check.library_ms is None
+             else f"; library {check.library_ms:.3f} ms")
+          + ("" if check.route_off_ms is None
+             else f"; gate-off route {check.route_off_ms:.3f} ms")
+          + ("" if fp32 is None else
+             f"; the fp32 kernel {fp32.ms:.3f} ms at the same shapes"))
+
+
 def phase_bf16_kernels(dev, randn, checks) -> None:
     """The bf16 kernels (the bf16 expert mode) at their path's shapes on the
     336x512 bucket, each against its bf16 plain version (BF16_ULPS), timed
@@ -987,16 +1054,7 @@ def phase_bf16_kernels(dev, randn, checks) -> None:
     bf = torch.bfloat16
     h, w = LR_SIZES["c_336x512"]
     p = h * w
-
-    def beside(name: str, check: KernelCheck) -> None:
-        fp32 = checks.get(name)
-        print(f"  {check.name}, the {len(check.shapes)} shapes: "
-              f"{check.ms:.3f} ms against a bf16 bound of "
-              f"{check.bound_ms:.3f} ms; plain {check.plain_ms:.3f} ms"
-              + ("" if check.library_ms is None
-                 else f"; library {check.library_ms:.3f} ms")
-              + ("" if fp32 is None else
-                 f"; the fp32 kernel {fp32.ms:.3f} ms at the same shapes"))
+    beside = functools.partial(_beside, checks)
 
     wa = checks["window_attention_nhwc.bf16"] = KernelCheck(
         "window_attention_nhwc.bf16")
@@ -1084,6 +1142,7 @@ def phase_bf16_kernels(dev, randn, checks) -> None:
     del rows, xc
     torch.cuda.empty_cache()
     phase_bf16_fused_kernels(dev, randn, checks, beside)
+    phase_bf16_fusion_kernels(dev, randn, checks, beside)
 
 
 def phase_bf16_fused_kernels(dev, randn, checks, beside) -> None:
@@ -1522,12 +1581,29 @@ def _numel(tree) -> int:
     return tree.numel()
 
 
+def _fusion_module(m, dev, randn, dtype=torch.float32):
+    """Seeded init, every parameter moved by 0.05 N(0, 1), BN running
+    statistics away from 0 and 1; on the card, eval, cast to `dtype` (as
+    the pipeline's fusion_dtype casts the fusion net)."""
+    from freqfusion_tpu_torch.models.common import init_weights
+
+    init_weights(m, torch.Generator().manual_seed(0))
+    m = m.to(dev).eval().requires_grad_(False)
+    for name, t in m.named_buffers():
+        if name.endswith("running_mean"):
+            t.copy_(randn(*t.shape, scale=0.1))
+        elif name.endswith("running_var"):
+            t.copy_(1 + 0.5 * torch.tanh(randn(*t.shape)))
+    for t in m.parameters():
+        t.add_(randn(t.numel(), scale=0.05).view(t.shape))
+    return m.to(dtype)
+
+
 def phase_fusion_kernels(dev, randn, checks) -> None:
     """The fusion-eval configuration's four kernels at their path's shapes,
     in the layouts the gated modules hand them (NHWC slices for the
     LKABlock, NCHW views for the rest), and the gate-off routes (the
     modules on cuDNN) beside them."""
-    from freqfusion_tpu_torch.models.common import init_weights
     from freqfusion_tpu_torch.models.fusion.edge import (
         EdgeRefineBlock, LaplacianPyramidRefinement)
     from freqfusion_tpu_torch.models.fusion.hierarchical import (
@@ -1544,18 +1620,7 @@ def phase_fusion_kernels(dev, randn, checks) -> None:
     set_gates("default")  # the modules below are the gate-off routes
 
     def module(m):
-        """Seeded init, every parameter moved by 0.05 N(0, 1), BN running
-        statistics away from 0 and 1; on the card, eval."""
-        init_weights(m, torch.Generator().manual_seed(0))
-        m = m.to(dev).eval().requires_grad_(False)
-        for name, t in m.named_buffers():
-            if name.endswith("running_mean"):
-                t.copy_(randn(*t.shape, scale=0.1))
-            elif name.endswith("running_var"):
-                t.copy_(1 + 0.5 * torch.tanh(randn(*t.shape)))
-        for t in m.parameters():
-            t.add_(randn(t.numel(), scale=0.05).view(t.shape))
-        return m
+        return _fusion_module(m, dev, randn)
 
     h, w = LR_SIZES["c_336x512"]
     p = h * w
@@ -1668,6 +1733,126 @@ def phase_fusion_kernels(dev, randn, checks) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_bf16_fusion_kernels(dev, randn, checks, beside) -> None:
+    """The fusion-eval kernels' bf16 versions (#18-#21) at
+    phase_fusion_kernels' shapes and layouts, their modules and inputs cast
+    to bf16 as the pipeline's fusion_dtype casts them, each against its
+    bf16 plain version (BF16_ULPS), beside the gate-off route (the bf16
+    module on cuDNN) and the fp32 kernel's time where this run measured
+    it. Bound: the products at the bf16 tensor-core rate, the LKABlock's
+    depthwise taps and the refine's squeeze on the fp32 cores (a third
+    term), and bf16 bytes (inputs and the output once, the weights once;
+    the fuse's lw and strength too)."""
+    from freqfusion_tpu_torch.models.fusion.edge import (
+        EdgeRefineBlock, LaplacianPyramidRefinement)
+    from freqfusion_tpu_torch.models.fusion.hierarchical import (
+        HierarchicalMultiResolutionFusion)
+    from freqfusion_tpu_torch.models.fusion.lka import LKABlock
+    from freqfusion_tpu_torch.ops.edge import (
+        edge_fuse_fused, edge_fuse_fused_reference, edge_refine_fused,
+        edge_refine_fused_reference)
+    from freqfusion_tpu_torch.ops.hier import (hier_stage3_fused,
+                                               hier_stage3_fused_reference)
+    from freqfusion_tpu_torch.ops.lka import (lka_block_fused,
+                                              lka_block_fused_reference)
+
+    set_gates("default")  # the modules below are the gate-off routes
+    bf = torch.bfloat16
+
+    def module(m):
+        return _fusion_module(m, dev, randn, bf)
+
+    h, w = LR_SIZES["c_336x512"]
+    p = h * w
+    lk = checks["lka_block_fused.bf16"] = KernelCheck("lka_block_fused.bf16")
+    for c in (64, 128):
+        mod = module(LKABlock(c))
+        tree = mod.fused_params()
+        x = randn(1, h, w, c).to(bf)
+        x_nchw = x.permute(0, 3, 1, 2).contiguous()
+        lk.run(f"C{c}/{h}x{w}", lambda: lka_block_fused(x, tree),
+               lambda: lka_block_fused_reference(x, tree), bf16_tol,
+               p * 10.0 * c * c, 2 * (2 * p * c + _numel(tree)),
+               peak_flops=PEAK_BF16, core_flops=p * 134.0 * c)
+        launch_breakdown(f"#18 bf16 C{c}", lambda: lka_block_fused(x, tree))
+        lk.route(f"C{c}", lambda: lka_block_fused(x, mod.fused_params()),
+                 lambda: mod(x_nchw), "LKABlock on cuDNN, bf16")
+        del x, x_nchw
+    beside("lka_block_fused", lk)
+    torch.cuda.empty_cache()
+
+    hh, ww = 4 * h, 4 * w
+    ph = hh * ww
+    hi = checks["hier_stage3_fused.bf16"] = KernelCheck(
+        "hier_stage3_fused.bf16")
+    hm = module(HierarchicalMultiResolutionFusion(4, 64))
+    tree = hm.stage3_params()
+    s3 = randn(1, 76, hh, ww, scale=0.5).to(bf)
+    s3v = s3.permute(0, 2, 3, 1)
+
+    def hier_off():
+        f3 = hm.stage3_res(hm.stage3_gate(hm.stage3_conv(s3)))
+        return hm.to_rgb(f3 + hm.residual_weight_2_3 * s3[:, :hm.half])
+    label = f"{hh}x{ww}/C76"
+    hi.run(label, lambda: hier_stage3_fused(s3v, tree),
+           lambda: hier_stage3_fused_reference(s3v, tree), bf16_tol,
+           ph * 18.0 * 9520, 2 * (ph * 79 + _numel(tree)),
+           peak_flops=PEAK_BF16)
+    launch_breakdown(f"#19 bf16 {label}", lambda: hier_stage3_fused(s3v, tree))
+    hi.route(f"{hh}x{ww}", lambda: hier_stage3_fused(s3v, hm.stage3_params()),
+             hier_off, "stage-3 + to_rgb modules on cuDNN, bf16")
+    beside("hier_stage3_fused", hi)
+    del s3, s3v
+    torch.cuda.empty_cache()
+
+    er = checks["edge_refine_fused.bf16"] = KernelCheck(
+        "edge_refine_fused.bf16")
+    rm = module(EdgeRefineBlock(3, 32))
+    tree = rm.fused_params()
+    for s in (1, 2, 4):
+        lap = randn(1, 3, hh // s, ww // s, scale=0.1).to(bf)
+        lapv = lap.permute(0, 2, 3, 1)
+        npx = lap.numel() // 3
+        label = f"{hh // s}x{ww // s}"
+        er.run(label, lambda: edge_refine_fused(lapv, tree),
+               lambda: edge_refine_fused_reference(lapv, tree), bf16_tol,
+               npx * 38928.0, 2 * (npx * 35 + _numel(tree)),
+               peak_flops=PEAK_BF16, core_flops=npx * 512.0)
+        if s == 1:
+            launch_breakdown(f"#20 bf16 {label}",
+                             lambda: edge_refine_fused(lapv, tree))
+        er.route(label, lambda: edge_refine_fused(lapv, rm.fused_params()),
+                 lambda: rm(lap), "EdgeRefineBlock on cuDNN, bf16")
+        del lap, lapv
+    beside("edge_refine_fused", er)
+    torch.cuda.empty_cache()
+
+    ef = checks["edge_fuse_fused.bf16"] = KernelCheck("edge_fuse_fused.bf16")
+    em = module(LaplacianPyramidRefinement(3, 32, 0.15))
+    tree = em.fuse_params()
+    sr = (0.5 + 0.2 * randn(1, 3, hh, ww)).clamp(0.0, 1.0).to(bf)
+    feats = [randn(1, 32, hh, ww, scale=0.3).to(bf) for _ in range(3)]
+    views = [t.permute(0, 2, 3, 1) for t in (sr, *feats)]
+    lw = torch.softmax(em.level_weights, 0)
+    args = (*views, lw, em.edge_strength, tree)
+
+    def fuse_off():
+        edge = em.fusion(torch.cat([f * lw[i] for i, f in enumerate(feats)],
+                                   1))
+        gate = em.edge_gate(torch.cat([sr, edge], 1))
+        return (sr + gate * em.edge_strength * edge).clamp(0.0, 1.0)
+    label = f"{hh}x{ww}"
+    ef.run(label, lambda: edge_fuse_fused(*args),
+           lambda: edge_fuse_fused_reference(*args), bf16_tol, ph * 59040.0,
+           2 * (ph * 102 + _numel(tree) + 4), peak_flops=PEAK_BF16)
+    launch_breakdown(f"#21 bf16 {label}", lambda: edge_fuse_fused(*args))
+    ef.route(label, lambda: edge_fuse_fused(*args), fuse_off,
+             "fusion + edge-gate modules on cuDNN, bf16")
+    beside("edge_fuse_fused", ef)
+    del sr, feats, views, args
+    torch.cuda.empty_cache()
+
+
 def write_checkpoints(model_dir: Path, seed: int = 0) -> None:
     from freqfusion_tpu_torch.interface.io import _TORCH_FILES
     from freqfusion_tpu_torch.models.fusion.fusion_v2 import (
@@ -1707,6 +1892,83 @@ def set_gates(config: str) -> None:
 def psnr(a, b) -> float:
     mse = float(((a - b) ** 2).mean())
     return float("inf") if mse == 0 else 10 * math.log10(1.0 / mse)
+
+
+def build_pipeline(model_dir: Path, device, config: str):
+    """The pipeline of `config` as load_pipeline builds it under the
+    configuration's variables (the experts' dtype read at load time), the
+    fusion net then cast by the constructor's fusion_dtype where the
+    configuration is one of FUSION_BF16."""
+    from freqfusion_tpu_torch.interface.io import load_pipeline
+    from freqfusion_tpu_torch.models.pipeline import FreqFusionPipeline
+
+    set_gates(config)
+    pipe = load_pipeline(str(model_dir), device, verbose=False)
+    if config in FUSION_BF16:
+        pipe = FreqFusionPipeline(dict(pipe.experts), pipe.fusion,
+                                  pipe.scale, pipe.expert_dtype,
+                                  torch.bfloat16).eval()
+    return pipe
+
+
+def phase_bf16_fusion(model_dir: Path, in_dir: Path, work: Path) -> dict:
+    """The experts and the fusion net in bf16 (expert_dtype and
+    fusion_dtype bf16, as bench.py:bench_full builds the JAX pipeline), in
+    a pipeline of its own: the three LR PNGs read, served and written as
+    io.main does, with the three fusion-eval gates (60, 40 and 144
+    launches of the bf16 #1, #2 and #3/#4 per image, 13, 1, 3 and 1 of the
+    bf16 #18-#21, none of an fp32 kernel; the 336x512 output against phase
+    3e's fp32 fusion-eval one) and without them (the JAX package's bench
+    mode: the experts' bf16 kernels only; against phase 3's fp32 output),
+    PSNR >= 51 dB each. Returns the gated run's launch counts."""
+    from freqfusion_tpu_torch.ops import cuda
+    from freqfusion_tpu_torch.utils.image_io import read_image, write_image
+
+    name = "c_336x512.png"
+    pipe = build_pipeline(model_dir, "cuda", "bf16-fusion-eval")
+    if {p.dtype for p in pipe.parameters()} != {torch.bfloat16}:
+        raise AssertionError("the bf16-fusion pipeline holds fp32 weights")
+    counts = {}
+    for config, per_image, ref, what in (
+            ("bf16-fusion-eval", PER_IMAGE_BF16_FUSION, "out_fusion-eval",
+             "phase 3e's fp32 fusion-eval output"),
+            ("bf16-fusion", PER_IMAGE_BF16, "out", "phase 3's fp32 output")):
+        set_gates(config)
+        out = work / f"out_{config}"
+        out.mkdir()
+        cuda.reset_launch_counts()
+        for stem, (h, w) in LR_SIZES.items():
+            t0 = time.perf_counter()
+            lr = torch.from_numpy(read_image(str(in_dir / f"{stem}.png")))
+            with torch.inference_mode():
+                sr = pipe(lr.permute(2, 0, 1)[None].cuda())
+            if sr.dtype != torch.float32 or not bool(torch.isfinite(sr).all()):
+                raise AssertionError(f"{config} {stem}: output {sr.dtype}, "
+                                     "not finite fp32")
+            sr = sr[0].permute(1, 2, 0).cpu().numpy()
+            write_image(str(out / f"{stem}.png"), sr)
+            sec = time.perf_counter() - t0
+            if sr.shape != (4 * h, 4 * w, 3) or not sr.std() > 0.01:
+                raise AssertionError(f"{config} {stem}: bad output {sr.shape}")
+            print(f"  {config} {stem}: {h}x{w} -> {4 * h}x{4 * w}, "
+                  f"{sec:.3f} s/request")
+        counts[config] = dict(cuda.launch_counts)
+        print(f"  {config} launch counts: "
+              f"{json.dumps(counts[config], sort_keys=True)}")
+        for k in set(per_image) | set(counts[config]):
+            want = per_image.get(k, 0) * len(LR_SIZES)
+            if counts[config].get(k, 0) != want:
+                raise AssertionError(f"{config} {k}: "
+                                     f"{counts[config].get(k, 0)} launches, "
+                                     f"expected {want}")
+        db = psnr(read_image(str(out / name)), read_image(str(work / ref / name)))
+        print(f"  {config} {name}: against {what} PSNR {db:.2f} dB (min "
+              f"{PSNR_BF16_FUSION})")
+        if not db >= PSNR_BF16_FUSION:
+            raise AssertionError(f"{config} PSNR {db:.2f} < {PSNR_BF16_FUSION}")
+    set_gates("default")
+    del pipe
+    return counts["bf16-fusion-eval"]
 
 
 def phase_serving(model_dir: Path, in_dir: Path, out_dir: Path,
@@ -1823,21 +2085,21 @@ def phase_pipeline_ab(model_dir: Path, image: Path, configs=tuple(CONFIGS),
     """Seconds per request of the pipeline alone on `image` in each of
     `configs`: a warm-up of each, then `rounds` times all in order and
     back; then the split by stage of the first configuration and of the
-    bf16 one where it is among `configs`. The gates are read at forward
-    time; the experts' dtype at load time, so each dtype has a pipeline of
-    its own, loaded under its configuration."""
-    from freqfusion_tpu_torch.interface.io import expert_dtype, load_pipeline
+    bf16 ones where they are among `configs`. The gates are read at
+    forward time; the experts' dtype at load time and the fusion net's at
+    construction (FUSION_BF16), so each pair of dtypes has a pipeline of
+    its own, built under its configuration."""
+    from freqfusion_tpu_torch.interface.io import expert_dtype
     from freqfusion_tpu_torch.utils.image_io import read_image
 
     pipes = {}
 
     def pipe_of(config: str):
         set_gates(config)
-        dtype = expert_dtype()
-        if dtype not in pipes:
-            pipes[dtype] = load_pipeline(str(model_dir), "cuda",
-                                         verbose=False)
-        return pipes[dtype]
+        key = (expert_dtype(), config in FUSION_BF16)
+        if key not in pipes:
+            pipes[key] = build_pipeline(model_dir, "cuda", config)
+        return pipes[key]
 
     lr = torch.from_numpy(read_image(str(image))).permute(2, 0, 1)[None]
     lr = lr.cuda()
@@ -1863,7 +2125,8 @@ def phase_pipeline_ab(model_dir: Path, image: Path, configs=tuple(CONFIGS),
         print(f"  {config}: {' '.join(f'{v:.3f}' for v in t)} s, mean "
               f"{mean:.3f} s ("
               f"{4 * lr.shape[2] * 4 * lr.shape[3] / mean / 1e6:.3f} MP/s)")
-    for config in dict.fromkeys((order[0], "bf16", "bf16-byte-floor")):
+    for config in dict.fromkeys((order[0], "bf16", "bf16-byte-floor",
+                                 *FUSION_BF16)):
         if config in order:
             stage_split(pipe_of(config), lr, config)
     set_gates("default")
@@ -2041,16 +2304,15 @@ def phase_ntire_bf16(model_dir: Path, in_dir: Path, work: Path) -> dict:
     return counts
 
 
-def phase_card_vs_cpu(model_dir: Path, floor: float = PSNR_MIN) -> None:
-    """The pipeline of the set configuration (its experts' dtype read at
-    load time) on the card and on the CPU, one 32x48 LR: PSNR >= floor."""
-    from freqfusion_tpu_torch.interface.io import load_pipeline
-
+def phase_card_vs_cpu(model_dir: Path, config: str,
+                      floor: float = PSNR_MIN) -> None:
+    """The pipeline of `config` (build_pipeline) on the card and on the
+    CPU, one 32x48 LR: PSNR >= floor."""
     lr = torch.from_numpy(np.random.default_rng(1).uniform(
         0, 1, (1, 3, 32, 48)).astype(np.float32))
     outs = {}
     for dev in ("cuda", "cpu"):
-        pipe = load_pipeline(str(model_dir), dev, verbose=False)
+        pipe = build_pipeline(model_dir, dev, config)
         t0 = time.perf_counter()
         with torch.inference_mode():
             outs[dev] = pipe(lr.to(dev)).cpu()
@@ -2112,7 +2374,8 @@ def main(argv) -> int:
                                phase_grl_kernels),
                               ("--token-only", "token attention (#13)",
                                phase_token_kernel),
-                              ("--bf16-only", "bf16 (#1, #2, #3/#4, #14-#17)",
+                              ("--bf16-only",
+                               "bf16 (#1, #2, #3/#4, #14-#21)",
                                phase_bf16_kernels)):
         if flag in argv:
             print(f"[2] the {what} kernels against their plain versions")
@@ -2212,14 +2475,20 @@ def main(argv) -> int:
                                  f"{db:.2f} < {PSNR_BF16_PIPELINE}")
         set_gates("default")
         torch.cuda.empty_cache()
+        print("[3l] serving, the experts and the fusion net in bf16 "
+              "(expert_dtype and fusion_dtype bf16), with the fusion-eval "
+              "gates and without")
+        counts["bf16-fusion-eval"] = phase_bf16_fusion(model_dir, in_dir, work)
+        torch.cuda.empty_cache()
         print(f"[3c] pipeline alone, 336x512, the {len(CONFIGS)} "
               "configurations in turns")
         phase_pipeline_ab(model_dir, in_dir / name)
         torch.cuda.empty_cache()
         for config in CONFIGS:
-            set_gates(config)
+            if config in NO_CARD_VS_CPU:
+                continue
             print(f"[4] card against CPU, {config} configuration")
-            phase_card_vs_cpu(model_dir, PSNR_BF16_CARD_CPU
+            phase_card_vs_cpu(model_dir, config, PSNR_BF16_CARD_CPU
                               if "FREQFUSION_EXPERT_DTYPE" in CONFIGS[config]
                               else PSNR_MIN)
         set_gates("default")
@@ -2230,6 +2499,7 @@ def main(argv) -> int:
         ("byte-floor", PER_IMAGE_GATED), ("projection", PER_IMAGE_QKV),
         ("fusion-eval", PER_IMAGE_FUSION), ("chainv5", PER_IMAGE_CHAINV5),
         ("spatial", PER_IMAGE_SPATIAL), ("bidir", PER_IMAGE_BIDIR),
+        ("bf16-fusion-eval", PER_IMAGE_BF16_FUSION),
         ("bf16-byte-floor", PER_IMAGE_BF16_GATED), ("bf16", PER_IMAGE_BF16),
         ("default", PER_IMAGE)) for k in per_image}
     print(json.dumps({"kernels": [c.entry(launches.get(c.name, 0))

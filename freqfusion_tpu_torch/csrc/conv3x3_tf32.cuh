@@ -19,6 +19,26 @@
 // A residual or gate tensor may be the output itself: each thread reads it
 // at its own pixels before writing them.
 //
+// The same kernel runs in bf16 (template flag kBf, the bf16 versions of
+// #19-#21): one mma.sync m16n8k16 a k16 step (bf16_mma.cuh) where fp32
+// runs three TF32 products, 16 input channels a stage, fp32 sums, and the
+// epilogue in fp32. Its sources are bf16 NHWC tensors whose pixel stride is
+// a multiple of 8 channels, zeros past their channels (the JAX kernels
+// round each conv's input to bf16, so what a conv reads is bf16 already):
+// a stage lands by cp.async and a ring of kStagesBf16 stages. pack() makes
+// such a tensor of any other input (NCHW, several sources concatenated,
+// each times a scale before the rounding), and a conv can write a bf16
+// copy of its output beside it (out2) for the next conv. A stage's halo is
+// two 16-byte chunks a pixel (channels 0-7, 8-15), the chunks of pixel q
+// swapped where bit 2 of q is set, so that a lane's 4-byte fragment reads
+// (pixel g, channels 2t, 2t + 1) hit 32 banks. A bf16 conv reads each
+// tensor of its epilogue in its own element type (T4::bf: bf16 or fp32, so
+// a value that also feeds fp32 element-wise work can stay fp32 between
+// launches), stores its output in the type `o` names, rounds the
+// squeezes' operands to bf16 as the JAX kernels' 1x1 dots do (on the
+// tensor cores), and takes every parameter (biases, the squeezes' weights,
+// alpha, beta, bk, the conv weights) as bf16.
+//
 // Design, #15's convolution (csrc/cab.cu) without its LayerNorm and
 // channel sums: an implicit GEMM, M a tile of output pixels, N the output
 // channels, K = 9 Cin taken tap by tap. A block of 8 warps takes a (8 MT)
@@ -51,6 +71,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace conv3x3_tf32 {
@@ -58,12 +79,19 @@ namespace conv3x3_tf32 {
 constexpr int kTW = 16;        // output tile columns: an m-tile's rows
 constexpr int kHW = kTW + 2;   // halo columns
 constexpr int kCK = 8;         // input channels a stage: one k8 block
-constexpr int kStages = 2;     // the ring
+constexpr int kCK16 = 16;      // the bf16 convs': one k16 block
+constexpr int kStages = 2;     // the ring (fp32)
+constexpr int kStagesBf16 = 4;  // the bf16 convs' ring: a stage's products
+                                // take a third of fp32's, too short to hide
+                                // one stage's copies behind
 constexpr int kBroadcastPer = 8;  // kBroadcast: bm's channels a lane, at most
 
+// A tensor through its element strides; its elements are bf16 where bf
+// is set (read and written only by the bf16 convs), else fp32.
 struct T4 {
   const float* p;
   long long sb, sy, sx, sc;
+  int bf;
 };
 
 __host__ __device__ inline long long at(const T4& t, int b, int y, int x,
@@ -73,8 +101,53 @@ __host__ __device__ inline long long at(const T4& t, int b, int y, int x,
 
 // A [B, H, W, C] tensor, NHWC-contiguous or (nchw) NCHW-contiguous.
 inline T4 tensor(const float* p, int H, int W, int C, int nchw) {
-  if (nchw) return T4{p, (long long)C * H * W, W, 1, (long long)H * W};
-  return T4{p, (long long)H * W * C, (long long)W * C, C, 1};
+  if (nchw) return T4{p, (long long)C * H * W, W, 1, (long long)H * W, 0};
+  return T4{p, (long long)H * W * C, (long long)W * C, C, 1, 0};
+}
+
+// The same over bf16 elements.
+inline T4 tensor_bf16(const void* p, int H, int W, int C, int nchw) {
+  T4 t = tensor(static_cast<const float*>(p), H, W, C, nchw);
+  t.bf = 1;
+  return t;
+}
+
+// A parameter of a conv: fp32, or (the bf16 convs) bf16.
+template <bool kBf>
+__device__ __forceinline__ float par(const float* p, long long i) {
+  if constexpr (kBf)
+    return __bfloat162float(
+        __ldg(reinterpret_cast<const __nv_bfloat16*>(p) + i));
+  else
+    return __ldg(p + i);
+}
+
+// Element o of t as fp32 (the fp32 convs read fp32 only).
+template <bool kBf>
+__device__ __forceinline__ float load(const T4& t, long long o) {
+  if constexpr (kBf)
+    if (t.bf)
+      return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(t.p)[o]);
+  return t.p[o];
+}
+
+// v as element o of the output `out` of layout `t`.
+template <bool kBf>
+__device__ __forceinline__ void store(float* out, const T4& t, long long o,
+                                      float v) {
+  if constexpr (kBf)
+    if (t.bf) {
+      reinterpret_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(v);
+      return;
+    }
+  out[o] = v;
+}
+
+// v rounded to bf16 where the bf16 convs round it (the squeezes' operands).
+template <bool kBf>
+__device__ __forceinline__ float rnd(float v) {
+  if constexpr (kBf) return round_bf16(v);
+  else return v;
 }
 
 __device__ __forceinline__ float gelu_erf(float v) {
@@ -90,10 +163,17 @@ enum Epilogue { kStore = 0, kSpatialGate = 1, kSqueeze = 2, kBroadcast = 3 };
 
 struct Src {
   T4 t;        // [B, H, W, C]
-  int C, vec;  // channels; 16-byte copies (NHWC, C % 4 == 0, aligned)
-  int stages;  // C padded to kCK, in stages
+  int C, vec;  // channels; 16-byte copies (fp32: NHWC, C % 4 == 0,
+               // aligned; bf16: see vec_ok_bf16, which every bf16 source
+               // must meet)
+  int stages;  // C padded to a stage's channels, in stages
 };
 
+// In the bf16 convs every parameter pointer (bias ... bk) points at bf16
+// values, and out (out2) at elements of o's (o2's) type; out2 is, besides
+// kSqueeze's squeeze, the bf16 copy of a kStore or kSpatialGate conv's
+// output, all coutp channels (zeros past Cout where the activation keeps
+// zero), for a later conv to read.
 struct Conv {
   Src src[3];           // the sources, concatenated along C
   int nsrc, cinp;       // their count; their padded channels, summed
@@ -112,26 +192,30 @@ struct Conv {
   const float* g2;      // all of Cout
   const float* g2b;
   long long g0i, g0o;   // kSqueeze: G0's strides (kSpatialGate's: 8, 1)
-  float* out2;          // kSqueeze: [B, H, W, 8], strides of `o2`
-  T4 o2;
+  float* out2;          // kSqueeze: [B, H, W, 8], strides of `o2`; bf16
+  T4 o2;                // kStore, kSpatialGate: the output's bf16 copy
   T4 bm, ba;            // kBroadcast: out[c] = ba[c] + v k bm[c], c < bC;
   const float* bk;      // ba may be null; k one float on the card, or null
   int bC, clamp;        // for 1
   int H, W;
 };
 
-// (8 MT) x 16 output pixels and 8 NT output channels a block of 8 warps.
-template <int NT, int MT>
+// (8 MT) x 16 output pixels and 8 NT output channels a block of 8 warps;
+// sizes in 4-byte words (a halo pixel's stage is 8 of them: 8 fp32 or 16
+// bf16 channels).
+template <int NT, int MT, bool kBf = false>
 struct Shape {
   static constexpr int kThreads = 256;
   static constexpr int kN = 8 * NT;                   // output channels
   static constexpr int kTH = 8 * MT;                  // output tile rows
+  static constexpr int kCh = kBf ? kCK16 : kCK;       // channels a stage
   static constexpr int kHalo = (kTH + 2) * kHW;       // halo pixels
-  static constexpr int kPlane = kHalo * kCK;          // the halo's floats
-  static constexpr int kW = 9 * NT * 128;             // 9 taps' B fragments
-  static constexpr int kStage = kPlane + kW;          // floats
+  static constexpr int kPlane = kHalo * 8;            // the halo's words
+  static constexpr int kW = 9 * NT * (kBf ? 64 : 128);  // 9 taps' B frags
+  static constexpr int kStage = kPlane + kW;          // words
+  static constexpr int kRing = kBf ? kStagesBf16 : kStages;
   static constexpr size_t kSmem =
-      kStages * size_t(kStage) * sizeof(float) + kStages * sizeof(uint64_t);
+      kRing * size_t(kStage) * sizeof(float) + kRing * sizeof(uint64_t);
 };
 
 // A conv kernel as HWIO [kh, kw, cin, cout] through its element strides:
@@ -148,29 +232,33 @@ inline W4 hwio(const float* p, int kw, int cin, int cout) {
 
 // One source's rows of a conv's weights: [k, k, cin, cout] with k 3, or 1
 // (a 1x1 kernel: the centre tap, zeros around it), scaled by one float on
-// the card or not.
+// the card or not (fp32 only).
 struct SplitSrc {
   W4 w;
   const float* scale;
   int cin, cinp, k;
 };
 
-// One conv's weights to split: 9 cinp coutp / 2 units.
+// One conv's weights to split: 9 cinp coutp / 2 units (fp32), 9 cinp
+// coutp / 4 (bf16: the weights bf16, cinp a multiple of 16).
 struct SplitJob {
   SplitSrc src[3];
   int nsrc;
   float* fr;
-  int cout, coutp, cinp, nt;
+  int cout, coutp, cinp, nt, ck;
 };
 
 // A conv's split with no source yet: add_split_source adds them in the
-// order of the conv's sources.
-inline SplitJob split_job(float* fr, int cout, int coutp, int nt) {
+// order of the conv's sources; ck is a stage's channels (kCK, or kCK16
+// for a bf16 conv).
+inline SplitJob split_job(float* fr, int cout, int coutp, int nt,
+                          int ck = kCK) {
   SplitJob j{};
   j.fr = fr;
   j.cout = cout;
   j.coutp = coutp;
   j.nt = nt;
+  j.ck = ck;
   return j;
 }
 
@@ -178,17 +266,24 @@ inline SplitJob split_job(float* fr, int cout, int coutp, int nt) {
 // conv that reads j's weights then refuses its fourth source too.
 inline void add_split_source(SplitJob& j, W4 w, int cin, int k = 3,
                              const float* scale = nullptr) {
-  const int cinp = (cin + kCK - 1) / kCK * kCK;
+  const int cinp = (cin + j.ck - 1) / j.ck * j.ck;
   if (j.nsrc < 3) j.src[j.nsrc++] = SplitSrc{w, scale, cin, cinp, k};
   j.cinp += cinp;
 }
 
 // A conv of one [3, 3, cin, cout] kernel.
 inline SplitJob split_job(W4 w, float* fr, int cin, int cout, int coutp,
-                          int nt) {
-  SplitJob j = split_job(fr, cout, coutp, nt);
+                          int nt, int ck = kCK) {
+  SplitJob j = split_job(fr, cout, coutp, nt, ck);
   add_split_source(j, w, cin);
   return j;
+}
+
+// Units of j's split: a lane's fragment of one (block, k block, tap,
+// n-tile) each.
+template <bool kBf>
+__host__ __device__ inline long long split_units(const SplitJob& j) {
+  return 9LL * j.cinp * j.coutp / (kBf ? 4 : 2);
 }
 
 // The split weights, zero-padded, in fragment order over [coutp / (8 nt)
@@ -226,44 +321,84 @@ __device__ __forceinline__ void split_unit(const SplitJob& s, long long u) {
   *reinterpret_cast<uint4*>(s.fr + 4 * u) = o;
 }
 
+// The bf16 split (bf16 weights, no scale), in fragment order over
+// [coutp / (8 nt) blocks][cinp / 16][9 taps][nt][32 lanes][2 words]: unit
+// u is lane (g, t) of a (block, k16 block, tap, n-tile), its b0 = W[2t,
+// 2t + 1][g] and b1 = W[2t + 8, 2t + 9][g] as bf16 pairs, the channels in
+// their natural order.
+__device__ __forceinline__ void split_unit_bf16(const SplitJob& s,
+                                                long long u) {
+  const int lane = int(u % 32), g = lane / 4, t = lane % 4;
+  long long blk = u / 32;
+  const int ntl = int(blk % s.nt);
+  blk /= s.nt;
+  const int tap = int(blk % 9);
+  blk /= 9;
+  int kb = int(blk % (s.cinp / 16));
+  const int nb = int(blk / (s.cinp / 16));
+  int i = 0;
+  while (i + 1 < s.nsrc && kb >= s.src[i].cinp / 16)
+    kb -= s.src[i++].cinp / 16;
+  const SplitSrc& q = s.src[i];
+  const int co = 8 * (nb * s.nt + ntl) + g;
+  float v[4] = {0.f, 0.f, 0.f, 0.f};
+  if (co < s.cout && (q.k == 3 || tap == 4)) {
+    const W4& w = q.w;
+    const __nv_bfloat16* wt =
+        reinterpret_cast<const __nv_bfloat16*>(w.p) + co * w.so +
+        (q.k == 3 ? (tap / 3) * w.sh + (tap % 3) * w.sw : 0);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int ci = 16 * kb + 2 * t + (e / 2) * 8 + e % 2;
+      if (ci < q.cin) v[e] = __bfloat162float(wt[ci * w.si]);
+    }
+  }
+  *reinterpret_cast<uint2*>(s.fr + 2 * u) =
+      make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+}
+
 template <int J>
 struct SplitJobs {
   SplitJob job[J];
 };
 
-template <int J>
+template <int J, bool kBf>
 __global__ void __launch_bounds__(256) split_kernel(SplitJobs<J> jobs) {
   long long base[J + 1];
   base[0] = 0;
 #pragma unroll
   for (int j = 0; j < J; ++j)
-    base[j + 1] = base[j] + 9LL * jobs.job[j].cinp * jobs.job[j].coutp / 2;
+    base[j + 1] = base[j] + split_units<kBf>(jobs.job[j]);
   for (long long i = blockIdx.x * 256LL + threadIdx.x; i < base[J];
        i += gridDim.x * 256LL) {
     int j = 0;
 #pragma unroll
     for (int q = 1; q < J; ++q) j += i >= base[q];
-    split_unit(jobs.job[j], i - base[j]);
+    if constexpr (kBf)
+      split_unit_bf16(jobs.job[j], i - base[j]);
+    else
+      split_unit(jobs.job[j], i - base[j]);
   }
 }
 
-template <int J>
+template <int J, bool kBf = false>
 cudaError_t split(const SplitJobs<J>& jobs, cudaStream_t stream) {
-  split_kernel<J><<<264, 256, 0, stream>>>(jobs);
+  split_kernel<J, kBf><<<264, 256, 0, stream>>>(jobs);
   return cudaGetLastError();
 }
 
 // Each epilogue is an instantiation of its own: the SpatialGate's and the
 // squeeze's sums would crowd the registers of the other convs. kMulti:
 // several sources, each stage picking its own (a conv of one source reads
-// it as a loop invariant: the pick costs #19's convs ~4%).
-template <int NT, int MT, int kEpi, bool kMulti>
+// it as a loop invariant: the pick costs #19's convs ~4%). kBf: the bf16
+// conv (see the top of this file), with a ring of kStagesBf16 stages.
+template <int NT, int MT, int kEpi, bool kMulti, bool kBf = false>
 __global__ void __launch_bounds__(256, 2) conv_kernel(Conv p) {
-  using S = Shape<NT, MT>;
-  constexpr int kThreads = S::kThreads;
+  using S = Shape<NT, MT, kBf>;
+  constexpr int kThreads = S::kThreads, kRing = S::kRing;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * S::kStage);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kRing * S::kStage);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int tiles_x = (p.W + kTW - 1) / kTW;
@@ -276,65 +411,85 @@ __global__ void __launch_bounds__(256, 2) conv_kernel(Conv p) {
     gx = x0 - 1 + q % kHW;
     return gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
   };
-  auto plane = [&](int s) { return smem + (s % kStages) * S::kStage; };
+  auto plane = [&](int s) { return smem + (s % kRing) * S::kStage; };
 
-  // Stage s: the halo's channels [8 s', 8 s' + 8) of the source whose
-  // padded channels hold it, s' its stage there (thread tid owns the
-  // pieces tid + i kThreads: pixel q / 2, channels 4 (q % 2) + 0..3; one
-  // 16-byte copy from an NHWC source, else four 4-byte copies, neighbouring
-  // threads on neighbouring pixels of a channel plane), and (thread 0, one
-  // bulk copy on the stage's mbarrier) the block's B fragments of all 9
-  // taps.
+  // Stage s: the halo's channels [ch s', ch s' + ch) of the source whose
+  // padded channels hold it, s' its stage there, and (thread 0, one bulk
+  // copy on the stage's mbarrier) the block's B fragments of all 9 taps.
+  // fp32: thread tid owns the pieces tid + i kThreads: pixel q / 2,
+  // channels 4 (q % 2) + 0..3; one 16-byte copy from an NHWC source, else
+  // four 4-byte copies, neighbouring threads on neighbouring pixels of a
+  // channel plane. bf16: pixel q / 2, channels 8 (q % 2) + 0..7, one
+  // 16-byte copy into the pixel's chunk (q % 2) ^ bit 2 of the pixel.
   auto copy_stage = [&](int s) {
     Src x = p.src[0];
-    int c0 = s * kCK;
+    int c0 = s * S::kCh;
     if constexpr (kMulti) {
       const int s1 = p.src[0].stages, s2 = s1 + p.src[1].stages;
       if (s >= s2) {
         x = p.src[2];
-        c0 = (s - s2) * kCK;
+        c0 = (s - s2) * S::kCh;
       } else if (s >= s1) {
         x = p.src[1];
-        c0 = (s - s1) * kCK;
+        c0 = (s - s1) * S::kCh;
       }
     }
-    const float* xb = x.t.p + b * x.t.sb;
     float* r = plane(s);
-    for (int q = tid; q < S::kHalo * 2; q += kThreads) {
-      const int px = q / 2, c = c0 + 4 * (q % 2);
-      int gy, gx;
-      const bool in = in_image(px, gy, gx);
-      const float* src = xb + gy * x.t.sy + gx * x.t.sx;
-      if (x.vec) {
-        const bool ok = in && c < x.C;
-        cp_async16(r + 4 * q, ok ? src + c : p.w, ok);
-      } else {
+    if constexpr (kBf) {
+      const __nv_bfloat16* xh =
+          reinterpret_cast<const __nv_bfloat16*>(x.t.p) + b * x.t.sb;
+      for (int q = tid; q < S::kHalo * 2; q += kThreads) {
+        const int c = c0 + 8 * (q % 2);
+        int gy, gx;
+        const bool ok = in_image(q / 2, gy, gx) && c < x.C;
+        cp_async16(r + 8 * (q / 2) + 4 * ((q % 2) ^ ((q / 2 >> 2) & 1)),
+                   ok ? reinterpret_cast<const float*>(
+                            xh + gy * x.t.sy + gx * x.t.sx + c)
+                      : p.w,
+                   ok);
+      }
+    } else {
+      const float* xb = x.t.p + b * x.t.sb;
+      for (int q = tid; q < S::kHalo * 2; q += kThreads) {
+        const int px = q / 2, c = c0 + 4 * (q % 2);
+        int gy, gx;
+        const bool in = in_image(px, gy, gx);
+        const float* src = xb + gy * x.t.sy + gx * x.t.sx;
+        if (x.vec) {
+          const bool ok = in && c < x.C;
+          cp_async16(r + 4 * q, ok ? src + c : p.w, ok);
+        } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const bool ok = in && c + j < x.C;
-          cp_async4(r + 4 * q + j, ok ? src + (c + j) * x.t.sc : p.w, ok);
+          for (int j = 0; j < 4; ++j) {
+            const bool ok = in && c + j < x.C;
+            cp_async4(r + 4 * q + j, ok ? src + (c + j) * x.t.sc : p.w, ok);
+          }
         }
       }
     }
     if (tid == 0) {
       constexpr uint32_t kBytes = 4 * S::kW;
-      uint64_t* bar = &full[s % kStages];
+      uint64_t* bar = &full[s % kRing];
       fence_proxy_async();
       mbar_arrive_expect_tx(bar, kBytes);
       bulk_copy(r + S::kPlane,
-                p.w + ((long long)blockIdx.y * (p.cinp / kCK) + s) * S::kW,
+                p.w + ((long long)blockIdx.y * (p.cinp / S::kCh) + s) * S::kW,
                 kBytes, bar);
     }
   };
 
-  const int stages = p.cinp / kCK;
+  const int stages = p.cinp / S::kCh;
   if (tid == 0) {
-    for (int i = 0; i < kStages; ++i) mbar_init(&full[i], 1);
+    for (int i = 0; i < kRing; ++i) mbar_init(&full[i], 1);
     mbar_init_fence();
   }
   __syncthreads();
-  copy_stage(0);
-  cp_async_commit();
+  // stages 0 .. kRing - 2 in flight; one commit group a stage, empty past
+  // the last
+  for (int i = 0; i < kRing - 1; ++i) {
+    if (i < stages) copy_stage(i);
+    cp_async_commit();
+  }
 
   float acc[NT][MT][4];
 #pragma unroll
@@ -345,18 +500,47 @@ __global__ void __launch_bounds__(256, 2) conv_kernel(Conv p) {
       for (int e = 0; e < 4; ++e) acc[j][mt][e] = 0.f;
 
   for (int s = 0; s < stages; ++s) {
-    cp_async_wait<0>();  // this thread's copies of stage s
-    mbar_wait(&full[s % kStages], (s / kStages) & 1);  // its weights
+    cp_async_wait<kRing - 2>();  // this thread's copies of stage s
+    mbar_wait(&full[s % kRing], (s / kRing) & 1);  // its weights
     __syncthreads();  // stage s is in; stage s - 1's products are done
-    if (s + 1 < stages) copy_stage(s + 1);
+    if (s + kRing - 1 < stages) copy_stage(s + kRing - 1);
     cp_async_commit();
+    if constexpr (kBf) {
+      const uint32_t* ah = reinterpret_cast<const uint32_t*>(plane(s));
+      const uint32_t* w = ah + S::kPlane;
+#pragma unroll 1
+      for (int tap = 0; tap < 9; ++tap) {
+        const int dy = tap / 3, dx = tap % 3;
+        // lane (g, t): pixels g and g + 8 of the m-tile's row (one chunk
+        // swap: they differ by 8), channels 2t, 2t + 1 and 2t + 8, 2t + 9
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const int q = (MT * warp + mt + dy) * kHW + g + dx;
+          const int lo = 8 * q + 4 * ((q >> 2) & 1) + t;
+          const int hi = 8 * q + 4 * (((q >> 2) & 1) ^ 1) + t;
+          a[mt][0] = ah[lo];
+          a[mt][1] = ah[lo + 64];
+          a[mt][2] = ah[hi];
+          a[mt][3] = ah[hi + 64];
+        }
+        const uint32_t* wt = w + tap * NT * 64 + 2 * lane;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const uint2 f = *reinterpret_cast<const uint2*>(wt + 64 * j);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[j][mt], a[mt], f.x, f.y);
+        }
+      }
+      continue;
+    }
     const float* ah = plane(s);
     const float* w = ah + S::kPlane;
 #pragma unroll 1
     for (int tap = 0; tap < 9; ++tap) {
       const int dy = tap / 3, dx = tap % 3;
-      // lane (g, t): pixels g and g + 8 of the m-tile's row, channels
-      // 2t and 2t + 1 (fragment columns t and t + 4), split here
+      // lane (g, t): pixels g and g + 8 of the m-tile's row, channels 2t
+      // and 2t + 1 (fragment columns t and t + 4), split here
       uint32_t fh[MT][4], fl[MT][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
@@ -400,8 +584,8 @@ __global__ void __launch_bounds__(256, 2) conv_kernel(Conv p) {
       const int co = n0 + 8 * j + 2 * t + e;
       float bias = 0.f;
       if (co < p.Cout) {
-        if (p.bias) bias = p.bias[co];
-        if (p.bias2) bias += p.bias2[co];
+        if (p.bias) bias = par<kBf>(p.bias, co);
+        if (p.bias2) bias += par<kBf>(p.bias2, co);
       }
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
@@ -418,11 +602,12 @@ __global__ void __launch_bounds__(256, 2) conv_kernel(Conv p) {
     // quad takes it by a shuffle, and lane t applies it to bm's channels
     // [per t, per t + per), per = bC / 4 rounded up (<= kBroadcastPer): a
     // row's loads all issued before its stores, so they overlap
-    const float k = p.bk ? *p.bk : 1.f;
+    const float k = p.bk ? par<kBf>(p.bk, 0) : 1.f;
     const int per = (p.bC + 3) / 4, c0 = per * t;
-    // without ba, bm's kBroadcastPer channels a lane as two 16-byte loads
+    // without ba, an fp32 bm's kBroadcastPer channels a lane as two
+    // 16-byte loads
     const bool quads = per == kBroadcastPer && p.bC == 4 * per && !p.ba.p &&
-                       p.bm.sc == 1 && p.bm.sx % 4 == 0 &&
+                       !p.bm.bf && p.bm.sc == 1 && p.bm.sx % 4 == 0 &&
                        reinterpret_cast<size_t>(p.bm.p) % 16 == 0;
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
@@ -454,8 +639,8 @@ __global__ void __launch_bounds__(256, 2) conv_kernel(Conv p) {
           const int c = c0 + i;
           m[h][i] = a[h][i] = 0.f;
           if (i < per && gx < p.W && c < p.bC) {
-            m[h][i] = p.bm.p[at(p.bm, b, gy, gx, c)];
-            if (p.ba.p) a[h][i] = p.ba.p[at(p.ba, b, gy, gx, c)];
+            m[h][i] = load<kBf>(p.bm, at(p.bm, b, gy, gx, c));
+            if (p.ba.p) a[h][i] = load<kBf>(p.ba, at(p.ba, b, gy, gx, c));
           }
         }
       }
@@ -468,55 +653,93 @@ __global__ void __launch_bounds__(256, 2) conv_kernel(Conv p) {
           if (gx >= p.W || i >= per || c >= p.bC) continue;
           float o = a[h][i] + v[h] * m[h][i];
           if (p.clamp) o = fminf(fmaxf(o, 0.f), 1.f);
-          p.out[at(p.o, b, gy, gx, c)] = o;
+          store<kBf>(p.out, p.o, at(p.o, b, gy, gx, c), o);
         }
       }
     }
     return;
   }
   if constexpr (kEpi == kSpatialGate || kEpi == kSqueeze) {
-    // the squeeze v G0 over the pixel's 8 NT = Cout channels, 8 a lane:
-    // unit k's sum a pixel over the quad (t) by shuffles, one unit at a
-    // time; lane t keeps units 2t and 2t + 1 and takes them through GELU
+    // the squeeze v G0 over the pixel's 8 NT = Cout channels into 8
+    // units; lane t keeps units 2t and 2t + 1 and takes them through GELU.
+    // fp32: 8 a lane, unit k's sum a pixel over the quad (t) by shuffles,
+    // one unit at a time. bf16: on the tensor cores, v rounded to bf16 as
+    // the JAX dot's operand: the accumulators of n-tiles 2kb and 2kb + 1
+    // are the A fragment of k16 block kb (as P for P V), G0's rows 16 kb ..
+    // its B fragment, and the product's D fragment is (pixel g + 8h, units
+    // 2t, 2t + 1): a lane's mine.
     float mine[MT][2][2] = {};
+    if constexpr (kBf) {
+      static_assert(NT % 2 == 0, "the bf16 squeeze takes k16 blocks");
+      auto g0 = [&](int ci, int k) {
+        return kEpi == kSqueeze ? par<kBf>(p.g0, ci * p.g0i + k * p.g0o)
+                                : par<kBf>(p.g0, ci * 8 + k);
+      };
+      uint32_t gb[NT / 2][2];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      float gw[NT][2];
+      for (int kb = 0; kb < NT / 2; ++kb) {
+        const int ci = 16 * kb + 2 * t;
+        gb[kb][0] = pack_bf16(g0(ci, g), g0(ci + 1, g));
+        gb[kb][1] = pack_bf16(g0(ci + 8, g), g0(ci + 9, g));
+      }
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
+      for (int mt = 0; mt < MT; ++mt) {
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int e = 0; e < 2; ++e)
-          gw[j][e] = kEpi == kSqueeze
-                         ? __ldg(p.g0 + (8 * j + 2 * t + e) * p.g0i +
-                                 k * p.g0o)
-                         : __ldg(p.g0 + (8 * j + 2 * t + e) * 8 + k);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float v = 0.f;
-#pragma unroll
-          for (int j = 0; j < NT; ++j)
-#pragma unroll
-            for (int e = 0; e < 2; ++e)
-              v = fmaf(acc[j][mt][2 * h + e], gw[j][e], v);
-          v += __shfl_xor_sync(0xffffffffu, v, 1);
-          v += __shfl_xor_sync(0xffffffffu, v, 2);
-          if (k == 2 * t) mine[mt][h][0] = v;
-          if (k == 2 * t + 1) mine[mt][h][1] = v;
+        for (int kb = 0; kb < NT / 2; ++kb) {
+          const float(&lo)[4] = acc[2 * kb][mt];
+          const float(&hi)[4] = acc[2 * kb + 1][mt];
+          const uint32_t a[4] = {pack_bf16(lo[0], lo[1]), pack_bf16(lo[2], lo[3]),
+                                 pack_bf16(hi[0], hi[1]),
+                                 pack_bf16(hi[2], hi[3])};
+          mma_bf16(d, a, gb[kb][0], gb[kb][1]);
         }
+        mine[mt][0][0] = d[0];
+        mine[mt][0][1] = d[1];
+        mine[mt][1][0] = d[2];
+        mine[mt][1][1] = d[3];
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        float gw[NT][2];
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            gw[j][e] = kEpi == kSqueeze
+                           ? par<kBf>(p.g0, (8 * j + 2 * t + e) * p.g0i +
+                                                k * p.g0o)
+                           : par<kBf>(p.g0, (8 * j + 2 * t + e) * 8 + k);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float v = 0.f;
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                v = fmaf(acc[j][mt][2 * h + e], gw[j][e], v);
+            v += __shfl_xor_sync(0xffffffffu, v, 1);
+            v += __shfl_xor_sync(0xffffffffu, v, 2);
+            if (k == 2 * t) mine[mt][h][0] = v;
+            if (k == 2 * t + 1) mine[mt][h][1] = v;
+          }
+      }
     }
-    const float b0 = __ldg(p.g0b + 2 * t), b1 = __ldg(p.g0b + 2 * t + 1);
+    const float b0 = par<kBf>(p.g0b, 2 * t), b1 = par<kBf>(p.g0b, 2 * t + 1);
     if constexpr (kEpi == kSpatialGate) {
-      // g2 on the two units, summed over the quad: the pixel's gate
-      const float w0 = __ldg(p.g2 + 2 * t), w1 = __ldg(p.g2 + 2 * t + 1);
-      const float gb = __ldg(p.g2b);
+      // g2 on the two units, summed over the quad: the pixel's gate (bf16:
+      // the units rounded to bf16 for g2's product)
+      const float w0 = par<kBf>(p.g2, 2 * t), w1 = par<kBf>(p.g2, 2 * t + 1);
+      const float gb = par<kBf>(p.g2b, 0);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          float gs = gelu_erf(mine[mt][h][0] + b0) * w0 +
-                     gelu_erf(mine[mt][h][1] + b1) * w1;
+          float gs = rnd<kBf>(gelu_erf(mine[mt][h][0] + b0)) * w0 +
+                     rnd<kBf>(gelu_erf(mine[mt][h][1] + b1)) * w1;
           gs += __shfl_xor_sync(0xffffffffu, gs, 1);
           gs += __shfl_xor_sync(0xffffffffu, gs, 2);
           const float gate = sigmoidf(gs + gb);
@@ -538,7 +761,10 @@ __global__ void __launch_bounds__(256, 2) conv_kernel(Conv p) {
           const float u0 = gelu_erf(mine[mt][h][0] + b0);
           const float u1 = gelu_erf(mine[mt][h][1] + b1);
           const long long o = at(p.o2, b, gy, gx, 2 * t);
-          if (p.o2.sc == 1) {
+          if (kBf && p.o2.bf) {
+            store<kBf>(p.out2, p.o2, o, u0);
+            store<kBf>(p.out2, p.o2, o + p.o2.sc, u1);
+          } else if (p.o2.sc == 1) {
             *reinterpret_cast<float2*>(p.out2 + o) = make_float2(u0, u1);
           } else {
             p.out2[o] = u0;
@@ -548,8 +774,8 @@ __global__ void __launch_bounds__(256, 2) conv_kernel(Conv p) {
       }
     }
   }
-  const float alpha = p.alpha ? *p.alpha : 1.f;
-  const float beta = p.beta ? *p.beta : 1.f;
+  const float alpha = p.alpha ? par<kBf>(p.alpha, 0) : 1.f;
+  const float beta = p.beta ? par<kBf>(p.beta, 0) : 1.f;
   const bool pairs = p.o.sc == 1 && (p.o.sx % 2 == 0) &&
                      (reinterpret_cast<size_t>(p.out) % 8 == 0);
 #pragma unroll
@@ -563,17 +789,33 @@ __global__ void __launch_bounds__(256, 2) conv_kernel(Conv p) {
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const int co = n0 + 8 * j + 2 * t;
-        if (co >= p.Cout) continue;
-        const bool two = co + 1 < p.Cout;
+        const bool one = co < p.Cout, two = co + 1 < p.Cout;
         float v[2] = {acc[j][mt][2 * h], acc[j][mt][2 * h + 1]};
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          if (e && !two) continue;
-          if (p.r1.p) v[e] = p.r1.p[at(p.r1, b, gy, gx, co + e)] + alpha * v[e];
-          if (p.r2.p) v[e] += beta * p.r2.p[at(p.r2, b, gy, gx, co + e)];
+          if (e ? !two : !one) continue;
+          if (p.r1.p)
+            v[e] = load<kBf>(p.r1, at(p.r1, b, gy, gx, co + e)) + alpha * v[e];
+          if (p.r2.p) v[e] += beta * load<kBf>(p.r2, at(p.r2, b, gy, gx, co + e));
         }
+        if constexpr (kBf && kEpi != kSqueeze)
+          if (p.out2)  // the bf16 copy: both channels, zeros past Cout
+            *reinterpret_cast<uint32_t*>(
+                reinterpret_cast<__nv_bfloat16*>(p.out2) +
+                at(p.o2, b, gy, gx, co)) =
+                pack_bf16(one ? v[0] : 0.f, two ? v[1] : 0.f);
+        if (!one) continue;
         const long long o = at(p.o, b, gy, gx, co);
-        if (two && pairs) {
+        if (kBf && p.o.bf) {
+          if (two && pairs) {
+            *reinterpret_cast<__nv_bfloat162*>(
+                reinterpret_cast<__nv_bfloat16*>(p.out) + o) =
+                __floats2bfloat162_rn(v[0], v[1]);
+          } else {
+            store<kBf>(p.out, p.o, o, v[0]);
+            if (two) store<kBf>(p.out, p.o, o + p.o.sc, v[1]);
+          }
+        } else if (two && pairs) {
           *reinterpret_cast<float2*>(p.out + o) = make_float2(v[0], v[1]);
         } else {
           p.out[o] = v[0];
@@ -584,15 +826,22 @@ __global__ void __launch_bounds__(256, 2) conv_kernel(Conv p) {
   }
 }
 
-template <int NT, int MT, int kEpi = kStore, bool kMulti = false>
+template <int NT, int MT, int kEpi = kStore, bool kMulti = false,
+          bool kBf = false>
 int launch(const Conv& p, int B, cudaStream_t stream) {
-  using S = Shape<NT, MT>;
+  using S = Shape<NT, MT, kBf>;
   constexpr bool kSums = kEpi == kSpatialGate || kEpi == kSqueeze;
   if (p.nsrc < 1 || p.nsrc > (kMulti ? 3 : 1))
     return int(cudaErrorInvalidValue);
   int stages = 0;
-  for (int i = 0; i < p.nsrc; ++i) stages += p.src[i].stages;
-  if (p.coutp % S::kN || stages * kCK != p.cinp ||
+  for (int i = 0; i < p.nsrc; ++i) {
+    stages += p.src[i].stages;
+    if (kBf && !p.src[i].vec) return int(cudaErrorInvalidValue);
+  }
+  if (kBf && p.out2 && kEpi != kSqueeze &&
+      (p.o2.sc != 1 || p.o2.sx < p.coutp || p.o2.sx % 2))
+    return int(cudaErrorInvalidValue);
+  if (p.coutp % S::kN || stages * S::kCh != p.cinp ||
       kSums != (p.g0 != nullptr) ||
       (kSums && (p.Cout != S::kN || p.coutp != S::kN)) ||
       (kEpi == kSqueeze && !p.out2) ||
@@ -601,25 +850,26 @@ int launch(const Conv& p, int B, cudaStream_t stream) {
                               p.bC > 4 * kBroadcastPer)))
     return int(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      conv_kernel<NT, MT, kEpi, kMulti>,
+      conv_kernel<NT, MT, kEpi, kMulti, kBf>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(S::kSmem));
   if (err != cudaSuccess) return int(err);
   const long long tiles = (long long)((p.H + S::kTH - 1) / S::kTH) *
                           ((p.W + kTW - 1) / kTW);
   if (tiles > 0x7fffffffLL || B > 65535) return int(cudaErrorInvalidValue);
-  conv_kernel<NT, MT, kEpi, kMulti>
+  conv_kernel<NT, MT, kEpi, kMulti, kBf>
       <<<dim3(unsigned(tiles), unsigned(p.coutp / S::kN), unsigned(B)),
          S::kThreads, S::kSmem, stream>>>(p);
   return int(cudaGetLastError());
 }
 
-// Appends a source of C channels (vec: 16-byte copies) to p's input; a
-// fourth makes the launch refuse p.
-inline void add_source(Conv& p, T4 src, int C, int vec) {
-  const int stages = (C + kCK - 1) / kCK;
+// Appends a source of C channels (vec: 16-byte copies) to p's input, in
+// stages of ck channels (kCK, or kCK16 for a bf16 conv); a fourth makes
+// the launch refuse p.
+inline void add_source(Conv& p, T4 src, int C, int vec, int ck = kCK) {
+  const int stages = (C + ck - 1) / ck;
   if (p.nsrc < 3) p.src[p.nsrc] = Src{src, C, vec, stages};
   ++p.nsrc;
-  p.cinp += stages * kCK;
+  p.cinp += stages * ck;
 }
 
 // Whether 16-byte copies can read a [B, H, W, C] tensor: NHWC, C % 4 == 0,
@@ -628,13 +878,109 @@ inline int vec_ok(const float* p, int C, int nchw) {
   return !nchw && C % 4 == 0 && reinterpret_cast<size_t>(p) % 16 == 0;
 }
 
+// Whether a bf16 conv can read t (of any C channels): bf16, NHWC, a pixel
+// stride of a multiple of 8 channels, 16-byte aligned. A chunk of 8
+// channels is copied whole where it starts below C, so the channels past C
+// up to the chunk's end must hold zeros (pack() writes them).
+inline int vec_ok_bf16(const T4& t) {
+  return t.bf && t.sc == 1 && t.sx % 8 == 0 &&
+         reinterpret_cast<size_t>(t.p) % 16 == 0;
+}
+
+// pack(): sources concatenated along C into a bf16 NHWC tensor of cp
+// channels (a multiple of 8; zeros past the sources'), each source's
+// values times its scale (bf16, on the card; or 1) and then rounded to
+// bf16, as the JAX kernels round a conv's input.
+struct PackSrc {
+  T4 t;
+  int C;
+  const float* scale;
+};
+
+struct Pack {
+  PackSrc src[3];
+  int nsrc, cp, B, H, W;
+  __nv_bfloat16* out;    // [B, H, W, cp]
+};
+
+constexpr int kPackPx = 64;  // pixels a block of pack_kernel
+
+// A block takes kPackPx pixels of one image (consecutive in its rows) in
+// two passes through shared memory: each channel's run of pixels read
+// (coalesced on an NCHW plane), scaled, rounded into the tile; then the
+// tile written as whole 16-byte pieces, the block's output one contiguous
+// run. Index arithmetic in 32 bits (an image's pixels < 2^31).
+static __global__ void __launch_bounds__(256) pack_kernel(Pack p) {
+  extern __shared__ __align__(16) unsigned char pack_smem[];
+  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(pack_smem);
+  const int ld = p.cp + 8;  // the tile's row: a pixel's channels
+  const unsigned hw = unsigned(p.H) * unsigned(p.W);
+  const unsigned p0 = blockIdx.x * kPackPx;  // first pixel in the image
+  const int b = blockIdx.y, n = min(kPackPx, int(hw - p0));
+  for (int i = threadIdx.x; i < p.cp * kPackPx; i += 256) {
+    const int c0 = i / kPackPx, px = i % kPackPx;
+    float v = 0.f;
+    int c = c0, k = 0;
+    while (k < p.nsrc && c >= p.src[k].C) c -= p.src[k++].C;
+    if (k < p.nsrc && px < n) {
+      const PackSrc& q = p.src[k];
+      const unsigned pix = p0 + px, y = pix / unsigned(p.W),
+                     x = pix - y * unsigned(p.W);
+      v = load<true>(q.t, at(q.t, b, int(y), int(x), c)) *
+          (q.scale ? par<true>(q.scale, 0) : 1.f);
+    }
+    tile[px * ld + c0] = __float2bfloat16_rn(v);
+  }
+  __syncthreads();
+  __nv_bfloat16* out = p.out + ((long long)b * hw + p0) * p.cp;
+  const int pieces = p.cp / 8;
+  for (int i = threadIdx.x; i < n * pieces; i += 256) {
+    const int px = i / pieces, c = 8 * (i % pieces);
+    *reinterpret_cast<uint4*>(out + px * p.cp + c) =
+        *reinterpret_cast<const uint4*>(tile + px * ld + c);
+  }
+}
+
+// A pack of no source yet into out [B, H, W, cp].
+inline Pack pack_into(void* out, int B, int H, int W, int cp) {
+  Pack p{};
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.cp = cp;
+  p.B = B;
+  p.H = H;
+  p.W = W;
+  return p;
+}
+
+// Appends a source of C channels, times *scale (bf16) or 1; a fourth makes
+// pack() refuse p.
+inline void add_pack_source(Pack& p, T4 t, int C,
+                            const float* scale = nullptr) {
+  if (p.nsrc < 3) p.src[p.nsrc] = PackSrc{t, C, scale};
+  ++p.nsrc;
+}
+
+inline int pack(const Pack& p, cudaStream_t stream) {
+  int C = 0;
+  for (int i = 0; i < p.nsrc && i < 3; ++i) C += p.src[i].C;
+  const long long hw = (long long)p.H * p.W;
+  const size_t smem = sizeof(__nv_bfloat16) * kPackPx * (p.cp + 8);
+  if (p.nsrc > 3 || p.cp % 8 || C > p.cp || hw >= (1LL << 31) ||
+      p.B > 65535 || smem > 48 * 1024 ||
+      reinterpret_cast<size_t>(p.out) % 16)
+    return int(cudaErrorInvalidValue);
+  pack_kernel<<<dim3(unsigned((hw + kPackPx - 1) / kPackPx), unsigned(p.B)),
+                256, smem, stream>>>(p);
+  return int(cudaGetLastError());
+}
+
 // A conv with its first source, weights and output set and every epilogue
-// off.
+// off (ck: see add_source).
 inline Conv plain(T4 src, int Cin, int vec, const float* w, const float* bias,
                   int Cout, int coutp, int act, float* out, T4 o, int H,
-                  int W) {
+                  int W, int ck = kCK) {
   Conv p{};
-  add_source(p, src, Cin, vec);
+  add_source(p, src, Cin, vec, ck);
   p.w = w;
   p.bias = bias;
   p.Cout = Cout;

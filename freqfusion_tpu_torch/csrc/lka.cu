@@ -56,36 +56,69 @@
 //     Shared memory rows are padded to Cp + 8 floats, so a lane's 8-byte
 //     fragment reads hit 32 banks.
 
+//
+// bf16 (ff_lka_block_bf16, the JAX kernel on bf16 x and parameters): the
+// BN affines from the bf16 statistics in fp32, the 67 taps in fp32 on x
+// read as bf16, and the three products on bf16 operands with fp32 sums
+// (mma.sync m16n8k16, bf16_mma.cuh), rounded where the JAX kernel rounds:
+// a before pw, BN2(x1) before F0, the GELU output before F2, and the
+// output. So nothing folds into the weights (a fold would change what is
+// rounded): the prep writes the weights in bf16 fragment order unscaled
+// and the affines as vectors, the depthwise pass writes a as bf16 (it feeds
+// only pw), and the mix keeps x1 in fp32 (it feeds the second residual)
+// beside BN2(x1) and the hidden chunk as bf16 tiles. At 336x512 the
+// products are 7.0 and 28.2 GFLOP (0.007 and 0.029 ms at 989 TFLOP/s),
+// below the taps on the fp32 cores (0.022 and 0.044 ms) and the bytes
+// (0.013 and 0.026 ms of x and out at 3.35 TB/s).
+
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "tf32_gemm.cuh"
 
 namespace {
 
 constexpr float kBnEps = 1e-5f;
 
-// A 2-D weight [K, N] read through its strides: p[k s0 + n s1].
-struct W2 {
+// Element i of a parameter: fp32, or (kBf) bf16 widened to fp32.
+template <bool kBf>
+__device__ __forceinline__ float elem(const float* p, long long i) {
+  if constexpr (kBf)
+    return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i]);
+  else
+    return p[i];
+}
+
+// A 2-D weight [K, N] read through its strides: p[k s0 + n s1] (bf16
+// values where kBf).
+template <bool kBf = false>
+struct W2T {
   const float* p;
   int s0, s1;
   __device__ __forceinline__ float operator()(int k, int n) const {
-    return p[(long long)k * s0 + (long long)n * s1];
+    return elem<kBf>(p, (long long)k * s0 + (long long)n * s1);
   }
 };
+using W2 = W2T<false>;
 
 // An eval BatchNorm: s = scale / sqrt(var + eps), b = bias - mean s, in
-// the plain version's order of fp32 operations.
-struct Bn {
+// the plain version's order of fp32 operations (bf16 statistics where
+// kBf, widened first, as the JAX wrapper's _affine does).
+template <bool kBf = false>
+struct BnT {
   const float *scale, *bias, *mean, *var;
   __device__ __forceinline__ float s(int c) const {
-    return __fdiv_rn(scale[c], __fsqrt_rn(__fadd_rn(var[c], kBnEps)));
+    return __fdiv_rn(elem<kBf>(scale, c),
+                     __fsqrt_rn(__fadd_rn(elem<kBf>(var, c), kBnEps)));
   }
   __device__ __forceinline__ float b(int c, float sc) const {
-    return __fsub_rn(bias[c], __fmul_rn(mean[c], sc));
+    return __fsub_rn(elem<kBf>(bias, c), __fmul_rn(elem<kBf>(mean, c), sc));
   }
 };
+using Bn = BnT<false>;
 
 __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
@@ -169,19 +202,23 @@ constexpr size_t kDwSmem =
     sizeof(float) * (size_t(kCC) * kS1 * kS1 + size_t(kCC) * kS2 * kLd2 +
                      kTaps * kCC);
 
+// kBf: x and the taps bf16, a written as bf16 (it feeds only pw's bf16
+// product), the taps' sums fp32 either way.
+template <bool kBf = false>
 struct DwArgs {
   const float* x;     // [B, H, W, C]
   const float* s1;    // [C] folded norm1 (prep)
   const float* b1;
-  W2 w5;              // [25, C]
-  W2 wh;              // [21, C] (1x21, along W)
-  W2 wv;              // [21, C] (21x1, along H)
+  W2T<kBf> w5;        // [25, C]
+  W2T<kBf> wh;        // [21, C] (1x21, along W)
+  W2T<kBf> wv;        // [21, C] (21x1, along H)
   float* a;           // [C / 4][M][4], M = B H W
   int H, W, C;
   long long M;
 };
 
-__global__ void __launch_bounds__(256, 2) lka_dw_kernel(DwArgs p) {
+template <bool kBf = false>
+__global__ void __launch_bounds__(256, 2) lka_dw_kernel(DwArgs<kBf> p) {
   extern __shared__ __align__(16) float smem[];
   float* s1 = smem;                     // [kCC][kS1][kS1]; then s3
   float* s2 = s1 + kCC * kS1 * kS1;     // [kCC][kS2][kLd2]
@@ -213,8 +250,19 @@ __global__ void __launch_bounds__(256, 2) lka_dw_kernel(DwArgs p) {
     const int gy = y0 - 12 + q / kS1, gx = x0 - 12 + q % kS1;
     float v[kCC] = {0.f, 0.f, 0.f, 0.f};
     if (gy >= 0 && gy < p.H && gx >= 0 && gx < p.W) {
-      const float4 x4 = *reinterpret_cast<const float4*>(
-          p.x + (img + (long long)gy * p.W + gx) * p.C + c0);
+      const long long o = (img + (long long)gy * p.W + gx) * p.C + c0;
+      float4 x4;
+      if constexpr (kBf) {
+        const uint2 u = *reinterpret_cast<const uint2*>(
+            reinterpret_cast<const __nv_bfloat16*>(p.x) + o);
+        const float2 lo = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+        const float2 hi = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+        x4 = make_float4(lo.x, lo.y, hi.x, hi.y);
+      } else {
+        x4 = *reinterpret_cast<const float4*>(p.x + o);
+      }
       v[0] = fmaf(x4.x, sc[0], sh[0]);
       v[1] = fmaf(x4.y, sc[1], sh[1]);
       v[2] = fmaf(x4.z, sc[2], sh[2]);
@@ -305,9 +353,15 @@ __global__ void __launch_bounds__(256, 2) lka_dw_kernel(DwArgs p) {
     for (int k = 0; k < kP3; ++k) {
       const int gy = y0 + r0 + k;
       if (gy >= p.H || gx >= p.W) continue;
-      *reinterpret_cast<float4*>(
-          p.a + ((c0 / kCC) * p.M + img + (long long)gy * p.W + gx) * kCC) =
-          make_float4(o[k][0], o[k][1], o[k][2], o[k][3]);
+      const long long e =
+          ((c0 / kCC) * p.M + img + (long long)gy * p.W + gx) * kCC;
+      if constexpr (kBf)
+        *reinterpret_cast<uint2*>(reinterpret_cast<__nv_bfloat16*>(p.a) + e) =
+            make_uint2(pack_bf16(o[k][0], o[k][1]),
+                       pack_bf16(o[k][2], o[k][3]));
+      else
+        *reinterpret_cast<float4*>(p.a + e) =
+            make_float4(o[k][0], o[k][1], o[k][2], o[k][3]);
     }
   }
 }
@@ -533,6 +587,283 @@ int launch_mix(const MixArgs& p, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
+// ---- bf16: the prep and the chain of products ----
+
+struct PrepBf16Args {
+  BnT<true> n1, bn, n2;
+  W2T<true> pw, f0, f2;
+  const float* c0;  // [Ch] bf16
+  const float* c2;  // [C] bf16
+  uint32_t* w;      // 5 [Cp, Cp] matrices, bf16 fragment order
+  float* vec;       // s1, b1, sbn, bbn, s2, b2 [Cp each], c0 [2 Cp], c2 [Cp]
+  int C, Ch, Cp;
+};
+
+// Matrix m of the bf16 stream, unscaled: 0 Wpw, 1 + 2j F0[:, j Cp ..],
+// 2 + 2j F2[j Cp .., :]; zero past the real rows and columns.
+__device__ __forceinline__ float stream_value_bf16(const PrepBf16Args& p,
+                                                   int m, int k, int n) {
+  if (m == 0) return k < p.C && n < p.C ? p.pw(k, n) : 0.f;
+  const int j = (m - 1) / 2;
+  if (m % 2) return k < p.C && j * p.Cp + n < p.Ch ? p.f0(k, j * p.Cp + n) : 0.f;
+  return j * p.Cp + k < p.Ch && n < p.C ? p.f2(j * p.Cp + k, n) : 0.f;
+}
+
+// Unit u of a matrix (Cp / 16 stages of [Cp / 8 n-tiles][32 lanes][2
+// words]) is lane (g, t) of a (k16 block, n-tile): b0 = W[2t, 2t + 1][g],
+// b1 = W[2t + 8, 2t + 9][g] as bf16 pairs.
+__global__ void __launch_bounds__(256) lka_prep_bf16_kernel(PrepBf16Args p) {
+  const long long per = (long long)p.Cp * p.Cp / 4;  // units a matrix
+  const long long units = 5 * per, total = units + 9LL * p.Cp;
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < total;
+       i += gridDim.x * 256LL) {
+    if (i < units) {
+      const int m = int(i / per);
+      const long long u = i % per;
+      const int lane = int(u % 32), nt = int((u / 32) % (p.Cp / 8));
+      const int ks = int(u / 32 / (p.Cp / 8));
+      const int k = 16 * ks + 2 * (lane % 4), n = 8 * nt + lane / 4;
+      *reinterpret_cast<uint2*>(p.w + 2 * (m * per + u)) = make_uint2(
+          pack_bf16(stream_value_bf16(p, m, k, n),
+                    stream_value_bf16(p, m, k + 1, n)),
+          pack_bf16(stream_value_bf16(p, m, k + 8, n),
+                    stream_value_bf16(p, m, k + 9, n)));
+      continue;
+    }
+    const int e = int(i - units), c = e % p.Cp, which = e / p.Cp;
+    float v = 0.f;
+    if (which < 6) {  // s1, b1, sbn, bbn, s2, b2
+      if (c < p.C) {
+        const BnT<true>& bn = which < 2 ? p.n1 : which < 4 ? p.bn : p.n2;
+        const float sc = bn.s(c);
+        v = which % 2 ? bn.b(c, sc) : sc;
+      }
+    } else if (which < 8) {  // c0 over the hidden unit e - 6 Cp
+      const int n = e - 6 * p.Cp;
+      if (n < p.Ch) v = elem<true>(p.c0, n);
+    } else if (c < p.C) {  // c2
+      v = elem<true>(p.c2, c);
+    }
+    p.vec[e] = v;
+  }
+}
+
+// As Mix, with A (a, then the hidden chunk) and T (BN2(x1)) bf16 tiles of
+// rows padded to Cp + 8 (16-byte multiples, so ldmatrix's row reads fall
+// in distinct banks), x1 fp32, and one 16-row weight stage 8 Cp words.
+template <int CP, int WR, int R>
+struct MixBf16 {
+  static constexpr int kThreads = 128 * WR, kBM = 32 * WR;
+  static constexpr int kNT = CP / 32;
+  static constexpr int kLd = CP + 8;
+  static constexpr int kStage = 8 * CP;
+  static constexpr int kStages = 5 * CP / 16;
+  static constexpr size_t kSmem =
+      2 * sizeof(__nv_bfloat16) * size_t(kBM) * kLd +
+      sizeof(float) * (size_t(kBM) * kLd + size_t(R) * kStage) +
+      R * sizeof(uint64_t);
+};
+
+struct MixBf16Args {
+  const void* x;         // [M, C] bf16
+  const void* a;         // [C / 4][M][4] bf16
+  const uint32_t* w;     // the prep's stream
+  const float* vec;      // the prep's vectors
+  const void* scale1;    // bf16 scalars
+  const void* scale2;
+  void* out;             // [M, C] bf16
+  long long M;
+  int C;
+};
+
+template <int CP, int WR, int R>
+__global__ void __launch_bounds__(MixBf16<CP, WR, R>::kThreads,
+                                  WR == 2 ? 2 : 1)
+lka_mix_bf16_kernel(MixBf16Args p) {
+  using S = MixBf16<CP, WR, R>;
+  using bf16 = __nv_bfloat16;
+  constexpr int NT = S::kNT, LD = S::kLd, BM = S::kBM;
+  extern __shared__ float4 smem4[];
+  bf16* A = reinterpret_cast<bf16*>(smem4);      // [BM][LD]
+  bf16* T = A + BM * LD;                         // [BM][LD]
+  float* X = reinterpret_cast<float*>(T + BM * LD);  // [BM][LD]: x1
+  uint32_t* ring = reinterpret_cast<uint32_t*>(X + BM * LD);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + R * S::kStage);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4, wr = warp / 4, wc = warp % 4;
+  const long long row0 = (long long)blockIdx.x * BM;
+  const int C = p.C;
+  const bf16* x = static_cast<const bf16*>(p.x);
+
+  auto issue = [&](int s) {  // thread 0: stage s of the weight stream
+    const int b = s % R;
+    constexpr uint32_t kBytes = 4 * S::kStage;
+    fence_proxy_async();
+    mbar_arrive_expect_tx(&full[b], kBytes);
+    bulk_copy(ring + b * S::kStage, p.w + (long long)s * S::kStage, kBytes,
+              &full[b]);
+  };
+  if (tid == 0) {
+    for (int b = 0; b < R; ++b) mbar_init(&full[b], 1);
+    mbar_init_fence();
+    for (int s = 0; s < R - 1; ++s) issue(s);
+  }
+  // the a tile, rows past M and channels past C zero
+  for (int e = tid; e < BM * (CP / 4); e += S::kThreads) {
+    const int r = e % BM, c4 = e / BM;
+    const long long m = row0 + r;
+    uint2 v = make_uint2(0u, 0u);
+    if (m < p.M && 4 * c4 < C)
+      v = *reinterpret_cast<const uint2*>(static_cast<const bf16*>(p.a) +
+                                          (c4 * p.M + m) * 4);
+    *reinterpret_cast<uint2*>(A + r * LD + 4 * c4) = v;
+  }
+  __syncthreads();
+
+  int s = 0;  // the stream's next stage
+  // acc += As W, the next Cp / 16 stages of the stream; As [BM][LD] bf16
+  auto product = [&](float (&acc)[NT][2][4], const bf16* As) {
+    for (int ks = 0; ks < CP / 16; ++ks, ++s) {
+      if (s + R - 1 < S::kStages) {
+        if (s > 0) __syncthreads();  // stage s - 1's buffer is read
+        if (tid == 0) issue(s + R - 1);
+      }
+      mbar_wait(&full[s % R], (s / R) & 1);
+      const uint32_t* ws = ring + (s % R) * S::kStage;
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        ldsm_a(a[mt], As + (32 * wr + 16 * mt) * LD + 16 * ks, LD);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const uint2 f = *reinterpret_cast<const uint2*>(
+            ws + (wc * NT + j) * 64 + 2 * lane);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[j][mt], a[mt], f.x, f.y);
+      }
+    }
+  };
+  auto zero = [](float (&acc)[NT][2][4]) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][mt][e] = 0.f;
+  };
+  auto col = [&](int j) { return (CP / 4) * wc + 8 * j + 2 * t; };
+  auto row = [&](int mt, int h) { return 32 * wr + 16 * mt + g + 8 * h; };
+  auto pair = [](const float* v, int c) {
+    return *reinterpret_cast<const float2*>(v + c);
+  };
+  const float* s1 = p.vec;
+  const float* b1 = p.vec + CP;
+  const float* sbn = p.vec + 2 * CP;
+  const float* bbn = p.vec + 3 * CP;
+  const float* s2 = p.vec + 4 * CP;
+  const float* b2 = p.vec + 5 * CP;
+  const float* c0 = p.vec + 6 * CP;
+  const float* c2 = p.vec + 8 * CP;
+
+  // a Wpw, its BN, the gate and the first residual: x1 into X, BN2(x1)
+  // rounded into T
+  {
+    float acc[NT][2][4];
+    zero(acc);
+    product(acc, A);
+    const float sc1 = elem<true>(static_cast<const float*>(p.scale1), 0);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int c = col(j);
+      const float2 sv = pair(s1, c), bv = pair(b1, c), sn = pair(sbn, c),
+                   bn = pair(bbn, c), s2v = pair(s2, c), b2v = pair(b2, c);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = row(mt, h);
+          const long long m = row0 + r;
+          float2 xv = make_float2(0.f, 0.f);
+          if (m < p.M && c < C)
+            xv = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(x + m * C + c));
+          const float t0 = fmaf(xv.x, sv.x, bv.x), t1 = fmaf(xv.y, sv.y, bv.y);
+          const float v0 = xv.x + sc1 * (t0 * sigmoidf(fmaf(
+                                             acc[j][mt][2 * h], sn.x, bn.x)));
+          const float v1 = xv.y + sc1 * (t1 * sigmoidf(fmaf(
+                                             acc[j][mt][2 * h + 1], sn.y,
+                                             bn.y)));
+          *reinterpret_cast<float2*>(X + r * LD + c) = make_float2(v0, v1);
+          *reinterpret_cast<uint32_t*>(T + r * LD + c) =
+              pack_bf16(fmaf(v0, s2v.x, b2v.x), fmaf(v1, s2v.y, b2v.y));
+        }
+    }
+  }
+  __syncthreads();  // X and T are whole; A is free
+
+  float f[NT][2][4];
+  zero(f);
+#pragma unroll 1
+  for (int ch = 0; ch < 2; ++ch) {
+    {  // hidden chunk ch: gelu(T F0_ch + c0), rounded, into A
+      float hid[NT][2][4];
+      zero(hid);
+      product(hid, T);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int c = col(j);
+        const float2 bv = pair(c0, ch * CP + c);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<uint32_t*>(A + row(mt, h) * LD + c) =
+                pack_bf16(gelu_erf(hid[j][mt][2 * h] + bv.x),
+                          gelu_erf(hid[j][mt][2 * h + 1] + bv.y));
+      }
+    }
+    __syncthreads();  // the chunk is whole
+    product(f, A);
+    __syncthreads();  // A is read: free for the next chunk
+  }
+
+  // out = x1 + scale2 (f + c2), rounded
+  const float sc2 = elem<true>(static_cast<const float*>(p.scale2), 0);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int c = col(j);
+    if (c >= C) continue;
+    const float2 cv = pair(c2, c);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row(mt, h);
+        const long long m = row0 + r;
+        if (m >= p.M) continue;
+        const float2 x1 = pair(X + r * LD, c);
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.out) +
+                                           m * C + c) =
+            __floats2bfloat162_rn(x1.x + sc2 * (f[j][mt][2 * h] + cv.x),
+                                  x1.y + sc2 * (f[j][mt][2 * h + 1] + cv.y));
+      }
+  }
+}
+
+template <int CP, int WR, int R>
+int launch_mix_bf16(const MixBf16Args& p, cudaStream_t stream) {
+  using S = MixBf16<CP, WR, R>;
+  cudaError_t err = cudaFuncSetAttribute(
+      lka_mix_bf16_kernel<CP, WR, R>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(S::kSmem));
+  if (err != cudaSuccess) return int(err);
+  const long long blocks = (p.M + S::kBM - 1) / S::kBM;
+  if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+  lka_mix_bf16_kernel<CP, WR, R><<<unsigned(blocks), S::kThreads, S::kSmem,
+                                   stream>>>(p);
+  return int(cudaGetLastError());
+}
+
 // C padded to the mix's width: 64 or 128.
 int padded(int C) { return C <= 64 ? 64 : 128; }
 
@@ -581,18 +912,77 @@ extern "C" int ff_lka_block(
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
 
-  err = cudaFuncSetAttribute(lka_dw_kernel,
+  err = cudaFuncSetAttribute(lka_dw_kernel<false>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              int(kDwSmem));
   if (err != cudaSuccess) return int(err);
   const int tiles = ((H + kT - 1) / kT) * ((W + kT - 1) / kT);
-  DwArgs d{x, vec, vec + cp, W2{w5, w5s0, w5s1}, W2{wh, whs0, whs1},
-           W2{wv, wvs0, wvs1}, a, H, W, C, M};
-  lka_dw_kernel<<<dim3(unsigned(C / kCC), unsigned(tiles), unsigned(B)), 256,
-                  kDwSmem, stream>>>(d);
+  DwArgs<false> d{x, vec, vec + cp, W2{w5, w5s0, w5s1}, W2{wh, whs0, whs1},
+                  W2{wv, wvs0, wvs1}, a, H, W, C, M};
+  lka_dw_kernel<false><<<dim3(unsigned(C / kCC), unsigned(tiles),
+                              unsigned(B)), 256, kDwSmem, stream>>>(d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
   const MixArgs m{x, a, wsplit, vec, c2, scale1, scale2, out, M, C};
   return cp == 64 ? launch_mix<64, 2, 4>(m, stream)
                   : launch_mix<128, 3, 4>(m, stream);
+}
+
+// Floats (4-byte words) of scratch ff_lka_block_bf16 needs: the bf16
+// weights (2.5 Cp^2), the vectors (9 Cp) and a (C M / 2); -1 for a width
+// the kernel does not take.
+extern "C" long long ff_lka_bf16_scratch_floats(long long M, int C, int Ch) {
+  if (C <= 0 || C % 4 || C > 128 || Ch <= 0 || Ch > 2 * padded(C)) return -1;
+  const long long cp = padded(C);
+  return 5 * cp * cp / 2 + 9 * cp + ((long long)C * M + 1) / 2;
+}
+
+// The bf16 version: x, out [B, H, W, C] bf16 (x 8-byte aligned) and every
+// parameter bf16 (shapes and strides as ff_lka_block's); scratch of
+// ff_lka_bf16_scratch_floats(B H W, C, Ch) words, 16-byte aligned.
+extern "C" int ff_lka_block_bf16(
+    const void* x, const float* n1s, const float* n1b, const float* n1m,
+    const float* n1v, const float* bns, const float* bnb, const float* bnm,
+    const float* bnv, const float* n2s, const float* n2b, const float* n2m,
+    const float* n2v, const float* w5, int w5s0, int w5s1, const float* wh,
+    int whs0, int whs1, const float* wv, int wvs0, int wvs1, const float* pw,
+    int pws0, int pws1, const float* f0, int f0s0, int f0s1, const float* c0,
+    const float* f2, int f2s0, int f2s1, const float* c2, const void* scale1,
+    const void* scale2, float* scratch, long long scratch_floats, void* out,
+    int B, int H, int W, int C, int Ch, void* stream_) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  const long long M = (long long)B * H * W;
+  const long long need = ff_lka_bf16_scratch_floats(M, C, Ch);
+  if (need < 0 || scratch_floats < need ||
+      reinterpret_cast<size_t>(scratch) % 16 ||
+      reinterpret_cast<size_t>(x) % 8 || B > 65535)
+    return int(cudaErrorInvalidValue);
+  const int cp = padded(C);
+  uint32_t* w = reinterpret_cast<uint32_t*>(scratch);
+  float* vec = scratch + 5LL * cp * cp / 2;
+  float* a = vec + 9 * cp;
+  const BnT<true> n1{n1s, n1b, n1m, n1v}, bn{bns, bnb, bnm, bnv},
+      n2{n2s, n2b, n2m, n2v};
+  PrepBf16Args pa{n1, bn, n2, W2T<true>{pw, pws0, pws1},
+                  W2T<true>{f0, f0s0, f0s1}, W2T<true>{f2, f2s0, f2s1},
+                  c0, c2, w, vec, C, Ch, cp};
+  lka_prep_bf16_kernel<<<132, 256, 0, stream>>>(pa);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+
+  err = cudaFuncSetAttribute(lka_dw_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             int(kDwSmem));
+  if (err != cudaSuccess) return int(err);
+  const int tiles = ((H + kT - 1) / kT) * ((W + kT - 1) / kT);
+  DwArgs<true> d{static_cast<const float*>(x), vec, vec + cp,
+                 W2T<true>{w5, w5s0, w5s1}, W2T<true>{wh, whs0, whs1},
+                 W2T<true>{wv, wvs0, wvs1}, a, H, W, C, M};
+  lka_dw_kernel<true><<<dim3(unsigned(C / kCC), unsigned(tiles),
+                             unsigned(B)), 256, kDwSmem, stream>>>(d);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  const MixBf16Args m{x, a, w, vec, scale1, scale2, out, M, C};
+  return cp == 64 ? launch_mix_bf16<64, 2, 4>(m, stream)
+                  : launch_mix_bf16<128, 3, 4>(m, stream);
 }

@@ -38,8 +38,10 @@ def _gaussian_kernel_np(kernel_size: int = 5, sigma: float = 1.5
 
 
 def gaussian_blur_5x5(x: torch.Tensor) -> torch.Tensor:
+    """Depthwise 5x5 Gaussian blur, zero padded; the kernel in x's dtype
+    (rounded to bf16 for a bf16 x, as the JAX module's)."""
     c = x.shape[1]
-    k = device_table(_gaussian_kernel_np, 5, 1.5, device=x.device)
+    k = device_table(_gaussian_kernel_np, 5, 1.5, device=x.device).to(x.dtype)
     return F.conv2d(x, k.view(1, 1, 5, 5).expand(c, 1, 5, 5), padding=2,
                     groups=c)
 

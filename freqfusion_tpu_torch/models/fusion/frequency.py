@@ -5,6 +5,14 @@ block DCT-II split by zigzag thirds, a single-level db4 DWT with reflect
 padding resized back to the input size, and rfft2 (norm="ortho") with a
 learnable radial low-pass mask. ``torch.fft`` replaces the TPU's matmul
 DFT (``freqfusion_tpu/ops/dft.py``).
+
+In bf16 (the fusion net cast by the pipeline's ``fusion_dtype``) each
+band keeps the JAX module's dtypes: the DCT's fp32 basis promotes the
+bf16 blocks, so both products and ``band_scale`` run in fp32 and each band
+is rounded to bf16 at the end; the DWT's filters are rounded to bf16 and
+its convs and resizes run in bf16 (``ops/resize.py``: rounded after each
+axis); the FFT runs on x in fp32 with the mask from the bf16 logits and
+temperature computed in bf16, each band rounded at the end.
 """
 
 from __future__ import annotations
@@ -84,12 +92,13 @@ class DCTDecomposition(nn.Module):
         basis = device_table(_dct_basis_np, n, device=x.device)
         masks = device_table(_zigzag_band_masks_np, n, device=x.device)
         blocks = xp.reshape(b, c, hp // n, n, wp // n, n).permute(0, 1, 2, 4, 3, 5)
-        coeffs = basis @ blocks @ basis.T
+        coeffs = basis @ blocks.float() @ basis.T
         out = []
         for band in range(3):
             spatial = basis.T @ (coeffs * masks[band]) @ basis
             img = spatial.permute(0, 1, 2, 4, 3, 5).reshape(b, c, hp, wp)
-            out.append(img[..., :h, :w] * self.band_scale[band])
+            out.append((img[..., :h, :w]
+                        * self.band_scale[band].float()).to(x.dtype))
         return out
 
 
@@ -116,8 +125,8 @@ class DWTDecomposition(nn.Module):
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         h, w = x.shape[-2:]
-        lo = device_table(_db4, "lo", device=x.device)
-        hi = device_table(_db4, "hi", device=x.device)
+        lo = device_table(_db4, "lo", device=x.device).to(x.dtype)
+        hi = device_table(_db4, "hi", device=x.device).to(x.dtype)
         lo_rows, hi_rows = _dwt_conv(x, lo, "w"), _dwt_conv(x, hi, "w")
         bands = [_dwt_conv(lo_rows, lo, "h"), _dwt_conv(lo_rows, hi, "h"),
                  _dwt_conv(hi_rows, lo, "h"), _dwt_conv(hi_rows, hi, "h")]

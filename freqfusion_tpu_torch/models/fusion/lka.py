@@ -144,7 +144,12 @@ class TokenMultiheadAttention(nn.Module):
         q, k, v = (t.reshape(*t.shape[:-1], self.num_heads, hd)
                    for t in (q, k, v))
         logits = torch.einsum("...qhd,...khd->...hqk", q, k) / hd ** 0.5
-        out = torch.einsum("...hqk,...khd->...qhd", logits.softmax(-1), v)
+        if x.dtype == torch.bfloat16:  # JAX's softmax in bf16, op by op
+            e = torch.exp(logits - logits.amax(-1, keepdim=True))
+            weights = e / e.sum(-1, keepdim=True)
+        else:
+            weights = logits.softmax(-1)
+        out = torch.einsum("...hqk,...khd->...qhd", weights, v)
         return self.out_proj(out.reshape(x.shape))
 
 

@@ -7,9 +7,17 @@ original LR size (NAFNet's HR feature is resized down bilinearly), clamp
 MambaIR's output, and run the fusion net on the unpadded LR. A missing
 expert degrades to the bilinear image and zero features. With
 ``expert_dtype=torch.bfloat16`` the experts run in bf16 (their floating
-parameters cast once, the padded LR cast before them, their outputs cast
-back to fp32 before the crops), as the JAX pipeline's ``expert_dtype``;
-the fusion net and the fallbacks stay fp32.
+parameters cast once, the padded LR cast before them), as the JAX
+pipeline's ``expert_dtype``. With ``fusion_dtype=torch.bfloat16`` the
+fusion net runs in bf16, as the JAX pipeline's ``fusion_dtype`` (its
+bench mode, ``bench.py:bench_full``): its floating parameters and buffers
+(BN running statistics and the scalar parameters too) cast once, the
+experts' outputs and features cast to it before the crops and NAFNet's
+feature resize, the bilinear fallbacks and zero features made in it, the
+LR cast to it before the fusion net and the result cast back to fp32.
+Without it the experts' outputs are cast back to fp32 and the fusion net
+runs in fp32. No variable sets ``fusion_dtype``: as in the JAX package,
+only the constructor takes it.
 """
 
 from __future__ import annotations
@@ -64,39 +72,48 @@ def build_expert_models(scale: int = 4,
 
 
 class FreqFusionPipeline(nn.Module):
-    """lr [B, 3, H, W] in [0, 1] -> SR [B, 3, 4H, 4W]. ``expert_dtype``
-    casts the experts' floating parameters in place, once."""
+    """lr [B, 3, H, W] in [0, 1] -> SR [B, 3, 4H, 4W], fp32.
+    ``expert_dtype`` casts the experts' floating parameters in place,
+    once; ``fusion_dtype`` the fusion net's (parameters and buffers)."""
 
     def __init__(self, experts: Dict[str, nn.Module],
                  fusion: CompleteEnhancedFusionSR, scale: int = 4,
-                 expert_dtype: Optional[torch.dtype] = None):
+                 expert_dtype: Optional[torch.dtype] = None,
+                 fusion_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if expert_dtype is not None:
             for model in experts.values():
                 model.to(expert_dtype)
+        if fusion_dtype is not None:
+            fusion.to(fusion_dtype)
         self.experts = nn.ModuleDict(experts)
         self.fusion = fusion
         self.scale = scale
         self.expert_dtype = expert_dtype
+        self.fusion_dtype = fusion_dtype
+
+    @property
+    def _fdt(self) -> torch.dtype:
+        return self.fusion_dtype or torch.float32
 
     def run_experts(self, lr_padded: torch.Tensor
                     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-        """Expert outputs and features on a padded LR batch, in fp32 (cast
-        back from ``expert_dtype``)."""
+        """Expert outputs and features on a padded LR batch, in
+        ``fusion_dtype`` (fp32 without one), cast from ``expert_dtype``."""
         imgs, feats = {}, {}
         x = (lr_padded if self.expert_dtype is None
              else lr_padded.to(self.expert_dtype))
         for name in EXPERT_ORDER:
             if name in self.experts:
                 sr, feat = self.experts[name](x)
-                sr, feat = sr.float(), feat.float()
+                sr, feat = sr.to(self._fdt), feat.to(self._fdt)
                 imgs[name] = sr.clamp(0.0, 1.0) if name == "mamba" else sr
                 feats[name] = feat
         return imgs, feats
 
     def forward(self, lr: torch.Tensor) -> torch.Tensor:
         b, _, h, w = lr.shape
-        s = self.scale
+        s, fdt = self.scale, self._fdt
         ph, pw = (16 - h % 16) % 16, (16 - w % 16) % 16
         lr_padded = pad_reflect(lr, 0, ph, 0, pw)
         imgs, feats = self.run_experts(lr_padded)
@@ -108,6 +125,7 @@ class FreqFusionPipeline(nn.Module):
                 feats[name] = (resize_bilinear(f, h, w)
                                if f.shape[-2:] != (hp, wp) else f[..., :h, :w])
             else:
-                imgs[name] = resize_bilinear(lr, h * s, w * s)
-                feats[name] = lr.new_zeros(b, FEATURE_CHANNELS[name], h, w)
-        return self.fusion(lr, imgs, feats)
+                imgs[name] = resize_bilinear(lr, h * s, w * s).to(fdt)
+                feats[name] = lr.new_zeros(b, FEATURE_CHANNELS[name], h, w,
+                                           dtype=fdt)
+        return self.fusion(lr.to(fdt), imgs, feats).float()

@@ -20,11 +20,14 @@ entries count apart: ``selective_scan`` (chain_proj, TPU kernels #3/#4),
 bf16 version counts that version under its name with ``.bf16`` added
 (``window_attention_nhwc.bf16``, ``grl_mixed_attention_nhwc.bf16``,
 ``selective_scan.bf16``, ``fused_mlp_block.bf16``, ``cab_fused.bf16``,
-``nafblock_fused.bf16``, ``dwconv3x3.bf16``), so a run shows which of the
-two ran. A kernel
+``nafblock_fused.bf16``, ``dwconv3x3.bf16``, ``lka_block_fused.bf16``,
+``hier_stage3_fused.bf16``, ``edge_refine_fused.bf16``,
+``edge_fuse_fused.bf16``), so a run shows which of the two ran. A kernel
 takes the dtypes :func:`require` is given; handed a bf16 tensor, an
 fp32-only kernel raises naming itself (:func:`fp32_only`), and nothing is
-cast around it.
+cast around it. The fp32-only kernels are #5-#13: the scan routes other
+than chain_proj, the window-major attention, the in-kernel projections and
+the token attention.
 """
 
 from __future__ import annotations
@@ -96,6 +99,18 @@ _SIGNATURES = {
     "ff_token_attention": [_P, _P, _L, _L, _P, _P, _L, _L] + [_P] * 3
                           + [_L, _L] + [_I] * 3 + [_P],
     "ff_lka_scratch_floats": [_L, _I, _I],
+    "ff_lka_bf16_scratch_floats": [_L, _I, _I],
+    "ff_lka_block_bf16": [_P] * 13 + [_P, _I, _I] * 5 + [_P] + [_P, _I, _I]
+                         + [_P] * 4 + [_L, _P] + [_I] * 5 + [_P],
+    "ff_hier_bf16_scratch_floats": [_I] * 2,
+    "ff_hier_stage3_bf16": [_P, _I] + [_P] * 21 + [_L, _P] + [_I] * 5
+                           + [_P],
+    "ff_edge_bf16_scratch_floats": [_I] * 3,
+    "ff_edge_refine_bf16": [_P, _I] + ([_P] + [_I] * 4 + [_P]) * 6
+                           + [_P] * 5 + [_L, _P] + [_I] * 5 + [_P],
+    "ff_edge_fuse_bf16": [_P] * 4 + [_I] + [_P] * 2
+                         + ([_P] + [_I] * 4 + [_P]) * 4 + [_P] * 7
+                         + [_L, _P] + [_I] * 4 + [_P],
     "ff_lka_block": [_P] * 13 + [_P, _I, _I] * 5 + [_P] + [_P, _I, _I]
                     + [_P] * 4 + [_L, _P] + [_I] * 5 + [_P],
     "ff_hier_scratch_floats": [_I] * 2,
@@ -116,6 +131,8 @@ _RETURNS_LONG = ("ff_fused_mlp_scratch_floats", "ff_cab_scratch_floats",
                  "ff_window_attention_qkv_scratch_floats",
                  "ff_grl_qkv_scratch_floats", "ff_hier_scratch_floats",
                  "ff_lka_scratch_floats", "ff_edge_scratch_floats",
+                 "ff_lka_bf16_scratch_floats", "ff_hier_bf16_scratch_floats",
+                 "ff_edge_bf16_scratch_floats",
                  "ff_token_attention_scratch_floats")
 
 _lock = threading.Lock()
@@ -269,18 +286,18 @@ def nhwc_layout(t: torch.Tensor) -> int:
 
 
 def require_layout(t: torch.Tensor, name: str, shape, device,
-                   nchw: int) -> None:
+                   nchw: int, dtype: torch.dtype = torch.float32) -> None:
     """:func:`require` for a [B, H, W, C] tensor in the layout `nchw`
     names (see :func:`nhwc_layout`)."""
     require(t.permute(0, 3, 1, 2) if nchw else t, name,
             (shape[0], shape[3], shape[1], shape[2]) if nchw else shape,
-            device)
+            device, dtype)
 
 
-def empty_nhwc(b: int, h: int, w: int, c: int, nchw: int,
-               device) -> torch.Tensor:
-    """An uninitialised fp32 [B, H, W, C] tensor in the layout `nchw`
-    names."""
+def empty_nhwc(b: int, h: int, w: int, c: int, nchw: int, device,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """An uninitialised [B, H, W, C] tensor in the layout `nchw` names."""
     if nchw:
-        return torch.empty(b, c, h, w, device=device).permute(0, 2, 3, 1)
-    return torch.empty(b, h, w, c, device=device)
+        return torch.empty(b, c, h, w, device=device,
+                           dtype=dtype).permute(0, 2, 3, 1)
+    return torch.empty(b, h, w, c, device=device, dtype=dtype)

@@ -29,7 +29,14 @@ inputs NHWC-contiguous or as NCHW-contiguous tensors viewed as NHWC
 (``u.permute(0, 2, 3, 1)``, no copy), all in one layout, and returns its
 output in that layout; the wrappers launch no PyTorch kernel. Unlike the
 JAX wrappers, the kernels take every H and W themselves: there is no XLA
-fallback.
+fallback. In bf16 (every image and parameter bf16, as ``fusion_dtype``
+casts them) both routes follow the JAX kernels' rounding points: each
+conv's input and refine's two 1x1 operands rounded to bf16 (fuse's levels
+after their weights: bf16(lw f)), fp32 sums and biases, hid, the edge map,
+GELU, the gates and the residual in fp32, the output rounded; the CUDA
+routes are ``ff_edge_refine_bf16`` and ``ff_edge_fuse_bf16`` (the inputs
+packed NHWC, the levels times lw, then the bf16 convs of
+``csrc/conv3x3_tf32.cuh``).
 """
 
 from __future__ import annotations
@@ -41,7 +48,8 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda
-from .hier import CK, TILE_W, ConvPlan, conv3x3, conv_smem, dense1x1
+from .hier import (CK, CK16, TILE_W, ConvPlan, conv3x3, conv3x3_bf16,
+                   conv_smem, dense1x1, dense1x1_bf16, rounded, split_floats)
 
 __all__ = ["edge_refine_fused", "edge_refine_fused_reference",
            "edge_fuse_fused", "edge_fuse_fused_reference", "plan_edge",
@@ -55,8 +63,8 @@ FUSE_TILES = ((4, 3), (1, 4), (2, 4), (1, 4))
 GATE_HIDDEN = 16  # edge_gate_0's outputs
 
 
-def _pad(c: int) -> int:
-    return -(-c // CK) * CK
+def _pad(c: int, ck: int = CK) -> int:
+    return -(-c // ck) * ck
 
 
 class EdgePlan(NamedTuple):
@@ -71,12 +79,12 @@ class EdgePlan(NamedTuple):
 
 @functools.lru_cache(maxsize=64)
 def plan_edge(h: int, w: int, cin: int = 3, f: int = 32,
-              fuse: bool = False) -> EdgePlan:
+              fuse: bool = False, bf16: bool = False) -> EdgePlan:
     """The plan of refine on [B, h, w, cin] (conv1 cin -> f, conv2,
     conv3 over (h, lap): f + cin -> f, the attention conv f / 4 -> 1) or
     of fuse on [B, h, w, f] levels (fusion_0 over (f0, f1, f2), fusion_2
     f -> 3, edge_gate_0 over (sr, edge): 3 + 3 -> 16, edge_gate_2 16 ->
-    1)."""
+    1); bf16: of the bf16 entries (sources padded to CK16)."""
     if fuse:
         convs = (((f, f, f), f), ((f,), 3), ((3, 3), GATE_HIDDEN),
                  ((GATE_HIDDEN,), 1))
@@ -86,18 +94,19 @@ def plan_edge(h: int, w: int, cin: int = 3, f: int = 32,
         tiles = REFINE_TILES
     plans, sources = [], []
     for (srcs, co), (nt, mt) in zip(convs, tiles):
-        pads = tuple(_pad(c) for c in srcs)
+        pads = tuple(_pad(c, CK16 if bf16 else CK) for c in srcs)
         coutp = -(-co // (8 * nt)) * 8 * nt
         n_tiles = -(-h // (8 * mt)) * -(-w // TILE_W)
         plans.append(ConvPlan(sum(srcs), co, sum(pads), coutp, nt, mt,
                               n_tiles, n_tiles * coutp // (8 * nt),
-                              conv_smem(nt, mt)))
+                              conv_smem(nt, mt, bf16)))
         sources.append(pads)
     return EdgePlan(tuple(plans), tuple(sources),
-                    sum(18 * c.cinp * c.coutp for c in plans))
+                    sum(split_floats(c.cinp, c.coutp, bf16) for c in plans))
 
 
-def _weights(p: Dict[str, Any], convs, device) -> list:
+def _weights(p: Dict[str, Any], convs, device,
+             dtype: torch.dtype = torch.float32) -> list:
     """The kernels' arguments for the convs named in `convs` (name, HWIO
     shape): each kernel's pointer and its four element strides, so a view
     (the modules hand PyTorch's OIHW weights permuted, no copy) goes as
@@ -105,20 +114,34 @@ def _weights(p: Dict[str, Any], convs, device) -> list:
     args = []
     for name, shape in convs:
         k, b = p[name]["kernel"], p[name]["bias"]
-        if k.device != device or k.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32 on {device}")
+        if k.device != device or k.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} on {device}")
         if tuple(k.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(k.shape)}, expected "
                              f"{shape}")
-        cuda.require(b, f"{name} bias", shape[-1:], device)
+        cuda.require(b, f"{name} bias", shape[-1:], device, dtype)
         args += [k.data_ptr(), *k.stride(), b.data_ptr()]
     return args
+
+
+def _refine_bf16_reference(lap: torch.Tensor, p: Dict[str, Any]
+                           ) -> torch.Tensor:
+    """The JAX kernel's arithmetic on a bf16 level (``pallas_edge.py:
+    94-116``)."""
+    x = lap.float()
+    t = F.gelu(conv3x3_bf16(F.gelu(conv3x3_bf16(x, p["conv1"])), p["conv2"]))
+    hid = conv3x3_bf16(t, p["conv3"]) + dense1x1_bf16(x, p["proj"])
+    a = conv3x3_bf16(F.gelu(dense1x1_bf16(hid, p["attn_0"])), p["attn_2"])
+    return (hid * torch.sigmoid(a)).to(torch.bfloat16)
 
 
 def edge_refine_fused_reference(lap: torch.Tensor, p: Dict[str, Any]
                                 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`edge_refine_fused` (the JAX
-    package's ``_refine_xla``)."""
+    package's ``_refine_xla``; in bf16 the Pallas kernel's rounding
+    points)."""
+    if lap.dtype == torch.bfloat16:
+        return _refine_bf16_reference(lap, p)
     t = F.gelu(conv3x3(F.gelu(conv3x3(lap, p["conv1"])), p["conv2"]))
     t = conv3x3(t, p["conv3"]) + dense1x1(lap, p["proj"])
     a = conv3x3(F.gelu(dense1x1(t, p["attn_0"])), p["attn_2"])
@@ -126,13 +149,15 @@ def edge_refine_fused_reference(lap: torch.Tensor, p: Dict[str, Any]
 
 
 def edge_refine_fused(lap: torch.Tensor, p: Dict[str, Any]) -> torch.Tensor:
-    """lap [B, H, W, Cin]; p the tree above (F = conv1's outputs, F / 4 =
-    8). Returns [B, H, W, F]."""
+    """lap [B, H, W, Cin], fp32 or bf16 (every parameter then bf16); p
+    the tree above (F = conv1's outputs, F / 4 = 8). Returns [B, H, W, F]
+    in lap's dtype."""
     if lap.device.type == "cpu":
         return edge_refine_fused_reference(lap, p)
     if lap.device.type != "cuda":
         raise ValueError(f"edge_refine_fused: unsupported device {lap.device}")
-    cuda.fp32_only("edge_refine_fused", lap)
+    bf = lap.dtype == torch.bfloat16
+    dt = lap.dtype if bf else torch.float32
     b, h, w, cin = lap.shape
     f = p["conv1"]["kernel"].shape[-1]
     if f != 32:
@@ -140,29 +165,59 @@ def edge_refine_fused(lap: torch.Tensor, p: Dict[str, Any]) -> torch.Tensor:
                          "(the attention's squeeze must be 8 wide)")
     dev = lap.device
     nchw = cuda.nhwc_layout(lap)
-    cuda.require_layout(lap, "lap", (b, h, w, cin), dev, nchw)
+    cuda.require_layout(lap, "lap", (b, h, w, cin), dev, nchw, dt)
     args = _weights(p, [("conv1", (3, 3, cin, f)), ("conv2", (3, 3, f, f)),
                         ("conv3", (3, 3, f, f)), ("proj", (1, 1, cin, f)),
                         ("attn_0", (1, 1, f, f // 4)),
-                        ("attn_2", (3, 3, f // 4, 1))], dev)
-    plan = plan_edge(h, w, cin, f)
-    t1 = torch.empty(b, h, w, f + f // 4, device=dev)
-    t2 = torch.empty(b, h, w, f, device=dev)
+                        ("attn_2", (3, 3, f // 4, 1))], dev, dt)
+    plan = plan_edge(h, w, cin, f, bf16=bf)
     scratch = torch.empty(plan.scratch_floats, device=dev)
-    out = cuda.empty_nhwc(b, h, w, f, nchw, dev)
-    err = cuda.library().ff_edge_refine(
-        lap.data_ptr(), nchw, *args, t1.data_ptr(), t2.data_ptr(),
+    out = cuda.empty_nhwc(b, h, w, f, nchw, dev, dt)
+    if bf:  # lap made NHWC, conv1's output (then the squeeze), conv2's,
+        # hid in fp32
+        if cin > 8:
+            raise ValueError(f"edge_refine_fused: bf16 takes <= 8 channels, "
+                             f"got {cin}")
+        bufs = (torch.empty(b, h, w, 8, device=dev, dtype=dt),
+                torch.empty(b, h, w, f, device=dev, dtype=dt),
+                torch.empty(b, h, w, f, device=dev, dtype=dt),
+                torch.empty(b, h, w, f, device=dev))
+    else:
+        bufs = (torch.empty(b, h, w, f + f // 4, device=dev),
+                torch.empty(b, h, w, f, device=dev))
+    entry = (cuda.library().ff_edge_refine_bf16 if bf
+             else cuda.library().ff_edge_refine)
+    err = entry(
+        lap.data_ptr(), nchw, *args, *(t.data_ptr() for t in bufs),
         scratch.data_ptr(), plan.scratch_floats, out.data_ptr(), b, h, w,
         cin, f, cuda.stream(lap))
-    cuda.check(err, "edge_refine_fused")
-    cuda.launch_counts["edge_refine_fused"] += 1
+    name = "edge_refine_fused" + (".bf16" if bf else "")
+    cuda.check(err, name)
+    cuda.launch_counts[name] += 1
     return out
+
+
+def _fuse_bf16_reference(sr, f0, f1, f2, lw, strength,
+                         p: Dict[str, Any]) -> torch.Tensor:
+    """The JAX kernel's arithmetic on bf16 images (``pallas_edge.py:
+    220-231``)."""
+    s, lw = sr.float(), lw.float()
+    allf = torch.cat([f0.float() * lw[0], f1.float() * lw[1],
+                      f2.float() * lw[2]], -1)
+    edge = conv3x3_bf16(F.gelu(conv3x3_bf16(allf, p["fusion_0"])),
+                        p["fusion_2"])
+    g = F.gelu(conv3x3_bf16(torch.cat([s, edge], -1), p["edge_gate_0"]))
+    gate = torch.sigmoid(conv3x3_bf16(g, p["edge_gate_2"]))
+    out = s + gate * strength.float() * edge
+    return torch.clamp(out, 0.0, 1.0).to(torch.bfloat16)
 
 
 def edge_fuse_fused_reference(sr, f0, f1, f2, lw, strength,
                               p: Dict[str, Any]) -> torch.Tensor:
     """Plain PyTorch version of :func:`edge_fuse_fused` (the JAX package's
-    ``_fuse_xla``)."""
+    ``_fuse_xla``; in bf16 the Pallas kernel's rounding points)."""
+    if sr.dtype == torch.bfloat16:
+        return _fuse_bf16_reference(sr, f0, f1, f2, lw, strength, p)
     allf = torch.cat([f0 * lw[0], f1 * lw[1], f2 * lw[2]], -1)
     edge = conv3x3(F.gelu(conv3x3(allf, p["fusion_0"])), p["fusion_2"])
     g = conv3x3(torch.cat([sr, edge], -1), p["edge_gate_0"])
@@ -175,38 +230,53 @@ def edge_fuse_fused(sr: torch.Tensor, f0: torch.Tensor, f1: torch.Tensor,
                     strength: torch.Tensor, p: Dict[str, Any]
                     ) -> torch.Tensor:
     """sr [B, H, W, 3]; f0, f1, f2 [B, H, W, F]; lw [3]; strength a
-    scalar tensor; p the tree above. Returns [B, H, W, 3]."""
+    scalar tensor; p the tree above; all fp32, or all bf16. Returns [B, H,
+    W, 3] in sr's dtype."""
     if sr.device.type == "cpu":
         return edge_fuse_fused_reference(sr, f0, f1, f2, lw, strength, p)
     if sr.device.type != "cuda":
         raise ValueError(f"edge_fuse_fused: unsupported device {sr.device}")
-    cuda.fp32_only("edge_fuse_fused", sr)
+    bf = sr.dtype == torch.bfloat16
+    dt = sr.dtype if bf else torch.float32
     b, h, w, _ = sr.shape
     f = f0.shape[-1]
     if f > 64:
         raise ValueError(f"edge_fuse_fused: {f} features > 64")
     dev = sr.device
     nchw = cuda.nhwc_layout(sr)
-    cuda.require_layout(sr, "sr", (b, h, w, 3), dev, nchw)
+    cuda.require_layout(sr, "sr", (b, h, w, 3), dev, nchw, dt)
     for name, t in (("f0", f0), ("f1", f1), ("f2", f2)):
-        cuda.require_layout(t, name, (b, h, w, f), dev, nchw)
-    cuda.require(lw, "lw", (3,), dev)
-    cuda.require(strength, "strength", (), dev)
+        cuda.require_layout(t, name, (b, h, w, f), dev, nchw, dt)
+    cuda.require(lw, "lw", (3,), dev, dt)
+    cuda.require(strength, "strength", (), dev, dt)
     args = _weights(p, [("fusion_0", (3, 3, 3 * f, f)),
                         ("fusion_2", (3, 3, f, 3)),
                         ("edge_gate_0", (3, 3, 6, GATE_HIDDEN)),
-                        ("edge_gate_2", (3, 3, GATE_HIDDEN, 1))], dev)
-    plan = plan_edge(h, w, 3, f, fuse=True)
-    e1 = torch.empty(b, h, w, f, device=dev)
+                        ("edge_gate_2", (3, 3, GATE_HIDDEN, 1))], dev, dt)
+    plan = plan_edge(h, w, 3, f, fuse=True, bf16=bf)
+    # fusion_0's output, the edge map (fp32 either way), the gate's hidden;
+    # bf16: the levels times lw and sr made NHWC, the edge map's bf16 copy
+    e1 = torch.empty(b, h, w, f, device=dev, dtype=dt)
     e = torch.empty(b, h, w, 3, device=dev)
-    g = torch.empty(b, h, w, GATE_HIDDEN, device=dev)
+    g = torch.empty(b, h, w, GATE_HIDDEN, device=dev, dtype=dt)
+    bufs = [e1, e, g]
+    if bf:
+        if f % 8:
+            raise ValueError(f"edge_fuse_fused: bf16 takes F % 8 == 0, "
+                             f"got {f}")
+        bufs = [torch.empty(b, h, w, 3 * f, device=dev, dtype=dt),
+                torch.empty(b, h, w, 8, device=dev, dtype=dt), e1, e,
+                torch.empty(b, h, w, 8, device=dev, dtype=dt), g]
     scratch = torch.empty(plan.scratch_floats, device=dev)
-    out = cuda.empty_nhwc(b, h, w, 3, nchw, dev)
-    err = cuda.library().ff_edge_fuse(
+    out = cuda.empty_nhwc(b, h, w, 3, nchw, dev, dt)
+    entry = (cuda.library().ff_edge_fuse_bf16 if bf
+             else cuda.library().ff_edge_fuse)
+    err = entry(
         *(t.data_ptr() for t in (sr, f0, f1, f2)), nchw, lw.data_ptr(),
-        strength.data_ptr(), *args, e1.data_ptr(), e.data_ptr(),
-        g.data_ptr(), scratch.data_ptr(), plan.scratch_floats,
+        strength.data_ptr(), *args, *(t.data_ptr() for t in bufs),
+        scratch.data_ptr(), plan.scratch_floats,
         out.data_ptr(), b, h, w, f, cuda.stream(sr))
-    cuda.check(err, "edge_fuse_fused")
-    cuda.launch_counts["edge_fuse_fused"] += 1
+    name = "edge_fuse_fused" + (".bf16" if bf else "")
+    cuda.check(err, name)
+    cuda.launch_counts[name] += 1
     return out

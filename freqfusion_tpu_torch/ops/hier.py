@@ -20,7 +20,12 @@ SpatialGate in conv1's epilogue) or the call raises. The CUDA route takes
 s3_in NHWC-contiguous or as an NCHW-contiguous tensor viewed as NHWC
 (``u.permute(0, 2, 3, 1)``, no copy) and returns the output in the same
 layout. Unlike the JAX wrapper, the kernel takes every H and W itself:
-there is no XLA fallback.
+there is no XLA fallback. In bf16 (s3_in and every parameter bf16, as
+``fusion_dtype`` casts them) both routes follow the JAX kernel's rounding
+points: each conv's input and the gate's two 1x1 operands rounded to bf16,
+fp32 sums and biases, GELU, the gate, the residuals in fp32, the output
+rounded after its sigmoid; the CUDA route is ``ff_hier_stage3_bf16`` (s3_in
+packed NHWC, then the bf16 convs of ``csrc/conv3x3_tf32.cuh``).
 """
 
 from __future__ import annotations
@@ -33,13 +38,16 @@ import torch.nn.functional as F
 from . import cuda
 
 __all__ = ["hier_stage3_fused", "hier_stage3_fused_reference", "conv3x3",
-           "dense1x1", "plan_hier", "HierPlan", "ConvPlan"]
+           "dense1x1", "conv3x3_bf16", "dense1x1_bf16", "rounded",
+           "plan_hier", "split_floats", "HierPlan", "ConvPlan"]
 
 # csrc/conv3x3_tf32.cuh: output tile columns (an m-tile's rows), input
-# channels a stage, stages in the ring
+# channels a stage (fp32, bf16), stages in the ring (fp32, bf16)
 TILE_W = 16
 CK = 8
+CK16 = 16
 STAGES = 2
+STAGES_BF16 = 4
 # csrc/hier.cu: (n-tiles a block, m-tiles a warp) of conv0, conv1,
 # block_0, block_2, to_rgb_0, to_rgb_2
 CONV_TILES = ((4, 3), (4, 3), (4, 3), (4, 3), (2, 4), (1, 4))
@@ -69,29 +77,41 @@ class HierPlan(NamedTuple):
     scratch_floats: int          # the six convs' split weights
 
 
-def conv_smem(nt: int, mt: int) -> int:
+def conv_smem(nt: int, mt: int, bf16: bool = False) -> int:
     """Bytes of shared memory a conv block takes: STAGES stages of the
     halo ((8 mt + 2) x 18 pixels x CK channels, split in registers as it
     is read) and of the split weights of 9 taps (9 x CK x 8 nt, hi and
-    lo), an mbarrier a stage."""
+    lo), an mbarrier a stage; bf16: STAGES_BF16 stages of CK16 channels
+    and 9 x CK16 x 8 nt bf16 weights."""
     halo = (8 * mt + 2) * (TILE_W + 2)
-    stage = halo * CK + 9 * CK * 8 * nt * 2
-    return 4 * STAGES * stage + 8 * STAGES
+    stage = halo * CK + 9 * 8 * nt * (CK16 // 2 if bf16 else 2 * CK)
+    ring = STAGES_BF16 if bf16 else STAGES
+    return 4 * ring * stage + 8 * ring
 
 
-def plan_hier(h: int, w: int, cin: int, c1: int = 64) -> HierPlan:
+def split_floats(cinp: int, coutp: int, bf16: bool = False) -> int:
+    """4-byte words of a conv's split weights: 18 cinp coutp (fp32, hi and
+    lo), 4.5 cinp coutp (bf16)."""
+    return 9 * cinp * coutp // 2 if bf16 else 18 * cinp * coutp
+
+
+def plan_hier(h: int, w: int, cin: int, c1: int = 64,
+              bf16: bool = False) -> HierPlan:
     """How ``csrc/hier.cu`` runs a call on [B, h, w, cin] (its
-    ``hier_plan``): each conv's padded extents, tiles and shared memory,
-    and the scratch of split weights (18 cinp coutp floats a conv)."""
+    ``hier_plan``; bf16: of ``ff_hier_stage3_bf16``): each conv's padded
+    extents, tiles and shared memory, and the scratch of split weights."""
     c2, ct = c1 // 2, c1 // 4
+    ck = CK16 if bf16 else CK
     convs = []
     for (ci, co), (nt, mt) in zip(((cin, c1), (c1, c2), (c2, c2), (c2, c2),
                                    (c2, ct), (ct, 3)), CONV_TILES):
         coutp = _round_up(co, 8 * nt)
         tiles = -(-h // (8 * mt)) * -(-w // TILE_W)
-        convs.append(ConvPlan(ci, co, _round_up(ci, CK), coutp, nt, mt, tiles,
-                              tiles * coutp // (8 * nt), conv_smem(nt, mt)))
-    return HierPlan(tuple(convs), sum(18 * c.cinp * c.coutp for c in convs))
+        convs.append(ConvPlan(ci, co, _round_up(ci, ck), coutp, nt, mt,
+                              tiles, tiles * coutp // (8 * nt),
+                              conv_smem(nt, mt, bf16)))
+    return HierPlan(tuple(convs), sum(split_floats(c.cinp, c.coutp, bf16)
+                                      for c in convs))
 
 
 def conv3x3(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -106,10 +126,51 @@ def dense1x1(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
     return x @ p["kernel"][0, 0] + p["bias"]
 
 
+def rounded(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16, as fp32."""
+    return t.to(torch.bfloat16).float()
+
+
+def conv3x3_bf16(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """:func:`conv3x3` as a JAX kernel's bf16 conv: x and the kernel
+    rounded to bf16, fp32 sums, the bias added in fp32."""
+    y = F.conv2d(rounded(x).permute(0, 3, 1, 2),
+                 rounded(p["kernel"]).permute(3, 2, 0, 1), padding=1)
+    y = y.permute(0, 2, 3, 1)
+    return y + p["bias"].float() if p.get("bias") is not None else y
+
+
+def dense1x1_bf16(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """:func:`dense1x1` on operands rounded to bf16, fp32 sums."""
+    return rounded(x) @ rounded(p["kernel"][0, 0]) + p["bias"].float()
+
+
+def _hier_bf16_reference(s3_in: torch.Tensor, p: Dict[str, Any]
+                         ) -> torch.Tensor:
+    """The JAX kernel's arithmetic on bf16 s3_in (``pallas_hier.py:
+    56-98``)."""
+    x = s3_in.float()
+    a = F.gelu(conv3x3_bf16(F.gelu(conv3x3_bf16(x, p["stage3_conv_0"])),
+                            p["stage3_conv_2"]))
+    g = p["stage3_gate"]
+    f = a * torch.sigmoid(dense1x1_bf16(F.gelu(dense1x1_bf16(a, g["gate_0"])),
+                                        g["gate_2"]))
+    r = p["stage3_res"]
+    f3 = f + r["scale"].float() * conv3x3_bf16(
+        F.gelu(conv3x3_bf16(f, r["block_0"])), r["block_2"])
+    f3 = f3 + p["rw23"].float() * x[..., :a.shape[-1]]
+    out = torch.sigmoid(conv3x3_bf16(F.gelu(conv3x3_bf16(f3, p["to_rgb_0"])),
+                                     p["to_rgb_2"]))
+    return out.to(torch.bfloat16)
+
+
 def hier_stage3_fused_reference(s3_in: torch.Tensor, p: Dict[str, Any]
                                 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`hier_stage3_fused` (the JAX
-    package's ``_hier_stage3_xla``)."""
+    package's ``_hier_stage3_xla``; in bf16 the Pallas kernel's rounding
+    points)."""
+    if s3_in.dtype == torch.bfloat16:
+        return _hier_bf16_reference(s3_in, p)
     a = F.gelu(conv3x3(F.gelu(conv3x3(s3_in, p["stage3_conv_0"])),
                        p["stage3_conv_2"]))
     g = p["stage3_gate"]
@@ -125,14 +186,16 @@ def hier_stage3_fused_reference(s3_in: torch.Tensor, p: Dict[str, Any]
 
 def hier_stage3_fused(s3_in: torch.Tensor, p: Dict[str, Any]
                       ) -> torch.Tensor:
-    """s3_in [B, H, W, Cin]; p the tree above at base_channels 64 (the
-    outputs of stage3_conv_0). Returns [B, H, W, 3]."""
+    """s3_in [B, H, W, Cin], fp32 or bf16 (every parameter then bf16); p
+    the tree above at base_channels 64 (the outputs of stage3_conv_0).
+    Returns [B, H, W, 3] in s3_in's dtype."""
     if s3_in.device.type == "cpu":
         return hier_stage3_fused_reference(s3_in, p)
     if s3_in.device.type != "cuda":
         raise ValueError(f"hier_stage3_fused: unsupported device "
                          f"{s3_in.device}")
-    cuda.fp32_only("hier_stage3_fused", s3_in)
+    bf = s3_in.dtype == torch.bfloat16
+    dt = s3_in.dtype if bf else torch.float32
     b, h, w, cin = s3_in.shape
     c1 = p["stage3_conv_0"]["kernel"].shape[-1]
     c2, cg, ct = c1 // 2, c1 // 8, c1 // 4
@@ -142,7 +205,7 @@ def hier_stage3_fused(s3_in: torch.Tensor, p: Dict[str, Any]
                          f"32 channels one block's), and Cin {cin} >= {c2}")
     dev = s3_in.device
     nchw = cuda.nhwc_layout(s3_in)
-    cuda.require_layout(s3_in, "s3_in", (b, h, w, cin), dev, nchw)
+    cuda.require_layout(s3_in, "s3_in", (b, h, w, cin), dev, nchw, dt)
     g, r = p["stage3_gate"], p["stage3_res"]
     tensors = [
         ("stage3_conv_0", p["stage3_conv_0"]["kernel"], (3, 3, cin, c1)),
@@ -161,17 +224,27 @@ def hier_stage3_fused(s3_in: torch.Tensor, p: Dict[str, Any]
         ("to_rgb_2 bias", p["to_rgb_2"]["bias"], (3,)),
         ("scale", r["scale"], ()), ("rw23", p["rw23"], ())]
     for name, t, shape in tensors:
-        cuda.require(t, name, shape, dev)
-    plan = plan_hier(h, w, cin, c1)
-    buf64 = torch.empty(b, h, w, c1, device=dev)
-    buf32 = torch.empty(b, h, w, c2, device=dev)
+        cuda.require(t, name, shape, dev, dt)
+    plan = plan_hier(h, w, cin, c1, bf16=bf)
+    # fp32: two fp32 scratch images (64 and 32 channels); bf16: s3_in made
+    # NHWC, conv0's output (then block_0's, f3 and to_rgb_0's), f in fp32
+    # and its bf16 copy
+    bufs = [torch.empty(b, h, w, c1, device=dev, dtype=dt),
+            torch.empty(b, h, w, c2, device=dev)]
+    if bf:
+        bufs = [torch.empty(b, h, w, plan.convs[0].cinp, device=dev,
+                            dtype=dt), *bufs,
+                torch.empty(b, h, w, c2, device=dev, dtype=dt)]
     scratch = torch.empty(plan.scratch_floats, device=dev)
-    out = cuda.empty_nhwc(b, h, w, 3, nchw, dev)
-    err = cuda.library().ff_hier_stage3(
+    out = cuda.empty_nhwc(b, h, w, 3, nchw, dev, dt)
+    entry = (cuda.library().ff_hier_stage3_bf16 if bf
+             else cuda.library().ff_hier_stage3)
+    err = entry(
         s3_in.data_ptr(), nchw, *(t.data_ptr() for _, t, _ in tensors),
-        buf64.data_ptr(), buf32.data_ptr(), scratch.data_ptr(),
+        *(t.data_ptr() for t in bufs), scratch.data_ptr(),
         plan.scratch_floats, out.data_ptr(), b, h, w, cin, c1,
         cuda.stream(s3_in))
-    cuda.check(err, "hier_stage3_fused")
-    cuda.launch_counts["hier_stage3_fused"] += 1
+    name = "hier_stage3_fused" + (".bf16" if bf else "")
+    cuda.check(err, name)
+    cuda.launch_counts[name] += 1
     return out

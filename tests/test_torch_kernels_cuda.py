@@ -1393,7 +1393,7 @@ def test_lka_precision_guard(c, fp32_plain):
                                         (2, 13, 18, 60, 120)])
 def test_fusion_eval_plans_match_the_kernels(b, h, w, c, ch):
     """ops/hier.py:plan_hier and ops/lka.py:plan_lka size the scratch as
-    csrc/hier.cu's hier_plan and csrc/lka.cu lay it out."""
+    csrc/hier.cu's hier_plan and csrc/lka.cu lay it out, fp32 and bf16."""
     from freqfusion_tpu_torch.ops.hier import plan_hier
     from freqfusion_tpu_torch.ops.lka import plan_lka
 
@@ -1403,6 +1403,10 @@ def test_fusion_eval_plans_match_the_kernels(b, h, w, c, ch):
         4 * h, 4 * w, 76).scratch_floats
     assert lib.ff_lka_scratch_floats(b * h * w, c, ch) == plan_lka(
         b, h, w, c, ch).scratch_floats
+    assert lib.ff_hier_bf16_scratch_floats(76, 64) == plan_hier(
+        4 * h, 4 * w, 76, bf16=True).scratch_floats
+    assert lib.ff_lka_bf16_scratch_floats(b * h * w, c, ch) == plan_lka(
+        b, h, w, c, ch, bf16=True).scratch_floats
 
 
 @pytest.mark.cuda
@@ -1410,7 +1414,7 @@ def test_fusion_eval_plans_match_the_kernels(b, h, w, c, ch):
 def test_edge_plans_match_the_kernels(cin, f):
     """ops/edge.py:plan_edge sizes the scratch as csrc/edge.cu's edge_plan
     lays it out, for refine (a level of cin channels) and fuse (levels of
-    f channels)."""
+    f channels), fp32 and bf16."""
     from freqfusion_tpu_torch.ops.edge import plan_edge
 
     cuda_or_skip()
@@ -1419,6 +1423,10 @@ def test_edge_plans_match_the_kernels(cin, f):
         8, 8, cin).scratch_floats
     assert lib.ff_edge_scratch_floats(3, f, 1) == plan_edge(
         8, 8, 3, f, fuse=True).scratch_floats
+    assert lib.ff_edge_bf16_scratch_floats(cin, 32, 0) == plan_edge(
+        8, 8, cin, bf16=True).scratch_floats
+    assert lib.ff_edge_bf16_scratch_floats(3, f, 1) == plan_edge(
+        8, 8, 3, f, fuse=True, bf16=True).scratch_floats
 
 
 @pytest.mark.cuda
@@ -1715,10 +1723,73 @@ def test_dwconv_bf16_kernel(c, hw, fp32_plain):
     _bf16_close(got, dwconv3x3_reference(x, k, b), "dwconv3x3.bf16")
 
 
+def _tree_bf16(p):
+    return {k: _tree_bf16(v) if isinstance(v, dict) else v.to(torch.bfloat16)
+            for k, v in p.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [64, 128])
+@pytest.mark.parametrize("hw", BORDER_SHAPES)
+def test_lka_bf16_kernel(c, hw):
+    """The LKABlock's bf16 version (bf16 x and parameters, as fusion_dtype
+    casts them) against its bf16 plain version, batch 2."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c + hw[0] + 3)
+    p = _tree_bf16(_lka_tree(rng, c, dev))
+    x = _image(rng, 2, hw, c, False, dev).to(torch.bfloat16)
+    cuda.reset_launch_counts()
+    got = lka_block_fused(x, p)
+    _bf16_close(got, lka_block_fused_reference(x, p), "lka_block_fused.bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nchw", [False, True])
+@pytest.mark.parametrize("hw", BORDER_SHAPES)
+def test_hier_bf16_kernel(nchw, hw):
+    """Stage 3 + to_rgb in bf16, batch 2, s3_in NHWC and as an NCHW view."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(hw[0] + nchw + 5)
+    p = _tree_bf16(_hier_tree(rng, dev))
+    x = _image(rng, 2, hw, 76, nchw, dev, uniform=True).to(torch.bfloat16)
+    cuda.reset_launch_counts()
+    got = hier_stage3_fused(x, p)
+    assert (got.permute(0, 3, 1, 2) if nchw else got).is_contiguous()
+    _bf16_close(got, hier_stage3_fused_reference(x, p),
+                "hier_stage3_fused.bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nchw", [False, True])
+@pytest.mark.parametrize("hw", BORDER_SHAPES)
+def test_edge_bf16_kernels(nchw, hw):
+    """The edge refine and fuse in bf16, batch 2, NHWC and NCHW views."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(hw[0] + nchw + 13)
+    p = _tree_bf16(_edge_refine_tree(rng, dev))
+    lap = _image(rng, 2, hw, 3, nchw, dev).to(torch.bfloat16)
+    cuda.reset_launch_counts()
+    _bf16_close(edge_refine_fused(lap, p), edge_refine_fused_reference(lap, p),
+                "edge_refine_fused.bf16")
+    q = _tree_bf16(_tree(rng, {"fusion_0": _conv(3, 96, 32),
+                               "fusion_2": _conv(3, 32, 3),
+                               "edge_gate_0": _conv(3, 6, 16),
+                               "edge_gate_2": _conv(3, 16, 1)}, dev))
+    bf = torch.bfloat16
+    sr = _image(rng, 2, hw, 3, nchw, dev, uniform=True).to(bf)
+    feats = [_image(rng, 2, hw, 32, nchw, dev).to(bf) for _ in range(3)]
+    lw = torch.softmax(_t(rng.normal(size=3), dev), 0).to(bf)
+    strength = _t(rng.uniform(0.5, 2), dev).to(bf)
+    _bf16_close(edge_fuse_fused(sr, *feats, lw, strength, q),
+                edge_fuse_fused_reference(sr, *feats, lw, strength, q),
+                "edge_fuse_fused.bf16")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["window_attention",
                                     "selective_scan_chain",
-                                    "window_attention_qkv_nhwc"])
+                                    "window_attention_qkv_nhwc",
+                                    "token_attention"])
 def test_fp32_only_kernels_refuse_bf16(kernel):
     """A kernel with no bf16 version raises on a bf16 tensor, naming
     itself; nothing is cast around it."""
@@ -1735,6 +1806,9 @@ def test_fp32_only_kernels_refuse_bf16(kernel):
             x, *(torch.zeros(s, device=dev) for s in
                  ((16, 48), (48,), (16, 16), (16,), (1, 64, 64))), None, 1,
             8),
+        "token_attention": lambda: token_attention(
+            x.view(64, 1, 16), *(torch.zeros(s, device=dev) for s in
+                                 ((16, 48), (48,), (16, 16), (16,))), 4),
     }
     with pytest.raises(ValueError, match=f"{kernel}: .*bf16 version is not "
                                          "ported"):
