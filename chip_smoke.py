@@ -86,7 +86,12 @@ exits non-zero without the final ok line):
    modules and inputs cast to bf16 as fusion_dtype casts them, each beside
    the gate-off route (the bf16 module on cuDNN), the fp32 kernel's time
    and the bound at the bf16 rate (the LKABlock's taps and the refine's
-   squeeze on the fp32 cores a third term);
+   squeeze on the fp32 cores a third term); then the projection kernels'
+   bf16 versions (#11 at DRCT-L's ten shapes, #12 at GRL-B's two, #13 at
+   the fusion net's two geometries with nn.MultiheadAttention in bf16 as
+   its library call), each beside the bf16 route its gate replaces, the
+   fp32 kernel's time and the bound at the bf16 rate (#13's attention on
+   the fp32 cores a third term), and one call's launches of each;
 3. serving, default path: seeded full-width random checkpoints under the
    reference file names, three LR PNGs (128x128, 100x140, 336x512)
    through ``freqfusion_tpu_torch.interface.io.main(..., device="cuda")``,
@@ -135,25 +140,29 @@ exits non-zero without the final ok line):
    does, with the three fusion-eval gates (bf16-fusion-eval: 60, 40, 144,
    13, 1, 3 and 1 launches of the bf16 #1, #2, #3/#4 and #18-#21 per
    image, none of an fp32 kernel, the 336x512 output against phase 3e's
-   fp32 fusion-eval one) and without (bf16-fusion: the experts' bf16
-   kernels only, against phase 3's), PSNR >= 51 dB each (the JAX
-   package's all-bf16 floor);
-3c. the pipeline alone on the 336x512 image in the ten configurations in
-   turns (default, byte-floor, projection, fusion-eval, chainv5, spatial,
-   bf16, bf16-byte-floor, bf16-fusion, bf16-fusion-eval, then back, after
-   a warm-up of each): seconds per request to the synchronised result,
-   without the host's PNG work; then the default path's and the four bf16
-   configurations' split by stage (each expert alone on the same image,
-   CUDA events);
+   fp32 fusion-eval one), with the three projection gates
+   (bf16-projection: 60, 40, 2 and 144 launches of the bf16 #11, #12, #13
+   and #3/#4 per image, none of an fp32 kernel, the 336x512 output
+   against phase 3d's fp32 projection one) and without (bf16-fusion: the
+   experts' bf16 kernels only, against phase 3's), PSNR >= 51 dB each (the
+   JAX package's all-bf16 floor);
+3c. the pipeline alone on the 336x512 image in the eleven configurations
+   in turns (default, byte-floor, projection, fusion-eval, chainv5,
+   spatial, bf16, bf16-byte-floor, bf16-fusion, bf16-fusion-eval,
+   bf16-projection, then back, after a warm-up of each): seconds per
+   request to the synchronised result, without the host's PNG work; then
+   the default path's and the five bf16 configurations' split by stage
+   (each expert alone on the same image, CUDA events);
 4. card against CPU: the same weights on one 32x48 LR image through the
    kernels on the card and the plain versions on the CPU, for each
    configuration but bf16-fusion; PSNR >= 60 dB (bf16 experts: both in
-   bf16, >= 48 dB; bf16-fusion-eval: the fusion net in bf16 too).
+   bf16, >= 48 dB; bf16-fusion-eval and bf16-projection: the fusion net
+   in bf16 too).
 
 The last three lines are {"kernels": [...]} (each kernel with its launch
 count from the run of its own configuration, the bf16 kernels' from 3j,
-the byte-floor kernels' bf16 versions' from 3k, the fusion-eval kernels'
-bf16 versions' from 3l;
+the byte-floor kernels' bf16 versions' from 3k, the fusion-eval and
+projection kernels' bf16 versions' from 3l;
 #6, #7, #10 and #22 lie on no path),
 the card's name and power limit (card: ...), and
 {"ok": true, "device": {...}}.
@@ -168,10 +177,11 @@ the card's name and power limit (card: ...), and
     python3 chip_smoke.py --bf16-only
 
 run phase 1 and phase 2's four byte-floor kernels, its three in-kernel
-projection kernels, its four fusion-eval kernels, the scan's seven
-contracts, window attention #1 alone at its ten shapes, GRL's mixed
-attention #2 and #12 at GRL-B's two shapes, the token attention #13 at
-the fusion net's two geometries, or the eleven bf16 kernels, only (to
+projection kernels (fp32, then bf16), its four fusion-eval kernels, the
+scan's seven contracts, window attention #1 alone at its ten shapes,
+GRL's mixed attention #2 and #12 at GRL-B's two shapes, the token
+attention #13 at the fusion net's two geometries (fp32, then bf16), or
+the fourteen bf16 kernels, only (to
 compare two versions of them in one call; --fusion-only,
 --nhwc-attention-only, --grl-only and --bf16-only also run beside an
 older checkout of the package), and print their summary instead of the ok
@@ -278,11 +288,15 @@ CONFIGS = {"default": {},
            "bf16-fusion": {"FREQFUSION_EXPERT_DTYPE": "bf16"},
            "bf16-fusion-eval": {**dict.fromkeys((
                "FREQFUSION_LKA", "FREQFUSION_HIER", "FREQFUSION_EDGE"), "1"),
+               "FREQFUSION_EXPERT_DTYPE": "bf16"},
+           "bf16-projection": {**dict.fromkeys((
+               "FREQFUSION_ATTN_QKV", "FREQFUSION_GRL_QKV",
+               "FREQFUSION_TOKEN_ATTN"), "1"),
                "FREQFUSION_EXPERT_DTYPE": "bf16"}}
 # the configurations whose pipeline also runs the fusion net in bf16: the
 # constructor's fusion_dtype (no variable sets it), as bench.py:bench_full
 # builds the JAX pipeline
-FUSION_BF16 = ("bf16-fusion", "bf16-fusion-eval")
+FUSION_BF16 = ("bf16-fusion", "bf16-fusion-eval", "bf16-projection")
 # phase 4 leaves out bf16-fusion (bf16-fusion-eval runs the same pipeline
 # through the kernels)
 NO_CARD_VS_CPU = ("bf16-fusion",)
@@ -330,6 +344,12 @@ PER_IMAGE_BF16_FUSION = {**PER_IMAGE_BF16, "lka_block_fused.bf16": 13,
                          "hier_stage3_fused.bf16": 1,
                          "edge_refine_fused.bf16": 3,
                          "edge_fuse_fused.bf16": 1}
+# the experts and the fusion net in bf16 with the three projection gates:
+# the qkv kernels' and the token attention's bf16 versions take the calls
+# of #1, #2 and the fusion net's two token attentions
+PER_IMAGE_BF16_QKV = {"window_attention_qkv_nhwc.bf16": 60,
+                      "grl_mixed_attention_qkv_nhwc.bf16": 40,
+                      "token_attention.bf16": 2, "selective_scan.bf16": 144}
 SOURCES = {
     "window_attention_nhwc": ("freqfusion_tpu_torch/csrc/window_attention.cu",
                               "freqfusion_tpu/ops/pallas_attention.py:238"),
@@ -381,6 +401,14 @@ SOURCES = {
         "freqfusion_tpu/ops/pallas_attention.py:795"),
     "token_attention": ("freqfusion_tpu_torch/csrc/token_attention.cu",
                         "freqfusion_tpu/ops/pallas_token_attention.py:78"),
+    "window_attention_qkv_nhwc.bf16": (
+        "freqfusion_tpu_torch/csrc/window_attention_qkv.cu",
+        "freqfusion_tpu/ops/pallas_attention.py:709"),
+    "grl_mixed_attention_qkv_nhwc.bf16": (
+        "freqfusion_tpu_torch/csrc/grl_attention_qkv.cu",
+        "freqfusion_tpu/ops/pallas_attention.py:795"),
+    "token_attention.bf16": ("freqfusion_tpu_torch/csrc/token_attention.cu",
+                             "freqfusion_tpu/ops/pallas_token_attention.py:78"),
     "lka_block_fused": ("freqfusion_tpu_torch/csrc/lka.cu",
                         "freqfusion_tpu/ops/pallas_lka.py:153"),
     "hier_stage3_fused": ("freqfusion_tpu_torch/csrc/hier.cu",
@@ -440,7 +468,9 @@ class KernelCheck:
         the work that stays on the fp32 cores beside tensor-core products,
         a third term (the units run side by side). The plain
         version is timed over `plain_reps` runs after min(2, plain_reps)
-        warm-ups, twice. Returns the kernel's time in ms."""
+        warm-ups, twice; with `plain_reps` 1 (the scan's plain versions,
+        seconds a run) once, the comparison's run its warm-up. Returns the
+        kernel's time in ms."""
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         outs = got if isinstance(got, tuple) else (got,)
@@ -449,12 +479,14 @@ class KernelCheck:
                   for g, w in zip(outs, refs))
         tol = tol_of(refs)
         del got, want, outs, refs
-        warm = min(2, plain_reps)
+        warm = min(2, plain_reps) if plain_reps > 1 else 0
         plain_ms, ms = cuda_ms(plain, plain_reps, warm), cuda_ms(kernel)
         lib_ms = None
         if library is not None:
             lib_ms = (cuda_ms(library) + cuda_ms(library)) / 2
-        ms2, plain_ms2 = cuda_ms(kernel), cuda_ms(plain, plain_reps, warm)
+        ms2 = cuda_ms(kernel)
+        plain_ms2 = (cuda_ms(plain, plain_reps, warm) if plain_reps > 1
+                     else plain_ms)
         ms, plain_ms = (ms + ms2) / 2, (plain_ms + plain_ms2) / 2
         flop_ms = max(1e3 * flops / peak_flops, 1e3 * core_flops / PEAK_FLOPS)
         byte_ms = 1e3 * nbytes / PEAK_BYTES
@@ -726,9 +758,10 @@ def check_spills(log: str, required: bool) -> None:
             lambda m: "layout pass" if m.group(4)
             else f"{4 * int(m.group(1))} warps, {m.group(2)} out n-tiles a "
                  f"warp, T {m.group(3)}"),
-        "bf16 GEMM (#14, #15, #16)": (
-            r"(fused_mlp|cab|nafblock)_cu.*bg_gemm_kernelIN\w*?(BgRows|"
-            r"BgConv3x3)\w*?(\d+)(\w+?Epi)E",
+        "bf16 GEMM (#14, #15, #16, #11, #12, #13)": (
+            r"(fused_mlp|cab|nafblock|window_attention_qkv|grl_attention_qkv"
+            r"|token_attention)_cu.*bg_gemm_kernelIN\w*?(BgRows|BgConv3x3|"
+            r"TaRows)\w*?(\d+)(\w+?Epi)E",
             lambda m: True,
             lambda m: f"{m.group(1)}.cu, {m.group(2)} rows, "
                       f"{m.group(4)[:-3]} epilogue"),
@@ -759,14 +792,16 @@ def check_spills(log: str, required: bool) -> None:
             raise AssertionError(f"no ptxas report for {group}")
     # the bf16 kernels' instantiations: reported, a spill not held against
     # them (simple first versions)
-    bf16 = (r"(window_attention|grl_attention)_bf16_kernelILi(\d+)E|"
+    bf16 = (r"((?:window|grl)_attention_bf16|ta_bf16_attend)_kernelILi(\d+)E|"
             r"(scan_project)_bf16_kernel|"
             r"scan_pass_kernelILb0ELb([01])ELi(\d+)ELi0ELb1E|"
             r"dwconv3x3_kernelI(N?S?_?6?Bf16x4|13__nv_bfloat16)E")
     for name, regs, spill in entries:
         m = re.search(bf16, name)
         if m:
-            what = (f"{m.group(1)}, head box {m.group(2)}" if m.group(1)
+            what = (f"{m.group(1)}, head "
+                    f"{'dim' if m.group(1) == 'ta_bf16_attend' else 'box'} "
+                    f"{m.group(2)}" if m.group(1)
                     else "scan projection" if m.group(3)
                     else "dwconv, " + ("four channels" if "x4" in m.group(6)
                                        else "one channel") + " a thread"
@@ -1143,6 +1178,7 @@ def phase_bf16_kernels(dev, randn, checks) -> None:
     torch.cuda.empty_cache()
     phase_bf16_fused_kernels(dev, randn, checks, beside)
     phase_bf16_fusion_kernels(dev, randn, checks, beside)
+    phase_bf16_qkv_kernels(dev, randn, checks)
 
 
 def phase_bf16_fused_kernels(dev, randn, checks, beside) -> None:
@@ -1247,6 +1283,185 @@ def phase_bf16_fused_kernels(dev, randn, checks, beside) -> None:
     beside("dwconv3x3", dw)
     del x, x_nchw
     torch.cuda.empty_cache()
+
+
+def phase_bf16_qkv_kernels(dev, randn, checks) -> None:
+    """The projection configuration's kernels in bf16 at their path's
+    shapes on the 336x512 bucket, as the cast modules hand them: #11 at
+    DRCT-L's five widths, shifted and not (bf16 x, weights, biases and bias
+    table, fp32 mask); #12 at GRL-B's two shapes (bf16 x, x_rolled, anchor,
+    wqkv and bqkv, fp32 scales, biases and mask); then #13
+    (phase_bf16_token_kernel). Each against its bf16 plain version
+    (BF16_ULPS), beside the bf16 route its gate replaces (the bf16 module's
+    F.linear projections around #1's or #2's bf16 kernel), the fp32
+    kernel's time where this run measured it, and the bound at the bf16
+    tensor-core rate (bf16 bytes: x in and out out once, the weights and
+    tables once)."""
+    import torch.nn.functional as F
+
+    from freqfusion_tpu_torch.ops.attention import (
+        grl_mixed_attention_nhwc, grl_mixed_attention_qkv_nhwc,
+        grl_mixed_attention_qkv_nhwc_reference, window_attention_nhwc,
+        window_attention_qkv_nhwc, window_attention_qkv_nhwc_reference)
+    from freqfusion_tpu_torch.ops.window_attention import (
+        device_table, shifted_window_mask)
+
+    bf = torch.bfloat16
+    h, w = LR_SIZES["c_336x512"]
+    p = h * w
+    wq = checks["window_attention_qkv_nhwc.bf16"] = KernelCheck(
+        "window_attention_qkv_nhwc.bf16")
+    for c, heads in ((180, 6), (212, 4), (244, 2), (276, 6), (308, 4)):
+        x = randn(1, h, w, c).to(bf)
+        wqkv, wproj = (randn(c, 3 * c, scale=c ** -0.5).to(bf),
+                       randn(c, c, scale=c ** -0.5).to(bf))
+        bqkv, bproj = (randn(3 * c, scale=0.1).to(bf),
+                       randn(c, scale=0.1).to(bf))
+        bias = randn(heads, 256, 256, scale=0.5).to(bf)
+        w_t, wp_t = wqkv.t().contiguous(), wproj.t().contiguous()
+        for shift in (0, 8):
+            mask = device_table(shifted_window_mask, h, w, 16, shift,
+                                device=dev)
+            args = (x, wqkv, bqkv, wproj, bproj, bias, mask, heads, 16)
+            label = f"C{c}/hd{c // heads}/{'mask' if shift else 'nomask'}"
+            nbytes = (2 * (2 * p * c + 4 * c * c + 4 * c + bias.numel())
+                      + (0 if mask is None else 4 * mask.numel()))
+            wq.run(label, lambda: window_attention_qkv_nhwc(*args),
+                   lambda: window_attention_qkv_nhwc_reference(*args),
+                   bf16_tol, 8.0 * p * c * c + 4.0 * p * 256 * c, nbytes,
+                   peak_flops=PEAK_BF16)
+            if c == 180 and not shift:
+                launch_breakdown(f"#11 bf16 {label}",
+                                 lambda: window_attention_qkv_nhwc(*args))
+
+            def gate_off():
+                q, k, v = (F.linear(x, w_t[i * c:(i + 1) * c],
+                                    bqkv[i * c:(i + 1) * c])
+                           for i in range(3))
+                return F.linear(window_attention_nhwc(q, k, v, bias, mask,
+                                                      heads, 16),
+                                wp_t, bproj)
+            wq.route(label, lambda: window_attention_qkv_nhwc(*args),
+                     gate_off, "3 F.linear + bf16 kernel #1 + F.linear")
+        del x, args
+    _beside(checks, "window_attention_qkv_nhwc", wq)
+    torch.cuda.empty_cache()
+
+    gq = checks["grl_mixed_attention_qkv_nhwc.bf16"] = KernelCheck(
+        "grl_mixed_attention_qkv_nhwc.bf16")
+    x = randn(1, h, w, 180).to(bf)
+    anchor = randn(1, h // 2, w // 2, 90).to(bf)
+    wqkv = randn(180, 540, scale=180 ** -0.5).to(bf)
+    bqkv = randn(540, scale=0.1).to(bf)
+    w_t = wqkv.t().contiguous()
+    scales = [10.0 + randn(3, 1, 1).abs() for _ in range(3)]
+    biases = [16 * torch.sigmoid(randn(*s)) for s in ((3, 64, 64),
+                                                     (3, 16, 64), (3, 64, 16))]
+    for shift in (0, 4):
+        mask = device_table(shifted_window_mask, h, w, 8, shift, device=dev)
+        x_rolled = (torch.roll(x, (-shift, -shift), (1, 2)) if shift
+                    else None)
+        args = (x, x_rolled, anchor, wqkv, bqkv, *scales, *biases, mask, 3,
+                3, 8)
+        label = "shift" if shift else "noshift"
+        nbytes = (2 * ((2 if shift else 1) * p * 180 + anchor.numel()
+                       + 2 * p * 90 + 181 * 540)
+                  + 4 * (sum(b.numel() for b in biases)
+                         + (0 if mask is None else mask.numel())))
+        gq.run(label, lambda: grl_mixed_attention_qkv_nhwc(*args),
+               lambda: grl_mixed_attention_qkv_nhwc_reference(*args),
+               bf16_tol, 2.0 * p * 180 * 540 + p * 90 * (4.0 * 64 + 8 * 16),
+               nbytes, peak_flops=PEAK_BF16)
+        if shift:
+            launch_breakdown(f"#12 bf16 {label}",
+                             lambda: grl_mixed_attention_qkv_nhwc(*args))
+
+        def gate_on():
+            xr = torch.roll(x, (-shift, -shift), (1, 2)) if shift else None
+            return grl_mixed_attention_qkv_nhwc(
+                x, xr, anchor, wqkv, bqkv, *scales, *biases, mask, 3, 3, 8)
+
+        def gate_off():
+            qkv6 = [F.linear(x, w_t[i * 90:(i + 1) * 90],
+                             bqkv[i * 90:(i + 1) * 90]) for i in range(6)]
+            if shift:
+                qkv6[:3] = [torch.roll(t, (-shift, -shift), (1, 2))
+                            for t in qkv6[:3]]
+            return grl_mixed_attention_nhwc(*qkv6, anchor, *scales, *biases,
+                                            mask, 3, 3, 8)
+        gq.route(label, gate_on, gate_off,
+                 "6 F.linear + rolls + bf16 kernel #2; on: roll + kernel")
+    _beside(checks, "grl_mixed_attention_qkv_nhwc", gq)
+    del x, x_rolled, args, anchor
+    torch.cuda.empty_cache()
+    phase_bf16_token_kernel(dev, randn, checks)
+
+
+def phase_bf16_token_kernel(dev, randn, checks) -> None:
+    """#13 in bf16 at the fusion net's two geometries over the 336x512
+    bucket's pixels, the module cast to bf16 handing the kernel its weight
+    views: against the bf16 plain version (BF16_ULPS), beside
+    nn.MultiheadAttention in bf16 (the library call), the gate-off route
+    (the bf16 module's forward), the fp32 kernel's time where this run
+    measured it, and the bound: the projections at the bf16 tensor-core
+    rate, the attention (4 T^2 E a pixel) on the fp32 cores a third term,
+    bf16 bytes; one T 9 call's launches by torch.profiler."""
+    from freqfusion_tpu_torch.models.fusion.lka import TokenMultiheadAttention
+    from freqfusion_tpu_torch.ops.token_attention import (
+        token_attention, token_attention_reference)
+
+    bf = torch.bfloat16
+    h, w = LR_SIZES["c_336x512"]
+    p = h * w
+    set_gates("default")  # the module's forward below is the gate-off route
+    ta = checks["token_attention.bf16"] = KernelCheck("token_attention.bf16")
+    for t, e, nh in ((9, 64, 4), (4, 128, 8)):
+        x = randn(p, t, e).to(bf)
+        mod = TokenMultiheadAttention(e, nh).to(dev).eval().requires_grad_(
+            False)
+        mod.in_proj_weight.copy_(randn(3 * e, e, scale=e ** -0.5))
+        mod.in_proj_bias.copy_(randn(3 * e, scale=0.1))
+        mod.out_proj.weight.copy_(randn(e, e, scale=e ** -0.5))
+        mod.out_proj.bias.copy_(randn(e, scale=0.1))
+        mha = torch.nn.MultiheadAttention(e, nh, batch_first=True).to(
+            dev).eval().requires_grad_(False)
+        mha.load_state_dict({"in_proj_weight": mod.in_proj_weight,
+                             "in_proj_bias": mod.in_proj_bias,
+                             "out_proj.weight": mod.out_proj.weight,
+                             "out_proj.bias": mod.out_proj.bias})
+        mod.to(bf)
+        mha.to(bf)
+        args = (x, mod.in_proj_weight.t(), mod.in_proj_bias,
+                mod.out_proj.weight.t(), mod.out_proj.bias, nh)
+        label = f"T{t}/E{e}/h{nh}/P{p}"
+        ta.run(label, lambda: token_attention(*args),
+               lambda: token_attention_reference(*args), bf16_tol,
+               p * (2.0 * t * e * 3 * e + 2.0 * t * e * e),
+               2 * (2 * p * t * e + 4 * e * e + 4 * e),
+               lambda: mha(x, x, x, need_weights=False)[0],
+               peak_flops=PEAK_BF16, core_flops=p * 4.0 * t * t * e)
+        if t == 9:
+            launch_breakdown(f"#13 bf16 {label}",
+                             lambda: token_attention(*args))
+        ta.route(label, lambda: token_attention(*args), lambda: mod(x),
+                 "the bf16 module's forward: F.linear, 2 einsums, softmax "
+                 "op by op, out_proj")
+        del x, args, mha, mod
+        torch.cuda.empty_cache()
+    _beside(checks, "token_attention", ta)
+
+
+def phase_qkv_all(dev, randn, checks) -> None:
+    """``--qkv-only``: the projection kernels in fp32, then in bf16."""
+    phase_qkv_kernels(dev, randn, checks)
+    torch.cuda.empty_cache()
+    phase_bf16_qkv_kernels(dev, randn, checks)
+
+
+def phase_token_all(dev, randn, checks) -> None:
+    """``--token-only``: #13 in fp32, then in bf16."""
+    phase_token_kernel(dev, randn, checks)
+    phase_bf16_token_kernel(dev, randn, checks)
 
 
 def _conv_tree(randn, k, cin, cout, groups=1):
@@ -1920,7 +2135,10 @@ def phase_bf16_fusion(model_dir: Path, in_dir: Path, work: Path) -> dict:
     bf16 #18-#21, none of an fp32 kernel; the 336x512 output against phase
     3e's fp32 fusion-eval one) and without them (the JAX package's bench
     mode: the experts' bf16 kernels only; against phase 3's fp32 output),
-    PSNR >= 51 dB each. Returns the gated run's launch counts."""
+    and with the three projection gates (bf16-projection: 60, 40, 2 and
+    144 launches of the bf16 #11, #12, #13 and #3/#4 per image, none of an
+    fp32 kernel; against phase 3d's fp32 projection output), PSNR >= 51 dB
+    each. Returns each configuration's launch counts."""
     from freqfusion_tpu_torch.ops import cuda
     from freqfusion_tpu_torch.utils.image_io import read_image, write_image
 
@@ -1932,6 +2150,8 @@ def phase_bf16_fusion(model_dir: Path, in_dir: Path, work: Path) -> dict:
     for config, per_image, ref, what in (
             ("bf16-fusion-eval", PER_IMAGE_BF16_FUSION, "out_fusion-eval",
              "phase 3e's fp32 fusion-eval output"),
+            ("bf16-projection", PER_IMAGE_BF16_QKV, "out_projection",
+             "phase 3d's fp32 projection output"),
             ("bf16-fusion", PER_IMAGE_BF16, "out", "phase 3's fp32 output")):
         set_gates(config)
         out = work / f"out_{config}"
@@ -1968,7 +2188,7 @@ def phase_bf16_fusion(model_dir: Path, in_dir: Path, work: Path) -> dict:
             raise AssertionError(f"{config} PSNR {db:.2f} < {PSNR_BF16_FUSION}")
     set_gates("default")
     del pipe
-    return counts["bf16-fusion-eval"]
+    return counts
 
 
 def phase_serving(model_dir: Path, in_dir: Path, out_dir: Path,
@@ -2327,6 +2547,7 @@ def phase_card_vs_cpu(model_dir: Path, config: str,
 
 
 def main(argv) -> int:
+    t0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2363,7 +2584,7 @@ def main(argv) -> int:
     for flag, what, phase in (("--fused-only", "byte-floor",
                                phase_fused_kernels),
                               ("--qkv-only", "in-kernel projection",
-                               phase_qkv_kernels),
+                               phase_qkv_all),
                               ("--fusion-only", "fusion-eval",
                                phase_fusion_kernels),
                               ("--scan-only", "scan", phase_scan_kernels),
@@ -2373,9 +2594,9 @@ def main(argv) -> int:
                               ("--grl-only", "GRL mixed attention (#2, #12)",
                                phase_grl_kernels),
                               ("--token-only", "token attention (#13)",
-                               phase_token_kernel),
+                               phase_token_all),
                               ("--bf16-only",
-                               "bf16 (#1, #2, #3/#4, #14-#21)",
+                               "bf16 (#1, #2, #3/#4, #11-#21)",
                                phase_bf16_kernels)):
         if flag in argv:
             print(f"[2] the {what} kernels against their plain versions")
@@ -2411,6 +2632,7 @@ def main(argv) -> int:
     print("[2] kernels against their plain versions (336x512 bucket)")
     checks = phase_kernels(dev)
     torch.cuda.empty_cache()
+    print(f"  phases 1-2 took {time.perf_counter() - t0:.0f} s")
 
     from freqfusion_tpu_torch.utils.image_io import read_image
 
@@ -2477,8 +2699,8 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         print("[3l] serving, the experts and the fusion net in bf16 "
               "(expert_dtype and fusion_dtype bf16), with the fusion-eval "
-              "gates and without")
-        counts["bf16-fusion-eval"] = phase_bf16_fusion(model_dir, in_dir, work)
+              "gates, with the projection gates and without")
+        counts.update(phase_bf16_fusion(model_dir, in_dir, work))
         torch.cuda.empty_cache()
         print(f"[3c] pipeline alone, 336x512, the {len(CONFIGS)} "
               "configurations in turns")
@@ -2500,8 +2722,10 @@ def main(argv) -> int:
         ("fusion-eval", PER_IMAGE_FUSION), ("chainv5", PER_IMAGE_CHAINV5),
         ("spatial", PER_IMAGE_SPATIAL), ("bidir", PER_IMAGE_BIDIR),
         ("bf16-fusion-eval", PER_IMAGE_BF16_FUSION),
+        ("bf16-projection", PER_IMAGE_BF16_QKV),
         ("bf16-byte-floor", PER_IMAGE_BF16_GATED), ("bf16", PER_IMAGE_BF16),
         ("default", PER_IMAGE)) for k in per_image}
+    print(f"all phases took {time.perf_counter() - t0:.0f} s")
     print(json.dumps({"kernels": [c.entry(launches.get(c.name, 0))
                                   for c in checks.values()]}))
     print(f"card: {smi}")

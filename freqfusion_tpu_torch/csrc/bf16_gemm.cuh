@@ -253,6 +253,23 @@ struct BgBiasEpi {
   }
 };
 
+// out[s][m, c] = bf16(v + bias[n]) for n = s width + c < segs width: a
+// product's columns cut into `segs` (at most 3) contiguous [M, width] bf16
+// tensors, width even (q | k | v of the qkv projections, or one output).
+struct BgSegEpi {
+  const bf16* bias;
+  bf16* out[3];
+  long long M;
+  int width, segs;
+  __device__ __forceinline__ void operator()(long long m, int n, float v0,
+                                             float v1) const {
+    if (m >= M || n >= segs * width) return;
+    const int s = n / width, c = n - s * width;
+    *reinterpret_cast<uint32_t*>(out[s] + m * width + c) =
+        pack_bf16(v0 + bg_f(bias[n]), v1 + bg_f(bias[n + 1]));
+  }
+};
+
 // ---------------------------------------------------------------------
 // Passes around the products
 

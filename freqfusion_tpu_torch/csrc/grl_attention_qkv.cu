@@ -29,9 +29,42 @@
 // buys the projection its tensor-core GEMM: the in-block fp32 projection
 // this replaces ran at ~6% of the fp32 cores' bound's rate, each head's
 // block re-reading the tile's x.
+//
+// bf16 form: ff_grl_mixed_attention_qkv_nhwc_bf16, for the bf16 expert
+// mode, with the JAX kernel's rounding points (_grl_qkv_body, :459-489, on
+// bf16 operands): each half's q | k | v = bf16(x W + b) with fp32 sums and
+// bias add (:475-481), then #2's bf16 mixed attention (grl_attention.cu,
+// _grl_mixed_core at bf16: q, k and the anchors normalised and rounded,
+// the softmaxes in fp32 rounded before their products, x1 and both
+// outputs rounded). Launches, no library call:
+//   1. the two halves' weight columns zero-padded to [kp][np] bf16
+//      (bf16_gemm.cuh's bg_pad, a launch each);
+//   2. x_rolled (x where unshifted) into rows padded to kp (bg_rows: Cin
+//      180 is 360 bytes a row, not the 16-byte multiple the GEMM's copies
+//      take);
+//   3. the window half's q | k | v on bf16_gemm.cuh's GEMM (bf16 mma.sync,
+//      fp32 sums), the epilogue writing qw, kw, vw as three contiguous
+//      [B, H, W, C2] bf16 tensors, the layout #2's bf16 entry takes;
+//   4. (shifted only) x into padded rows; 5. the stripe half's qs, ks, vs;
+//   6. #2's bf16 kernel (ff_grl_mixed_attention_nhwc_bf16) as it is.
+// What bounds it: at 336x512 the projection is 33.4 GFLOP a call, 0.03 ms
+// at 989 TFLOP/s, and x (twice where shifted), the anchor and the two
+// outputs ~0.19 GB, 0.06 ms; this first version moves the six halves and
+// the padded rows through device memory besides.
 
+#include "bf16_gemm.cuh"
 #include "grl_attention.cuh"
 #include "tf32_gemm.cuh"
+
+// grl_attention.cu: #2's bf16 kernel (halves and anchor bf16; scales,
+// biases and mask fp32)
+extern "C" int ff_grl_mixed_attention_nhwc_bf16(
+    const void* qw, const void* kw, const void* vw, const void* qs,
+    const void* ks, const void* vs, const void* anchor, const float* scale_w,
+    const float* scale_s1, const float* scale_s2, const float* bias_w,
+    const float* bias_s1, const float* bias_s2, const float* mask,
+    void* out_w, void* out_s, int B, int H, int W, int C2, int heads_w,
+    int heads_s, int ws, int df, void* stream);
 
 namespace {
 
@@ -125,4 +158,94 @@ extern "C" int ff_grl_mixed_attention_qkv_nhwc(
                scale_s1, scale_s2, bias_s1, bias_s2, nullptr, out_s}},
       anchor, H, W, C2};
   return int(grl_attention_launch(g, B, s));
+}
+
+namespace {
+
+// The bf16 call's scratch (byte offsets), each piece 256-byte aligned:
+// the two halves' padded weights, the padded rows, the six halves.
+struct GrlQkvBf16Layout {
+  int kp, np;  // Cin padded to 32, 3 C2 to 64
+  long long w[2], a, half[6], bytes;
+};
+
+GrlQkvBf16Layout grl_qkv_bf16_layout(long long M, int Cin, int C2) {
+  GrlQkvBf16Layout l;
+  l.kp = bg_up(Cin, kBgK);
+  l.np = bg_up(3 * C2, kBgN);
+  l.w[0] = 0;
+  l.w[1] = bg_piece(2LL * l.kp * l.np);
+  l.a = 2 * l.w[1];
+  long long off = l.a + bg_piece(2 * M * l.kp);
+  for (int i = 0; i < 6; ++i) {
+    l.half[i] = off;
+    off += bg_piece(2 * M * C2);
+  }
+  l.bytes = off;
+  return l;
+}
+
+}  // namespace
+
+// Bytes of scratch a bf16 call on M pixels of Cin channels, halves of C2,
+// needs (grl_qkv_bf16_layout); -1 for widths it refuses.
+extern "C" long long ff_grl_qkv_bf16_scratch_bytes(long long M, int Cin,
+                                                   int C2) {
+  if (M <= 0 || Cin <= 0 || Cin > 2048 || C2 <= 0 || C2 % 2) return -1;
+  return grl_qkv_bf16_layout(M, Cin, C2).bytes;
+}
+
+// As ff_grl_mixed_attention_qkv_nhwc with x, x_rolled (or null), the
+// anchor, wqkv, bqkv and both outputs bf16, the scales, biases and mask
+// fp32 (8-byte aligned); scratch of ff_grl_qkv_bf16_scratch_bytes(B H W,
+// Cin, C2) bytes, 16-byte aligned. C2 even.
+extern "C" int ff_grl_mixed_attention_qkv_nhwc_bf16(
+    const void* x_, const void* x_rolled_, const void* anchor,
+    const void* wqkv_, const void* bqkv_, const float* scale_w,
+    const float* scale_s1, const float* scale_s2, const float* bias_w,
+    const float* bias_s1, const float* bias_s2, const float* mask,
+    void* out_w, void* out_s, void* scratch_, long long scratch_bytes, int B,
+    int H, int W, int Cin, int C2, int heads_w, int heads_s, int ws, int df,
+    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long M = (long long)B * H * W;
+  const long long need = ff_grl_qkv_bf16_scratch_bytes(M, Cin, C2);
+  if (need < 0 || scratch_bytes < need ||
+      reinterpret_cast<size_t>(scratch_) % 16)
+    return int(cudaErrorInvalidValue);
+  const GrlQkvBf16Layout l = grl_qkv_bf16_layout(M, Cin, C2);
+  char* scratch = static_cast<char*>(scratch_);
+  auto piece = [&](long long off) {
+    return reinterpret_cast<bf16*>(scratch + off);
+  };
+  const bf16* x = static_cast<const bf16*>(x_);
+  const bf16* xr = x_rolled_ ? static_cast<const bf16*>(x_rolled_) : x;
+  const bf16* wqkv = static_cast<const bf16*>(wqkv_);
+  const bf16* bqkv = static_cast<const bf16*>(bqkv_);
+  bf16* a = piece(l.a);
+  bf16* h[6];
+  for (int i = 0; i < 6; ++i) h[i] = piece(l.half[i]);
+  cudaError_t err = cudaSuccess;
+  for (int half = 0; half < 2 && err == cudaSuccess; ++half)
+    err = bg_pad(wqkv + 3 * C2 * half, 6 * C2, 1, Cin, l.kp, 3 * C2, 0,
+                 piece(l.w[half]), l.kp, l.np, s);
+  // the window half from x_rolled, the stripe half from x (the rows pass
+  // again only where the two differ)
+  for (int half = 0; half < 2 && err == cudaSuccess; ++half) {
+    if (half == 0 || x_rolled_)
+      err = bg_rows(half ? x : xr, M, Cin, nullptr, nullptr, 0.f, a, l.kp,
+                    s);
+    if (err == cudaSuccess)
+      err = bg_gemm(BgRows{a, M, l.kp}, M, piece(l.w[half]), l.np, l.kp,
+                    l.np,
+                    BgSegEpi{bqkv + 3 * C2 * half,
+                             {h[3 * half], h[3 * half + 1], h[3 * half + 2]},
+                             M, C2, 3},
+                    s);
+  }
+  if (err != cudaSuccess) return int(err);
+  return ff_grl_mixed_attention_nhwc_bf16(
+      h[0], h[1], h[2], h[3], h[4], h[5], anchor, scale_w, scale_s1,
+      scale_s2, bias_w, bias_s1, bias_s2, mask, out_w, out_s, B, H, W, C2,
+      heads_w, heads_s, ws, df, stream);
 }

@@ -70,11 +70,38 @@
 // pass the 227 KB a block may have) and the bytes every tile pulls from
 // L2. Weight bytes from L2 a tile: E^2 16 = 64 KB at T 9, 256 KB at T 4
 // (0.81 and 1.41 GB a call at 336x512).
+//
+// bf16 form: ff_token_attention_bf16, for the fusion net in bf16, with
+// the JAX kernel's rounding points (pallas_token_attention.py, on bf16
+// operands): the q-scale folded into Win's q columns and bias in fp32,
+// then rounded to bf16 (:96-105); q | k | v = bf16(x Win + bin) with fp32
+// sums and bias add (:51); each logit the fp32 sum of the q k products
+// (:57 rounds each product to bf16 in the source, a round trip XLA's
+// default excess precision drops, so the kernel as JAX runs it sums exact
+// fp32 products: the product of two bf16 values is exact in fp32, and an
+// FMA gives the same sums); the softmax in fp32, not rounded; o_h = sum
+// of p v in fp32, rounded a head (:58-63); out = bf16(o Wout + bout)
+// (:69). Four launches, no library call:
+//   1. ta_bf16_prep_kernel: Win (q-scale folded) and Wout, through their
+//      strides, zero-padded to [kp][np] bf16, and the folded bias;
+//   2. q | k | v on bf16_gemm.cuh's GEMM (bf16 mma.sync m16n8k16, fp32
+//      sums, no hi/lo split), rows of x read in place (E a multiple of 8:
+//      16-byte rows), into a [P T, 3E] bf16 scratch;
+//   3. ta_bf16_attend_kernel<HD>: a block stages whole pixels' q | k | v
+//      rows in shared memory, then a thread a (pixel, head, query token)
+//      on the fp32 cores, into o [P T, E] bf16;
+//   4. out = bf16(o Wout + bout), the same GEMM.
+// What bounds it: bytes. At 336x512 x and out are 0.40 (T 9) and 0.35 GB
+// (T 4), 0.12 and 0.11 ms, against 0.05 and 0.09 ms of products at 989
+// TFLOP/s and 0.05 and 0.02 ms of attention on the fp32 cores; this first
+// version moves q | k | v and o through device memory besides (four times
+// x's bytes).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16_gemm.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -618,4 +645,239 @@ extern "C" int ff_token_attention(const float* x, const float* win,
     case 8: return int(ta_launch<2, 8>(a, q.smem, s));
     default: return int(ta_launch<2, 10>(a, q.smem, s));
   }
+}
+
+namespace {
+
+// A's rows from a row-major [M, E] bf16 matrix (E a multiple of 8, rows
+// 16-byte aligned), zeros from column E on (K is E padded to 32).
+struct TaRows {
+  const bf16* a;
+  long long M;
+  int E;
+  __device__ __forceinline__ const bf16* src(long long m, int k) const {
+    return m < M && k < E ? a + m * E + k : nullptr;
+  }
+};
+
+// The bf16 call's scratch (byte offsets), each piece 256-byte aligned.
+struct TaBf16Layout {
+  int kp, npq, npo;  // E padded to 32; 3E and E padded to 64
+  long long wq, bq, wo, qkv, o, bytes;
+};
+
+TaBf16Layout ta_bf16_layout(long long P, int T, int E) {
+  TaBf16Layout l;
+  l.kp = bg_up(E, kBgK);
+  l.npq = bg_up(3 * E, kBgN);
+  l.npo = bg_up(E, kBgN);
+  const long long M = P * T;
+  l.wq = 0;
+  l.bq = l.wq + bg_piece(2LL * l.kp * l.npq);
+  l.wo = l.bq + bg_piece(2LL * 3 * E);
+  l.qkv = l.wo + bg_piece(2LL * l.kp * l.npo);
+  l.o = l.qkv + bg_piece(2 * M * 3 * E);
+  l.bytes = l.o + bg_piece(2 * M * E);
+  return l;
+}
+
+// wq [kp][npq]: wq[r][n] = bf16(win[r][n] * (q column ? scale : 1)) for r <
+// E, n < 3E, else 0; bq[n] = bf16(bin[n] * (the same)); wo [kp][npo]:
+// wout[r][n] for r, n < E, else 0. win and wout read through their element
+// strides.
+__global__ void __launch_bounds__(256)
+ta_bf16_prep_kernel(const bf16* __restrict__ win, long long ws0,
+                    long long ws1, const bf16* __restrict__ bin,
+                    const bf16* __restrict__ wout, long long os0,
+                    long long os1, int E, float scale, int kp, int npq,
+                    int npo, bf16* __restrict__ wq, bf16* __restrict__ bq,
+                    bf16* __restrict__ wo) {
+  const long long nq = (long long)kp * npq, total = nq + 3 * E +
+                                                    (long long)kp * npo;
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < total;
+       i += gridDim.x * 256LL) {
+    if (i < nq) {
+      const int r = int(i / npq), n = int(i % npq);
+      const float v = r < E && n < 3 * E
+                          ? bg_f(win[r * ws0 + n * ws1]) * (n < E ? scale : 1.f)
+                          : 0.f;
+      wq[i] = bg_round(v);
+    } else if (i < nq + 3 * E) {
+      const int n = int(i - nq);
+      bq[n] = bg_round(bg_f(bin[n]) * (n < E ? scale : 1.f));
+    } else {
+      const long long j = i - nq - 3 * E;
+      const int r = int(j / npo), n = int(j % npo);
+      bf16 v = bg_round(0.f);
+      if (r < E && n < E) v = wout[r * os0 + n * os1];
+      wo[j] = v;
+    }
+  }
+}
+
+// HD bf16 of a row (16-byte aligned, in shared memory) as floats.
+template <int HD>
+__device__ __forceinline__ void ta_load_row(float (&dst)[HD],
+                                            const bf16* src) {
+#pragma unroll
+  for (int c = 0; c < HD / 8; ++c) {
+    const uint4 u = reinterpret_cast<const uint4*>(src)[c];
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+      dst[8 * c + 2 * e] = f.x;
+      dst[8 * c + 2 * e + 1] = f.y;
+    }
+  }
+}
+
+// o[p T + i][h HD + d] = bf16(sum_j softmax_j(sum_d q_id k_jd) v_jd) over
+// qkv [P T, 3E] (q | k | v, head h at columns h HD of each), fp32
+// throughout. A block stages `pb` whole pixels' q | k | v rows (one
+// contiguous run of qkv) in shared memory by 16-byte loads, then runs a
+// thread a (pixel, head, query), reading its q row and the pixel's k and
+// v rows from there.
+template <int HD>
+__global__ void __launch_bounds__(256)
+ta_bf16_attend_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ o,
+                      long long P, int T, int E, int heads, int pb) {
+  extern __shared__ uint4 ta_rows[];
+  const long long p0 = (long long)blockIdx.x * pb;
+  const int np = int(P - p0 < pb ? P - p0 : pb);
+  const int row = 3 * E;  // bf16 a row
+  const uint4* src = reinterpret_cast<const uint4*>(qkv + p0 * T * row);
+  for (int c = threadIdx.x; c < np * T * row / 8; c += blockDim.x)
+    ta_rows[c] = src[c];
+  __syncthreads();
+  const int u = threadIdx.x;
+  if (u >= np * heads * T) return;
+  const int i = u % T, h = u / T % heads, pl = u / (T * heads);
+  const bf16* rows = reinterpret_cast<const bf16*>(ta_rows) +
+                     (long long)pl * T * row + h * HD;
+  float q[HD], r[HD];
+  ta_load_row<HD>(q, rows + i * row);
+  float l[kMaxT];
+  float mx = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < kMaxT; ++j) {
+    if (j < T) {
+      ta_load_row<HD>(r, rows + j * row + E);
+      float acc = 0.f;
+#pragma unroll
+      for (int d = 0; d < HD; ++d) acc += q[d] * r[d];
+      l[j] = acc;
+      mx = fmaxf(mx, acc);
+    }
+  }
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < kMaxT; ++j)
+    if (j < T) {
+      l[j] = expf(l[j] - mx);
+      sum += l[j];
+    }
+  float acc[HD];
+#pragma unroll
+  for (int d = 0; d < HD; ++d) acc[d] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kMaxT; ++j)
+    if (j < T) {
+      const float w = l[j] / sum;
+      ta_load_row<HD>(r, rows + j * row + 2 * E);
+#pragma unroll
+      for (int d = 0; d < HD; ++d) acc[d] += w * r[d];
+    }
+  uint4* dst = reinterpret_cast<uint4*>(o + ((p0 + pl) * T + i) * E + h * HD);
+#pragma unroll
+  for (int c = 0; c < HD / 8; ++c)
+    dst[c] = make_uint4(pack_bf16(acc[8 * c], acc[8 * c + 1]),
+                        pack_bf16(acc[8 * c + 2], acc[8 * c + 3]),
+                        pack_bf16(acc[8 * c + 4], acc[8 * c + 5]),
+                        pack_bf16(acc[8 * c + 6], acc[8 * c + 7]));
+}
+
+}  // namespace
+
+// Bytes of scratch ff_token_attention_bf16 needs (ta_bf16_layout); -1 for
+// shapes it refuses.
+extern "C" long long ff_token_attention_bf16_scratch_bytes(long long P,
+                                                           int T, int E) {
+  if (P < 1 || T < 1 || T > kMaxT || E < 8 || E % 8 || E > 2048) return -1;
+  return ta_bf16_layout(P, T, E).bytes;
+}
+
+// As ff_token_attention, all bf16: x, out [P, T, E] contiguous, 16-byte
+// aligned; win [E, 3E] and wout [E, E] through their element strides; bin
+// [3E], bout [E]; scale the q-scale (hd^-0.5 in fp32); scratch of
+// ff_token_attention_bf16_scratch_bytes bytes, 16-byte aligned. E a
+// multiple of 8 and of heads; head dims 8, 16 or 32; T <= 16.
+extern "C" int ff_token_attention_bf16(
+    const void* x_, const void* win, long long ws0, long long ws1,
+    const void* bin, const void* wout, long long os0, long long os1,
+    const void* bout, void* out_, void* scratch_, long long scratch_bytes,
+    long long P, int T, int E, int num_heads, float scale, void* stream) {
+  const long long need = ff_token_attention_bf16_scratch_bytes(P, T, E);
+  const int hd = num_heads > 0 && E % num_heads == 0 ? E / num_heads : 0;
+  if (need < 0 || scratch_bytes < need || (hd != 8 && hd != 16 && hd != 32) ||
+      (reinterpret_cast<size_t>(x_) | reinterpret_cast<size_t>(out_) |
+       reinterpret_cast<size_t>(scratch_)) % 16)
+    return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const TaBf16Layout l = ta_bf16_layout(P, T, E);
+  char* scratch = static_cast<char*>(scratch_);
+  auto piece = [&](long long off) {
+    return reinterpret_cast<bf16*>(scratch + off);
+  };
+  bf16 *wq = piece(l.wq), *bq = piece(l.bq), *wo = piece(l.wo);
+  bf16 *qkv = piece(l.qkv), *o = piece(l.o);
+  const long long M = P * T;
+  const long long total = (long long)l.kp * (l.npq + l.npo) + 3 * E;
+  const long long pblocks = (total + 255) / 256;
+  ta_bf16_prep_kernel<<<unsigned(pblocks < 264 ? pblocks : 264), 256, 0,
+                        s>>>(static_cast<const bf16*>(win), ws0, ws1,
+                             static_cast<const bf16*>(bin),
+                             static_cast<const bf16*>(wout), os0, os1, E,
+                             scale, l.kp, l.npq, l.npo, wq, bq, wo);
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = bg_gemm(TaRows{static_cast<const bf16*>(x_), M, E}, M, wq, l.npq,
+                  l.kp, l.npq, BgSegEpi{bq, {qkv, nullptr, nullptr}, M,
+                                        3 * E, 1},
+                  s);
+  if (err != cudaSuccess) return int(err);
+  // whole pixels a block: a thread each (head, query) of them, at most 256,
+  // their rows in at most 48 KB
+  const int per_pixel = num_heads * T;
+  const long long pixel_bytes = 2LL * T * 3 * E;
+  const long long by_threads = 256 / per_pixel;
+  const long long by_smem = 49152 / pixel_bytes;
+  const int pb = int(by_threads < by_smem ? by_threads : by_smem);
+  if (pb < 1) return int(cudaErrorInvalidValue);
+  const long long blocks = (P + pb - 1) / pb;
+  const size_t smem = size_t(pb * pixel_bytes);
+  if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+  const unsigned threads = unsigned(pb * per_pixel);
+  switch (hd) {
+    case 8:
+      ta_bf16_attend_kernel<8><<<unsigned(blocks), threads, smem, s>>>(
+          qkv, o, P, T, E, num_heads, pb);
+      break;
+    case 16:
+      ta_bf16_attend_kernel<16><<<unsigned(blocks), threads, smem, s>>>(
+          qkv, o, P, T, E, num_heads, pb);
+      break;
+    default:
+      ta_bf16_attend_kernel<32><<<unsigned(blocks), threads, smem, s>>>(
+          qkv, o, P, T, E, num_heads, pb);
+  }
+  err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = bg_gemm(TaRows{o, M, E}, M, wo, l.npo, l.kp, l.npo,
+                  BgSegEpi{static_cast<const bf16*>(bout),
+                           {static_cast<bf16*>(out_), nullptr, nullptr}, M,
+                           E, 1},
+                  s);
+  return int(err);
 }

@@ -40,9 +40,47 @@
 // write kp floats a pixel: ~0.13 ms a pass at C 308), which is cheaper
 // than copying row-major A into shared memory by every warp of a block
 // (fused_mlp.cu's notes: 1.3-1.5x slower there).
+//
+// bf16 form: ff_window_attention_qkv_nhwc_bf16, for the bf16 expert mode,
+// with the JAX kernel's rounding points (_qkv_kernel_body, :655-678, run
+// on bf16 operands): qkv = bf16(x Wqkv + bqkv) with the products' sums
+// and the bias add in fp32 (:666); #1's bf16 attention (window_attention.cu,
+// _attn_heads at dt bf16: the q-scale rounded, logits, bias and mask in
+// fp32, the softmax in fp32 and normalised before it is rounded, P V in
+// fp32, each head rounded); out = bf16(attn Wproj + bproj) (:676). Seven
+// launches, no library call:
+//   1. Wqkv and Wproj zero-padded to [kp][np] bf16 (bf16_gemm.cuh's
+//      bg_pad, two launches);
+//   2. x into rows padded to kp (bg_rows: C 180 is 360 bytes a row, not
+//      the 16-byte multiple the GEMM's copies take);
+//   3. q | k | v = bf16(x Wqkv + bqkv) on bf16_gemm.cuh's GEMM (bf16
+//      mma.sync m16n8k16, fp32 sums), whose epilogue writes q, k and v as
+//      three contiguous [B, H, W, C] bf16 tensors;
+//   4. the bf16 window attention of #1 (ff_window_attention_nhwc_bf16)
+//      over them, as it is, into a [B, H, W, C] bf16 scratch;
+//   5. that into padded rows; 6. out = bf16(attn Wproj + bproj), the same
+//      GEMM.
+// The epilogue writes q, k and v apart (and not one [M, 3C] tensor with
+// the attention reading column thirds through a row stride) because it
+// moves the same bytes either way and #1's bf16 body then runs unchanged,
+// the kernel the default bf16 route times. What bounds it is the same as
+// in fp32 at half the bytes: at 336x512 and C 180 the products are 47
+// GFLOP a call, 0.05 ms at 989 TFLOP/s, and x and out 0.12 GB, 0.04 ms;
+// this first version moves q, k, v, the attention's output and two padded
+// row copies through device memory besides (~0.5 GB a call at C 180).
 
+#include "bf16_gemm.cuh"
 #include "tf32_gemm.cuh"
 #include "window_attention.cuh"
+
+// window_attention.cu: #1's bf16 kernel (q, k, v, out [B, H, W, C] bf16;
+// bias [heads, N, N] bf16; mask [nW, N, N] fp32 or null)
+extern "C" int ff_window_attention_nhwc_bf16(const void* q, const void* k,
+                                             const void* v, const void* bias,
+                                             const float* mask, void* out,
+                                             int B, int H, int W, int C,
+                                             int num_heads, int ws,
+                                             float scale, void* stream);
 
 namespace {
 
@@ -130,5 +168,95 @@ extern "C" int ff_window_attention_qkv_nhwc(
         GemmArgs{a, wp, 0, p.kpc, p.npp, C, p.mp, m, bproj, out, C,
                  nullptr, nullptr},
         1, s);
+  return int(err);
+}
+
+namespace {
+
+// The bf16 call's scratch (byte offsets), each piece 256-byte aligned.
+struct QkvBf16Layout {
+  int kpi, kpc, npq, npp;  // the products' K (Cin, C padded to 32), N
+  long long wq, wp, a, q, k, v, attn, bytes;
+};
+
+QkvBf16Layout qkv_bf16_layout(long long M, int Cin, int C) {
+  QkvBf16Layout l;
+  l.kpi = bg_up(Cin, kBgK);
+  l.kpc = bg_up(C, kBgK);
+  l.npq = bg_up(3 * C, kBgN);
+  l.npp = bg_up(C, kBgN);
+  const int ka = l.kpi > l.kpc ? l.kpi : l.kpc;
+  l.wq = 0;
+  l.wp = l.wq + bg_piece(2LL * l.kpi * l.npq);
+  l.a = l.wp + bg_piece(2LL * l.kpc * l.npp);
+  l.q = l.a + bg_piece(2 * M * ka);
+  l.k = l.q + bg_piece(2 * M * C);
+  l.v = l.k + bg_piece(2 * M * C);
+  l.attn = l.v + bg_piece(2 * M * C);
+  l.bytes = l.attn + bg_piece(2 * M * C);
+  return l;
+}
+
+}  // namespace
+
+// Bytes of scratch a bf16 call on M pixels of Cin channels, C out, needs
+// (qkv_bf16_layout); -1 for widths it refuses.
+extern "C" long long ff_window_attention_qkv_bf16_scratch_bytes(
+    long long M, int Cin, int C) {
+  if (M <= 0 || Cin <= 0 || C <= 0 || Cin > 2048 || C > 2048 || C % 2)
+    return -1;
+  return qkv_bf16_layout(M, Cin, C).bytes;
+}
+
+// As ff_window_attention_qkv_nhwc, all bf16 but the mask (fp32, 8-byte
+// aligned, or null): x [B, H, W, Cin]; wqkv [Cin, 3C], bqkv [3C], wproj
+// [C, C], bproj [C], bias [heads, N, N] (4-byte aligned); out [B, H, W,
+// C]; scratch of ff_window_attention_qkv_bf16_scratch_bytes(B H W, Cin, C)
+// bytes, 16-byte aligned. C even; N = ws * ws a multiple of 16 up to 256;
+// head dims up to 128.
+extern "C" int ff_window_attention_qkv_nhwc_bf16(
+    const void* x_, const void* wqkv_, const void* bqkv_, const void* wproj_,
+    const void* bproj_, const void* bias, const float* mask, void* out_,
+    void* scratch_, long long scratch_bytes, int B, int H, int W, int Cin,
+    int C, int num_heads, int ws, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long M = (long long)B * H * W;
+  const long long need = ff_window_attention_qkv_bf16_scratch_bytes(M, Cin,
+                                                                    C);
+  if (need < 0 || scratch_bytes < need ||
+      reinterpret_cast<size_t>(scratch_) % 16)
+    return int(cudaErrorInvalidValue);
+  const QkvBf16Layout l = qkv_bf16_layout(M, Cin, C);
+  char* scratch = static_cast<char*>(scratch_);
+  auto piece = [&](long long off) {
+    return reinterpret_cast<bf16*>(scratch + off);
+  };
+  const bf16* x = static_cast<const bf16*>(x_);
+  const bf16* bqkv = static_cast<const bf16*>(bqkv_);
+  const bf16* bproj = static_cast<const bf16*>(bproj_);
+  bf16* out = static_cast<bf16*>(out_);
+  bf16 *wq = piece(l.wq), *wp = piece(l.wp), *a = piece(l.a);
+  bf16 *q = piece(l.q), *k = piece(l.k), *v = piece(l.v);
+  bf16* attn = piece(l.attn);
+  cudaError_t err = bg_pad(static_cast<const bf16*>(wqkv_), 3 * C, 1, Cin,
+                           l.kpi, 3 * C, 0, wq, l.kpi, l.npq, s);
+  if (err == cudaSuccess)
+    err = bg_pad(static_cast<const bf16*>(wproj_), C, 1, C, l.kpc, C, 0, wp,
+                 l.kpc, l.npp, s);
+  if (err == cudaSuccess)
+    err = bg_rows(x, M, Cin, nullptr, nullptr, 0.f, a, l.kpi, s);
+  if (err == cudaSuccess)
+    err = bg_gemm(BgRows{a, M, l.kpi}, M, wq, l.npq, l.kpi, l.npq,
+                  BgSegEpi{bqkv, {q, k, v}, M, C, 3}, s);
+  if (err != cudaSuccess) return int(err);
+  const int rc = ff_window_attention_nhwc_bf16(q, k, v, bias, mask, attn, B,
+                                               H, W, C, num_heads, ws, scale,
+                                               stream);
+  if (rc != 0) return rc;
+  err = bg_rows(static_cast<const bf16*>(attn), M, C, nullptr, nullptr, 0.f,
+                a, l.kpc, s);
+  if (err == cudaSuccess)
+    err = bg_gemm(BgRows{a, M, l.kpc}, M, wp, l.npp, l.kpc, l.npp,
+                  BgSegEpi{bproj, {out, nullptr, nullptr}, M, C, 1}, s);
   return int(err);
 }

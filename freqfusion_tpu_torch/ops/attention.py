@@ -16,13 +16,15 @@ scratch that :func:`plan_qkv_projections` and
 (``csrc/grl_attention.cuh``, both entries) takes 8x8 tiles with 4x4
 anchors in blocks that :func:`plan_grl_attention` describes.
 
-``window_attention_nhwc`` and ``grl_mixed_attention_nhwc`` also take bf16
-operands (the bf16 expert mode): their bf16 kernels
-(``csrc/window_attention.cu``, ``csrc/grl_attention.cu``, counted as
-``<name>.bf16``) and their plain versions round where the JAX kernels'
-bf16 runs round: products of bf16 values accumulated in fp32, the
-softmax in fp32 and rounded to bf16 before its product, bf16 outputs.
-The other entries take fp32 only and refuse bf16
+``window_attention_nhwc``, ``grl_mixed_attention_nhwc`` and the two
+``*_qkv_nhwc`` entries also take bf16 operands (the bf16 expert mode):
+their bf16 kernels (``csrc/window_attention.cu``,
+``csrc/grl_attention.cu``, ``csrc/window_attention_qkv.cu``,
+``csrc/grl_attention_qkv.cu``, counted as ``<name>.bf16``) and their plain
+versions round where the JAX kernels' bf16 runs round: products of bf16
+values accumulated in fp32, the projections' bias added in fp32 and
+rounded once, the softmax in fp32 and rounded to bf16 before its product,
+bf16 outputs. ``window_attention`` takes fp32 only and refuses bf16
 (:func:`cuda.fp32_only`).
 """
 
@@ -562,6 +564,48 @@ def window_attention_qkv_nhwc_reference(x, wqkv, bqkv, wproj, bproj, bias,
     return F.linear(out, wproj.t(), bproj)
 
 
+def _window_attention_qkv_nhwc_bf16(x, wqkv, bqkv, wproj, bproj, bias,
+                                    mask, num_heads: int, ws: int,
+                                    scale: float) -> torch.Tensor:
+    """The bf16 kernel: x, the weights, their biases and the bias table
+    bf16; mask fp32. C even; N = ws * ws a multiple of 16 up to 256, head
+    dims up to 128 (#1's bf16 body)."""
+    b, h, w, cin = x.shape
+    c = wqkv.shape[1] // 3
+    n, hd, dev = ws * ws, c // num_heads, x.device
+    if c % 2 or n % 16 or n > 256 or hd > 128:
+        raise ValueError(f"window_attention_qkv_nhwc (bf16): C={c} must be "
+                         f"even, N={n} a multiple of 16 up to 256 and the "
+                         f"head dim {hd} at most 128")
+    bf = torch.bfloat16
+    cuda.require(x, "x", (b, h, w, cin), dev, bf)
+    cuda.require(wqkv, "wqkv", (cin, 3 * c), dev, bf)
+    cuda.require(bqkv, "bqkv", (3 * c,), dev, bf)
+    cuda.require(wproj, "wproj", (c, c), dev, bf)
+    cuda.require(bproj, "bproj", (c,), dev, bf)
+    cuda.require(bias, "bias", (num_heads, n, n), dev, bf)
+    if mask is not None:
+        cuda.require(mask, "mask", ((h // ws) * (w // ws), n, n), dev)
+    if bias.data_ptr() % 4 or (mask is not None and mask.data_ptr() % 8):
+        raise ValueError("window_attention_qkv_nhwc (bf16): bias must be "
+                         "4-byte and mask 8-byte aligned")
+    lib = cuda.library()
+    nbytes = lib.ff_window_attention_qkv_bf16_scratch_bytes(b * h * w, cin,
+                                                            c)
+    if nbytes < 0:
+        raise ValueError(f"window_attention_qkv_nhwc (bf16): Cin={cin}, "
+                         f"C={c} refused")
+    out = x.new_empty(b, h, w, c)
+    scratch = torch.empty(nbytes, device=dev, dtype=torch.uint8)
+    err = lib.ff_window_attention_qkv_nhwc_bf16(
+        *(cuda.ptr(t) for t in (x, wqkv, bqkv, wproj, bproj, bias, mask,
+                                out, scratch)),
+        nbytes, b, h, w, cin, c, num_heads, ws, scale, cuda.stream(x))
+    cuda.check(err, "window_attention_qkv_nhwc (bf16)")
+    cuda.launch_counts["window_attention_qkv_nhwc.bf16"] += 1
+    return out
+
+
 def window_attention_qkv_nhwc(x: torch.Tensor, wqkv: torch.Tensor,
                               bqkv: torch.Tensor, wproj: torch.Tensor,
                               bproj: torch.Tensor, bias: torch.Tensor,
@@ -570,7 +614,8 @@ def window_attention_qkv_nhwc(x: torch.Tensor, wqkv: torch.Tensor,
                               scale: Optional[float] = None) -> torch.Tensor:
     """x [B, H, W, Cin]; wqkv [Cin, 3C] (q | k | v columns), bqkv [3C];
     wproj [C, C] ([in, out]), bproj [C]; bias [nH, N, N]; mask [nW, N, N]
-    or None. Returns proj(window_attention(qkv(x))), [B, H, W, C]."""
+    or None. Returns proj(window_attention(qkv(x))), [B, H, W, C]. fp32
+    throughout, or all but the mask in bf16 (the bf16 kernel, bf16 out)."""
     b, h, w, cin = x.shape
     c = wqkv.shape[1] // 3
     ws = window_size
@@ -581,11 +626,13 @@ def window_attention_qkv_nhwc(x: torch.Tensor, wqkv: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"window_attention_qkv_nhwc: unsupported device "
                          f"{x.device}")
-    cuda.fp32_only("window_attention_qkv_nhwc", x)
     if h % ws or w % ws or c % num_heads or c // num_heads > 256:
         raise ValueError(f"window_attention_qkv_nhwc: H={h}, W={w} must be "
                          f"multiples of ws={ws} and C={c} of heads="
                          f"{num_heads} (head dim <= 256)")
+    if x.dtype == torch.bfloat16:
+        return _window_attention_qkv_nhwc_bf16(
+            x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads, ws, scale)
     n, dev = ws * ws, x.device
     cuda.require(x, "x", (b, h, w, cin), dev)
     cuda.require(wqkv, "wqkv", (cin, 3 * c), dev)
@@ -638,6 +685,54 @@ def grl_mixed_attention_qkv_nhwc_reference(
         down_factor)
 
 
+def _grl_mixed_attention_qkv_nhwc_bf16(args, num_heads_w: int,
+                                       num_heads_s: int, ws: int, df: int):
+    """The bf16 kernel: x, x_rolled, the anchor, wqkv and bqkv bf16;
+    scales, biases and mask fp32 (as #2's bf16 kernel takes them). C/2
+    even."""
+    (x, x_rolled, anchor, wqkv, bqkv, scale_w, scale_s1, scale_s2, bias_w,
+     bias_s1, bias_s2, mask) = args
+    b, h, w, cin = x.shape
+    c2 = wqkv.shape[1] // 6
+    n, na, dev, bf = ws * ws, (ws // df) ** 2, x.device, torch.bfloat16
+    if c2 % 2:
+        raise ValueError(f"grl_mixed_attention_qkv_nhwc (bf16): C/2={c2} "
+                         "must be even")
+    cuda.require(x, "x", (b, h, w, cin), dev, bf)
+    if x_rolled is not None:
+        cuda.require(x_rolled, "x_rolled", (b, h, w, cin), dev, bf)
+    cuda.require(anchor, "anchor", (b, h // df, w // df, c2), dev, bf)
+    cuda.require(wqkv, "wqkv", (cin, 6 * c2), dev, bf)
+    cuda.require(bqkv, "bqkv", (6 * c2,), dev, bf)
+    cuda.require(scale_w, "scale_w", (num_heads_w, 1, 1), dev)
+    cuda.require(scale_s1, "scale_s1", (num_heads_s, 1, 1), dev)
+    cuda.require(scale_s2, "scale_s2", (num_heads_s, 1, 1), dev)
+    cuda.require(bias_w, "bias_w", (num_heads_w, n, n), dev)
+    cuda.require(bias_s1, "bias_s1", (num_heads_s, na, n), dev)
+    cuda.require(bias_s2, "bias_s2", (num_heads_s, n, na), dev)
+    if mask is not None:
+        cuda.require(mask, "mask", ((h // ws) * (w // ws), n, n), dev)
+    _check_aligned("grl_mixed_attention_qkv_nhwc (bf16)", bias_w, bias_s1,
+                   bias_s2, mask)
+    lib = cuda.library()
+    nbytes = lib.ff_grl_qkv_bf16_scratch_bytes(b * h * w, cin, c2)
+    if nbytes < 0:
+        raise ValueError(f"grl_mixed_attention_qkv_nhwc (bf16): Cin={cin}, "
+                         f"C/2={c2} refused")
+    out_w = x.new_empty(b, h, w, c2)
+    out_s = x.new_empty(b, h, w, c2)
+    scratch = torch.empty(nbytes, device=dev, dtype=torch.uint8)
+    err = lib.ff_grl_mixed_attention_qkv_nhwc_bf16(
+        *(cuda.ptr(t) for t in (x, x_rolled, anchor, wqkv, bqkv, scale_w,
+                                scale_s1, scale_s2, bias_w, bias_s1,
+                                bias_s2, mask, out_w, out_s, scratch)),
+        nbytes, b, h, w, cin, c2, num_heads_w, num_heads_s, ws, df,
+        cuda.stream(x))
+    cuda.check(err, "grl_mixed_attention_qkv_nhwc (bf16)")
+    cuda.launch_counts["grl_mixed_attention_qkv_nhwc.bf16"] += 1
+    return out_w, out_s
+
+
 def grl_mixed_attention_qkv_nhwc(
         x: torch.Tensor, x_rolled: Optional[torch.Tensor],
         anchor: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor,
@@ -653,7 +748,9 @@ def grl_mixed_attention_qkv_nhwc(
     stripe half from x. wqkv [C, 3C] / bqkv [3C] in _SplitQKV6's order
     (qw | kw | vw | qs | ks | vs, each C/2). anchor, scales, biases and
     mask as in grl_mixed_attention_nhwc, and the same geometry. Returns
-    (x_window, x_stripe), each [B, H, W, C/2]."""
+    (x_window, x_stripe), each [B, H, W, C/2]. fp32 throughout, or x,
+    x_rolled, the anchor, wqkv and bqkv in bf16 with fp32 scales, biases
+    and mask (the bf16 kernel, bf16 outputs)."""
     _check_shifted(x_rolled, mask)
     b, h, w, cin = x.shape
     c2 = wqkv.shape[1] // 6
@@ -665,10 +762,14 @@ def grl_mixed_attention_qkv_nhwc(
     if x.device.type != "cuda":
         raise ValueError(f"grl_mixed_attention_qkv_nhwc: unsupported device "
                          f"{x.device}")
-    cuda.fp32_only("grl_mixed_attention_qkv_nhwc", x)
     _check_grl("grl_mixed_attention_qkv_nhwc", h, w, c2, num_heads_w,
                num_heads_s, ws, df)
     plan_grl_attention(b, h, w, c2, num_heads_w, num_heads_s)
+    if x.dtype == torch.bfloat16:
+        return _grl_mixed_attention_qkv_nhwc_bf16(
+            (x, x_rolled, anchor, wqkv, bqkv, scale_w, scale_s1, scale_s2,
+             bias_w, bias_s1, bias_s2, mask), num_heads_w, num_heads_s, ws,
+            df)
     n, na = ws * ws, (ws // df) ** 2
     dev = x.device
     cuda.require(x, "x", (b, h, w, cin), dev)

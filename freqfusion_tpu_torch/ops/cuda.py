@@ -22,12 +22,13 @@ bf16 version counts that version under its name with ``.bf16`` added
 ``selective_scan.bf16``, ``fused_mlp_block.bf16``, ``cab_fused.bf16``,
 ``nafblock_fused.bf16``, ``dwconv3x3.bf16``, ``lka_block_fused.bf16``,
 ``hier_stage3_fused.bf16``, ``edge_refine_fused.bf16``,
-``edge_fuse_fused.bf16``), so a run shows which of the two ran. A kernel
-takes the dtypes :func:`require` is given; handed a bf16 tensor, an
-fp32-only kernel raises naming itself (:func:`fp32_only`), and nothing is
-cast around it. The fp32-only kernels are #5-#13: the scan routes other
-than chain_proj, the window-major attention, the in-kernel projections and
-the token attention.
+``edge_fuse_fused.bf16``, ``window_attention_qkv_nhwc.bf16``,
+``grl_mixed_attention_qkv_nhwc.bf16``, ``token_attention.bf16``), so a run
+shows which of the two ran. A kernel takes the dtypes :func:`require` is
+given; handed a bf16 tensor, an fp32-only kernel raises naming itself
+(:func:`fp32_only`), and nothing is cast around it. The fp32-only kernels
+are #5-#10: the scan routes other than chain_proj and the window-major
+attention.
 """
 
 from __future__ import annotations
@@ -93,11 +94,20 @@ _SIGNATURES = {
     "ff_window_attention_qkv_scratch_floats": [_L, _I, _I],
     "ff_window_attention_qkv_nhwc": [_P] * 11 + [_L] + [_I] * 7
                                     + [_F, _I, _I, _P],
+    "ff_window_attention_qkv_bf16_scratch_bytes": [_L, _I, _I],
+    "ff_window_attention_qkv_nhwc_bf16": [_P] * 9 + [_L] + [_I] * 7
+                                         + [_F, _P],
     "ff_grl_qkv_scratch_floats": [_L, _I, _I],
+    "ff_grl_qkv_bf16_scratch_bytes": [_L, _I, _I],
+    "ff_grl_mixed_attention_qkv_nhwc_bf16": [_P] * 15 + [_L] + [_I] * 9
+                                            + [_P],
     "ff_grl_mixed_attention_qkv_nhwc": [_P] * 15 + [_L] + [_I] * 9 + [_P],
     "ff_token_attention_scratch_floats": [_L] + [_I] * 3,
     "ff_token_attention": [_P, _P, _L, _L, _P, _P, _L, _L] + [_P] * 3
                           + [_L, _L] + [_I] * 3 + [_P],
+    "ff_token_attention_bf16_scratch_bytes": [_L, _I, _I],
+    "ff_token_attention_bf16": [_P, _P, _L, _L, _P, _P, _L, _L] + [_P] * 3
+                               + [_L, _L] + [_I] * 3 + [_F, _P],
     "ff_lka_scratch_floats": [_L, _I, _I],
     "ff_lka_bf16_scratch_floats": [_L, _I, _I],
     "ff_lka_block_bf16": [_P] * 13 + [_P, _I, _I] * 5 + [_P] + [_P, _I, _I]
@@ -133,7 +143,10 @@ _RETURNS_LONG = ("ff_fused_mlp_scratch_floats", "ff_cab_scratch_floats",
                  "ff_lka_scratch_floats", "ff_edge_scratch_floats",
                  "ff_lka_bf16_scratch_floats", "ff_hier_bf16_scratch_floats",
                  "ff_edge_bf16_scratch_floats",
-                 "ff_token_attention_scratch_floats")
+                 "ff_token_attention_scratch_floats",
+                 "ff_window_attention_qkv_bf16_scratch_bytes",
+                 "ff_grl_qkv_bf16_scratch_bytes",
+                 "ff_token_attention_bf16_scratch_bytes")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

@@ -14,6 +14,16 @@ CPU tensor goes to the plain version; a CUDA tensor goes to
 fragment order, the q-scale folded in, then the fused kernel: both
 projections in 3xTF32 on the tensor cores around the softmax on the fp32
 cores) or the call raises.
+
+bf16 operands (the fusion net under ``fusion_dtype`` bf16) take the JAX
+kernel's rounding points, in the plain version and in the bf16 kernel
+(``ff_token_attention_bf16``, counted as ``token_attention.bf16``: both
+projections on bf16 tensor-core products, the attention on the fp32
+cores): the q-scale folded into Win's q columns and bias in fp32 and
+rounded; q | k | v rounded after an fp32 bias add; the logits fp32 sums
+of the exact q k products; the softmax in fp32, not rounded; P V summed
+in fp32 and rounded a head; the output rounded once after an fp32 bias
+add.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda
+from .attention import _bf16
 from .tf32_gemm import SMEM_LIMIT
 
 __all__ = ["token_attention", "token_attention_reference",
@@ -118,7 +129,11 @@ def token_attention_reference(x: torch.Tensor, in_proj_w: torch.Tensor,
                               out_b: torch.Tensor,
                               num_heads: int) -> torch.Tensor:
     """Plain PyTorch: packed projection, per-head softmax attention over
-    T, output projection."""
+    T, output projection (in bf16 for bf16 x, see
+    :func:`_token_attention_bf16`)."""
+    if x.dtype == torch.bfloat16:
+        return _token_attention_bf16(x, in_proj_w, in_proj_b, out_w, out_b,
+                                     num_heads)
     e = x.shape[-1]
     hd = e // num_heads
     q, k, v = F.linear(x, in_proj_w.t(), in_proj_b).chunk(3, dim=-1)
@@ -128,12 +143,77 @@ def token_attention_reference(x: torch.Tensor, in_proj_w: torch.Tensor,
     return F.linear(out.reshape(x.shape), out_w.t(), out_b)
 
 
-def _weight(w: torch.Tensor, name: str, shape, device) -> None:
-    if w.device != device or w.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32 on {device}")
+def _q_scale(hd: int) -> float:
+    """hd ** -0.5 in fp32, as the JAX wrapper computes the folded scale."""
+    return float(torch.tensor(float(hd)) ** -0.5)
+
+
+def _token_attention_bf16(x, in_proj_w, in_proj_b, out_w, out_b,
+                          num_heads: int) -> torch.Tensor:
+    """bf16 token attention with the JAX kernel's rounding points
+    (pallas_token_attention.py): Win's q columns and bias times the
+    q-scale in fp32, rounded (:96-105); qkv = bf16(x Win + bin) (:51);
+    each logit the fp32 sum of the exact q k products (:57: the source
+    rounds each product to bf16 before its fp32 sum, but XLA, whose
+    excess-precision rule is on by default, drops that round trip, so the
+    kernel as JAX runs it sums the fp32 products; rounding them moves
+    ~45% of the outputs by an ulp); the softmax in fp32, not rounded; o =
+    bf16(sum of p v in fp32) a head (:58-63); out = bf16(o Wout + bout)
+    (:69)."""
+    e = x.shape[-1]
+    hd = e // num_heads
+    fold = torch.ones(3 * e, device=x.device)
+    fold[:e] = _q_scale(hd)
+    win = _bf16(in_proj_w.float() * fold)
+    bin_ = _bf16(in_proj_b.float() * fold)
+    qkv = _bf16(x.float() @ win + bin_)
+    q, k, v = (t.reshape(*t.shape[:-1], num_heads, hd)
+               for t in qkv.chunk(3, dim=-1))          # [..., T, nH, hd]
+    logits = (q[..., :, None, :, :] * k[..., None, :, :, :]).sum(-1)
+    ex = torch.exp(logits - logits.amax(-2, keepdim=True))  # [.., Tq, Tk, nH]
+    o = _bf16(torch.einsum("...qkh,...khd->...qhd",
+                           ex / ex.sum(-2, keepdim=True), v))
+    out = o.reshape(x.shape) @ _bf16(out_w.float()) + _bf16(out_b.float())
+    return out.to(torch.bfloat16)
+
+
+def _weight(w: torch.Tensor, name: str, shape, device,
+            dtype: torch.dtype = torch.float32) -> None:
+    if w.device != device or w.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype} on {device}")
     if tuple(w.shape) != shape:
         raise ValueError(f"{name} has shape {tuple(w.shape)}, expected "
                          f"{shape}")
+
+
+def _token_attention_bf16_kernel(x, in_proj_w, in_proj_b, out_w, out_b,
+                                 num_heads: int) -> torch.Tensor:
+    """The bf16 kernel: x, the weights (any strides) and the biases bf16.
+    T <= 16; E a multiple of 8 and of the heads; head dims 8, 16 or 32."""
+    p, t, e = x.shape
+    hd = e // num_heads if num_heads > 0 and e % num_heads == 0 else 0
+    if not 1 <= t <= MAX_T or e % 8 or hd not in (8, 16, 32) or p < 1:
+        raise ValueError(f"token_attention (bf16): T={t} must be 1..16, "
+                         f"E={e} a multiple of 8 and of heads={num_heads} "
+                         f"with head dims 8, 16 or 32, P={p} positive")
+    dev, bf = x.device, torch.bfloat16
+    cuda.require(x, "x", (p, t, e), dev, bf)
+    _weight(in_proj_w, "in_proj_w", (e, 3 * e), dev, bf)
+    _weight(out_w, "out_w", (e, e), dev, bf)
+    cuda.require(in_proj_b, "in_proj_b", (3 * e,), dev, bf)
+    cuda.require(out_b, "out_b", (e,), dev, bf)
+    lib = cuda.library()
+    nbytes = lib.ff_token_attention_bf16_scratch_bytes(p, t, e)
+    out = torch.empty_like(x)
+    scratch = torch.empty(nbytes, device=dev, dtype=torch.uint8)
+    err = lib.ff_token_attention_bf16(
+        x.data_ptr(), in_proj_w.data_ptr(), *in_proj_w.stride(),
+        in_proj_b.data_ptr(), out_w.data_ptr(), *out_w.stride(),
+        out_b.data_ptr(), out.data_ptr(), scratch.data_ptr(), nbytes, p, t,
+        e, num_heads, _q_scale(hd), cuda.stream(x))
+    cuda.check(err, "token_attention (bf16)")
+    cuda.launch_counts["token_attention.bf16"] += 1
+    return out
 
 
 def token_attention(x: torch.Tensor, in_proj_w: torch.Tensor,
@@ -143,14 +223,16 @@ def token_attention(x: torch.Tensor, in_proj_w: torch.Tensor,
     in_proj_b [3E]; out_w [E, E] ([in, out]), out_b [E]; the two weights
     of any strides (views of torch's [out, in] weights go as they are),
     the biases contiguous. Returns out_proj(MHA(x)) before the residual,
-    [P, T, E]."""
+    [P, T, E]. fp32 throughout, or all bf16 (the bf16 kernel)."""
     p, t, e = x.shape
     if x.device.type == "cpu":
         return token_attention_reference(x, in_proj_w, in_proj_b, out_w,
                                          out_b, num_heads)
     if x.device.type != "cuda":
         raise ValueError(f"token_attention: unsupported device {x.device}")
-    cuda.fp32_only("token_attention", x)
+    if x.dtype == torch.bfloat16:
+        return _token_attention_bf16_kernel(x, in_proj_w, in_proj_b, out_w,
+                                            out_b, num_heads)
     if not 1 <= t <= MAX_T or e % num_heads or e % 4 or e > MAX_E or p < 1:
         raise ValueError(f"token_attention: T={t} must be 1..16, E={e} at "
                          f"most 160 and a multiple of 4 and of heads="

@@ -1786,10 +1786,77 @@ def test_edge_bf16_kernels(nchw, hw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,ws", [(180, 6, 16), (244, 2, 16),
+                                        (60, 6, 8)])
+@pytest.mark.parametrize("shift", [False, True])
+def test_window_attention_qkv_bf16_kernel(c, heads, ws, shift):
+    """DRCT-L's geometry (C 180, 6 heads of 30, window 16), its widest head
+    (hd 122) and a small one (hd 10) at window 8, 1 x 2 x 3 windows (the
+    GEMMs' 128-row tiles end ragged): bf16 x, weights, biases and bias
+    table, fp32 mask, as the bf16 module hands them."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c + ws + shift)
+    h, w, n = 2 * ws, 3 * ws, ws * ws
+    mask = shifted_window_mask(h, w, ws, ws // 2 if shift else 0)
+    args = (_b(rng.normal(size=(1, h, w, c)), dev),
+            _b(rng.normal(size=(c, 3 * c)) / np.sqrt(c), dev),
+            _b(0.1 * rng.normal(size=3 * c), dev),
+            _b(rng.normal(size=(c, c)) / np.sqrt(c), dev),
+            _b(0.1 * rng.normal(size=c), dev),
+            _b(0.5 * rng.normal(size=(heads, n, n)), dev),
+            None if mask is None else _t(mask, dev), heads, ws)
+    cuda.reset_launch_counts()
+    got = window_attention_qkv_nhwc(*args)
+    assert dict(cuda.launch_counts) == {"window_attention_qkv_nhwc.bf16": 1}
+    _bf16_close(got, window_attention_qkv_nhwc_reference(*args),
+                "window_attention_qkv_nhwc.bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c2,heads,shift", [(90, 3, False), (90, 3, True),
+                                            (24, 3, True)])
+def test_grl_mixed_attention_qkv_bf16_kernel(c2, heads, shift):
+    """GRL-B's geometry (C 180, 3 + 3 heads of 30, window 8, 4 x 4
+    anchors), shifted with x_rolled and the mask and not, and C 48: bf16
+    x, x_rolled, anchor, wqkv and bqkv, fp32 scales, biases and mask, as
+    the bf16 module hands them."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c2 + shift)
+    args = list(_grl_qkv_args(rng, dev, 2, c2, heads, heads, shift))
+    args[:5] = [None if a is None else a.to(torch.bfloat16)
+                for a in args[:5]]
+    cuda.reset_launch_counts()
+    got = grl_mixed_attention_qkv_nhwc(*args)
+    assert dict(cuda.launch_counts) == {
+        "grl_mixed_attention_qkv_nhwc.bf16": 1}
+    _bf16_close(got, grl_mixed_attention_qkv_nhwc_reference(*args),
+                "grl_mixed_attention_qkv_nhwc.bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,e,nh", [(9, 64, 4), (4, 128, 8)])
+@pytest.mark.parametrize("p", [14000, 5])
+def test_token_attention_bf16_kernel(t, e, nh, p):
+    """Both fusion-net geometries at P = 100 x 140 and P = 5, the weights
+    as the gated module hands them (transposed views of torch-layout
+    tensors): every operand bf16."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(t + p + 1)
+    args = _token_args(rng, p, t, e, nh, dev, True)
+    # the weights as the cast module's views: its [out, in] tensors cast,
+    # then transposed (strides (1, E))
+    args[:5] = [a.t().contiguous().to(torch.bfloat16).t() if i % 2 else
+                a.to(torch.bfloat16) for i, a in enumerate(args[:5])]
+    assert args[1].stride() == (1, e) and args[3].stride() == (1, e)
+    cuda.reset_launch_counts()
+    got = token_attention(*args)
+    assert dict(cuda.launch_counts) == {"token_attention.bf16": 1}
+    _bf16_close(got, token_attention_reference(*args), "token_attention.bf16")
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["window_attention",
-                                    "selective_scan_chain",
-                                    "window_attention_qkv_nhwc",
-                                    "token_attention"])
+                                    "selective_scan_chain"])
 def test_fp32_only_kernels_refuse_bf16(kernel):
     """A kernel with no bf16 version raises on a bf16 tensor, naming
     itself; nothing is cast around it."""
@@ -1802,13 +1869,6 @@ def test_fp32_only_kernels_refuse_bf16(kernel):
         "selective_scan_chain": lambda: selective_scan_chain(
             x, x, torch.zeros(16, 4, device=dev), x[..., :4], x[..., :4],
             torch.zeros(16, device=dev), torch.zeros(16, device=dev)),
-        "window_attention_qkv_nhwc": lambda: window_attention_qkv_nhwc(
-            x, *(torch.zeros(s, device=dev) for s in
-                 ((16, 48), (48,), (16, 16), (16,), (1, 64, 64))), None, 1,
-            8),
-        "token_attention": lambda: token_attention(
-            x.view(64, 1, 16), *(torch.zeros(s, device=dev) for s in
-                                 ((16, 48), (48,), (16, 16), (16,))), 4),
     }
     with pytest.raises(ValueError, match=f"{kernel}: .*bf16 version is not "
                                          "ported"):
