@@ -77,7 +77,13 @@ exits non-zero without the final ok line):
    time at the same shapes and the bound at the bf16 tensor-core rate
    (989 TFLOP/s; the scan's recurrence at the fp32 cores'): #1 at DRCT-L's
    ten shapes with SDPA in bf16 as its library call, #2 at GRL-B's two,
-   #3/#4 on both chain layouts, each direction; then the byte-floor
+   #3/#4 on both chain layouts, each direction; then the bf16 kernels of
+   SS2D's other routes on the operands each hands them in bf16 (#5, y
+   bf16, on both chain layouts and #9, y fp32, on the NHWC tensor and its
+   transpose, each direction; #8, dt, B, C and y fp32, as SS2D calls it),
+   #5 within two bf16 ulps and #9 and #8 within the scan tolerance of
+   their bf16 plain versions, with one #5 call's launches by
+   torch.profiler; then the byte-floor
    kernels' bf16 versions at phase 2's byte-floor shapes (the fused FFN
    #14 at its six, the CAB #15 at its two, the NAFBlock #16 at NAFNet's
    five levels, the depthwise conv #17 at SS2D's D 360 with cuDNN's bf16
@@ -119,7 +125,9 @@ exits non-zero without the final ok line):
 3h. the bidir route: the full-width MambaIR alone on the 100x140 LR image,
    not padded (neither side a multiple of 8): 36 launches of #8 and no
    other kernel, then the card against the CPU's plain route on the same
-   weights at 20x28 (PSNR >= 60 dB);
+   weights at 20x28 (PSNR >= 60 dB); then the same in bf16: 36 launches
+   of the bf16 #8 and no other kernel, the output against the fp32 run's
+   (PSNR >= 48 dB), the card against the CPU, both in bf16 (>= 48 dB);
 3j. serving, bf16 configuration (FREQFUSION_EXPERT_DTYPE=bf16): the three
    LR PNGs through ``python -m freqfusion_tpu_torch.interface.ntire``'s
    main in a subprocess whose working directory holds
@@ -143,26 +151,30 @@ exits non-zero without the final ok line):
    fp32 fusion-eval one), with the three projection gates
    (bf16-projection: 60, 40, 2 and 144 launches of the bf16 #11, #12, #13
    and #3/#4 per image, none of an fp32 kernel, the 336x512 output
-   against phase 3d's fp32 projection one) and without (bf16-fusion: the
-   experts' bf16 kernels only, against phase 3's), PSNR >= 51 dB each (the
-   JAX package's all-bf16 floor);
-3c. the pipeline alone on the 336x512 image in the eleven configurations
-   in turns (default, byte-floor, projection, fusion-eval, chainv5,
-   spatial, bf16, bf16-byte-floor, bf16-fusion, bf16-fusion-eval,
-   bf16-projection, then back, after a warm-up of each): seconds per
-   request to the synchronised result, without the host's PNG work; then
-   the default path's and the five bf16 configurations' split by stage
-   (each expert alone on the same image, CUDA events);
+   against phase 3d's fp32 projection one), on SS2D's chainv5 and spatial
+   routes (bf16-chainv5, bf16-spatial: 60 and 40 launches of the bf16 #1
+   and #2 and 144 of the bf16 #5 or #9 per image, none of #3/#4's or of an
+   fp32 kernel, the 336x512 output against phase 3f's or 3g's) and
+   without (bf16-fusion: the experts' bf16 kernels only, against phase
+   3's), PSNR >= 51 dB each (the JAX package's all-bf16 floor);
+3c. the pipeline alone on the 336x512 image in the thirteen
+   configurations in turns (default, byte-floor, projection, fusion-eval,
+   chainv5, spatial, bf16, bf16-byte-floor, bf16-fusion,
+   bf16-fusion-eval, bf16-projection, bf16-chainv5, bf16-spatial, then
+   back, after a warm-up of each): seconds per request to the
+   synchronised result, without the host's PNG work; then the default
+   path's and the seven bf16 configurations' split by stage (each expert
+   alone on the same image, CUDA events);
 4. card against CPU: the same weights on one 32x48 LR image through the
    kernels on the card and the plain versions on the CPU, for each
-   configuration but bf16-fusion; PSNR >= 60 dB (bf16 experts: both in
-   bf16, >= 48 dB; bf16-fusion-eval and bf16-projection: the fusion net
-   in bf16 too).
+   configuration but bf16-fusion and bf16-chainv5; PSNR >= 60 dB (bf16
+   experts: both in bf16, >= 48 dB; bf16-fusion-eval, bf16-projection and
+   bf16-spatial: the fusion net in bf16 too).
 
 The last three lines are {"kernels": [...]} (each kernel with its launch
 count from the run of its own configuration, the bf16 kernels' from 3j,
 the byte-floor kernels' bf16 versions' from 3k, the fusion-eval and
-projection kernels' bf16 versions' from 3l;
+projection kernels' and bf16 #5's and #9's from 3l, bf16 #8's from 3h;
 #6, #7, #10 and #22 lie on no path),
 the card's name and power limit (card: ...), and
 {"ok": true, "device": {...}}.
@@ -181,7 +193,7 @@ projection kernels (fp32, then bf16), its four fusion-eval kernels, the
 scan's seven contracts, window attention #1 alone at its ten shapes,
 GRL's mixed attention #2 and #12 at GRL-B's two shapes, the token
 attention #13 at the fusion net's two geometries (fp32, then bf16), or
-the fourteen bf16 kernels, only (to
+the seventeen bf16 kernels, only (to
 compare two versions of them in one call; --fusion-only,
 --nhwc-attention-only, --grl-only and --bf16-only also run beside an
 older checkout of the package), and print their summary instead of the ok
@@ -266,6 +278,10 @@ FFN_DOWN_TILES = (6, 8, 9, 10)
 # csrc/bf16_gemm.cuh's bg_gemm_kernel<A, Epi>: every instantiation, in the
 # three sources that build it (the bf16 #14, #15, #16)
 CAB_CONV_TILES = (4, 6)
+# csrc/selective_scan.cu's scan_pass_kernel<..., kMix>: the bf16 operand
+# mixes, by the contract each serves
+SCAN_MIXES = {11: "chain_proj (#3/#4)", 13: "chain (#5)", 5: "spatial (#9)",
+              1: "bidir (#8)"}
 LR_SIZES = {"a_128x128": (128, 128), "b_100x140": (100, 140),
             "c_336x512": (336, 512)}
 # the variables each configuration sets (none: the default path); every
@@ -292,14 +308,20 @@ CONFIGS = {"default": {},
            "bf16-projection": {**dict.fromkeys((
                "FREQFUSION_ATTN_QKV", "FREQFUSION_GRL_QKV",
                "FREQFUSION_TOKEN_ATTN"), "1"),
-               "FREQFUSION_EXPERT_DTYPE": "bf16"}}
+               "FREQFUSION_EXPERT_DTYPE": "bf16"},
+           "bf16-chainv5": {"FREQFUSION_SCAN": "chainv5",
+                            "FREQFUSION_EXPERT_DTYPE": "bf16"},
+           "bf16-spatial": {"FREQFUSION_SCAN": "spatial",
+                            "FREQFUSION_EXPERT_DTYPE": "bf16"}}
 # the configurations whose pipeline also runs the fusion net in bf16: the
 # constructor's fusion_dtype (no variable sets it), as bench.py:bench_full
 # builds the JAX pipeline
-FUSION_BF16 = ("bf16-fusion", "bf16-fusion-eval", "bf16-projection")
+FUSION_BF16 = ("bf16-fusion", "bf16-fusion-eval", "bf16-projection",
+               "bf16-chainv5", "bf16-spatial")
 # phase 4 leaves out bf16-fusion (bf16-fusion-eval runs the same pipeline
-# through the kernels)
-NO_CARD_VS_CPU = ("bf16-fusion",)
+# through the kernels) and bf16-chainv5 (bf16-spatial runs the same
+# pipeline and projections; phase 2 holds bf16 #5 to its plain version)
+NO_CARD_VS_CPU = ("bf16-fusion", "bf16-chainv5")
 # launches per image: DRCT 12 RDGs x 5 blocks, GRL sum of depths, MambaIR
 # 36 layers x 4 directions
 PER_IMAGE = {"window_attention_nhwc": 60, "grl_mixed_attention_nhwc": 40,
@@ -350,6 +372,17 @@ PER_IMAGE_BF16_FUSION = {**PER_IMAGE_BF16, "lka_block_fused.bf16": 13,
 PER_IMAGE_BF16_QKV = {"window_attention_qkv_nhwc.bf16": 60,
                       "grl_mixed_attention_qkv_nhwc.bf16": 40,
                       "token_attention.bf16": 2, "selective_scan.bf16": 144}
+# the experts and the fusion net in bf16 on SS2D's chainv5 and spatial
+# routes: four bf16 #5 or #9 scans a layer in place of #3/#4's; MambaIR
+# alone in bf16 on an image whose sides are not multiples of 8 takes the
+# bidir route, one bf16 #8 launch a layer
+PER_IMAGE_BF16_CHAINV5 = {"window_attention_nhwc.bf16": 60,
+                          "grl_mixed_attention_nhwc.bf16": 40,
+                          "selective_scan_chain.bf16": 144}
+PER_IMAGE_BF16_SPATIAL = {"window_attention_nhwc.bf16": 60,
+                          "grl_mixed_attention_nhwc.bf16": 40,
+                          "selective_scan_spatial.bf16": 144}
+PER_IMAGE_BF16_BIDIR = {"selective_scan_bidir.bf16": 36}
 SOURCES = {
     "window_attention_nhwc": ("freqfusion_tpu_torch/csrc/window_attention.cu",
                               "freqfusion_tpu/ops/pallas_attention.py:238"),
@@ -377,6 +410,15 @@ SOURCES = {
                              "freqfusion_tpu/ops/selective_scan.py:439"),
     "selective_scan_spatial": ("freqfusion_tpu_torch/csrc/selective_scan.cu",
                                "freqfusion_tpu/ops/selective_scan.py:550"),
+    "selective_scan_chain.bf16": (
+        "freqfusion_tpu_torch/csrc/selective_scan.cu",
+        "freqfusion_tpu/ops/selective_scan.py:771"),
+    "selective_scan_spatial.bf16": (
+        "freqfusion_tpu_torch/csrc/selective_scan.cu",
+        "freqfusion_tpu/ops/selective_scan.py:550"),
+    "selective_scan_bidir.bf16": (
+        "freqfusion_tpu_torch/csrc/selective_scan.cu",
+        "freqfusion_tpu/ops/selective_scan.py:439"),
     "fused_mlp_block": ("freqfusion_tpu_torch/csrc/fused_mlp.cu",
                         "freqfusion_tpu/ops/pallas_mlp.py:85"),
     "fused_mlp_block.bf16": ("freqfusion_tpu_torch/csrc/fused_mlp.cu",
@@ -794,7 +836,7 @@ def check_spills(log: str, required: bool) -> None:
     # them (simple first versions)
     bf16 = (r"((?:window|grl)_attention_bf16|ta_bf16_attend)_kernelILi(\d+)E|"
             r"(scan_project)_bf16_kernel|"
-            r"scan_pass_kernelILb0ELb([01])ELi(\d+)ELi0ELb1E|"
+            r"scan_pass_kernelILb0ELb([01])ELi(\d+)ELi0ELi([1-9]\d*)E|"
             r"dwconv3x3_kernelI(N?S?_?6?Bf16x4|13__nv_bfloat16)E")
     for name, regs, spill in entries:
         m = re.search(bf16, name)
@@ -803,11 +845,12 @@ def check_spills(log: str, required: bool) -> None:
                     f"{'dim' if m.group(1) == 'ta_bf16_attend' else 'box'} "
                     f"{m.group(2)}" if m.group(1)
                     else "scan projection" if m.group(3)
-                    else "dwconv, " + ("four channels" if "x4" in m.group(6)
+                    else "dwconv, " + ("four channels" if "x4" in m.group(7)
                                        else "one channel") + " a thread"
-                    if m.group(6)
+                    if m.group(7)
                     else f"scan pass {int(m.group(4)) + 1}, N "
-                         f"{m.group(5) if m.group(5) != '0' else 'any'}")
+                         f"{m.group(5) if m.group(5) != '0' else 'any'}, "
+                         + SCAN_MIXES.get(int(m.group(6)), m.group(6)))
             print(f"  bf16 {what}: {regs} registers, {spill} bytes spill "
                   "stores (reported)")
     if spilled:
@@ -1176,9 +1219,95 @@ def phase_bf16_kernels(dev, randn, checks) -> None:
     beside("selective_scan", sc)
     del rows, xc
     torch.cuda.empty_cache()
+    phase_bf16_scan_kernels(dev, randn, checks, beside)
     phase_bf16_fused_kernels(dev, randn, checks, beside)
     phase_bf16_fusion_kernels(dev, randn, checks, beside)
     phase_bf16_qkv_kernels(dev, randn, checks)
+
+
+def phase_bf16_scan_kernels(dev, randn, checks, beside) -> None:
+    """The bf16 kernels of SS2D's other routes at phase_scan_kernels'
+    shapes (L = 172,032, D 360, N 16, the S6 init's dt bias in bf16, A =
+    -(1..16), D bf16), on the operands each route hands them in bf16: #5
+    (chainv5: u, dt, B, C and y bf16) on both chain layouts and #9
+    (spatial: u, dt, B, C bf16, y fp32) on the NHWC tensor and its
+    transpose, each direction; #8 (bidir: u bf16, dt, B, C and y fp32) as
+    SS2D calls it. #5 within BF16_ULPS of its bf16 plain version, #9 and
+    #8 within the scan tolerance; each total beside the fp32 kernel's at
+    the same shapes. Operations: the recurrence's, on the fp32 cores;
+    bytes: each operand in its dtype, read once, y written once. The
+    device time of each launch of one #5 call (T = W, forward) follows."""
+    import torch.nn.functional as F
+
+    from freqfusion_tpu_torch.ops.selective_scan import (
+        selective_scan_bidir, selective_scan_bidir_reference,
+        selective_scan_chain, selective_scan_chain_reference,
+        selective_scan_spatial, selective_scan_spatial_reference)
+
+    bf = torch.bfloat16
+    h, w = LR_SIZES["c_336x512"]
+    p = h * w
+    d, n = 360, 16
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def s6_bias(*lead):
+        dt = torch.exp(torch.rand(*lead, d, generator=g, device=dev)
+                       * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+        return (dt + torch.log(-torch.expm1(-dt))).to(bf)
+    A = -torch.arange(1, n + 1, device=dev, dtype=torch.float32).repeat(d, 1)
+    D, bias = torch.ones(d, device=dev, dtype=bf), s6_bias()
+    scan_ops = p * d * (8.0 * n + 8)
+    params = 4 * d * n + 2 * 2 * d
+
+    def operands(lead, dt_dtype):
+        """u, dt, B, C as SS2D's routes make them in bf16: silu of the conv
+        output, dt around 0, B and C of unit scale."""
+        return (F.silu(randn(*lead, d)).to(bf),
+                randn(*lead, d, scale=0.3).to(dt_dtype),
+                randn(*lead, n).to(dt_dtype), randn(*lead, n).to(dt_dtype))
+
+    ch = checks["selective_scan_chain.bf16"] = KernelCheck(
+        "selective_scan_chain.bf16")
+    sp = checks["selective_scan_spatial.bf16"] = KernelCheck(
+        "selective_scan_spatial.bf16")
+    for a, b in ((w, h), (h, w)):
+        u, dt, Bm, Cm = operands((1, a, b), bf)
+        for rev in (False, True):
+            args = (u, dt, A, Bm, Cm, D, bias, rev)
+            tag = f"{a}x{b}/{'rev' if rev else 'fwd'}"
+            ch.run(tag, lambda: selective_scan_chain(*args, bf),
+                   lambda: selective_scan_chain_reference(*args, bf),
+                   bf16_tol, scan_ops, 2 * (3 * p * d + 2 * p * n) + params,
+                   plain_reps=1)
+            if a == w and not rev:
+                launch_breakdown(f"#5 bf16 {tag}",
+                                 lambda: selective_scan_chain(*args, bf))
+            sp.run(tag, lambda: selective_scan_spatial(*args),
+                   lambda: selective_scan_spatial_reference(*args),
+                   scan_tol, scan_ops,
+                   2 * (2 * p * d + 2 * p * n) + 4 * p * d + params,
+                   plain_reps=1)
+        del u, dt, Bm, Cm
+    beside("selective_scan_chain", ch)
+    beside("selective_scan_spatial", sp)
+    torch.cuda.empty_cache()
+
+    # bidir: u [2, 1, L, D] bf16 (the row-major and column-major
+    # sequences) read by four directions, the last two backward; their dt,
+    # B and C fp32
+    bi = checks["selective_scan_bidir.bf16"] = KernelCheck(
+        "selective_scan_bidir.bf16")
+    u, dt, Bm, Cm = operands((4, 1, p), torch.float32)
+    args = (u[:2].contiguous(), dt, A.repeat(4, 1, 1), Bm, Cm,
+            D.repeat(4, 1), s6_bias(4))
+    bi.run(f"4 dirs/L{p}", lambda: selective_scan_bidir(*args),
+           lambda: selective_scan_bidir_reference(*args), scan_tol,
+           4 * scan_ops,
+           2 * 2 * p * d + 4 * (4 * 2 * p * d + 4 * 2 * p * n) + 4 * params,
+           plain_reps=1)
+    beside("selective_scan_bidir", bi)
+    del u, dt, Bm, Cm, args
+    torch.cuda.empty_cache()
 
 
 def phase_bf16_fused_kernels(dev, randn, checks, beside) -> None:
@@ -2137,8 +2266,12 @@ def phase_bf16_fusion(model_dir: Path, in_dir: Path, work: Path) -> dict:
     mode: the experts' bf16 kernels only; against phase 3's fp32 output),
     and with the three projection gates (bf16-projection: 60, 40, 2 and
     144 launches of the bf16 #11, #12, #13 and #3/#4 per image, none of an
-    fp32 kernel; against phase 3d's fp32 projection output), PSNR >= 51 dB
-    each. Returns each configuration's launch counts."""
+    fp32 kernel; against phase 3d's fp32 projection output), and on SS2D's
+    chainv5 and spatial routes (bf16-chainv5, bf16-spatial: 60 and 40
+    launches of the bf16 #1 and #2 and 144 of the bf16 #5 or #9 per image,
+    none of #3/#4's or of an fp32 kernel; against phase 3f's or 3g's fp32
+    output), PSNR >= 51 dB each. Returns each configuration's launch
+    counts."""
     from freqfusion_tpu_torch.ops import cuda
     from freqfusion_tpu_torch.utils.image_io import read_image, write_image
 
@@ -2152,6 +2285,10 @@ def phase_bf16_fusion(model_dir: Path, in_dir: Path, work: Path) -> dict:
              "phase 3e's fp32 fusion-eval output"),
             ("bf16-projection", PER_IMAGE_BF16_QKV, "out_projection",
              "phase 3d's fp32 projection output"),
+            ("bf16-chainv5", PER_IMAGE_BF16_CHAINV5, "out_chainv5",
+             "phase 3f's fp32 chainv5 output"),
+            ("bf16-spatial", PER_IMAGE_BF16_SPATIAL, "out_spatial",
+             "phase 3g's fp32 spatial output"),
             ("bf16-fusion", PER_IMAGE_BF16, "out", "phase 3's fp32 output")):
         set_gates(config)
         out = work / f"out_{config}"
@@ -2389,9 +2526,13 @@ def load_mambair(model_dir: Path, device):
 
 def phase_bidir(model_dir: Path, image: Path) -> dict:
     """MambaIR alone on `image` (100x140: neither side a multiple of 8,
-    so SS2D takes the bidir route), not padded: launch counts, output
-    checks and seconds; then the card against the CPU's plain route on the
-    same weights at 20x28. Returns the launch counts."""
+    so SS2D takes the bidir route), not padded, in fp32 and then in bf16
+    (the model cast as the bf16 expert mode casts it, the input in bf16):
+    launch counts (36 of #8, or of the bf16 #8, and no other kernel),
+    output checks and seconds; each time the card against the CPU's plain
+    route on the same weights at 20x28 (fp32: PSNR >= 60 dB; both in bf16:
+    >= 48); then the bf16 output against the fp32 one (PSNR >= 48 dB).
+    Returns the launch counts of both runs ("bidir", "bidir-bf16")."""
     from freqfusion_tpu_torch.ops import cuda
     from freqfusion_tpu_torch.utils.image_io import read_image
 
@@ -2399,36 +2540,53 @@ def phase_bidir(model_dir: Path, image: Path) -> dict:
     lr = torch.from_numpy(read_image(str(image))).permute(2, 0, 1)[None]
     lr = lr.cuda()
     h, w = lr.shape[2:]
-    cuda.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with torch.inference_mode():
-        sr, feat = model(lr)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    counts = dict(cuda.launch_counts)
-    print(f"  launch counts: {json.dumps(counts, sort_keys=True)}")
-    if counts != PER_IMAGE_BIDIR:
-        raise AssertionError(f"MambaIR at {h}x{w}: launches {counts}, "
-                             f"expected {PER_IMAGE_BIDIR}")
-    if (sr.shape != (1, 3, 4 * h, 4 * w) or feat.shape != (1, 180, h, w)
-            or not bool(torch.isfinite(sr).all())
-            or not bool(torch.isfinite(feat).all())):
-        raise AssertionError(f"MambaIR at {h}x{w}: bad output {sr.shape} "
-                             f"{feat.shape}")
-    print(f"  MambaIR {h}x{w} -> {4 * h}x{4 * w}: {seconds:.3f} s (first "
-          "call)")
     x = torch.from_numpy(np.random.default_rng(2).uniform(
         0, 1, (1, 3, 20, 28)).astype(np.float32))
-    with torch.inference_mode():
-        on_card = model(x.cuda())[0].cpu()
-        on_cpu = load_mambair(model_dir, "cpu")(x)[0]
-    db = psnr(on_card, on_cpu)
-    print(f"  card vs CPU, MambaIR on 20x28 (bidir): max_abs "
-          f"{(on_card - on_cpu).abs().max().item():.3e}, PSNR {db:.2f} dB "
-          f"(min {PSNR_MIN})")
-    if not db >= PSNR_MIN:
-        raise AssertionError(f"bidir card vs CPU PSNR {db:.2f} < {PSNR_MIN}")
+    counts, srs = {}, {}
+    for label, dtype, per_image, floor in (
+            ("bidir", torch.float32, PER_IMAGE_BIDIR, PSNR_MIN),
+            ("bidir-bf16", torch.bfloat16, PER_IMAGE_BF16_BIDIR,
+             PSNR_BF16_CARD_CPU)):
+        model.to(dtype)
+        cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            sr, feat = model(lr.to(dtype))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts[label] = dict(cuda.launch_counts)
+        print(f"  {label} launch counts: "
+              f"{json.dumps(counts[label], sort_keys=True)}")
+        if counts[label] != per_image:
+            raise AssertionError(f"MambaIR ({label}) at {h}x{w}: launches "
+                                 f"{counts[label]}, expected {per_image}")
+        if (sr.shape != (1, 3, 4 * h, 4 * w) or feat.shape != (1, 180, h, w)
+                or sr.dtype != dtype
+                or not bool(torch.isfinite(sr).all())
+                or not bool(torch.isfinite(feat).all())):
+            raise AssertionError(f"MambaIR ({label}) at {h}x{w}: bad output "
+                                 f"{sr.shape} {sr.dtype} {feat.shape}")
+        srs[label] = sr.float().cpu()
+        print(f"  MambaIR ({label}) {h}x{w} -> {4 * h}x{4 * w}: "
+              f"{seconds:.3f} s (first call)")
+        with torch.inference_mode():
+            on_card = model(x.cuda().to(dtype))[0].float().cpu()
+            on_cpu = load_mambair(model_dir, "cpu").to(dtype)(
+                x.to(dtype))[0].float()
+        db = psnr(on_card, on_cpu)
+        print(f"  card vs CPU, MambaIR ({label}) on 20x28: max_abs "
+              f"{(on_card - on_cpu).abs().max().item():.3e}, PSNR {db:.2f} "
+              f"dB (min {floor})")
+        if not db >= floor:
+            raise AssertionError(f"{label} card vs CPU PSNR {db:.2f} < "
+                                 f"{floor}")
+    db = psnr(srs["bidir-bf16"], srs["bidir"])
+    print(f"  MambaIR {h}x{w}, bf16 against fp32: PSNR {db:.2f} dB (min "
+          f"{PSNR_BF16_EXPERT})")
+    if not db >= PSNR_BF16_EXPERT:
+        raise AssertionError(f"bidir bf16 against fp32 PSNR {db:.2f} < "
+                             f"{PSNR_BF16_EXPERT}")
     return counts
 
 
@@ -2596,7 +2754,8 @@ def main(argv) -> int:
                               ("--token-only", "token attention (#13)",
                                phase_token_all),
                               ("--bf16-only",
-                               "bf16 (#1, #2, #3/#4, #11-#21)",
+                               "bf16 (#1, #2, #3/#4, #5, #8, #9, "
+                               "#11-#21)",
                                phase_bf16_kernels)):
         if flag in argv:
             print(f"[2] the {what} kernels against their plain versions")
@@ -2674,8 +2833,9 @@ def main(argv) -> int:
                                      f"PSNR {db:.2f} < {PSNR_MIN}")
             set_gates("default")
             torch.cuda.empty_cache()
-        print("[3h] MambaIR alone, bidir route, 100x140 not padded")
-        counts["bidir"] = phase_bidir(model_dir, in_dir / "b_100x140.png")
+        print("[3h] MambaIR alone, bidir route, 100x140 not padded, fp32 "
+              "and bf16")
+        counts.update(phase_bidir(model_dir, in_dir / "b_100x140.png"))
         torch.cuda.empty_cache()
         print("[3j] serving, bf16 configuration (FREQFUSION_EXPERT_DTYPE="
               "bf16), through python -m freqfusion_tpu_torch.interface.ntire")
@@ -2699,7 +2859,8 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         print("[3l] serving, the experts and the fusion net in bf16 "
               "(expert_dtype and fusion_dtype bf16), with the fusion-eval "
-              "gates, with the projection gates and without")
+              "gates, with the projection gates, on the chainv5 and "
+              "spatial routes and without")
         counts.update(phase_bf16_fusion(model_dir, in_dir, work))
         torch.cuda.empty_cache()
         print(f"[3c] pipeline alone, 336x512, the {len(CONFIGS)} "
@@ -2721,6 +2882,9 @@ def main(argv) -> int:
         ("byte-floor", PER_IMAGE_GATED), ("projection", PER_IMAGE_QKV),
         ("fusion-eval", PER_IMAGE_FUSION), ("chainv5", PER_IMAGE_CHAINV5),
         ("spatial", PER_IMAGE_SPATIAL), ("bidir", PER_IMAGE_BIDIR),
+        ("bidir-bf16", PER_IMAGE_BF16_BIDIR),
+        ("bf16-chainv5", PER_IMAGE_BF16_CHAINV5),
+        ("bf16-spatial", PER_IMAGE_BF16_SPATIAL),
         ("bf16-fusion-eval", PER_IMAGE_BF16_FUSION),
         ("bf16-projection", PER_IMAGE_BF16_QKV),
         ("bf16-byte-floor", PER_IMAGE_BF16_GATED), ("bf16", PER_IMAGE_BF16),

@@ -25,16 +25,21 @@
 // its four directions from two u tensors in one launch (Gu = 2, groups 2
 // and 3 reversed) and the K-direction contract has Gu = G = K.
 //
-// Three entry points share the scan: (a) the chain_fused / chain_proj
+// Four entry points share the scan: (a) the chain_fused / chain_proj
 // contract, u = silu(xc) with dt/B/C projected from u in a hand-written
 // kernel here, (b) the explicit contract with u, dt, B, C given, in any of
-// the layouts above, and (c) the bf16 chain_proj contract (the bf16 expert
+// the layouts above, (c) the bf16 chain_proj contract (the bf16 expert
 // mode), with the JAX kernel's bf16 rounding points: xc and y in bf16, u =
 // silu(xc) rounded to bf16, dt/B/C from one product with the composed
 // weight (rounded to bf16 once) on the bf16 tensor cores into fp32 rows,
-// then (b)'s passes over them. (c) moves more bytes than (a): dt lands in
-// device memory (4 bytes a position and channel) and both passes read it,
-// where (a) expands its rank-12 dt in registers.
+// then (b)'s passes over them, and (d) (b) with a bf16 u, at the operand
+// types the JAX routes hand #5 (dt, B, C and y bf16), #9 (dt, B and C
+// bf16, y fp32) and #8 (dt, B, C and y fp32) in the bf16 expert mode.
+// (c) moves more bytes than (a): dt lands in device memory (4 bytes a
+// position and channel) and both passes read it, where (a) expands its
+// rank-12 dt in registers. (d) reads 2-byte u (and dt) rows: fewer bytes
+// than (b), widened to fp32 in shared memory once a stage, and the state
+// stays fp32.
 //
 // What bounds it on the H100. Per (position, channel) a pass does N = 16
 // exp2 (one per state) and one or three more MUFU operations (softplus;
@@ -174,8 +179,11 @@ __device__ __forceinline__ void cp_wait() {
 
 struct ScanArgs {
   const float* x;      // u, or xc (pre-silu) on the projection contract
-  const __nv_bfloat16* xh;  // xc (pre-silu) on the bf16 contract
-  __nv_bfloat16* yh;        // y on the bf16 contract
+  const __nv_bfloat16* xh;  // bf16 u, or xc (pre-silu) (kU16)
+  __nv_bfloat16* yh;        // bf16 y (kY16)
+  const __nv_bfloat16* dh;  // bf16 dt, B and C (kD16)
+  const __nv_bfloat16* Bh;
+  const __nv_bfloat16* Ch;
   const float* delta;  // dt (explicit contract)
   const float* dbl;    // padded x_dbl rows of W floats (projection contract)
   const float* Bm;     // [rows, N] (explicit contract)
@@ -230,65 +238,102 @@ __device__ __forceinline__ int staged_width(const ScanArgs& a) {
   return a.W;
 }
 
+// Operand types of a pass (kMix, a set of these bits): u in bf16 (else
+// fp32); u = silu of a pre-silu bf16 xc, rounded to bf16 (the bf16
+// chain_proj contract); dt, B and C in bf16; y in bf16. The mixes built:
+constexpr int kU16 = 1, kSilu = 2, kD16 = 4, kY16 = 8;
+constexpr int kMixProj16 = kU16 | kSilu | kY16;   // (c): dt/B/C fp32 rows
+constexpr int kMixChain16 = kU16 | kD16 | kY16;   // (d) #5, chainv5
+constexpr int kMixSpatial16 = kU16 | kD16;        // (d) #9, spatial
+constexpr int kMixBidir16 = kU16;                 // (d) #8, bidir
+
 // Floats of one ring stage: kSub steps of the tile's x (then u, then y),
-// of its dt (then delta) and of the per-position row; on the bf16
-// contract, then the steps' raw bf16 xc (kTile / 2 floats a step).
-__host__ __device__ __forceinline__ int stage_floats(int W, bool bf16) {
-  return kSub * (2 * kTile + W + (bf16 ? kTile / 2 : 0));
+// of its dt (then delta) and of the per-position row; then, for a bf16 u,
+// the steps' raw bf16 u (or xc) rows (kTile / 2 floats a step) and, for
+// bf16 dt/B/C, their raw bf16 dt rows (kTile / 2) and B/C rows (W / 2).
+// W is a multiple of 8, so every region starts 16 bytes aligned.
+__host__ __device__ __forceinline__ int stage_floats(int W, int mix) {
+  return kSub * (2 * kTile + W + (mix & kU16 ? kTile / 2 : 0) +
+                 (mix & kD16 ? kTile / 2 + W / 2 : 0));
 }
 
-// The raw bf16 xc rows of a stage (bf16 contract).
+// The raw bf16 u (or xc) rows of a stage (kU16).
 __device__ __forceinline__ __nv_bfloat16* stage_xh(float* stage, int W) {
   return reinterpret_cast<__nv_bfloat16*>(stage + kSub * (2 * kTile + W));
 }
 
+// The raw bf16 dt rows of a stage (kD16), then its B/C rows of W.
+template <int kMix>
+__device__ __forceinline__ __nv_bfloat16* stage_dh(float* stage, int W) {
+  return reinterpret_cast<__nv_bfloat16*>(
+      stage + kSub * (2 * kTile + W + (kMix & kU16 ? kTile / 2 : 0)));
+}
+
+template <int kMix>
+__device__ __forceinline__ __nv_bfloat16* stage_rh(float* stage, int W) {
+  return stage_dh<kMix>(stage, W) + kSub * kTile;
+}
+
 // Issue the copies of cnt steps of an item into a stage, the first at
-// position (t, r). Copies are spread over the threads; none divides.
-template <bool kProj, int kN, int kR, bool kBf16>
+// position (t, r). Copies are spread over the threads; none divides. bf16
+// rows go 8 channels a 16-byte copy where they align (D % 8 == 0), else
+// as plain 2-byte loads (there is no 2-byte cp.async), seen after the
+// barrier that follows the wait.
+template <bool kProj, int kN, int kR, int kMix>
 __device__ __forceinline__ void stage_in(const ScanArgs& a, float* stage,
                                          int t, int r, int cnt, bool rev,
                                          long long brow, long long xrow,
                                          int d0) {
+  constexpr bool kU = kMix & kU16, kD = kMix & kD16;
   const int tid = threadIdx.x;
   const int W = staged_width<kProj, kN, kR>(a);
   float* xs = stage;
   float* ds = stage + kSub * kTile;
   float* rs = stage + 2 * kSub * kTile;
+  __nv_bfloat16* xh = stage_xh(stage, W);
+  __nv_bfloat16* dh = stage_dh<kMix>(stage, W);
   const int dl = min(kTile, a.D - d0);
   if (a.vec_x) {
-    const int q = tid & 31;  // float4 column of the tile
-    if (4 * q < dl) {
-      for (int i = tid >> 5; i < cnt; i += kThreads / 32) {
-        const long long row = row_after(a, t, r, i, rev);
-        if (!kBf16)
-          cp16(xs + i * kTile + 4 * q,
-               a.x + (xrow + row) * a.D + d0 + 4 * q);
-        if (!kProj)
-          cp16(ds + i * kTile + 4 * q,
-               a.delta + (brow + row) * a.D + d0 + 4 * q);
+    if (!kU || (!kProj && !kD)) {  // fp32 rows, 4 channels a copy
+      const int q = tid & 31;  // float4 column of the tile
+      if (4 * q < dl) {
+        for (int i = tid >> 5; i < cnt; i += kThreads / 32) {
+          const long long row = row_after(a, t, r, i, rev);
+          if (!kU)
+            cp16(xs + i * kTile + 4 * q,
+                 a.x + (xrow + row) * a.D + d0 + 4 * q);
+          if (!kProj && !kD)
+            cp16(ds + i * kTile + 4 * q,
+                 a.delta + (brow + row) * a.D + d0 + 4 * q);
+        }
       }
     }
-    if (kBf16) {  // raw xc, 8 channels a 16-byte copy (D % 8 == 0)
-      __nv_bfloat16* xh = stage_xh(stage, W);
+    if (kU || kD) {  // bf16 rows, 8 channels a copy
       const int q8 = tid & 15;
       if (8 * q8 < dl) {
         for (int i = tid >> 4; i < cnt; i += kThreads / 16) {
           const long long row = row_after(a, t, r, i, rev);
-          cp16(reinterpret_cast<float*>(xh + i * kTile + 8 * q8),
-               reinterpret_cast<const float*>(a.xh + (xrow + row) * a.D +
-                                              d0 + 8 * q8));
+          if (kU)
+            cp16(reinterpret_cast<float*>(xh + i * kTile + 8 * q8),
+                 reinterpret_cast<const float*>(a.xh + (xrow + row) * a.D +
+                                                d0 + 8 * q8));
+          if (kD)
+            cp16(reinterpret_cast<float*>(dh + i * kTile + 8 * q8),
+                 reinterpret_cast<const float*>(a.dh + (brow + row) * a.D +
+                                                d0 + 8 * q8));
         }
       }
     }
   } else if (tid < dl) {
-    __nv_bfloat16* xh = kBf16 ? stage_xh(stage, W) : nullptr;
     for (int i = 0; i < cnt; ++i) {
       const long long row = row_after(a, t, r, i, rev);
-      if (kBf16)  // no 2-byte cp.async: a plain load, seen after the barrier
+      if (kU)
         xh[i * kTile + tid] = a.xh[(xrow + row) * a.D + d0 + tid];
       else
         cp4(xs + i * kTile + tid, a.x + (xrow + row) * a.D + d0 + tid);
-      if (!kProj)
+      if (kD)
+        dh[i * kTile + tid] = a.dh[(brow + row) * a.D + d0 + tid];
+      else if (!kProj)
         cp4(ds + i * kTile + tid, a.delta + (brow + row) * a.D + d0 + tid);
     }
   }
@@ -298,6 +343,27 @@ __device__ __forceinline__ void stage_in(const ScanArgs& a, float* stage,
       const int i = e / w4, f = e - i * w4;
       const long long row = row_after(a, t, r, i, rev);
       cp16(rs + i * W + 4 * f, a.dbl + (brow + row) * W + 4 * f);
+    }
+  } else if (kD) {  // bf16 B and C at the float row's offsets
+    __nv_bfloat16* rh = stage_rh<kMix>(stage, W);
+    const int N = kN ? kN : a.N, N4 = (N + 3) & ~3;
+    if (a.vec_bc) {  // N % 8 == 0
+      const int n8 = N / 8;
+      for (int e = tid; e < cnt * 2 * n8; e += kThreads) {
+        const int i = e / (2 * n8), f = e - i * 2 * n8;
+        const int c = f >= n8, k = f - c * n8;
+        const long long row = row_after(a, t, r, i, rev);
+        cp16(reinterpret_cast<float*>(rh + i * W + c * N4 + 8 * k),
+             reinterpret_cast<const float*>((c ? a.Ch : a.Bh) +
+                                            (brow + row) * N + 8 * k));
+      }
+    } else {
+      for (int e = tid; e < cnt * 2 * N; e += kThreads) {
+        const int i = e / (2 * N), f = e - i * 2 * N;
+        const int c = f >= N, k = f - c * N;
+        const long long row = row_after(a, t, r, i, rev);
+        rh[i * W + c * N4 + k] = (c ? a.Ch : a.Bh)[(brow + row) * N + k];
+      }
     }
   } else {
     const int N = kN ? kN : a.N, N4 = (N + 3) & ~3;
@@ -327,12 +393,15 @@ __device__ __forceinline__ void stage_in(const ScanArgs& a, float* stage,
 // initial state (Hc after the compose); writes y. kN / kR: N and dt_rank
 // known at compile time (0: read from the arguments, <= 16).
 // The generic instantiations are held to 4 blocks an SM (<= 128
-// registers): left to itself ptxas gives them 80 and spills. kBf16 (with
-// the explicit contract's dt, B and C): x is the bf16 xc, u = silu(xc)
-// rounded to bf16, y is written as bf16.
-template <bool kProj, bool kFinal, int kN, int kR, bool kBf16>
+// registers): left to itself ptxas gives them 80 and spills. kMix: the
+// operand types (kU16, kSilu, kD16, kY16; 0 all fp32). bf16 operands are
+// widened in shared memory, once a stage: u (or silu(xc) rounded to bf16)
+// and delta into the thread's own columns in the delta sweep, B and C
+// cooperatively, before a barrier; y is rounded once, as it is stored.
+template <bool kProj, bool kFinal, int kN, int kR, int kMix>
 __global__ void __launch_bounds__(kThreads, kN ? 1 : 4)
 scan_pass_kernel(const ScanArgs a) {
+  constexpr bool kU = kMix & kU16, kD = kMix & kD16, kY = kMix & kY16;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
   const int N = kN ? kN : a.N;
@@ -340,7 +409,7 @@ scan_pass_kernel(const ScanArgs a) {
   const int nr = kProj ? (kR ? kR : a.dt_rank) : 0;
   const int W = staged_width<kProj, kN, kR>(a);
   const int R4 = kR ? (kR + 3) & ~3 : a.R4;
-  const int sfl = stage_floats(W, kBf16);
+  const int sfl = stage_floats(W, kMix);
 
   for (int item = blockIdx.x; item < a.items; item += gridDim.x) {
     const int j = item % a.tiles, zc = item / a.tiles;
@@ -365,7 +434,7 @@ scan_pass_kernel(const ScanArgs a) {
     int rc = rn, tc = tn;
     for (int k = 0; k < kStages - 1; ++k) {
       if (k < nsub) {
-        stage_in<kProj, kN, kR, kBf16>(a, smem + k * sfl, tn, rn,
+        stage_in<kProj, kN, kR, kMix>(a, smem + k * sfl, tn, rn,
                                 min(kSub, len - k * kSub), rev, brow, xrow,
                                 d0);
         step_by(a, tn, rn, kSub, rev);
@@ -392,7 +461,7 @@ scan_pass_kernel(const ScanArgs a) {
     for (int k = 0; k < nsub; ++k) {
       __syncthreads();  // the stage refilled below was scanned at k - 1
       if (k + kStages - 1 < nsub) {
-        stage_in<kProj, kN, kR, kBf16>(
+        stage_in<kProj, kN, kR, kMix>(
             a, smem + ((k + kStages - 1) % kStages) * sfl, tn, rn,
             min(kSub, len - (k + kStages - 1) * kSub), rev, brow, xrow, d0);
         step_by(a, tn, rn, kSub, rev);
@@ -403,9 +472,15 @@ scan_pass_kernel(const ScanArgs a) {
       float* stage = smem + (k % kStages) * sfl;
       float* xs = stage + tid;                 // x, then u
       float* ds = stage + kSub * kTile + tid;  // dt (explicit), then delta
-      const float* rs = stage + 2 * kSub * kTile;
-      const __nv_bfloat16* xh = stage_xh(stage, W) + tid;  // kBf16 only
+      float* rs = stage + 2 * kSub * kTile;
+      const __nv_bfloat16* xh = stage_xh(stage, W) + tid;       // kU16
+      const __nv_bfloat16* dh = stage_dh<kMix>(stage, W) + tid;  // kD16
       const int cnt = min(kSub, len - k * kSub);
+      if (kD) {  // B and C widened for the recurrence's float4 reads
+        const __nv_bfloat16* rh = stage_rh<kMix>(stage, W);
+        for (int e = tid; e < cnt * W; e += kThreads)
+          rs[e] = __bfloat162float(rh[e]);
+      }
       // delta and u of the stage's steps, independent of each other; each
       // thread rewrites its own column
 #pragma unroll 4
@@ -429,14 +504,17 @@ scan_pass_kernel(const ScanArgs a) {
           }
           xs[i * kTile] = silu(xs[i * kTile]);
         } else {
-          dt = ds[i * kTile];
-          if (kBf16)
-            xs[i * kTile] = round_bf16(silu(__bfloat162float(xh[i * kTile])));
+          dt = kD ? __bfloat162float(dh[i * kTile]) : ds[i * kTile];
+          if (kU) {
+            const float x = __bfloat162float(xh[i * kTile]);
+            xs[i * kTile] = (kMix & kSilu) ? round_bf16(silu(x)) : x;
+          }
         }
         dt = softplus(dt + bias);
         ds[i * kTile] = dt;
         sdt += dt;
       }
+      if (kD) __syncthreads();  // every thread's widened B and C
       // the recurrence: shared memory and registers only
 #pragma unroll 2
       for (int i = 0; i < cnt; ++i) {
@@ -479,7 +557,7 @@ scan_pass_kernel(const ScanArgs a) {
       if (kFinal) {
         // the stage's y rows, 16 bytes a store where they align
         __syncthreads();
-        if (kBf16) {  // rounded to bf16, 8 channels a 16-byte store
+        if (kY) {  // rounded to bf16, 8 channels a 16-byte store
           if (a.vec_y) {
             const int q = tid & 15;
             if (8 * q < dl) {
@@ -777,26 +855,26 @@ scan_project_bf16_kernel(const __nv_bfloat16* __restrict__ xc,
   }
 }
 
-template <bool kBf16>
+template <int kMix>
 size_t ring_bytes(int W) {
-  return size_t(kStages) * stage_floats(W, kBf16) * sizeof(float);
+  return size_t(kStages) * stage_floats(W, kMix) * sizeof(float);
 }
 
 // Let both passes take `W`'s ring: set once a device for each
 // instantiation (again only for a larger ring).
-template <bool kProj, int kN, int kR, bool kBf16>
+template <bool kProj, int kN, int kR, int kMix>
 cudaError_t allow_smem(int W) {
   static int allowed[64] = {};
-  const int bytes = int(ring_bytes<kBf16>(W));
+  const int bytes = int(ring_bytes<kMix>(W));
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 64 && bytes <= allowed[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(scan_pass_kernel<kProj, false, kN, kR, kBf16>,
+  err = cudaFuncSetAttribute(scan_pass_kernel<kProj, false, kN, kR, kMix>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(scan_pass_kernel<kProj, true, kN, kR, kBf16>,
+  err = cudaFuncSetAttribute(scan_pass_kernel<kProj, true, kN, kR, kMix>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes);
   if (err == cudaSuccess && dev < 64) allowed[dev] = bytes;
@@ -804,23 +882,23 @@ cudaError_t allow_smem(int W) {
 }
 
 // Resident blocks of both passes on the whole card.
-template <bool kProj, int kN, int kR, bool kBf16 = false>
+template <bool kProj, int kN, int kR, int kMix = 0>
 cudaError_t slots_of(int W, int* slots) {
-  cudaError_t err = allow_smem<kProj, kN, kR, kBf16>(W);
+  cudaError_t err = allow_smem<kProj, kN, kR, kMix>(W);
   if (err != cudaSuccess) return err;
-  const size_t bytes = ring_bytes<kBf16>(W);
+  const size_t bytes = ring_bytes<kMix>(W);
   int dev = 0, sms = 0, b1 = 0, b2 = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess)
     return err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &b1, scan_pass_kernel<kProj, false, kN, kR, kBf16>, kThreads,
+           &b1, scan_pass_kernel<kProj, false, kN, kR, kMix>, kThreads,
            bytes)) !=
       cudaSuccess)
     return err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &b2, scan_pass_kernel<kProj, true, kN, kR, kBf16>, kThreads,
+           &b2, scan_pass_kernel<kProj, true, kN, kR, kMix>, kThreads,
            bytes)) !=
       cudaSuccess)
     return err;
@@ -829,20 +907,20 @@ cudaError_t slots_of(int W, int* slots) {
 }
 
 // Pass 1, the compose and pass 2 over `seqs` = G * Bt sequences.
-template <bool kProj, int kN, int kR, bool kBf16 = false>
+template <bool kProj, int kN, int kR, int kMix = 0>
 cudaError_t run_passes(const ScanArgs& a, int seqs, int grid,
                        cudaStream_t stream) {
-  cudaError_t err = allow_smem<kProj, kN, kR, kBf16>(a.W);
+  cudaError_t err = allow_smem<kProj, kN, kR, kMix>(a.W);
   if (err != cudaSuccess) return err;
-  const size_t smem = ring_bytes<kBf16>(a.W);
-  scan_pass_kernel<kProj, false, kN, kR, kBf16>
+  const size_t smem = ring_bytes<kMix>(a.W);
+  scan_pass_kernel<kProj, false, kN, kR, kMix>
       <<<grid, kThreads, smem, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const dim3 cgrid((a.D * a.N + 31) / 32, seqs);
   scan_compose_kernel<kN><<<cgrid, dim3(32, kComposeWarps), 0, stream>>>(
       a.A, a.Sdt, a.Hc, a.Bt, a.nchunk, a.D, a.N);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  scan_pass_kernel<kProj, true, kN, kR, kBf16>
+  scan_pass_kernel<kProj, true, kN, kR, kMix>
       <<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -876,22 +954,55 @@ bool plan_ok(ScanArgs& a, int seqs, int chunk, int grid) {
   return true;
 }
 
+// The operand types of the explicit bf16 contracts, by their code (the
+// `proj` of ff_selective_scan_slots): 3 #5's, 4 #9's, 5 #8's; -1 else.
+int mix_of(int contract) {
+  switch (contract) {
+    case 3: return kMixChain16;
+    case 4: return kMixSpatial16;
+    case 5: return kMixBidir16;
+    default: return -1;
+  }
+}
+
+// The explicit contract's passes at the mix kMix: N 16 compiled, else the
+// generic instantiation.
+template <int kMix>
+cudaError_t run_explicit(const ScanArgs& a, int seqs, int grid,
+                         cudaStream_t s) {
+  if (a.N == 16) return run_passes<false, 16, 0, kMix>(a, seqs, grid, s);
+  return run_passes<false, 0, 0, kMix>(a, seqs, grid, s);
+}
+
+template <int kMix>
+cudaError_t explicit_slots(int N, int* slots) {
+  const int W = row_width(0, N, 0);
+  return N == 16 ? slots_of<false, 16, 0, kMix>(W, slots)
+                 : slots_of<false, 0, 0, kMix>(W, slots);
+}
+
 }  // namespace
 
 // Resident blocks of the scan's passes on the current device (SMs x
 // blocks an SM holds), for the contract `proj` (0 explicit, 1 projection,
-// 2 the bf16 projection contract) at N and dt_rank: the persistent grid is
-// at most this. Returns it, or minus a CUDA error.
+// 2 the bf16 projection contract, 3-5 the explicit bf16 contracts of #5,
+// #9 and #8, see mix_of) at N and dt_rank: the persistent grid is at most
+// this. Returns it, or minus a CUDA error.
 extern "C" int ff_selective_scan_slots(int proj, int N, int dt_rank) {
   if (N < 1 || N > kMaxState || dt_rank < 0 || dt_rank > kMaxRank ||
-      proj < 0 || proj > 2)
+      proj < 0 || proj > 5)
     return -int(cudaErrorInvalidValue);
   int slots = 0;
   cudaError_t err;
-  if (proj == 2) {
-    const int W = row_width(0, N, 0);
-    err = N == 16 ? slots_of<false, 16, 0, true>(W, &slots)
-                  : slots_of<false, 0, 0, true>(W, &slots);
+  if (proj >= 2) {
+    switch (proj == 2 ? kMixProj16 : mix_of(proj)) {
+      case kMixProj16: err = explicit_slots<kMixProj16>(N, &slots); break;
+      case kMixChain16: err = explicit_slots<kMixChain16>(N, &slots); break;
+      case kMixSpatial16:
+        err = explicit_slots<kMixSpatial16>(N, &slots);
+        break;
+      default: err = explicit_slots<kMixBidir16>(N, &slots); break;
+    }
     return err == cudaSuccess ? slots : -int(err);
   }
   const int W = row_width(proj, N, dt_rank);
@@ -971,8 +1082,7 @@ extern "C" int ff_selective_scan(const float* u, const float* delta,
       (long long)G * B > 65535 || !plan_ok(a, G * B, chunk, grid))
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (N == 16) return int(run_passes<false, 16, 0>(a, G * B, grid, s));
-  return int(run_passes<false, 0, 0>(a, G * B, grid, s));
+  return int(run_explicit<0>(a, G * B, grid, s));
 }
 
 // (c) the bf16 chain_proj contract: xc [B, T, R, D] bf16 pre-silu; wt
@@ -1009,6 +1119,57 @@ extern "C" int ff_selective_scan_proj_bf16(
       a.xh, static_cast<const __nv_bfloat16*>(wt), dt, Bm, Cm, rows, D, N);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  if (N == 16) return int(run_passes<false, 16, 0, true>(a, B, grid, s));
-  return int(run_passes<false, 0, 0, true>(a, B, grid, s));
+  return int(run_explicit<kMixProj16>(a, B, grid, s));
+}
+
+// (d) the explicit contract with a bf16 u (the bf16 expert mode's chainv5,
+// spatial and bidir routes), laid out as (b), at the operand types of
+// `contract` (mix_of): 3 (#5) dt, B, C and y bf16; 4 (#9) dt, B and C
+// bf16, y fp32; 5 (#8) dt, B, C and y fp32. A [G, D, N], Dskip and bias
+// [G, D] fp32; Sdt, Hc and `grid` as (b). u is post-silu: no silu runs.
+extern "C" int ff_selective_scan_bf16(const void* u, const void* delta,
+                                      const float* A, const void* Bm,
+                                      const void* Cm, const float* Dskip,
+                                      const float* bias, void* y, float* Sdt,
+                                      float* Hc, int G, int Gu, int B, int T,
+                                      int R, int st, int sr, int D, int N,
+                                      int rev_mask, int contract, int chunk,
+                                      int grid, void* stream) {
+  const int mix = mix_of(contract);
+  if (mix < 0) return int(cudaErrorInvalidValue);
+  const bool d16 = mix & kD16, y16 = mix & kY16;
+  ScanArgs a = {};
+  a.xh = static_cast<const __nv_bfloat16*>(u);
+  if (d16) {
+    a.dh = static_cast<const __nv_bfloat16*>(delta);
+    a.Bh = static_cast<const __nv_bfloat16*>(Bm);
+    a.Ch = static_cast<const __nv_bfloat16*>(Cm);
+  } else {
+    a.delta = static_cast<const float*>(delta);
+    a.Bm = static_cast<const float*>(Bm);
+    a.Cm = static_cast<const float*>(Cm);
+  }
+  if (y16)
+    a.yh = static_cast<__nv_bfloat16*>(y);
+  else
+    a.y = static_cast<float*>(y);
+  a.A = A; a.Dskip = Dskip; a.bias = bias; a.Sdt = Sdt; a.Hc = Hc;
+  a.Bt = B; a.Gu = Gu;
+  a.T = T; a.R = R; a.st = st; a.sr = sr;
+  a.D = D; a.N = N; a.dt_rank = 0;
+  a.R4 = 0; a.W = row_width(0, N, 0);
+  a.rev_mask = rev_mask;
+  a.vec_x = D % 8 == 0 && aligned16(u) && aligned16(delta);
+  a.vec_bc = N % (d16 ? 8 : 4) == 0 && aligned16(Bm) && aligned16(Cm);
+  a.vec_y = D % (y16 ? 8 : 4) == 0 && aligned16(y);
+  if (G < 1 || G > 31 || Gu < 1 || G % Gu != 0 ||
+      (long long)G * B > 65535 || !plan_ok(a, G * B, chunk, grid))
+    return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mix) {
+    case kMixChain16: return int(run_explicit<kMixChain16>(a, G * B, grid, s));
+    case kMixSpatial16:
+      return int(run_explicit<kMixSpatial16>(a, G * B, grid, s));
+    default: return int(run_explicit<kMixBidir16>(a, G * B, grid, s));
+  }
 }

@@ -34,6 +34,7 @@ skip_scale, conv_blk.cab.*, ln_2, skip_scale2}, layers.i.conv, ...).
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 from typing import Optional, Tuple
@@ -124,8 +125,12 @@ class SS2D(nn.Module):
         elif route == "bidir":
             y = self._bidir(F.silu(xc), A, Ds)
         else:
-            scan = (selective_scan_chain if route == "chainv5"
-                    else selective_scan_spatial)
+            # chainv5's y comes back in u's dtype and its direction sums
+            # run in it (a bf16 sum a pair, then of the pairs); spatial's
+            # stays fp32, summed in fp32 and cast once below
+            scan = (functools.partial(selective_scan_chain,
+                                      out_dtype=xc.dtype)
+                    if route == "chainv5" else selective_scan_spatial)
 
             def one(k, lay):
                 dt, B, C = self._project(lay, k)
@@ -156,27 +161,33 @@ class SS2D(nn.Module):
 
     def _project(self, u: torch.Tensor, k: int):
         """Direction k's dt [.., D], B and C [.., N] from u [.., D], as the
-        JAX chainv5 and spatial routes' einsums compute them."""
+        JAX chainv5 and spatial routes' einsums compute them: in fp32 (for
+        a bf16 u, fp32 sums of the exact bf16 products, as
+        ``preferred_element_type`` keeps them; dt_low stays fp32 into the
+        dt product), each of dt, B and C rounded to u's dtype once."""
         r, n = self.dt_rank, self.d_state
-        dbl = F.linear(u, self.x_proj_weight[k])
-        dt = F.linear(dbl[..., :r], self.dt_projs_weight[k])
-        return dt, dbl[..., r:r + n].contiguous(), dbl[..., r + n:].contiguous()
+        dbl = F.linear(u.float(), self.x_proj_weight[k].float())
+        dt = F.linear(dbl[..., :r], self.dt_projs_weight[k].float())
+        return tuple(v.to(u.dtype).contiguous()
+                     for v in (dt, dbl[..., r:r + n], dbl[..., r + n:]))
 
     def _bidir(self, u: torch.Tensor, A: torch.Tensor, Ds: torch.Tensor
                ) -> torch.Tensor:
         """The bidir route over u [B, H, W, D] (post-silu): direction k's
         projections from the row-major (k even) or column-major sequence,
-        one scan of all four, the backward outputs already in natural
-        order."""
+        in fp32 (for a bf16 u, fp32 sums of the exact bf16 products, kept
+        fp32 as JAX's route keeps x_dbl and dt), one scan of all four, the
+        backward outputs already in natural order."""
         b, h, w, d = u.shape
         l, r, n = h * w, self.dt_rank, self.d_state
         xs2 = torch.stack([u.reshape(b, l, d),
                            u.transpose(1, 2).reshape(b, l, d)])
         # [4, C, D] -> [fwd/bwd, row/col, C, D]: direction k = 2 j + i
         w4 = self.x_proj_weight.view(2, 2, r + 2 * n, d)
-        dbl = torch.einsum("ibld,jicd->jiblc", xs2, w4).reshape(4, b, l, -1)
+        dbl = torch.einsum("ibld,jicd->jiblc", xs2.float(),
+                           w4.float()).reshape(4, b, l, -1)
         dts = torch.einsum("kblr,kdr->kbld", dbl[..., :r],
-                           self.dt_projs_weight).contiguous()
+                           self.dt_projs_weight.float()).contiguous()
         y_fwd, y_bwd = selective_scan_bidir(
             xs2, dts, A, dbl[..., r:r + n].contiguous(),
             dbl[..., r + n:].contiguous(), Ds, self.dt_projs_bias)

@@ -19,7 +19,9 @@ entries count apart: ``selective_scan`` (chain_proj, TPU kernels #3/#4),
 ``window_attention`` (#10, window-major) count apart too. A kernel with a
 bf16 version counts that version under its name with ``.bf16`` added
 (``window_attention_nhwc.bf16``, ``grl_mixed_attention_nhwc.bf16``,
-``selective_scan.bf16``, ``fused_mlp_block.bf16``, ``cab_fused.bf16``,
+``selective_scan.bf16``, ``selective_scan_chain.bf16``,
+``selective_scan_spatial.bf16``, ``selective_scan_bidir.bf16``,
+``fused_mlp_block.bf16``, ``cab_fused.bf16``,
 ``nafblock_fused.bf16``, ``dwconv3x3.bf16``, ``lka_block_fused.bf16``,
 ``hier_stage3_fused.bf16``, ``edge_refine_fused.bf16``,
 ``edge_fuse_fused.bf16``, ``window_attention_qkv_nhwc.bf16``,
@@ -27,8 +29,8 @@ bf16 version counts that version under its name with ``.bf16`` added
 shows which of the two ran. A kernel takes the dtypes :func:`require` is
 given; handed a bf16 tensor, an fp32-only kernel raises naming itself
 (:func:`fp32_only`), and nothing is cast around it. The fp32-only kernels
-are #5-#10: the scan routes other than chain_proj and the window-major
-attention.
+are #6, #7 and #10 (the flat and K-direction scans and the window-major
+attention), which lie on no path.
 """
 
 from __future__ import annotations
@@ -71,6 +73,7 @@ _SIGNATURES = {
     "ff_selective_scan_proj": [_P] * 10 + [_I] * 9 + [_P],
     "ff_selective_scan_proj_bf16": [_P] * 11 + [_I] * 8 + [_P],
     "ff_selective_scan": [_P] * 10 + [_I] * 12 + [_P],
+    "ff_selective_scan_bf16": [_P] * 10 + [_I] * 13 + [_P],
     "ff_fused_mlp_scratch_floats": [_I] * 3,
     "ff_fused_mlp": [_P] * 9 + [_L] + [_I] * 4 + [_F, _F, _P],
     "ff_fused_mlp_bf16_scratch_bytes": [_I] * 4,

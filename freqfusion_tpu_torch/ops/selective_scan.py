@@ -23,19 +23,32 @@ entries take the JAX scan kernels' contracts and layouts:
   NHWC rows in sequence order (position r * T + t).
 
 ``reverse=True`` scans from the last position down; y stays in natural
-order. Every entry returns fp32, except ``selective_scan_chain_proj`` on a
-bf16 xc (the bf16 expert mode), which returns bf16 y: its bf16 kernel
-(counted as ``selective_scan.bf16``) and plain version round where the
-JAX kernel's bf16 run does (u = silu(xc) rounded to bf16, one product
-with the composed projection weight rounded to bf16 once, dt/B/C, the
-softplus and the state in fp32, y rounded to bf16). The other entries
-take fp32 only and refuse bf16 (:func:`cuda.fp32_only`). A CPU tensor
-goes to the plain version (``*_reference``); a CUDA tensor goes to
-``csrc/selective_scan.cu`` or the call raises. All entries share one strided CUDA scan: a persistent grid
-of blocks, each scanning (sequence, chunk, 128-channel tile) items out of
-an asynchronous shared-memory ring, in two passes around a parallel
-compose of the chunk carries; :func:`plan_scan` sizes the chunks so that
-the items fill the card's resident blocks once. The approximate
+order. Every entry returns fp32 y unless told otherwise. In the bf16
+expert mode:
+
+- ``selective_scan_chain_proj`` on a bf16 xc returns bf16 y: its bf16
+  kernel (counted as ``selective_scan.bf16``) and plain version round
+  where the JAX kernel's bf16 run does (u = silu(xc) rounded to bf16, one
+  product with the composed projection weight rounded to bf16 once,
+  dt/B/C, the softplus and the state in fp32, y rounded to bf16);
+- ``selective_scan_chain``, ``_spatial`` and ``_bidir`` take a bf16 u
+  with dt, B and C in bf16 (#5, #9) or fp32 (#8), as SS2D's chainv5,
+  spatial and bidir routes hand them, A, D and the bias of any float
+  dtype (cast to fp32, as the JAX wrappers cast them), and return y in
+  ``out_dtype`` (chain and spatial; default fp32, bf16 only with bf16
+  dt) or fp32 (bidir). Their bf16 kernels count as
+  ``<entry>.bf16``; the plain versions upcast the operands, scan in fp32
+  and round y to ``out_dtype`` once.
+
+``selective_scan_flat`` and ``_dirs`` (#6, #7, on no path) take fp32 only
+and refuse bf16 (:func:`cuda.fp32_only`). A CPU tensor goes to the plain
+version (``*_reference``); a CUDA tensor goes to
+``csrc/selective_scan.cu`` or the call raises. All entries share one
+strided CUDA scan: a persistent grid of blocks, each scanning (sequence,
+chunk, 128-channel tile) items out of an asynchronous shared-memory ring,
+in two passes around a parallel compose of the chunk carries;
+:func:`plan_scan` sizes the chunks so that the items fill the card's
+resident blocks once. The approximate
 per-chain init and the 360 -> 384 channel padding of the TPU kernels are
 not carried over: the port is exact for any D and L.
 """
@@ -124,12 +137,16 @@ def _to_seq(x: torch.Tensor) -> torch.Tensor:
 
 
 def selective_scan_chain_reference(u, delta, A, B, C, D, delta_bias,
-                                   reverse: bool = False) -> torch.Tensor:
-    """Plain version of :func:`selective_scan_chain`."""
+                                   reverse: bool = False,
+                                   out_dtype: Optional[torch.dtype] = None
+                                   ) -> torch.Tensor:
+    """Plain version of :func:`selective_scan_chain`: the scan in fp32 on
+    the upcast operands, y rounded to `out_dtype` (default fp32) once."""
     b, t, r, d = u.shape
     y = _seq_scan(_to_seq(u), _to_seq(delta), A, _to_seq(B), _to_seq(C), D,
                   delta_bias, reverse)
-    return y.reshape(b, r, t, d).permute(0, 2, 1, 3).contiguous()
+    y = y.reshape(b, r, t, d).permute(0, 2, 1, 3)
+    return y.to(out_dtype or torch.float32).contiguous()
 
 
 def composed_weight(x_proj_w: torch.Tensor, dt_proj_w: torch.Tensor,
@@ -152,10 +169,9 @@ def _chain_proj_bf16_reference(xc, x_proj_w, dt_proj_w, A, D, delta_bias,
     n, d = A.shape[-1], xc.shape[-1]
     u = F.silu(xc.float()).to(torch.bfloat16).float()
     proj = u @ composed_weight(x_proj_w, dt_proj_w, n).float().t()
-    y = selective_scan_chain_reference(
+    return selective_scan_chain_reference(
         u, proj[..., :d], A, proj[..., d:d + n], proj[..., d + n:],
-        D.float(), delta_bias.float(), reverse)
-    return y.to(torch.bfloat16)
+        D.float(), delta_bias.float(), reverse, torch.bfloat16)
 
 
 def selective_scan_chain_proj_reference(xc, x_proj_w, dt_proj_w, A, D,
@@ -199,14 +215,18 @@ def selective_scan_bidir_reference(u, delta, A, B, C, D, delta_bias):
 
 
 def selective_scan_spatial_reference(u, delta, A, B, C, D, delta_bias,
-                                     reverse: bool = False) -> torch.Tensor:
-    """Plain version of :func:`selective_scan_spatial`."""
+                                     reverse: bool = False,
+                                     out_dtype: Optional[torch.dtype] = None
+                                     ) -> torch.Tensor:
+    """Plain version of :func:`selective_scan_spatial`: the scan in fp32
+    on the upcast operands, y rounded to `out_dtype` (default fp32)."""
     b, r, t, d = u.shape
 
     def seq(x):
         return x.reshape(b, r * t, x.shape[-1])
-    return _seq_scan(seq(u), seq(delta), A, seq(B), seq(C), D, delta_bias,
-                     reverse).reshape(b, r, t, d)
+    y = _seq_scan(seq(u), seq(delta), A, seq(B), seq(C), D, delta_bias,
+                  reverse)
+    return y.reshape(b, r, t, d).to(out_dtype or torch.float32)
 
 
 class ScanPlan(NamedTuple):
@@ -249,13 +269,20 @@ def dbl_width(n: int, dt_rank: int) -> int:
 
 _slots: dict = {}
 
+# the explicit contract's codes with a bf16 u (csrc/selective_scan.cu:
+# mix_of), by the dtypes of (dt, B and C; y): #5's, #9's and #8's
+_BF16_CONTRACTS = {(torch.bfloat16, torch.bfloat16): 3,
+                   (torch.bfloat16, torch.float32): 4,
+                   (torch.float32, torch.float32): 5}
+
 
 def _plan(x: torch.Tensor, proj: int, length: int, d: int, n: int,
           dt_rank: int, seqs: int) -> ScanPlan:
     """:func:`plan_scan` with the card's resident blocks of the scan's
     passes (SMs x blocks an SM holds), asked of the library at first use
     for each contract (`proj`: 0 explicit, 1 projection, 2 the bf16
-    projection contract), N and dt_rank."""
+    projection contract, 3-5 the explicit bf16 contracts of
+    ``_BF16_CONTRACTS``), N and dt_rank."""
     key = (x.device.index, proj, n, dt_rank)
     if key not in _slots:
         got = cuda.library().ff_selective_scan_slots(int(proj), n, dt_rank)
@@ -284,7 +311,8 @@ def _require_cuda(x: torch.Tensor, name: str) -> None:
 
 def _launch(name: str, u, delta, A, B, C, D, delta_bias, u_lead: tuple,
             lead: tuple, group: tuple, t: int, r: int, st: int, sr: int,
-            rev_mask: int) -> torch.Tensor:
+            rev_mask: int, out_dtype: Optional[torch.dtype] = None
+            ) -> torch.Tensor:
     """Check the operands of an explicit-contract entry and run the strided
     scan kernel over them. delta, B, C and y are [*lead, D or N], u is
     [*u_lead, D]: sequences of L = t * r positions, position i * t + j
@@ -292,27 +320,49 @@ def _launch(name: str, u, delta, A, B, C, D, delta_bias, u_lead: tuple,
     parameter group (A [D, N], D and delta_bias [D]) or (G,), when
     lead[0] = G indexes the groups (A [G, D, N], D and delta_bias [G, D])
     and u_lead[0] u's groups (group g reads u group g % u_lead[0]). Group
-    g scans backward when bit g of `rev_mask` is set."""
-    cuda.fp32_only(name, u, delta)
+    g scans backward when bit g of `rev_mask` is set. An fp32 u takes
+    fp32 operands and gives fp32 y (``ff_selective_scan``); a bf16 u takes
+    dt, B and C of one dtype and y in `out_dtype` at the mixes of
+    ``_BF16_CONTRACTS`` (``ff_selective_scan_bf16``, counted as
+    ``<name>.bf16``), A, D and delta_bias cast to fp32."""
+    out_dtype = out_dtype or torch.float32
     d, n = u.shape[-1], A.shape[-1]
     dev = u.device
-    cuda.require(u, "u", u_lead + (d,), dev)
-    cuda.require(delta, "delta", lead + (d,), dev)
+    contract = 0
+    if u.dtype == torch.bfloat16:
+        contract = _BF16_CONTRACTS.get((delta.dtype, out_dtype))
+        if contract is None:
+            raise ValueError(
+                f"{name}: a bfloat16 u takes dt, B and C in bfloat16 with y "
+                f"in bfloat16 or float32, or all in float32; got dt "
+                f"{delta.dtype} and out_dtype {out_dtype}")
+        A, D, delta_bias = (v.float().contiguous() for v in (A, D, delta_bias))
+    elif out_dtype != torch.float32:
+        raise ValueError(f"{name}: out_dtype {out_dtype} needs a bfloat16 u")
+    cuda.require(u, "u", u_lead + (d,), dev,
+                 torch.bfloat16 if contract else torch.float32)
+    cuda.require(delta, "delta", lead + (d,), dev,
+                 delta.dtype if contract else torch.float32)
     cuda.require(A, "A", group + (d, n), dev)
-    cuda.require(B, "B", lead + (n,), dev)
-    cuda.require(C, "C", lead + (n,), dev)
+    cuda.require(B, "B", lead + (n,), dev, delta.dtype)
+    cuda.require(C, "C", lead + (n,), dev, delta.dtype)
     cuda.require(D, "D", group + (d,), dev)
     cuda.require(delta_bias, "delta_bias", group + (d,), dev)
     groups, u_groups = (group[0], u_lead[0]) if group else (1, 1)
     seqs = delta.numel() // (t * r * d)
-    y = torch.empty_like(delta)
-    plan = _plan(u, False, t * r, d, n, 0, seqs)
+    y = torch.empty(lead + (d,), device=dev, dtype=out_dtype)
+    plan = _plan(u, contract, t * r, d, n, 0, seqs)
     sdt, Hc = _scratch(u, seqs, plan, d, n)
-    err = cuda.library().ff_selective_scan(
-        *(cuda.ptr(x) for x in (u, delta, A, B, C, D, delta_bias, y, sdt,
-                                Hc)),
-        groups, u_groups, seqs // groups, t, r, st, sr, d, n, rev_mask,
-        plan.chunk, plan.grid, cuda.stream(u))
+    ptrs = (cuda.ptr(x) for x in (u, delta, A, B, C, D, delta_bias, y, sdt,
+                                  Hc))
+    dims = (groups, u_groups, seqs // groups, t, r, st, sr, d, n, rev_mask)
+    if contract:
+        err = cuda.library().ff_selective_scan_bf16(
+            *ptrs, *dims, contract, plan.chunk, plan.grid, cuda.stream(u))
+        name += ".bf16"
+    else:
+        err = cuda.library().ff_selective_scan(
+            *ptrs, *dims, plan.chunk, plan.grid, cuda.stream(u))
     cuda.check(err, name)
     cuda.launch_counts[name] += 1
     return y
@@ -321,17 +371,21 @@ def _launch(name: str, u, delta, A, B, C, D, delta_bias, u_lead: tuple,
 def selective_scan_chain(u: torch.Tensor, delta: torch.Tensor,
                          A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                          D: torch.Tensor, delta_bias: torch.Tensor,
-                         reverse: bool = False) -> torch.Tensor:
+                         reverse: bool = False,
+                         out_dtype: Optional[torch.dtype] = None
+                         ) -> torch.Tensor:
     """Chain contract (TPU kernel #5): u, delta [B, T, R, D]; B, C
-    [B, T, R, N]; A [D, N]; D, delta_bias [D]. Returns fp32 y
-    [B, T, R, D]."""
+    [B, T, R, N]; A [D, N]; D, delta_bias [D]. Returns y [B, T, R, D] in
+    `out_dtype` (default fp32; bf16 for a bf16 u with bf16 dt, B and C,
+    as SS2D's chainv5 route runs it in bf16)."""
     if u.device.type == "cpu":
         return selective_scan_chain_reference(u, delta, A, B, C, D,
-                                              delta_bias, reverse)
+                                              delta_bias, reverse, out_dtype)
     _require_cuda(u, "selective_scan_chain")
     b, t, r, _ = u.shape
     return _launch("selective_scan_chain", u, delta, A, B, C, D, delta_bias,
-                   (b, t, r), (b, t, r), (), t, r, r, 1, int(reverse))
+                   (b, t, r), (b, t, r), (), t, r, r, 1, int(reverse),
+                   out_dtype)
 
 
 def selective_scan_flat(u: torch.Tensor, delta: torch.Tensor,
@@ -343,6 +397,7 @@ def selective_scan_flat(u: torch.Tensor, delta: torch.Tensor,
     if u.device.type == "cpu":
         return selective_scan_flat_reference(u, delta, A, B, C, D, delta_bias)
     _require_cuda(u, "selective_scan_flat")
+    cuda.fp32_only("selective_scan_flat", u, delta)
     b, l, _ = u.shape
     return _launch("selective_scan_flat", u, delta, A, B, C, D, delta_bias,
                    (b, l), (b, l), (), l, 1, 1, l, 0)
@@ -358,6 +413,7 @@ def selective_scan_dirs(u: torch.Tensor, delta: torch.Tensor,
     if u.device.type == "cpu":
         return selective_scan_dirs_reference(u, delta, A, B, C, D, delta_bias)
     _require_cuda(u, "selective_scan_dirs")
+    cuda.fp32_only("selective_scan_dirs", u, delta)
     k, b, l, _ = u.shape
     return _launch("selective_scan_dirs", u, delta, A, B, C, D, delta_bias,
                    (k, b, l), (k, b, l), (k,), l, 1, 1, l, 0)
@@ -373,7 +429,8 @@ def selective_scan_bidir(u: torch.Tensor, delta: torch.Tensor,
     all computed from the unflipped sequences; A [4, D, N]; D, delta_bias
     [4, D]. Direction k reads u[k % 2]; directions 2 and 3 run the suffix
     recurrence. Returns (y_fwd, y_bwd), each fp32 [2, B, L, D] in natural
-    order, from one launch."""
+    order, from one launch. A bf16 u takes fp32 or bf16 delta, B and C
+    (fp32 on SS2D's bidir route in bf16)."""
     if u.device.type == "cpu":
         return selective_scan_bidir_reference(u, delta, A, B, C, D,
                                               delta_bias)
@@ -387,20 +444,25 @@ def selective_scan_bidir(u: torch.Tensor, delta: torch.Tensor,
 def selective_scan_spatial(u: torch.Tensor, delta: torch.Tensor,
                            A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                            D: torch.Tensor, delta_bias: torch.Tensor,
-                           reverse: bool = False) -> torch.Tensor:
+                           reverse: bool = False,
+                           out_dtype: Optional[torch.dtype] = None
+                           ) -> torch.Tensor:
     """One direction over a spatial layout (TPU kernel #9): u, delta
     [B, R, T, D], R rows of T positions in sequence order (row-major: the
     NHWC tensor itself; column-major: its [B, W, H, D] transpose); B, C
     [B, R, T, N]; A [D, N]; D, delta_bias [D]. ``reverse=True`` runs the
-    suffix recurrence over the same layout. Returns fp32 y [B, R, T, D]."""
+    suffix recurrence over the same layout. Returns y [B, R, T, D] in
+    `out_dtype` (default fp32, which SS2D's spatial route keeps in bf16
+    too)."""
     if u.device.type == "cpu":
         return selective_scan_spatial_reference(u, delta, A, B, C, D,
-                                                delta_bias, reverse)
+                                                delta_bias, reverse,
+                                                out_dtype)
     _require_cuda(u, "selective_scan_spatial")
     b, r, t, _ = u.shape
     return _launch("selective_scan_spatial", u, delta, A, B, C, D,
                    delta_bias, (b, r, t), (b, r, t), (), t, r, 1, t,
-                   int(reverse))
+                   int(reverse), out_dtype)
 
 
 def selective_scan_chain_proj(xc: torch.Tensor, x_proj_w: torch.Tensor,

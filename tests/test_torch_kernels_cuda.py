@@ -1651,6 +1651,94 @@ def test_scan_chain_proj_bf16_kernel(t, r, d, n, dtr, reverse):
                 "selective_scan.bf16")
 
 
+def _scan_bf16_inputs(rng, lead, d, n, dev, bf16_dt: bool, group=()):
+    """_scan_inputs with u in bf16 and, where `bf16_dt`, dt, B and C too;
+    A, D and the bias fp32 (the bias bf16, as SS2D's routes hand it)."""
+    u, dt, A, B, C, D, bias = _scan_inputs(rng, lead, d, n, dev, group)
+    cast = (lambda x: x.to(torch.bfloat16)) if bf16_dt else (lambda x: x)
+    return (u.to(torch.bfloat16), cast(dt), A, cast(B), cast(C), D,
+            bias.to(torch.bfloat16))
+
+
+def _scan_fp32_close(got, want, name):
+    """fp32 y of a bf16 scan kernel against its plain version: the scan
+    tolerance, relative to max |y|."""
+    torch.cuda.synchronize()
+    assert dict(cuda.launch_counts) == {name: 1}
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert g.dtype == w.dtype == torch.float32 and g.shape == w.shape
+        assert (g - w).abs().max() <= SCAN_REL_TOL * w.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,r,d,n,reverse", [(40, 24, 360, 16, True),
+                                             (40, 24, 360, 16, False),
+                                             (9, 5, 20, 4, False),
+                                             (37, 29, 24, 8, True)])
+def test_scan_chain_bf16_kernel(t, r, d, n, reverse):
+    """#5 in bf16 (chainv5's operands: u, dt, B, C bf16, y bf16 through
+    out_dtype) at MambaIR's widths over several chunks, each direction; a
+    narrow generic shape (D % 8 and N % 8 != 0: the 2-byte staging and
+    stores); D 24, N 8 backward (16-byte copies, the generic N)."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(d + n)
+    args = _scan_bf16_inputs(rng, (2, t, r), d, n, dev, True)
+    cuda.reset_launch_counts()
+    got = selective_scan_chain(*args, reverse, torch.bfloat16)
+    _bf16_close(got, selective_scan_chain_reference(*args, reverse,
+                                                    torch.bfloat16),
+                "selective_scan_chain.bf16")
+    assert dict(cuda.launch_counts) == {"selective_scan_chain.bf16": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,r,d,n,reverse", [(29, 37, 360, 16, False),
+                                             (29, 37, 360, 16, True),
+                                             (9, 5, 20, 4, True)])
+def test_scan_spatial_bf16_kernel(t, r, d, n, reverse):
+    """#9 in bf16 (the spatial route's operands: u, dt, B, C bf16, y fp32)
+    over [B, R, T, D], each direction, and a narrow generic shape."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(d + n + 1)
+    args = _scan_bf16_inputs(rng, (2, r, t), d, n, dev, True)
+    cuda.reset_launch_counts()
+    got = selective_scan_spatial(*args, reverse=reverse)
+    _scan_fp32_close(got, selective_scan_spatial_reference(
+        *args, reverse=reverse), "selective_scan_spatial.bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,d,n", [(1000, 360, 16), (333, 20, 4)])
+def test_scan_bidir_bf16_kernel(l, d, n):
+    """#8 in bf16 (the bidir route's operands: u [2, B, L, D] bf16, dt, B
+    and C fp32, y fp32): four directions from two u tensors, the last two
+    backward; a ragged last chunk, and a narrow generic shape."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(l)
+    u, *rest = _scan_bf16_inputs(rng, (4, 2, l), d, n, dev, False, (4,))
+    args = (u[:2].contiguous(), *rest)
+    cuda.reset_launch_counts()
+    got = selective_scan_bidir(*args)
+    _scan_fp32_close(got, selective_scan_bidir_reference(*args),
+                     "selective_scan_bidir.bf16")
+
+
+@pytest.mark.cuda
+def test_scan_bf16_refuses_other_mixes():
+    """A bf16 u takes the three routes' operand mixes only: fp32 dt with a
+    bf16 y, and a bf16 y from an fp32 u, are refused, not cast."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(0)
+    args = _scan_bf16_inputs(rng, (1, 8, 8), 16, 4, dev, False)
+    with pytest.raises(ValueError, match="selective_scan_chain: a bfloat16 "
+                                         "u takes"):
+        selective_scan_chain(*args, False, torch.bfloat16)
+    fp32 = (args[0].float(), *args[1:])
+    with pytest.raises(ValueError, match="needs a bfloat16 u"):
+        selective_scan_spatial(*fp32, out_dtype=torch.bfloat16)
+
+
 def _bf16_tree(tree):
     return {k: _bf16_tree(v) if isinstance(v, dict) else
             v.to(torch.bfloat16) for k, v in tree.items()}
@@ -1856,7 +1944,7 @@ def test_token_attention_bf16_kernel(t, e, nh, p):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["window_attention",
-                                    "selective_scan_chain"])
+                                    "selective_scan_flat"])
 def test_fp32_only_kernels_refuse_bf16(kernel):
     """A kernel with no bf16 version raises on a bf16 tensor, naming
     itself; nothing is cast around it."""
@@ -1866,9 +1954,11 @@ def test_fp32_only_kernels_refuse_bf16(kernel):
         "window_attention": lambda: window_attention(
             x.view(1, 64, 16), x.view(1, 64, 16), x.view(1, 64, 16),
             torch.zeros(1, 64, 64, device=dev), None, 1),
-        "selective_scan_chain": lambda: selective_scan_chain(
-            x, x, torch.zeros(16, 4, device=dev), x[..., :4], x[..., :4],
-            torch.zeros(16, device=dev), torch.zeros(16, device=dev)),
+        "selective_scan_flat": lambda: selective_scan_flat(
+            x.view(1, 64, 16), x.view(1, 64, 16),
+            torch.zeros(16, 4, device=dev), x.view(1, 64, 16)[..., :4],
+            x.view(1, 64, 16)[..., :4], torch.zeros(16, device=dev),
+            torch.zeros(16, device=dev)),
     }
     with pytest.raises(ValueError, match=f"{kernel}: .*bf16 version is not "
                                          "ported"):
