@@ -41,7 +41,12 @@ exits non-zero without the final ok line):
    The scan's seven contracts (TPU kernels #3-#9) run at L = 172,032,
    D 360, N 16: chain_proj and chain on both chain layouts and spatial on
    the NHWC tensor and its transpose, each direction; flat; four
-   directions; bidir as SS2D calls it. For one #3 call (rows, forward)
+   directions; bidir as SS2D calls it. Each scan's operations term counts
+   its exponentials (one ex2 a state, position and channel) as shared
+   between the special-function units (PEAK_SFU) and the fp32 lanes
+   (EX2_FMA_FLOPS each), so that both finish together; it binds #3 and
+   the bf16 scans, bytes the other fp32 scans.
+   For one #3 call (rows, forward)
    and one #5 call it prints each launch's device time (torch.profiler,
    mean of 5 calls). No PyTorch call computes a scan, and the scan's
    plain versions (~1 s a direction) are timed over one run after one
@@ -75,9 +80,11 @@ exits non-zero without the final ok line):
    path's shapes, each against its bf16 plain version (two bf16 ulps of
    the output's largest magnitude, max-abs), beside the fp32 kernel's
    time at the same shapes and the bound at the bf16 tensor-core rate
-   (989 TFLOP/s; the scan's recurrence at the fp32 cores'): #1 at DRCT-L's
+   (989 TFLOP/s; the scan's recurrence at the fp32 cores' and the SFU's
+   rates): #1 at DRCT-L's
    ten shapes with SDPA in bf16 as its library call, #2 at GRL-B's two,
-   #3/#4 on both chain layouts, each direction; then the bf16 kernels of
+   #3/#4 on both chain layouts, each direction, with one call's launches
+   (the wgmma projection and the passes only); then the bf16 kernels of
    SS2D's other routes on the operands each hands them in bf16 (#5, y
    bf16, on both chain layouts and #9, y fp32, on the NHWC tensor and its
    transpose, each direction; #8, dt, B, C and y fp32, as SS2D calls it),
@@ -190,7 +197,8 @@ the card's name and power limit (card: ...), and
 
 run phase 1 and phase 2's four byte-floor kernels, its three in-kernel
 projection kernels (fp32, then bf16), its four fusion-eval kernels, the
-scan's seven contracts, window attention #1 alone at its ten shapes,
+scan's seven contracts and then its bf16 kernels (#3/#4, #5, #9, #8: the
+whole scan body in one call), window attention #1 alone at its ten shapes,
 GRL's mixed attention #2 and #12 at GRL-B's two shapes, the token
 attention #13 at the fusion net's two geometries (fp32, then bf16), or
 the seventeen bf16 kernels, only (to
@@ -242,6 +250,14 @@ PEAK_FLOPS = 67e12     # H100 SXM fp32 outside the tensor cores
 PEAK_TF32 = 495e12     # H100 SXM TF32 on the tensor cores, dense
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3
 PEAK_BF16 = 989e12     # H100 SXM bf16 on the tensor cores, dense
+# the special-function units (ex2, rcp, ...): 16 MUFU results a clock per
+# SM, 132 SMs, at the H100 SXM's 1.98 GHz boost clock (nvidia-smi
+# --query-gpu=clocks.max.sm); the scan's floor is one ex2 a state
+PEAK_SFU = 16 * 132 * 1.98e9
+# an ex2 on the fp32 lanes instead (csrc/selective_scan.cu:ex2_fma): 11
+# instructions (a max, three adds, five FMAs, a shift and an integer add),
+# each one issue slot of a lane, two of PEAK_FLOPS's operations
+EX2_FMA_FLOPS = 2 * 11
 # bf16 kernels against their bf16 plain versions (the same rounding
 # points, fp32 sums in another order): max-abs within two bf16 ulps of the
 # output's largest magnitude
@@ -264,7 +280,8 @@ PSNR_BF16_FUSION = 51.0
 # at GRL-B's head box; every instantiation of the 3x3 conv (#19-#21)
 # and of #18's kernels, fp32 and bf16; the token attention's (#13) at the
 # path's two geometries (T 9 with 8 warps, T 4 with 16) and its layout
-# pass
+# pass; the bf16 scan's passes (every mix, N 16 and any) and its wgmma
+# projection
 DRCT_HEAD_BOXES = (32, 56, 128, 48, 80)
 # GRL mixed attention's head box at GRL-B (head dim 30), csrc/
 # grl_attention.cuh, in both sources that build it (#2, #12)
@@ -278,9 +295,10 @@ FFN_DOWN_TILES = (6, 8, 9, 10)
 # csrc/bf16_gemm.cuh's bg_gemm_kernel<A, Epi>: every instantiation, in the
 # three sources that build it (the bf16 #14, #15, #16)
 CAB_CONV_TILES = (4, 6)
-# csrc/selective_scan.cu's scan_pass_kernel<..., kMix>: the bf16 operand
-# mixes, by the contract each serves
-SCAN_MIXES = {11: "chain_proj (#3/#4)", 13: "chain (#5)", 5: "spatial (#9)",
+# csrc/selective_scan.cu's scan_pass16_kernel<kFinal, kN, kMix>: the bf16
+# operand mixes, by the contract each serves (every instantiation, and the
+# wgmma projection, must not spill)
+SCAN_MIXES = {25: "chain_proj (#3/#4)", 13: "chain (#5)", 5: "spatial (#9)",
               1: "bidir (#8)"}
 LR_SIZES = {"a_128x128": (128, 128), "b_100x140": (100, 140),
             "c_336x512": (336, 512)}
@@ -487,6 +505,25 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def operations_ms(flops: float, peak_flops: float = PEAK_FLOPS,
+                  core_flops: float = 0.0, sfu_ops: float = 0.0):
+    """The operations term of a bound in ms, and the SFU's time alone for
+    `sfu_ops` exponentials. `flops` run at `peak_flops` and `core_flops`
+    on the fp32 cores beside them. Where the exponentials take the SFU
+    longer than that, part of them can move to the fp32 lanes (ex2_fma):
+    with e the SFU's time for all of them, f the lanes' work and g the
+    exponentials' time on the lanes, a share x = (f + g) / (e + g) on the
+    SFU has both units finish at e x = e (f + g) / (e + g), below e and
+    above f. (Only the scans pass `sfu_ops`; their flops are the fp32
+    cores'.)"""
+    ms = max(1e3 * flops / peak_flops, 1e3 * core_flops / PEAK_FLOPS)
+    sfu_ms = 1e3 * sfu_ops / PEAK_SFU
+    if sfu_ms > ms:
+        emu_ms = 1e3 * sfu_ops * EX2_FMA_FLOPS / PEAK_FLOPS
+        ms = sfu_ms * (ms + emu_ms) / (sfu_ms + emu_ms)
+    return ms, sfu_ms
+
+
 class KernelCheck:
     """Error, times and bound of one kernel against its plain version (and
     the one PyTorch call that computes the same function, where there is
@@ -501,14 +538,17 @@ class KernelCheck:
 
     def run(self, label: str, kernel, plain, tol_of, flops: float,
             nbytes: float, library=None, plain_reps: int = 5,
-            peak_flops: float = PEAK_FLOPS, core_flops: float = 0.0
-            ) -> float:
+            peak_flops: float = PEAK_FLOPS, core_flops: float = 0.0,
+            sfu_ops: float = 0.0) -> float:
         """`flops` and `nbytes` count the operations the function does on
         these inputs and the bytes it must move (each input read once,
         each output written once); `peak_flops` is the rate of the units
         its operations run on (the fp32 cores unless given); `core_flops`
         the work that stays on the fp32 cores beside tensor-core products,
-        a third term (the units run side by side). The plain
+        a third term, and `sfu_ops` the exponentials it needs (the scan's
+        ex2, one a state; operations_ms shares them between the SFU and
+        the fp32 lanes). The bound is the larger of operations and bytes.
+        The plain
         version is timed over `plain_reps` runs after min(2, plain_reps)
         warm-ups, twice; with `plain_reps` 1 (the scan's plain versions,
         seconds a run) once, the comparison's run its warm-up. Returns the
@@ -530,14 +570,17 @@ class KernelCheck:
         plain_ms2 = (cuda_ms(plain, plain_reps, warm) if plain_reps > 1
                      else plain_ms)
         ms, plain_ms = (ms + ms2) / 2, (plain_ms + plain_ms2) / 2
-        flop_ms = max(1e3 * flops / peak_flops, 1e3 * core_flops / PEAK_FLOPS)
+        flop_ms, sfu_ms = operations_ms(flops, peak_flops, core_flops,
+                                        sfu_ops)
         byte_ms = 1e3 * nbytes / PEAK_BYTES
         lib = "" if lib_ms is None else f"  library {lib_ms:.3f} ms"
         reps = "" if plain_reps == 5 else f" (median of {plain_reps})"
         print(f"  {self.name} {label}: max_abs_err {err:.3e} (tol {tol:.3e})"
               f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms{reps}{lib}"
               f"  bound {max(flop_ms, byte_ms):.3f} ms "
-              f"({'operations' if flop_ms >= byte_ms else 'bytes'})")
+              f"({'operations' if flop_ms >= byte_ms else 'bytes'}"
+              + (f"; SFU and fp32 lanes {flop_ms:.3f} ms, SFU alone "
+                 f"{sfu_ms:.3f}" if sfu_ops else "") + ")")
         if not err <= tol:
             raise AssertionError(f"{self.name} {label}: error {err} > {tol}")
         self.err = max(self.err, err)
@@ -816,6 +859,14 @@ def check_spills(log: str, required: bool) -> None:
                        f"{m.group(5)} stages") if m.group(1)
                       else (f"{'bf16 ' if m.group(7) or m.group(8) == '1' else ''}"
                             f"{m.group(6)} pass")),
+        "bf16 scan (#3/#4, #5, #8, #9)": (
+            r"scan_pass16_kernelILb([01])ELi(\d+)ELi(\d+)E|"
+            r"(scan_project_wgmma)_kernel",
+            lambda m: True,
+            lambda m: "projection (wgmma)" if m.group(4)
+            else f"pass {int(m.group(1)) + 1}, N "
+                 f"{m.group(2) if m.group(2) != '0' else 'any'}, "
+                 + SCAN_MIXES.get(int(m.group(3)), m.group(3))),
     }
     entries = _ptxas_entries(log)
     spilled = []
@@ -835,8 +886,6 @@ def check_spills(log: str, required: bool) -> None:
     # the bf16 kernels' instantiations: reported, a spill not held against
     # them (simple first versions)
     bf16 = (r"((?:window|grl)_attention_bf16|ta_bf16_attend)_kernelILi(\d+)E|"
-            r"(scan_project)_bf16_kernel|"
-            r"scan_pass_kernelILb0ELb([01])ELi(\d+)ELi0ELi([1-9]\d*)E|"
             r"dwconv3x3_kernelI(N?S?_?6?Bf16x4|13__nv_bfloat16)E")
     for name, regs, spill in entries:
         m = re.search(bf16, name)
@@ -844,13 +893,8 @@ def check_spills(log: str, required: bool) -> None:
             what = (f"{m.group(1)}, head "
                     f"{'dim' if m.group(1) == 'ta_bf16_attend' else 'box'} "
                     f"{m.group(2)}" if m.group(1)
-                    else "scan projection" if m.group(3)
-                    else "dwconv, " + ("four channels" if "x4" in m.group(7)
-                                       else "one channel") + " a thread"
-                    if m.group(7)
-                    else f"scan pass {int(m.group(4)) + 1}, N "
-                         f"{m.group(5) if m.group(5) != '0' else 'any'}, "
-                         + SCAN_MIXES.get(int(m.group(6)), m.group(6)))
+                    else "dwconv, " + ("four channels" if "x4" in m.group(3)
+                                       else "one channel") + " a thread")
             print(f"  bf16 {what}: {regs} registers, {spill} bytes spill "
                   "stores (reported)")
     if spilled:
@@ -1016,6 +1060,7 @@ def phase_scan_kernels(dev, randn, checks) -> None:
     # rank-12 dt expansion. Bytes per direction of the explicit contracts:
     # u, dt and y [L, D], B and C [L, N], A, D and the bias
     scan_ops = p * d * (8.0 * n + 8)
+    sfu = p * d * n  # one ex2 a state: the SFU's share, a direction
     dir_bytes = 4 * (3 * p * d + 2 * p * n + d * (n + 2))
     sc = checks["selective_scan"] = KernelCheck("selective_scan")
     rows = xc.transpose(1, 2).contiguous()
@@ -1026,7 +1071,8 @@ def phase_scan_kernels(dev, randn, checks) -> None:
                    lambda: selective_scan_chain_proj(*args),
                    lambda: selective_scan_chain_proj_reference(*args),
                    scan_tol, scan_ops + p * d * 2.0 * (44 + dtr),
-                   4 * (2 * p * d + d * (44 + dtr + n + 2)), plain_reps=1)
+                   4 * (2 * p * d + d * (44 + dtr + n + 2)), plain_reps=1,
+                   sfu_ops=sfu)
             if label == "rows" and not rev:
                 launch_breakdown("#3 rows/fwd",
                                  lambda: selective_scan_chain_proj(*args))
@@ -1052,13 +1098,13 @@ def phase_scan_kernels(dev, randn, checks) -> None:
             tag = f"{a}x{b}/{'rev' if rev else 'fwd'}"
             ch.run(tag, lambda: selective_scan_chain(*args),
                    lambda: selective_scan_chain_reference(*args), scan_tol,
-                   scan_ops, dir_bytes, plain_reps=1)
+                   scan_ops, dir_bytes, plain_reps=1, sfu_ops=sfu)
             if a == w and not rev:
                 launch_breakdown(f"#5 {tag}",
                                  lambda: selective_scan_chain(*args))
             sp.run(tag, lambda: selective_scan_spatial(*args),
                    lambda: selective_scan_spatial_reference(*args), scan_tol,
-                   scan_ops, dir_bytes, plain_reps=1)
+                   scan_ops, dir_bytes, plain_reps=1, sfu_ops=sfu)
         del u, dt, Bm, Cm
     torch.cuda.empty_cache()
 
@@ -1067,7 +1113,7 @@ def phase_scan_kernels(dev, randn, checks) -> None:
     args = (u, dt, A, Bm, Cm, D, bias)
     fl.run(f"L{p}", lambda: selective_scan_flat(*args),
            lambda: selective_scan_flat_reference(*args), scan_tol, scan_ops,
-           dir_bytes, plain_reps=1)
+           dir_bytes, plain_reps=1, sfu_ops=sfu)
     del u, dt, Bm, Cm, args
     torch.cuda.empty_cache()
 
@@ -1078,14 +1124,15 @@ def phase_scan_kernels(dev, randn, checks) -> None:
     args = (u, dt, A4, Bm, Cm, D4, bias4)
     di.run(f"K4/L{p}", lambda: selective_scan_dirs(*args),
            lambda: selective_scan_dirs_reference(*args), scan_tol,
-           4 * scan_ops, 4 * dir_bytes, plain_reps=1)
+           4 * scan_ops, 4 * dir_bytes, plain_reps=1, sfu_ops=4 * sfu)
     # bidir: u [2, 1, L, D] (the row-major and column-major sequences)
     # read by four directions, the last two backward
     bi = checks["selective_scan_bidir"] = KernelCheck("selective_scan_bidir")
     args = (u[:2].contiguous(), dt, A4, Bm, Cm, D4, bias4)
     bi.run(f"4 dirs/L{p}", lambda: selective_scan_bidir(*args),
            lambda: selective_scan_bidir_reference(*args), scan_tol,
-           4 * scan_ops, 4 * dir_bytes - 4 * 2 * p * d, plain_reps=1)
+           4 * scan_ops, 4 * dir_bytes - 4 * 2 * p * d, plain_reps=1,
+           sfu_ops=4 * sfu)
     del u, dt, Bm, Cm, args, xc
 
 
@@ -1124,8 +1171,6 @@ def phase_bf16_kernels(dev, randn, checks) -> None:
     from freqfusion_tpu_torch.ops.attention import (
         grl_mixed_attention_nhwc, grl_mixed_attention_nhwc_reference,
         window_attention_nhwc, window_attention_nhwc_reference)
-    from freqfusion_tpu_torch.ops.selective_scan import (
-        selective_scan_chain_proj, selective_scan_chain_proj_reference)
     from freqfusion_tpu_torch.ops.window_attention import (
         device_table, shifted_window_mask, window_partition)
 
@@ -1186,6 +1231,24 @@ def phase_bf16_kernels(dev, randn, checks) -> None:
     del halves, anchor
     torch.cuda.empty_cache()
 
+    phase_bf16_chain_proj(dev, randn, checks, beside)
+    phase_bf16_scan_kernels(dev, randn, checks, beside)
+    phase_bf16_fused_kernels(dev, randn, checks, beside)
+    phase_bf16_fusion_kernels(dev, randn, checks, beside)
+    phase_bf16_qkv_kernels(dev, randn, checks)
+
+
+def phase_bf16_chain_proj(dev, randn, checks, beside) -> None:
+    """The bf16 #3/#4 (selective_scan_chain_proj on a bf16 xc) on both
+    chain layouts, each direction, at phase_scan_kernels' shapes (bf16 xc
+    and weights, fp32 A, bf16 D and dt bias), against its bf16 plain
+    version (BF16_ULPS), with one call's launches (rows, forward)."""
+    from freqfusion_tpu_torch.ops.selective_scan import (
+        selective_scan_chain_proj, selective_scan_chain_proj_reference)
+
+    bf = torch.bfloat16
+    h, w = LR_SIZES["c_336x512"]
+    p = h * w
     d, n, dtr = 360, 16, 12
     g = torch.Generator(device=dev).manual_seed(1)
     xc = randn(1, h, w, d).to(bf)
@@ -1212,17 +1275,23 @@ def phase_bf16_kernels(dev, randn, checks) -> None:
             sc.run(f"{label}/{'rev' if rev else 'fwd'}/T{lay.shape[1]}",
                    lambda: selective_scan_chain_proj(*args),
                    lambda: selective_scan_chain_proj_reference(*args),
-                   bf16_tol, scan_ops, nbytes, plain_reps=1)
+                   bf16_tol, scan_ops, nbytes, plain_reps=1,
+                   sfu_ops=p * d * n)
             if label == "rows" and not rev:
                 launch_breakdown("#3 bf16 rows/fwd",
                                  lambda: selective_scan_chain_proj(*args))
     beside("selective_scan", sc)
     del rows, xc
     torch.cuda.empty_cache()
+
+
+def phase_scan_all(dev, randn, checks) -> None:
+    """--scan-only: the scan's seven fp32 contracts, then its bf16 kernels
+    (#3/#4, #5, #9, #8), so one call compares the whole scan body."""
+    phase_scan_kernels(dev, randn, checks)
+    beside = functools.partial(_beside, checks)
+    phase_bf16_chain_proj(dev, randn, checks, beside)
     phase_bf16_scan_kernels(dev, randn, checks, beside)
-    phase_bf16_fused_kernels(dev, randn, checks, beside)
-    phase_bf16_fusion_kernels(dev, randn, checks, beside)
-    phase_bf16_qkv_kernels(dev, randn, checks)
 
 
 def phase_bf16_scan_kernels(dev, randn, checks, beside) -> None:
@@ -1257,6 +1326,7 @@ def phase_bf16_scan_kernels(dev, randn, checks, beside) -> None:
     A = -torch.arange(1, n + 1, device=dev, dtype=torch.float32).repeat(d, 1)
     D, bias = torch.ones(d, device=dev, dtype=bf), s6_bias()
     scan_ops = p * d * (8.0 * n + 8)
+    sfu = p * d * n
     params = 4 * d * n + 2 * 2 * d
 
     def operands(lead, dt_dtype):
@@ -1278,7 +1348,7 @@ def phase_bf16_scan_kernels(dev, randn, checks, beside) -> None:
             ch.run(tag, lambda: selective_scan_chain(*args, bf),
                    lambda: selective_scan_chain_reference(*args, bf),
                    bf16_tol, scan_ops, 2 * (3 * p * d + 2 * p * n) + params,
-                   plain_reps=1)
+                   plain_reps=1, sfu_ops=sfu)
             if a == w and not rev:
                 launch_breakdown(f"#5 bf16 {tag}",
                                  lambda: selective_scan_chain(*args, bf))
@@ -1286,7 +1356,7 @@ def phase_bf16_scan_kernels(dev, randn, checks, beside) -> None:
                    lambda: selective_scan_spatial_reference(*args),
                    scan_tol, scan_ops,
                    2 * (2 * p * d + 2 * p * n) + 4 * p * d + params,
-                   plain_reps=1)
+                   plain_reps=1, sfu_ops=sfu)
         del u, dt, Bm, Cm
     beside("selective_scan_chain", ch)
     beside("selective_scan_spatial", sp)
@@ -1304,7 +1374,7 @@ def phase_bf16_scan_kernels(dev, randn, checks, beside) -> None:
            lambda: selective_scan_bidir_reference(*args), scan_tol,
            4 * scan_ops,
            2 * 2 * p * d + 4 * (4 * 2 * p * d + 4 * 2 * p * n) + 4 * params,
-           plain_reps=1)
+           plain_reps=1, sfu_ops=4 * sfu)
     beside("selective_scan_bidir", bi)
     del u, dt, Bm, Cm, args
     torch.cuda.empty_cache()
@@ -2745,7 +2815,8 @@ def main(argv) -> int:
                                phase_qkv_all),
                               ("--fusion-only", "fusion-eval",
                                phase_fusion_kernels),
-                              ("--scan-only", "scan", phase_scan_kernels),
+                              ("--scan-only", "scan (fp32, then bf16)",
+                               phase_scan_all),
                               ("--nhwc-attention-only", "window attention (#1)",
                                functools.partial(phase_window_kernels,
                                                  window_major=False)),

@@ -1,7 +1,8 @@
 // 3xTF32 products on the tensor cores, cp.async and bulk copies: the
 // helpers that window attention (window_attention.cuh), GRL's mixed
 // attention (grl_attention.cuh), the fused FFN (fused_mlp.cu), the CAB
-// convolutions (cab.cu) and tf32_gemm.cuh share.
+// convolutions (cab.cu) and tf32_gemm.cuh share; the bf16 scan
+// (selective_scan.cu) takes its ex2, mbarriers and bulk copies.
 //
 // TF32 keeps 10 mantissa bits, too few for fp32 tolerances, so a product
 // runs as three TF32 products: x = hi + lo with hi = x rounded to TF32 (to
@@ -145,6 +146,14 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
           smem_u32(bar)),
       "r"(bytes)
       : "memory");
+}
+
+// One arrival with no bytes (a consumer releasing a stage, or a producer
+// whose stage came by plain stores).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
 }
 
 // Waits until the barrier's phase of the given parity has completed.

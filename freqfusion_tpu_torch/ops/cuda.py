@@ -71,7 +71,7 @@ _SIGNATURES = {
     "ff_grl_mixed_attention_nhwc_bf16": [_P] * 16 + [_I] * 8 + [_P],
     "ff_selective_scan_slots": [_I] * 3,
     "ff_selective_scan_proj": [_P] * 10 + [_I] * 9 + [_P],
-    "ff_selective_scan_proj_bf16": [_P] * 11 + [_I] * 8 + [_P],
+    "ff_selective_scan_proj_bf16": [_P] * 12 + [_I] * 8 + [_P],
     "ff_selective_scan": [_P] * 10 + [_I] * 12 + [_P],
     "ff_selective_scan_bf16": [_P] * 10 + [_I] * 13 + [_P],
     "ff_fused_mlp_scratch_floats": [_I] * 3,

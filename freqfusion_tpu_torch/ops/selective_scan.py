@@ -30,7 +30,10 @@ expert mode:
   kernel (counted as ``selective_scan.bf16``) and plain version round
   where the JAX kernel's bf16 run does (u = silu(xc) rounded to bf16, one
   product with the composed projection weight rounded to bf16 once,
-  dt/B/C, the softplus and the state in fp32, y rounded to bf16);
+  dt/B/C, the softplus and the state in fp32, y rounded to bf16); the
+  kernel's operands of each direction's parameters (the composed weight
+  in its order, D and the bias in fp32) are built once
+  (:func:`chain_proj_operands`);
 - ``selective_scan_chain``, ``_spatial`` and ``_bidir`` take a bf16 u
   with dt, B and C in bf16 (#5, #9) or fp32 (#8), as SS2D's chainv5,
   spatial and bidir routes hand them, A, D and the bias of any float
@@ -48,7 +51,8 @@ strided CUDA scan: a persistent grid of blocks, each scanning (sequence,
 chunk, 128-channel tile) items out of an asynchronous shared-memory ring,
 in two passes around a parallel compose of the chunk carries;
 :func:`plan_scan` sizes the chunks so that the items fill the card's
-resident blocks once. The approximate
+resident blocks once. The bf16 kernels' passes are fed by a producer
+warp's bulk copies, and the bf16 chain_proj kernel projects on wgmma. The approximate
 per-chain init and the 360 -> 384 channel padding of the TPU kernels are
 not carried over: the port is exact for any D and L.
 """
@@ -60,6 +64,7 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils import weak
 
 from . import cuda
 
@@ -70,12 +75,18 @@ __all__ = ["selective_scan", "selective_scan_chain",
            "selective_scan_dirs_reference", "selective_scan_bidir",
            "selective_scan_bidir_reference", "selective_scan_spatial",
            "selective_scan_spatial_reference", "ScanPlan", "plan_scan",
-           "dbl_width", "composed_weight"]
+           "dbl_width", "composed_weight", "weight_layout",
+           "ChainProjOperands", "chain_proj_operands",
+           "clear_chain_proj_operands"]
 
 # csrc/selective_scan.cu: channels one block scans (one a thread), and
 # scan steps one stage of its shared-memory ring holds
 _TILE = 128
 _SUB = 16
+# csrc/selective_scan.cu's scan_project_wgmma_kernel: columns of one chunk
+# (one m64n104k16), and the K step
+_PW_COLS = 104
+_PW_K = 16
 
 
 def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
@@ -159,6 +170,81 @@ def composed_weight(x_proj_w: torch.Tensor, dt_proj_w: torch.Tensor,
     w = torch.cat([dt_proj_w.float() @ x_proj_w[:dtr].float(),
                    x_proj_w[dtr:].float()])
     return w.to(torch.bfloat16).contiguous()
+
+
+def weight_layout(wt: torch.Tensor) -> torch.Tensor:
+    """The composed weight [D + 2N, D] in the order the bf16 projection
+    kernel's wgmma reads it from shared memory and bulk-copies it a slice
+    at a time: [chunks, k16, 13, 2, 8, 8], chunk c holding columns (rows of
+    wt) 104 c .. 104 c + 103 in 13 groups of 8, k16 the 16-wide steps of K
+    (D padded to 16 with zeros), each group's two 8-wide halves of the step
+    8 x 8 values (8 rows of 16 bytes, a core matrix) apart."""
+    k, d = wt.shape
+    kp = -(-d // _PW_K) * _PW_K
+    nch = -(-k // _PW_COLS)
+    w = wt.new_zeros(nch * _PW_COLS, kp)
+    w[:k, :d] = wt
+    return w.view(nch, _PW_COLS // 8, 8, kp // _PW_K, 2, 8).permute(
+        0, 3, 1, 4, 2, 5).contiguous()
+
+
+class ChainProjOperands(NamedTuple):
+    """What the bf16 chain_proj kernel takes of one direction's parameters,
+    built once by :func:`chain_proj_operands`: the composed weight
+    (:func:`composed_weight`) in the kernel's order (:func:`weight_layout`),
+    D and the dt bias in fp32."""
+    wl: torch.Tensor
+    D: torch.Tensor
+    bias: torch.Tensor
+
+
+# the bf16 chain_proj operands: a table for each x_proj weight (the tensor
+# a direction's view is cut from), dropped when that tensor dies
+_OPERANDS = weak.WeakIdKeyDictionary()
+
+
+def _root(t: torch.Tensor) -> torch.Tensor:
+    return t if t._base is None else t._base
+
+
+def chain_proj_operands(x_proj_w: torch.Tensor, dt_proj_w: torch.Tensor,
+                        D: torch.Tensor, delta_bias: torch.Tensor,
+                        n: int) -> ChainProjOperands:
+    """The bf16 chain_proj operands of these parameters, built on first use
+    and reused while the parameters stay as they were.
+
+    The entries of one x_proj weight live in a table keyed by that tensor
+    (the one its direction views are cut from) and go with it. An entry is
+    found by the views' offsets, shapes and strides, and taken only if
+    each tensor's address, dtype, device and version counter are as when
+    it was built: an in-place update (``load_state_dict`` copies in place)
+    bumps a counter, a dtype cast or ``.data`` swap moves the address. The
+    entry holds the four tensors' storages, so no other tensor can take
+    their memory while it lives. A write that bypasses the version counter
+    (through ``.data``, or another tensor made on the same memory) is not
+    seen: call :func:`clear_chain_proj_operands` after one."""
+    src = (x_proj_w, dt_proj_w, D, delta_bias)
+    table = _OPERANDS.get(_root(x_proj_w))
+    if table is None:
+        table = _OPERANDS[_root(x_proj_w)] = {}
+    key = tuple((t.storage_offset(), tuple(t.shape), t.stride())
+                for t in src) + (n,)
+    state = tuple((t.data_ptr(), t.dtype, t.device, t._version) for t in src)
+    hit = table.get(key)
+    if hit is not None and hit[1] == state:
+        return hit[2]
+    xw, dw, dv, bv = (t.detach() for t in src)  # no graph to the sources
+    ops = ChainProjOperands(weight_layout(composed_weight(xw, dw, n)),
+                            dv.float().contiguous(), bv.float().contiguous())
+    table[key] = (tuple(t.untyped_storage() for t in src), state, ops)
+    return ops
+
+
+def clear_chain_proj_operands() -> None:
+    """Drop every cached chain_proj operand: the next call of each
+    direction builds its own anew. Needed only after a write that bypasses
+    the parameters' version counters (``p.data.copy_(...)``)."""
+    _OPERANDS.clear()
 
 
 def _chain_proj_bf16_reference(xc, x_proj_w, dt_proj_w, A, D, delta_bias,
@@ -514,10 +600,12 @@ def selective_scan_chain_proj(xc: torch.Tensor, x_proj_w: torch.Tensor,
 def _chain_proj_bf16(xc, x_proj_w, dt_proj_w, A, D, delta_bias,
                      reverse: bool) -> torch.Tensor:
     """The bf16 kernel of :func:`selective_scan_chain_proj`: the projection
-    with :func:`composed_weight` on the bf16 tensor cores into fp32 dt
-    [rows, D] and B, C [rows, N] scratch, then the scan's passes over the
-    bf16 xc (u = silu(xc) rounded to bf16), y written as bf16. D and
-    delta_bias are taken in fp32, as the JAX wrapper casts them."""
+    with :func:`composed_weight` on the bf16 tensor cores (wgmma) into
+    scratch: u = silu(xc) rounded to bf16 [rows, D], fp32 delta =
+    softplus(dt + bias) [rows, D] and B, C [rows, N]; then the bf16 passes
+    over u, y written as bf16. The weight in the kernel's order, D and delta_bias in
+    fp32 come from :func:`chain_proj_operands`, built once: a call launches
+    the projection and the passes only."""
     b, t, r, d = xc.shape
     n = A.shape[-1]
     dev = xc.device
@@ -528,20 +616,23 @@ def _chain_proj_bf16(xc, x_proj_w, dt_proj_w, A, D, delta_bias,
         raise ValueError(f"selective_scan_chain_proj (bf16): N={n} must be "
                          f"<= 16, x_proj_w {tuple(x_proj_w.shape)} and "
                          f"dt_proj_w {tuple(dt_proj_w.shape)} of D={d}")
-    wt = composed_weight(x_proj_w, dt_proj_w, n)
-    D, delta_bias = (v.float().contiguous() for v in (D, delta_bias))
-    cuda.require(D, "D", (d,), dev)
-    cuda.require(delta_bias, "delta_bias", (d,), dev)
+    ops = chain_proj_operands(x_proj_w, dt_proj_w, D, delta_bias, n)
+    cuda.require(ops.wl, "weight", (-(-(d + 2 * n) // _PW_COLS),
+                                    -(-d // _PW_K), _PW_COLS // 8, 2, 8, 8),
+                 dev, torch.bfloat16)
+    cuda.require(ops.D, "D", (d,), dev)
+    cuda.require(ops.bias, "delta_bias", (d,), dev)
     rows = b * t * r
-    dt = torch.empty(rows, d, device=dev, dtype=torch.float32)
+    u = torch.empty(rows, d, device=dev, dtype=torch.bfloat16)
+    delta = torch.empty(rows, d, device=dev, dtype=torch.float32)
     Bm = torch.empty(rows, n, device=dev, dtype=torch.float32)
     Cm = torch.empty(rows, n, device=dev, dtype=torch.float32)
     y = torch.empty_like(xc)
     plan = _plan(xc, 2, t * r, d, n, 0, b)
     sdt, Hc = _scratch(xc, b, plan, d, n)
     err = cuda.library().ff_selective_scan_proj_bf16(
-        *(cuda.ptr(x) for x in (xc, wt, A, D, delta_bias, dt, Bm, Cm, y, sdt,
-                                Hc)),
+        *(cuda.ptr(x) for x in (xc, ops.wl, A, ops.D, ops.bias, u, delta,
+                                Bm, Cm, y, sdt, Hc)),
         b, t, r, d, n, int(reverse), plan.chunk, plan.grid, cuda.stream(xc))
     cuda.check(err, "selective_scan_chain_proj (bf16)")
     cuda.launch_counts["selective_scan.bf16"] += 1

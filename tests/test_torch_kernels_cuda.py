@@ -1630,11 +1630,18 @@ def test_grl_mixed_attention_bf16_kernel(c2, heads, shift):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("t,r,d,n,dtr,reverse", [(40, 24, 360, 16, 12, True),
-                                                 (9, 5, 20, 4, 2, False)])
+                                                 (9, 5, 20, 4, 2, False),
+                                                 (13, 7, 60, 8, 4, True),
+                                                 (21, 11, 200, 16, 13, False),
+                                                 (5, 37, 200, 8, 5, True)])
 def test_scan_chain_proj_bf16_kernel(t, r, d, n, dtr, reverse):
     """MambaIR's widths over several chunks, backward, and a narrow
-    generic shape (D % 8 != 0: the 2-byte staging and stores), forward:
-    bf16 xc and weights, fp32 A, bf16 D and dt bias, as SS2D hands them."""
+    generic shape (D % 8 != 0: value-by-value staging), forward: bf16 xc
+    and weights, fp32 A, bf16 D and dt bias, as SS2D hands them. Then
+    ragged shapes for the wgmma projection and the bf16 passes: D 60 (K
+    padded to 64, one column chunk) and 200 (two chunks), T not a
+    multiple of 16 (chains wrap inside a stage), N 8 (the generic
+    passes), each direction."""
     dev = cuda_or_skip()
     rng = np.random.default_rng(d)
     xc = _b(rng.normal(size=(2, t, r, d)), dev)
@@ -1649,6 +1656,41 @@ def test_scan_chain_proj_bf16_kernel(t, r, d, n, dtr, reverse):
     got = selective_scan_chain_proj(*args)
     _bf16_close(got, selective_scan_chain_proj_reference(*args),
                 "selective_scan.bf16")
+
+
+@pytest.mark.cuda
+def test_scan_chain_proj_bf16_launches_only_its_kernels():
+    """A bf16 #3/#4 call after the first launches the wgmma projection,
+    pass 1, the compose and pass 2, and nothing else: its operands (the
+    composed weight in the kernel's order, D and the bias in fp32) are
+    built once, not on every call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(3)
+    d, n, dtr = 64, 16, 4
+    xc = _b(rng.normal(size=(1, 16, 8, d)), dev)
+    xpw = _b(rng.uniform(-1, 1, (dtr + 2 * n, d)) / np.sqrt(d), dev)
+    dtw = _b(rng.uniform(-1, 1, (d, dtr)) / np.sqrt(dtr), dev)
+    A = _t(-np.tile(np.arange(1, n + 1), (d, 1)), dev)
+    D, bias = _b(np.ones(d), dev), _b(np.full(d, -3.0), dev)
+    args = (xc, xpw, dtw, A, D, bias, False)
+    selective_scan_chain_proj(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        selective_scan_chain_proj(*args)
+        torch.cuda.synchronize()
+    names = []
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        if us > 0:
+            names.append(e.key)
+    assert len(names) == 4, names
+    assert sum("scan_project_wgmma_kernel" in k for k in names) == 1, names
+    assert sum("scan_pass16_kernel" in k for k in names) == 2, names
+    assert sum("scan_compose_kernel" in k for k in names) == 1, names
 
 
 def _scan_bf16_inputs(rng, lead, d, n, dev, bf16_dt: bool, group=()):
@@ -1675,12 +1717,17 @@ def _scan_fp32_close(got, want, name):
 @pytest.mark.parametrize("t,r,d,n,reverse", [(40, 24, 360, 16, True),
                                              (40, 24, 360, 16, False),
                                              (9, 5, 20, 4, False),
-                                             (37, 29, 24, 8, True)])
+                                             (37, 29, 24, 8, True),
+                                             (13, 7, 60, 8, True),
+                                             (21, 11, 200, 16, False),
+                                             (5, 37, 200, 8, True)])
 def test_scan_chain_bf16_kernel(t, r, d, n, reverse):
     """#5 in bf16 (chainv5's operands: u, dt, B, C bf16, y bf16 through
     out_dtype) at MambaIR's widths over several chunks, each direction; a
-    narrow generic shape (D % 8 and N % 8 != 0: the 2-byte staging and
-    stores); D 24, N 8 backward (16-byte copies, the generic N)."""
+    narrow generic shape (D % 8 and N % 8 != 0: value-by-value staging);
+    D 24, N 8 backward (bulk copies, the generic N); D 60 (value by value)
+    and 200 with T not a multiple of 16 (chains wrap inside a stage), N 8
+    and 16, each direction."""
     dev = cuda_or_skip()
     rng = np.random.default_rng(d + n)
     args = _scan_bf16_inputs(rng, (2, t, r), d, n, dev, True)
