@@ -293,7 +293,7 @@ GEMM_EPILOGUES = ("bias", "residual", "gate")
 CONV_EPILOGUES = ("store", "SpatialGate", "squeeze", "broadcast")
 FFN_DOWN_TILES = (6, 8, 9, 10)
 # csrc/bf16_gemm.cuh's bg_gemm_kernel<A, Epi>: every instantiation, in the
-# three sources that build it (the bf16 #14, #15, #16)
+# sources that build it (the bf16 #14, #15, #12, #13)
 CAB_CONV_TILES = (4, 6)
 # csrc/selective_scan.cu's scan_pass16_kernel<kFinal, kN, kMix>: the bf16
 # operand mixes, by the contract each serves (every instantiation, and the
@@ -676,6 +676,38 @@ class TensorCoreBound:
         check.tensor_core_bound(self.ops_ms, self.bytes_ms, self.bound_ms)
 
 
+class RequestShare:
+    """A kernel's time at each shape beside the bound KernelCheck.run
+    computed for it, and its share of a 336x512 request from the launches
+    a request makes at each shape (the bf16 kernels' counterpart of
+    TensorCoreBound, whose bound is KernelCheck's own)."""
+
+    def __init__(self, check: KernelCheck):
+        self.check = check
+        self.request_ms = self.request_bound = 0.0
+        self.launches = 0
+
+    def run(self, label: str, per_request: int, *args, **kwargs) -> float:
+        """KernelCheck.run(label, *args, **kwargs), then the shape's share
+        of a request."""
+        before = self.check.bound_ms
+        ms = self.check.run(label, *args, **kwargs)
+        bound = self.check.bound_ms - before
+        self.request_ms += per_request * ms
+        self.request_bound += per_request * bound
+        self.launches += per_request
+        print(f"  {self.check.name} {label}: {per_request} a request: "
+              f"{per_request * ms:.3f} ms against a bound of "
+              f"{per_request * bound:.3f} ms")
+        return ms
+
+    def total(self) -> None:
+        print(f"  {self.check.name}, a 336x512 request ({self.launches} "
+              f"launches): {self.request_ms:.3f} ms against a bound of "
+              f"{self.request_bound:.3f} ms, "
+              f"{self.request_ms - self.request_bound:.3f} ms above it")
+
+
 def fused_tol(refs) -> float:
     return FUSED_REL_TOL * max(1.0, refs[0].abs().max().item())
 
@@ -795,7 +827,9 @@ def check_spills(log: str, required: bool) -> None:
     window_attention.cuh, in every source that builds them; the FFN's up
     and down products, csrc/fused_mlp.cu; the CAB's convs, csrc/cab.cu;
     the 3xTF32 GEMM of csrc/tf32_gemm.cuh in nafblock.cu and
-    window_attention_qkv.cu; the 3x3 conv of csrc/conv3x3_tf32.cuh in
+    window_attention_qkv.cu; the bf16 wgmma GEMM of csrc/bf16_wgmma.cuh
+    and the NAFBlock's two bf16 kernels built on it, in
+    window_attention_qkv.cu and nafblock.cu; the 3x3 conv of csrc/conv3x3_tf32.cuh in
     hier.cu and edge.cu; the LKABlock's three kernels, csrc/lka.cu; the
     token attention's at the path's two geometries and its layout pass,
     csrc/token_attention.cu) and
@@ -843,13 +877,32 @@ def check_spills(log: str, required: bool) -> None:
             lambda m: "layout pass" if m.group(4)
             else f"{4 * int(m.group(1))} warps, {m.group(2)} out n-tiles a "
                  f"warp, T {m.group(3)}"),
-        "bf16 GEMM (#14, #15, #16, #11, #12, #13)": (
-            r"(fused_mlp|cab|nafblock|window_attention_qkv|grl_attention_qkv"
+        "bf16 GEMM (#14, #15, #12, #13)": (
+            r"(fused_mlp|cab|grl_attention_qkv"
             r"|token_attention)_cu.*bg_gemm_kernelIN\w*?(BgRows|BgConv3x3|"
             r"TaRows)\w*?(\d+)(\w+?Epi)E",
             lambda m: True,
             lambda m: f"{m.group(1)}.cu, {m.group(2)} rows, "
                       f"{m.group(4)[:-3]} epilogue"),
+        "bf16 wgmma GEMM (#11, #16)": (
+            r"(window_attention_qkv|nafblock)_cu\w*?(?:bw_gemm_kernelILi(\d)E"
+            r"Li(\d+)ENS_\d+(\w+?)ENS_\d+(\w+?)Epi|"
+            r"bw_tiled_kernelILi(\d+)ENS_\d+(\w+?)Epi|"
+            r"naf_(gate|apply)_wgmma_kernel(?:ILi(\d+)E)?|"
+            r"naf_tiled_rows_kernelILb([01])E(f|13__nv_bfloat16)E|"
+            r"naf_(dwgate)_kernel)",
+            lambda m: True,
+            lambda m: (f"{m.group(1)}.cu, whole A, {m.group(3)} columns, "
+                       f"{m.group(2)} warpgroup(s), {m.group(4)} rows, "
+                       f"{m.group(5)} epilogue") if m.group(2)
+            else (f"nafblock.cu, both streamed, {m.group(6)} columns, "
+                  f"{m.group(7)} epilogue") if m.group(6)
+            else "nafblock.cu, pass A (gate)" if m.group(8) == "gate"
+            else f"nafblock.cu, pass B, {m.group(9)} columns" if m.group(8)
+            else (f"nafblock.cu, tiled rows, "
+                  f"{'LN' if m.group(10) == '1' else 'g s'} of "
+                  f"{'fp32' if m.group(11) == 'f' else 'bf16'}")
+            if m.group(10) else "nafblock.cu, depthwise gate"),
         "LKA (#18; fp32 and bf16)": (
             r"lka_(mix)(_bf16)?_kernelILi(\d+)ELi(\d+)ELi(\d+)E|"
             r"lka_(dw|prep)(_bf16)?_kernel(?:ILb([01])E)?",
@@ -1444,10 +1497,15 @@ def phase_bf16_fused_kernels(dev, randn, checks, beside) -> None:
     del x
     torch.cuda.empty_cache()
 
+    from freqfusion_tpu_torch.ops.wgmma import plan_nafblock_bf16
+
     nb = checks["nafblock_fused.bf16"] = KernelCheck("nafblock_fused.bf16")
-    for c, (hh, ww) in ((64, (4 * h, 4 * w)), (128, (2 * h, 2 * w)),
-                        (256, (h, w)), (512, (h // 2, w // 2)),
-                        (1024, (h // 4, w // 4))):
+    share = RequestShare(nb)
+    for c, (hh, ww), per_request in ((64, (4 * h, 4 * w), 4),
+                                     (128, (2 * h, 2 * w), 4),
+                                     (256, (h, w), 6),
+                                     (512, (h // 2, w // 2), 10),
+                                     (1024, (h // 4, w // 4), 12)):
         wt = tree({"norm1": _norm_tree(randn, c),
                    "norm2": _norm_tree(randn, c),
                    "conv1": _conv_tree(randn, 1, c, 2 * c),
@@ -1459,14 +1517,24 @@ def phase_bf16_fused_kernels(dev, randn, checks, beside) -> None:
                    "beta": randn(c, scale=0.5), "gamma": randn(c, scale=0.5)})
         x = torch.rand(1, hh, ww, c, device=dev).to(bf)
         npx = hh * ww
-        nb.run(f"C{c}/{hh}x{ww}", lambda: nafblock_fused(x, wt),
-               lambda: nafblock_fused_reference(x, wt), bf16_tol,
-               npx * 12.0 * c * c, 2 * (2 * npx * c + 7 * c * c + 40 * c),
-               peak_flops=PEAK_BF16, core_flops=npx * 60.0 * c)
+        share.run(f"C{c}/{hh}x{ww}", per_request,
+                  lambda: nafblock_fused(x, wt),
+                  lambda: nafblock_fused_reference(x, wt), bf16_tol,
+                  npx * 12.0 * c * c, 2 * (2 * npx * c + 7 * c * c + 40 * c),
+                  peak_flops=PEAK_BF16, core_flops=npx * 60.0 * c)
+        plan = plan_nafblock_bf16(hh, ww, c)
+        print(f"  nafblock_fused.bf16 C{c}: {2 if plan.fused else 9} "
+              f"launches, {plan.bytes_per_pixel} bytes a pixel by the "
+              f"source's count ({1e3 * npx * plan.bytes_per_pixel / PEAK_BYTES:.3f}"
+              f" ms at 3.35 TB/s) against the bound's {4 * c}; conv1 over "
+              f"{plan.conv1_rows:.2f} rows an output pixel" + (
+                  f" (the halo tile {plan.out_tile[0] + 2} x "
+                  f"{plan.out_tile[1] + 2})" if plan.fused else ""))
         if c in (64, 1024):
             launch_breakdown(f"#16 bf16 C{c}", lambda: nafblock_fused(x, wt))
         del x, wt
         torch.cuda.empty_cache()
+    share.total()
     beside("nafblock_fused", nb)
 
     dw = checks["dwconv3x3.bf16"] = KernelCheck("dwconv3x3.bf16")
@@ -1510,6 +1578,7 @@ def phase_bf16_qkv_kernels(dev, randn, checks) -> None:
     p = h * w
     wq = checks["window_attention_qkv_nhwc.bf16"] = KernelCheck(
         "window_attention_qkv_nhwc.bf16")
+    share = RequestShare(wq)
     for c, heads in ((180, 6), (212, 4), (244, 2), (276, 6), (308, 4)):
         x = randn(1, h, w, c).to(bf)
         wqkv, wproj = (randn(c, 3 * c, scale=c ** -0.5).to(bf),
@@ -1525,10 +1594,11 @@ def phase_bf16_qkv_kernels(dev, randn, checks) -> None:
             label = f"C{c}/hd{c // heads}/{'mask' if shift else 'nomask'}"
             nbytes = (2 * (2 * p * c + 4 * c * c + 4 * c + bias.numel())
                       + (0 if mask is None else 4 * mask.numel()))
-            wq.run(label, lambda: window_attention_qkv_nhwc(*args),
-                   lambda: window_attention_qkv_nhwc_reference(*args),
-                   bf16_tol, 8.0 * p * c * c + 4.0 * p * 256 * c, nbytes,
-                   peak_flops=PEAK_BF16)
+            # DRCT-L's 60 blocks: 12 a width (6 unshifted, 6 shifted)
+            share.run(label, 6, lambda: window_attention_qkv_nhwc(*args),
+                      lambda: window_attention_qkv_nhwc_reference(*args),
+                      bf16_tol, 8.0 * p * c * c + 4.0 * p * 256 * c, nbytes,
+                      peak_flops=PEAK_BF16)
             if c == 180 and not shift:
                 launch_breakdown(f"#11 bf16 {label}",
                                  lambda: window_attention_qkv_nhwc(*args))
@@ -1543,6 +1613,7 @@ def phase_bf16_qkv_kernels(dev, randn, checks) -> None:
             wq.route(label, lambda: window_attention_qkv_nhwc(*args),
                      gate_off, "3 F.linear + bf16 kernel #1 + F.linear")
         del x, args
+    share.total()
     _beside(checks, "window_attention_qkv_nhwc", wq)
     torch.cuda.empty_cache()
 

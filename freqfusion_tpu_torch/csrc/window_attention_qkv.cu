@@ -47,29 +47,30 @@
 // and the bias add in fp32 (:666); #1's bf16 attention (window_attention.cu,
 // _attn_heads at dt bf16: the q-scale rounded, logits, bias and mask in
 // fp32, the softmax in fp32 and normalised before it is rounded, P V in
-// fp32, each head rounded); out = bf16(attn Wproj + bproj) (:676). Seven
-// launches, no library call:
-//   1. Wqkv and Wproj zero-padded to [kp][np] bf16 (bf16_gemm.cuh's
-//      bg_pad, two launches);
-//   2. x into rows padded to kp (bg_rows: C 180 is 360 bytes a row, not
-//      the 16-byte multiple the GEMM's copies take);
-//   3. q | k | v = bf16(x Wqkv + bqkv) on bf16_gemm.cuh's GEMM (bf16
-//      mma.sync m16n8k16, fp32 sums), whose epilogue writes q, k and v as
-//      three contiguous [B, H, W, C] bf16 tensors;
-//   4. the bf16 window attention of #1 (ff_window_attention_nhwc_bf16)
+// fp32, each head rounded); out = bf16(attn Wproj + bproj) (:676). Three
+// launches, no library call, no per-call weight pass (the two weights come
+// laid out in wgmma's order, once per module: ops/wgmma.py):
+//   1. q | k | v = bf16(x Wqkv + bqkv) on bf16_wgmma.cuh's GEMM (wgmma
+//      m64nBNk16, 64 rows a block: one warpgroup, three blocks an SM,
+//      where two warpgroups of 128 rows held one and took 1.08-1.31x as
+//      long, csrc/bench/wgmma_variants.py; x staged from its rows as they
+//      lie, the weight streamed by bulk copies through an mbarrier ring),
+//      whose epilogue writes q, k and v as three contiguous [B, H, W, C]
+//      bf16 tensors;
+//   2. the bf16 window attention of #1 (ff_window_attention_nhwc_bf16)
 //      over them, as it is, into a [B, H, W, C] bf16 scratch;
-//   5. that into padded rows; 6. out = bf16(attn Wproj + bproj), the same
-//      GEMM.
+//   3. out = bf16(attn Wproj + bproj), the same GEMM reading that scratch
+//      as it lies.
 // The epilogue writes q, k and v apart (and not one [M, 3C] tensor with
 // the attention reading column thirds through a row stride) because it
 // moves the same bytes either way and #1's bf16 body then runs unchanged,
-// the kernel the default bf16 route times. What bounds it is the same as
-// in fp32 at half the bytes: at 336x512 and C 180 the products are 47
-// GFLOP a call, 0.05 ms at 989 TFLOP/s, and x and out 0.12 GB, 0.04 ms;
-// this first version moves q, k, v, the attention's output and two padded
-// row copies through device memory besides (~0.5 GB a call at C 180).
+// the kernel the default bf16 route times. What bounds it: the
+// operations, 8 C^2 FLOPs a pixel of products (47 GFLOP a call at 336x512
+// and C 180, 0.05 ms at 989 TFLOP/s) besides #1's; device memory moves x
+// in, q, k, v out and back, the attention's output out and back, and out:
+// 20 C bytes a pixel (0.07 ms a call at C 180).
 
-#include "bf16_gemm.cuh"
+#include "bf16_wgmma.cuh"
 #include "tf32_gemm.cuh"
 #include "window_attention.cuh"
 
@@ -175,50 +176,105 @@ namespace {
 
 // The bf16 call's scratch (byte offsets), each piece 256-byte aligned.
 struct QkvBf16Layout {
-  int kpi, kpc, npq, npp;  // the products' K (Cin, C padded to 32), N
-  long long wq, wp, a, q, k, v, attn, bytes;
+  long long q, k, v, attn, bytes;
 };
 
-QkvBf16Layout qkv_bf16_layout(long long M, int Cin, int C) {
-  QkvBf16Layout l;
-  l.kpi = bg_up(Cin, kBgK);
-  l.kpc = bg_up(C, kBgK);
-  l.npq = bg_up(3 * C, kBgN);
-  l.npp = bg_up(C, kBgN);
-  const int ka = l.kpi > l.kpc ? l.kpi : l.kpc;
-  l.wq = 0;
-  l.wp = l.wq + bg_piece(2LL * l.kpi * l.npq);
-  l.a = l.wp + bg_piece(2LL * l.kpc * l.npp);
-  l.q = l.a + bg_piece(2 * M * ka);
-  l.k = l.q + bg_piece(2 * M * C);
-  l.v = l.k + bg_piece(2 * M * C);
-  l.attn = l.v + bg_piece(2 * M * C);
-  l.bytes = l.attn + bg_piece(2 * M * C);
-  return l;
+QkvBf16Layout qkv_bf16_layout(long long M, int C) {
+  const long long piece = (2 * M * C + 255) / 256 * 256;
+  return QkvBf16Layout{0, piece, 2 * piece, 3 * piece, 4 * piece};
+}
+
+// Cin's staged rows: 64 rows a block, K padded to 32 (80 KB at most).
+constexpr int kQkvMaxK = 640;
+
+// out_s[m, c] = bf16(v + bias[n]) for n = s width + c < segs width: the
+// product's columns cut into `segs` (at most 3) contiguous [M, width] bf16
+// tensors, width even (q | k | v, or the one output); the bias staged in
+// shared memory (vs).
+struct QkvSegEpi {
+  const __nv_bfloat16* bias;
+  __nv_bfloat16 *out0, *out1, *out2;
+  long long M;
+  int width, segs;
+  static constexpr int kVecs = 1;
+  __device__ __forceinline__ const __nv_bfloat16* vec(int) const {
+    return bias;
+  }
+  __device__ __forceinline__ int n() const { return segs * width; }
+  __device__ __forceinline__ BwNone load(long long, int) const { return {}; }
+  __device__ __forceinline__ uint32_t stage(int n, float v0, float v1,
+                                            const float* vs, int) const {
+    return pack_bf16(v0 + vs[n], v1 + vs[n + 1]);
+  }
+  __device__ __forceinline__ void operator()(long long m, int n, uint32_t t,
+                                             const float*, int,
+                                             BwNone) const {
+    if (m >= M || n >= segs * width) return;
+    const bool s0 = n < width, s1 = n < 2 * width;
+    __nv_bfloat16* o = s0 ? out0 : s1 ? out1 : out2;
+    const int c = s0 ? n : s1 ? n - width : n - 2 * width;
+    *reinterpret_cast<uint32_t*>(o + m * width + c) = t;
+  }
+};
+
+template <int BN>
+cudaError_t qkv_project(const __nv_bfloat16* a, long long M, int K,
+                        const void* wl, int N, const __nv_bfloat16* bias,
+                        __nv_bfloat16* o0, __nv_bfloat16* o1,
+                        __nv_bfloat16* o2, int segs, cudaStream_t s) {
+  const BwGemm g{wl, M, bw_up(K, kBwK), (N + BN - 1) / BN};
+  return bw_gemm<1, BN>(g, BwRows{a, M, K},
+                        QkvSegEpi{bias, o0, o1, o2, M, N / segs, segs}, 0,
+                        s);
+}
+
+cudaError_t qkv_project(int bn, const __nv_bfloat16* a, long long M, int K,
+                        const void* wl, int N, const __nv_bfloat16* bias,
+                        __nv_bfloat16* o0, __nv_bfloat16* o1,
+                        __nv_bfloat16* o2, int segs, cudaStream_t s) {
+  if (bn != bw_cols(N)) return cudaErrorInvalidValue;
+  if (bn == 64)
+    return qkv_project<64>(a, M, K, wl, N, bias, o0, o1, o2, segs, s);
+  return qkv_project<96>(a, M, K, wl, N, bias, o0, o1, o2, segs, s);
 }
 
 }  // namespace
 
+#ifdef BW_PROFILE
+extern "C" int ff_bw_prof_qkv(void* dst) {  // csrc/bench/wgmma_variants.py
+  void* at = nullptr;
+  cudaError_t err = cudaMemcpyFromSymbol(dst, bw_prof, sizeof(bw_prof));
+  if (err == cudaSuccess) err = cudaGetSymbolAddress(&at, bw_prof);
+  if (err == cudaSuccess) err = cudaMemset(at, 0, sizeof(bw_prof));
+  return int(err);  // read, then cleared for the next call
+}
+#endif
+
 // Bytes of scratch a bf16 call on M pixels of Cin channels, C out, needs
-// (qkv_bf16_layout); -1 for widths it refuses.
+// (q, k, v and the attention's output); -1 for widths it refuses.
 extern "C" long long ff_window_attention_qkv_bf16_scratch_bytes(
     long long M, int Cin, int C) {
-  if (M <= 0 || Cin <= 0 || C <= 0 || Cin > 2048 || C > 2048 || C % 2)
+  if (M <= 0 || Cin <= 0 || C <= 0 || Cin % 2 || C % 2 ||
+      bw_up(Cin, kBwK) > kQkvMaxK || bw_up(C, kBwK) > kQkvMaxK)
     return -1;
-  return qkv_bf16_layout(M, Cin, C).bytes;
+  return qkv_bf16_layout(M, C).bytes;
 }
 
 // As ff_window_attention_qkv_nhwc, all bf16 but the mask (fp32, 8-byte
-// aligned, or null): x [B, H, W, Cin]; wqkv [Cin, 3C], bqkv [3C], wproj
-// [C, C], bproj [C], bias [heads, N, N] (4-byte aligned); out [B, H, W,
-// C]; scratch of ff_window_attention_qkv_bf16_scratch_bytes(B H W, Cin, C)
-// bytes, 16-byte aligned. C even; N = ws * ws a multiple of 16 up to 256;
-// head dims up to 128.
+// aligned, or null): x [B, H, W, Cin]; wq and wp the two weights in
+// wgmma's order (ops/wgmma.py:weight_layout of wqkv [Cin, 3C] at bnq
+// columns a chunk and of wproj [C, C] at bnp; bnq = bw_cols(3 C), bnp =
+// bw_cols(C)), 16-byte aligned; bqkv [3C], bproj [C], bias [heads, N, N]
+// (4-byte aligned); out [B, H, W, C]; scratch of
+// ff_window_attention_qkv_bf16_scratch_bytes(B H W, Cin, C) bytes,
+// 16-byte aligned. Cin and C even; N = ws * ws a multiple of 16 up to
+// 256; head dims up to 128.
 extern "C" int ff_window_attention_qkv_nhwc_bf16(
-    const void* x_, const void* wqkv_, const void* bqkv_, const void* wproj_,
+    const void* x_, const void* wq, const void* bqkv_, const void* wp,
     const void* bproj_, const void* bias, const float* mask, void* out_,
     void* scratch_, long long scratch_bytes, int B, int H, int W, int Cin,
-    int C, int num_heads, int ws, float scale, void* stream) {
+    int C, int num_heads, int ws, float scale, int bnq, int bnp,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long M = (long long)B * H * W;
   const long long need = ff_window_attention_qkv_bf16_scratch_bytes(M, Cin,
@@ -226,37 +282,23 @@ extern "C" int ff_window_attention_qkv_nhwc_bf16(
   if (need < 0 || scratch_bytes < need ||
       reinterpret_cast<size_t>(scratch_) % 16)
     return int(cudaErrorInvalidValue);
-  const QkvBf16Layout l = qkv_bf16_layout(M, Cin, C);
+  const QkvBf16Layout l = qkv_bf16_layout(M, C);
   char* scratch = static_cast<char*>(scratch_);
   auto piece = [&](long long off) {
-    return reinterpret_cast<bf16*>(scratch + off);
+    return reinterpret_cast<__nv_bfloat16*>(scratch + off);
   };
-  const bf16* x = static_cast<const bf16*>(x_);
-  const bf16* bqkv = static_cast<const bf16*>(bqkv_);
-  const bf16* bproj = static_cast<const bf16*>(bproj_);
-  bf16* out = static_cast<bf16*>(out_);
-  bf16 *wq = piece(l.wq), *wp = piece(l.wp), *a = piece(l.a);
-  bf16 *q = piece(l.q), *k = piece(l.k), *v = piece(l.v);
-  bf16* attn = piece(l.attn);
-  cudaError_t err = bg_pad(static_cast<const bf16*>(wqkv_), 3 * C, 1, Cin,
-                           l.kpi, 3 * C, 0, wq, l.kpi, l.npq, s);
-  if (err == cudaSuccess)
-    err = bg_pad(static_cast<const bf16*>(wproj_), C, 1, C, l.kpc, C, 0, wp,
-                 l.kpc, l.npp, s);
-  if (err == cudaSuccess)
-    err = bg_rows(x, M, Cin, nullptr, nullptr, 0.f, a, l.kpi, s);
-  if (err == cudaSuccess)
-    err = bg_gemm(BgRows{a, M, l.kpi}, M, wq, l.npq, l.kpi, l.npq,
-                  BgSegEpi{bqkv, {q, k, v}, M, C, 3}, s);
+  __nv_bfloat16 *q = piece(l.q), *k = piece(l.k), *v = piece(l.v);
+  __nv_bfloat16* attn = piece(l.attn);
+  cudaError_t err = qkv_project(
+      bnq, static_cast<const __nv_bfloat16*>(x_), M, Cin, wq, 3 * C,
+      static_cast<const __nv_bfloat16*>(bqkv_), q, k, v, 3, s);
   if (err != cudaSuccess) return int(err);
   const int rc = ff_window_attention_nhwc_bf16(q, k, v, bias, mask, attn, B,
                                                H, W, C, num_heads, ws, scale,
                                                stream);
   if (rc != 0) return rc;
-  err = bg_rows(static_cast<const bf16*>(attn), M, C, nullptr, nullptr, 0.f,
-                a, l.kpc, s);
-  if (err == cudaSuccess)
-    err = bg_gemm(BgRows{a, M, l.kpc}, M, wp, l.npp, l.kpc, l.npp,
-                  BgSegEpi{bproj, {out, nullptr, nullptr}, M, C, 1}, s);
-  return int(err);
+  return int(qkv_project(bnp, attn, M, C, wp, C,
+                         static_cast<const __nv_bfloat16*>(bproj_),
+                         static_cast<__nv_bfloat16*>(out_), nullptr, nullptr,
+                         1, s));
 }

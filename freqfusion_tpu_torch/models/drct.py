@@ -58,8 +58,8 @@ class WindowAttention(nn.Module):
         if gate("FREQFUSION_ATTN_QKV"):
             # qkv + output projection inside the kernel's entry
             return window_attention_qkv_nhwc(
-                x, w.t().contiguous(), b, self.proj.weight.t().contiguous(),
-                self.proj.bias, bias, mask, nh, ws)
+                x, w.t(), b, self.proj.weight.t(), self.proj.bias, bias,
+                mask, nh, ws)
         q, k, v = (F.linear(x, w[i * c:(i + 1) * c], b[i * c:(i + 1) * c])
                    for i in range(3))
         return self.proj(window_attention_nhwc(q, k, v, bias, mask, nh, ws))

@@ -56,14 +56,20 @@ class NAFBlock(nn.Module):
 
     def fused_weights(self) -> dict:
         """The flax NAFBlock tree that ``ops/nafblock.py:nafblock_fused``
-        takes."""
+        takes. The 1x1 kernels are views of the parameters (the kernels
+        lay them out once per parameter and reuse that while it is
+        unchanged); the depthwise taps a contiguous copy."""
         def norm(n):
             return {"scale": n.weight, "bias": n.bias}
-        return {"norm1": norm(self.norm1), "conv1": hwio(self.conv1),
-                "conv2": hwio(self.conv2), "sca": hwio(self.sca[1]),
-                "conv3": hwio(self.conv3), "beta": self.beta.reshape(-1),
-                "norm2": norm(self.norm2), "conv4": hwio(self.conv4),
-                "conv5": hwio(self.conv5), "gamma": self.gamma.reshape(-1)}
+
+        def io(conv):
+            return {"kernel": conv.weight.permute(2, 3, 1, 0),
+                    "bias": conv.bias}
+        return {"norm1": norm(self.norm1), "conv1": io(self.conv1),
+                "conv2": hwio(self.conv2), "sca": io(self.sca[1]),
+                "conv3": io(self.conv3), "beta": self.beta.reshape(-1),
+                "norm2": norm(self.norm2), "conv4": io(self.conv4),
+                "conv5": io(self.conv5), "gamma": self.gamma.reshape(-1)}
 
     def _dw(self, x: torch.Tensor) -> torch.Tensor:
         if gate("FREQFUSION_DWCONV"):

@@ -20,7 +20,9 @@ anchors in blocks that :func:`plan_grl_attention` describes.
 ``*_qkv_nhwc`` entries also take bf16 operands (the bf16 expert mode):
 their bf16 kernels (``csrc/window_attention.cu``,
 ``csrc/grl_attention.cu``, ``csrc/window_attention_qkv.cu``,
-``csrc/grl_attention_qkv.cu``, counted as ``<name>.bf16``) and their plain
+``csrc/grl_attention_qkv.cu``, counted as ``<name>.bf16``; DRCT's two
+bf16 projections on ``csrc/bf16_wgmma.cuh``'s wgmma GEMM, its weights laid
+out once by ``ops/wgmma.py``) and their plain
 versions round where the JAX kernels' bf16 runs round: products of bf16
 values accumulated in fp32, the projections' bias added in fp32 and
 rounded once, the softmax in fp32 and rounded to bf16 before its product,
@@ -35,7 +37,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import cuda
+from . import cuda, wgmma
 from .tf32_gemm import (MAX_CHANNELS, ROWS, SMEM_LIMIT, GemmPlan, _round_up,
                         plan_gemm)
 from .window_attention import (multi_head_window_attention, window_partition,
@@ -568,8 +570,10 @@ def _window_attention_qkv_nhwc_bf16(x, wqkv, bqkv, wproj, bproj, bias,
                                     mask, num_heads: int, ws: int,
                                     scale: float) -> torch.Tensor:
     """The bf16 kernel: x, the weights, their biases and the bias table
-    bf16; mask fp32. C even; N = ws * ws a multiple of 16 up to 256, head
-    dims up to 128 (#1's bf16 body)."""
+    bf16; mask fp32. Cin and C even, each at most 640 (the GEMM's staged
+    rows); N = ws * ws a multiple of 16 up to 256, head dims up to 128
+    (#1's bf16 body). The two weights go to the kernel laid out in wgmma's
+    order, once per weight (:func:`wgmma.weight_layouts`)."""
     b, h, w, cin = x.shape
     c = wqkv.shape[1] // 3
     n, hd, dev = ws * ws, c // num_heads, x.device
@@ -579,9 +583,10 @@ def _window_attention_qkv_nhwc_bf16(x, wqkv, bqkv, wproj, bproj, bias,
                          f"head dim {hd} at most 128")
     bf = torch.bfloat16
     cuda.require(x, "x", (b, h, w, cin), dev, bf)
-    cuda.require(wqkv, "wqkv", (cin, 3 * c), dev, bf)
+    # the two weights are read only through their layouts: any view
+    cuda.require(wqkv, "wqkv", (cin, 3 * c), dev, bf, contiguous=False)
     cuda.require(bqkv, "bqkv", (3 * c,), dev, bf)
-    cuda.require(wproj, "wproj", (c, c), dev, bf)
+    cuda.require(wproj, "wproj", (c, c), dev, bf, contiguous=False)
     cuda.require(bproj, "bproj", (c,), dev, bf)
     cuda.require(bias, "bias", (num_heads, n, n), dev, bf)
     if mask is not None:
@@ -589,18 +594,22 @@ def _window_attention_qkv_nhwc_bf16(x, wqkv, bqkv, wproj, bproj, bias,
     if bias.data_ptr() % 4 or (mask is not None and mask.data_ptr() % 8):
         raise ValueError("window_attention_qkv_nhwc (bf16): bias must be "
                          "4-byte and mask 8-byte aligned")
+    plan = wgmma.plan_qkv_bf16(b * h * w, cin, c)
     lib = cuda.library()
     nbytes = lib.ff_window_attention_qkv_bf16_scratch_bytes(b * h * w, cin,
                                                             c)
-    if nbytes < 0:
+    if nbytes != plan.scratch_bytes:
         raise ValueError(f"window_attention_qkv_nhwc (bf16): Cin={cin}, "
                          f"C={c} refused")
+    wq = wgmma.weight_layouts(wqkv, plan.bn_qkv)
+    wp = wgmma.weight_layouts(wproj, plan.bn_proj)
     out = x.new_empty(b, h, w, c)
     scratch = torch.empty(nbytes, device=dev, dtype=torch.uint8)
     err = lib.ff_window_attention_qkv_nhwc_bf16(
-        *(cuda.ptr(t) for t in (x, wqkv, bqkv, wproj, bproj, bias, mask,
-                                out, scratch)),
-        nbytes, b, h, w, cin, c, num_heads, ws, scale, cuda.stream(x))
+        *(cuda.ptr(t) for t in (x, wq, bqkv, wp, bproj, bias, mask, out,
+                                scratch)),
+        nbytes, b, h, w, cin, c, num_heads, ws, scale, plan.bn_qkv,
+        plan.bn_proj, cuda.stream(x))
     cuda.check(err, "window_attention_qkv_nhwc (bf16)")
     cuda.launch_counts["window_attention_qkv_nhwc.bf16"] += 1
     return out
@@ -615,7 +624,9 @@ def window_attention_qkv_nhwc(x: torch.Tensor, wqkv: torch.Tensor,
     """x [B, H, W, Cin]; wqkv [Cin, 3C] (q | k | v columns), bqkv [3C];
     wproj [C, C] ([in, out]), bproj [C]; bias [nH, N, N]; mask [nW, N, N]
     or None. Returns proj(window_attention(qkv(x))), [B, H, W, C]. fp32
-    throughout, or all but the mask in bf16 (the bf16 kernel, bf16 out)."""
+    throughout, or all but the mask in bf16 (the bf16 kernel, bf16 out).
+    The weights may be views (``models/drct.py`` hands the transposed
+    parameters, so that the bf16 kernel's cached layouts are reused)."""
     b, h, w, cin = x.shape
     c = wqkv.shape[1] // 3
     ws = window_size
@@ -634,6 +645,7 @@ def window_attention_qkv_nhwc(x: torch.Tensor, wqkv: torch.Tensor,
         return _window_attention_qkv_nhwc_bf16(
             x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads, ws, scale)
     n, dev = ws * ws, x.device
+    wqkv, wproj = wqkv.contiguous(), wproj.contiguous()
     cuda.require(x, "x", (b, h, w, cin), dev)
     cuda.require(wqkv, "wqkv", (cin, 3 * c), dev)
     cuda.require(bqkv, "bqkv", (3 * c,), dev)

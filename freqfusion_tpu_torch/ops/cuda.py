@@ -90,8 +90,9 @@ _SIGNATURES = {
     "ff_nafblock_gate": [_P] * 11 + [_L] + [_I] * 4 + [_F, _P],
     "ff_nafblock_apply": [_P] * 12 + [_L] + [_I] * 4 + [_F, _P],
     "ff_nafblock_bf16_scratch_bytes": [_L, _I],
-    "ff_nafblock_gate_bf16": [_P] * 12 + [_L] + [_I] * 4 + [_F, _P],
-    "ff_nafblock_apply_bf16": [_P] * 11 + [_L] + [_I] * 4 + [_F, _P],
+    "ff_nafblock_bf16_tiles": [_I] * 3,
+    "ff_nafblock_gate_bf16": [_P] * 9 + [_L] + [_I] * 4 + [_F, _P],
+    "ff_nafblock_apply_bf16": [_P] * 14 + [_L] + [_I] * 4 + [_F, _P],
     "ff_dwconv3x3": [_P] * 4 + [_I] * 4 + [_P],
     "ff_dwconv3x3_bf16": [_P] * 4 + [_I] * 4 + [_P],
     "ff_window_attention_qkv_scratch_floats": [_L, _I, _I],
@@ -99,7 +100,7 @@ _SIGNATURES = {
                                     + [_F, _I, _I, _P],
     "ff_window_attention_qkv_bf16_scratch_bytes": [_L, _I, _I],
     "ff_window_attention_qkv_nhwc_bf16": [_P] * 9 + [_L] + [_I] * 7
-                                         + [_F, _P],
+                                         + [_F, _I, _I, _P],
     "ff_grl_qkv_scratch_floats": [_L, _I, _I],
     "ff_grl_qkv_bf16_scratch_bytes": [_L, _I, _I],
     "ff_grl_mixed_attention_qkv_nhwc_bf16": [_P] * 15 + [_L] + [_I] * 9
@@ -265,9 +266,12 @@ def stream(t: torch.Tensor) -> int:
 
 
 def require(t: torch.Tensor, name: str, shape, device,
-            dtype: torch.dtype = torch.float32) -> None:
+            dtype: torch.dtype = torch.float32,
+            contiguous: bool = True) -> None:
     """Validate a tensor handed to a kernel: of `dtype` (the one the kernel
-    takes for it), contiguous, on `device`, of `shape`."""
+    takes for it), contiguous (unless the kernel reads it only through a
+    layout built from it, ``contiguous=False``), on `device`, of
+    `shape`."""
     if t.device != device:
         raise ValueError(f"{name} on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -275,7 +279,7 @@ def require(t: torch.Tensor, name: str, shape, device,
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 

@@ -22,9 +22,12 @@ products in 3xTF32 on the tensor cores, ``csrc/tf32_gemm.cuh``) through a
 scratch that :func:`plan_nafblock` sizes, or the call raises. Every H and
 W is taken by the kernels: there is no XLA-style fallback for small
 shapes. bf16 tensors (the bf16 expert mode) go to the bf16 plain version
-or to the file's bf16 kernels (the four products on bf16 ``mma.sync``,
-``csrc/bf16_gemm.cuh``; g and y kept in fp32 between the launches), both
-with the JAX kernel's rounding points, counted as ``nafblock_fused.bf16``.
+or to the file's bf16 kernels (the four products on ``csrc/bf16_wgmma.cuh``'s
+wgmma GEMMs, the weights laid out once by ``ops/wgmma.py``; at C <= 256
+two launches, pass A over halo tiles with u kept on chip and pass B with
+y, T2 and g2 kept on chip; above, nine; :func:`wgmma.plan_nafblock_bf16`),
+both with the JAX kernel's rounding points, counted as
+``nafblock_fused.bf16``.
 """
 
 from __future__ import annotations
@@ -34,9 +37,8 @@ from typing import Any, Dict, NamedTuple
 import torch
 import torch.nn.functional as F
 
-from . import cuda
+from . import cuda, wgmma
 from .attention import _bf16
-from .cab import POOL_ROWS
 from .tf32_gemm import (BK, MAX_CHANNELS, ROWS, GemmPlan, _round_up,
                         plan_gemm)
 
@@ -146,7 +148,8 @@ def nafblock_fused(x: torch.Tensor, w: Dict[str, Any]) -> torch.Tensor:
     dev = x.device
     plan = plan_nafblock(h * w_, c, b)
     cuda.require(x, "x", (b, h, w_, c), dev)
-    mats = {n: _mat(w, n) for n in ("conv1", "conv3", "conv4", "conv5", "sca")}
+    mats = {n: _mat(w, n).contiguous()
+            for n in ("conv1", "conv3", "conv4", "conv5", "sca")}
     for n, m in mats.items():
         cuda.require(m, n, (c, 2 * c if n in ("conv1", "conv4") else c), dev)
         cuda.require(w[n]["bias"], f"{n} bias", (m.shape[1],), dev)
@@ -186,14 +189,19 @@ def nafblock_fused(x: torch.Tensor, w: Dict[str, Any]) -> torch.Tensor:
 def _nafblock_fused_bf16_kernel(x: torch.Tensor, w: Dict[str, Any]
                                 ) -> torch.Tensor:
     """The bf16 kernels: x and every tensor of the tree bf16 (the SCA's
-    weight is widened in PyTorch); any C."""
+    weight is widened in PyTorch); C even, at most 1024. The four 1x1
+    weights go to the kernels laid out in wgmma's order, once per weight
+    (:func:`wgmma.weight_layouts`: hand views of the module's parameters,
+    as ``models/nafnet.py`` does, so that the layouts are reused)."""
     bf, dev = torch.bfloat16, x.device
     b, h, w_, c = x.shape
+    plan = wgmma.plan_nafblock_bf16(h, w_, c, b)
     cuda.require(x, "x", (b, h, w_, c), dev, bf)
     mats = {n: _mat(w, n) for n in ("conv1", "conv3", "conv4", "conv5", "sca")}
+    # read only through their layouts (sca's by a PyTorch product): views
     for n, m in mats.items():
         cuda.require(m, n, (c, 2 * c if n in ("conv1", "conv4") else c), dev,
-                     bf)
+                     bf, contiguous=False)
         cuda.require(w[n]["bias"], f"{n} bias", (m.shape[1],), dev, bf)
     cuda.require(w["conv2"]["kernel"], "conv2", (3, 3, 1, 2 * c), dev, bf)
     cuda.require(w["conv2"]["bias"], "conv2 bias", (2 * c,), dev, bf)
@@ -204,14 +212,20 @@ def _nafblock_fused_bf16_kernel(x: torch.Tensor, w: Dict[str, Any]
     lib = cuda.library()
     stream = cuda.stream(x)
     nbytes = lib.ff_nafblock_bf16_scratch_bytes(b * h * w_, c)
+    tiles = lib.ff_nafblock_bf16_tiles(h, w_, c)
+    if nbytes != plan.scratch_bytes or tiles != plan.tiles:
+        raise ValueError(f"nafblock_fused (bf16): C={c} refused")
+    w1 = wgmma.weight_layouts(mats["conv1"], plan.bn1, True)
+    w3 = wgmma.weight_layouts(mats["conv3"], plan.bn)
+    w4 = wgmma.weight_layouts(mats["conv4"], plan.bn, True)
+    w5 = wgmma.weight_layouts(mats["conv5"], plan.bn)
     scratch = torch.empty(nbytes, device=dev, dtype=torch.uint8)
-    partials = torch.empty(b, -(-(h * w_) // POOL_ROWS), c, device=dev,
-                           dtype=torch.float32)
+    partials = torch.empty(b, tiles, c, device=dev, dtype=torch.float32)
     err = lib.ff_nafblock_gate_bf16(
         *(cuda.ptr(t) for t in (
-            x, w["norm1"]["scale"], w["norm1"]["bias"], mats["conv1"],
-            w["conv1"]["bias"], mats["conv3"], mats["conv4"], mats["conv5"],
-            w["conv2"]["kernel"], w["conv2"]["bias"], partials, scratch)),
+            x, w["norm1"]["scale"], w["norm1"]["bias"], w1,
+            w["conv1"]["bias"], w["conv2"]["kernel"], w["conv2"]["bias"],
+            partials, scratch)),
         nbytes, b, h, w_, c, EPS, stream)
     cuda.check(err, "nafblock_fused (bf16 gate)")
     s = (partials.sum(1) / (h * w_) @ mats["sca"].float()
@@ -219,9 +233,9 @@ def _nafblock_fused_bf16_kernel(x: torch.Tensor, w: Dict[str, Any]
     out = torch.empty_like(x)
     err = lib.ff_nafblock_apply_bf16(
         *(cuda.ptr(t) for t in (
-            s, x, w["conv3"]["bias"], w["beta"], w["norm2"]["scale"],
-            w["norm2"]["bias"], w["conv4"]["bias"], w["conv5"]["bias"],
-            w["gamma"], out, scratch)),
+            s, x, w3, w["conv3"]["bias"], w["beta"], w["norm2"]["scale"],
+            w["norm2"]["bias"], w4, w["conv4"]["bias"], w5,
+            w["conv5"]["bias"], w["gamma"], out, scratch)),
         nbytes, b, h, w_, c, EPS, stream)
     cuda.check(err, "nafblock_fused (bf16 apply)")
     cuda.launch_counts["nafblock_fused.bf16"] += 1

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from freqfusion_tpu_torch.ops import cuda
+from freqfusion_tpu_torch.ops import cuda, wgmma
 from freqfusion_tpu_torch.ops.cab import cab_fused, cab_fused_reference
 from freqfusion_tpu_torch.ops.edge import (
     edge_fuse_fused, edge_fuse_fused_reference, edge_refine_fused,
@@ -1828,18 +1828,49 @@ def test_cab_bf16_kernel(cr, sq, with_ln, hw, fp32_plain):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [64, 256, 1024, 36])
+@pytest.mark.parametrize("c", [64, 256, 1024, 36, 128, 512])
 def test_nafblock_bf16_kernel(c, fp32_plain):
-    """NAFNet-SIDD-64's widths at their extremes and C 36 (K padded to 64,
-    conv4's interleaved columns to 128) on two ragged 17 x 23 images;
-    every tensor of the tree bf16."""
+    """Every NAFNet-SIDD-64 width (64-1024: pass B in one launch up to C
+    256, three above; pass A's halo tile 8 x 16 up to C 256, 8 x 8 above)
+    and C 36 (K padded to 64, conv4's interleaved columns to 128) on two
+    ragged 17 x 23 images (odd sides: the last tiles' halos cross the
+    image's edge; 782 pixels an image, no multiple of a tile or of 64
+    rows); every tensor of the tree bf16."""
     dev = cuda_or_skip()
     rng = np.random.default_rng(c)
     w = _bf16_tree(_naf_tree(rng, c, dev))
     x = _b(rng.uniform(size=(2, 17, 23, c)), dev)
     cuda.reset_launch_counts()
     got = nafblock_fused(x, w)
+    assert dict(cuda.launch_counts) == {"nafblock_fused.bf16": 1}
     _bf16_close(got, nafblock_fused_reference(x, w), "nafblock_fused.bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,hw", [(64, (9, 31)), (512, (7, 13))])
+def test_nafblock_bf16_relays_changed_weights(c, hw):
+    """The cached wgmma layouts (ops/wgmma.py): reused while the weights
+    stay; an in-place update (version counter) lays conv3's out anew; a
+    write through .data is seen after clear_weight_layouts."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c + 1)
+    w = _bf16_tree(_naf_tree(rng, c, dev))
+    x = _b(rng.uniform(size=(1, *hw, c)), dev)
+    nafblock_fused(x, w)
+    w1 = wgmma.weight_layouts(w["conv1"]["kernel"][0, 0], 128, True)
+    nafblock_fused(x, w)
+    assert wgmma.weight_layouts(w["conv1"]["kernel"][0, 0], 128,
+                                True) is w1
+    w["conv3"]["kernel"].mul_(-1.5)
+    cuda.reset_launch_counts()
+    _bf16_close(nafblock_fused(x, w), nafblock_fused_reference(x, w),
+                "nafblock_fused.bf16")
+    w["conv5"]["kernel"].data.copy_(_b(rng.normal(
+        size=(1, 1, c, c)) / np.sqrt(c), dev))
+    wgmma.clear_weight_layouts()
+    cuda.reset_launch_counts()
+    _bf16_close(nafblock_fused(x, w), nafblock_fused_reference(x, w),
+                "nafblock_fused.bf16")
 
 
 @pytest.mark.cuda
@@ -1922,13 +1953,15 @@ def test_edge_bf16_kernels(nchw, hw):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,heads,ws", [(180, 6, 16), (244, 2, 16),
-                                        (60, 6, 8)])
+                                        (60, 6, 8), (212, 4, 16),
+                                        (276, 6, 16), (308, 4, 16)])
 @pytest.mark.parametrize("shift", [False, True])
 def test_window_attention_qkv_bf16_kernel(c, heads, ws, shift):
-    """DRCT-L's geometry (C 180, 6 heads of 30, window 16), its widest head
-    (hd 122) and a small one (hd 10) at window 8, 1 x 2 x 3 windows (the
-    GEMMs' 128-row tiles end ragged): bf16 x, weights, biases and bias
-    table, fp32 mask, as the bf16 module hands them."""
+    """Every DRCT-L width (C 180-308: rows of 360-616 bytes, 8- but not
+    16-byte multiples; chunks of 96 or 128 columns), its widest head (hd
+    122) and a small one (hd 10) at window 8, 1 x 2 x 3 windows (the
+    GEMM's 64-row blocks end ragged at window 8): bf16 x, weights, biases
+    and bias table, fp32 mask, as the bf16 module hands them."""
     dev = cuda_or_skip()
     rng = np.random.default_rng(c + ws + shift)
     h, w, n = 2 * ws, 3 * ws, ws * ws
@@ -1945,6 +1978,81 @@ def test_window_attention_qkv_bf16_kernel(c, heads, ws, shift):
     assert dict(cuda.launch_counts) == {"window_attention_qkv_nhwc.bf16": 1}
     _bf16_close(got, window_attention_qkv_nhwc_reference(*args),
                 "window_attention_qkv_nhwc.bf16")
+
+
+@pytest.mark.cuda
+def test_bf16_modules_reuse_layouts_under_inference_mode(monkeypatch):
+    """The gated NAFBlock and DRCT WindowAttention in bf16, served as
+    io.main serves them (torch.inference_mode): their weights are laid
+    out on the first call only (four for the NAFBlock, two for the
+    attention), then found; laid out anew after clear_weight_layouts, the
+    outputs are the same bits."""
+    from freqfusion_tpu_torch.models.drct import WindowAttention
+    from freqfusion_tpu_torch.models.nafnet import NAFBlock
+
+    dev = cuda_or_skip()
+    torch.manual_seed(0)
+    bf = torch.bfloat16
+    blk = NAFBlock(64).to(dev).to(bf)
+    for p in blk.parameters():
+        torch.nn.init.normal_(p, std=0.05)
+    att = WindowAttention(180, 16, 6).to(dev).to(bf)
+    x = torch.randn(1, 64, 17, 23, device=dev).to(bf)
+    xa = torch.randn(1, 32, 48, 180, device=dev).to(bf)
+    mask = _t(shifted_window_mask(32, 48, 16, 8), dev)
+    monkeypatch.setenv("FREQFUSION_NAFBLOCK", "1")
+    monkeypatch.setenv("FREQFUSION_ATTN_QKV", "1")
+    wgmma.clear_weight_layouts()
+
+    def entries():
+        return sum(len(t) for t in wgmma._LAYOUTS.values())
+    with torch.inference_mode():
+        blk(x), att(xa, mask)
+        assert entries() == 6
+        cuda.reset_launch_counts()
+        got = [blk(x), att(xa, mask)]
+        assert entries() == 6
+        assert dict(cuda.launch_counts) == {
+            "nafblock_fused.bf16": 1, "window_attention_qkv_nhwc.bf16": 1}
+        wgmma.clear_weight_layouts()
+        want = [blk(x), att(xa, mask)]
+        assert entries() == 6
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_window_attention_qkv_bf16_batch_and_changed_weights():
+    """Batch 2 at C 212; the cached layouts reused, laid out anew after an
+    in-place update of wqkv and, after clear_weight_layouts, after a write
+    to wproj through .data."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(212)
+    c, heads, ws = 212, 4, 16
+    mask = _t(shifted_window_mask(ws, 2 * ws, ws, ws // 2), dev)
+    x = _b(rng.normal(size=(2, ws, 2 * ws, c)), dev)
+    wqkv = _b(rng.normal(size=(c, 3 * c)) / np.sqrt(c), dev)
+    wproj = _b(rng.normal(size=(c, c)) / np.sqrt(c), dev)
+    args = (x, wqkv, _b(0.1 * rng.normal(size=3 * c), dev), wproj,
+            _b(0.1 * rng.normal(size=c), dev),
+            _b(0.5 * rng.normal(size=(heads, ws * ws, ws * ws)), dev), mask,
+            heads, ws)
+
+    def check():
+        cuda.reset_launch_counts()
+        _bf16_close(window_attention_qkv_nhwc(*args),
+                    window_attention_qkv_nhwc_reference(*args),
+                    "window_attention_qkv_nhwc.bf16")
+    check()
+    wq = wgmma.weight_layouts(wqkv, wgmma.chunk_cols(3 * c))
+    check()
+    assert wgmma.weight_layouts(wqkv, wgmma.chunk_cols(3 * c)) is wq
+    wqkv.mul_(-1)
+    check()
+    wproj.data.copy_(_b(rng.normal(size=(c, c)) / np.sqrt(c), dev))
+    wgmma.clear_weight_layouts()
+    check()
 
 
 @pytest.mark.cuda
