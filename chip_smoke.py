@@ -92,7 +92,8 @@ exits non-zero without the final ok line):
    their bf16 plain versions, with one #5 call's launches by
    torch.profiler; then the byte-floor
    kernels' bf16 versions at phase 2's byte-floor shapes (the fused FFN
-   #14 at its six, the CAB #15 at its two, the NAFBlock #16 at NAFNet's
+   #14 at its six and the CAB #15 at its two, each with its share of a
+   request and one call's launches, the NAFBlock #16 at NAFNet's
    five levels, the depthwise conv #17 at SS2D's D 360 with cuDNN's bf16
    depthwise F.conv2d as its library call); then the fusion-eval kernels'
    bf16 versions (#18-#21) at their fp32 versions' shapes and layouts, the
@@ -293,7 +294,7 @@ GEMM_EPILOGUES = ("bias", "residual", "gate")
 CONV_EPILOGUES = ("store", "SpatialGate", "squeeze", "broadcast")
 FFN_DOWN_TILES = (6, 8, 9, 10)
 # csrc/bf16_gemm.cuh's bg_gemm_kernel<A, Epi>: every instantiation, in the
-# sources that build it (the bf16 #14, #15, #12, #13)
+# sources that build it (the bf16 #12, #13)
 CAB_CONV_TILES = (4, 6)
 # csrc/selective_scan.cu's scan_pass16_kernel<kFinal, kN, kMix>: the bf16
 # operand mixes, by the contract each serves (every instantiation, and the
@@ -877,10 +878,9 @@ def check_spills(log: str, required: bool) -> None:
             lambda m: "layout pass" if m.group(4)
             else f"{4 * int(m.group(1))} warps, {m.group(2)} out n-tiles a "
                  f"warp, T {m.group(3)}"),
-        "bf16 GEMM (#14, #15, #12, #13)": (
-            r"(fused_mlp|cab|grl_attention_qkv"
-            r"|token_attention)_cu.*bg_gemm_kernelIN\w*?(BgRows|BgConv3x3|"
-            r"TaRows)\w*?(\d+)(\w+?Epi)E",
+        "bf16 GEMM (#12, #13)": (
+            r"(grl_attention_qkv|token_attention)_cu.*bg_gemm_kernelIN\w*?"
+            r"(BgRows|TaRows)\w*?(\d+)(\w+?Epi)E",
             lambda m: True,
             lambda m: f"{m.group(1)}.cu, {m.group(2)} rows, "
                       f"{m.group(4)[:-3]} epilogue"),
@@ -903,6 +903,15 @@ def check_spills(log: str, required: bool) -> None:
                   f"{'LN' if m.group(10) == '1' else 'g s'} of "
                   f"{'fp32' if m.group(11) == 'f' else 'bf16'}")
             if m.group(10) else "nafblock.cu, depthwise gate"),
+        "bf16 wgmma FFN and CAB (#14, #15)": (
+            r"ffn_(up|down)_wgmma_kernelILi(\d+)E(?:Li(\d+)E)?|"
+            r"cab_conv(1|2)_kernel(?:ILi(\d+)E)?",
+            lambda m: True,
+            lambda m: (f"FFN {m.group(1)}, {m.group(2)} columns"
+                       + (f" x {m.group(3)} chunks" if m.group(3) else ""))
+            if m.group(1) else (f"CAB conv{m.group(4)}, "
+                                + (f"N {m.group(5)}" if m.group(5)
+                                   else "96 columns a pass"))),
         "LKA (#18; fp32 and bf16)": (
             r"lka_(mix)(_bf16)?_kernelILi(\d+)ELi(\d+)ELi(\d+)E|"
             r"lka_(dw|prep)(_bf16)?_kernel(?:ILb([01])E)?",
@@ -1458,6 +1467,8 @@ def phase_bf16_fused_kernels(dev, randn, checks, beside) -> None:
                 else t.to(bf))
 
     fm = checks["fused_mlp_block.bf16"] = KernelCheck("fused_mlp_block.bf16")
+    share = RequestShare(fm)
+    # a request: 12 FFNs at each of DRCT-L's five widths, GRL-B's 40
     for c, ch, pre in ((180, 720, True), (212, 848, True), (244, 976, True),
                        (276, 276, True), (308, 308, True), (180, 360, False)):
         args = (randn(1, h, w, c).to(bf),
@@ -1465,20 +1476,24 @@ def phase_bf16_fused_kernels(dev, randn, checks, beside) -> None:
                     randn(c, ch, scale=c ** -0.5), randn(ch, scale=0.1),
                     randn(ch, c, scale=ch ** -0.5), randn(c, scale=0.1),
                     1 + randn(c, scale=0.1), randn(c, scale=0.1))), pre)
-        fm.run(f"C{c}/Ch{ch}/{'pre' if pre else 'post'}",
-               lambda: fused_mlp_block(*args),
-               lambda: fused_mlp_block_reference(*args), bf16_tol,
-               4.0 * p * c * ch, 2 * (2 * p * c + 2 * c * ch + ch + 4 * c),
-               peak_flops=PEAK_BF16, core_flops=20.0 * p * ch)
+        share.run(f"C{c}/Ch{ch}/{'pre' if pre else 'post'}",
+                  12 if pre else 40, lambda: fused_mlp_block(*args),
+                  lambda: fused_mlp_block_reference(*args), bf16_tol,
+                  4.0 * p * c * ch, 2 * (2 * p * c + 2 * c * ch + ch + 4 * c),
+                  peak_flops=PEAK_BF16, core_flops=20.0 * p * ch)
         if c == 244 or not pre:
             launch_breakdown(f"#14 bf16 C{c}", lambda: fused_mlp_block(*args))
         del args
+    share.total()
     beside("fused_mlp_block", fm)
     torch.cuda.empty_cache()
 
     cb = checks["cab_fused.bf16"] = KernelCheck("cab_fused.bf16")
+    share = RequestShare(cb)
     x = randn(1, h, w, 180, scale=0.5).to(bf)
-    for form, cr, sq in (("grl", 45, 18), ("mambair", 60, 30)):
+    # a request: GRL-B's 40 CABs, MambaIR's 36
+    for form, cr, sq, per_request in (("grl", 45, 18, 40),
+                                      ("mambair", 60, 30, 36)):
         wt = tree({"cab_0": _conv_tree(randn, 3, 180, cr),
                    "cab_2": _conv_tree(randn, 3, cr, 180),
                    "ca_1": _conv_tree(randn, 1, 180, 180 // sq),
@@ -1488,11 +1503,14 @@ def phase_bf16_fused_kernels(dev, randn, checks, beside) -> None:
             ln = tree(_norm_tree(randn, 180))
             skip = (1 + randn(180, scale=0.2)).to(bf)
         args = (x, wt, ln, skip)
-        cb.run(f"{form}/C180/Cr{cr}", lambda: cab_fused(*args),
-               lambda: cab_fused_reference(*args), bf16_tol,
-               36.0 * p * 180 * cr, 2 * (2 * p * 180 + 18 * 180 * cr),
-               peak_flops=PEAK_BF16, core_flops=p * (20.0 * cr + 12 * 180))
+        share.run(f"{form}/C180/Cr{cr}", per_request,
+                  lambda: cab_fused(*args),
+                  lambda: cab_fused_reference(*args), bf16_tol,
+                  36.0 * p * 180 * cr, 2 * (2 * p * 180 + 18 * 180 * cr),
+                  peak_flops=PEAK_BF16,
+                  core_flops=p * (20.0 * cr + 12 * 180))
         launch_breakdown(f"#15 bf16 {form}", lambda: cab_fused(*args))
+    share.total()
     beside("cab_fused", cb)
     del x
     torch.cuda.empty_cache()

@@ -1,6 +1,6 @@
-// bf16 products on the tensor cores for the bf16 versions of the fused FFN
-// (fused_mlp.cu, TPU #14), the CAB (cab.cu, #15) and the NAFBlock
-// (nafblock.cu, #16), and the row passes around them. Each keeps the JAX
+// bf16 products on the tensor cores for the bf16 versions of GRL's qkv
+// mixed attention (grl_attention_qkv.cu, TPU #12) and the token attention
+// (token_attention.cu, #13), and the row passes around them. Each keeps the JAX
 // kernel's rounding points: a product takes bf16 operands and accumulates
 // in fp32 (one mma.sync m16n8k16 from bf16_mma.cuh), and every other step
 // runs in fp32, rounded to bf16 only where the JAX kernel casts.
@@ -11,20 +11,18 @@
 // zero-filled where A has no value). Shared memory rows are padded (A 40,
 // W 72 bf16: 80 and 144 bytes), so ldmatrix's eight row reads of a phase
 // fall in distinct banks. W is the weight zero-padded by bg_pad_kernel to
-// [kp][np] bf16 (kp a multiple of 32, np of 64). A comes through a loader:
-//   BgRows     a row-major bf16 matrix whose rows are 16-byte multiples;
-//   BgConv3x3  a 3x3 convolution's implicit-GEMM rows over an NHWC bf16
-//              tensor (column tap * cin + c), zero outside the image.
-// The activations' rows are rarely 16-byte multiples in place (C 180 is
-// 360 bytes, the CAB's Cr 45 is 90), so the passes that make A write it
-// padded (bg_rows_kernel, the epilogues), with zeros past the real
-// columns, which meet W's zero rows.
+// [kp][np] bf16 (kp a multiple of 32, np of 64). A comes through a loader
+// (BgRows: a row-major bf16 matrix whose rows are 16-byte multiples; #13's
+// own). The activations' rows are rarely 16-byte multiples in place (C 180
+// is 360 bytes), so the passes that make A write it padded
+// (bg_rows_kernel), with zeros past the real columns, which meet W's zero
+// rows.
 //
 // What bounds these products on the H100: the tensor cores (989 TFLOP/s
-// bf16, dense) for the FFN's and the NAFBlock's wide layers; this first
-// version is simple (mma.sync, no TMA or wgmma, intermediates through
-// device memory), and chip_smoke.py phase 2 prints its time beside that
-// bound.
+// bf16, dense); this first version is simple (mma.sync, no TMA or wgmma,
+// intermediates through device memory), and chip_smoke.py phase 2 prints
+// its time beside that bound. The fused FFN (#14), the CAB (#15), #11 and
+// the NAFBlock (#16) run on bf16_wgmma.cuh's wgmma instead.
 
 #pragma once
 
@@ -42,7 +40,6 @@ using bf16 = __nv_bfloat16;
 constexpr int kBgM = 128, kBgN = 64, kBgK = 32, kBgStages = 3;
 constexpr int kBgThreads = 128;
 constexpr int kBgLdA = kBgK + 8, kBgLdB = kBgN + 8;  // padded smem rows
-constexpr int kBgChunk = 256;  // rows a block of bg_colsum_kernel sums
 
 __device__ __forceinline__ void bg_cp16(bf16* dst, const bf16* src,
                                         bool ok) {
@@ -68,10 +65,6 @@ __device__ __forceinline__ bf16 bg_round(float v) {
   return __float2bfloat16_rn(v);
 }
 
-__device__ __forceinline__ float bg_gelu(float v) {  // exact (erf)
-  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-}
-
 __device__ __forceinline__ float bg_warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -86,26 +79,6 @@ struct BgRows {
   int ld;
   __device__ __forceinline__ const bf16* src(long long m, int k) const {
     return m < M ? a + m * ld + k : nullptr;
-  }
-};
-
-// A's rows of a 3x3 convolution (zero padding, stride 1) over t [B, H, W,
-// cin] bf16 (cin a multiple of 8, the channels past the real ones zeros):
-// row m is pixel m, column k = tap * cin + c with tap = 3 dy + dx; columns
-// of tap 9 and past (K's padding to 32) are zeros.
-struct BgConv3x3 {
-  const bf16* t;
-  long long M;  // B H W
-  int H, W, cin;
-  __device__ __forceinline__ const bf16* src(long long m, int k) const {
-    const int tap = k / cin, c = k - tap * cin;
-    if (m >= M || tap >= 9) return nullptr;
-    const long long hw = (long long)H * W;
-    const long long img = m / hw;
-    const int pix = int(m - img * hw);
-    const int y = pix / W + tap / 3 - 1, x = pix % W + tap % 3 - 1;
-    if (y < 0 || y >= H || x < 0 || x >= W) return nullptr;
-    return t + ((img * H + y) * W + x) * (long long)cin + c;
   }
 };
 
@@ -217,42 +190,6 @@ cudaError_t bg_gemm(const A& la, long long M, const bf16* w, int ldw, int kp,
 // ---------------------------------------------------------------------
 // Epilogues
 
-// out[m, n] = bf16(gelu(v + bias[n])) for n < n_real, 0 for n_real <= n <
-// ld: the next product's A (the FFN's hidden, the CAB's conv2 input).
-struct BgGeluEpi {
-  const bf16* bias;
-  bf16* out;
-  long long M;
-  int n_real, ld;
-  __device__ __forceinline__ void operator()(long long m, int n, float v0,
-                                             float v1) const {
-    if (m >= M || n >= ld) return;
-    const float a0 = n < n_real ? bg_gelu(v0 + bg_f(bias[n])) : 0.f;
-    const float a1 = n + 1 < n_real ? bg_gelu(v1 + bg_f(bias[n + 1])) : 0.f;
-    *reinterpret_cast<uint32_t*>(out + m * ld + n) = pack_bf16(a0, a1);
-  }
-};
-
-// y[m, n] = v + bias[n] in fp32, [M, N] row-major (y 8-byte aligned).
-struct BgBiasEpi {
-  const bf16* bias;
-  float* y;
-  long long M;
-  int N;
-  __device__ __forceinline__ void operator()(long long m, int n, float v0,
-                                             float v1) const {
-    if (m >= M || n >= N) return;
-    float* o = y + m * N + n;
-    if (n + 1 < N && N % 2 == 0) {
-      *reinterpret_cast<float2*>(o) =
-          make_float2(v0 + bg_f(bias[n]), v1 + bg_f(bias[n + 1]));
-    } else {
-      o[0] = v0 + bg_f(bias[n]);
-      if (n + 1 < N) o[1] = v1 + bg_f(bias[n + 1]);
-    }
-  }
-};
-
 // out[s][m, c] = bf16(v + bias[n]) for n = s width + c < segs width: a
 // product's columns cut into `segs` (at most 3) contiguous [M, width] bf16
 // tensors, width even (q | k | v of the qkv projections, or one output).
@@ -276,8 +213,7 @@ struct BgSegEpi {
 // dst [kp, np] bf16: row gi kg + k, column n is src row gi K + k, column
 // col(n) for gi < groups, k < K, n < N; zero elsewhere. col(n) = n, or with
 // `interleave` (N even) n / 2 + (n % 2) N / 2, so that a gate's two halves
-// land side by side (columns 2j and 2j + 1 are j and N / 2 + j). groups 9
-// and kg = cin padded lays a 3x3 kernel [9 cin, N] out for BgConv3x3.
+// land side by side (columns 2j and 2j + 1 are j and N / 2 + j).
 __global__ void __launch_bounds__(256)
 bg_pad_kernel(const bf16* __restrict__ src, int lds, int groups, int K,
               int kg, int N, int interleave, bf16* __restrict__ dst, int kp,
@@ -367,32 +303,6 @@ cudaError_t bg_rows(const T* x, long long M, int C, const bf16* ln_s,
   if (blocks > 0)
     bg_rows_kernel<T, V><<<unsigned(blocks), 256, 0, stream>>>(
         x, M, C, ln_s, ln_b, eps, out, ld);
-  return cudaGetLastError();
-}
-
-// partials[b][j][c] = sum of y[b hw + r][c] over the rows r of chunk j
-// (kBgChunk rows) of image b: the global average pool's partial sums.
-__global__ void __launch_bounds__(256)
-bg_colsum_kernel(const float* __restrict__ y, int hw, int C, int chunks,
-                 float* __restrict__ partials) {
-  const int b = blockIdx.y, j = blockIdx.x;
-  const long long r0 = (long long)j * kBgChunk;
-  const long long r1 = r0 + kBgChunk < hw ? r0 + kBgChunk : hw;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float s = 0.f;
-    for (long long r = r0; r < r1; ++r)
-      s += y[((long long)b * hw + r) * C + c];
-    partials[((long long)b * chunks + j) * C + c] = s;
-  }
-}
-
-inline int bg_chunks(int hw) { return (hw + kBgChunk - 1) / kBgChunk; }
-
-cudaError_t bg_colsum(const float* y, int B, int hw, int C, float* partials,
-                      cudaStream_t stream) {
-  const int threads = C < 256 ? (C + 31) / 32 * 32 : 256;
-  bg_colsum_kernel<<<dim3(unsigned(bg_chunks(hw)), unsigned(B)), threads, 0,
-                     stream>>>(y, hw, C, bg_chunks(hw), partials);
   return cudaGetLastError();
 }
 

@@ -1,8 +1,11 @@
 // A bf16 GEMM for Hopper on wgmma, fed by bulk copies through an mbarrier
 // ring: the products of the bf16 qkv window attention
-// (window_attention_qkv.cu, TPU #11) and of the bf16 NAFBlock
-// (nafblock.cu, #16). bf16 operands, fp32 accumulation, every other step
-// in fp32 and rounded to bf16 only where the JAX kernels cast.
+// (window_attention_qkv.cu, TPU #11), of the bf16 NAFBlock (nafblock.cu,
+// #16), of the bf16 fused FFN (fused_mlp.cu, #14: its own two kernels on
+// these pieces, outputs by bulk stores, bw_store) and the bf16 CAB's convs
+// (cab.cu, #15: A read from a staged halo through shifted descriptors,
+// bw_desc_at). bf16 operands, fp32 accumulation, every other step in fp32
+// and rounded to bf16 only where the JAX kernels cast.
 //
 // Two kernels. bw_gemm_kernel: a block is WGS consumer warpgroups (128
 // threads each, 64 rows apiece: BM = 64 WGS rows) and one producer warp,
@@ -110,6 +113,7 @@ __device__ __forceinline__ void bw_sync(int threads) {
   asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
 }
 
+
 // d (+)= A B for one 64 x N tile and k 16 (bf16 operands, fp32 sums), A
 // and B in shared memory by their descriptors, both K-major; d is taken
 // as zero where `accumulate` is 0. d[4 j + 2 h + e] is row 16 (warp % 4)
@@ -132,6 +136,24 @@ __device__ __forceinline__ void bw_mma_n64(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void bw_mma_n48(float (&d)[24], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      "%20, %21, %22, %23}, "
+      "%24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -196,9 +218,65 @@ __device__ __forceinline__ void bw_mma_n128(float (&d)[64], uint64_t da,
 template <int BN>
 __device__ __forceinline__ void bw_mma(float (&d)[BN / 2], uint64_t da,
                                        uint64_t db, int accumulate) {
-  if constexpr (BN == 64) bw_mma_n64(d, da, db, accumulate);
+  static_assert(BN == 48 || BN == 64 || BN == 96 || BN == 128,
+                "instantiated widths");
+  if constexpr (BN == 48) bw_mma_n48(d, da, db, accumulate);
+  else if constexpr (BN == 64) bw_mma_n64(d, da, db, accumulate);
   else if constexpr (BN == 96) bw_mma_n96(d, da, db, accumulate);
   else bw_mma_n128(d, da, db, accumulate);
+}
+
+// Moves this warpgroup's register budget to N a thread (a multiple of 8),
+// every warp of the warpgroup at once: a producer warpgroup gives its
+// registers up (dec) for the consumers' sums (inc). The budgets of a
+// block must fit what its launch bounds gave it (384 threads at one block
+// an SM: 168 a thread; 40 for the producer, 232 for two consumers).
+template <int N>
+__device__ __forceinline__ void bw_regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void bw_regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+// A descriptor with its own strides (no swizzle): `lbo` bytes between the
+// two core matrices along K, `sbo` between 8-row groups (16-byte
+// multiples). The CAB's convs read a halo tap with lbo = the halo's
+// pixels x 16 and sbo = 128 (8 consecutive pixels).
+__device__ __forceinline__ uint64_t bw_desc_at(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4) |
+         (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
+         (uint64_t((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// A block's output tile from shared memory to device memory as one bulk
+// copy (the async proxy: fence_proxy_async after the tile's stores, then
+// a barrier, before one thread issues it); bytes and both addresses
+// 16-byte multiples. bw_store_commit closes a group; bw_store_wait_read<N>
+// waits until at most N groups still read shared memory (the tile may be
+// written again), bw_store_wait<0> until every store is done.
+__device__ __forceinline__ void bw_store(void* dst, const void* src,
+                                         uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               ::"l"(dst), "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bw_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bw_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bw_store_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // Keeps the compiler from moving reads of the accumulators above a wait.

@@ -64,7 +64,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "bf16_gemm.cuh"
+#include "bf16_wgmma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -503,105 +503,534 @@ extern "C" int ff_cab_apply(const float* y, const float* a, const float* x,
 // The bf16 version (FREQFUSION_EXPERT_DTYPE=bf16): x, the weights and the
 // vectors bf16, with the JAX kernel's rounding points (pallas_cab.py:
 // _conv_bank :62, _y_tile :74-86, _apply_kernel :99-110): the conv input
-// (LN(x) in fp32, or x) rounded to bf16 before conv1's nine taps, the GELU
-// of conv1 + b1 (fp32) rounded before conv2's, y = conv2 + b2 kept in fp32
-// (JAX recomputes it in fp32 in its apply pass: no rounding of y here
-// either), the pool and the squeeze MLP in fp32, the output y a + x skip
-// rounded once. Both convs run as implicit GEMMs on bf16_gemm.cuh's
-// (BgConv3x3 rows over a padded NHWC bf16 tensor, K = 9 taps x the
-// channels padded to 8, then to 32):
-//   pass A: W1, W2 laid out [K][N] (two launches); T = bf16(LN(x)) or x,
-//           [M][cinp1]; conv1: U = bf16(gelu(. + b1)), [M][cinp2]; conv2:
-//           y = . + b2, fp32 [M][C] (the caller's); the pool's partial sums;
+// (LN(x) in fp32, or x) rounded to bf16 before conv1's nine taps, zero
+// outside the image after the LN (:80-81), the GELU of conv1 + b1 (fp32)
+// rounded before conv2's, y = conv2 + b2 kept in fp32 (JAX recomputes it
+// in fp32 in its apply pass), the pool and the squeeze MLP in fp32, the
+// output y a + x skip rounded once.
+//
+// What bounds it on the H100: the two convs, 18 C Cr FLOPs a pixel each
+// (25 GFLOP at GRL-B's 336x512, 33 at MambaIR's: ~0.03 ms each at 989
+// TFLOP/s), and the bytes: x in, U out and in, y out and in (fp32), out.
+// Both convs run on bf16_wgmma.cuh's wgmma from the input side, as the
+// JAX kernel runs nine dots of one resident operand (_conv_bank :56-71):
+// a block stages the halo of its output rows once, [8-channel group]
+// [halo pixel][8 values], so that eight consecutive pixels of a halo row
+// are one core matrix (128 contiguous bytes); the A operand of tap (dy,
+// dx) for 64 consecutive output pixels of one row is then the same
+// staged halo seen through a descriptor whose start moves by (dy (64 + 2)
+// + dx) 16 bytes (lbo the halo's pixels x 16, sbo 128): no im2col, no
+// gather. The weights are laid out once per module
+// (ops/wgmma.py:conv_layout: [Cout chunk][Cin / 16][tap][core matrices])
+// and streamed by bulk copies through an mbarrier ring. One consumer
+// warpgroup a block, two blocks an SM:
+//   conv1  4 output rows x 64 columns a block at N 48, 3 at N 64 (halo
+//          6 x 66 or 5 x 66: 1.55 or 1.72 reads a pixel; 96 sums a thread
+//          either way, and more leave no room for the staging warpgroup's
+//          registers at two blocks an SM). The halo goes 16 channels at a
+//          time through a ring of three slices that a staging warpgroup
+//          fills (x's 16 channels, LN'd with each pixel's statistics,
+//          taken first by every thread, eight a pixel), its registers
+//          given to the consumers by setmaxnreg, while the consumer
+//          warpgroup's wgmmas run; N is Cr padded to 16 (wgmma n48 for
+//          GRL-B's 45, n64 for
+//          MambaIR's 60); epilogue + b1, GELU, rounded, into shared tiles
+//          (the drained ring) and out by one bulk store an output row: U
+//          [M][48 or 64] bf16, rows of 16-byte multiples;
+//   conv2  6 output rows x 64 columns a block (halo 8 x 66, 1.375 reads a
+//          pixel; a producer warp streams the weights), the whole halo of
+//          U staged once by 16-byte cp.async
+//          (zeros outside the image); two rows at a time x 96 output
+//          channels a pass (96 sums a thread), the weights' three taps of
+//          one dy and 16 channels a stage; epilogue + b2, y in fp32 (whole
+//          32-byte sectors from the fragments) and the block's channel
+//          sums, deterministic partials [B, tiles, C], no atomics;
 //   the [B, C] squeeze MLP in PyTorch, as for fp32;
-//   pass B: out = bf16(y a + x skip).
+//   apply  out = bf16(y a + x skip), an elementwise pass.
 
 namespace {
 
-struct CabBf16Layout {
-  int cinp1, k1, np1, cinp2, k2, np2;
-  long long w1p, w2p, t, u, bytes;  // byte offsets into the scratch
+constexpr int kCabSeg = 64;             // output pixels an m-tile: a row's
+constexpr int kCabHw = kCabSeg + 2;     // halo columns
+// conv1's output rows (m-tiles) a block: 4 at N 48, 3 at N 64, so that the
+// sums stay at 96 a thread
+template <int BN>
+__host__ __device__ constexpr int c1_rows() { return BN == 64 ? 3 : 4; }
+constexpr int kC2Rows = 6;              // conv2's, two at a time
+constexpr int kC2Halo = (kC2Rows + 2) * kCabHw;  // 528
+constexpr int kC1Stages = 3;            // a 16-channel slice of 9 taps
+constexpr int kC1Slots = 3;             // staged halo slices in flight
+constexpr int kC2Stages = 4;            // a 16-channel slice of 3 taps
+constexpr int kC2Bn = 96;               // conv2's output channels a pass
+constexpr int kCabConsumers = 128;      // one consumer warpgroup
+constexpr int kCabMaxC = 256;           // the LN statistics' registers
+constexpr int kCabMaxCr = 64;
+
+// conv1's N (and conv2's K, U's row): Cr padded to 48 or 64.
+inline int cab_bn1(int cr) { return cr <= 48 ? 48 : 64; }
+
+inline int cab_c1_rows(int Cr) { return cab_bn1(Cr) == 64 ? 3 : 4; }
+
+inline int cab_conv1_smem(int C, int Cr) {
+  const int bn = cab_bn1(Cr), cinp = bw_up(C, 16);
+  const int halo = (cab_c1_rows(Cr) + 2) * kCabHw;
+  return kBwHead + kC1Stages * 9 * 16 * bn * 2 + kC1Slots * halo * 32 +
+         2 * kC1Slots * 8 + halo * 8 + 2 * cinp * 4 + bn * 4;
+}
+
+inline int cab_conv2_smem(int C, int Cr) {
+  const int np = bw_up(C, kC2Bn);
+  return kBwHead + kC2Stages * 3 * 16 * kC2Bn * 2 +
+         kC2Halo * cab_bn1(Cr) * 2 + 2 * np * 4 + 4 * kC2Bn * 4;
+}
+
+inline int cab_tiles(int H, int W, int rows) {
+  return (H + rows - 1) / rows * ((W + kCabSeg - 1) / kCabSeg);
+}
+
+struct CabConv1Args {
+  const __nv_bfloat16* x;  // [B, H, W, C]
+  const void* w;           // W1's layout at BN: [cinp / 16][9][BN / 8][2][8][8]
+  const __nv_bfloat16 *bias, *ln_s, *ln_b;  // [Cr]; [C] or null
+  __nv_bfloat16* u;        // [B, H, W, BN]
+  int H, W, C, Cr, cinp, tiles_x;
+  float eps;
 };
 
-CabBf16Layout cab_bf16_layout(long long M, int C, int Cr) {
-  CabBf16Layout l;
-  l.cinp1 = bg_up(C, 8);
-  l.k1 = bg_up(9 * l.cinp1, kBgK);
-  l.np1 = bg_up(Cr, kBgN);
-  l.cinp2 = bg_up(Cr, 8);
-  l.k2 = bg_up(9 * l.cinp2, kBgK);
-  l.np2 = bg_up(C, kBgN);
-  l.w1p = 0;
-  l.w2p = l.w1p + bg_piece(2LL * l.k1 * l.np1);
-  l.t = l.w2p + bg_piece(2LL * l.k2 * l.np2);
-  l.u = l.t + bg_piece(2LL * M * l.cinp1);
-  l.bytes = l.u + bg_piece(2LL * M * l.cinp2);
-  return l;
+// U = bf16(gelu(conv3x3(T) + b1)), T = bf16(LN(x)) or x, zero outside.
+// Every thread first takes the halo pixels' LN statistics; then two
+// warpgroups: the consumers (wgmma and the epilogue; 152 registers a
+// thread for 96 sums) and a producer warpgroup at 104 that stages the
+// halo 16 channels a slice into a ring of kC1Slots slices
+// (full/empty mbarriers), its first thread issuing each slice's weights
+// (the nine taps, one bulk copy) ahead of it, so that staging runs
+// beside the wgmmas, not in turn with them.
+template <int BN>
+__global__ void __launch_bounds__(2 * kCabConsumers, 2)
+cab_conv1_kernel(const CabConv1Args a) {
+  extern __shared__ __align__(128) unsigned char cab_smem[];
+  constexpr int kC1Rows = c1_rows<BN>();
+  constexpr int kC1Halo = (kC1Rows + 2) * kCabHw;  // 396 or 330 pixels
+  constexpr int kStage = 9 * 16 * BN * 2;
+  constexpr int kSlice = kC1Halo * 32;  // two 8-channel groups
+  constexpr int kStagers = kCabConsumers;
+  BwRing r = bw_ring(cab_smem, kStage, kCabConsumers / 32, kC1Stages);
+  unsigned char* hb = r.buf + kC1Stages * kStage;
+  uint64_t* sfull = reinterpret_cast<uint64_t*>(hb + kC1Slots * kSlice);
+  uint64_t* sempty = sfull + kC1Slots;
+  float2* stats = reinterpret_cast<float2*>(sempty + kC1Slots);
+  float* lns = reinterpret_cast<float*>(stats + kC1Halo);
+  float* lnb = lns + a.cinp;
+  float* bs = lnb + a.cinp;
+  const int tid = threadIdx.x, ns = a.cinp / 16, C = a.C;
+  if (tid == 0) {
+    for (int i = 0; i < kC1Slots; ++i) {
+      mbar_init(&sfull[i], kStagers / 32);
+      mbar_init(&sempty[i], kCabConsumers / 32);
+    }
+    mbar_init_fence();
+  }
+  bw_vector(bs, a.bias, a.Cr, BN, tid, 2 * kCabConsumers);
+  if (a.ln_s) {
+    bw_vector(lns, a.ln_s, C, a.cinp, tid, 2 * kCabConsumers);
+    bw_vector(lnb, a.ln_b, C, a.cinp, tid, 2 * kCabConsumers);
+  }
+  __syncthreads();
+  const int y0 = (blockIdx.x / a.tiles_x) * kC1Rows;
+  const int x0 = (blockIdx.x % a.tiles_x) * kCabSeg;
+  const long long img = (long long)blockIdx.y * a.H * a.W;
+  auto pixel = [&](int p) -> long long {  // halo pixel p, -1 outside
+    const int y = y0 - 1 + p / kCabHw, x = x0 - 1 + p % kCabHw;
+    return y < 0 || y >= a.H || x < 0 || x >= a.W
+               ? -1LL
+               : img + (long long)y * a.W + x;
+  };
+  if (a.ln_s) {
+    // each halo pixel's mean and 1 / std, all threads, eight a pixel
+    // (groups of 8 channels sub, sub + 8, ...), two passes over the raw
+    // bf16 kept in registers; two rounds of 32 pixels' loads in flight
+    constexpr int kRounds = 2, kG = kCabMaxC / 64;
+    constexpr int kPer = 2 * kCabConsumers / 8;
+    const int sub = tid & 7;
+    for (int p0 = 0; p0 < kC1Halo; p0 += kRounds * kPer) {
+      uint4 raw[kRounds][kG];
+#pragma unroll
+      for (int rr = 0; rr < kRounds; ++rr) {
+        const int p = p0 + rr * kPer + (tid >> 3);
+        const long long px = p < kC1Halo ? pixel(p) : -1LL;
+#pragma unroll
+        for (int i = 0; i < kG; ++i) {
+          const int q = sub + 8 * i;
+          raw[rr][i] = px < 0 ? make_uint4(0, 0, 0, 0)
+                              : bw_load8(a.x + px * C + 8 * q, C - 8 * q);
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < kRounds; ++rr) {
+        const int p = p0 + rr * kPer + (tid >> 3);
+        float v[8];
+        float sum = 0.f;
+#pragma unroll
+        for (int i = 0; i < kG; ++i) {
+          bw_get8(v, &raw[rr][i]);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) sum += v[k];
+        }
+        sum += __shfl_xor_sync(~0u, sum, 1);
+        sum += __shfl_xor_sync(~0u, sum, 2);
+        sum += __shfl_xor_sync(~0u, sum, 4);
+        const float mu = sum / C;
+        float d2 = 0.f;
+#pragma unroll
+        for (int i = 0; i < kG; ++i) {
+          bw_get8(v, &raw[rr][i]);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            const float d = 8 * (sub + 8 * i) + k < C ? v[k] - mu : 0.f;
+            d2 += d * d;
+          }
+        }
+        d2 += __shfl_xor_sync(~0u, d2, 1);
+        d2 += __shfl_xor_sync(~0u, d2, 2);
+        d2 += __shfl_xor_sync(~0u, d2, 4);
+        if (sub == 0 && p < kC1Halo && pixel(p) >= 0)
+          stats[p] = make_float2(mu, rsqrtf(d2 / C + a.eps));
+      }
+    }
+    __syncthreads();
+  }
+  if (tid >= kCabConsumers) {
+    bw_regs_dec<104>();
+    const int st = tid - kCabConsumers;  // a stager
+    // slice s (channels 16 s .. + 15) into its slot: item e is group e /
+    // kC1Halo, pixel e % kC1Halo (consecutive threads, consecutive 16
+    // bytes); LN'd and rounded, zero outside the image and past C
+    constexpr int kItems = 2 * kC1Halo, kBatch = 4;
+    for (int s = 0; s < ns; ++s) {
+      if (st == 0)  // this slice's nine taps of the weights
+        bw_produce(r, static_cast<const unsigned char*>(a.w) +
+                          (long long)s * kStage, 1);
+      const int slot = s % kC1Slots;
+      mbar_wait(&sempty[slot], ((s / kC1Slots) & 1) ^ 1);
+      unsigned char* buf = hb + slot * kSlice;
+      for (int e0 = st; e0 < kItems; e0 += kStagers * kBatch) {
+        uint4 raw[kBatch];
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+          const int e = e0 + kStagers * k;
+          const int c0 = 16 * s + 8 * (e / kC1Halo);
+          const long long px = e < kItems ? pixel(e % kC1Halo) : -1LL;
+          raw[k] = px < 0 ? make_uint4(0, 0, 0, 0)
+                          : bw_load8(a.x + px * C + c0, C - c0);
+        }
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+          const int e = e0 + kStagers * k;
+          if (e >= kItems) continue;
+          const int p = e % kC1Halo, c0 = 16 * s + 8 * (e / kC1Halo);
+          uint4 o = raw[k];
+          if (a.ln_s && pixel(p) >= 0) {
+            float v[8];
+            bw_get8(v, &raw[k]);
+            const float2 sp = stats[p];
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              v[i] = c0 + i < C ? (v[i] - sp.x) * sp.y * lns[c0 + i] +
+                                      lnb[c0 + i]
+                                : 0.f;
+            o = bw_pack8(v);
+          }
+          *reinterpret_cast<uint4*>(buf + e * 16) = o;
+        }
+      }
+      fence_proxy_async();  // the slice, before wgmma reads it
+      __syncwarp();
+      if ((st & 31) == 0) mbar_arrive(&sfull[slot]);
+    }
+    return;
+  }
+  bw_regs_inc<152>();
+  const int lane = tid & 31, t = lane & 3;
+  float acc[kC1Rows][BN / 2];  // the sums start at b1 (zero past Cr)
+#pragma unroll
+  for (int i = 0; i < kC1Rows; ++i) {
+#pragma unroll
+    for (int k = 0; k < BN / 2; ++k)
+      acc[i][k] = bs[8 * (k >> 2) + 2 * t + (k & 1)];
+    bw_fence_acc(acc[i]);
+  }
+  for (int s = 0; s < ns; ++s) {
+    const int slot = s % r.stages, hs = s % kC1Slots;
+    mbar_wait(&r.full[slot], (s / r.stages) & 1);
+    mbar_wait(&sfull[hs], (s / kC1Slots) & 1);
+    bw_fence();
+    const unsigned char* buf = hb + hs * kSlice;
+    const unsigned char* wst = r.buf + slot * kStage;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+      for (int i = 0; i < kC1Rows; ++i)
+        bw_mma<BN>(acc[i],
+                   bw_desc_at(buf + ((i + tap / 3) * kCabHw + tap % 3) * 16,
+                              kC1Halo * 16, 128),
+                   bw_desc(wst + tap * BN * 32), 1);
+    bw_commit();
+    if (s > 0) {  // slice s - 1 is read: its slot and its stage are free
+      bw_wait<1>();
+      if (lane == 0) {
+        mbar_arrive(&r.empty[(s - 1) % r.stages]);
+        mbar_arrive(&sempty[(s - 1) % kC1Slots]);
+      }
+    }
+  }
+  bw_wait<0>();
+#pragma unroll
+  for (int i = 0; i < kC1Rows; ++i) bw_fence_acc(acc[i]);
+  // the ring is drained: each output row's [64][BN] tile lies there
+#pragma unroll
+  for (int i = 0; i < kC1Rows; ++i) {
+    unsigned char* tile = r.buf + i * kCabSeg * BN * 2;
+    bw_each<BN>(acc[i], [&](int row, int col, float v0, float v1) {
+      *reinterpret_cast<uint32_t*>(tile + (row * BN + col) * 2) =
+          pack_bf16(gelu_erf(v0), gelu_erf(v1));
+    });
+  }
+  fence_proxy_async();
+  bw_sync(kCabConsumers);
+  if (tid == 0) {
+    const int n = min(kCabSeg, a.W - x0);
+    for (int i = 0; i < kC1Rows && y0 + i < a.H; ++i)
+      bw_store(a.u + (img + (long long)(y0 + i) * a.W + x0) * BN,
+               r.buf + i * kCabSeg * BN * 2, n * BN * 2);
+    bw_store_commit();
+    bw_store_wait<0>();
+  }
+}
+
+struct CabConv2Args {
+  const __nv_bfloat16* u;  // [B, H, W, cinp]
+  const void* w;           // W2's layout at 96: [nch][cinp / 16][9][12][2][8][8]
+  const __nv_bfloat16* bias;  // [C]
+  float* y;                // [B, H, W, C]
+  float* partials;         // [B, tiles, C]
+  int H, W, C, cinp, nch, tiles_x;
+};
+
+// y = conv3x3(U) + b2 (fp32) and the block's channel sums.
+__global__ void __launch_bounds__(kCabConsumers + 32, 2)
+cab_conv2_kernel(const CabConv2Args a) {
+  extern __shared__ __align__(128) unsigned char cab_smem[];
+  constexpr int kStage = 3 * 16 * kC2Bn * 2;  // one dy's three taps
+  constexpr int kPairs = kC2Rows / 2;
+  BwRing r = bw_ring(cab_smem, kStage, kCabConsumers / 32, kC2Stages);
+  unsigned char* halo = r.buf + kC2Stages * kStage;  // [cinp / 8][528][16]
+  float* bs = reinterpret_cast<float*>(halo + kC2Halo * a.cinp * 2);
+  float* sums = bs + a.nch * kC2Bn;
+  float* red = sums + a.nch * kC2Bn;  // [4 warps][96]
+  __syncthreads();
+  const int tid = threadIdx.x, nst = 3 * (a.cinp / 16);  // stages a pass
+  if (tid >= kCabConsumers) {
+    if (tid == kCabConsumers)
+      for (int pp = 0; pp < kPairs; ++pp)
+        for (int c = 0; c < a.nch; ++c)
+          bw_produce(r, static_cast<const unsigned char*>(a.w) +
+                            (long long)c * nst * kStage, nst);
+    return;
+  }
+  const int y0 = (blockIdx.x / a.tiles_x) * kC2Rows;
+  const int x0 = (blockIdx.x % a.tiles_x) * kCabSeg;
+  const long long img = (long long)blockIdx.y * a.H * a.W;
+  const int groups = a.cinp / 8;
+  for (int e = tid; e < groups * kC2Halo; e += kCabConsumers) {
+    const int p = e % kC2Halo;
+    const int y = y0 - 1 + p / kCabHw, x = x0 - 1 + p % kCabHw;
+    const bool in = y >= 0 && y < a.H && x >= 0 && x < a.W;
+    const __nv_bfloat16* src =
+        in ? a.u + (img + (long long)y * a.W + x) * a.cinp + 8 * (e / kC2Halo)
+           : a.u;
+    cp_async16(reinterpret_cast<float*>(halo + e * 16),
+               reinterpret_cast<const float*>(src), in);
+  }
+  cp_async_commit();
+  bw_vector(bs, a.bias, a.C, a.nch * kC2Bn, tid, kCabConsumers);
+  for (int i = tid; i < a.nch * kC2Bn; i += kCabConsumers) sums[i] = 0.f;
+  cp_async_wait<0>();
+  fence_proxy_async();  // the halo, before wgmma reads it
+  bw_sync(kCabConsumers);
+  const int lane = tid & 31, warp = tid >> 5, t = lane & 3;
+  for (int pp = 0; pp < kPairs; ++pp)
+    for (int c = 0; c < a.nch; ++c) {
+      float acc[2][kC2Bn / 2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int k = 0; k < kC2Bn / 2; ++k) acc[i][k] = 0.f;
+        bw_fence_acc(acc[i]);
+      }
+      for (int s = 0; s < nst; ++s) {
+        const int it = r.it + s, slot = it % r.stages;
+        mbar_wait(&r.full[slot], (it / r.stages) & 1);
+        bw_fence();
+        const int kk = s / 3, dy = s % 3;
+        const unsigned char* wst = r.buf + slot * kStage;
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            bw_mma<kC2Bn>(
+                acc[i],
+                bw_desc_at(halo + (2 * kk * kC2Halo +
+                                   (2 * pp + i + dy) * kCabHw + dx) * 16,
+                           kC2Halo * 16, 128),
+                bw_desc(wst + dx * kC2Bn * 32), s > 0 || dx > 0);
+        bw_commit();
+        if (s > 0) {
+          bw_wait<1>();
+          if (lane == 0) mbar_arrive(&r.empty[(it - 1) % r.stages]);
+        }
+      }
+      bw_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 2; ++i) bw_fence_acc(acc[i]);
+      if (lane == 0) mbar_arrive(&r.empty[(r.it + nst - 1) % r.stages]);
+      r.it += nst;
+      float cs[kC2Bn / 8][2];
+#pragma unroll
+      for (int j = 0; j < kC2Bn / 8; ++j) cs[j][0] = cs[j][1] = 0.f;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int y = y0 + 2 * pp + i;
+        bw_frag<kC2Bn>([&](int j, int hh, int row, int col) {
+          const int co = c * kC2Bn + col, x = x0 + row;
+          const float v0 = acc[i][4 * j + 2 * hh] + bs[co];
+          const float v1 = acc[i][4 * j + 2 * hh + 1] + bs[co + 1];
+          if (y < a.H && x < a.W && co < a.C) {  // C even: co + 1 too
+            *reinterpret_cast<float2*>(
+                a.y + (img + (long long)y * a.W + x) * a.C + co) =
+                make_float2(v0, v1);
+            cs[j][0] += v0;
+            cs[j][1] += v1;
+          }
+        });
+      }
+      // over the warp's pixels (the lanes of one t), then the four warps
+#pragma unroll
+      for (int j = 0; j < kC2Bn / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float v = cs[j][e];
+          v += __shfl_xor_sync(~0u, v, 4);
+          v += __shfl_xor_sync(~0u, v, 8);
+          v += __shfl_xor_sync(~0u, v, 16);
+          if (lane < 4) red[warp * kC2Bn + 8 * j + 2 * t + e] = v;
+        }
+      bw_sync(kCabConsumers);
+      if (tid < kC2Bn)
+        sums[c * kC2Bn + tid] += (red[tid] + red[kC2Bn + tid]) +
+                                 (red[2 * kC2Bn + tid] + red[3 * kC2Bn + tid]);
+      bw_sync(kCabConsumers);
+    }
+  for (int co = tid; co < a.C; co += kCabConsumers)
+    a.partials[((long long)blockIdx.y * gridDim.x + blockIdx.x) * a.C + co] =
+        sums[co];
 }
 
 // out = bf16(y a[b] + x skip) (skip given) or bf16(y a[b])
 __global__ void __launch_bounds__(256)
 cab_apply_bf16_kernel(const float* __restrict__ y, const float* __restrict__ a,
-                      const bf16* __restrict__ x,
-                      const bf16* __restrict__ skip, bf16* __restrict__ out,
-                      long long per_batch, int C, long long total) {
+                      const __nv_bfloat16* __restrict__ x,
+                      const __nv_bfloat16* __restrict__ skip,
+                      __nv_bfloat16* __restrict__ out, long long per_batch,
+                      int C, long long total) {
   for (long long i = blockIdx.x * 256LL + threadIdx.x; i < total;
        i += gridDim.x * 256LL) {
     const int c = int(i % C);
     float v = y[i] * a[(i / per_batch) * C + c];
-    if (skip) v = v + bg_f(x[i]) * bg_f(skip[c]);
-    out[i] = bg_round(v);
+    if (skip) v = v + bw_f(x[i]) * bw_f(skip[c]);
+    out[i] = __float2bfloat16_rn(v);
   }
+}
+
+bool cab_bf16_refused(long long M, int C, int Cr) {
+  return M <= 0 || C <= 0 || Cr <= 0 || C % 2 || C > kCabMaxC ||
+         Cr > kCabMaxCr || cab_conv2_smem(C, Cr) > 227 * 1024 ||
+         cab_conv1_smem(C, Cr) > 227 * 1024;
+}
+
+template <int BN>
+cudaError_t cab_conv1(const CabConv1Args& a, int B, cudaStream_t stream) {
+  static int allowed[64] = {};
+  const int smem = cab_conv1_smem(a.C, a.Cr);
+  cudaError_t err = bw_allow(cab_conv1_kernel<BN>, smem, allowed);
+  if (err != cudaSuccess) return err;
+  cab_conv1_kernel<BN>
+      <<<dim3(unsigned(cab_tiles(a.H, a.W, c1_rows<BN>())), unsigned(B)),
+         2 * kCabConsumers, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Bytes of scratch ff_cab_pool_bf16 needs on B H W = M pixels.
-extern "C" long long ff_cab_bf16_scratch_bytes(long long M, int C, int Cr) {
-  return cab_bf16_layout(M, C, Cr).bytes;
+// conv2's tiles an image of the bf16 kernels (the partials' middle axis).
+extern "C" int ff_cab_bf16_tiles(int H, int W) {
+  return cab_tiles(H, W, kC2Rows);
 }
 
-// Pass A, bf16. x [B, H, W, C]; w1 [3, 3, C, Cr]; b1 [Cr]; ln_s/ln_b [C]
-// or null; w2 [3, 3, Cr, C]; b2 [C]: bf16 contiguous. y [B, H, W, C] fp32;
-// partials [B, ceil(H W / 256), C] fp32; scratch of
-// ff_cab_bf16_scratch_bytes(B H W, C, Cr) bytes, 16-byte aligned.
-extern "C" int ff_cab_pool_bf16(const void* x_, const void* w1_,
-                                const void* b1_, const void* ln_s_,
-                                const void* ln_b_, const void* w2_,
-                                const void* b2_, float* y, float* partials,
-                                void* scratch_, long long scratch_bytes,
+// Dynamic shared memory of a conv1 (conv2 = 0) or a conv2 block
+// (ops/wgmma.py:plan_cab_bf16 computes the same).
+extern "C" int ff_cab_bf16_smem(int C, int Cr, int conv2) {
+  return conv2 ? cab_conv2_smem(C, Cr) : cab_conv1_smem(C, Cr);
+}
+
+// Bytes of scratch ff_cab_pool_bf16 needs on B H W = M pixels: U, [M][48
+// or 64] bf16; -1 for widths the kernels refuse (C odd or above 256, Cr
+// above 64).
+extern "C" long long ff_cab_bf16_scratch_bytes(long long M, int C, int Cr) {
+  if (cab_bf16_refused(M, C, Cr)) return -1;
+  return M * cab_bn1(Cr) * 2;
+}
+
+// Pass A, bf16. x [B, H, W, C]; b1 [Cr]; ln_s/ln_b [C] or null; b2 [C]:
+// bf16; w1l, w2l: W1 [3, 3, C, Cr] and W2 [3, 3, Cr, C] in the conv layout
+// (ops/wgmma.py:conv_layout at cab_bn1(Cr) and 96), 16-byte aligned. y
+// [B, H, W, C] fp32; partials [B, ff_cab_bf16_tiles(H, W), C] fp32;
+// scratch of ff_cab_bf16_scratch_bytes(B H W, C, Cr) bytes, 16-byte
+// aligned.
+extern "C" int ff_cab_pool_bf16(const void* x, const void* w1l,
+                                const void* b1, const void* ln_s,
+                                const void* ln_b, const void* w2l,
+                                const void* b2, float* y, float* partials,
+                                void* scratch, long long scratch_bytes,
                                 int B, int H, int W, int C, int Cr, float eps,
                                 void* stream_) {
+  using bf = __nv_bfloat16;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   const long long M = (long long)B * H * W;
-  const CabBf16Layout l = cab_bf16_layout(M, C, Cr);
-  char* scratch = static_cast<char*>(scratch_);
-  if (M <= 0 || C <= 0 || Cr <= 0 || scratch_bytes < l.bytes ||
-      reinterpret_cast<size_t>(scratch) % 16 || B > 65535)
+  if (cab_bf16_refused(M, C, Cr) || B > 65535 ||
+      scratch_bytes < ff_cab_bf16_scratch_bytes(M, C, Cr) ||
+      (reinterpret_cast<size_t>(scratch) | reinterpret_cast<size_t>(w1l) |
+       reinterpret_cast<size_t>(w2l)) % 16 ||
+      reinterpret_cast<size_t>(y) % 8)
     return int(cudaErrorInvalidValue);
-  bf16* w1p = reinterpret_cast<bf16*>(scratch + l.w1p);
-  bf16* w2p = reinterpret_cast<bf16*>(scratch + l.w2p);
-  bf16* t = reinterpret_cast<bf16*>(scratch + l.t);
-  bf16* u = reinterpret_cast<bf16*>(scratch + l.u);
-  const bf16* ln_s = static_cast<const bf16*>(ln_s_);
-
-  cudaError_t err = bg_pad(static_cast<const bf16*>(w1_), Cr, 9, C, l.cinp1,
-                           Cr, 0, w1p, l.k1, l.np1, stream);
-  if (err == cudaSuccess)
-    err = bg_pad(static_cast<const bf16*>(w2_), C, 9, Cr, l.cinp2, C, 0, w2p,
-                 l.k2, l.np2, stream);
-  if (err == cudaSuccess)
-    err = bg_rows(static_cast<const bf16*>(x_), M, C, ln_s,
-                  static_cast<const bf16*>(ln_b_), eps, t, l.cinp1, stream);
-  if (err == cudaSuccess)
-    err = bg_gemm(BgConv3x3{t, M, H, W, l.cinp1}, M, w1p, l.np1, l.k1, l.np1,
-                  BgGeluEpi{static_cast<const bf16*>(b1_), u, M, Cr, l.cinp2},
-                  stream);
-  if (err == cudaSuccess)
-    err = bg_gemm(BgConv3x3{u, M, H, W, l.cinp2}, M, w2p, l.np2, l.k2, l.np2,
-                  BgBiasEpi{static_cast<const bf16*>(b2_), y, M, C}, stream);
-  if (err == cudaSuccess) err = bg_colsum(y, B, H * W, C, partials, stream);
-  return int(err);
+  const int bn = cab_bn1(Cr), tiles_x = (W + kCabSeg - 1) / kCabSeg;
+  bf* u = static_cast<bf*>(scratch);
+  const CabConv1Args a1{static_cast<const bf*>(x), w1l,
+                        static_cast<const bf*>(b1),
+                        static_cast<const bf*>(ln_s),
+                        static_cast<const bf*>(ln_b), u, H, W, C, Cr,
+                        bw_up(C, 16), tiles_x, eps};
+  cudaError_t err = bn == 48 ? cab_conv1<48>(a1, B, stream)
+                             : cab_conv1<64>(a1, B, stream);
+  if (err != cudaSuccess) return int(err);
+  static int allowed[64] = {};
+  const int smem = cab_conv2_smem(C, Cr);
+  err = bw_allow(cab_conv2_kernel, smem, allowed);
+  if (err != cudaSuccess) return int(err);
+  const CabConv2Args a2{u, w2l, static_cast<const bf*>(b2), y, partials,
+                        H, W, C, bn, (C + kC2Bn - 1) / kC2Bn, tiles_x};
+  cab_conv2_kernel<<<dim3(unsigned(cab_tiles(H, W, kC2Rows)), unsigned(B)),
+                     kCabConsumers + 32, smem, stream>>>(a2);
+  return int(cudaGetLastError());
 }
 
 // Pass B, bf16. y [B, H, W, C] and a [B, C] fp32; x, out [B, H, W, C] and
@@ -616,7 +1045,8 @@ extern "C" int ff_cab_apply_bf16(const float* y, const float* a,
   if (blocks > 132 * 16) blocks = 132 * 16;
   if (blocks <= 0) return 0;
   cab_apply_bf16_kernel<<<unsigned(blocks), 256, 0, stream>>>(
-      y, a, static_cast<const bf16*>(x), static_cast<const bf16*>(skip),
-      static_cast<bf16*>(out), per_batch, C, total);
+      y, a, static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(skip),
+      static_cast<__nv_bfloat16*>(out), per_batch, C, total);
   return int(cudaGetLastError());
 }

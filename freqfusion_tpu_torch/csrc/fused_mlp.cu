@@ -74,7 +74,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "bf16_gemm.cuh"
+#include "bf16_wgmma.cuh"
 #include "tf32_gemm.cuh"
 
 namespace {
@@ -375,142 +375,433 @@ extern "C" int ff_fused_mlp(const float* x, const float* w1, const float* b1,
   return int(cudaErrorInvalidValue);
 }
 
+
 // ---------------------------------------------------------------------
 // The bf16 version (FREQFUSION_EXPERT_DTYPE=bf16): x, the weights and the
 // vectors bf16, with the JAX kernel's rounding points (pallas_mlp.py:
 // _kernel, :53-68): LN in fp32 and T rounded to bf16 (:58), h = T W1 in
 // fp32 plus b1 and the exact GELU in fp32, rounded (:62), y = h W2 + b2 in
 // fp32 (post-norm: a second LN in fp32), the output x + res_scale y
-// rounded once (:68). Both products run on bf16_gemm.cuh's GEMM, the
-// activations through padded bf16 rows in the scratch:
-//   1. W1, W2 zero-padded to [kp1][np1] and [kp2][np2] (two launches);
-//   2. T = bf16(LN(x)) or x, [M][kp1];
-//   3. up:   H = bf16(gelu(T W1 + b1)), [M][kp2];
-//   4. down: pre-norm, out = bf16(x + res_scale (H W2 + b2)) in the
-//      epilogue; post-norm, y = H W2 + b2 in fp32 [M][C], then
-//   5. out = bf16(x + res_scale LN(y)), one warp a row.
+// rounded once (:68).
+//
+// What bounds it on the H100: the two products (4 C Ch FLOPs a row, 539
+// GFLOP over chip_smoke.py's six shapes: 0.55 ms at 989 TFLOP/s) against
+// x in and out (4 C bytes a row). Two launches, both on bf16_wgmma.cuh's
+// wgmma (the weights laid out once per module by ops/wgmma.py and
+// streamed by a producer warp's bulk copies through an mbarrier ring):
+//   up    64 rows a block (one consumer warpgroup, two blocks an SM):
+//         x's rows staged once in the core-matrix order, LN in fp32 in
+//         shared memory (bw_ln_inplace) and rounded; then every chunk of
+//         BN1 hidden columns (64, 96 or 128, the one padding Ch least): +
+//         b1, GELU, rounded, into a shared tile in the order the down
+//         launch reads (bw_tiled_off: for 128 rows and each 32 of K, 8 KB;
+//         a 64-row block's part is 2 KB pieces), out by bulk stores (two
+//         tiles in turn). The exact-erf GELU is the launch's largest cost
+//         beside its products (~0.19 ms at C 244, Ch 976 on an H100 at 700
+//         W, issue-bound on the fp32 cores: csrc/bench/wgmma_variants.py
+//         --ffn-cab); two
+//         blocks an SM, or two warpgroups taking turns on the tensor
+//         cores, did not hide it;
+//   down  128 rows x all of C a block: H streamed (8 KB a stage) with
+//         W2's NCH chunks of BN2 columns (NCH BN2 / 2 <= 160 sums a
+//         thread), so that each row's C sums sit in one quad of lanes and
+//         the post-norm LN needs only shuffles; x's 128 rows arrive as one
+//         bulk copy into shared memory, the output is written over them
+//         and leaves as one bulk store (a ragged last block, or x or out
+//         not 16-byte aligned, goes value pair by pair).
+// H goes through device memory in bf16 (4 Ch bytes a row, written and
+// read): kept on chip, a 128-row block would hold x's rows, a hidden chunk
+// and a C-wide sum through the whole Ch loop, one block an SM with the
+// up and down products in one dependent chain.
 
 namespace {
 
-struct MlpBf16Layout {
-  int kp1, np1, kp2, np2;
-  long long w1p, w2p, t, h, y, bytes;  // byte offsets into the scratch
-};
+constexpr int kFfRows = 128;     // rows a block (two consumer warpgroups)
+constexpr int kFfThreads = 256;  // two consumer warpgroups
+constexpr int kFfDownThreads = 384;  // the down launch: + a producer warpgroup
+constexpr int kFfDownStages = 4;
+constexpr int kFfUpRows = 64;      // the up launch: one consumer warpgroup
+constexpr int kFfUpThreads = 160;  // ... and a producer warp
+constexpr int kFfUpStages = 4;     // its weight ring
+constexpr int kFfMaxC = 320;     // NCH BN2 of the widest down instantiation
 
-MlpBf16Layout mlp_bf16_layout(int M, int C, int Ch, int prenorm) {
-  MlpBf16Layout l;
-  l.kp1 = bg_up(C, kBgK);
-  l.np1 = bg_up(Ch, kBgN);
-  l.kp2 = bg_up(Ch, kBgK);
-  l.np2 = bg_up(C, kBgN);
-  l.w1p = 0;
-  l.w2p = l.w1p + bg_piece(2LL * l.kp1 * l.np1);
-  l.t = l.w2p + bg_piece(2LL * l.kp2 * l.np2);
-  l.h = l.t + bg_piece(2LL * M * l.kp1);
-  l.y = l.h + bg_piece(2LL * M * l.kp2);
-  l.bytes = l.y + (prenorm ? 0 : bg_piece(4LL * M * C));
-  return l;
+// The up launch's hidden chunk: the least padding of Ch among 128, 96 and
+// 64, the wider on a tie (ops/wgmma.py:ffn_up_cols).
+inline int ffn_up_cols(int ch) {
+  const int opts[] = {96, 64};
+  int best = 128;
+  for (int bn : opts)
+    if (bw_up(ch, bn) < bw_up(ch, best)) best = bn;
+  return best;
 }
 
-struct MlpResidualEpi {  // pre-norm: out = bf16(x + res_scale (v + b2))
-  const bf16* x;
-  const bf16* b2;
-  bf16* out;
-  long long M;
-  int C;
-  float res_scale;
-  __device__ __forceinline__ void operator()(long long m, int n, float v0,
-                                             float v1) const {
-    if (m >= M) return;
-    const long long o = m * C + n;
-    if (n < C)
-      out[o] = bg_round(bg_f(x[o]) + res_scale * (v0 + bg_f(b2[n])));
-    if (n + 1 < C)
-      out[o + 1] =
-          bg_round(bg_f(x[o + 1]) + res_scale * (v1 + bg_f(b2[n + 1])));
+// The down launch's chunks (BN2, NCH): the least padding of C with at most
+// 160 sums a thread, the wider BN2 on a tie (ops/wgmma.py:ffn_down_cols).
+inline void ffn_down_cols(int c, int& bn, int& nch) {
+  const int opts[] = {128, 96, 64};
+  bn = nch = 0;
+  for (int b : opts) {
+    const int n = (c + b - 1) / b;
+    if (n * b / 2 > 160) continue;
+    if (!bn || n * b < nch * bn) bn = b, nch = n;
   }
+}
+
+inline int ffn_up_smem(int C, int Ch) {
+  const int bn = ffn_up_cols(Ch), kp1 = bw_up(C, kBwK);
+  return kBwHead + kFfUpStages * bn * 64 + kFfUpRows * kp1 * 2 +
+         2 * kFfUpRows * bn * 2 + bw_up(Ch, bn) * 4 + kFfUpRows * 8 +
+         2 * kp1 * 4;
+}
+
+inline int ffn_down_smem(int C) {
+  int bn, nch;
+  ffn_down_cols(C, bn, nch);
+  return kBwHead + kFfDownStages * (8192 + nch * bn * 64) + kFfRows * C * 2 +
+         3 * nch * bn * 4 + 8;
+}
+
+struct FfUpArgs {
+  const __nv_bfloat16* x;  // [M, C]
+  const void* w1;          // W1's layout: nch chunks x kp1 / 32 stages
+  const __nv_bfloat16* b1;
+  const __nv_bfloat16 *ln_s, *ln_b;  // [C], or null (post-norm: T = x)
+  unsigned char* h;        // [Mp / 128][kp2 / 32][8 KB] (bw_tiled_off)
+  long long M;
+  int C, Ch, kp1, kp2, nch;
+  float eps;
 };
 
-// post-norm: out[m] = bf16(x[m] + res_scale LN(y[m])), one warp a row
-__global__ void __launch_bounds__(256)
-mlp_post_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ y,
-                     long long M, int C, const bf16* __restrict__ ln_s,
-                     const bf16* __restrict__ ln_b, float eps,
-                     float res_scale, bf16* __restrict__ out) {
-  const long long m = (blockIdx.x * 256LL + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (m >= M) return;
-  const float* yr = y + m * C;
-  float s = 0.f;
-  for (int c = lane; c < C; c += 32) s += yr[c];
-  const float mu = bg_warp_sum(s) / C;
-  float q = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    const float d = yr[c] - mu;
-    q += d * d;
+// H[m0 .. + 64, :] = bf16(gelu(T W1 + b1)), T = bf16(LN(x)) or x: one
+// consumer warpgroup, two blocks an SM, so that one block's staging and
+// GELU epilogue can run while the other's wgmmas do. A chunk's 64 rows
+// leave as 2 KB pieces (a 16-column half of a k32 stage of the 128-row
+// tiled order) by bulk stores, from two tiles in turn.
+template <int BN>
+__global__ void __launch_bounds__(kFfUpThreads, 2)
+ffn_up_wgmma_kernel(const FfUpArgs a) {
+  extern __shared__ __align__(128) unsigned char ff_smem[];
+  constexpr int kRows = kFfUpRows, kThreads = kFfUpThreads - 32;
+  constexpr int kTile = kRows * BN * 2;
+  BwRing r = bw_ring(ff_smem, BN * 64, kThreads / 32, kFfUpStages);
+  unsigned char* as = ff_smem + kBwHead + kFfUpStages * BN * 64;
+  unsigned char* tiles = as + kRows * a.kp1 * 2;
+  float* b1s = reinterpret_cast<float*>(tiles + 2 * kTile);
+  float2* stats = reinterpret_cast<float2*>(b1s + a.nch * BN);
+  float* lns = reinterpret_cast<float*>(stats + kRows);
+  float* lnb = lns + a.kp1;
+  __syncthreads();
+  const int tid = threadIdx.x;
+  const int nst = a.kp1 / kBwK;
+  if (tid >= kThreads) {
+    if (tid == kThreads) bw_produce(r, a.w1, a.nch * nst);
+    return;
   }
-  const float rs = rsqrtf(bg_warp_sum(q) / C + eps);
-  for (int c = lane; c < C; c += 32) {
-    const float v = (yr[c] - mu) * rs * bg_f(ln_s[c]) + bg_f(ln_b[c]);
-    out[m * C + c] = bg_round(bg_f(x[m * C + c]) + res_scale * v);
+  const long long m0 = (long long)blockIdx.x * kRows;
+  bw_vector(b1s, a.b1, a.Ch, a.nch * BN, tid, kThreads);
+  if (a.ln_s) {
+    bw_vector(lns, a.ln_s, a.C, a.kp1, tid, kThreads);
+    bw_vector(lnb, a.ln_b, a.C, a.kp1, tid, kThreads);
   }
+  BwRows{a.x, a.M, a.C}.stage(as, nullptr, m0, kRows, a.kp1, tid, kThreads);
+  if (a.ln_s) {
+    bw_sync(kThreads);
+    bw_ln_inplace(as, stats, kRows, a.kp1, a.C, a.eps, lns, lnb, tid,
+                  kThreads, [&](int row) { return m0 + row < a.M; });
+  }
+  fence_proxy_async();  // the staged A, before wgmma reads it
+  bw_sync(kThreads);
+  // this block's rows in H's 128-row tiled order: a half of each k16 piece
+  unsigned char* h0 = a.h + (m0 >> 7) * (a.kp2 / kBwK) * 8192LL +
+                      ((m0 >> 6) & 1) * 2048;
+  for (int c = 0; c < a.nch; ++c) {
+    float acc[BN / 2];
+    bw_chunk<BN>(acc, as, kRows, nst, r);
+    bw_sync(kThreads);  // the store two chunks back has read the tile
+    unsigned char* tile = tiles + (c & 1) * kTile;
+    bw_each<BN>(acc, [&](int row, int col, float v0, float v1) {
+      const int n = c * BN + col;
+      *reinterpret_cast<uint32_t*>(
+          tile + (col >> 5) * 4096 + bw_a_off(row, (col & 31) >> 3, kRows) +
+          (col & 7) * 2) = pack_bf16(gelu_erf(v0 + b1s[n]),
+                                     gelu_erf(v1 + b1s[n + 1]));
+    });
+    fence_proxy_async();
+    bw_sync(kThreads);
+    if (tid == 0) {
+      // H's columns stop at kp2; 2 KB a 16 columns of these rows
+      const int pieces = 2 * (min(BN, a.kp2 - c * BN) / kBwK);
+      for (int i = 0; i < pieces; ++i)
+        bw_store(h0 + ((long long)c * (BN / kBwK) * 2 + i) * 4096,
+                 tile + i * 2048, 2048);
+      bw_store_commit();
+      bw_store_wait_read<1>();  // the other tile is free again
+    }
+  }
+  if (tid == 0) bw_store_wait<0>();
+}
+
+struct FfDownArgs {
+  const unsigned char* h;  // [Mp / 128][kp2 / 32][8 KB]
+  const void* w2;          // W2's layout: NCH chunks x kp2 / 32 stages
+  const __nv_bfloat16 *b2, *ln_s, *ln_b, *x;
+  __nv_bfloat16* out;
+  long long M;
+  int C, kp2, post, bulk;  // bulk: x and out 16-byte aligned
+  float res_scale, eps;
+};
+
+// out[m0 .. + 128, :] = bf16(x + res_scale (LN)(H W2 + b2)). Three
+// warpgroups: two consumers (rows 0-63, 64-127) at 232 registers a thread,
+// the producer's (one thread issues) at 40, so that C's sums (up to 160 a
+// thread) stay in registers.
+template <int BN, int NCH>
+__global__ void __launch_bounds__(kFfDownThreads, 1)
+ffn_down_wgmma_kernel(const FfDownArgs a) {
+  extern __shared__ __align__(128) unsigned char ff_smem[];
+  constexpr int kStage = 8192 + NCH * BN * 64, kNp = NCH * BN;
+  const int C = a.C, nst = a.kp2 / kBwK;
+  BwRing r = bw_ring(ff_smem, kStage, kFfThreads / 32, kFfDownStages);
+  unsigned char* xs = r.buf + kFfDownStages * kStage;  // x, then out
+  float* vs = reinterpret_cast<float*>(xs + kFfRows * C * 2);  // b2 | s | b
+  uint64_t* xbar = reinterpret_cast<uint64_t*>(vs + 3 * kNp);
+  const long long m0 = (long long)blockIdx.x * kFfRows;
+  const bool whole = a.bulk && m0 + kFfRows <= a.M;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(xbar, 1);
+    mbar_init_fence();
+  }
+  if (tid < kFfThreads) {
+    bw_vector(vs, a.b2, C, kNp, tid, kFfThreads);
+    if (a.post) {
+      bw_vector(vs + kNp, a.ln_s, C, kNp, tid, kFfThreads);
+      bw_vector(vs + 2 * kNp, a.ln_b, C, kNp, tid, kFfThreads);
+    }
+  }
+  __syncthreads();
+  if (tid >= kFfThreads) {
+    bw_regs_dec<40>();
+    if (tid == kFfThreads) {
+      if (whole) {  // x's 128 rows: one contiguous piece
+        mbar_arrive_expect_tx(xbar, kFfRows * C * 2);
+        bulk_copy(xs, a.x + m0 * C, kFfRows * C * 2, xbar);
+      }
+      const unsigned char* hb = a.h + blockIdx.x * 8192LL * nst;
+      const unsigned char* w = static_cast<const unsigned char*>(a.w2);
+      for (int s = 0; s < nst; ++s, ++r.it) {
+        const int slot = r.it % r.stages;
+        mbar_wait(&r.empty[slot], ((r.it / r.stages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&r.full[slot], kStage);
+        unsigned char* dst = r.buf + slot * kStage;
+        bulk_copy(dst, hb + s * 8192LL, 8192, &r.full[slot]);
+#pragma unroll
+        for (int c = 0; c < NCH; ++c)
+          bulk_copy(dst + 8192 + c * BN * 64,
+                    w + ((long long)c * nst + s) * BN * 64, BN * 64,
+                    &r.full[slot]);
+      }
+    }
+    return;
+  }
+  bw_regs_inc<232>();
+  const int lane = tid & 31, wg = tid >> 7, t = lane & 3;
+  // the sums start at b2 (zero past C): v = H W2 + b2 when the loop ends
+  float acc[NCH][BN / 2];
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i)
+      acc[c][i] = vs[c * BN + 8 * (i >> 2) + 2 * t + (i & 1)];
+    bw_fence_acc(acc[c]);
+  }
+  for (int s = 0; s < nst; ++s) {
+    const int slot = s % r.stages;
+    mbar_wait(&r.full[slot], (s / r.stages) & 1);
+    bw_fence();
+    const unsigned char* st = r.buf + slot * kStage;
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+        bw_mma<BN>(acc[c], bw_desc(st + k * 4096 + wg * 2048),
+                   bw_desc(st + 8192 + c * BN * 64 + k * BN * 32), 1);
+    bw_commit();
+    if (s > 0) {  // the stage before this one is read: release it
+      bw_wait<1>();
+      if (lane == 0) mbar_arrive(&r.empty[(s - 1) % r.stages]);
+    }
+  }
+  bw_wait<0>();
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) bw_fence_acc(acc[c]);
+
+  if (a.post) {  // LN over C of rows lane / 4 (h 0) and + 8 (h 1): a quad
+    float mu[2] = {0.f, 0.f}, rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) mu[(i >> 1) & 1] += acc[c][i];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mu[hh] += __shfl_xor_sync(~0u, mu[hh], 1);
+      mu[hh] += __shfl_xor_sync(~0u, mu[hh], 2);
+      mu[hh] /= C;
+    }
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const int col = c * BN + 8 * (i >> 2) + 2 * t + (i & 1);
+        const float d = col < C ? acc[c][i] - mu[(i >> 1) & 1] : 0.f;
+        rs[(i >> 1) & 1] += d * d;
+      }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      rs[hh] += __shfl_xor_sync(~0u, rs[hh], 1);
+      rs[hh] += __shfl_xor_sync(~0u, rs[hh], 2);
+      rs[hh] = rsqrtf(rs[hh] / C + a.eps);
+    }
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const int col = c * BN + 8 * (i >> 2) + 2 * t + (i & 1);
+        const int hh = (i >> 1) & 1;
+        acc[c][i] = (acc[c][i] - mu[hh]) * rs[hh] * vs[kNp + col] +
+                    vs[2 * kNp + col];
+      }
+      asm volatile("" ::: "memory");  // a chunk's loads at a time
+    }
+  }
+  if (whole) mbar_wait(xbar, 0);
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    bw_frag<BN>([&](int j, int hh, int row, int col0) {
+      const int col = c * BN + col0;
+      if (col >= C) return;  // C even: col + 1 < C too
+      const float v0 = acc[c][4 * j + 2 * hh], v1 = acc[c][4 * j + 2 * hh + 1];
+      if (whole) {
+        uint32_t* p =
+            reinterpret_cast<uint32_t*>(xs + ((long long)row * C + col) * 2);
+        const float2 xv =
+            __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(p));
+        *p = pack_bf16(xv.x + a.res_scale * v0, xv.y + a.res_scale * v1);
+      } else if (m0 + row < a.M) {
+        const long long o = (m0 + row) * C + col;
+        a.out[o] = __float2bfloat16_rn(bw_f(a.x[o]) + a.res_scale * v0);
+        a.out[o + 1] =
+            __float2bfloat16_rn(bw_f(a.x[o + 1]) + a.res_scale * v1);
+      }
+    });
+    asm volatile("" ::: "memory");  // a chunk's loads at a time
+  }
+  if (whole) {
+    fence_proxy_async();
+    bw_sync(kFfThreads);
+    if (tid == 0) {
+      bw_store(a.out + m0 * C, xs, kFfRows * C * 2);
+      bw_store_commit();
+      bw_store_wait<0>();
+    }
+  }
+}
+
+template <int BN>
+cudaError_t ffn_up(const FfUpArgs& a, int smem, unsigned blocks,
+                   cudaStream_t stream) {
+  static int allowed[64] = {};
+  cudaError_t err = bw_allow(ffn_up_wgmma_kernel<BN>, smem, allowed);
+  if (err != cudaSuccess) return err;
+  ffn_up_wgmma_kernel<BN><<<2 * blocks, kFfUpThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int BN, int NCH>
+cudaError_t ffn_down(const FfDownArgs& a, int smem, unsigned blocks,
+                     cudaStream_t stream) {
+  static int allowed[64] = {};
+  cudaError_t err = bw_allow(ffn_down_wgmma_kernel<BN, NCH>, smem, allowed);
+  if (err != cudaSuccess) return err;
+  ffn_down_wgmma_kernel<BN, NCH>
+      <<<blocks, kFfDownThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+bool ffn_bf16_refused(long long M, int C, int Ch) {
+  return M <= 0 || C <= 0 || Ch <= 0 || C % 2 || C > kFfMaxC ||
+         ffn_up_smem(C, Ch) > 227 * 1024 || (M + kFfRows - 1) / kFfRows >
+         0x7fffffffLL;
 }
 
 }  // namespace
 
-// Bytes of scratch a bf16 call needs (see mlp_bf16_layout).
-extern "C" long long ff_fused_mlp_bf16_scratch_bytes(int M, int C, int Ch,
-                                                     int prenorm) {
-  return mlp_bf16_layout(M, C, Ch, prenorm).bytes;
+// Bytes of scratch a bf16 call needs: H in the tiled order, M rounded up
+// to 128 rows and Ch to 32 columns; -1 for a width the kernels refuse (C
+// odd or above 320).
+extern "C" long long ff_fused_mlp_bf16_scratch_bytes(long long M, int C,
+                                                     int Ch) {
+  if (ffn_bf16_refused(M, C, Ch)) return -1;
+  return (M + kFfRows - 1) / kFfRows * kFfRows * bw_up(Ch, kBwK) * 2;
 }
 
-// x, out [M, C]; w1 [C, Ch]; b1 [Ch]; w2 [Ch, C]; b2, ln_s, ln_b [C]; all
-// bf16 contiguous; scratch of ff_fused_mlp_bf16_scratch_bytes bytes
-// (16-byte aligned).
-extern "C" int ff_fused_mlp_bf16(const void* x_, const void* w1_,
-                                 const void* b1_, const void* w2_,
-                                 const void* b2_, const void* ln_s_,
-                                 const void* ln_b_, void* out_,
-                                 void* scratch_, long long scratch_bytes,
-                                 int M, int C, int Ch, int prenorm,
+// Dynamic shared memory of a block of the up (down = 0) or the down launch
+// (ops/wgmma.py:plan_ffn_bf16 computes the same).
+extern "C" int ff_fused_mlp_bf16_smem(int C, int Ch, int down) {
+  return down ? ffn_down_smem(C) : ffn_up_smem(C, Ch);
+}
+
+// x, out [M, C] bf16 (C even, at most 320); w1l, w2l: W1 [C, Ch] and W2
+// [Ch, C] in wgmma's order (ops/wgmma.py:weight_layout, at bn1 =
+// ffn_up_cols(Ch) and bn2 of ffn_down_cols(C)), 16-byte aligned; b1 [Ch],
+// b2, ln_s, ln_b [C] bf16; scratch of ff_fused_mlp_bf16_scratch_bytes
+// bytes, 16-byte aligned.
+extern "C" int ff_fused_mlp_bf16(const void* x, const void* w1l,
+                                 const void* b1, const void* w2l,
+                                 const void* b2, const void* ln_s,
+                                 const void* ln_b, void* out, void* scratch,
+                                 long long scratch_bytes, long long M, int C,
+                                 int Ch, int bn1, int bn2, int prenorm,
                                  float res_scale, float eps, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const bf16* x = static_cast<const bf16*>(x_);
-  const bf16* b1 = static_cast<const bf16*>(b1_);
-  const bf16* b2 = static_cast<const bf16*>(b2_);
-  const bf16* ln_s = static_cast<const bf16*>(ln_s_);
-  const bf16* ln_b = static_cast<const bf16*>(ln_b_);
-  bf16* out = static_cast<bf16*>(out_);
-  char* scratch = static_cast<char*>(scratch_);
-  const MlpBf16Layout l = mlp_bf16_layout(M, C, Ch, prenorm);
-  if (M <= 0 || C <= 0 || Ch <= 0 || scratch_bytes < l.bytes ||
-      reinterpret_cast<size_t>(scratch) % 16)
+  int bn, nch;
+  ffn_down_cols(C, bn, nch);
+  if (ffn_bf16_refused(M, C, Ch) || bn1 != ffn_up_cols(Ch) || bn2 != bn ||
+      scratch_bytes < ff_fused_mlp_bf16_scratch_bytes(M, C, Ch) ||
+      (reinterpret_cast<size_t>(scratch) | reinterpret_cast<size_t>(w1l) |
+       reinterpret_cast<size_t>(w2l)) % 16)
     return int(cudaErrorInvalidValue);
-  bf16* w1p = reinterpret_cast<bf16*>(scratch + l.w1p);
-  bf16* w2p = reinterpret_cast<bf16*>(scratch + l.w2p);
-  bf16* t = reinterpret_cast<bf16*>(scratch + l.t);
-  bf16* h = reinterpret_cast<bf16*>(scratch + l.h);
-  float* y = reinterpret_cast<float*>(scratch + l.y);
-
-  cudaError_t err = bg_pad(static_cast<const bf16*>(w1_), Ch, 1, C, l.kp1,
-                           Ch, 0, w1p, l.kp1, l.np1, stream);
-  if (err == cudaSuccess)
-    err = bg_pad(static_cast<const bf16*>(w2_), C, 1, Ch, l.kp2, C, 0, w2p,
-                 l.kp2, l.np2, stream);
-  if (err == cudaSuccess)
-    err = bg_rows(x, M, C, prenorm ? ln_s : nullptr, ln_b, eps, t, l.kp1,
-                  stream);
-  if (err == cudaSuccess)
-    err = bg_gemm(BgRows{t, M, l.kp1}, M, w1p, l.np1, l.kp1, l.np1,
-                  BgGeluEpi{b1, h, M, Ch, l.kp2}, stream);
+  using bf = __nv_bfloat16;
+  const unsigned blocks = unsigned((M + kFfRows - 1) / kFfRows);
+  const int kp1 = bw_up(C, kBwK), kp2 = bw_up(Ch, kBwK);
+  unsigned char* h = static_cast<unsigned char*>(scratch);
+  const FfUpArgs up{static_cast<const bf*>(x), w1l, static_cast<const bf*>(b1),
+                    prenorm ? static_cast<const bf*>(ln_s) : nullptr,
+                    static_cast<const bf*>(ln_b), h, M, C, Ch, kp1, kp2,
+                    (Ch + bn1 - 1) / bn1, eps};
+  const int up_smem = ffn_up_smem(C, Ch);
+  cudaError_t err = bn1 == 128 ? ffn_up<128>(up, up_smem, blocks, stream)
+                    : bn1 == 96 ? ffn_up<96>(up, up_smem, blocks, stream)
+                                : ffn_up<64>(up, up_smem, blocks, stream);
   if (err != cudaSuccess) return int(err);
-  if (prenorm)
-    return int(bg_gemm(BgRows{h, M, l.kp2}, M, w2p, l.np2, l.kp2, l.np2,
-                       MlpResidualEpi{x, b2, out, M, C, res_scale}, stream));
-  err = bg_gemm(BgRows{h, M, l.kp2}, M, w2p, l.np2, l.kp2, l.np2,
-                BgBiasEpi{b2, y, M, C}, stream);
-  if (err != cudaSuccess) return int(err);
-  mlp_post_bf16_kernel<<<unsigned((M + 7) / 8), 256, 0, stream>>>(
-      x, y, M, C, ln_s, ln_b, eps, res_scale, out);
-  return int(cudaGetLastError());
+  const int bulk = ((reinterpret_cast<size_t>(x) |
+                     reinterpret_cast<size_t>(out)) % 16) == 0;
+  const FfDownArgs down{h, w2l, static_cast<const bf*>(b2),
+                        static_cast<const bf*>(ln_s),
+                        static_cast<const bf*>(ln_b),
+                        static_cast<const bf*>(x), static_cast<bf*>(out), M, C,
+                        kp2, !prenorm, bulk, res_scale, eps};
+  const int down_smem = ffn_down_smem(C);
+#define FF_DOWN_BF16(B, N)                                         \
+  if (bn == B && nch == N)                                         \
+    return int(ffn_down<B, N>(down, down_smem, blocks, stream));
+  FF_DOWN_BF16(64, 1)
+  FF_DOWN_BF16(96, 1)
+  FF_DOWN_BF16(128, 1)
+  FF_DOWN_BF16(96, 2)
+  FF_DOWN_BF16(128, 2)
+  FF_DOWN_BF16(96, 3)
+  FF_DOWN_BF16(64, 5)
+#undef FF_DOWN_BF16
+  return int(cudaErrorInvalidValue);
 }

@@ -51,6 +51,13 @@ def hwio(conv: nn.Conv2d) -> dict:
             "bias": conv.bias}
 
 
+def hwio_view(conv: nn.Conv2d) -> dict:
+    """:func:`hwio` with the kernel a view of the parameter: the bf16
+    kernels lay it out once per parameter and reuse that while it is
+    unchanged (a fresh copy would be laid out anew on every call)."""
+    return {"kernel": conv.weight.permute(2, 3, 1, 0), "bias": conv.bias}
+
+
 class LayerNorm2d(nn.Module):
     """LayerNorm over the channel axis of an NCHW tensor."""
 

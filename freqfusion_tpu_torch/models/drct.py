@@ -95,8 +95,8 @@ class SwinTransformerBlock(nn.Module):
             # FFN half in one kernel: LN2, fc1, GELU, fc2, residual
             fc1, fc2 = self.mlp.fc1, self.mlp.fc2
             return fused_mlp_block(
-                x, fc1.weight.t().contiguous(), fc1.bias,
-                fc2.weight.t().contiguous(), fc2.bias, self.norm2.weight,
+                x, fc1.weight.t(), fc1.bias, fc2.weight.t(), fc2.bias,
+                self.norm2.weight,
                 self.norm2.bias, prenorm=True, eps=self.norm2.eps)
         return x + self.mlp(self.norm2(x))
 

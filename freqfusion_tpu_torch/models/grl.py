@@ -36,8 +36,8 @@ from ..ops.grl_tables import (relative_coords_table_all,
 from ..ops.mlp import fused_mlp_block
 from ..ops.pad import pad_reflect
 from ..ops.window_attention import device_table
-from .common import (RGB_MEAN, Mlp, conv_nhwc, gate, hwio, init_weights,
-                     pixel_shuffle_upsampler, to_nchw, to_nhwc)
+from .common import (RGB_MEAN, Mlp, conv_nhwc, gate, hwio_view,
+                     init_weights, pixel_shuffle_upsampler, to_nchw, to_nhwc)
 
 __all__ = ["GRL"]
 
@@ -194,10 +194,12 @@ class CAB(nn.Module):
 
     def fused_weights(self) -> dict:
         """The flax CAB tree (cab_0, cab_2, ca_1, ca_3) that
-        ``ops/cab.py:cab_fused`` takes."""
+        ``ops/cab.py:cab_fused`` takes, every kernel a view of its
+        parameter (:func:`hwio_view`)."""
         ca = self.cab[3].attention
-        return {"cab_0": hwio(self.cab[0]), "cab_2": hwio(self.cab[2]),
-                "ca_1": hwio(ca[1]), "ca_3": hwio(ca[3])}
+        return {"cab_0": hwio_view(self.cab[0]),
+                "cab_2": hwio_view(self.cab[2]), "ca_1": hwio_view(ca[1]),
+                "ca_3": hwio_view(ca[3])}
 
     def forward_nhwc(self, x: torch.Tensor, ln: Optional[nn.LayerNorm] = None,
                      skip_scale: Optional[torch.Tensor] = None
@@ -237,8 +239,8 @@ class EfficientMixAttnTransformerBlock(nn.Module):
             # post-norm FFN half in one kernel: fc1, GELU, fc2, LN2, residual
             fc1, fc2 = self.mlp.fc1, self.mlp.fc2
             return fused_mlp_block(
-                x, fc1.weight.t().contiguous(), fc1.bias,
-                fc2.weight.t().contiguous(), fc2.bias, self.norm2.weight,
+                x, fc1.weight.t(), fc1.bias, fc2.weight.t(), fc2.bias,
+                self.norm2.weight,
                 self.norm2.bias, prenorm=False, res_scale=self.res_scale,
                 eps=self.norm2.eps)
         return x + self.res_scale * self.norm2(self.mlp(x))

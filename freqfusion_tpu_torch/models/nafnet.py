@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from ..ops.dwconv import dwconv3x3
 from ..ops.nafblock import nafblock_fused
 from ..ops.resize import upscale_bicubic
-from .common import LayerNorm2d, gate, hwio, init_weights
+from .common import LayerNorm2d, gate, hwio, hwio_view, init_weights
 
 __all__ = ["simple_gate", "NAFBlock", "NAFNet", "NAFNetSR"]
 
@@ -62,9 +62,7 @@ class NAFBlock(nn.Module):
         def norm(n):
             return {"scale": n.weight, "bias": n.bias}
 
-        def io(conv):
-            return {"kernel": conv.weight.permute(2, 3, 1, 0),
-                    "bias": conv.bias}
+        io = hwio_view
         return {"norm1": norm(self.norm1), "conv1": io(self.conv1),
                 "conv2": hwio(self.conv2), "sca": io(self.sca[1]),
                 "conv3": io(self.conv3), "beta": self.beta.reshape(-1),

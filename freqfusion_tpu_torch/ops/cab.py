@@ -15,10 +15,14 @@ channel sums; the [B, C] squeeze MLP in PyTorch; pass B: the scale and the
 skip) or the call raises. Unlike the JAX wrapper, the kernel takes every H
 and W itself: there is no XLA fallback for small or indivisible shapes.
 bf16 tensors (the bf16 expert mode) go to the bf16 plain version or to the
-file's bf16 kernels (both convs as implicit GEMMs on bf16 ``mma.sync``,
-``csrc/bf16_gemm.cuh``; y kept in fp32 between the passes, as JAX
-recomputes it in fp32), both with the JAX kernel's rounding points,
-counted as ``cab_fused.bf16``.
+file's bf16 kernels (both convs on ``wgmma``, ``csrc/bf16_wgmma.cuh``, the
+nine taps read from one staged halo through shifted descriptors, the
+weights laid out once per module by ``ops/wgmma.py:conv_layouts``, planned
+by ``plan_cab_bf16``; y kept in fp32 between the passes, as JAX recomputes
+it in fp32), both with the JAX kernel's rounding points, counted as
+``cab_fused.bf16``. The conv kernels may be views (the models hand
+``conv.weight.permute(2, 3, 1, 0)``): the bf16 kernels read only their
+cached layouts, the fp32 kernels a contiguous copy of a view.
 """
 
 from __future__ import annotations
@@ -28,15 +32,12 @@ from typing import Dict, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from . import cuda
+from . import cuda, wgmma
 from .attention import _bf16
 
 __all__ = ["cab_fused", "cab_fused_reference", "plan_cab", "CabPlan"]
 
 MAX_CHANNELS = 256  # the LN prologue holds a pixel's channels in registers
-# rows of an image a block of the bf16 kernels' pool sums
-# (csrc/bf16_gemm.cuh's kBgChunk): the bf16 partials' middle axis
-POOL_ROWS = 256
 # csrc/cab.cu's conv tiles: output pixels a side, input channels a stage,
 # halo pixels, stages in the ring
 TILE = 16
@@ -165,10 +166,11 @@ def cab_fused(x: torch.Tensor, w: Dict[str, Dict[str, torch.Tensor]],
     cr = w["cab_0"]["kernel"].shape[-1]
     plan = plan_cab(h, w_, c, cr)
     dev = x.device
+    k1, k2 = (w[k]["kernel"].contiguous() for k in ("cab_0", "cab_2"))
     cuda.require(x, "x", (b, h, w_, c), dev)
-    cuda.require(w["cab_0"]["kernel"], "cab_0", (3, 3, c, cr), dev)
+    cuda.require(k1, "cab_0", (3, 3, c, cr), dev)
     cuda.require(w["cab_0"]["bias"], "cab_0 bias", (cr,), dev)
-    cuda.require(w["cab_2"]["kernel"], "cab_2", (3, 3, cr, c), dev)
+    cuda.require(k2, "cab_2", (3, 3, cr, c), dev)
     cuda.require(w["cab_2"]["bias"], "cab_2 bias", (c,), dev)
     if ln is not None:
         cuda.require(ln["scale"], "ln scale", (c,), dev)
@@ -183,8 +185,7 @@ def cab_fused(x: torch.Tensor, w: Dict[str, Dict[str, torch.Tensor]],
                           dtype=torch.float32)
     lnp = (None, None) if ln is None else (ln["scale"], ln["bias"])
     err = lib.ff_cab_pool(
-        *(cuda.ptr(t) for t in (x, w["cab_0"]["kernel"], w["cab_0"]["bias"],
-                                *lnp, u, w["cab_2"]["kernel"],
+        *(cuda.ptr(t) for t in (x, k1, w["cab_0"]["bias"], *lnp, u, k2,
                                 w["cab_2"]["bias"], y, partials, scratch)),
         plan.scratch_floats, b, h, w_, c, cr, float(eps), cuda.stream(x))
     cuda.check(err, "cab_fused (pool)")
@@ -199,33 +200,36 @@ def cab_fused(x: torch.Tensor, w: Dict[str, Dict[str, torch.Tensor]],
 
 
 def _cab_fused_bf16_kernel(x, w, ln, skip_scale, eps: float) -> torch.Tensor:
-    """The bf16 kernels: x, the conv weights and the vectors bf16 (the
-    squeeze MLP's weights are widened in PyTorch); any C and C/cr."""
+    """The bf16 kernels: x, the conv weights (views or not) and the vectors
+    bf16 (the squeeze MLP's weights are widened in PyTorch); C even up to
+    256, C/cr up to 64."""
     bf, dev = torch.bfloat16, x.device
     b, h, w_, c = x.shape
     cr = w["cab_0"]["kernel"].shape[-1]
+    plan = wgmma.plan_cab_bf16(h, w_, c, cr, b)
     cuda.require(x, "x", (b, h, w_, c), dev, bf)
-    cuda.require(w["cab_0"]["kernel"], "cab_0", (3, 3, c, cr), dev, bf)
+    cuda.require(w["cab_0"]["kernel"], "cab_0", (3, 3, c, cr), dev, bf,
+                 contiguous=False)
     cuda.require(w["cab_0"]["bias"], "cab_0 bias", (cr,), dev, bf)
-    cuda.require(w["cab_2"]["kernel"], "cab_2", (3, 3, cr, c), dev, bf)
+    cuda.require(w["cab_2"]["kernel"], "cab_2", (3, 3, cr, c), dev, bf,
+                 contiguous=False)
     cuda.require(w["cab_2"]["bias"], "cab_2 bias", (c,), dev, bf)
     if ln is not None:
         cuda.require(ln["scale"], "ln scale", (c,), dev, bf)
         cuda.require(ln["bias"], "ln bias", (c,), dev, bf)
     if skip_scale is not None:
         cuda.require(skip_scale, "skip_scale", (c,), dev, bf)
+    w1l = wgmma.conv_layouts(w["cab_0"]["kernel"], plan.bn1)
+    w2l = wgmma.conv_layouts(w["cab_2"]["kernel"], wgmma.CAB_BN2)
     lib = cuda.library()
-    nbytes = lib.ff_cab_bf16_scratch_bytes(b * h * w_, c, cr)
-    scratch = torch.empty(nbytes, device=dev, dtype=torch.uint8)
+    scratch = torch.empty(plan.scratch_bytes, device=dev, dtype=torch.uint8)
     y = torch.empty(b, h, w_, c, device=dev, dtype=torch.float32)
-    partials = torch.empty(b, -(-(h * w_) // POOL_ROWS), c, device=dev,
-                           dtype=torch.float32)
+    partials = torch.empty(b, plan.tiles2, c, device=dev, dtype=torch.float32)
     lnp = (None, None) if ln is None else (ln["scale"], ln["bias"])
     err = lib.ff_cab_pool_bf16(
-        *(cuda.ptr(t) for t in (x, w["cab_0"]["kernel"], w["cab_0"]["bias"],
-                                *lnp, w["cab_2"]["kernel"],
+        *(cuda.ptr(t) for t in (x, w1l, w["cab_0"]["bias"], *lnp, w2l,
                                 w["cab_2"]["bias"], y, partials, scratch)),
-        nbytes, b, h, w_, c, cr, float(eps), cuda.stream(x))
+        plan.scratch_bytes, b, h, w_, c, cr, float(eps), cuda.stream(x))
     cuda.check(err, "cab_fused (bf16 pool)")
     a = _squeeze(partials.sum(1) / (h * w_), w).contiguous()
     out = torch.empty_like(x)

@@ -76,13 +76,16 @@ _SIGNATURES = {
     "ff_selective_scan_bf16": [_P] * 10 + [_I] * 13 + [_P],
     "ff_fused_mlp_scratch_floats": [_I] * 3,
     "ff_fused_mlp": [_P] * 9 + [_L] + [_I] * 4 + [_F, _F, _P],
-    "ff_fused_mlp_bf16_scratch_bytes": [_I] * 4,
-    "ff_fused_mlp_bf16": [_P] * 9 + [_L] + [_I] * 4 + [_F, _F, _P],
+    "ff_fused_mlp_bf16_scratch_bytes": [_L, _I, _I],
+    "ff_fused_mlp_bf16_smem": [_I] * 3,
+    "ff_fused_mlp_bf16": [_P] * 9 + [_L, _L] + [_I] * 5 + [_F, _F, _P],
     "ff_cab_tiles": [_I] * 3,
     "ff_cab_scratch_floats": [_I] * 2,
     "ff_cab_pool": [_P] * 11 + [_L] + [_I] * 5 + [_F, _P],
     "ff_cab_apply": [_P] * 5 + [_I] * 4 + [_P],
     "ff_cab_bf16_scratch_bytes": [_L, _I, _I],
+    "ff_cab_bf16_tiles": [_I] * 2,
+    "ff_cab_bf16_smem": [_I] * 3,
     "ff_cab_pool_bf16": [_P] * 10 + [_L] + [_I] * 5 + [_F, _P],
     "ff_cab_apply_bf16": [_P] * 5 + [_I] * 4 + [_P],
     "ff_nafblock_tiles": [_I] * 2,

@@ -10,9 +10,13 @@ GELU is exact (erf). A CPU tensor goes to the plain version; a CUDA tensor
 goes to ``csrc/fused_mlp.cu`` (both products in 3xTF32 on the tensor
 cores, the hidden through a scratch that :func:`plan_fused_mlp` sizes), or
 the call raises. bf16 tensors (the bf16 expert mode) go to the bf16 plain
-version or to the file's bf16 kernel (products on bf16 ``mma.sync``,
-``csrc/bf16_gemm.cuh``), both with the JAX kernel's rounding points,
-counted as ``fused_mlp_block.bf16``.
+version or to the file's bf16 kernels (two launches on ``wgmma``,
+``csrc/bf16_wgmma.cuh``, the weights laid out once per module by
+``ops/wgmma.py:weight_layouts``, planned by ``plan_ffn_bf16``), both with
+the JAX kernel's rounding points, counted as ``fused_mlp_block.bf16``.
+The weights may be views (the models hand ``fc1.weight.t()``): the bf16
+kernels read only their cached layouts, the fp32 kernel a contiguous copy
+of a view.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from . import cuda
+from . import cuda, wgmma
 from .attention import _bf16
 from .tf32_gemm import BK, SMEM_LIMIT, _ring_bytes, _round_up
 
@@ -128,6 +132,7 @@ def fused_mlp_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     m = x.numel() // c
     plan = plan_fused_mlp(m, c, ch)
     dev = x.device
+    w1, w2 = w1.contiguous(), w2.contiguous()
     cuda.require(x, "x", x.shape, dev)
     cuda.require(w1, "w1", (c, ch), dev)
     cuda.require(b1, "b1", (ch,), dev)
@@ -150,25 +155,27 @@ def fused_mlp_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 def _fused_mlp_block_bf16_kernel(x, w1, b1, w2, b2, ln_scale, ln_bias,
                                  prenorm: bool, res_scale: float,
                                  eps: float) -> torch.Tensor:
-    """The bf16 kernel: every operand bf16, any C and Ch."""
+    """The bf16 kernels: every operand bf16, C even up to 320, any Ch; w1
+    and w2 may be views (read through their cached layouts)."""
     bf, dev = torch.bfloat16, x.device
     c, ch = x.shape[-1], w1.shape[-1]
     m = x.numel() // c
+    plan = wgmma.plan_ffn_bf16(m, c, ch)
     cuda.require(x, "x", x.shape, dev, bf)
-    cuda.require(w1, "w1", (c, ch), dev, bf)
+    cuda.require(w1, "w1", (c, ch), dev, bf, contiguous=False)
     cuda.require(b1, "b1", (ch,), dev, bf)
-    cuda.require(w2, "w2", (ch, c), dev, bf)
+    cuda.require(w2, "w2", (ch, c), dev, bf, contiguous=False)
     for name, t in (("b2", b2), ("ln_scale", ln_scale), ("ln_bias", ln_bias)):
         cuda.require(t, name, (c,), dev, bf)
-    lib = cuda.library()
-    nbytes = lib.ff_fused_mlp_bf16_scratch_bytes(m, c, ch, int(prenorm))
+    w1l = wgmma.weight_layouts(w1, plan.bn1)
+    w2l = wgmma.weight_layouts(w2, plan.bn2)
     out = torch.empty_like(x)
-    scratch = torch.empty(nbytes, device=dev, dtype=torch.uint8)
-    err = lib.ff_fused_mlp_bf16(
-        *(cuda.ptr(t) for t in (x, w1, b1, w2, b2, ln_scale, ln_bias, out,
+    scratch = torch.empty(plan.scratch_bytes, device=dev, dtype=torch.uint8)
+    err = cuda.library().ff_fused_mlp_bf16(
+        *(cuda.ptr(t) for t in (x, w1l, b1, w2l, b2, ln_scale, ln_bias, out,
                                 scratch)),
-        nbytes, m, c, ch, int(prenorm), float(res_scale), float(eps),
-        cuda.stream(x))
+        plan.scratch_bytes, m, c, ch, plan.bn1, plan.bn2, int(prenorm),
+        float(res_scale), float(eps), cuda.stream(x))
     cuda.check(err, "fused_mlp_block (bf16)")
     cuda.launch_counts["fused_mlp_block.bf16"] += 1
     return out

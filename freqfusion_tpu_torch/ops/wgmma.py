@@ -1,8 +1,9 @@
 """Weights in the order ``csrc/bf16_wgmma.cuh``'s GEMM reads them, laid out
-once per module and cached.
+once per module and cached, and the plans of the kernels built on it.
 
-The GEMM (the bf16 qkv window attention's two projections, TPU #11, and
-the bf16 NAFBlock's four products, #16) streams a weight from device
+The GEMM (the bf16 qkv window attention's two projections, TPU #11, the
+bf16 NAFBlock's four products, #16, and the bf16 fused FFN's two, #14)
+streams a weight from device
 memory in stages of 32 of K by bulk copies, each stage one contiguous
 piece that wgmma reads from shared memory as it lands: for each chunk of
 ``bn`` output columns, for each 16 of K, the chunk's 8-column groups, each
@@ -11,7 +12,9 @@ bytes) apart. :func:`weight_layout` builds that order from a weight
 [K, N] ([in, out], the JAX layout), K padded to 32 and N to whole chunks
 with zeros; :func:`weight_layouts` caches it per weight tensor, so a call
 launches no weight pass. :func:`chunk_cols` is the GEMM's choice of
-``bn``.
+``bn``. The bf16 CAB's two 3x3 convs (#15) read their weights tap by tap
+from :func:`conv_layout` (cached by :func:`conv_layouts`) and their A
+operand from a staged halo through shifted descriptors.
 """
 
 from __future__ import annotations
@@ -22,8 +25,10 @@ import torch
 import torch.utils.weak as weak
 
 __all__ = ["K_STAGE", "chunk_cols", "weight_layout", "weight_layouts",
-           "clear_weight_layouts", "NafBf16Plan", "plan_nafblock_bf16",
-           "QkvBf16Plan", "plan_qkv_bf16"]
+           "conv_layout", "conv_layouts", "clear_weight_layouts",
+           "NafBf16Plan", "plan_nafblock_bf16", "QkvBf16Plan",
+           "plan_qkv_bf16", "FfnBf16Plan", "plan_ffn_bf16", "ffn_up_cols",
+           "ffn_down_cols", "CabBf16Plan", "plan_cab_bf16"]
 
 K_STAGE = 32          # K a ring stage (two wgmma k16 steps)
 CHUNKS = (96, 64)     # #11's chunk widths (wgmma m64nBNk16)
@@ -60,6 +65,23 @@ def weight_layout(w: torch.Tensor, bn: int, interleave: bool = False
         0, 3, 1, 4, 2, 5).contiguous()
 
 
+def conv_layout(w: torch.Tensor, bn: int) -> torch.Tensor:
+    """A 3x3 conv's weight w [3, 3, Cin, Cout] (HWIO) in the order the bf16
+    CAB's convs stream it, [Cout_p / bn, Cin_p / 16, 9, bn / 8, 2, 8, 8]
+    (Cin_p = Cin padded to 16, Cout_p to bn): element [c, kk, tap, g, h, i,
+    e] is w[tap // 3, tap % 3, k, n] with k = 16 kk + 8 h + e and n = c bn +
+    8 g + i, zero past Cin or Cout. For each chunk of bn output channels
+    and each 16 input channels, the nine taps' B operands lie side by side
+    (bn x 32 bytes each, wgmma's K-major core matrices): conv1 streams a
+    16-channel slice of all nine taps a stage, conv2 three taps (one dy)."""
+    kh, kw, cin, cout = w.shape
+    cinp, coutp = _up(cin, 16), _up(cout, bn)
+    wt = w.new_zeros(kh * kw, coutp, cinp)
+    wt[:, :cout, :cin] = w.reshape(kh * kw, cin, cout).transpose(1, 2)
+    return wt.view(kh * kw, coutp // bn, bn // 8, 8, cinp // 16, 2, 8
+                   ).permute(1, 4, 0, 2, 5, 3, 6).contiguous()
+
+
 # the cached layouts: a table for each weight's root tensor (the one its
 # views are cut from), dropped with it
 _LAYOUTS = weak.WeakIdKeyDictionary()
@@ -67,6 +89,31 @@ _LAYOUTS = weak.WeakIdKeyDictionary()
 
 def _root(t: torch.Tensor) -> torch.Tensor:
     return t if t._base is None else t._base
+
+
+def _cached(w: torch.Tensor, kind: tuple, build) -> torch.Tensor:
+    """build(w.detach()), cached as :func:`weight_layouts` describes under
+    `kind` (the layout's function and parameters)."""
+    if w.is_inference():
+        return build(w)
+    root = _root(w)
+    table = _LAYOUTS.get(root)
+    if table is None:
+        table = _LAYOUTS[root] = {}
+    key = (w.storage_offset(), tuple(w.shape), w.stride(), kind)
+    state = (w.data_ptr(), w.dtype, w.device, w._version)
+    hit = table.get(key)
+    if hit is not None and hit[1] == state:
+        return hit[2]
+    layout = build(w.detach())
+    table[key] = (w.untyped_storage(), state, layout)
+    return layout
+
+
+def conv_layouts(w: torch.Tensor, bn: int) -> torch.Tensor:
+    """:func:`conv_layout` of w, cached as :func:`weight_layouts` is (the
+    CAB hands views of its conv weights, ``models/grl.py:CAB``)."""
+    return _cached(w, ("conv", bn), lambda t: conv_layout(t, bn))
 
 
 def weight_layouts(w: torch.Tensor, bn: int, interleave: bool = False
@@ -88,21 +135,8 @@ def weight_layouts(w: torch.Tensor, bn: int, interleave: bool = False
     ``torch.inference_mode`` is still a normal tensor with a counter); a
     tensor made under inference mode has no counter and is laid out anew
     each call."""
-    if w.is_inference():
-        return weight_layout(w, bn, interleave)
-    root = _root(w)
-    table = _LAYOUTS.get(root)
-    if table is None:
-        table = _LAYOUTS[root] = {}
-    key = (w.storage_offset(), tuple(w.shape), w.stride(), bn,
-           bool(interleave))
-    state = (w.data_ptr(), w.dtype, w.device, w._version)
-    hit = table.get(key)
-    if hit is not None and hit[1] == state:
-        return hit[2]
-    layout = weight_layout(w.detach(), bn, interleave)
-    table[key] = (w.untyped_storage(), state, layout)
-    return layout
+    return _cached(w, ("gemm", bn, bool(interleave)),
+                   lambda t: weight_layout(t, bn, interleave))
 
 
 def clear_weight_layouts() -> None:
@@ -175,3 +209,118 @@ def plan_nafblock_bf16(h: int, w: int, c: int, batch: int = 1
                  + 2 * c + 4 * c + 2 * c)  # conv5
     return NafBf16Plan(fused, tile, tiles, 128, 64 if c <= 64 else 128,
                        scratch, moved, 128 / 84 if fused else 1.0)
+
+
+# csrc/fused_mlp.cu's bf16 launches: rows a block (two consumer
+# warpgroups), the two launches' rings, the widest C (the down product's
+# sums in registers)
+FFN_ROWS, FFN_UP_ROWS = 128, 64
+FFN_UP_STAGES, FFN_DOWN_STAGES = 4, 4
+FFN_MAX_C = 320
+BW_HEAD = 128          # the ring's barriers, at the head of shared memory
+SMEM_LIMIT = 227 * 1024
+SM_SMEM = 233472       # an SM's shared memory, 1 KB of it reserved a block
+
+
+def ffn_up_cols(ch: int) -> int:
+    """The up launch's hidden chunk (``ffn_up_cols``): the least padding
+    of Ch among 128, 96 and 64, the wider on a tie."""
+    return min((128, 96, 64), key=lambda n: _up(ch, n))
+
+
+def ffn_down_cols(c: int) -> tuple:
+    """The down launch's (BN2, NCH) (``ffn_down_cols``): NCH chunks of BN2
+    columns spanning C with at most 160 sums a thread, the least padding,
+    the wider BN2 on a tie."""
+    opts = [(bn, -(-c // bn)) for bn in (128, 96, 64)
+            if -(-c // bn) * bn // 2 <= 160]
+    return min(opts, key=lambda o: o[0] * o[1])
+
+
+class FfnBf16Plan(NamedTuple):
+    """How ``csrc/fused_mlp.cu`` runs a bf16 call: two launches, 64-row
+    blocks (two an SM) up, 128-row blocks down."""
+    bn1: int            # the up launch's hidden chunk
+    bn2: int            # the down launch's chunk width
+    nch2: int           # ... and its chunks (all of C a block)
+    kp1: int            # C padded to 32: the up product's K
+    kp2: int            # Ch padded to 32: H's columns, the down's K
+    scratch_bytes: int  # H in the tiled order, 128-row blocks
+    up_smem: int
+    down_smem: int
+    blocks: int         # 128-row blocks (the down launch; the up's twice)
+
+
+def plan_ffn_bf16(m: int, c: int, ch: int) -> FfnBf16Plan:
+    """The plan of a bf16 call on `m` rows of `c` channels with `ch` hidden
+    units (``ff_fused_mlp_bf16_scratch_bytes``, ``ff_fused_mlp_bf16_smem``
+    compute the same)."""
+    if c % 2 or c > FFN_MAX_C:
+        raise ValueError(f"fused_mlp_block (bf16): C={c} must be even and "
+                         f"at most {FFN_MAX_C}")
+    bn1 = ffn_up_cols(ch)
+    bn2, nch2 = ffn_down_cols(c)
+    kp1, kp2 = _up(c, K_STAGE), _up(ch, K_STAGE)
+    rows = _up(m, FFN_ROWS)
+    up = (BW_HEAD + FFN_UP_STAGES * bn1 * 64 + FFN_UP_ROWS * kp1 * 2
+          + 2 * FFN_UP_ROWS * bn1 * 2 + _up(ch, bn1) * 4 + FFN_UP_ROWS * 8
+          + 2 * kp1 * 4)
+    down = (BW_HEAD + FFN_DOWN_STAGES * (8192 + nch2 * bn2 * 64)
+            + FFN_ROWS * c * 2 + 3 * nch2 * bn2 * 4 + 8)
+    return FfnBf16Plan(bn1, bn2, nch2, kp1, kp2, rows * kp2 * 2, up, down,
+                       rows // FFN_ROWS)
+
+
+# csrc/cab.cu's bf16 convs: an m-tile is 64 consecutive pixels of an image
+# row; conv1 takes 4 rows a block (3 at N 64: 96 sums a thread), conv2 6
+# (two at a time); the rings' stages; conv2's output chunk; the widest C
+# (the LN statistics' registers) and Cr (conv1's N)
+CAB_SEG = 64
+CAB_ROWS = (4, 6)
+CAB_STAGES = (3, 4)
+CAB_SLOTS = 3          # conv1's staged halo slices in flight
+CAB_BN2 = 96
+CAB_MAX_C, CAB_MAX_CR = 256, 64
+
+
+class CabBf16Plan(NamedTuple):
+    """How ``csrc/cab.cu`` runs a bf16 call: conv1, conv2, the squeeze in
+    PyTorch, the apply pass."""
+    bn1: int            # conv1's N: Cr padded to 48 or 64 (U's row, conv2's K)
+    cinp1: int          # C padded to 16: conv1's K a tap
+    nch2: int           # conv2's chunks of 96 output channels
+    rows: tuple         # output rows a block, conv1 (4, 3 at N 64), conv2
+    tiles1: int         # conv1's blocks an image
+    tiles2: int         # conv2's (the partials' middle axis)
+    halo: tuple         # halo pixels a block, conv1 and conv2
+    reread: tuple       # halo pixels read per output pixel, conv1 and conv2
+    smem: tuple         # bytes of shared memory a block, conv1 and conv2
+    blocks_per_sm: tuple
+    scratch_bytes: int  # U, [M][bn1] bf16
+
+
+def plan_cab_bf16(h: int, w: int, c: int, cr: int, batch: int = 1
+                  ) -> CabBf16Plan:
+    """The plan of a bf16 call on `batch` images of h x w pixels, C
+    channels, C/cr = `cr` in the middle (``ff_cab_bf16_tiles``,
+    ``ff_cab_bf16_smem`` and ``ff_cab_bf16_scratch_bytes`` compute the
+    same)."""
+    if c % 2 or c > CAB_MAX_C or cr > CAB_MAX_CR:
+        raise ValueError(f"cab_fused (bf16): C={c} must be even and at most "
+                         f"{CAB_MAX_C}, C/cr={cr} at most {CAB_MAX_CR}")
+    bn1 = 48 if cr <= 48 else 64
+    rows = (CAB_ROWS[0] - (bn1 == 64), CAB_ROWS[1])
+    cinp1, np2 = _up(c, 16), _up(c, CAB_BN2)
+    halo = tuple((r + 2) * (CAB_SEG + 2) for r in rows)
+    smem1 = (BW_HEAD + CAB_STAGES[0] * 9 * 16 * bn1 * 2
+             + CAB_SLOTS * halo[0] * 32 + 2 * CAB_SLOTS * 8 + halo[0] * 8
+             + 2 * cinp1 * 4 + bn1 * 4)
+    smem2 = (BW_HEAD + CAB_STAGES[1] * 3 * 16 * CAB_BN2 * 2
+             + halo[1] * bn1 * 2 + 2 * np2 * 4 + 4 * CAB_BN2 * 4)
+    tiles = tuple(-(-h // r) * -(-w // CAB_SEG) for r in rows)
+    return CabBf16Plan(
+        bn1, cinp1, np2 // CAB_BN2, rows, *tiles, halo,
+        tuple(p / (r * CAB_SEG) for p, r in zip(halo, rows)),
+        (smem1, smem2), tuple(SM_SMEM // (s + 1024) for s in (smem1, smem2)),
+        batch * h * w * bn1 * 2)
+

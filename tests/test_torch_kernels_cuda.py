@@ -6,6 +6,8 @@ file imports no JAX, so it runs on a machine without it:
         tests/test_torch_kernels_cuda.py
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -1825,6 +1827,209 @@ def test_cab_bf16_kernel(cr, sq, with_ln, hw, fp32_plain):
     cuda.reset_launch_counts()
     got = cab_fused(x, w, ln, skip)
     _bf16_close(got, cab_fused_reference(x, w, ln, skip), "cab_fused.bf16")
+
+
+# the wgmma #14 and #15 at their path's shapes: the 336x512 bucket, the
+# 100x140 one (ragged row blocks and 64-pixel segments), 5x7 and 1x20
+# (one block, halos mostly outside), and batch 2
+WGMMA_SHAPES = [(1, 336, 512), (1, 100, 140), (1, 5, 7), (1, 1, 20),
+                (2, 100, 140)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,ch,prenorm", [(180, 720, True), (212, 848, True),
+                                          (244, 976, True), (276, 276, True),
+                                          (308, 308, True),
+                                          (180, 360, False)])
+@pytest.mark.parametrize("shape", WGMMA_SHAPES)
+def test_fused_mlp_bf16_wgmma(c, ch, prenorm, shape, fp32_plain):
+    """DRCT-L's five FFN widths (pre-norm: every down instantiation on the
+    path) and GRL-B's (post-norm, LN in the down launch's epilogue), with
+    the weights as the models hand them (views of fc.weight.t())."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c + ch + shape[1])
+    fc1, fc2 = (_b(rng.normal(size=s) / np.sqrt(s[1]), dev)
+                for s in ((ch, c), (c, ch)))
+    x = _b(rng.normal(size=(*shape, c)), dev)
+    b1, b2, lb = (_b(0.1 * rng.normal(size=n), dev) for n in (ch, c, c))
+    ls = _b(1 + 0.1 * rng.normal(size=c), dev)
+    args = (x, fc1.t(), b1, fc2.t(), b2, ls, lb, prenorm, 0.75)
+    cuda.reset_launch_counts()
+    got = fused_mlp_block(*args)
+    _bf16_close(got, fused_mlp_block_reference(*args), "fused_mlp_block.bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cr,sq,with_ln", [(45, 18, False), (60, 30, True)])
+@pytest.mark.parametrize("shape", WGMMA_SHAPES)
+def test_cab_bf16_wgmma(cr, sq, with_ln, shape, fp32_plain):
+    """GRL-B's CAB (conv1 on wgmma n48) and MambaIR's (ln_2 and the skip,
+    n64), the conv kernels as the models hand them (HWIO views)."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(cr + shape[1])
+    w = _bf16_tree(_cab_tree(rng, 180, cr, sq, dev))
+    for k in ("cab_0", "cab_2"):  # an NCHW parameter seen as HWIO
+        w[k]["kernel"] = w[k]["kernel"].permute(3, 2, 0, 1).contiguous(
+            ).permute(2, 3, 1, 0)
+        assert not w[k]["kernel"].is_contiguous()
+    x = _b(rng.normal(size=(*shape, 180)), dev)
+    ln, skip = _cab_norms(rng, dev, with_ln)
+    ln = None if ln is None else _bf16_tree(ln)
+    skip = None if skip is None else skip.to(torch.bfloat16)
+    cuda.reset_launch_counts()
+    got = cab_fused(x, w, ln, skip)
+    _bf16_close(got, cab_fused_reference(x, w, ln, skip), "cab_fused.bf16")
+
+
+@pytest.mark.cuda
+def test_ffn_cab_bf16_plans_match_the_kernels():
+    """ops/wgmma.py:plan_ffn_bf16 and plan_cab_bf16 against the C entries
+    (csrc/fused_mlp.cu, csrc/cab.cu): scratch, shared memory, tiles."""
+    cuda_or_skip()
+    lib = cuda.library()
+    for m, c, ch in ((172032, 180, 720), (172032, 244, 976),
+                     (14000, 308, 308), (35, 180, 360), (20, 20, 76)):
+        p = wgmma.plan_ffn_bf16(m, c, ch)
+        assert lib.ff_fused_mlp_bf16_scratch_bytes(m, c, ch) == \
+            p.scratch_bytes
+        assert lib.ff_fused_mlp_bf16_smem(c, ch, 0) == p.up_smem
+        assert lib.ff_fused_mlp_bf16_smem(c, ch, 1) == p.down_smem
+    for b, h, w, cr in ((1, 336, 512, 45), (1, 336, 512, 60),
+                        (2, 100, 140, 60), (1, 5, 7, 45), (1, 1, 20, 60)):
+        p = wgmma.plan_cab_bf16(h, w, 180, cr, b)
+        assert lib.ff_cab_bf16_tiles(h, w) == p.tiles2
+        assert lib.ff_cab_bf16_smem(180, cr, 0) == p.smem[0]
+        assert lib.ff_cab_bf16_smem(180, cr, 1) == p.smem[1]
+        assert lib.ff_cab_bf16_scratch_bytes(b * h * w, 180, cr) == \
+            p.scratch_bytes
+    assert lib.ff_fused_mlp_bf16_scratch_bytes(64, 322, 900) == -1
+    assert lib.ff_cab_bf16_scratch_bytes(64, 180, 65) == -1
+
+
+def _kernel_names(fn, reps=5):
+    """The distinct device kernels `reps` calls of fn launch
+    (torch.profiler, which may miss a launch at its window's edge, and
+    whose first window in a process may come back empty: up to three
+    windows are taken)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    names = set()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = e.cuda_time_total
+            if us > 0:
+                # csrc/'s kernels: at most once a call
+                assert e.count <= reps or "anonymous namespace" not in \
+                    e.key, (e.key, e.count)
+                names.add(e.key)
+        if names:
+            return names
+    return names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prenorm", [True, False])
+def test_fused_mlp_bf16_launches_two_kernels(prenorm):
+    """Once the layouts exist, a bf16 #14 call under torch.inference_mode
+    launches the up and the down wgmma kernels, once each, and nothing
+    else: no weight pad, no rows pass, no library call."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(5)
+    fc1 = torch.nn.Linear(180, 360).to(dev, torch.bfloat16)
+    fc2 = torch.nn.Linear(360, 180).to(dev, torch.bfloat16)
+    x = _b(rng.normal(size=(1, 40, 56, 180)), dev)
+    ln = torch.nn.LayerNorm(180).to(dev, torch.bfloat16)
+    with torch.inference_mode():
+        names = _kernel_names(lambda: fused_mlp_block(
+            x, fc1.weight.t(), fc1.bias, fc2.weight.t(), fc2.bias, ln.weight,
+            ln.bias, prenorm))
+    assert len(names) == 2, names
+    assert sum("ffn_up_wgmma_kernel" in k for k in names) == 1, names
+    assert sum("ffn_down_wgmma_kernel" in k for k in names) == 1, names
+
+
+@pytest.mark.cuda
+def test_cab_bf16_launches_its_kernels():
+    """Once the layouts exist, a bf16 #15 call launches conv1, conv2 and
+    the apply pass of csrc/cab.cu, once each (the squeeze MLP's few
+    PyTorch ops beside them), no weight pad or rows pass."""
+    from freqfusion_tpu_torch.models.grl import CAB
+
+    dev = cuda_or_skip()
+    m = CAB(180, 4, 18).to(dev, torch.bfloat16)
+    x = _b(np.random.default_rng(6).normal(size=(1, 24, 80, 180)), dev)
+    with torch.inference_mode():
+        names = _kernel_names(lambda: cab_fused(x, m.fused_weights()))
+    ours = sorted(re.search(r"cab_\w+_kernel", k).group(0) for k in names
+                  if re.search(r"cab_\w+_kernel", k))
+    assert ours == ["cab_apply_bf16_kernel", "cab_conv1_kernel",
+                    "cab_conv2_kernel"], names
+    assert not any("bg_" in k for k in names), names
+
+
+@pytest.mark.cuda
+def test_ffn_cab_bf16_relay_changed_weights():
+    """The cached layouts (ops/wgmma.py) under torch.inference_mode: built
+    once per module across calls; an in-place update is seen; a write
+    through .data is seen after clear_weight_layouts."""
+    from freqfusion_tpu_torch.models.grl import CAB
+
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(7)
+    fc1 = torch.nn.Linear(180, 360).to(dev, torch.bfloat16)
+    fc2 = torch.nn.Linear(360, 180).to(dev, torch.bfloat16)
+    ln = torch.nn.LayerNorm(180).to(dev, torch.bfloat16)
+    cab = CAB(180, 3, 30).to(dev, torch.bfloat16)
+    x = _b(rng.normal(size=(1, 20, 36, 180)), dev)
+
+    def ffn():
+        return fused_mlp_block(x, fc1.weight.t(), fc1.bias, fc2.weight.t(),
+                               fc2.bias, ln.weight, ln.bias, True)
+
+    def check(fn, ref, name):
+        cuda.reset_launch_counts()
+        with torch.inference_mode():
+            got = fn()
+        _bf16_close(got, ref(), name)
+
+    def ffn_ref():
+        return fused_mlp_block_reference(
+            x, fc1.weight.t(), fc1.bias, fc2.weight.t(), fc2.bias,
+            ln.weight, ln.bias, True)
+
+    def cab_run():
+        return cab_fused(x, cab.fused_weights(), skip_scale=ln.weight)
+
+    def cab_ref():
+        return cab_fused_reference(x, cab.fused_weights(),
+                                   skip_scale=ln.weight)
+    with torch.inference_mode():
+        ffn(), cab_run()
+        w1 = wgmma.weight_layouts(fc1.weight.t(), 128)
+        k1 = wgmma.conv_layouts(cab.cab[0].weight.permute(2, 3, 1, 0), 64)
+        ffn(), cab_run()
+        assert wgmma.weight_layouts(fc1.weight.t(), 128) is w1
+        assert wgmma.conv_layouts(cab.cab[0].weight.permute(2, 3, 1, 0),
+                                  64) is k1
+    with torch.no_grad():
+        fc2.weight.mul_(-1.5)
+        cab.cab[2].weight.mul_(-1.5)
+    check(ffn, ffn_ref, "fused_mlp_block.bf16")
+    check(cab_run, cab_ref, "cab_fused.bf16")
+    fc1.weight.data.copy_(_b(rng.normal(size=(360, 180)) / 13, dev))
+    cab.cab[0].weight.data.copy_(_b(rng.normal(size=(60, 180, 3, 3)) / 40,
+                                    dev))
+    wgmma.clear_weight_layouts()
+    check(ffn, ffn_ref, "fused_mlp_block.bf16")
+    check(cab_run, cab_ref, "cab_fused.bf16")
 
 
 @pytest.mark.cuda
