@@ -82,7 +82,10 @@ exits non-zero without the final ok line):
    time at the same shapes and the bound at the bf16 tensor-core rate
    (989 TFLOP/s; the scan's recurrence at the fp32 cores' and the SFU's
    rates): #1 at DRCT-L's
-   ten shapes with SDPA in bf16 as its library call, #2 at GRL-B's two,
+   ten shapes with SDPA in bf16 as its library call (its bound with the
+   mask's bf16 bytes and the softmax's exponentials on the SFU beside the
+   products, its share of a request, 6 launches a shape, and one shifted
+   C 180 call's launches: one kernel), #2 at GRL-B's two,
    #3/#4 on both chain layouts, each direction, with one call's launches
    (the wgmma projection and the passes only); then the bf16 kernels of
    SS2D's other routes on the operands each hands them in bf16 (#5, y
@@ -105,7 +108,9 @@ exits non-zero without the final ok line):
    the fusion net's two geometries with nn.MultiheadAttention in bf16 as
    its library call), each beside the bf16 route its gate replaces, the
    fp32 kernel's time and the bound at the bf16 rate (#13's attention on
-   the fp32 cores a third term), and one call's launches of each;
+   the fp32 cores a third term), and one call's launches of each (#12's:
+   its wgmma projection and #2's body), #11 and #12 with their share of a
+   request (6 and 20 launches a shape);
 3. serving, default path: seeded full-width random checkpoints under the
    reference file names, three LR PNGs (128x128, 100x140, 336x512)
    through ``freqfusion_tpu_torch.interface.io.main(..., device="cuda")``,
@@ -259,6 +264,10 @@ PEAK_SFU = 16 * 132 * 1.98e9
 # instructions (a max, three adds, five FMAs, a shift and an integer add),
 # each one issue slot of a lane, two of PEAK_FLOPS's operations
 EX2_FMA_FLOPS = 2 * 11
+# the bf16 window attention's softmax on the fp32 lanes, issue slots a
+# logit: the bias and the mask added, the row max, the shifted exponent,
+# the row sum, the normalisation (the exponential itself on the SFU)
+SOFTMAX_LANE_OPS = 6
 # bf16 kernels against their bf16 plain versions (the same rounding
 # points, fp32 sums in another order): max-abs within two bf16 ulps of the
 # output's largest magnitude
@@ -293,8 +302,9 @@ GEMM_EPILOGUES = ("bias", "residual", "gate")
 # instantiation
 CONV_EPILOGUES = ("store", "SpatialGate", "squeeze", "broadcast")
 FFN_DOWN_TILES = (6, 8, 9, 10)
-# csrc/bf16_gemm.cuh's bg_gemm_kernel<A, Epi>: every instantiation, in the
-# sources that build it (the bf16 #12, #13)
+# csrc/bf16_gemm.cuh's bg_gemm_kernel<A, Epi>: every instantiation (the
+# bf16 #13); the bf16 wgmma attention kernels (#1 at every head box, #12's
+# projection at every chunk width) too
 CAB_CONV_TILES = (4, 6)
 # csrc/selective_scan.cu's scan_pass16_kernel<kFinal, kN, kMix>: the bf16
 # operand mixes, by the contract each serves (every instantiation, and the
@@ -515,14 +525,19 @@ def operations_ms(flops: float, peak_flops: float = PEAK_FLOPS,
     with e the SFU's time for all of them, f the lanes' work and g the
     exponentials' time on the lanes, a share x = (f + g) / (e + g) on the
     SFU has both units finish at e x = e (f + g) / (e + g), below e and
-    above f. (Only the scans pass `sfu_ops`; their flops are the fp32
-    cores'.)"""
-    ms = max(1e3 * flops / peak_flops, 1e3 * core_flops / PEAK_FLOPS)
+    above f. Products on the tensor cores (`peak_flops` not the fp32
+    cores') run beside both units: the term is then the larger of their
+    time and that of the lanes and the SFU (the bf16 window attention's
+    softmax, `core_flops` and `sfu_ops` beside its products)."""
+    tensor = peak_flops != PEAK_FLOPS
+    products = 1e3 * flops / peak_flops if tensor else 0.0
+    ms = max(0.0 if tensor else 1e3 * flops / PEAK_FLOPS,
+             1e3 * core_flops / PEAK_FLOPS)
     sfu_ms = 1e3 * sfu_ops / PEAK_SFU
     if sfu_ms > ms:
         emu_ms = 1e3 * sfu_ops * EX2_FMA_FLOPS / PEAK_FLOPS
         ms = sfu_ms * (ms + emu_ms) / (sfu_ms + emu_ms)
-    return ms, sfu_ms
+    return max(products, ms), sfu_ms
 
 
 class KernelCheck:
@@ -833,7 +848,9 @@ def check_spills(log: str, required: bool) -> None:
     window_attention_qkv.cu and nafblock.cu; the 3x3 conv of csrc/conv3x3_tf32.cuh in
     hier.cu and edge.cu; the LKABlock's three kernels, csrc/lka.cu; the
     token attention's at the path's two geometries and its layout pass,
-    csrc/token_attention.cu) and
+    csrc/token_attention.cu; the bf16 window attention's wgmma kernel at
+    every head box, csrc/window_attention.cu, and #12's wgmma projection,
+    csrc/grl_attention_qkv.cu) and
     raise if one spills, or (`required`) if one of the groups has no
     report."""
     import re
@@ -878,12 +895,19 @@ def check_spills(log: str, required: bool) -> None:
             lambda m: "layout pass" if m.group(4)
             else f"{4 * int(m.group(1))} warps, {m.group(2)} out n-tiles a "
                  f"warp, T {m.group(3)}"),
-        "bf16 GEMM (#12, #13)": (
-            r"(grl_attention_qkv|token_attention)_cu.*bg_gemm_kernelIN\w*?"
-            r"(BgRows|TaRows)\w*?(\d+)(\w+?Epi)E",
+        "bf16 GEMM (#13)": (
+            r"(token_attention)_cu.*bg_gemm_kernelIN\w*?"
+            r"(TaRows)\w*?(\d+)(\w+?Epi)E",
             lambda m: True,
             lambda m: f"{m.group(1)}.cu, {m.group(2)} rows, "
                       f"{m.group(4)[:-3]} epilogue"),
+        "bf16 wgmma attention (#1, #11, #12)": (
+            r"window_attention_wgmma_kernelILi(\d+)ELi(\d)E|"
+            r"grl_qkv_wgmma_kernelILi(\d+)E",
+            lambda m: True,
+            lambda m: (f"window attention, head box {m.group(1)}, "
+                       f"{m.group(2)} warpgroup(s)") if m.group(1)
+            else f"GRL qkv projection, {m.group(3)} columns a chunk"),
         "bf16 wgmma GEMM (#11, #16)": (
             r"(window_attention_qkv|nafblock)_cu\w*?(?:bw_gemm_kernelILi(\d)E"
             r"Li(\d+)ENS_\d+(\w+?)ENS_\d+(\w+?)Epi|"
@@ -1224,10 +1248,14 @@ def phase_bf16_kernels(dev, randn, checks) -> None:
     beside the plain version, one library call where there is one (SDPA in
     bf16 for #1) and the bound at the bf16 tensor-core rate; each total is
     printed beside the fp32 kernel's at the same shapes where this run
-    measured it. #1 at DRCT-L's ten shapes (bf16 q, k, v and bias, fp32
-    mask), #2 at GRL-B's two (bf16 halves and anchor, fp32 scales, biases
-    and mask), #3/#4 on both chain layouts, each direction (bf16 xc and
-    weights, fp32 A, bf16 D and dt bias)."""
+    measured it. #1 at DRCT-L's ten shapes (bf16 q, k, v and bias; the
+    fp32 mask table, which the wrapper casts to bf16 once, as the JAX
+    wrapper casts it), with its share of a request (6 launches a shape),
+    its bound counting the mask's bf16 bytes and the softmax's
+    exponentials on the SFU beside the products, and one shifted C 180
+    call's launches; #2 at GRL-B's two (bf16 halves and anchor, fp32
+    scales, biases and mask), #3/#4 on both chain layouts, each direction
+    (bf16 xc and weights, fp32 A, bf16 D and dt bias)."""
     import torch.nn.functional as F
 
     from freqfusion_tpu_torch.ops.attention import (
@@ -1243,6 +1271,7 @@ def phase_bf16_kernels(dev, randn, checks) -> None:
 
     wa = checks["window_attention_nhwc.bf16"] = KernelCheck(
         "window_attention_nhwc.bf16")
+    share = RequestShare(wa)
     for c, heads in ((180, 6), (212, 4), (244, 2), (276, 6), (308, 4)):
         q, k, v = (randn(1, h, w, c).to(bf) for _ in range(3))
         bias = randn(heads, 256, 256, scale=0.5).to(bf)
@@ -1256,19 +1285,32 @@ def phase_bf16_kernels(dev, randn, checks) -> None:
             add = (bias[None] if mask is None
                    else bias[None] + mask[:, None].to(bf))
             args = (q, k, v, bias, mask, heads, 16)
-            nbytes = 2 * (4 * p * c + bias.numel()) + (
-                0 if mask is None else 4 * mask.numel())
+            # q, k, v, out, the bias table and the mask (bf16, as the JAX
+            # wrapper casts it) once each
+            nbytes = 2 * (4 * p * c + bias.numel()
+                          + (0 if mask is None else mask.numel()))
+            logits = p * 256 * heads
+            label = f"C{c}/hd{hd}/{'mask' if shift else 'nomask'}"
 
             def sdpa():
                 return F.scaled_dot_product_attention(qh, kh, vh,
                                                       attn_mask=add,
                                                       scale=hd ** -0.5)
-            wa.run(f"C{c}/hd{hd}/{'mask' if shift else 'nomask'}",
-                   lambda: window_attention_nhwc(*args),
-                   lambda: window_attention_nhwc_reference(*args), bf16_tol,
-                   4.0 * p * 256 * c, nbytes, sdpa, peak_flops=PEAK_BF16)
+            # DRCT-L's 60 blocks: 6 a shape; the softmax's exponentials on
+            # the SFU and its other work on the fp32 lanes beside the
+            # products (SOFTMAX_LANE_OPS a logit)
+            share.run(label, 6, lambda: window_attention_nhwc(*args),
+                      lambda: window_attention_nhwc_reference(*args),
+                      bf16_tol, 4.0 * p * 256 * c, nbytes, sdpa,
+                      peak_flops=PEAK_BF16,
+                      core_flops=2.0 * SOFTMAX_LANE_OPS * logits,
+                      sfu_ops=logits)
+            if c == 180 and shift:
+                launch_breakdown(f"#1 bf16 {label}",
+                                 lambda: window_attention_nhwc(*args))
             del add
         del q, k, v, qh, kh, vh
+    share.total()
     beside("window_attention_nhwc", wa)
     torch.cuda.empty_cache()
 
@@ -1574,8 +1616,9 @@ def phase_bf16_qkv_kernels(dev, randn, checks) -> None:
     """The projection configuration's kernels in bf16 at their path's
     shapes on the 336x512 bucket, as the cast modules hand them: #11 at
     DRCT-L's five widths, shifted and not (bf16 x, weights, biases and bias
-    table, fp32 mask); #12 at GRL-B's two shapes (bf16 x, x_rolled, anchor,
-    wqkv and bqkv, fp32 scales, biases and mask); then #13
+    table, the fp32 mask table); #12 at GRL-B's two shapes (bf16 x,
+    x_rolled, anchor, wqkv and bqkv, fp32 scales, biases and mask); then
+    #13
     (phase_bf16_token_kernel). Each against its bf16 plain version
     (BF16_ULPS), beside the bf16 route its gate replaces (the bf16 module's
     F.linear projections around #1's or #2's bf16 kernel), the fp32
@@ -1637,6 +1680,7 @@ def phase_bf16_qkv_kernels(dev, randn, checks) -> None:
 
     gq = checks["grl_mixed_attention_qkv_nhwc.bf16"] = KernelCheck(
         "grl_mixed_attention_qkv_nhwc.bf16")
+    gshare = RequestShare(gq)
     x = randn(1, h, w, 180).to(bf)
     anchor = randn(1, h // 2, w // 2, 90).to(bf)
     wqkv = randn(180, 540, scale=180 ** -0.5).to(bf)
@@ -1656,10 +1700,12 @@ def phase_bf16_qkv_kernels(dev, randn, checks) -> None:
                        + 2 * p * 90 + 181 * 540)
                   + 4 * (sum(b.numel() for b in biases)
                          + (0 if mask is None else mask.numel())))
-        gq.run(label, lambda: grl_mixed_attention_qkv_nhwc(*args),
-               lambda: grl_mixed_attention_qkv_nhwc_reference(*args),
-               bf16_tol, 2.0 * p * 180 * 540 + p * 90 * (4.0 * 64 + 8 * 16),
-               nbytes, peak_flops=PEAK_BF16)
+        # GRL-B's 40 blocks: 20 a shape
+        gshare.run(label, 20, lambda: grl_mixed_attention_qkv_nhwc(*args),
+                   lambda: grl_mixed_attention_qkv_nhwc_reference(*args),
+                   bf16_tol,
+                   2.0 * p * 180 * 540 + p * 90 * (4.0 * 64 + 8 * 16),
+                   nbytes, peak_flops=PEAK_BF16)
         if shift:
             launch_breakdown(f"#12 bf16 {label}",
                              lambda: grl_mixed_attention_qkv_nhwc(*args))
@@ -1679,6 +1725,7 @@ def phase_bf16_qkv_kernels(dev, randn, checks) -> None:
                                             mask, 3, 3, 8)
         gq.route(label, gate_on, gate_off,
                  "6 F.linear + rolls + bf16 kernel #2; on: roll + kernel")
+    gshare.total()
     _beside(checks, "grl_mixed_attention_qkv_nhwc", gq)
     del x, x_rolled, args, anchor
     torch.cuda.empty_cache()

@@ -1,28 +1,23 @@
-// bf16 products on the tensor cores for the bf16 versions of GRL's qkv
-// mixed attention (grl_attention_qkv.cu, TPU #12) and the token attention
-// (token_attention.cu, #13), and the row passes around them. Each keeps the JAX
-// kernel's rounding points: a product takes bf16 operands and accumulates
-// in fp32 (one mma.sync m16n8k16 from bf16_mma.cuh), and every other step
-// runs in fp32, rounded to bf16 only where the JAX kernel casts.
+// bf16 products on the tensor cores for the bf16 token attention
+// (token_attention.cu, TPU #13). It keeps the JAX kernel's rounding points:
+// a product takes bf16 operands and accumulates in fp32 (one mma.sync
+// m16n8k16 from bf16_mma.cuh), and every other step runs in fp32, rounded
+// to bf16 only where the JAX kernel casts.
 //
 // bg_gemm_kernel<A, Epi>: out = Epi(A W), a simple multistage GEMM. A block
 // is 128 rows x 64 columns, 4 warps of 64 x 32 (4 x 4 m16n8 tiles); K goes
 // 32 columns a stage through a three-stage cp.async ring (16-byte copies,
 // zero-filled where A has no value). Shared memory rows are padded (A 40,
 // W 72 bf16: 80 and 144 bytes), so ldmatrix's eight row reads of a phase
-// fall in distinct banks. W is the weight zero-padded by bg_pad_kernel to
-// [kp][np] bf16 (kp a multiple of 32, np of 64). A comes through a loader
-// (BgRows: a row-major bf16 matrix whose rows are 16-byte multiples; #13's
-// own). The activations' rows are rarely 16-byte multiples in place (C 180
-// is 360 bytes), so the passes that make A write it padded
-// (bg_rows_kernel), with zeros past the real columns, which meet W's zero
-// rows.
+// fall in distinct banks. W is the weight zero-padded to [kp][np] bf16 (kp
+// a multiple of 32, np of 64; #13 lays its weights out itself). A comes
+// through #13's loader (rows whose starts are 16-byte multiples).
 //
 // What bounds these products on the H100: the tensor cores (989 TFLOP/s
 // bf16, dense); this first version is simple (mma.sync, no TMA or wgmma,
 // intermediates through device memory), and chip_smoke.py phase 2 prints
-// its time beside that bound. The fused FFN (#14), the CAB (#15), #11 and
-// the NAFBlock (#16) run on bf16_wgmma.cuh's wgmma instead.
+// its time beside that bound. #1, #11, #12, #14, #15 and #16 in bf16 run
+// on bf16_wgmma.cuh's wgmma instead.
 
 #pragma once
 
@@ -64,23 +59,6 @@ __device__ __forceinline__ float bg_f(float v) { return v; }
 __device__ __forceinline__ bf16 bg_round(float v) {
   return __float2bfloat16_rn(v);
 }
-
-__device__ __forceinline__ float bg_warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// A's rows from a row-major bf16 matrix [M, ld] (ld a multiple of 8, the
-// columns past the product's real K zeros).
-struct BgRows {
-  const bf16* a;
-  long long M;
-  int ld;
-  __device__ __forceinline__ const bf16* src(long long m, int k) const {
-    return m < M ? a + m * ld + k : nullptr;
-  }
-};
 
 // Epi(m, n, v0, v1) gets the fp32 sums of row m, columns n and n + 1 (n
 // even) of every 128 x 64 tile, padding rows and columns included: it
@@ -206,105 +184,6 @@ struct BgSegEpi {
         pack_bf16(v0 + bg_f(bias[n]), v1 + bg_f(bias[n + 1]));
   }
 };
-
-// ---------------------------------------------------------------------
-// Passes around the products
-
-// dst [kp, np] bf16: row gi kg + k, column n is src row gi K + k, column
-// col(n) for gi < groups, k < K, n < N; zero elsewhere. col(n) = n, or with
-// `interleave` (N even) n / 2 + (n % 2) N / 2, so that a gate's two halves
-// land side by side (columns 2j and 2j + 1 are j and N / 2 + j).
-__global__ void __launch_bounds__(256)
-bg_pad_kernel(const bf16* __restrict__ src, int lds, int groups, int K,
-              int kg, int N, int interleave, bf16* __restrict__ dst, int kp,
-              int np) {
-  const long long total = (long long)kp * np;
-  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < total;
-       i += gridDim.x * 256LL) {
-    const int r = int(i / np), n = int(i % np);
-    const int gi = r / kg, k = r - gi * kg;
-    float v = 0.f;
-    if (gi < groups && k < K && n < N) {
-      const int col = interleave ? n / 2 + (n % 2) * (N / 2) : n;
-      v = bg_f(src[((long long)gi * K + k) * lds + col]);
-    }
-    dst[i] = bg_round(v);
-  }
-}
-
-cudaError_t bg_pad(const bf16* src, int lds, int groups, int K, int kg,
-                   int N, int interleave, bf16* dst, int kp, int np,
-                   cudaStream_t stream) {
-  const long long total = (long long)kp * np;
-  const long long blocks = (total + 255) / 256;
-  if (total <= 0) return cudaSuccess;
-  bg_pad_kernel<<<unsigned(blocks < 1024 ? blocks : 1024), 256, 0,
-                  stream>>>(src, lds, groups, K, kg, N, interleave, dst, kp,
-                            np);
-  return cudaGetLastError();
-}
-
-// out[m, 0 .. ld) = bf16(LN(x[m]) * s + b) (ln_s given; biased variance,
-// as the JAX kernels' _ln) or bf16(x[m]) over C channels, zeros past C; x
-// [M, C] bf16 or fp32. One warp a row, held in registers (C <= 32 V).
-template <typename T, int V>
-__global__ void __launch_bounds__(256)
-bg_rows_kernel(const T* __restrict__ x, long long M, int C,
-               const bf16* __restrict__ ln_s, const bf16* __restrict__ ln_b,
-               float eps, bf16* __restrict__ out, int ld) {
-  const long long m = (blockIdx.x * 256LL + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (m >= M) return;
-  const T* xr = x + m * C;
-  float v[V];
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const int c = lane + 32 * i;
-    v[i] = c < C ? bg_f(xr[c]) : 0.f;
-    s += v[i];
-  }
-  float mu = 0.f, rs = 1.f;
-  if (ln_s) {
-    mu = bg_warp_sum(s) / C;
-    float q = 0.f;
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const float d = lane + 32 * i < C ? v[i] - mu : 0.f;
-      q += d * d;
-    }
-    rs = rsqrtf(bg_warp_sum(q) / C + eps);
-  }
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const int c = lane + 32 * i;
-    if (c < ld)
-      out[m * ld + c] = bg_round(
-          c >= C ? 0.f
-          : ln_s ? (v[i] - mu) * rs * bg_f(ln_s[c]) + bg_f(ln_b[c])
-                 : v[i]);
-  }
-}
-
-// rows of C <= 2048 channels into ld >= C padded bf16 columns (ld <= C
-// rounded up to 32), LayerNorm'd where ln_s is given: bg_rows<T, 2>(...)
-// takes the narrowest V (2, 4, .., 64) that holds C
-template <typename T, int V = 2>
-cudaError_t bg_rows(const T* x, long long M, int C, const bf16* ln_s,
-                    const bf16* ln_b, float eps, bf16* out, int ld,
-                    cudaStream_t stream) {
-  if constexpr (V < 64) {
-    if (C > 32 * V)
-      return bg_rows<T, 2 * V>(x, M, C, ln_s, ln_b, eps, out, ld, stream);
-  }
-  const long long blocks = (M + 7) / 8;
-  if (C > 32 * V || ld > 32 * V || blocks > 0x7fffffffLL)
-    return cudaErrorInvalidValue;
-  if (blocks > 0)
-    bg_rows_kernel<T, V><<<unsigned(blocks), 256, 0, stream>>>(
-        x, M, C, ln_s, ln_b, eps, out, ld);
-  return cudaGetLastError();
-}
 
 // Bytes a scratch piece takes, rounded up to 256 so the next one is
 // aligned for 16-byte copies.

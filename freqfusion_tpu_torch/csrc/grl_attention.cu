@@ -39,7 +39,8 @@ extern "C" int ff_grl_mixed_attention_nhwc(
 // :391-424): q, k and the anchors normalised in fp32 and rounded to bf16;
 // the logits in fp32, times the head's scale, plus the bias (fp32: GRL's
 // continuous position bias runs in fp32 on the fp32 table) and the mask
-// (fp32, values exact in bf16); each softmax in fp32, normalised, rounded
+// (fp32, each term rounded to bf16 as it is loaded: the JAX wrapper casts
+// it to the operands' dtype, :612); each softmax in fp32, normalised, rounded
 // to bf16 before its product; the anchor stage's output x1 rounded to bf16
 // before the second stage; both outputs rounded to bf16.
 //
@@ -86,11 +87,11 @@ __device__ __forceinline__ void grl_bf16_unit(
       const int row = g + 8 * h, key = 8 * j + 2 * t;
       add[j][h] = __ldg(reinterpret_cast<const float2*>(bias + row * ldb +
                                                         key));
-      if (mask) {
+      if (mask) {  // rounded to bf16, as the JAX wrapper casts it
         const float2 mv = __ldg(
             reinterpret_cast<const float2*>(mask + row * kGrlN + key));
-        add[j][h].x += mv.x;
-        add[j][h].y += mv.y;
+        add[j][h].x += round_bf16(mv.x);
+        add[j][h].y += round_bf16(mv.y);
       }
     }
   float s[NT][4];

@@ -36,23 +36,30 @@
 // bias add (:475-481), then #2's bf16 mixed attention (grl_attention.cu,
 // _grl_mixed_core at bf16: q, k and the anchors normalised and rounded,
 // the softmaxes in fp32 rounded before their products, x1 and both
-// outputs rounded). Launches, no library call:
-//   1. the two halves' weight columns zero-padded to [kp][np] bf16
-//      (bf16_gemm.cuh's bg_pad, a launch each);
-//   2. x_rolled (x where unshifted) into rows padded to kp (bg_rows: Cin
-//      180 is 360 bytes a row, not the 16-byte multiple the GEMM's copies
-//      take);
-//   3. the window half's q | k | v on bf16_gemm.cuh's GEMM (bf16 mma.sync,
-//      fp32 sums), the epilogue writing qw, kw, vw as three contiguous
-//      [B, H, W, C2] bf16 tensors, the layout #2's bf16 entry takes;
-//   4. (shifted only) x into padded rows; 5. the stripe half's qs, ks, vs;
-//   6. #2's bf16 kernel (ff_grl_mixed_attention_nhwc_bf16) as it is.
-// What bounds it: at 336x512 the projection is 33.4 GFLOP a call, 0.03 ms
-// at 989 TFLOP/s, and x (twice where shifted), the anchor and the two
-// outputs ~0.19 GB, 0.06 ms; this first version moves the six halves and
-// the padded rows through device memory besides.
+// outputs rounded; the mask rounded to bf16 as the JAX wrapper casts it,
+// :882). Two launches, no library call, no per-call weight pass:
+//   1. the six halves qw, kw, vw (from x_rolled, x where unshifted) and
+//      qs, ks, vs (from x) on bf16_wgmma.cuh's wgmma (grl_qkv_wgmma_kernel:
+//      a block 64 rows, one consumer warpgroup and a producer warp). The
+//      weight comes laid out once per module (ops/wgmma.py:segment_layouts:
+//      each 90-column segment of wqkv padded to its own chunk of BN
+//      columns, so that one chunk's sums are exactly one output tensor's)
+//      and streams through an mbarrier ring by bulk copies. The block
+//      stages its rows of x_rolled and x (360-byte rows at GRL-B: no bulk
+//      copy lands them in core-matrix order, so the consumers do, 8- and
+//      16-byte loads), runs the window half's three chunks on x_rolled's
+//      rows and the stripe half's three on x's, and each chunk's epilogue
+//      (+ bias in fp32, rounded) writes the block's [64][C2] piece of that
+//      output, one contiguous 16-byte aligned piece of it (11,520 bytes at
+//      GRL-B), into a shared tile that leaves by one bulk store (bw_store;
+//      two tiles, so that a chunk's store overlaps the next chunk's
+//      products; a ragged last block stores its rows' bytes);
+//   2. #2's bf16 kernel (ff_grl_mixed_attention_nhwc_bf16) as it is.
+// What bounds it: at 336x512 the projection is 33.4 GFLOP a call (0.03 ms
+// at 989 TFLOP/s); x (twice where shifted), the six halves out and back
+// in, the anchor and the two outputs ~0.45 GB (0.13 ms at 3.35 TB/s).
 
-#include "bf16_gemm.cuh"
+#include "bf16_wgmma.cuh"
 #include "grl_attention.cuh"
 #include "tf32_gemm.cuh"
 
@@ -162,90 +169,158 @@ extern "C" int ff_grl_mixed_attention_qkv_nhwc(
 
 namespace {
 
-// The bf16 call's scratch (byte offsets), each piece 256-byte aligned:
-// the two halves' padded weights, the padded rows, the six halves.
-struct GrlQkvBf16Layout {
-  int kp, np;  // Cin padded to 32, 3 C2 to 64
-  long long w[2], a, half[6], bytes;
+// The projection's A and the weight's chunks: x_rolled's rows (the window
+// half) and x's (the stripe half), K padded to 32.
+struct GrlQkvBf16 {
+  const __nv_bfloat16* xr;  // x_rolled, or x where unshifted
+  const __nv_bfloat16* x;
+  const void* w;            // segment layout: 6 chunks x kp / 32 stages
+  const __nv_bfloat16* bias;  // [6 C2]
+  __nv_bfloat16* out[6];    // qw, kw, vw, qs, ks, vs: [M, C2] each
+  long long M;
+  int K, kp, C2;
 };
 
-GrlQkvBf16Layout grl_qkv_bf16_layout(long long M, int Cin, int C2) {
-  GrlQkvBf16Layout l;
-  l.kp = bg_up(Cin, kBgK);
-  l.np = bg_up(3 * C2, kBgN);
-  l.w[0] = 0;
-  l.w[1] = bg_piece(2LL * l.kp * l.np);
-  l.a = 2 * l.w[1];
-  long long off = l.a + bg_piece(2 * M * l.kp);
-  for (int i = 0; i < 6; ++i) {
-    l.half[i] = off;
-    off += bg_piece(2 * M * C2);
+// One block's rows staged once or twice (x_rolled and x), the weight's six
+// chunks streamed, each chunk's [64][C2] piece out by one bulk store.
+template <int BN>
+__global__ void __launch_bounds__(160)
+grl_qkv_wgmma_kernel(const GrlQkvBf16 a) {
+  extern __shared__ __align__(128) unsigned char bw_smem[];
+  constexpr int kRows = 64;
+  BwRing r = bw_ring(bw_smem, BN * 64, 4);
+  const bool two = a.xr != a.x;
+  unsigned char* a0 = bw_smem + kBwHead + kBwStages * BN * 64;
+  unsigned char* a1 = two ? a0 + kRows * a.kp * 2 : a0;
+  const int tile_bytes = bw_up(kRows * a.C2 * 2, 16);
+  unsigned char* tiles = a0 + (two ? 2 : 1) * kRows * a.kp * 2;
+  float* vs = reinterpret_cast<float*>(tiles + 2 * tile_bytes);
+  __syncthreads();
+  const int tid = threadIdx.x;
+  if (tid >= 128) {
+    if (tid == 128) bw_produce(r, a.w, 6 * (a.kp / kBwK));
+    return;
   }
-  l.bytes = off;
-  return l;
+  const long long m0 = (long long)blockIdx.x * kRows;
+  for (int i = tid; i < 6 * BN; i += 128) {
+    const int sg = i / BN, c = i % BN;
+    vs[i] = c < a.C2 ? __bfloat162float(a.bias[sg * a.C2 + c]) : 0.f;
+  }
+  BwRows{a.xr, a.M, a.K}.stage(a0, nullptr, m0, kRows, a.kp, tid, 128);
+  if (two) BwRows{a.x, a.M, a.K}.stage(a1, nullptr, m0, kRows, a.kp, tid, 128);
+  fence_proxy_async();  // the staged A, before wgmma reads it
+  bw_sync(128);
+  const long long left = a.M - m0;
+  const int rows = left < kRows ? int(left) : kRows;
+  const uint32_t bytes = uint32_t(rows * a.C2 * 2);
+  const uint32_t bulk = bytes & ~15u;  // the rest (a ragged block's) stored
+  for (int c = 0; c < 6; ++c) {
+    float acc[BN / 2];
+    bw_chunk<BN>(acc, c < 3 ? a0 : a1, kRows, a.kp / kBwK, r);
+    unsigned char* tile = tiles + (c & 1) * tile_bytes;
+    // the store two chunks back read this tile before it is filled again
+    if (tid == 0) bw_store_wait_read<1>();
+    bw_sync(128);
+    const float* bv = vs + c * BN;
+    bw_each<BN>(acc, [&](int row, int col, float v0, float v1) {
+      if (col < a.C2)
+        *reinterpret_cast<uint32_t*>(tile + (row * a.C2 + col) * 2) =
+            pack_bf16(v0 + bv[col], v1 + bv[col + 1]);
+    });
+    fence_proxy_async();  // the tile, before the bulk store reads it
+    bw_sync(128);
+    unsigned char* dst =
+        reinterpret_cast<unsigned char*>(a.out[c] + m0 * a.C2);
+    if (tid == 0 && bulk) {
+      bw_store(dst, tile, bulk);
+      bw_store_commit();
+    }
+    for (uint32_t i = bulk + 2 * tid; i < bytes; i += 256)
+      *reinterpret_cast<__nv_bfloat16*>(dst + i) =
+          *reinterpret_cast<const __nv_bfloat16*>(tile + i);
+  }
+  if (tid == 0) bw_store_wait<0>();
+}
+
+// The chunk width of C2 columns: the narrowest instantiated wgmma width
+// that holds them (ops/wgmma.py:segment_cols).
+inline int grl_qkv_cols(int c2) {
+  return c2 <= 48 ? 48 : c2 <= 64 ? 64 : c2 <= 96 ? 96 : 128;
+}
+
+inline int grl_qkv_smem(int kp, int c2, bool two) {
+  const int bn = grl_qkv_cols(c2);
+  return bw_smem_bytes(64, kp, bn,
+                       (two ? 64 * kp * 2 : 0) + 2 * bw_up(64 * c2 * 2, 16) +
+                           6 * bn * 4);
+}
+
+template <int BN>
+cudaError_t grl_qkv_project(const GrlQkvBf16& a, cudaStream_t s) {
+  static int allowed[64] = {};
+  const int bytes = grl_qkv_smem(a.kp, a.C2, a.xr != a.x);
+  const long long blocks = (a.M + 63) / 64;
+  if (bytes > 227 * 1024 || blocks > 0x7fffffffLL ||
+      reinterpret_cast<size_t>(a.w) % 16)
+    return cudaErrorInvalidValue;
+  for (int i = 0; i < 6; ++i)
+    if (reinterpret_cast<size_t>(a.out[i]) % 16) return cudaErrorInvalidValue;
+  if (blocks <= 0) return cudaSuccess;
+  cudaError_t err = bw_allow(grl_qkv_wgmma_kernel<BN>, bytes, allowed);
+  if (err != cudaSuccess) return err;
+  grl_qkv_wgmma_kernel<BN><<<unsigned(blocks), 160, bytes, s>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Bytes of scratch a bf16 call on M pixels of Cin channels, halves of C2,
-// needs (grl_qkv_bf16_layout); -1 for widths it refuses.
+// needs: the six halves, each 256-byte aligned; -1 for widths it refuses
+// (Cin even, K padded to 32 at most 640; C2 even, at most 128).
 extern "C" long long ff_grl_qkv_bf16_scratch_bytes(long long M, int Cin,
                                                    int C2) {
-  if (M <= 0 || Cin <= 0 || Cin > 2048 || C2 <= 0 || C2 % 2) return -1;
-  return grl_qkv_bf16_layout(M, Cin, C2).bytes;
+  if (M <= 0 || Cin <= 0 || Cin % 2 || bw_up(Cin, kBwK) > 640 || C2 <= 0 ||
+      C2 % 2 || C2 > 128)
+    return -1;
+  return 6 * ((2 * M * C2 + 255) / 256 * 256);
 }
 
 // As ff_grl_mixed_attention_qkv_nhwc with x, x_rolled (or null), the
-// anchor, wqkv, bqkv and both outputs bf16, the scales, biases and mask
-// fp32 (8-byte aligned); scratch of ff_grl_qkv_bf16_scratch_bytes(B H W,
-// Cin, C2) bytes, 16-byte aligned. C2 even.
+// anchor, bqkv and both outputs bf16, wqkv bf16 in the segment layout
+// (ops/wgmma.py:segment_layout of wqkv [Cin, 6 C2] at bn =
+// grl_qkv_cols(C2) columns a chunk, 16-byte aligned); the scales, biases
+// and mask fp32 (8-byte aligned); scratch of ff_grl_qkv_bf16_scratch_bytes(
+// B H W, Cin, C2) bytes, 16-byte aligned.
 extern "C" int ff_grl_mixed_attention_qkv_nhwc_bf16(
     const void* x_, const void* x_rolled_, const void* anchor,
-    const void* wqkv_, const void* bqkv_, const float* scale_w,
+    const void* wl, const void* bqkv_, const float* scale_w,
     const float* scale_s1, const float* scale_s2, const float* bias_w,
     const float* bias_s1, const float* bias_s2, const float* mask,
     void* out_w, void* out_s, void* scratch_, long long scratch_bytes, int B,
-    int H, int W, int Cin, int C2, int heads_w, int heads_s, int ws, int df,
-    void* stream) {
+    int H, int W, int Cin, int C2, int bn, int heads_w, int heads_s, int ws,
+    int df, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long M = (long long)B * H * W;
   const long long need = ff_grl_qkv_bf16_scratch_bytes(M, Cin, C2);
-  if (need < 0 || scratch_bytes < need ||
+  if (need < 0 || scratch_bytes < need || bn != grl_qkv_cols(C2) ||
       reinterpret_cast<size_t>(scratch_) % 16)
     return int(cudaErrorInvalidValue);
-  const GrlQkvBf16Layout l = grl_qkv_bf16_layout(M, Cin, C2);
-  char* scratch = static_cast<char*>(scratch_);
-  auto piece = [&](long long off) {
-    return reinterpret_cast<bf16*>(scratch + off);
-  };
-  const bf16* x = static_cast<const bf16*>(x_);
-  const bf16* xr = x_rolled_ ? static_cast<const bf16*>(x_rolled_) : x;
-  const bf16* wqkv = static_cast<const bf16*>(wqkv_);
-  const bf16* bqkv = static_cast<const bf16*>(bqkv_);
-  bf16* a = piece(l.a);
-  bf16* h[6];
-  for (int i = 0; i < 6; ++i) h[i] = piece(l.half[i]);
-  cudaError_t err = cudaSuccess;
-  for (int half = 0; half < 2 && err == cudaSuccess; ++half)
-    err = bg_pad(wqkv + 3 * C2 * half, 6 * C2, 1, Cin, l.kp, 3 * C2, 0,
-                 piece(l.w[half]), l.kp, l.np, s);
-  // the window half from x_rolled, the stripe half from x (the rows pass
-  // again only where the two differ)
-  for (int half = 0; half < 2 && err == cudaSuccess; ++half) {
-    if (half == 0 || x_rolled_)
-      err = bg_rows(half ? x : xr, M, Cin, nullptr, nullptr, 0.f, a, l.kp,
-                    s);
-    if (err == cudaSuccess)
-      err = bg_gemm(BgRows{a, M, l.kp}, M, piece(l.w[half]), l.np, l.kp,
-                    l.np,
-                    BgSegEpi{bqkv + 3 * C2 * half,
-                             {h[3 * half], h[3 * half + 1], h[3 * half + 2]},
-                             M, C2, 3},
-                    s);
-  }
+  using bf = __nv_bfloat16;
+  const bf* x = static_cast<const bf*>(x_);
+  GrlQkvBf16 a{x_rolled_ ? static_cast<const bf*>(x_rolled_) : x, x, wl,
+               static_cast<const bf*>(bqkv_), {}, M, Cin, bw_up(Cin, kBwK),
+               C2};
+  const long long piece = need / 6;
+  for (int i = 0; i < 6; ++i)
+    a.out[i] = reinterpret_cast<bf*>(static_cast<char*>(scratch_) +
+                                     i * piece);
+  cudaError_t err = bn == 48   ? grl_qkv_project<48>(a, s)
+                    : bn == 64 ? grl_qkv_project<64>(a, s)
+                    : bn == 96 ? grl_qkv_project<96>(a, s)
+                               : grl_qkv_project<128>(a, s);
   if (err != cudaSuccess) return int(err);
   return ff_grl_mixed_attention_nhwc_bf16(
-      h[0], h[1], h[2], h[3], h[4], h[5], anchor, scale_w, scale_s1,
-      scale_s2, bias_w, bias_s1, bias_s2, mask, out_w, out_s, B, H, W, C2,
-      heads_w, heads_s, ws, df, stream);
+      a.out[0], a.out[1], a.out[2], a.out[3], a.out[4], a.out[5], anchor,
+      scale_w, scale_s1, scale_s2, bias_w, bias_s1, bias_s2, mask, out_w,
+      out_s, B, H, W, C2, heads_w, heads_s, ws, df, stream);
 }

@@ -45,8 +45,9 @@
 // with the JAX kernel's rounding points (_qkv_kernel_body, :655-678, run
 // on bf16 operands): qkv = bf16(x Wqkv + bqkv) with the products' sums
 // and the bias add in fp32 (:666); #1's bf16 attention (window_attention.cu,
-// _attn_heads at dt bf16: the q-scale rounded, logits, bias and mask in
-// fp32, the softmax in fp32 and normalised before it is rounded, P V in
+// _attn_heads at dt bf16: the q-scale rounded, logits in fp32 plus the
+// bias and the mask, the mask cast to bf16 as the JAX wrapper casts it
+// (:773), the softmax in fp32 and normalised before it is rounded, P V in
 // fp32, each head rounded); out = bf16(attn Wproj + bproj) (:676). Three
 // launches, no library call, no per-call weight pass (the two weights come
 // laid out in wgmma's order, once per module: ops/wgmma.py):
@@ -75,10 +76,10 @@
 #include "window_attention.cuh"
 
 // window_attention.cu: #1's bf16 kernel (q, k, v, out [B, H, W, C] bf16;
-// bias [heads, N, N] bf16; mask [nW, N, N] fp32 or null)
+// bias [heads, N, N] and mask [nW, N, N] (or null) bf16)
 extern "C" int ff_window_attention_nhwc_bf16(const void* q, const void* k,
                                              const void* v, const void* bias,
-                                             const float* mask, void* out,
+                                             const void* mask, void* out,
                                              int B, int H, int W, int C,
                                              int num_heads, int ws,
                                              float scale, void* stream);
@@ -260,18 +261,18 @@ extern "C" long long ff_window_attention_qkv_bf16_scratch_bytes(
   return qkv_bf16_layout(M, C).bytes;
 }
 
-// As ff_window_attention_qkv_nhwc, all bf16 but the mask (fp32, 8-byte
-// aligned, or null): x [B, H, W, Cin]; wq and wp the two weights in
+// As ff_window_attention_qkv_nhwc, all bf16 (the mask 16-byte aligned, or
+// null): x [B, H, W, Cin]; wq and wp the two weights in
 // wgmma's order (ops/wgmma.py:weight_layout of wqkv [Cin, 3C] at bnq
 // columns a chunk and of wproj [C, C] at bnp; bnq = bw_cols(3 C), bnp =
 // bw_cols(C)), 16-byte aligned; bqkv [3C], bproj [C], bias [heads, N, N]
-// (4-byte aligned); out [B, H, W, C]; scratch of
+// (16-byte aligned); out [B, H, W, C]; scratch of
 // ff_window_attention_qkv_bf16_scratch_bytes(B H W, Cin, C) bytes,
 // 16-byte aligned. Cin and C even; N = ws * ws a multiple of 16 up to
 // 256; head dims up to 128.
 extern "C" int ff_window_attention_qkv_nhwc_bf16(
     const void* x_, const void* wq, const void* bqkv_, const void* wp,
-    const void* bproj_, const void* bias, const float* mask, void* out_,
+    const void* bproj_, const void* bias, const void* mask, void* out_,
     void* scratch_, long long scratch_bytes, int B, int H, int W, int Cin,
     int C, int num_heads, int ws, float scale, int bnq, int bnp,
     void* stream) {

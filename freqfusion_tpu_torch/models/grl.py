@@ -149,11 +149,14 @@ class MixedAttention(nn.Module):
                   bias_s2, mask, self.nhw, self.nhs, ws, df)
         if gate("FREQFUSION_GRL_QKV"):
             # 6-way qkv projection inside the kernel: the window half
-            # projects from the rolled x, the stripe half from x
+            # projects from the rolled x, the stripe half from x; the
+            # weight as a view of the parameter, so that the bf16 kernel's
+            # cached layout is found (a copy made under inference mode has
+            # no version counter and would be laid out on every call)
             x_rolled = (torch.roll(x, shifts=(-ss, -ss), dims=(1, 2))
                         if ss else None)
             x_window, x_stripe = grl_mixed_attention_qkv_nhwc(
-                x, x_rolled, anchor, wq.t().contiguous(), bq, *tables)
+                x, x_rolled, anchor, wq.t(), bq, *tables)
         else:
             qw, kw, vw, qs, ks, vs = (
                 F.linear(x, wq[i * c2:(i + 1) * c2], bq[i * c2:(i + 1) * c2])

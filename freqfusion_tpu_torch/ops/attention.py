@@ -18,15 +18,17 @@ anchors in blocks that :func:`plan_grl_attention` describes.
 
 ``window_attention_nhwc``, ``grl_mixed_attention_nhwc`` and the two
 ``*_qkv_nhwc`` entries also take bf16 operands (the bf16 expert mode):
-their bf16 kernels (``csrc/window_attention.cu``,
-``csrc/grl_attention.cu``, ``csrc/window_attention_qkv.cu``,
-``csrc/grl_attention_qkv.cu``, counted as ``<name>.bf16``; DRCT's two
-bf16 projections on ``csrc/bf16_wgmma.cuh``'s wgmma GEMM, its weights laid
-out once by ``ops/wgmma.py``) and their plain
-versions round where the JAX kernels' bf16 runs round: products of bf16
-values accumulated in fp32, the projections' bias added in fp32 and
-rounded once, the softmax in fp32 and rounded to bf16 before its product,
-bf16 outputs. ``window_attention`` takes fp32 only and refuses bf16
+their bf16 kernels (``csrc/window_attention.cu``, one pass over the keys
+on wgmma, :func:`plan_window_attention_bf16`; ``csrc/grl_attention.cu``,
+``csrc/window_attention_qkv.cu``, ``csrc/grl_attention_qkv.cu``, counted
+as ``<name>.bf16``; DRCT's two bf16 projections and GRL's one on
+``csrc/bf16_wgmma.cuh``'s wgmma, their weights laid out once by
+``ops/wgmma.py``) and their plain versions round where the JAX kernels'
+bf16 runs round: products of bf16 values accumulated in fp32, the
+projections' bias added in fp32 and rounded once, the mask rounded to
+bf16 (the JAX wrappers cast it to the operands' dtype), the softmax in
+fp32 and rounded to bf16 before its product, bf16 outputs.
+``window_attention`` takes fp32 only and refuses bf16
 (:func:`cuda.fp32_only`).
 """
 
@@ -40,10 +42,11 @@ import torch.nn.functional as F
 from . import cuda, wgmma
 from .tf32_gemm import (MAX_CHANNELS, ROWS, SMEM_LIMIT, GemmPlan, _round_up,
                         plan_gemm)
-from .window_attention import (multi_head_window_attention, window_partition,
-                               window_reverse)
+from .window_attention import (multi_head_window_attention, table_as,
+                               window_partition, window_reverse)
 
 __all__ = ["plan_window_attention", "plan_qkv_projections", "QkvPlan",
+           "plan_window_attention_bf16", "WindowBf16Plan",
            "plan_grl_attention", "GrlPlan", "plan_grl_qkv_projections",
            "GrlQkvPlan",
            "window_attention",
@@ -136,25 +139,62 @@ def window_attention_nhwc_reference(q, k, v, bias, mask, num_heads: int,
     return window_reverse(out, window_size, h, w)
 
 
-def _window_attention_nhwc_bf16(q, k, v, bias, mask, num_heads: int,
-                                ws: int, scale: float) -> torch.Tensor:
-    """The bf16 kernel: q, k, v bf16; bias bf16 (the module's bf16
-    table); mask fp32. N = ws * ws a multiple of 16 up to 256, head dims
-    up to 128."""
-    b, h, w, c = q.shape
-    n, hd, dev = ws * ws, c // num_heads, q.device
-    if n % 16 or n > 256 or hd > 128:
+class WindowBf16Plan(NamedTuple):
+    """How ``csrc/window_attention.cu``'s bf16 kernel runs a call (its
+    ``wa_bf16_plan``): one block a (window, head), 64-query tiles a
+    warpgroup, the logits of a tile over all keys in its accumulators."""
+    hdp: int             # head box: hd rounded up to 16 (wgmma's k16, P V's N)
+    nk: int              # keys padded to one or two 128-key halves
+    nq: int              # queries padded to whole 64-row tiles
+    warpgroups: int      # a block's (two where hdp > 64)
+    smem: int            # bytes of shared memory a block
+    blocks_per_sm: int   # by shared memory and registers
+    regs: int            # the registers a thread may take at that many
+
+
+# an SM's shared memory (1 KB of it reserved a block) and registers
+SM_SMEM, SM_REGS = 233472, 65536
+
+
+def plan_window_attention_bf16(n: int, hd: int) -> WindowBf16Plan:
+    """The bf16 kernel's plan for N = `n` tokens a window and head dim
+    `hd`: q, k and v staged whole ([nq + 2 nk][hdp] bf16), an output tile
+    of 64 x (hdp + 8) a warpgroup and the rows' pixel offsets (4 n); at
+    most three blocks an SM up to head box 32, two up to 64 and one above
+    (``__launch_bounds__``), fewer where shared memory holds fewer."""
+    if n % 16 or not 16 <= n <= 256 or not 1 <= hd <= 128:
         raise ValueError(f"window_attention_nhwc (bf16): N={n} must be a "
                          f"multiple of 16 up to 256 and the head dim {hd} "
                          "at most 128")
+    hdp = _round_up(hd, 16)
+    nk, nq = (128 if n <= 128 else 256), _round_up(n, 64)
+    wg = 2 if hdp > 64 else 1
+    smem = 2 * hdp * (nq + 2 * nk) + wg * 64 * (hdp + 8) * 2 + 4 * n
+    per_sm = min(1 if wg == 2 else 3 if hdp <= 32 else 2,
+                 SM_SMEM // (smem + 1024))
+    regs = min(255, SM_REGS // (128 * wg * per_sm) // 8 * 8)
+    return WindowBf16Plan(hdp, nk, nq, wg, smem, per_sm, regs)
+
+
+def _window_attention_nhwc_bf16(q, k, v, bias, mask, num_heads: int,
+                                ws: int, scale: float) -> torch.Tensor:
+    """The bf16 kernel: q, k, v bf16; bias bf16 (the module's bf16
+    table); the mask cast to bf16 as the JAX wrapper casts it (once for a
+    device table, :func:`table_as`). N = ws * ws a multiple of 16 up to
+    256, head dims up to 128."""
+    b, h, w, c = q.shape
+    n, hd, dev = ws * ws, c // num_heads, q.device
+    plan_window_attention_bf16(n, hd)
+    mask = table_as(mask, torch.bfloat16)
     for name, t in (("q", q), ("k", k), ("v", v)):
         cuda.require(t, name, (b, h, w, c), dev, torch.bfloat16)
     cuda.require(bias, "bias", (num_heads, n, n), dev, torch.bfloat16)
     if mask is not None:
-        cuda.require(mask, "mask", ((h // ws) * (w // ws), n, n), dev)
-    if bias.data_ptr() % 4 or (mask is not None and mask.data_ptr() % 8):
-        raise ValueError("window_attention_nhwc (bf16): bias must be 4-byte "
-                         "and mask 8-byte aligned")
+        cuda.require(mask, "mask", ((h // ws) * (w // ws), n, n), dev,
+                     torch.bfloat16)
+    if bias.data_ptr() % 16 or (mask is not None and mask.data_ptr() % 16):
+        raise ValueError("window_attention_nhwc (bf16): bias and mask must "
+                         "be 16-byte aligned")
     out = torch.empty_like(q)
     err = cuda.library().ff_window_attention_nhwc_bf16(
         cuda.ptr(q), cuda.ptr(k), cuda.ptr(v), cuda.ptr(bias),
@@ -173,7 +213,8 @@ def window_attention_nhwc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [nW, N, N] (row-major windows) or None. Returns [B, H, W, C]:
     softmax(q k^T * scale + bias + mask) v per window and head, scale
     defaulting to head_dim ** -0.5. fp32 operands throughout, or q, k, v
-    and bias in bf16 with an fp32 mask (the bf16 kernel, bf16 out)."""
+    and bias in bf16 with the mask in fp32 or bf16 (the bf16 kernel, bf16
+    out; the mask rounded to bf16 as the JAX wrapper casts it)."""
     b, h, w, c = q.shape
     ws = window_size
     hd = c // num_heads
@@ -570,17 +611,18 @@ def _window_attention_qkv_nhwc_bf16(x, wqkv, bqkv, wproj, bproj, bias,
                                     mask, num_heads: int, ws: int,
                                     scale: float) -> torch.Tensor:
     """The bf16 kernel: x, the weights, their biases and the bias table
-    bf16; mask fp32. Cin and C even, each at most 640 (the GEMM's staged
-    rows); N = ws * ws a multiple of 16 up to 256, head dims up to 128
-    (#1's bf16 body). The two weights go to the kernel laid out in wgmma's
-    order, once per weight (:func:`wgmma.weight_layouts`)."""
+    bf16; the mask cast to bf16 (:func:`table_as`). Cin and C even, each at
+    most 640 (the GEMM's staged rows); N = ws * ws a multiple of 16 up to
+    256, head dims up to 128 (#1's bf16 kernel). The two weights go to the
+    kernel laid out in wgmma's order, once per weight
+    (:func:`wgmma.weight_layouts`)."""
     b, h, w, cin = x.shape
     c = wqkv.shape[1] // 3
     n, hd, dev = ws * ws, c // num_heads, x.device
-    if c % 2 or n % 16 or n > 256 or hd > 128:
+    if c % 2:
         raise ValueError(f"window_attention_qkv_nhwc (bf16): C={c} must be "
-                         f"even, N={n} a multiple of 16 up to 256 and the "
-                         f"head dim {hd} at most 128")
+                         "even")
+    plan_window_attention_bf16(n, hd)
     bf = torch.bfloat16
     cuda.require(x, "x", (b, h, w, cin), dev, bf)
     # the two weights are read only through their layouts: any view
@@ -589,11 +631,12 @@ def _window_attention_qkv_nhwc_bf16(x, wqkv, bqkv, wproj, bproj, bias,
     cuda.require(wproj, "wproj", (c, c), dev, bf, contiguous=False)
     cuda.require(bproj, "bproj", (c,), dev, bf)
     cuda.require(bias, "bias", (num_heads, n, n), dev, bf)
+    mask = table_as(mask, bf)
     if mask is not None:
-        cuda.require(mask, "mask", ((h // ws) * (w // ws), n, n), dev)
-    if bias.data_ptr() % 4 or (mask is not None and mask.data_ptr() % 8):
-        raise ValueError("window_attention_qkv_nhwc (bf16): bias must be "
-                         "4-byte and mask 8-byte aligned")
+        cuda.require(mask, "mask", ((h // ws) * (w // ws), n, n), dev, bf)
+    if bias.data_ptr() % 16 or (mask is not None and mask.data_ptr() % 16):
+        raise ValueError("window_attention_qkv_nhwc (bf16): bias and mask "
+                         "must be 16-byte aligned")
     plan = wgmma.plan_qkv_bf16(b * h * w, cin, c)
     lib = cuda.library()
     nbytes = lib.ff_window_attention_qkv_bf16_scratch_bytes(b * h * w, cin,
@@ -700,21 +743,24 @@ def grl_mixed_attention_qkv_nhwc_reference(
 def _grl_mixed_attention_qkv_nhwc_bf16(args, num_heads_w: int,
                                        num_heads_s: int, ws: int, df: int):
     """The bf16 kernel: x, x_rolled, the anchor, wqkv and bqkv bf16;
-    scales, biases and mask fp32 (as #2's bf16 kernel takes them). C/2
-    even."""
+    scales, biases and mask fp32 (as #2's bf16 kernel takes them; it
+    rounds the mask to bf16 as it reads it). C/2 even, at most 128; Cin
+    even. wqkv goes to the kernel in :func:`wgmma.segment_layout`'s order,
+    laid out once per weight (any view of it)."""
     (x, x_rolled, anchor, wqkv, bqkv, scale_w, scale_s1, scale_s2, bias_w,
      bias_s1, bias_s2, mask) = args
     b, h, w, cin = x.shape
     c2 = wqkv.shape[1] // 6
     n, na, dev, bf = ws * ws, (ws // df) ** 2, x.device, torch.bfloat16
-    if c2 % 2:
+    if c2 % 2 or c2 > 128:
         raise ValueError(f"grl_mixed_attention_qkv_nhwc (bf16): C/2={c2} "
-                         "must be even")
+                         "must be even and at most 128")
     cuda.require(x, "x", (b, h, w, cin), dev, bf)
     if x_rolled is not None:
         cuda.require(x_rolled, "x_rolled", (b, h, w, cin), dev, bf)
     cuda.require(anchor, "anchor", (b, h // df, w // df, c2), dev, bf)
-    cuda.require(wqkv, "wqkv", (cin, 6 * c2), dev, bf)
+    # read only through its layout: any view
+    cuda.require(wqkv, "wqkv", (cin, 6 * c2), dev, bf, contiguous=False)
     cuda.require(bqkv, "bqkv", (6 * c2,), dev, bf)
     cuda.require(scale_w, "scale_w", (num_heads_w, 1, 1), dev)
     cuda.require(scale_s1, "scale_s1", (num_heads_s, 1, 1), dev)
@@ -731,15 +777,16 @@ def _grl_mixed_attention_qkv_nhwc_bf16(args, num_heads_w: int,
     if nbytes < 0:
         raise ValueError(f"grl_mixed_attention_qkv_nhwc (bf16): Cin={cin}, "
                          f"C/2={c2} refused")
+    wl = wgmma.segment_layouts(wqkv, 6)
     out_w = x.new_empty(b, h, w, c2)
     out_s = x.new_empty(b, h, w, c2)
     scratch = torch.empty(nbytes, device=dev, dtype=torch.uint8)
     err = lib.ff_grl_mixed_attention_qkv_nhwc_bf16(
-        *(cuda.ptr(t) for t in (x, x_rolled, anchor, wqkv, bqkv, scale_w,
+        *(cuda.ptr(t) for t in (x, x_rolled, anchor, wl, bqkv, scale_w,
                                 scale_s1, scale_s2, bias_w, bias_s1,
                                 bias_s2, mask, out_w, out_s, scratch)),
-        nbytes, b, h, w, cin, c2, num_heads_w, num_heads_s, ws, df,
-        cuda.stream(x))
+        nbytes, b, h, w, cin, c2, wgmma.segment_cols(c2), num_heads_w,
+        num_heads_s, ws, df, cuda.stream(x))
     cuda.check(err, "grl_mixed_attention_qkv_nhwc (bf16)")
     cuda.launch_counts["grl_mixed_attention_qkv_nhwc.bf16"] += 1
     return out_w, out_s
@@ -762,7 +809,9 @@ def grl_mixed_attention_qkv_nhwc(
     mask as in grl_mixed_attention_nhwc, and the same geometry. Returns
     (x_window, x_stripe), each [B, H, W, C/2]. fp32 throughout, or x,
     x_rolled, the anchor, wqkv and bqkv in bf16 with fp32 scales, biases
-    and mask (the bf16 kernel, bf16 outputs)."""
+    and mask (the bf16 kernel, bf16 outputs). wqkv may be a view
+    (``models/grl.py`` hands the transposed parameter, so that the bf16
+    kernel's cached layout is reused)."""
     _check_shifted(x_rolled, mask)
     b, h, w, cin = x.shape
     c2 = wqkv.shape[1] // 6
@@ -784,6 +833,7 @@ def grl_mixed_attention_qkv_nhwc(
             df)
     n, na = ws * ws, (ws // df) ** 2
     dev = x.device
+    wqkv = wqkv.contiguous()  # the model hands a view of its parameter
     cuda.require(x, "x", (b, h, w, cin), dev)
     if x_rolled is not None:
         cuda.require(x_rolled, "x_rolled", (b, h, w, cin), dev)

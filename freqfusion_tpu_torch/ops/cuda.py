@@ -66,6 +66,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "ff_window_attention_nhwc": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
     "ff_window_attention_nhwc_bf16": [_P] * 6 + [_I] * 6 + [_F, _P],
+    "ff_window_attention_bf16_smem": [_I, _I],
+    "ff_window_attention_bf16_occupancy": [_I, _I],
     "ff_window_attention": [_P] * 6 + [_I] * 5 + [_F, _I, _I, _P],
     "ff_grl_mixed_attention_nhwc": [_P] * 16 + [_I] * 8 + [_P],
     "ff_grl_mixed_attention_nhwc_bf16": [_P] * 16 + [_I] * 8 + [_P],
@@ -106,7 +108,7 @@ _SIGNATURES = {
                                          + [_F, _I, _I, _P],
     "ff_grl_qkv_scratch_floats": [_L, _I, _I],
     "ff_grl_qkv_bf16_scratch_bytes": [_L, _I, _I],
-    "ff_grl_mixed_attention_qkv_nhwc_bf16": [_P] * 15 + [_L] + [_I] * 9
+    "ff_grl_mixed_attention_qkv_nhwc_bf16": [_P] * 15 + [_L] + [_I] * 10
                                             + [_P],
     "ff_grl_mixed_attention_qkv_nhwc": [_P] * 15 + [_L] + [_I] * 9 + [_P],
     "ff_token_attention_scratch_floats": [_L] + [_I] * 3,

@@ -2,17 +2,19 @@
 once per module and cached, and the plans of the kernels built on it.
 
 The GEMM (the bf16 qkv window attention's two projections, TPU #11, the
-bf16 NAFBlock's four products, #16, and the bf16 fused FFN's two, #14)
-streams a weight from device
-memory in stages of 32 of K by bulk copies, each stage one contiguous
-piece that wgmma reads from shared memory as it lands: for each chunk of
+bf16 GRL qkv projection, #12, the bf16 NAFBlock's four products, #16, and
+the bf16 fused FFN's two, #14) streams a weight from device memory in
+stages of 32 of K by bulk copies, each stage one contiguous piece that
+wgmma reads from shared memory as it lands: for each chunk of
 ``bn`` output columns, for each 16 of K, the chunk's 8-column groups, each
 group's two 8-wide halves of K one core matrix (8 columns x 8 values, 128
 bytes) apart. :func:`weight_layout` builds that order from a weight
 [K, N] ([in, out], the JAX layout), K padded to 32 and N to whole chunks
 with zeros; :func:`weight_layouts` caches it per weight tensor, so a call
 launches no weight pass. :func:`chunk_cols` is the GEMM's choice of
-``bn``. The bf16 CAB's two 3x3 convs (#15) read their weights tap by tap
+``bn``; :func:`segment_layout` pads each column segment of a weight to a
+chunk of its own (GRL's bf16 q | k | v projection, #12, one output a
+chunk). The bf16 CAB's two 3x3 convs (#15) read their weights tap by tap
 from :func:`conv_layout` (cached by :func:`conv_layouts`) and their A
 operand from a staged halo through shifted descriptors.
 """
@@ -25,6 +27,7 @@ import torch
 import torch.utils.weak as weak
 
 __all__ = ["K_STAGE", "chunk_cols", "weight_layout", "weight_layouts",
+           "segment_cols", "segment_layout", "segment_layouts",
            "conv_layout", "conv_layouts", "clear_weight_layouts",
            "NafBf16Plan", "plan_nafblock_bf16", "QkvBf16Plan",
            "plan_qkv_bf16", "FfnBf16Plan", "plan_ffn_bf16", "ffn_up_cols",
@@ -63,6 +66,34 @@ def weight_layout(w: torch.Tensor, bn: int, interleave: bool = False
     wt[:n, :k] = w.t()
     return wt.view(np_ // bn, bn // 8, 8, kp // 16, 2, 8).permute(
         0, 3, 1, 4, 2, 5).contiguous()
+
+
+def segment_cols(width: int) -> int:
+    """The chunk width of a segment `width` columns wide (``grl_qkv_cols``):
+    the narrowest instantiated wgmma width (48, 64, 96, 128) that holds
+    it."""
+    if width > 128:
+        raise ValueError(f"segment of {width} columns: at most 128")
+    return next(bn for bn in (48, 64, 96, 128) if bn >= width)
+
+
+def segment_layout(w: torch.Tensor, segs: int) -> torch.Tensor:
+    """w [K, segs x width] in the GEMM's order with each of its `segs`
+    column segments padded to its own chunk of ``segment_cols(width)``
+    columns: chunk s holds w[:, s width:(s + 1) width], then zeros, so one
+    chunk's sums are exactly one output's (GRL's q | k | v halves, #12)."""
+    k, n = w.shape
+    width = n // segs
+    bn = segment_cols(width)
+    wp = w.new_zeros(k, segs * bn)
+    wp.view(k, segs, bn)[:, :, :width] = w.reshape(k, segs, width)
+    return weight_layout(wp, bn)
+
+
+def segment_layouts(w: torch.Tensor, segs: int) -> torch.Tensor:
+    """:func:`segment_layout` of w, cached as :func:`weight_layouts` is
+    (GRL's MixedAttention hands the view ``wqkv.t()`` of its parameter)."""
+    return _cached(w, ("segments", segs), lambda t: segment_layout(t, segs))
 
 
 def conv_layout(w: torch.Tensor, bn: int) -> torch.Tensor:

@@ -17,6 +17,7 @@ import torch
 __all__ = [
     "window_partition", "window_reverse", "relative_position_index",
     "shifted_window_mask", "multi_head_window_attention", "device_table",
+    "table_as",
 ]
 
 
@@ -69,6 +70,10 @@ def shifted_window_mask(h: int, w: int, window: int, shift: int,
 
 
 _DEVICE_TABLES: dict = {}
+# casts of the device tables, keyed by the table's id and the dtype: a
+# table lives as long as the process and is never written, so its id
+# stays its own
+_TABLE_CASTS: dict = {}
 
 
 def device_table(fn, *args, device) -> Optional[torch.Tensor]:
@@ -77,9 +82,26 @@ def device_table(fn, *args, device) -> Optional[torch.Tensor]:
     key = (fn.__name__, args, str(device))
     if key not in _DEVICE_TABLES:
         arr = fn(*args)
-        _DEVICE_TABLES[key] = (None if arr is None
-                               else torch.as_tensor(arr).to(device))
+        table = None if arr is None else torch.as_tensor(arr).to(device)
+        _DEVICE_TABLES[key] = table
+        if table is not None:
+            _TABLE_CASTS[(id(table), table.dtype)] = table
     return _DEVICE_TABLES[key]
+
+
+def table_as(t: Optional[torch.Tensor], dtype: torch.dtype
+             ) -> Optional[torch.Tensor]:
+    """t in `dtype` (the JAX wrappers cast the mask to the operands'
+    dtype). A table that :func:`device_table` made is cast once and the
+    cast kept beside it; any other tensor is cast on each call."""
+    if t is None or t.dtype == dtype:
+        return t
+    if _TABLE_CASTS.get((id(t), t.dtype)) is not t:
+        return t.to(dtype)
+    key = (id(t), dtype)
+    if key not in _TABLE_CASTS:
+        _TABLE_CASTS[key] = t.to(dtype)
+    return _TABLE_CASTS[key]
 
 
 def multi_head_window_attention(q: torch.Tensor, k: torch.Tensor,

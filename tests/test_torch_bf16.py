@@ -108,6 +108,24 @@ def test_window_attention_bf16_matches_pallas(h, w, c, heads, ws, shift):
     _assert_bf16_close(got.float().numpy(), want.astype(jnp.float32))
 
 
+def test_window_attention_bf16_rounds_the_mask_like_pallas():
+    """A mask of values that bf16 does not hold exactly (the first
+    shape above, its compiled program): the JAX wrapper casts it to bf16
+    (pallas_attention.py:279), and so does the port."""
+    h, w, c, heads, ws = 16, 32, 60, 6, 8
+    rng = np.random.default_rng(23)
+    q, k, v = (_bf16_np(rng.standard_normal((1, h, w, c))) for _ in range(3))
+    bias = _bf16_np(0.5 * rng.standard_normal((heads, ws * ws, ws * ws)))
+    mask = rng.uniform(-40, 40, (8, ws * ws, ws * ws)).astype(np.float32)
+    assert (_bf16_np(mask) != mask).any()
+    want = fused_window_attention_nhwc(
+        *(jnp.asarray(t, BF) for t in (q, k, v, bias)), jnp.asarray(mask),
+        num_heads=heads, window_size=ws, interpret=True)
+    got = window_attention_nhwc(_port(q), _port(k), _port(v), _port(bias),
+                                torch.from_numpy(mask), heads, ws)
+    _assert_bf16_close(got.float().numpy(), want.astype(jnp.float32))
+
+
 @pytest.mark.parametrize("c2,shift", [(24, 4), (30, 0)])
 def test_grl_mixed_attention_bf16_matches_pallas(c2, shift):
     """bf16 halves and anchor; fp32 scales and biases, as GRL's module

@@ -2323,3 +2323,236 @@ def test_fp32_only_kernels_refuse_bf16(kernel):
     with pytest.raises(ValueError, match=f"{kernel}: .*bf16 version is not "
                                          "ported"):
         calls[kernel]()
+
+
+def _bf16_rerun_equal(fn):
+    """Two runs of a bf16 kernel give the same bits (no atomics)."""
+    first, again = fn(), fn()
+    torch.cuda.synchronize()
+    for a, b in zip(first if isinstance(first, tuple) else (first,),
+                    again if isinstance(again, tuple) else (again,)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads", [(180, 6), (212, 4), (244, 2), (276, 6),
+                                     (308, 4)])
+@pytest.mark.parametrize("shift", [0, 8])
+def test_window_attention_bf16_drct_widths(c, heads, shift):
+    """The one-pass wgmma #1 at DRCT-L's five widths (head dims 30, 53,
+    122, 46, 77: slices at 2- and 4-byte offsets, head boxes 32-128, one
+    and two warpgroups a block) on the 336x512 bucket, shifted and not,
+    against its plain version; reruns bit-equal."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c + shift)
+    h, w = 336, 512
+    q, k, v = (_b(rng.normal(size=(1, h, w, c)), dev) for _ in range(3))
+    bias = _b(0.5 * rng.normal(size=(heads, 256, 256)), dev)
+    mask = shifted_window_mask(h, w, 16, shift)
+    args = (q, k, v, bias, None if mask is None else _t(mask, dev), heads, 16)
+    cuda.reset_launch_counts()
+    got = window_attention_nhwc(*args)
+    _bf16_close(got, window_attention_nhwc_reference(*args),
+                "window_attention_nhwc.bf16")
+    _bf16_rerun_equal(lambda: window_attention_nhwc(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,ws", [(20, 2, 4), (60, 2, 8), (92, 2, 8),
+                                        (106, 2, 16), (154, 2, 12),
+                                        (180, 2, 8), (212, 2, 4),
+                                        (244, 2, 16)])
+@pytest.mark.parametrize("shift", [False, True])
+def test_window_attention_bf16_head_boxes(c, heads, ws, shift):
+    """#1 bf16 at batch 2 and every head box from 16 to 128 (head dims 10,
+    30, 46, 53, 77, 90, 106, 122; N 16, 64, 144, 256: one or two 128-key
+    halves, partial query tiles), shifted and not."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c + ws + shift)
+    h, w, n = 2 * ws, 3 * ws, ws * ws
+    q, k, v = (_b(rng.normal(size=(2, h, w, c)), dev) for _ in range(3))
+    bias = _b(0.5 * rng.normal(size=(heads, n, n)), dev)
+    mask = shifted_window_mask(h, w, ws, ws // 2) if shift else None
+    args = (q, k, v, bias, None if mask is None else _t(mask, dev), heads, ws)
+    cuda.reset_launch_counts()
+    _bf16_close(window_attention_nhwc(*args),
+                window_attention_nhwc_reference(*args),
+                "window_attention_nhwc.bf16")
+    _bf16_rerun_equal(lambda: window_attention_nhwc(*args))
+
+
+@pytest.mark.cuda
+def test_window_attention_bf16_plan_matches_the_kernel():
+    """ops/attention.py:plan_window_attention_bf16's shared memory is the
+    kernel's (ff_window_attention_bf16_smem) at every head box and N, and
+    the blocks an SM it assumes are the runtime's occupancy of the
+    kernel (ff_window_attention_bf16_occupancy: its registers and shared
+    memory)."""
+    from freqfusion_tpu_torch.ops.attention import plan_window_attention_bf16
+
+    cuda_or_skip()
+    lib = cuda.library()
+    for n in (16, 64, 144, 256):
+        for hd in (10, 30, 46, 53, 77, 90, 106, 122, 128):
+            plan = plan_window_attention_bf16(n, hd)
+            assert lib.ff_window_attention_bf16_smem(n, hd) == plan.smem
+            assert (lib.ff_window_attention_bf16_occupancy(n, hd)
+                    == plan.blocks_per_sm), (n, hd)
+    assert lib.ff_window_attention_bf16_smem(256, 129) == -1
+
+
+def _odd_mask(rng, nw, n, dev):
+    """A mask of values that bf16 does not hold exactly (up to 40 in
+    magnitude: a rounding of up to 0.125 in a logit)."""
+    m = rng.uniform(-40, 40, (nw, n, n)).astype(np.float32)
+    assert (torch.from_numpy(m).to(torch.bfloat16).float().numpy() != m).any()
+    return _t(m, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["#1", "#11", "#2", "#12"])
+def test_bf16_attention_rounds_the_mask(kernel):
+    """The four bf16 attention kernels take the mask as the JAX wrappers
+    cast it, rounded to bf16 (pallas_attention.py:279, :773, :612, :882),
+    as their plain versions do: with a mask that bf16 does not hold
+    exactly, each matches its plain version (a kernel that adds the fp32
+    mask unrounded misses)."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(23)
+    bf = torch.bfloat16
+    if kernel in ("#1", "#11"):
+        c, heads, ws = 60, 3, 8
+        h, w, n = 16, 24, 64
+        mask = _odd_mask(rng, (h // ws) * (w // ws), n, dev)
+        bias = _b(0.5 * rng.normal(size=(heads, n, n)), dev)
+        if kernel == "#1":
+            q, k, v = (_b(rng.normal(size=(1, h, w, c)), dev)
+                       for _ in range(3))
+            args = (q, k, v, bias, mask, heads, ws)
+            fn, ref = window_attention_nhwc, window_attention_nhwc_reference
+            name = "window_attention_nhwc.bf16"
+        else:
+            args = (_b(rng.normal(size=(1, h, w, c)), dev),
+                    _b(rng.normal(size=(c, 3 * c)) / np.sqrt(c), dev),
+                    _b(0.1 * rng.normal(size=3 * c), dev),
+                    _b(rng.normal(size=(c, c)) / np.sqrt(c), dev),
+                    _b(0.1 * rng.normal(size=c), dev), bias, mask, heads, ws)
+            fn = window_attention_qkv_nhwc
+            ref = window_attention_qkv_nhwc_reference
+            name = "window_attention_qkv_nhwc.bf16"
+    elif kernel == "#2":
+        args = list(_grl_args(rng, dev, 1, 24, 3, 3, True))
+        args[:7] = [a.to(bf) for a in args[:7]]
+        args[13] = _odd_mask(rng, 6, 64, dev)
+        fn, ref = grl_mixed_attention_nhwc, grl_mixed_attention_nhwc_reference
+        name = "grl_mixed_attention_nhwc.bf16"
+    else:
+        args = list(_grl_qkv_args(rng, dev, 1, 24, 3, 3, True))
+        args[:5] = [a.to(bf) for a in args[:5]]
+        args[11] = _odd_mask(rng, 6, 64, dev)
+        fn = grl_mixed_attention_qkv_nhwc
+        ref = grl_mixed_attention_qkv_nhwc_reference
+        name = "grl_mixed_attention_qkv_nhwc.bf16"
+    cuda.reset_launch_counts()
+    _bf16_close(fn(*args), ref(*args), name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,shift", [(180, 6, 8), (308, 4, 0)])
+def test_window_attention_qkv_bf16_phase2_shapes(c, heads, shift):
+    """#11 bf16 (its attention stage the one-pass #1) at phase 2's shapes:
+    336x512, C 180 shifted, C 308 not."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c)
+    h, w = 336, 512
+    mask = shifted_window_mask(h, w, 16, shift)
+    args = (_b(rng.normal(size=(1, h, w, c)), dev),
+            _b(rng.normal(size=(c, 3 * c)) / np.sqrt(c), dev),
+            _b(0.1 * rng.normal(size=3 * c), dev),
+            _b(rng.normal(size=(c, c)) / np.sqrt(c), dev),
+            _b(0.1 * rng.normal(size=c), dev),
+            _b(0.5 * rng.normal(size=(heads, 256, 256)), dev),
+            None if mask is None else _t(mask, dev), heads, 16)
+    cuda.reset_launch_counts()
+    _bf16_close(window_attention_qkv_nhwc(*args),
+                window_attention_qkv_nhwc_reference(*args),
+                "window_attention_qkv_nhwc.bf16")
+    _bf16_rerun_equal(lambda: window_attention_qkv_nhwc(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift,h,w", [(False, 336, 512), (True, 336, 512),
+                                       (True, 8, 8), (False, 8, 40)])
+def test_grl_mixed_attention_qkv_bf16_wgmma(shift, h, w):
+    """#12 bf16 (the wgmma projection, each output by bulk stores, and #2's
+    body) at GRL-B's phase-2 shapes (C 180, 3 + 3 heads of 30, 336x512)
+    and at one and five 64-row blocks (M is a multiple of 64 at window 8);
+    reruns bit-equal."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(h + w + shift)
+    bf = torch.bfloat16
+    x = _b(rng.normal(size=(1, h, w, 180)), dev)
+    anchor = _b(rng.normal(size=(1, h // 2, w // 2, 90)), dev)
+    scales = [_t(rng.uniform(10, 11, (3, 1, 1)), dev) for _ in range(3)]
+    biases = [_t(rng.uniform(0, 16, s), dev)
+              for s in ((3, 64, 64), (3, 16, 64), (3, 64, 16))]
+    mask = shifted_window_mask(h, w, 8, 4) if shift else None
+    args = (x, torch.roll(x, (-4, -4), (1, 2)).contiguous() if shift
+            else None, anchor,
+            _b(rng.normal(size=(180, 540)) / np.sqrt(180), dev),
+            _b(0.1 * rng.normal(size=540), dev), *scales, *biases,
+            None if mask is None else _t(mask, dev), 3, 3, 8)
+    assert args[0].dtype == bf
+    cuda.reset_launch_counts()
+    _bf16_close(grl_mixed_attention_qkv_nhwc(*args),
+                grl_mixed_attention_qkv_nhwc_reference(*args),
+                "grl_mixed_attention_qkv_nhwc.bf16")
+    _bf16_rerun_equal(lambda: grl_mixed_attention_qkv_nhwc(*args))
+
+
+@pytest.mark.cuda
+def test_grl_qkv_bf16_lays_its_weight_out_once(monkeypatch):
+    """GRL's bf16 MixedAttention with FREQFUSION_GRL_QKV served as io.main
+    serves it (torch.inference_mode): wqkv laid out on the first call only
+    (the module hands the view wqkv.t()), found on the next; an in-place
+    update is seen, and so is a write through .data after
+    clear_weight_layouts; each call against the gate-off module."""
+    from freqfusion_tpu_torch.models.grl import MixedAttention
+
+    dev = cuda_or_skip()
+    torch.manual_seed(0)
+    bf = torch.bfloat16
+    att = MixedAttention(180, 3, 3, 8, True, (8, 8), 2).to(dev).to(bf)
+    x = torch.randn(1, 16, 24, 180, device=dev).to(bf)
+    weight = att.qkv.body.weight
+    wgmma.clear_weight_layouts()
+
+    def entries():
+        return sum(len(t) for t in wgmma._LAYOUTS.values())
+
+    def check():
+        monkeypatch.setenv("FREQFUSION_GRL_QKV", "1")
+        cuda.reset_launch_counts()
+        got = att(x)
+        assert cuda.launch_counts["grl_mixed_attention_qkv_nhwc.bf16"] == 1
+        monkeypatch.setenv("FREQFUSION_GRL_QKV", "0")
+        want = att(x)
+        torch.cuda.synchronize()
+        top = want.float().abs().max().item()
+        tol = 4 * BF16_ULPS * 2.0 ** (np.floor(np.log2(top)) - 7)
+        assert (got.float() - want.float()).abs().max().item() <= tol
+        return got
+    with torch.inference_mode():
+        first = check()
+        assert entries() == 1
+        assert torch.equal(check(), first)
+        assert entries() == 1
+    with torch.no_grad():
+        weight.mul_(-1)
+    with torch.inference_mode():
+        assert not torch.equal(check(), first)
+    weight.data.copy_(torch.randn(540, 180, device=dev).to(bf) / 14)
+    wgmma.clear_weight_layouts()
+    with torch.inference_mode():
+        check()
+        assert entries() == 1

@@ -149,6 +149,33 @@ def test_grl_mixed_attention_qkv_bf16_matches_pallas(shifted, pallas_calls):
     _check(got, want)
 
 
+def test_grl_mixed_attention_qkv_bf16_rounds_the_mask_like_pallas(
+        pallas_calls):
+    """The shifted case above with a mask of values that bf16 does not
+    hold exactly: the JAX wrapper casts it to bf16 (pallas_attention.py:
+    882), and so does the port."""
+    rng = np.random.default_rng(23)
+    h, w, c, ws = 16, 24, 48, 8
+    x = _bf(rng, (1, h, w, c))
+    mask = rng.uniform(-40, 40, (6, 64, 64)).astype(np.float32)
+    assert (_bf16_np(mask) != mask).any()
+    bf16s = (x, np.roll(x, (-4, -4), axis=(1, 2)),
+             _bf(rng, (1, h // 2, w // 2, c // 2)),
+             _bf(rng, (c, 3 * c), c ** -0.5), _bf(rng, (3 * c,), 0.1))
+    fp32s = [rng.uniform(5, 30, (3, 1, 1)).astype(np.float32)
+             for _ in range(3)]
+    fp32s += [(16 / (1 + np.exp(-rng.standard_normal(s)))).astype(np.float32)
+              for s in ((3, 64, 64), (3, 16, 64), (3, 64, 16))]
+    fp32s.append(mask)
+    want = fused_grl_mixed_attention_qkv_nhwc(
+        *map(_jx, bf16s), *map(jnp.asarray, fp32s), num_heads_w=3,
+        num_heads_s=3, window_size=ws, down_factor=2, interpret=True)
+    got = grl_mixed_attention_qkv_nhwc(
+        *map(_pt, bf16s), *map(torch.from_numpy, fp32s), 3, 3, ws, 2)
+    assert len(pallas_calls) == 1
+    _check(got, want)
+
+
 @pytest.mark.parametrize("t,e,nh", [(9, 64, 4), (4, 128, 8)])
 def test_token_attention_bf16_matches_pallas(t, e, nh, pallas_calls):
     """Phase 3's (9 bands, E 64, 4 heads) and phase 4's (4 experts, E 128,
