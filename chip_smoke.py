@@ -10,9 +10,11 @@ exits non-zero without the final ok line):
    parallel; seconds, ptxas report, which fails the run on a spill in
    window attention at DRCT-L's head boxes, the fused FFN's products at
    the path's widths, the CAB's convolutions, the 3xTF32 GEMM, GRL's
-   mixed attention at GRL-B's head box, the 3x3 convs of hierarchical
-   stage 3 and the edge refinement or the LKABlock's kernels, fp32 and
-   bf16), TF32 off for matmuls and convolutions;
+   mixed attention at GRL-B's head box, the 3x3 convs of the edge
+   refinement or the LKABlock's kernels, fp32 and bf16, the bf16 GRL
+   mixed attention's persistent kernel at every head box and the bf16
+   hierarchical stage 3's six wgmma convs), TF32 off for matmuls and
+   convolutions;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the shapes its path gives it (336x512 LR bucket, NAFNet's levels at
    the 1344x2048 HR size), max-abs error against the stated tolerance,
@@ -85,7 +87,9 @@ exits non-zero without the final ok line):
    ten shapes with SDPA in bf16 as its library call (its bound with the
    mask's bf16 bytes and the softmax's exponentials on the SFU beside the
    products, its share of a request, 6 launches a shape, and one shifted
-   C 180 call's launches: one kernel), #2 at GRL-B's two,
+   C 180 call's launches: one kernel), #2 at GRL-B's two (its bound with
+   the mask's bf16 bytes, its share of a request, 20 launches a shape, and
+   one shifted call's launches: one kernel),
    #3/#4 on both chain layouts, each direction, with one call's launches
    (the wgmma projection and the passes only); then the bf16 kernels of
    SS2D's other routes on the operands each hands them in bf16 (#5, y
@@ -199,6 +203,7 @@ the card's name and power limit (card: ...), and
     python3 chip_smoke.py --nhwc-attention-only
     python3 chip_smoke.py --grl-only
     python3 chip_smoke.py --token-only
+    python3 chip_smoke.py --grl-hier-bf16-only
     python3 chip_smoke.py --bf16-only
 
 run phase 1 and phase 2's four byte-floor kernels, its three in-kernel
@@ -206,12 +211,14 @@ projection kernels (fp32, then bf16), its four fusion-eval kernels, the
 scan's seven contracts and then its bf16 kernels (#3/#4, #5, #9, #8: the
 whole scan body in one call), window attention #1 alone at its ten shapes,
 GRL's mixed attention #2 and #12 at GRL-B's two shapes, the token
-attention #13 at the fusion net's two geometries (fp32, then bf16), or
-the seventeen bf16 kernels, only (to
+attention #13 at the fusion net's two geometries (fp32, then bf16), the
+bf16 #2, #12 and #19 alone (each as in the bf16 phases below: #12 with
+its gate-off route, #19 with its gate-off route and one call's launches),
+or the seventeen bf16 kernels, only (to
 compare two versions of them in one call; --fusion-only,
---nhwc-attention-only, --grl-only and --bf16-only also run beside an
-older checkout of the package), and print their summary instead of the ok
-line.
+--nhwc-attention-only, --grl-only, --grl-hier-bf16-only and --bf16-only
+also run beside an older checkout of the package), and print their
+summary instead of the ok line.
 
     python3 chip_smoke.py --pipeline-only [CONFIG]
 
@@ -301,6 +308,8 @@ GEMM_EPILOGUES = ("bias", "residual", "gate")
 # csrc/conv3x3_tf32.cuh's conv_kernel<NT, MT, EPI, MULTI, BF16>: every
 # instantiation
 CONV_EPILOGUES = ("store", "SpatialGate", "squeeze", "broadcast")
+# csrc/hier.cu's bf16 wgmma convs' epilogues (HbEpi)
+HIER_EPILOGUES = ("GELU", "SpatialGate", "residuals", "sigmoid out")
 FFN_DOWN_TILES = (6, 8, 9, 10)
 # csrc/bf16_gemm.cuh's bg_gemm_kernel<A, Epi>: every instantiation (the
 # bf16 #13); the bf16 wgmma attention kernels (#1 at every head box, #12's
@@ -945,6 +954,18 @@ def check_spills(log: str, required: bool) -> None:
                        f"{m.group(5)} stages") if m.group(1)
                       else (f"{'bf16 ' if m.group(7) or m.group(8) == '1' else ''}"
                             f"{m.group(6)} pass")),
+        "bf16 GRL attention (#2, #12)": (
+            r"grl_bf16_kernelILi(\d+)ELb([01])E",
+            lambda m: True,
+            lambda m: f"head box {m.group(1)}, "
+                      + ("4-byte" if m.group(2) == "1" else "2-byte")
+                      + " fragments"),
+        "bf16 hierarchical stage 3 (#19)": (
+            r"hier_wgmma_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d)ELb([01])E",
+            lambda m: True,
+            lambda m: f"Cin {m.group(1)}, N {m.group(2)}, {m.group(3)} rows, "
+                      + HIER_EPILOGUES[int(m.group(4))]
+                      + (", s3_in gathered" if m.group(5) == "1" else "")),
         "bf16 scan (#3/#4, #5, #8, #9)": (
             r"scan_pass16_kernelILb([01])ELi(\d+)ELi(\d+)E|"
             r"(scan_project_wgmma)_kernel",
@@ -971,7 +992,7 @@ def check_spills(log: str, required: bool) -> None:
             raise AssertionError(f"no ptxas report for {group}")
     # the bf16 kernels' instantiations: reported, a spill not held against
     # them (simple first versions)
-    bf16 = (r"((?:window|grl)_attention_bf16|ta_bf16_attend)_kernelILi(\d+)E|"
+    bf16 = (r"(window_attention_bf16|ta_bf16_attend)_kernelILi(\d+)E|"
             r"dwconv3x3_kernelI(N?S?_?6?Bf16x4|13__nv_bfloat16)E")
     for name, regs, spill in entries:
         m = re.search(bf16, name)
@@ -1259,7 +1280,6 @@ def phase_bf16_kernels(dev, randn, checks) -> None:
     import torch.nn.functional as F
 
     from freqfusion_tpu_torch.ops.attention import (
-        grl_mixed_attention_nhwc, grl_mixed_attention_nhwc_reference,
         window_attention_nhwc, window_attention_nhwc_reference)
     from freqfusion_tpu_torch.ops.window_attention import (
         device_table, shifted_window_mask, window_partition)
@@ -1314,27 +1334,7 @@ def phase_bf16_kernels(dev, randn, checks) -> None:
     beside("window_attention_nhwc", wa)
     torch.cuda.empty_cache()
 
-    ga = checks["grl_mixed_attention_nhwc.bf16"] = KernelCheck(
-        "grl_mixed_attention_nhwc.bf16")
-    halves = [randn(1, h, w, 90).to(bf) for _ in range(6)]
-    anchor = randn(1, h // 2, w // 2, 90).to(bf)
-    scales = [10.0 + randn(3, 1, 1).abs() for _ in range(3)]
-    biases = [16 * torch.sigmoid(randn(*s)) for s in ((3, 64, 64),
-                                                     (3, 16, 64), (3, 64, 16))]
-    for shift in (0, 4):
-        mask = device_table(shifted_window_mask, h, w, 8, shift, device=dev)
-        args = (*halves, anchor, *scales, *biases, mask, 3, 3, 8)
-        nbytes = (2 * (8 * p * 90 + anchor.numel())
-                  + 4 * sum(b.numel() for b in biases)
-                  + (0 if mask is None else 4 * mask.numel()))
-        ga.run("shift" if shift else "noshift",
-               lambda: grl_mixed_attention_nhwc(*args),
-               lambda: grl_mixed_attention_nhwc_reference(*args), bf16_tol,
-               p * 90 * (4.0 * 64 + 8 * 16), nbytes, peak_flops=PEAK_BF16)
-    beside("grl_mixed_attention_nhwc", ga)
-    del halves, anchor
-    torch.cuda.empty_cache()
-
+    phase_bf16_grl_kernel(dev, randn, checks)
     phase_bf16_chain_proj(dev, randn, checks, beside)
     phase_bf16_scan_kernels(dev, randn, checks, beside)
     phase_bf16_fused_kernels(dev, randn, checks, beside)
@@ -1628,9 +1628,8 @@ def phase_bf16_qkv_kernels(dev, randn, checks) -> None:
     import torch.nn.functional as F
 
     from freqfusion_tpu_torch.ops.attention import (
-        grl_mixed_attention_nhwc, grl_mixed_attention_qkv_nhwc,
-        grl_mixed_attention_qkv_nhwc_reference, window_attention_nhwc,
-        window_attention_qkv_nhwc, window_attention_qkv_nhwc_reference)
+        window_attention_nhwc, window_attention_qkv_nhwc,
+        window_attention_qkv_nhwc_reference)
     from freqfusion_tpu_torch.ops.window_attention import (
         device_table, shifted_window_mask)
 
@@ -1678,57 +1677,7 @@ def phase_bf16_qkv_kernels(dev, randn, checks) -> None:
     _beside(checks, "window_attention_qkv_nhwc", wq)
     torch.cuda.empty_cache()
 
-    gq = checks["grl_mixed_attention_qkv_nhwc.bf16"] = KernelCheck(
-        "grl_mixed_attention_qkv_nhwc.bf16")
-    gshare = RequestShare(gq)
-    x = randn(1, h, w, 180).to(bf)
-    anchor = randn(1, h // 2, w // 2, 90).to(bf)
-    wqkv = randn(180, 540, scale=180 ** -0.5).to(bf)
-    bqkv = randn(540, scale=0.1).to(bf)
-    w_t = wqkv.t().contiguous()
-    scales = [10.0 + randn(3, 1, 1).abs() for _ in range(3)]
-    biases = [16 * torch.sigmoid(randn(*s)) for s in ((3, 64, 64),
-                                                     (3, 16, 64), (3, 64, 16))]
-    for shift in (0, 4):
-        mask = device_table(shifted_window_mask, h, w, 8, shift, device=dev)
-        x_rolled = (torch.roll(x, (-shift, -shift), (1, 2)) if shift
-                    else None)
-        args = (x, x_rolled, anchor, wqkv, bqkv, *scales, *biases, mask, 3,
-                3, 8)
-        label = "shift" if shift else "noshift"
-        nbytes = (2 * ((2 if shift else 1) * p * 180 + anchor.numel()
-                       + 2 * p * 90 + 181 * 540)
-                  + 4 * (sum(b.numel() for b in biases)
-                         + (0 if mask is None else mask.numel())))
-        # GRL-B's 40 blocks: 20 a shape
-        gshare.run(label, 20, lambda: grl_mixed_attention_qkv_nhwc(*args),
-                   lambda: grl_mixed_attention_qkv_nhwc_reference(*args),
-                   bf16_tol,
-                   2.0 * p * 180 * 540 + p * 90 * (4.0 * 64 + 8 * 16),
-                   nbytes, peak_flops=PEAK_BF16)
-        if shift:
-            launch_breakdown(f"#12 bf16 {label}",
-                             lambda: grl_mixed_attention_qkv_nhwc(*args))
-
-        def gate_on():
-            xr = torch.roll(x, (-shift, -shift), (1, 2)) if shift else None
-            return grl_mixed_attention_qkv_nhwc(
-                x, xr, anchor, wqkv, bqkv, *scales, *biases, mask, 3, 3, 8)
-
-        def gate_off():
-            qkv6 = [F.linear(x, w_t[i * 90:(i + 1) * 90],
-                             bqkv[i * 90:(i + 1) * 90]) for i in range(6)]
-            if shift:
-                qkv6[:3] = [torch.roll(t, (-shift, -shift), (1, 2))
-                            for t in qkv6[:3]]
-            return grl_mixed_attention_nhwc(*qkv6, anchor, *scales, *biases,
-                                            mask, 3, 3, 8)
-        gq.route(label, gate_on, gate_off,
-                 "6 F.linear + rolls + bf16 kernel #2; on: roll + kernel")
-    gshare.total()
-    _beside(checks, "grl_mixed_attention_qkv_nhwc", gq)
-    del x, x_rolled, args, anchor
-    torch.cuda.empty_cache()
+    phase_bf16_grl_qkv_kernel(dev, randn, checks)
     phase_bf16_token_kernel(dev, randn, checks)
 
 
@@ -2295,14 +2244,10 @@ def phase_bf16_fusion_kernels(dev, randn, checks, beside) -> None:
     the fuse's lw and strength too)."""
     from freqfusion_tpu_torch.models.fusion.edge import (
         EdgeRefineBlock, LaplacianPyramidRefinement)
-    from freqfusion_tpu_torch.models.fusion.hierarchical import (
-        HierarchicalMultiResolutionFusion)
     from freqfusion_tpu_torch.models.fusion.lka import LKABlock
     from freqfusion_tpu_torch.ops.edge import (
         edge_fuse_fused, edge_fuse_fused_reference, edge_refine_fused,
         edge_refine_fused_reference)
-    from freqfusion_tpu_torch.ops.hier import (hier_stage3_fused,
-                                               hier_stage3_fused_reference)
     from freqfusion_tpu_torch.ops.lka import (lka_block_fused,
                                               lka_block_fused_reference)
 
@@ -2331,29 +2276,9 @@ def phase_bf16_fusion_kernels(dev, randn, checks, beside) -> None:
     beside("lka_block_fused", lk)
     torch.cuda.empty_cache()
 
+    phase_bf16_hier_kernel(dev, randn, checks)
     hh, ww = 4 * h, 4 * w
     ph = hh * ww
-    hi = checks["hier_stage3_fused.bf16"] = KernelCheck(
-        "hier_stage3_fused.bf16")
-    hm = module(HierarchicalMultiResolutionFusion(4, 64))
-    tree = hm.stage3_params()
-    s3 = randn(1, 76, hh, ww, scale=0.5).to(bf)
-    s3v = s3.permute(0, 2, 3, 1)
-
-    def hier_off():
-        f3 = hm.stage3_res(hm.stage3_gate(hm.stage3_conv(s3)))
-        return hm.to_rgb(f3 + hm.residual_weight_2_3 * s3[:, :hm.half])
-    label = f"{hh}x{ww}/C76"
-    hi.run(label, lambda: hier_stage3_fused(s3v, tree),
-           lambda: hier_stage3_fused_reference(s3v, tree), bf16_tol,
-           ph * 18.0 * 9520, 2 * (ph * 79 + _numel(tree)),
-           peak_flops=PEAK_BF16)
-    launch_breakdown(f"#19 bf16 {label}", lambda: hier_stage3_fused(s3v, tree))
-    hi.route(f"{hh}x{ww}", lambda: hier_stage3_fused(s3v, hm.stage3_params()),
-             hier_off, "stage-3 + to_rgb modules on cuDNN, bf16")
-    beside("hier_stage3_fused", hi)
-    del s3, s3v
-    torch.cuda.empty_cache()
 
     er = checks["edge_refine_fused.bf16"] = KernelCheck(
         "edge_refine_fused.bf16")
@@ -2401,6 +2326,167 @@ def phase_bf16_fusion_kernels(dev, randn, checks, beside) -> None:
     beside("edge_fuse_fused", ef)
     del sr, feats, views, args
     torch.cuda.empty_cache()
+
+
+def phase_bf16_grl_kernel(dev, randn, checks) -> None:
+    """#2 bf16 at GRL-B's two shapes (bf16 halves and anchor; fp32 scales
+    and biases; the fp32 mask table, which the wrapper casts to bf16 once,
+    as the JAX wrapper casts it), with its share of a request (20 launches
+    a shape) and one shifted call's launches."""
+    from freqfusion_tpu_torch.ops.attention import (
+        grl_mixed_attention_nhwc, grl_mixed_attention_nhwc_reference)
+    from freqfusion_tpu_torch.ops.window_attention import (
+        device_table, shifted_window_mask)
+
+    bf = torch.bfloat16
+    h, w = LR_SIZES["c_336x512"]
+    p = h * w
+    ga = checks["grl_mixed_attention_nhwc.bf16"] = KernelCheck(
+        "grl_mixed_attention_nhwc.bf16")
+    share = RequestShare(ga)
+    halves = [randn(1, h, w, 90).to(bf) for _ in range(6)]
+    anchor = randn(1, h // 2, w // 2, 90).to(bf)
+    scales = [10.0 + randn(3, 1, 1).abs() for _ in range(3)]
+    biases = [16 * torch.sigmoid(randn(*s)) for s in ((3, 64, 64),
+                                                     (3, 16, 64), (3, 64, 16))]
+    for shift in (0, 4):
+        mask = device_table(shifted_window_mask, h, w, 8, shift, device=dev)
+        args = (*halves, anchor, *scales, *biases, mask, 3, 3, 8)
+        # the halves, the anchor and both outputs bf16, the biases fp32,
+        # the mask bf16 (as the JAX wrapper casts it), each once
+        nbytes = (2 * (8 * p * 90 + anchor.numel())
+                  + 4 * sum(b.numel() for b in biases)
+                  + (0 if mask is None else 2 * mask.numel()))
+        label = "shift" if shift else "noshift"
+        # GRL-B's 40 blocks: 20 a shape
+        share.run(label, 20, lambda: grl_mixed_attention_nhwc(*args),
+                  lambda: grl_mixed_attention_nhwc_reference(*args),
+                  bf16_tol, p * 90 * (4.0 * 64 + 8 * 16), nbytes,
+                  peak_flops=PEAK_BF16)
+        if shift:
+            launch_breakdown(f"#2 bf16 {label}",
+                             lambda: grl_mixed_attention_nhwc(*args))
+    share.total()
+    _beside(checks, "grl_mixed_attention_nhwc", ga)
+    del halves, anchor
+    torch.cuda.empty_cache()
+
+def phase_bf16_grl_qkv_kernel(dev, randn, checks) -> None:
+    """#12 bf16 at GRL-B's two shapes (bf16 x, anchor, wqkv and bqkv; fp32
+    scales, biases and mask), beside the bf16 route its gate replaces,
+    with its share of a request (20 launches a shape) and one shifted
+    call's launches (its wgmma projection and #2's body)."""
+    import torch.nn.functional as F
+
+    from freqfusion_tpu_torch.ops.attention import (
+        grl_mixed_attention_nhwc, grl_mixed_attention_qkv_nhwc,
+        grl_mixed_attention_qkv_nhwc_reference)
+    from freqfusion_tpu_torch.ops.window_attention import (
+        device_table, shifted_window_mask)
+
+    bf = torch.bfloat16
+    h, w = LR_SIZES["c_336x512"]
+    p = h * w
+    gq = checks["grl_mixed_attention_qkv_nhwc.bf16"] = KernelCheck(
+        "grl_mixed_attention_qkv_nhwc.bf16")
+    gshare = RequestShare(gq)
+    x = randn(1, h, w, 180).to(bf)
+    anchor = randn(1, h // 2, w // 2, 90).to(bf)
+    wqkv = randn(180, 540, scale=180 ** -0.5).to(bf)
+    bqkv = randn(540, scale=0.1).to(bf)
+    w_t = wqkv.t().contiguous()
+    scales = [10.0 + randn(3, 1, 1).abs() for _ in range(3)]
+    biases = [16 * torch.sigmoid(randn(*s)) for s in ((3, 64, 64),
+                                                     (3, 16, 64), (3, 64, 16))]
+    for shift in (0, 4):
+        mask = device_table(shifted_window_mask, h, w, 8, shift, device=dev)
+        x_rolled = (torch.roll(x, (-shift, -shift), (1, 2)) if shift
+                    else None)
+        args = (x, x_rolled, anchor, wqkv, bqkv, *scales, *biases, mask, 3,
+                3, 8)
+        label = "shift" if shift else "noshift"
+        nbytes = (2 * ((2 if shift else 1) * p * 180 + anchor.numel()
+                       + 2 * p * 90 + 181 * 540)
+                  + 4 * sum(b.numel() for b in biases)
+                  + (0 if mask is None else 2 * mask.numel()))
+        # GRL-B's 40 blocks: 20 a shape
+        gshare.run(label, 20, lambda: grl_mixed_attention_qkv_nhwc(*args),
+                   lambda: grl_mixed_attention_qkv_nhwc_reference(*args),
+                   bf16_tol,
+                   2.0 * p * 180 * 540 + p * 90 * (4.0 * 64 + 8 * 16),
+                   nbytes, peak_flops=PEAK_BF16)
+        if shift:
+            launch_breakdown(f"#12 bf16 {label}",
+                             lambda: grl_mixed_attention_qkv_nhwc(*args))
+
+        def gate_on():
+            xr = torch.roll(x, (-shift, -shift), (1, 2)) if shift else None
+            return grl_mixed_attention_qkv_nhwc(
+                x, xr, anchor, wqkv, bqkv, *scales, *biases, mask, 3, 3, 8)
+
+        def gate_off():
+            qkv6 = [F.linear(x, w_t[i * 90:(i + 1) * 90],
+                             bqkv[i * 90:(i + 1) * 90]) for i in range(6)]
+            if shift:
+                qkv6[:3] = [torch.roll(t, (-shift, -shift), (1, 2))
+                            for t in qkv6[:3]]
+            return grl_mixed_attention_nhwc(*qkv6, anchor, *scales, *biases,
+                                            mask, 3, 3, 8)
+        gq.route(label, gate_on, gate_off,
+                 "6 F.linear + rolls + bf16 kernel #2; on: roll + kernel")
+    gshare.total()
+    _beside(checks, "grl_mixed_attention_qkv_nhwc", gq)
+    del x, x_rolled, args, anchor
+    torch.cuda.empty_cache()
+
+
+def phase_bf16_hier_kernel(dev, randn, checks) -> None:
+    """#19 bf16 at 1344x2048 (s3_in the NCHW view the module hands; the
+    module cast to bf16 as fusion_dtype casts it, its parameters handed as
+    stage3_params gives them), beside the gate-off route (the bf16 modules
+    on cuDNN), with one call's launches."""
+    from freqfusion_tpu_torch.models.fusion.hierarchical import (
+        HierarchicalMultiResolutionFusion)
+    from freqfusion_tpu_torch.ops.hier import (hier_stage3_fused,
+                                               hier_stage3_fused_reference)
+
+    h, w = LR_SIZES["c_336x512"]
+    bf = torch.bfloat16
+
+    def module(m):
+        return _fusion_module(m, dev, randn, bf)
+
+    hh, ww = 4 * h, 4 * w
+    ph = hh * ww
+    hi = checks["hier_stage3_fused.bf16"] = KernelCheck(
+        "hier_stage3_fused.bf16")
+    hm = module(HierarchicalMultiResolutionFusion(4, 64))
+    tree = hm.stage3_params()
+    s3 = randn(1, 76, hh, ww, scale=0.5).to(bf)
+    s3v = s3.permute(0, 2, 3, 1)
+
+    def hier_off():
+        f3 = hm.stage3_res(hm.stage3_gate(hm.stage3_conv(s3)))
+        return hm.to_rgb(f3 + hm.residual_weight_2_3 * s3[:, :hm.half])
+    label = f"{hh}x{ww}/C76"
+    hi.run(label, lambda: hier_stage3_fused(s3v, tree),
+           lambda: hier_stage3_fused_reference(s3v, tree), bf16_tol,
+           ph * 18.0 * 9520, 2 * (ph * 79 + _numel(tree)),
+           peak_flops=PEAK_BF16)
+    launch_breakdown(f"#19 bf16 {label}", lambda: hier_stage3_fused(s3v, tree))
+    hi.route(f"{hh}x{ww}", lambda: hier_stage3_fused(s3v, hm.stage3_params()),
+             hier_off, "stage-3 + to_rgb modules on cuDNN, bf16")
+    _beside(checks, "hier_stage3_fused", hi)
+    del s3, s3v
+    torch.cuda.empty_cache()
+
+
+def phase_grl_hier_bf16(dev, randn, checks) -> None:
+    """``--grl-hier-bf16-only``: #2 bf16, #12 bf16 and #19 bf16 alone."""
+    phase_bf16_grl_kernel(dev, randn, checks)
+    phase_bf16_grl_qkv_kernel(dev, randn, checks)
+    set_gates("default")  # the hier module below is the gate-off route
+    phase_bf16_hier_kernel(dev, randn, checks)
 
 
 def write_checkpoints(model_dir: Path, seed: int = 0) -> None:
@@ -2960,6 +3046,9 @@ def main(argv) -> int:
                                phase_grl_kernels),
                               ("--token-only", "token attention (#13)",
                                phase_token_all),
+                              ("--grl-hier-bf16-only",
+                               "bf16 GRL mixed attention and hierarchical "
+                               "stage 3 (#2, #12, #19)", phase_grl_hier_bf16),
                               ("--bf16-only",
                                "bf16 (#1, #2, #3/#4, #5, #8, #9, "
                                "#11-#21)",

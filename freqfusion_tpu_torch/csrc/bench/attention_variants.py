@@ -1,24 +1,28 @@
 """What holds the bf16 window attention (#1 bf16, ``csrc/window_attention.cu``,
-``ff_window_attention_nhwc_bf16``) on the card: its time with one stage of
-the work taken out at a time, and ptxas's report on it.
+``ff_window_attention_nhwc_bf16``) or, with ``--grl``, the bf16 GRL mixed
+attention (#2 bf16, ``csrc/grl_attention.cu``,
+``ff_grl_mixed_attention_nhwc_bf16``) on the card: its time with one stage
+of the work taken out at a time, and ptxas's report on it.
 
 Not part of the package's build (csrc/bench is not compiled by
 ops/cuda.py). Run on the card, from the repository root:
 
-    python3 freqfusion_tpu_torch/csrc/bench/attention_variants.py [--tree DIR]
+    python3 freqfusion_tpu_torch/csrc/bench/attention_variants.py [--grl] [--tree DIR]
 
-It builds copies of ``window_attention.cu`` (with the headers beside it),
-each with one stage changed (:func:`variants`; one nvcc each, all started
-together, into ``build/attention_variants/``), loads each with ctypes in
-place of the package's library and times one call at C 180 (6 heads) and
-C 244 (2 heads) on the 336x512 bucket, shifted and not, by CUDA events
-(median of 9 after 3 warm-ups), the variants in turns and then in reverse
-order. The sources come from ``freqfusion_tpu_torch/csrc`` or, with
+It builds copies of the kernel's source (with the headers beside it),
+each with one stage changed (:data:`WINDOW_VARIANTS`, :data:`GRL_VARIANTS`;
+one nvcc each, all started together, into ``build/attention_variants/``
+or ``build/grl_variants/``), loads each with ctypes in place of the
+package's library and times one call by CUDA events (median of 9 after 3
+warm-ups), the variants in turns and then in reverse order: #1 at C 180
+(6 heads) and C 244 (2 heads) on the 336x512 bucket, shifted and not; #2
+at GRL-B's two shapes on the same bucket (C/2 90, 3 + 3 heads; unshifted,
+and shifted with the mask). The sources come from ``freqfusion_tpu_torch/csrc`` or, with
 ``--tree``, from the package under DIR (a ``git archive`` of another
 commit), which is also the package that is imported, so that each wrapper
 calls its own kernel. A variant names the source text it replaces; one
 whose text the tree does not have is reported and left out, so that the
-list serves both the earlier kernel (two sweeps over the keys on
+list serves both #1's earlier kernel (two sweeps over the keys on
 ``mma.sync``) and the one-pass ``wgmma`` kernel that replaced it. A
 variant that takes a stage out computes wrong values: it is there to show
 what that stage costs.
@@ -38,14 +42,15 @@ ROOT = Path(__file__).resolve().parents[3]
 TREE = (Path(sys.argv[sys.argv.index("--tree") + 1]).resolve()
         if "--tree" in sys.argv else ROOT)
 CSRC = TREE / "freqfusion_tpu_torch" / "csrc"
-OUT = ROOT / "build" / "attention_variants"
+GRL = "--grl" in sys.argv
+OUT = ROOT / "build" / ("grl_variants" if GRL else "attention_variants")
 NVCC = "/usr/local/cuda/bin/nvcc"
-SOURCE = "window_attention.cu"
+SOURCE = "grl_attention.cu" if GRL else "window_attention.cu"
 
-# (variant, [(old text, new text), ...]) on window_attention.cu; every
-# occurrence of each old text is replaced
+# (variant, [(old text, new text), ...]) on the source; every occurrence
+# of each old text is replaced
 PROFILED = "as built, timing marks (-DBW_PROFILE)"
-VARIANTS = (
+WINDOW_VARIANTS = (
     ("as built", []),
     (PROFILED, []),
     # the earlier two-sweep mma.sync kernel
@@ -145,6 +150,39 @@ VARIANTS = (
          "    float o[HDP / 2] = {};\n")]),
 )
 
+# #2 bf16's persistent body: a block walks tiles of one half
+GRL_VARIANTS = (
+    ("as built", []),
+    ("no bias or mask terms", [
+        ("      const float2 bj = bias(j, h), mj = mask(j, h);",
+         "      const float2 bj = make_float2(0.f, 0.f), mj = bj;")]),
+    ("no norms", [
+        ("  const float f0 = gb_inv_norm(quad_sum(s0)), "
+         "f1 = gb_inv_norm(quad_sum(s1));",
+         "  const float f0 = 1.f + 0.f * s0, f1 = 1.f + 0.f * s1;"),
+        ("  const float f = gb_inv_norm(quad_sum(s));",
+         "  const float f = 1.f + 0.f * s;")]),
+    ("no output stores", [
+        ("    for (int y = 0; y < kGrlWs; ++y)\n      bw_store(",
+         "    for (int y = 0; y < 0; ++y)\n      bw_store(")]),
+    ("the staging and the stores alone (no units)", [
+        ("    for (int u = warp; u < units; u += kWarps) {\n"
+         "      const int h = u / 4, r = u % 4",
+         "    for (int u = warp; u < 0; u += kWarps) {\n"
+         "      const int h = u / 4, r = u % 4"),
+        ("    for (int h = warp; h < heads; h += kWarps) {  // stage 1",
+         "    for (int h = warp; h < 0; h += kWarps) {  // stage 1"),
+        ("    for (int u = warp; u < units; u += kWarps) {  // stage 2",
+         "    for (int u = warp; u < 0; u += kWarps) {  // stage 2")]),
+    ("the window half alone", [
+        ("  const long long total = (long long)p.B * k.tiles;",
+         "  const long long total = stripe ? 0 : (long long)p.B * k.tiles;")]),
+    ("the stripe half alone", [
+        ("  const long long total = (long long)p.B * k.tiles;",
+         "  const long long total = stripe ? (long long)p.B * k.tiles : 0;")]),
+)
+VARIANTS = GRL_VARIANTS if GRL else WINDOW_VARIANTS
+
 
 def _apply(text: str, old, new: str):
     """text with every `old` replaced by `new` (a pair of texts: all from
@@ -207,8 +245,9 @@ def report(log: str) -> None:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"(window_attention_(?:bf16|wgmma)_kernel\w*?E)"
-                          r"(?:Ev|EEv)", m.group(1))
+            k = re.search(r"((?:window_attention_(?:bf16|wgmma)|"
+                          r"grl_\w*bf16\w*?)_kernel\w*?E)(?:Ev|EEv|v)",
+                          m.group(1))
             kernel = k.group(1) if k else None
         elif kernel and ("Used" in line or "spill" in line):
             print(f"  ptxas {kernel}: {line.strip()[:160]}")
@@ -245,18 +284,12 @@ def marks(lib, calls, torch) -> None:
               "in flight; k-clocks at each mark: " + " ".join(out))
 
 
-def main() -> None:
-    import torch
-
-    sys.path.insert(0, str(TREE))
-    from freqfusion_tpu_torch.ops import cuda
+def window_calls(torch, dev, g) -> dict:
+    """#1 bf16 at C 180 and C 244, shifted and not."""
     from freqfusion_tpu_torch.ops.attention import window_attention_nhwc
     from freqfusion_tpu_torch.ops.window_attention import (
         device_table, shifted_window_mask)
 
-    libs = build_all(variants((CSRC / SOURCE).read_text()))
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
     h, w = 336, 512
     calls = {}
@@ -271,6 +304,46 @@ def main() -> None:
             calls[f"C{c}/{'mask' if shift else 'nomask'}"] = (
                 lambda a=(q, k, v, bias, mask, heads, 16):
                 window_attention_nhwc(*a))
+    return calls
+
+
+def grl_calls(torch, dev, g) -> dict:
+    """#2 bf16 at GRL-B's two shapes: unshifted, and shifted with the
+    mask."""
+    from freqfusion_tpu_torch.ops.attention import grl_mixed_attention_nhwc
+    from freqfusion_tpu_torch.ops.window_attention import (
+        device_table, shifted_window_mask)
+
+    bf = torch.bfloat16
+    h, w = 336, 512
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    halves = [randn(1, h, w, 90).to(bf) for _ in range(6)]
+    anchor = randn(1, h // 2, w // 2, 90).to(bf)
+    scales = [10.0 + randn(3, 1, 1).abs() for _ in range(3)]
+    biases = [16 * torch.sigmoid(randn(*s)) for s in ((3, 64, 64),
+                                                     (3, 16, 64), (3, 64, 16))]
+    calls = {}
+    for shift in (0, 4):
+        mask = device_table(shifted_window_mask, h, w, 8, shift, device=dev)
+        calls["shift" if shift else "noshift"] = (
+            lambda a=(*halves, anchor, *scales, *biases, mask, 3, 3, 8):
+            grl_mixed_attention_nhwc(*a))
+    return calls
+
+
+def main() -> None:
+    import torch
+
+    sys.path.insert(0, str(TREE))
+    from freqfusion_tpu_torch.ops import cuda
+
+    libs = build_all(variants((CSRC / SOURCE).read_text()))
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    calls = (grl_calls if GRL else window_calls)(torch, dev, g)
 
     def ms(fn, reps=9, warmup=3) -> float:
         for _ in range(warmup):
@@ -313,7 +386,7 @@ def main() -> None:
         for label, fn in calls.items():
             try:
                 parts.append(f"{label} {ms(fn):.3f}")
-            except RuntimeError as e:  # a variant a shape cannot launch
+            except (RuntimeError, ValueError) as e:  # a shape it refuses
                 parts.append(f"{label} failed ({e})")
         print(f"  {name}: " + ", ".join(parts))
 

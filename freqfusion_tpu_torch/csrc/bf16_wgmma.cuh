@@ -7,8 +7,10 @@
 // bw_desc_at), GRL's bf16 qkv projection (grl_attention_qkv.cu, #12: its
 // own kernel, each output by bulk stores) and the bf16 window attention's
 // two products (window_attention.cu, #1: P V with A from registers,
-// bw_mma_rs). bf16 operands, fp32 accumulation, every other step in fp32
-// and rounded to bf16 only where the JAX kernels cast.
+// bw_mma_rs), and the bf16 hierarchical stage 3's six convs (hier.cu, #19:
+// the CAB's shifted descriptors over a staged halo, N 8 to 64). bf16
+// operands, fp32 accumulation, every other step in fp32 and rounded to
+// bf16 only where the JAX kernels cast.
 //
 // Two kernels. bw_gemm_kernel: a block is WGS consumer warpgroups (128
 // threads each, 64 rows apiece: BM = 64 WGS rows) and one producer warp,
@@ -142,6 +144,44 @@ __device__ __forceinline__ void bw_mma_n64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+__device__ __forceinline__ void bw_mma_n8(float (&d)[4], uint64_t da,
+                                          uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void bw_mma_n16(float (&d)[8], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void bw_mma_n32(float (&d)[16], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      "%10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 __device__ __forceinline__ void bw_mma_n48(float (&d)[24], uint64_t da,
                                            uint64_t db, int accumulate) {
   asm volatile(
@@ -221,9 +261,13 @@ __device__ __forceinline__ void bw_mma_n128(float (&d)[64], uint64_t da,
 template <int BN>
 __device__ __forceinline__ void bw_mma(float (&d)[BN / 2], uint64_t da,
                                        uint64_t db, int accumulate) {
-  static_assert(BN == 48 || BN == 64 || BN == 96 || BN == 128,
+  static_assert(BN == 8 || BN == 16 || BN == 32 || BN == 48 || BN == 64 ||
+                    BN == 96 || BN == 128,
                 "instantiated widths");
-  if constexpr (BN == 48) bw_mma_n48(d, da, db, accumulate);
+  if constexpr (BN == 8) bw_mma_n8(d, da, db, accumulate);
+  else if constexpr (BN == 16) bw_mma_n16(d, da, db, accumulate);
+  else if constexpr (BN == 32) bw_mma_n32(d, da, db, accumulate);
+  else if constexpr (BN == 48) bw_mma_n48(d, da, db, accumulate);
   else if constexpr (BN == 64) bw_mma_n64(d, da, db, accumulate);
   else if constexpr (BN == 96) bw_mma_n96(d, da, db, accumulate);
   else bw_mma_n128(d, da, db, accumulate);

@@ -36,8 +36,8 @@
 // bias add (:475-481), then #2's bf16 mixed attention (grl_attention.cu,
 // _grl_mixed_core at bf16: q, k and the anchors normalised and rounded,
 // the softmaxes in fp32 rounded before their products, x1 and both
-// outputs rounded; the mask rounded to bf16 as the JAX wrapper casts it,
-// :882). Two launches, no library call, no per-call weight pass:
+// outputs rounded; the mask in bf16 as the JAX wrapper casts it, :882).
+// Two launches, no library call, no per-call weight pass:
 //   1. the six halves qw, kw, vw (from x_rolled, x where unshifted) and
 //      qs, ks, vs (from x) on bf16_wgmma.cuh's wgmma (grl_qkv_wgmma_kernel:
 //      a block 64 rows, one consumer warpgroup and a producer warp). The
@@ -54,7 +54,8 @@
 //      GRL-B), into a shared tile that leaves by one bulk store (bw_store;
 //      two tiles, so that a chunk's store overlaps the next chunk's
 //      products; a ragged last block stores its rows' bytes);
-//   2. #2's bf16 kernel (ff_grl_mixed_attention_nhwc_bf16) as it is.
+//   2. #2's bf16 kernel (ff_grl_mixed_attention_nhwc_bf16) as it is: its
+//      persistent blocks read the six halves' tile rows by bulk copies.
 // What bounds it: at 336x512 the projection is 33.4 GFLOP a call (0.03 ms
 // at 989 TFLOP/s); x (twice where shifted), the six halves out and back
 // in, the anchor and the two outputs ~0.45 GB (0.13 ms at 3.35 TB/s).
@@ -63,13 +64,13 @@
 #include "grl_attention.cuh"
 #include "tf32_gemm.cuh"
 
-// grl_attention.cu: #2's bf16 kernel (halves and anchor bf16; scales,
-// biases and mask fp32)
+// grl_attention.cu: #2's bf16 kernel (halves, anchor and mask bf16, the
+// mask in ops/attention.py:grl_mask_layout's order; scales and biases fp32)
 extern "C" int ff_grl_mixed_attention_nhwc_bf16(
     const void* qw, const void* kw, const void* vw, const void* qs,
     const void* ks, const void* vs, const void* anchor, const float* scale_w,
     const float* scale_s1, const float* scale_s2, const float* bias_w,
-    const float* bias_s1, const float* bias_s2, const float* mask,
+    const float* bias_s1, const float* bias_s2, const void* mask,
     void* out_w, void* out_s, int B, int H, int W, int C2, int heads_w,
     int heads_s, int ws, int df, void* stream);
 
@@ -288,14 +289,15 @@ extern "C" long long ff_grl_qkv_bf16_scratch_bytes(long long M, int Cin,
 // As ff_grl_mixed_attention_qkv_nhwc with x, x_rolled (or null), the
 // anchor, bqkv and both outputs bf16, wqkv bf16 in the segment layout
 // (ops/wgmma.py:segment_layout of wqkv [Cin, 6 C2] at bn =
-// grl_qkv_cols(C2) columns a chunk, 16-byte aligned); the scales, biases
-// and mask fp32 (8-byte aligned); scratch of ff_grl_qkv_bf16_scratch_bytes(
-// B H W, Cin, C2) bytes, 16-byte aligned.
+// grl_qkv_cols(C2) columns a chunk, 16-byte aligned); the scales and
+// biases fp32 (8-byte aligned); the mask as #2's bf16 kernel takes it
+// (bf16 in grl_mask_layout's order, 16-byte aligned); scratch of
+// ff_grl_qkv_bf16_scratch_bytes(B H W, Cin, C2) bytes, 16-byte aligned.
 extern "C" int ff_grl_mixed_attention_qkv_nhwc_bf16(
     const void* x_, const void* x_rolled_, const void* anchor,
     const void* wl, const void* bqkv_, const float* scale_w,
     const float* scale_s1, const float* scale_s2, const float* bias_w,
-    const float* bias_s1, const float* bias_s2, const float* mask,
+    const float* bias_s1, const float* bias_s2, const void* mask,
     void* out_w, void* out_s, void* scratch_, long long scratch_bytes, int B,
     int H, int W, int Cin, int C2, int bn, int heads_w, int heads_s, int ws,
     int df, void* stream) {

@@ -18,7 +18,7 @@ import torch.nn as nn
 
 from ...ops.hier import hier_stage3_fused
 from ...ops.resize import resize_bilinear
-from ..common import gate, hwio
+from ..common import gate, hwio, hwio_view
 
 __all__ = ["SpatialGate", "FusionResBlock", "HierarchicalMultiResolutionFusion"]
 
@@ -91,15 +91,19 @@ class HierarchicalMultiResolutionFusion(nn.Module):
         return self.to_rgb(f3)
 
     def stage3_params(self) -> dict:
-        """Stage 3 and to_rgb as the flax tree ``ops/hier.py`` takes."""
+        """Stage 3 and to_rgb as the flax tree ``ops/hier.py`` takes; the
+        six 3x3 kernels as views of their parameters (:func:`hwio_view`),
+        so that the bf16 kernel's layouts of them are built once and
+        found again (a copy made under inference mode would be laid out on
+        every call)."""
         gate_, res = self.stage3_gate.gate, self.stage3_res
-        return {"stage3_conv_0": hwio(self.stage3_conv[0]),
-                "stage3_conv_2": hwio(self.stage3_conv[2]),
+        return {"stage3_conv_0": hwio_view(self.stage3_conv[0]),
+                "stage3_conv_2": hwio_view(self.stage3_conv[2]),
                 "stage3_gate": {"gate_0": hwio(gate_[0]),
                                 "gate_2": hwio(gate_[2])},
-                "stage3_res": {"block_0": hwio(res.block[0]),
-                               "block_2": hwio(res.block[2]),
+                "stage3_res": {"block_0": hwio_view(res.block[0]),
+                               "block_2": hwio_view(res.block[2]),
                                "scale": res.scale},
                 "rw23": self.residual_weight_2_3,
-                "to_rgb_0": hwio(self.to_rgb[0]),
-                "to_rgb_2": hwio(self.to_rgb[2])}
+                "to_rgb_0": hwio_view(self.to_rgb[0]),
+                "to_rgb_2": hwio_view(self.to_rgb[2])}

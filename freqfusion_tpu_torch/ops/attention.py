@@ -47,7 +47,8 @@ from .window_attention import (multi_head_window_attention, table_as,
 
 __all__ = ["plan_window_attention", "plan_qkv_projections", "QkvPlan",
            "plan_window_attention_bf16", "WindowBf16Plan",
-           "plan_grl_attention", "GrlPlan", "plan_grl_qkv_projections",
+           "plan_grl_attention", "GrlPlan", "plan_grl_attention_bf16",
+           "GrlBf16Plan", "grl_mask_layout", "plan_grl_qkv_projections",
            "GrlQkvPlan",
            "window_attention",
            "window_attention_reference",
@@ -352,6 +353,79 @@ def plan_grl_attention(b: int, h: int, w: int, c2: int, heads_w: int,
                    2 * b * (h // GRL_WINDOW) * (w // GRL_WINDOW))
 
 
+# csrc/grl_attention.cu's bf16 kernel: the ring's deepest, its barriers'
+# bytes, x1's transposed rows, the pad past a stage's rows
+GRL_BF16_STAGES, GRL_BF16_HEAD, GRL_BF16_X1_LD, GRL_BF16_PAD = 4, 128, 24, 256
+
+
+class GrlBf16Plan(NamedTuple):
+    """How ``csrc/grl_attention.cu`` runs a bf16 call (its ``gb_plan``):
+    persistent blocks, one an SM, the first half of them walking the
+    window half's tiles and the rest the stripe half's; warp 0 bulk-copies
+    each tile's rows into a ring of `stages`; warp w keeps the terms of
+    unit w in registers (and stage 1's of head w)."""
+    hdp: int             # head box of the wider head: 16, 32, 48, 64 or 96
+    warps: int           # warps a block (12; 8 past head box 32)
+    stages: int          # the ring's depth (2 to 4)
+    stage_bytes: int     # q, k, v, then the mask tile or the anchor rows
+    smem: int            # bytes of dynamic shared memory a block
+    blocks: Tuple[int, int]  # the window half's blocks, the stripe half's
+    kept_w: Tuple[Tuple[int, int], ...]   # (head, row unit) of warp w
+    kept_s1: Tuple[Optional[int], ...]    # stage 1: warp w's head, or None
+    kept_s2: Tuple[Tuple[int, int], ...]  # stage 2: (head, row unit)
+
+
+def plan_grl_attention_bf16(b: int, h: int, w: int, c2: int, heads_w: int,
+                            heads_s: int, masked: bool,
+                            sms: int = 132) -> GrlBf16Plan:
+    """The bf16 kernel's plan for [b, h, w, c2] halves on a card of `sms`
+    SMs: a stage holds q, k and v (64 c2 bf16 each) and the window half's
+    bf16 mask tile (8 KB, where `masked`) or the stripe half's 4 anchor
+    rows (4 c2 bf16 padded to 8), then a pad of GRL_BF16_PAD bytes; a
+    block also holds two output tiles (64 c2 bf16) and x1 transposed
+    (heads_s hdp rows of 24 bf16). The deepest ring of 2 to 4 stages that
+    fits 227 KB; refused past head box 96 or where two stages do not
+    fit."""
+    hd = max(c2 // heads_w, c2 // heads_s)
+    if hd > GRL_HEAD_BOXES[-1]:
+        raise ValueError(f"grl mixed attention (bf16): head dim {hd} > "
+                         f"{GRL_HEAD_BOXES[-1]}")
+    hdp = next(p for p in GRL_HEAD_BOXES if p >= hd)
+    warps = 12 if hdp <= 32 else 8
+    n = GRL_WINDOW * GRL_WINDOW
+    extra = max(2 * n * n if masked else 0, 8 * _round_up(4 * c2, 8))
+    stage = _round_up(6 * n * c2 + extra + GRL_BF16_PAD, 128)
+    rest = 2 * _round_up(2 * n * c2, 128) + 2 * heads_s * hdp * GRL_BF16_X1_LD
+    fits = [s for s in range(GRL_BF16_STAGES, 1, -1)
+            if GRL_BF16_HEAD + s * stage + rest <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"grl mixed attention (bf16): C/2={c2} needs "
+                         f"{GRL_BF16_HEAD + 2 * stage + rest} bytes of shared "
+                         f"memory a block (> {SMEM_LIMIT})")
+    tiles = b * (h // GRL_WINDOW) * (w // GRL_WINDOW)
+    blocks = (min(tiles, max(1, sms // 2)), min(tiles, max(1, sms - sms // 2)))
+
+    def units(heads):
+        return tuple((u // 4, u % 4) for u in range(min(warps, 4 * heads)))
+    kept_s1 = tuple(w if w < heads_s else None for w in range(warps))
+    return GrlBf16Plan(hdp, warps, fits[0], stage,
+                       GRL_BF16_HEAD + fits[0] * stage + rest, blocks,
+                       units(heads_w), kept_s1, units(heads_s))
+
+
+def grl_mask_layout(mask: torch.Tensor) -> torch.Tensor:
+    """A [nW, 64, 64] mask in the order ``csrc/grl_attention.cu``'s bf16
+    kernel reads it: for each tile, 16-row unit r, pair q of 8-key n-tiles
+    and half hh (row g or g + 8 of the unit), the 32 lanes (g, t) in turn,
+    each with two words, n-tile 2q + i's keys 8 (2q + i) + 2t and + 1:
+    element [w, r, q, hh, g, t, i, e] is mask[w, 16 r + 8 hh + g, 16 q + 8
+    i + 2 t + e]. A warp's read of a word pair a lane is then one
+    conflict-free 8-byte load."""
+    nw = mask.shape[0]
+    return mask.reshape(nw, 4, 2, 8, 4, 2, 4, 2).permute(
+        0, 1, 4, 2, 3, 6, 5, 7).contiguous()
+
+
 def _check_grl(name: str, h: int, w: int, c2: int, heads_w: int,
                heads_s: int, ws: int, df: int) -> None:
     if (ws != GRL_WINDOW or df != GRL_DOWN or h % ws or w % ws
@@ -361,11 +435,28 @@ def _check_grl(name: str, h: int, w: int, c2: int, heads_w: int,
                          f"takes ws {GRL_WINDOW}, df {GRL_DOWN})")
 
 
-def _check_aligned(name: str, *tensors) -> None:
-    """The bulk copies of csrc/grl_attention.cuh read tile rows from
-    16-byte aligned bases."""
-    if any(t is not None and t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name}: operands must be 16-byte aligned")
+def _check_aligned(name: str, *tensors, align: int = 16) -> None:
+    """The bulk copies of csrc/grl_attention.cuh and grl_attention.cu read
+    tile rows from 16-byte aligned bases (the bf16 kernel's biases, read
+    in pairs of floats: 8)."""
+    if any(t is not None and t.data_ptr() % align for t in tensors):
+        raise ValueError(f"{name}: operands must be {align}-byte aligned")
+
+
+def _check_terms(scale_w, scale_s1, scale_s2, bias_w, bias_s1, bias_s2, mask,
+                 heads_w: int, heads_s: int, h: int, w: int, ws: int, n: int,
+                 na: int, dev) -> None:
+    """The bf16 kernels' scales and biases (fp32) and mask (any dtype: the
+    wrappers cast it)."""
+    cuda.require(scale_w, "scale_w", (heads_w, 1, 1), dev)
+    cuda.require(scale_s1, "scale_s1", (heads_s, 1, 1), dev)
+    cuda.require(scale_s2, "scale_s2", (heads_s, 1, 1), dev)
+    cuda.require(bias_w, "bias_w", (heads_w, n, n), dev)
+    cuda.require(bias_s1, "bias_s1", (heads_s, na, n), dev)
+    cuda.require(bias_s2, "bias_s2", (heads_s, n, na), dev)
+    if mask is not None:
+        cuda.require(mask, "mask", ((h // ws) * (w // ws), n, n), dev,
+                     mask.dtype)
 
 
 def grl_mixed_attention_nhwc_reference(qw, kw, vw, qs, ks, vs, anchor,
@@ -445,8 +536,11 @@ def _grl_mixed_attention_bf16(qw, kw, vw, qs, ks, vs, anchor, scale_w,
 def _grl_mixed_attention_nhwc_bf16(args, b: int, h: int, w: int, c2: int,
                                    num_heads_w: int, num_heads_s: int,
                                    ws: int, df: int):
-    """The bf16 kernel: halves and anchor bf16; scales, biases and mask
-    fp32 (GRL computes its logit scales and position biases in fp32)."""
+    """The bf16 kernel: halves and anchor bf16; scales and biases fp32 (GRL
+    computes its logit scales and position biases in fp32); the mask cast
+    to bf16 as the JAX wrapper casts it and laid out in the kernel's
+    fragment order (:func:`grl_mask_layout`), once for a device table
+    (:func:`table_as`)."""
     (qw, kw, vw, qs, ks, vs, anchor, scale_w, scale_s1, scale_s2, bias_w,
      bias_s1, bias_s2, mask) = args
     n, na, dev = ws * ws, (ws // df) ** 2, qw.device
@@ -455,16 +549,13 @@ def _grl_mixed_attention_nhwc_bf16(args, b: int, h: int, w: int, c2: int,
         cuda.require(t, name, (b, h, w, c2), dev, torch.bfloat16)
     cuda.require(anchor, "anchor", (b, h // df, w // df, c2), dev,
                  torch.bfloat16)
-    cuda.require(scale_w, "scale_w", (num_heads_w, 1, 1), dev)
-    cuda.require(scale_s1, "scale_s1", (num_heads_s, 1, 1), dev)
-    cuda.require(scale_s2, "scale_s2", (num_heads_s, 1, 1), dev)
-    cuda.require(bias_w, "bias_w", (num_heads_w, n, n), dev)
-    cuda.require(bias_s1, "bias_s1", (num_heads_s, na, n), dev)
-    cuda.require(bias_s2, "bias_s2", (num_heads_s, n, na), dev)
-    if mask is not None:
-        cuda.require(mask, "mask", ((h // ws) * (w // ws), n, n), dev)
+    _check_terms(scale_w, scale_s1, scale_s2, bias_w, bias_s1, bias_s2, mask,
+                 num_heads_w, num_heads_s, h, w, ws, n, na, dev)
+    mask = table_as(mask, torch.bfloat16, grl_mask_layout)
+    _check_aligned("grl_mixed_attention_nhwc (bf16)", qw, kw, vw, qs, ks, vs,
+                   anchor, mask)
     _check_aligned("grl_mixed_attention_nhwc (bf16)", bias_w, bias_s1,
-                   bias_s2, mask)
+                   bias_s2, align=8)
     out_w = torch.empty_like(qw)
     out_s = torch.empty_like(qs)
     err = cuda.library().ff_grl_mixed_attention_nhwc_bf16(
@@ -508,12 +599,14 @@ def grl_mixed_attention_nhwc(
                          f"{qw.device}")
     _check_grl("grl_mixed_attention_nhwc", h, w, c2, num_heads_w,
                num_heads_s, ws, df)
-    plan_grl_attention(b, h, w, c2, num_heads_w, num_heads_s)
     if qw.dtype == torch.bfloat16:
+        plan_grl_attention_bf16(b, h, w, c2, num_heads_w, num_heads_s,
+                                mask is not None)
         return _grl_mixed_attention_nhwc_bf16(
             (qw, kw, vw, qs, ks, vs, anchor, scale_w, scale_s1, scale_s2,
              bias_w, bias_s1, bias_s2, mask), b, h, w, c2, num_heads_w,
             num_heads_s, ws, df)
+    plan_grl_attention(b, h, w, c2, num_heads_w, num_heads_s)
     n, na = ws * ws, (ws // df) ** 2
     dev = qw.device
     for name, t in (("qw", qw), ("kw", kw), ("vw", vw), ("qs", qs),
@@ -743,9 +836,9 @@ def grl_mixed_attention_qkv_nhwc_reference(
 def _grl_mixed_attention_qkv_nhwc_bf16(args, num_heads_w: int,
                                        num_heads_s: int, ws: int, df: int):
     """The bf16 kernel: x, x_rolled, the anchor, wqkv and bqkv bf16;
-    scales, biases and mask fp32 (as #2's bf16 kernel takes them; it
-    rounds the mask to bf16 as it reads it). C/2 even, at most 128; Cin
-    even. wqkv goes to the kernel in :func:`wgmma.segment_layout`'s order,
+    scales and biases fp32, the mask cast to bf16 and laid out as #2's
+    bf16 kernel takes it (:func:`grl_mask_layout`, once for a device
+    table). C/2 even, at most 128; Cin even. wqkv goes to the kernel in :func:`wgmma.segment_layout`'s order,
     laid out once per weight (any view of it)."""
     (x, x_rolled, anchor, wqkv, bqkv, scale_w, scale_s1, scale_s2, bias_w,
      bias_s1, bias_s2, mask) = args
@@ -762,16 +855,12 @@ def _grl_mixed_attention_qkv_nhwc_bf16(args, num_heads_w: int,
     # read only through its layout: any view
     cuda.require(wqkv, "wqkv", (cin, 6 * c2), dev, bf, contiguous=False)
     cuda.require(bqkv, "bqkv", (6 * c2,), dev, bf)
-    cuda.require(scale_w, "scale_w", (num_heads_w, 1, 1), dev)
-    cuda.require(scale_s1, "scale_s1", (num_heads_s, 1, 1), dev)
-    cuda.require(scale_s2, "scale_s2", (num_heads_s, 1, 1), dev)
-    cuda.require(bias_w, "bias_w", (num_heads_w, n, n), dev)
-    cuda.require(bias_s1, "bias_s1", (num_heads_s, na, n), dev)
-    cuda.require(bias_s2, "bias_s2", (num_heads_s, n, na), dev)
-    if mask is not None:
-        cuda.require(mask, "mask", ((h // ws) * (w // ws), n, n), dev)
+    _check_terms(scale_w, scale_s1, scale_s2, bias_w, bias_s1, bias_s2, mask,
+                 num_heads_w, num_heads_s, h, w, ws, n, na, dev)
+    mask = table_as(mask, bf, grl_mask_layout)
+    _check_aligned("grl_mixed_attention_qkv_nhwc (bf16)", anchor, mask)
     _check_aligned("grl_mixed_attention_qkv_nhwc (bf16)", bias_w, bias_s1,
-                   bias_s2, mask)
+                   bias_s2, align=8)
     lib = cuda.library()
     nbytes = lib.ff_grl_qkv_bf16_scratch_bytes(b * h * w, cin, c2)
     if nbytes < 0:
@@ -825,12 +914,14 @@ def grl_mixed_attention_qkv_nhwc(
                          f"{x.device}")
     _check_grl("grl_mixed_attention_qkv_nhwc", h, w, c2, num_heads_w,
                num_heads_s, ws, df)
-    plan_grl_attention(b, h, w, c2, num_heads_w, num_heads_s)
     if x.dtype == torch.bfloat16:
+        plan_grl_attention_bf16(b, h, w, c2, num_heads_w, num_heads_s,
+                                mask is not None)
         return _grl_mixed_attention_qkv_nhwc_bf16(
             (x, x_rolled, anchor, wqkv, bqkv, scale_w, scale_s1, scale_s2,
              bias_w, bias_s1, bias_s2, mask), num_heads_w, num_heads_s, ws,
             df)
+    plan_grl_attention(b, h, w, c2, num_heads_w, num_heads_s)
     n, na = ws * ws, (ws // df) ** 2
     dev = x.device
     wqkv = wqkv.contiguous()  # the model hands a view of its parameter

@@ -71,6 +71,7 @@ _SIGNATURES = {
     "ff_window_attention": [_P] * 6 + [_I] * 5 + [_F, _I, _I, _P],
     "ff_grl_mixed_attention_nhwc": [_P] * 16 + [_I] * 8 + [_P],
     "ff_grl_mixed_attention_nhwc_bf16": [_P] * 16 + [_I] * 8 + [_P],
+    "ff_grl_attention_bf16_plan": [_I] * 4 + [_P],
     "ff_selective_scan_slots": [_I] * 3,
     "ff_selective_scan_proj": [_P] * 10 + [_I] * 9 + [_P],
     "ff_selective_scan_proj_bf16": [_P] * 12 + [_I] * 8 + [_P],
@@ -121,9 +122,8 @@ _SIGNATURES = {
     "ff_lka_bf16_scratch_floats": [_L, _I, _I],
     "ff_lka_block_bf16": [_P] * 13 + [_P, _I, _I] * 5 + [_P] + [_P, _I, _I]
                          + [_P] * 4 + [_L, _P] + [_I] * 5 + [_P],
-    "ff_hier_bf16_scratch_floats": [_I] * 2,
-    "ff_hier_stage3_bf16": [_P, _I] + [_P] * 21 + [_L, _P] + [_I] * 5
-                           + [_P],
+    "ff_hier_bf16_plan": [_I, _P],
+    "ff_hier_stage3_bf16": [_P, _I] + [_P] * 20 + [_I] * 5 + [_P],
     "ff_edge_bf16_scratch_floats": [_I] * 3,
     "ff_edge_refine_bf16": [_P, _I] + ([_P] + [_I] * 4 + [_P]) * 6
                            + [_P] * 5 + [_L, _P] + [_I] * 5 + [_P],
@@ -150,8 +150,7 @@ _RETURNS_LONG = ("ff_fused_mlp_scratch_floats", "ff_cab_scratch_floats",
                  "ff_window_attention_qkv_scratch_floats",
                  "ff_grl_qkv_scratch_floats", "ff_hier_scratch_floats",
                  "ff_lka_scratch_floats", "ff_edge_scratch_floats",
-                 "ff_lka_bf16_scratch_floats", "ff_hier_bf16_scratch_floats",
-                 "ff_edge_bf16_scratch_floats",
+                 "ff_lka_bf16_scratch_floats", "ff_edge_bf16_scratch_floats",
                  "ff_token_attention_scratch_floats",
                  "ff_window_attention_qkv_bf16_scratch_bytes",
                  "ff_grl_qkv_bf16_scratch_bytes",

@@ -20,12 +20,15 @@ SpatialGate in conv1's epilogue) or the call raises. The CUDA route takes
 s3_in NHWC-contiguous or as an NCHW-contiguous tensor viewed as NHWC
 (``u.permute(0, 2, 3, 1)``, no copy) and returns the output in the same
 layout. Unlike the JAX wrapper, the kernel takes every H and W itself:
-there is no XLA fallback. In bf16 (s3_in and every parameter bf16, as
-``fusion_dtype`` casts them) both routes follow the JAX kernel's rounding
-points: each conv's input and the gate's two 1x1 operands rounded to bf16,
-fp32 sums and biases, GELU, the gate, the residuals in fp32, the output
-rounded after its sigmoid; the CUDA route is ``ff_hier_stage3_bf16`` (s3_in
-packed NHWC, then the bf16 convs of ``csrc/conv3x3_tf32.cuh``).
+there is no XLA fallback. The conv kernels may be views (the module hands
+views of its parameters); the fp32 route copies them contiguous. In bf16
+(s3_in and every parameter bf16, as ``fusion_dtype`` casts them) both
+routes follow the JAX kernel's rounding points: each conv's input and the
+gate's two 1x1 operands rounded to bf16, fp32 sums and biases, GELU, the
+gate, the residuals in fp32, the output rounded after its sigmoid; the
+CUDA route is ``ff_hier_stage3_bf16``: six wgmma launches
+(:func:`plan_hier_bf16`), conv0 staging s3_in itself, the weights laid out
+once per parameter (``ops/wgmma.py:conv_layouts``).
 """
 
 from __future__ import annotations
@@ -35,14 +38,16 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import cuda
+from . import cuda, wgmma
 
 __all__ = ["hier_stage3_fused", "hier_stage3_fused_reference", "conv3x3",
            "dense1x1", "conv3x3_bf16", "dense1x1_bf16", "rounded",
-           "plan_hier", "split_floats", "HierPlan", "ConvPlan"]
+           "plan_hier", "split_floats", "HierPlan", "ConvPlan",
+           "plan_hier_bf16", "HierBf16Plan", "HierBf16Conv", "HIER_BF16_N"]
 
-# csrc/conv3x3_tf32.cuh: output tile columns (an m-tile's rows), input
-# channels a stage (fp32, bf16), stages in the ring (fp32, bf16)
+# csrc/conv3x3_tf32.cuh (the fp32 convs here, and edge.cu's fp32 and bf16
+# ones): output tile columns (an m-tile's rows), input channels a stage
+# (fp32, bf16), stages in the ring (fp32, bf16)
 TILE_W = 16
 CK = 8
 CK16 = 16
@@ -78,11 +83,11 @@ class HierPlan(NamedTuple):
 
 
 def conv_smem(nt: int, mt: int, bf16: bool = False) -> int:
-    """Bytes of shared memory a conv block takes: STAGES stages of the
-    halo ((8 mt + 2) x 18 pixels x CK channels, split in registers as it
-    is read) and of the split weights of 9 taps (9 x CK x 8 nt, hi and
-    lo), an mbarrier a stage; bf16: STAGES_BF16 stages of CK16 channels
-    and 9 x CK16 x 8 nt bf16 weights."""
+    """Bytes of shared memory a conv3x3_tf32.cuh block takes: STAGES
+    stages of the halo ((8 mt + 2) x 18 pixels x CK channels, split in
+    registers as it is read) and of the split weights of 9 taps (9 x CK x
+    8 nt, hi and lo), an mbarrier a stage; bf16: STAGES_BF16 stages of
+    CK16 channels and 9 x CK16 x 8 nt bf16 weights."""
     halo = (8 * mt + 2) * (TILE_W + 2)
     stage = halo * CK + 9 * 8 * nt * (CK16 // 2 if bf16 else 2 * CK)
     ring = STAGES_BF16 if bf16 else STAGES
@@ -90,28 +95,78 @@ def conv_smem(nt: int, mt: int, bf16: bool = False) -> int:
 
 
 def split_floats(cinp: int, coutp: int, bf16: bool = False) -> int:
-    """4-byte words of a conv's split weights: 18 cinp coutp (fp32, hi and
-    lo), 4.5 cinp coutp (bf16)."""
+    """4-byte words of a conv3x3_tf32.cuh conv's split weights: 18 cinp
+    coutp (fp32, hi and lo), 4.5 cinp coutp (bf16)."""
     return 9 * cinp * coutp // 2 if bf16 else 18 * cinp * coutp
 
 
-def plan_hier(h: int, w: int, cin: int, c1: int = 64,
-              bf16: bool = False) -> HierPlan:
-    """How ``csrc/hier.cu`` runs a call on [B, h, w, cin] (its
-    ``hier_plan``; bf16: of ``ff_hier_stage3_bf16``): each conv's padded
-    extents, tiles and shared memory, and the scratch of split weights."""
+def plan_hier(h: int, w: int, cin: int, c1: int = 64) -> HierPlan:
+    """How ``csrc/hier.cu`` runs an fp32 call on [B, h, w, cin] (its
+    ``hier_plan``): each conv's padded extents, tiles and shared memory,
+    and the scratch of split weights."""
     c2, ct = c1 // 2, c1 // 4
-    ck = CK16 if bf16 else CK
     convs = []
     for (ci, co), (nt, mt) in zip(((cin, c1), (c1, c2), (c2, c2), (c2, c2),
                                    (c2, ct), (ct, 3)), CONV_TILES):
         coutp = _round_up(co, 8 * nt)
         tiles = -(-h // (8 * mt)) * -(-w // TILE_W)
-        convs.append(ConvPlan(ci, co, _round_up(ci, ck), coutp, nt, mt,
+        convs.append(ConvPlan(ci, co, _round_up(ci, CK), coutp, nt, mt,
                               tiles, tiles * coutp // (8 * nt),
-                              conv_smem(nt, mt, bf16)))
-    return HierPlan(tuple(convs), sum(split_floats(c.cinp, c.coutp, bf16)
+                              conv_smem(nt, mt)))
+    return HierPlan(tuple(convs), sum(split_floats(c.cinp, c.coutp)
                                       for c in convs))
+
+
+# csrc/hier.cu's bf16 convs (conv0, conv1, block_0, block_2, to_rgb_0,
+# to_rgb_2): N (Cout padded: wgmma's width), output rows a tile; an
+# m-tile is 64 pixels of a row, its halo 66 wide
+HIER_BF16_N = (64, 32, 32, 32, 16, 8)
+HIER_BF16_ROWS = (4, 8, 8, 8, 8, 8)
+HIER_BF16_SEG = 64
+HIER_BF16_MAX_CIN = 80
+
+
+class HierBf16Conv(NamedTuple):
+    """One conv of ``ff_hier_stage3_bf16``: a persistent block (one an SM)
+    walks tiles of `rows` x 64 output pixels, N output channels, its
+    weights (9 cinp N bf16) resident in shared memory, the halo ((rows +
+    2) x 66 pixels x cinp) in a ring of two."""
+    cin: int
+    cout: int
+    cinp: int      # cin padded to 16: the wgmma k16 steps
+    n: int         # cout padded: wgmma's N (8, 16, 32 or 64)
+    rows: int      # output rows a tile
+    halo: int      # halo pixels a tile
+    tiles: int     # tiles an image
+    smem: int      # bytes of shared memory a block
+    reread: float  # halo pixels staged per output pixel
+
+
+class HierBf16Plan(NamedTuple):
+    convs: Tuple[HierBf16Conv, ...]
+
+
+def plan_hier_bf16(h: int, w: int, cin: int, c1: int = 64) -> HierBf16Plan:
+    """How ``ff_hier_stage3_bf16`` runs a call on [B, h, w, cin]
+    (``ff_hier_bf16_plan`` a conv): each conv's padded extents, tiles a
+    batch element and shared memory (the barriers' 128 bytes, the
+    weights, two halos)."""
+    if c1 != 64 or not c1 // 2 <= cin <= HIER_BF16_MAX_CIN:
+        raise ValueError(f"hier_stage3_fused (bf16): base channels {c1} "
+                         f"(64) and Cin {cin} (32 to {HIER_BF16_MAX_CIN})")
+    c2, ct = c1 // 2, c1 // 4
+    convs = []
+    for (ci, co), n, rows in zip(((cin, c1), (c1, c2), (c2, c2), (c2, c2),
+                                  (c2, ct), (ct, 3)), HIER_BF16_N,
+                                 HIER_BF16_ROWS):
+        cinp = _round_up(ci, 16)
+        halo = (rows + 2) * (HIER_BF16_SEG + 2)
+        convs.append(HierBf16Conv(
+            ci, co, cinp, n, rows, halo,
+            -(-h // rows) * -(-w // HIER_BF16_SEG),
+            128 + 18 * cinp * n + 2 * 2 * cinp * halo,
+            halo / (rows * HIER_BF16_SEG)))
+    return HierBf16Plan(tuple(convs))
 
 
 def conv3x3(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -223,28 +278,42 @@ def hier_stage3_fused(s3_in: torch.Tensor, p: Dict[str, Any]
         ("to_rgb_2", p["to_rgb_2"]["kernel"], (3, 3, ct, 3)),
         ("to_rgb_2 bias", p["to_rgb_2"]["bias"], (3,)),
         ("scale", r["scale"], ()), ("rw23", p["rw23"], ())]
+    convs = {"stage3_conv_0": 0, "stage3_conv_2": 1, "block_0": 2,
+             "block_2": 3, "to_rgb_0": 4, "to_rgb_2": 5}
     for name, t, shape in tensors:
-        cuda.require(t, name, shape, dev, dt)
-    plan = plan_hier(h, w, cin, c1, bf16=bf)
-    # fp32: two fp32 scratch images (64 and 32 channels); bf16: s3_in made
-    # NHWC, conv0's output (then block_0's, f3 and to_rgb_0's), f in fp32
-    # and its bf16 copy
-    bufs = [torch.empty(b, h, w, c1, device=dev, dtype=dt),
-            torch.empty(b, h, w, c2, device=dev)]
-    if bf:
-        bufs = [torch.empty(b, h, w, plan.convs[0].cinp, device=dev,
-                            dtype=dt), *bufs,
-                torch.empty(b, h, w, c2, device=dev, dtype=dt)]
-    scratch = torch.empty(plan.scratch_floats, device=dev)
+        # the six conv kernels: any view (the module hands views)
+        cuda.require(t, name, shape, dev, dt, contiguous=name not in convs)
     out = cuda.empty_nhwc(b, h, w, 3, nchw, dev, dt)
-    entry = (cuda.library().ff_hier_stage3_bf16 if bf
-             else cuda.library().ff_hier_stage3)
-    err = entry(
-        s3_in.data_ptr(), nchw, *(t.data_ptr() for _, t, _ in tensors),
+    if bf:
+        plan_hier_bf16(h, w, cin, c1)  # refuses what the kernels do
+        # each conv kernel laid out for wgmma once per parameter
+        args = [wgmma.conv_layouts(t, HIER_BF16_N[convs[name]])
+                if name in convs else t for name, t, _ in tensors]
+        # conv0's output (then block_0's and f3, then to_rgb_0's), f in
+        # fp32, f rounded
+        bufs = [torch.empty(b * h * w * c1, device=dev, dtype=dt),
+                torch.empty(b, h, w, c2, device=dev),
+                torch.empty(b * h * w * c2, device=dev, dtype=dt)]
+        err = cuda.library().ff_hier_stage3_bf16(
+            s3_in.data_ptr(), nchw, *(t.data_ptr() for t in args),
+            *(t.data_ptr() for t in bufs), out.data_ptr(), b, h, w, cin, c1,
+            cuda.stream(s3_in))
+        cuda.check(err, "hier_stage3_fused.bf16")
+        cuda.launch_counts["hier_stage3_fused.bf16"] += 1
+        return out
+    plan = plan_hier(h, w, cin, c1)
+    # two fp32 scratch images (64 and 32 channels) and the split weights
+    bufs = [torch.empty(b, h, w, c1, device=dev),
+            torch.empty(b, h, w, c2, device=dev)]
+    scratch = torch.empty(plan.scratch_floats, device=dev)
+    # the conv kernels contiguous (a view's copy held until the launch is
+    # queued: the caching allocator reuses its memory only after it)
+    args = [t.contiguous() if name in convs else t for name, t, _ in tensors]
+    err = cuda.library().ff_hier_stage3(
+        s3_in.data_ptr(), nchw, *(t.data_ptr() for t in args),
         *(t.data_ptr() for t in bufs), scratch.data_ptr(),
         plan.scratch_floats, out.data_ptr(), b, h, w, cin, c1,
         cuda.stream(s3_in))
-    name = "hier_stage3_fused" + (".bf16" if bf else "")
-    cuda.check(err, name)
-    cuda.launch_counts[name] += 1
+    cuda.check(err, "hier_stage3_fused")
+    cuda.launch_counts["hier_stage3_fused"] += 1
     return out

@@ -70,9 +70,9 @@ def shifted_window_mask(h: int, w: int, window: int, shift: int,
 
 
 _DEVICE_TABLES: dict = {}
-# casts of the device tables, keyed by the table's id and the dtype: a
-# table lives as long as the process and is never written, so its id
-# stays its own
+# casts of the device tables, keyed by the table's id and the dtype (and
+# the layout): a table lives as long as the process and is never written,
+# so its id stays its own
 _TABLE_CASTS: dict = {}
 
 
@@ -89,18 +89,24 @@ def device_table(fn, *args, device) -> Optional[torch.Tensor]:
     return _DEVICE_TABLES[key]
 
 
-def table_as(t: Optional[torch.Tensor], dtype: torch.dtype
-             ) -> Optional[torch.Tensor]:
+def table_as(t: Optional[torch.Tensor], dtype: torch.dtype,
+             layout=None) -> Optional[torch.Tensor]:
     """t in `dtype` (the JAX wrappers cast the mask to the operands'
-    dtype). A table that :func:`device_table` made is cast once and the
-    cast kept beside it; any other tensor is cast on each call."""
-    if t is None or t.dtype == dtype:
+    dtype), then through `layout` where given (a function of the cast
+    table: the order a kernel reads it in). A table that
+    :func:`device_table` made is cast and laid out once and the result
+    kept beside it; any other tensor is cast and laid out on each call."""
+    if t is None or (t.dtype == dtype and layout is None):
         return t
+
+    def make() -> torch.Tensor:
+        c = t.to(dtype)
+        return c if layout is None else layout(c)
     if _TABLE_CASTS.get((id(t), t.dtype)) is not t:
-        return t.to(dtype)
-    key = (id(t), dtype)
+        return make()
+    key = (id(t), dtype) if layout is None else (id(t), dtype, layout)
     if key not in _TABLE_CASTS:
-        _TABLE_CASTS[key] = t.to(dtype)
+        _TABLE_CASTS[key] = make()
     return _TABLE_CASTS[key]
 
 

@@ -6,6 +6,7 @@ file imports no JAX, so it runs on a machine without it:
         tests/test_torch_kernels_cuda.py
 """
 
+import ctypes
 import re
 
 import numpy as np
@@ -29,7 +30,8 @@ from freqfusion_tpu_torch.ops.nafblock import (nafblock_fused,
 from freqfusion_tpu_torch.ops.attention import (
     grl_mixed_attention_nhwc, grl_mixed_attention_nhwc_reference,
     grl_mixed_attention_qkv_nhwc, grl_mixed_attention_qkv_nhwc_reference,
-    plan_grl_qkv_projections, window_attention, window_attention_nhwc,
+    plan_grl_attention_bf16, plan_grl_qkv_projections, window_attention,
+    window_attention_nhwc,
     window_attention_nhwc_reference,
     window_attention_qkv_nhwc, window_attention_qkv_nhwc_reference,
     window_attention_reference)
@@ -1395,8 +1397,10 @@ def test_lka_precision_guard(c, fp32_plain):
                                         (2, 13, 18, 60, 120)])
 def test_fusion_eval_plans_match_the_kernels(b, h, w, c, ch):
     """ops/hier.py:plan_hier and ops/lka.py:plan_lka size the scratch as
-    csrc/hier.cu's hier_plan and csrc/lka.cu lay it out, fp32 and bf16."""
-    from freqfusion_tpu_torch.ops.hier import plan_hier
+    csrc/hier.cu's hier_plan and csrc/lka.cu lay it out, fp32 and bf16
+    (the bf16 hier convs' extents and shared memory: plan_hier_bf16 and
+    ff_hier_bf16_plan)."""
+    from freqfusion_tpu_torch.ops.hier import plan_hier, plan_hier_bf16
     from freqfusion_tpu_torch.ops.lka import plan_lka
 
     cuda_or_skip()
@@ -1405,8 +1409,12 @@ def test_fusion_eval_plans_match_the_kernels(b, h, w, c, ch):
         4 * h, 4 * w, 76).scratch_floats
     assert lib.ff_lka_scratch_floats(b * h * w, c, ch) == plan_lka(
         b, h, w, c, ch).scratch_floats
-    assert lib.ff_hier_bf16_scratch_floats(76, 64) == plan_hier(
-        4 * h, 4 * w, 76, bf16=True).scratch_floats
+    out = (ctypes.c_int * 5)()
+    for i, conv in enumerate(plan_hier_bf16(4 * h, 4 * w, 76).convs):
+        assert lib.ff_hier_bf16_plan(i, out) == 0
+        assert list(out) == [conv.cinp, conv.n, conv.rows, conv.halo,
+                             conv.smem]
+    assert lib.ff_hier_bf16_plan(6, out) == -1
     assert lib.ff_lka_bf16_scratch_floats(b * h * w, c, ch) == plan_lka(
         b, h, w, c, ch, bf16=True).scratch_floats
 
@@ -2556,3 +2564,180 @@ def test_grl_qkv_bf16_lays_its_weight_out_once(monkeypatch):
     with torch.inference_mode():
         check()
         assert entries() == 1
+
+
+def _grl_bf16_args(rng, dev, b, c2, heads_w, heads_s, shift, h, w):
+    """A bf16 #2 call: bf16 halves and anchor, fp32 scales, biases and mask
+    (as the bf16 module hands them)."""
+    args = list(_grl_args(rng, dev, b, c2, heads_w, heads_s, shift,
+                          h=h, w=w))
+    args[:7] = [a.to(torch.bfloat16) for a in args[:7]]
+    return args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c2,heads_w,heads_s", [
+    (90, 3, 3), (42, 6, 6), (42, 2, 3), (90, 2, 3), (120, 2, 2),
+    (180, 3, 3), (180, 2, 6), (45, 3, 3), (45, 1, 5)])
+@pytest.mark.parametrize("shift", [False, True])
+def test_grl_mixed_attention_bf16_persistent(c2, heads_w, heads_s, shift):
+    """#2 bf16's persistent blocks at batch 2 over 2 x 8 x 25 = 400 tiles
+    (no multiple of either half's 66 blocks: the rings wrap unevenly):
+    GRL-B's halves (C/2 90, 3 + 3 heads of 30), head boxes 16 (hd 7), 32,
+    48 and 64 (8 warps) and 96 (hd 90), more units than warps (6 heads:
+    their terms read a tile), odd C/2 45 (2-byte fragment loads; anchor
+    rows 8 bytes off 16, assembled by warp 0's lanes); shifted with the
+    mask and not. One launch a call, reruns bit-equal."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(c2 + 7 * heads_w + heads_s + shift)
+    args = _grl_bf16_args(rng, dev, 2, c2, heads_w, heads_s, shift, 64, 200)
+    cuda.reset_launch_counts()
+    got = grl_mixed_attention_nhwc(*args)
+    assert dict(cuda.launch_counts) == {"grl_mixed_attention_nhwc.bf16": 1}
+    _bf16_close(got, grl_mixed_attention_nhwc_reference(*args),
+                "grl_mixed_attention_nhwc.bf16")
+    _bf16_rerun_equal(lambda: grl_mixed_attention_nhwc(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [False, True])
+def test_grl_mixed_attention_bf16_phase2_shapes(shift):
+    """#2 bf16 at GRL-B's phase-2 shapes (336x512, 2,688 tiles a half);
+    reruns bit-equal."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(41 + shift)
+    args = _grl_bf16_args(rng, dev, 1, 90, 3, 3, shift, 336, 512)
+    cuda.reset_launch_counts()
+    _bf16_close(grl_mixed_attention_nhwc(*args),
+                grl_mixed_attention_nhwc_reference(*args),
+                "grl_mixed_attention_nhwc.bf16")
+    _bf16_rerun_equal(lambda: grl_mixed_attention_nhwc(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c2,heads_w,heads_s,masked", [
+    (90, 3, 3, True), (90, 3, 3, False), (42, 6, 6, True), (45, 1, 5, False),
+    (180, 2, 6, True), (120, 2, 2, False), (254, 2, 3, True),
+    (400, 5, 5, False)])
+def test_grl_attention_bf16_plan_matches_the_kernel(c2, heads_w, heads_s,
+                                                    masked):
+    """ops/attention.py:plan_grl_attention_bf16 computes #2 bf16's head
+    box, warps, ring depth, stage and shared memory as
+    ff_grl_attention_bf16_plan does, and refuses what it refuses (a head
+    dim past 96; C/2 where two stages do not fit)."""
+    cuda_or_skip()
+    lib = cuda.library()
+    out = (ctypes.c_int * 5)()
+    rc = lib.ff_grl_attention_bf16_plan(c2, heads_w, heads_s, int(masked),
+                                        out)
+    try:
+        plan = plan_grl_attention_bf16(1, 8, 8, c2, heads_w, heads_s, masked)
+    except ValueError:
+        assert rc == -1
+        return
+    assert rc == 0
+    assert list(out) == [plan.hdp, plan.warps, plan.stages,
+                         plan.stage_bytes, plan.smem]
+
+
+@pytest.mark.cuda
+def test_grl_mixed_attention_qkv_bf16_persistent():
+    """#12 bf16 over #2 bf16's persistent body at batch 2, shifted, on
+    400 tiles a half; reruns bit-equal."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(43)
+    args = list(_grl_qkv_args(rng, dev, 2, 90, 3, 3, True))
+    h, w = 64, 200
+    x = _b(rng.normal(size=(2, h, w, 180)), dev)
+    args = (x, torch.roll(x, (-4, -4), (1, 2)).contiguous(),
+            _b(rng.normal(size=(2, h // 2, w // 2, 90)), dev),
+            _b(rng.normal(size=(180, 540)) / np.sqrt(180), dev),
+            _b(0.1 * rng.normal(size=540), dev), *args[5:11],
+            _t(shifted_window_mask(h, w, 8, 4), dev), *args[12:])
+    cuda.reset_launch_counts()
+    _bf16_close(grl_mixed_attention_qkv_nhwc(*args),
+                grl_mixed_attention_qkv_nhwc_reference(*args),
+                "grl_mixed_attention_qkv_nhwc.bf16")
+    _bf16_rerun_equal(lambda: grl_mixed_attention_qkv_nhwc(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nchw", [False, True])
+@pytest.mark.parametrize("b,hw", [(2, (70, 330)), (1, (9, 200)),
+                                  (2, (64, 128))])
+def test_hier_bf16_kernel_persistent(nchw, b, hw):
+    """Stage 3 + to_rgb in bf16 at widths that are no multiple of 64 (330,
+    200) and one that is (128), heights no multiple of 4 or 8 (70, 9):
+    more tiles than blocks (the persistent loops and the halo ring wrap);
+    s3_in NHWC and as an NCHW view; reruns bit-equal."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(hw[1] + nchw)
+    p = _tree_bf16(_hier_tree(rng, dev))
+    x = _image(rng, b, hw, 76, nchw, dev, uniform=True).to(torch.bfloat16)
+    cuda.reset_launch_counts()
+    got = hier_stage3_fused(x, p)
+    assert (got.permute(0, 3, 1, 2) if nchw else got).is_contiguous()
+    _bf16_close(got, hier_stage3_fused_reference(x, p),
+                "hier_stage3_fused.bf16")
+    _bf16_rerun_equal(lambda: hier_stage3_fused(x, p))
+
+
+@pytest.mark.cuda
+def test_hier_fp32_takes_the_module_views(fp32_plain):
+    """The fp32 stage 3 handed the module's stage3_params (the six 3x3
+    kernels as views of the parameters, which the fp32 route copies
+    contiguous for its kernels and must hold until they are queued)
+    matches its plain version."""
+    from freqfusion_tpu_torch.models.fusion.hierarchical import (
+        HierarchicalMultiResolutionFusion)
+
+    dev = cuda_or_skip()
+    torch.manual_seed(0)
+    hm = HierarchicalMultiResolutionFusion(4, 64).to(dev).eval()
+    s3 = torch.rand(1, 76, 40, 136, device=dev).permute(0, 2, 3, 1)
+    with torch.inference_mode():
+        tree = hm.stage3_params()
+        cuda.reset_launch_counts()
+        got = hier_stage3_fused(s3, tree)
+        want = hier_stage3_fused_reference(s3, tree)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts["hier_stage3_fused"] == 1
+    tol = FUSED_REL_TOL * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_hier_bf16_lays_its_weights_out_once():
+    """The bf16 hierarchical fusion's stage 3 as the pipeline runs it
+    (torch.inference_mode, the module's stage3_params handing views of
+    its six 3x3 kernels): the six layouts are built on the first call only
+    and found on the next; an in-place update of a kernel is seen."""
+    from freqfusion_tpu_torch.models.fusion.hierarchical import (
+        HierarchicalMultiResolutionFusion)
+
+    dev = cuda_or_skip()
+    torch.manual_seed(0)
+    bf = torch.bfloat16
+    hm = HierarchicalMultiResolutionFusion(4, 64).to(dev).to(bf).eval()
+    s3 = torch.rand(1, 76, 24, 72, device=dev).to(bf).permute(0, 2, 3, 1)
+    wgmma.clear_weight_layouts()
+
+    def entries():
+        return sum(len(t) for t in wgmma._LAYOUTS.values())
+
+    def check():
+        cuda.reset_launch_counts()
+        tree = hm.stage3_params()
+        got = hier_stage3_fused(s3, tree)
+        _bf16_close(got, hier_stage3_fused_reference(s3, tree),
+                    "hier_stage3_fused.bf16")
+        return got
+    with torch.inference_mode():
+        first = check()
+        assert entries() == 6
+        assert torch.equal(check(), first)
+        assert entries() == 6
+    with torch.no_grad():
+        hm.stage3_conv[0].weight.mul_(-1)
+    with torch.inference_mode():
+        assert not torch.equal(check(), first)
